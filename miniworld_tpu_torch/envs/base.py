@@ -1,0 +1,112 @@
+"""Environment specifications for the PyTorch port.
+
+Counterpart of ``miniworld_tpu/envs/base.py``. An ``EnvSpec`` declares
+the world builder (host-side numpy, shared logic with the JAX package)
+and the per-step task logic as functions over a batched ``EnvState``.
+The port's first slice carries the go-to-goal family (Hallway); the
+host-side gymnasium hooks of the JAX package have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from miniworld_tpu_torch.ops import physics
+from miniworld_tpu_torch.params import DEFAULT_PARAMS, DomainParams
+from miniworld_tpu_torch.state import EnvState, StepResult
+
+
+class Ctx(NamedTuple):
+    """Inputs to a spec's transition function (batched over envs)."""
+
+    prev: EnvState  # state before physics
+    state: EnvState  # state after physics
+    res: StepResult
+    action: torch.Tensor  # (B, 6) clipped continuous action
+    action_idx: torch.Tensor  # (B,) i32 discrete action index, or -1
+    truncated: torch.Tensor  # (B,) bool — step limit reached this step
+
+
+def default_discrete_actions() -> np.ndarray:
+    """turn-/turn+/fwd+/fwd-/strafe-/strafe+ (miniworld.py:642-652)."""
+    acts = np.zeros((6, 6), dtype=np.float32)
+    acts[0, 2] = -1.0  # turn left
+    acts[1, 2] = +1.0  # turn right
+    acts[2, 0] = +1.0  # forward
+    acts[3, 0] = -1.0  # back
+    acts[4, 1] = -1.0  # strafe left
+    acts[5, 1] = +1.0  # strafe right
+    return acts
+
+
+@dataclass
+class EnvSpec:
+    """Base spec; concrete envs subclass and override hooks."""
+
+    name: str = "Base"
+    gym_id: str = ""
+    max_episode_steps: int = 1500
+    params: DomainParams = field(default_factory=lambda: DEFAULT_PARAMS)
+    # (D, 6) table for discrete envs, None for the raw 6-D Box space
+    discrete_actions: np.ndarray | None = None
+    num_layouts: int = 1  # layout bank size (procedural envs > 1)
+    obs_width: int = 80
+    obs_height: int = 60
+    agent_radius: float = 0.4  # Agent bounding radius (entity.py:470)
+    place_budget: int = 16  # on-device placement retry budget (ops/place.py)
+    fourier_k: int = 0  # 0 = the global default (textures.FOURIER_TERMS)
+
+    @property
+    def max_forward_step(self) -> float:
+        return float(self.params.get_max("forward_step"))
+
+    def build(self, world, rng: np.random.Generator | None,
+              layout_rng: np.random.Generator | None = None,
+              layout_idx: int = 0):
+        """Populate the world (record mode: ``rng`` is None)."""
+        raise NotImplementedError
+
+    def init_task(self) -> dict:
+        """Initial per-episode task state (concrete values)."""
+        return {}
+
+    def transition(self, ctx: Ctx):
+        """Returns (reward (B,) f32, termination (B,) bool, new_state)."""
+        b = ctx.state.pos.shape[0]
+        dev = ctx.state.pos.device
+        return (torch.zeros(b, dtype=torch.float32, device=dev),
+                torch.zeros(b, dtype=torch.bool, device=dev), ctx.state)
+
+    def reward(self, state: EnvState) -> torch.Tensor:
+        """Sparse reward shape (miniworld.py:1095-1100),
+        1 - 0.2 * step_count / max_episode_steps.
+
+        Evaluated as XLA compiles the JAX package's expression — the
+        division becomes a multiply by the float32 reciprocal and the two
+        constants fold into one — so rewards agree bit for bit."""
+        c = np.float32(np.float32(0.2) * np.float32(1.0 / self.max_episode_steps))
+        return 1.0 - state.step_count.to(torch.float32) * float(c)
+
+    def near_agent(self, state: EnvState, idx0: int) -> torch.Tensor:
+        return physics.near(state, idx0, None,
+                            max_forward_step=self.max_forward_step)
+
+
+class GoToEnvSpec(EnvSpec):
+    """'Near the goal entity -> reward and terminate' (hallway.py:67-74)."""
+
+    goal_slot: int = 0
+
+    def transition(self, ctx: Ctx):
+        reached = self.near_agent(ctx.state, self.goal_slot)
+        reward = torch.where(reached, self.reward(ctx.state),
+                             torch.zeros_like(ctx.state.dir))
+        return reward, reached, ctx.state
+
+
+DIR_QUARTER = (-math.pi / 4, math.pi / 4)

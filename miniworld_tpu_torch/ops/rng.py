@@ -1,0 +1,97 @@
+"""Counter-based uniforms and threefry key splitting, bit-exact with JAX.
+
+Counterpart of ``miniworld_tpu/ops/rng.py`` plus the one piece of
+``jax.random`` the env engine consumes: ``split`` on raw threefry2x32
+key data, in the ``jax_threefry_partitionable=True`` form (split i of
+key k is ``threefry2x32(k, (0, i))``). Keys are (..., 2) tensors of the
+two uint32 key words.
+
+All u32 arithmetic runs in int64 with an explicit ``& 0xFFFFFFFF``:
+torch's uint32 kernels cover few ops on either CPU or CUDA. Products
+of two u32 values would overflow int64, so ``_mul32`` splits one factor
+into 16-bit halves.
+"""
+
+from __future__ import annotations
+
+import torch
+
+M32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """(a * b) mod 2**32 for u32 values held in int64."""
+    lo = a & 0xFFFF
+    hi = a >> 16
+    return (lo * b + (((hi * b) & 0xFFFF) << 16)) & M32
+
+
+def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & M32
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32, 20 rounds (Salmon et al. 2011), as jax implements it."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & M32
+    x1 = (x1 + ks[1]) & M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & M32
+            x1 = _rotl32(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & M32
+    return x0, x1
+
+
+def key_data(seed: int, device=None) -> torch.Tensor:
+    """(2,) key data of ``jax.random.key(seed)`` for 0 <= seed < 2**32."""
+    if not 0 <= int(seed) <= M32:
+        raise ValueError(f"seed {seed} outside [0, 2**32)")
+    return torch.tensor([0, int(seed)], dtype=torch.int64, device=device)
+
+
+def split(key: torch.Tensor, num: int) -> torch.Tensor:
+    """``jax.random.split`` on key data: (..., 2) -> (..., num, 2)."""
+    k0 = key[..., 0:1]
+    k1 = key[..., 1:2]
+    counts = torch.arange(num, dtype=torch.int64, device=key.device)
+    b0, b1 = threefry2x32(k0, k1, torch.zeros_like(counts), counts)
+    return torch.stack([b0, b1], dim=-1)
+
+
+def hash_u32(key, ids: torch.Tensor) -> torch.Tensor:
+    """Full-width u32 mix of (key, id) — subseed derivation."""
+    x = _mul32(ids.to(torch.int64) & M32, _GOLDEN) ^ key
+    x = _mul32(x ^ (x >> 16), 0x7FEB352D)
+    x = _mul32(x ^ (x >> 15), 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def hash01(key, ids: torch.Tensor) -> torch.Tensor:
+    """Uniform float32 in [0, 1) keyed on (key, id); 24-bit resolution."""
+    x = hash_u32(key, ids)
+    return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def cheap_seed(key: torch.Tensor) -> torch.Tensor:
+    """(...,) u32 seed from key data (..., 2): first ^ last * golden."""
+    return key[..., 0] ^ _mul32(key[..., -1], _GOLDEN)
+
+
+def sub(seed: torch.Tensor, purpose: int) -> torch.Tensor:
+    """Purpose-separated subseed."""
+    return hash_u32(seed, torch.full_like(seed, purpose))
+
+
+def uniforms(seed: torch.Tensor, purpose: int, shape) -> torch.Tensor:
+    """Uniform [0, 1) tensor keyed on (seed, purpose): seed (B,) ->
+    (B, *shape)."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    ids = torch.arange(n, dtype=torch.int64, device=seed.device)
+    u = hash01(sub(seed, purpose)[:, None], ids[None, :])
+    return u.reshape((seed.shape[0],) + tuple(shape))

@@ -1,0 +1,733 @@
+"""Raycaster of the PyTorch port: RGB-D observations for a batch of envs.
+
+Counterpart of ``miniworld_tpu/render/raycast.py`` (the reference's GL
+pipeline, miniworld/miniworld.py:1260-1318 and opengl.py:197-435,
+rebuilt as a raycaster). The render runs three stages, each a
+hand-written CUDA kernel for Hopper (``miniworld_tpu_torch/csrc``) with
+its plain PyTorch version beside it in this module:
+
+  1. ``tri_pass``: static prims — separable-ray hit test, keyed-z
+     winner, the winner's 16-float attribute row (rounded to bf16, as
+     the JAX package carries it);
+  2. ``entity_pass``: analytic boxes and spheres;
+  3. ``pixel_epilogue``: affine uv, Fourier texture, lighting, sky,
+     u8 pack and depth.
+
+Each wrapper takes the plain version ONLY for tensors on the CPU; for
+CUDA tensors it launches its kernel (and adds one to its count in
+``LAUNCHES``) or raises. ``render_rgbd(..., use_kernels=False)`` runs
+the plain versions on any device, for comparison on the card.
+
+Arithmetic follows the JAX expressions operation by operation, so the
+plain versions agree with the JAX package to float32 rounding, and the
+kernels (built with ``-fmad=false``) agree with the plain versions.
+
+Layouts are batch-major: per-env tensors lead with B; per-pixel ones
+are (B, HW, ...) with pixel p = y * W + x, row 0 the top image row.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
+
+import torch
+
+from miniworld_tpu_torch.ops import geom
+from miniworld_tpu_torch.scene.entities import SHAPE_BOX, SHAPE_SPHERE
+
+NEAR = 0.04  # miniworld/miniworld.py:1287
+FAR = 100.0
+# OpenGL default global ambient (GL_LIGHT_MODEL_AMBIENT)
+GL_GLOBAL_AMBIENT = 0.2
+
+# Packed per-primitive attribute row (Layout.tri_attr):
+#   [A(6) | b(2) | normal(3) | color(3) | tex_slot(1) | kind]
+ATTR_DIM = 16
+_NRM, _COL, _SLOT, _KIND = slice(8, 11), slice(11, 14), 14, 15
+
+# Low mantissa bits of the z-key that carry the winning row index
+# (ties at equal quantized depth go to the larger index).
+_IDX_BITS = 10
+_IDX_MASK = (1 << _IDX_BITS) - 1
+
+# Kernel launches per wrapper; chip_smoke.py reads them to show that a
+# run went through the kernels. Only the CUDA launch path increments.
+LAUNCHES = {"tri_pass": 0, "entity_pass": 0, "pixel_epilogue": 0}
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+class Camera(NamedTuple):
+    """Separable ray decomposition for a batch of envs: the ray of pixel
+    (y, x) is d = fwd + xv * right + yv * up (unit forward component),
+    with xv = xbase[x] * tan_x and yv = ybase[y] * tan_y."""
+
+    origin: torch.Tensor  # (B,3) eye position
+    fwd: torch.Tensor  # (B,3)
+    right: torch.Tensor  # (B,3)
+    up: torch.Tensor  # (B,3)
+    tan_x: torch.Tensor  # (B,)
+    tan_y: torch.Tensor  # (B,)
+    xbase: torch.Tensor  # (W,) 2*(x+0.5)/W - 1
+    ybase: torch.Tensor  # (H,) 1 - 2*(y+0.5)/H
+
+    @property
+    def width(self) -> int:
+        return self.xbase.shape[0]
+
+    @property
+    def height(self) -> int:
+        return self.ybase.shape[0]
+
+    def xv(self) -> torch.Tensor:
+        """(B, HW) per-pixel right coefficient."""
+        xs = self.xbase[None, :] * self.tan_x[:, None]  # (B, W)
+        return xs[:, None, :].expand(-1, self.height, -1).reshape(xs.shape[0], -1)
+
+    def yv(self) -> torch.Tensor:
+        """(B, HW) per-pixel up coefficient."""
+        ys = self.ybase[None, :] * self.tan_y[:, None]  # (B, H)
+        return ys[:, :, None].expand(-1, -1, self.width).reshape(ys.shape[0], -1)
+
+
+def camera_grid(state, width: int, height: int) -> Camera:
+    """Camera of every env (gluPerspective + gluLookAt with the agent's
+    basis; miniworld.py:1283-1301)."""
+    origin = geom.cam_position(state.pos, state.dir, state.cam_height,
+                               state.cam_fwd_disp)
+    fwd, up, right = geom.cam_basis(state.dir, state.cam_pitch)
+    tan_y = geom.tan(torch.deg2rad(state.cam_fov_y) * 0.5)
+    tan_x = tan_y * (width / height)
+    dev = origin.device
+    # "/ width" as "* (1 / width)": the form XLA compiles the JAX
+    # package's division by a constant to, so rays agree bit for bit
+    xbase = 2.0 * (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) \
+        * (1.0 / width) - 1.0
+    ybase = 1.0 - 2.0 * (torch.arange(height, dtype=torch.float32, device=dev) + 0.5) \
+        * (1.0 / height)
+    return Camera(origin, fwd, right, up, tan_x, tan_y, xbase, ybase)
+
+
+def room_of_point(bank, layout_id, p_xz):
+    """(B,) index of the room containing (or nearest to) each point:
+    argmax over rooms of min-over-edges inward distance."""
+    lid = layout_id.long()
+    outline = bank.room_outline[lid]  # (B, R, V, 2)
+    norms = bank.room_norms[lid]
+    vmask = bank.room_vmask[lid]
+    rmask = bank.room_mask[lid]
+    dp = p_xz[:, None, None, :] - outline
+    d = norms[..., 0] * dp[..., 0] + norms[..., 1] * dp[..., 1]  # (B, R, V)
+    inf = torch.full_like(d, math.inf)
+    score = torch.where(vmask, d, inf).amin(dim=2)
+    score = torch.where(rmask, score, -torch.full_like(score, math.inf))
+    return torch.argmax(score, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# kernel plumbing
+
+
+def _is_cuda(*tensors) -> bool:
+    devs = {t.device.type for t in tensors}
+    if devs == {"cpu"}:
+        return False
+    if devs == {"cuda"}:
+        return True
+    raise ValueError(f"tensors on mixed devices: {sorted(devs)}")
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _launch(entry: str, counter: str, *args):
+    from miniworld_tpu_torch.render import cuda_build
+
+    lib = cuda_build.load()
+    err = getattr(lib, entry)(*args)
+    if err != 0:
+        raise RuntimeError(
+            f"{entry}: CUDA error {err} ({cuda_build.error_string(err)})"
+        )
+    LAUNCHES[counter] += 1
+
+
+def _cam_args(cam: Camera, b: int):
+    """Pointers to the camera tensors the kernels take, and the tensors
+    themselves (the caller holds them until the launch is issued)."""
+    w, h = cam.width, cam.height
+    tensors = [
+        ("origin", cam.origin.contiguous(), (b, 3)),
+        ("fwd", cam.fwd.contiguous(), (b, 3)),
+        ("right", cam.right.contiguous(), (b, 3)),
+        ("up", cam.up.contiguous(), (b, 3)),
+        ("tan_xy", torch.stack([cam.tan_x, cam.tan_y], dim=1).contiguous(), (b, 2)),
+        ("xbase", cam.xbase.contiguous(), (w,)),
+        ("ybase", cam.ybase.contiguous(), (h,)),
+    ]
+    ptrs = tuple(_check(t, n, torch.float32, s) for n, t, s in tensors)
+    return ptrs, tensors
+
+
+# ---------------------------------------------------------------------------
+# stage 1: static prims
+
+
+def _contract(gx, gy, gz, cam: Camera, xv, yv):
+    """g . d per (env, prim, pixel) via the separable rays: the three
+    basis dots are per prim, then 2 multiply-adds per pixel."""
+    def dot(v):
+        return gx * v[:, 0:1] + gy * v[:, 1:2] + gz * v[:, 2:3]  # (B, S)
+
+    a, b, c = dot(cam.fwd), dot(cam.right), dot(cam.up)
+    return a[:, :, None] + b[:, :, None] * xv[:, None, :] + c[:, :, None] * yv[:, None, :]
+
+
+def _chunk_compete(v9, attrs, cam: Camera, xv, yv, all_quads: bool):
+    """Keyed-z competition of one chunk of prims, v9 (B, 9, TC), attrs
+    (B, TC, 16): returns (key_max (B, HW) i32, row (B, HW) i64)."""
+    e1x, e1y, e1z = v9[:, 3] - v9[:, 0], v9[:, 4] - v9[:, 1], v9[:, 5] - v9[:, 2]
+    e2x, e2y, e2z = v9[:, 6] - v9[:, 0], v9[:, 7] - v9[:, 1], v9[:, 8] - v9[:, 2]
+    o = cam.origin
+    sx = o[:, 0:1] - v9[:, 0]
+    sy = o[:, 1:2] - v9[:, 1]
+    sz = o[:, 2:3] - v9[:, 2]
+    # g_det = e2 x e1 ; g_u = e2 x s ; g_v = s x e1
+    gdx, gdy, gdz = (e2y * e1z - e2z * e1y, e2z * e1x - e2x * e1z,
+                     e2x * e1y - e2y * e1x)
+    gux, guy, guz = (e2y * sz - e2z * sy, e2z * sx - e2x * sz,
+                     e2x * sy - e2y * sx)
+    gvx, gvy, gvz = (sy * e1z - sz * e1y, sz * e1x - sx * e1z,
+                     sx * e1y - sy * e1x)
+    t_num = e2x * gvx + e2y * gvy + e2z * gvz  # (B, TC)
+    # 1/t = det * (1/t_num): one reciprocal per prim; t_num <= 0 -> r = 0
+    pos = t_num > 0.0
+    inv_tnum = torch.where(pos, 1.0 / torch.where(pos, t_num, torch.ones_like(t_num)),
+                           torch.zeros_like(t_num))
+
+    det = _contract(gdx, gdy, gdz, cam, xv, yv)  # (B, TC, HW)
+    u_num = _contract(gux, guy, guz, cam, xv, yv)
+    v_num = _contract(gvx, gvy, gvz, cam, xv, yv)
+    r = det * inv_tnum[:, :, None]
+    if all_quads:
+        cov = torch.maximum(u_num, v_num)
+    else:
+        kind = attrs[:, :, _KIND, None]
+        cov = torch.maximum(u_num, v_num) + kind * torch.minimum(u_num, v_num)
+    hit = (
+        (det > 1e-12)
+        & (u_num >= 0.0)
+        & (v_num >= 0.0)
+        & (cov <= det)
+        & (r < 1.0 / NEAR)
+        & (r > 1.0 / FAR)
+    )
+    rkey = r.view(torch.int32)
+    idx = torch.arange(v9.shape[2], dtype=torch.int32, device=v9.device)[None, :, None]
+    key = torch.where(hit, (rkey & ~_IDX_MASK) | idx, torch.zeros_like(rkey))
+    key_max = key.amax(dim=1)  # (B, HW)
+    return key_max, (key_max & _IDX_MASK).long()
+
+
+def _t_from_key(key: torch.Tensor) -> torch.Tensor:
+    r_best = (key & ~_IDX_MASK).view(torch.float32)
+    return torch.where(key > 0, 1.0 / torch.clamp(r_best, min=1e-30),
+                       torch.full_like(r_best, math.inf))
+
+
+def _gather_rows(attrs, row):
+    """attrs (B, TC, 16), row (B, HW) -> (B, HW, 16)."""
+    return torch.gather(attrs, 1, row[:, :, None].expand(-1, -1, ATTR_DIM))
+
+
+def tri_pass_plain(verts9, attr, layout_id, cam: Camera, all_quads: bool = False):
+    """Plain version of the tri_pass kernel (raycast._tri_pass,
+    single-chunk form): every prim of each env's layout in one pass.
+
+    verts9 (L, 9, S) f32, attr (L, S, 16) f32, layout_id (B,) ->
+    (t (B, HW) f32, inf where nothing is hit; attr (B, HW, 16) bf16 —
+    a no-hit pixel carries row 0, which nothing downstream reads).
+    """
+    if verts9.shape[2] > (1 << _IDX_BITS):
+        raise ValueError(f"{verts9.shape[2]} prims exceed the z-key's "
+                         f"{1 << _IDX_BITS}-row budget; use tri_pass_chunked")
+    lid = layout_id.long()
+    v9, attrs = verts9[lid], attr[lid]
+    key, row = _chunk_compete(v9, attrs, cam, cam.xv(), cam.yv(), all_quads)
+    return _t_from_key(key), _gather_rows(attrs, row).to(torch.bfloat16)
+
+
+def tri_pass_chunked(verts9, attr, layout_id, cam: Camera, tri_chunk: int,
+                     all_quads: bool = False):
+    """Chunk loop with the keyed-z carry (raycast._tri_pass scan body),
+    plain PyTorch. Chunks compete by key; a pixel no chunk hits keeps
+    the all-zero attribute init. Kept for the multi-chunk slices."""
+    lid = layout_id.long()
+    v9_all, at_all = verts9[lid], attr[lid]
+    xv, yv = cam.xv(), cam.yv()
+    num = v9_all.shape[2]
+    if num % tri_chunk:
+        raise ValueError(f"{num} prims are not a multiple of tri_chunk={tri_chunk}")
+    b, hw = xv.shape
+    key_best = torch.zeros((b, hw), dtype=torch.int32, device=xv.device)
+    attr_best = torch.zeros((b, hw, ATTR_DIM), dtype=torch.bfloat16, device=xv.device)
+    for start in range(0, num, tri_chunk):
+        v9 = v9_all[:, :, start:start + tri_chunk]
+        attrs = at_all[:, start:start + tri_chunk]
+        key, row = _chunk_compete(v9, attrs, cam, xv, yv, all_quads)
+        sel = _gather_rows(attrs, row).to(torch.bfloat16)
+        closer = key > key_best
+        key_best = torch.where(closer, key, key_best)
+        attr_best = torch.where(closer[:, :, None], sel, attr_best)
+    return _t_from_key(key_best), attr_best
+
+
+def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False):
+    """Stage 1 wrapper: the tri_pass kernel for CUDA tensors, the plain
+    version for CPU tensors. Same contract as ``tri_pass_plain``."""
+    if not _is_cuda(verts9, attr, layout_id, cam.origin):
+        return tri_pass_plain(verts9, attr, layout_id, cam, all_quads)
+    L, _, S = verts9.shape
+    b = layout_id.shape[0]
+    hw = cam.width * cam.height
+    if S > (1 << _IDX_BITS):
+        raise ValueError(f"tri_pass kernel takes at most {1 << _IDX_BITS} prims, got {S}")
+    t = torch.empty((b, hw), dtype=torch.float32, device=verts9.device)
+    out = torch.empty((b, hw, ATTR_DIM), dtype=torch.bfloat16, device=verts9.device)
+    cam_ptrs, _cam_tensors = _cam_args(cam, b)
+    _launch(
+        "mw_tri_pass", "tri_pass",
+        _check(verts9, "verts9", torch.float32, (L, 9, S)),
+        _check(attr, "attr", torch.float32, (L, S, ATTR_DIM)),
+        _check(layout_id, "layout_id", torch.int32, (b,)),
+        *cam_ptrs,
+        ctypes.c_int(b), ctypes.c_int(S), ctypes.c_int(cam.width),
+        ctypes.c_int(cam.height), ctypes.c_int(int(all_quads)),
+        _check(t, "t", torch.float32, (b, hw)),
+        _check(out, "attr_out", torch.bfloat16, (b, hw, ATTR_DIM)),
+        _stream(),
+    )
+    return t, out
+
+
+# ---------------------------------------------------------------------------
+# stage 2: analytic entities
+
+ENT_ACTIVE, ENT_SPHERE, ENT_BOX = 1, 2, 4
+
+
+def entity_flags(bank, state) -> torch.Tensor:
+    """(B, E) uint8 flags per entity slot: active (alive, not static),
+    sphere shape, box shape."""
+    lid = state.layout_id.long()[:, None]
+    proto = state.ent_proto.long()
+    shape = bank.proto_shape[lid, proto]
+    static = bank.proto_static[lid, proto]
+    active = state.ent_alive & ~static
+    flags = (active.to(torch.uint8) * ENT_ACTIVE
+             + (shape == SHAPE_SPHERE).to(torch.uint8) * ENT_SPHERE
+             + (shape == SHAPE_BOX).to(torch.uint8) * ENT_BOX)
+    return flags.to(torch.uint8).contiguous()
+
+
+def _ray_dot(v, cam: Camera, xv, yv):
+    """v . d for per-entity vectors v (B, E, 3) -> (B, E, HW)."""
+    def dot(w):
+        return v[..., 0] * w[:, 0:1] + v[..., 1] * w[:, 1:2] + v[..., 2] * w[:, 2:3]
+
+    a, b, c = dot(cam.fwd), dot(cam.right), dot(cam.up)
+    return a[:, :, None] + b[:, :, None] * xv[:, None, :] + c[:, :, None] * yv[:, None, :]
+
+
+def entity_pass_plain(ent_pos, ent_size, ent_dir, ent_height, ent_color, flags,
+                      cam: Camera, has_sphere: bool = True, has_box: bool = True):
+    """Plain version of the entity_pass kernel (raycast._entity_pass).
+
+    Per-entity (B, E[, 3]) inputs; flags (B, E) uint8 (entity_flags).
+    Returns (t (B, HW) f32, inf on a miss; color (B, HW, 3); normal
+    (B, HW, 3)), zeros where no entity is hit.
+    """
+    xv, yv = cam.xv(), cam.yv()
+    b, hw = xv.shape
+    E = ent_pos.shape[1]
+    dev = ent_pos.device
+    origin = cam.origin[:, None, :]
+    active = (flags & ENT_ACTIVE) != 0
+    is_sphere = (flags & ENT_SPHERE) != 0
+    is_box = (flags & ENT_BOX) != 0
+    a_px = (1.0 + xv * xv + yv * yv)[:, None, :]  # |d|^2, (B, 1, HW)
+
+    def comp(i):  # ray direction component i, (B, 1, HW)
+        return (cam.fwd[:, i:i + 1] + xv * cam.right[:, i:i + 1]
+                + yv * cam.up[:, i:i + 1])[:, None, :]
+
+    inf_e = torch.full((b, E, hw), math.inf, device=dev)
+    no_e = torch.zeros((b, E, hw), dtype=torch.bool, device=dev)
+    if has_sphere:
+        zeros_e = torch.zeros_like(ent_height)
+        center = ent_pos + torch.stack([zeros_e, 0.5 * ent_height, zeros_e], dim=-1)
+        r_vis = 0.5 * ent_height
+        oc = origin - center  # (B, E, 3)
+        bq = 2.0 * _ray_dot(oc, cam, xv, yv)
+        cc = oc[..., 0] * oc[..., 0] + oc[..., 1] * oc[..., 1] + oc[..., 2] * oc[..., 2]
+        cc = cc - r_vis * r_vis
+        disc = bq * bq - (4.0 * cc)[:, :, None] * a_px
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        t_sph = (-bq - sq) / (2.0 * a_px)
+        sph_hit = (disc > 0.0) & (t_sph > NEAR) & (t_sph < FAR)
+    else:
+        t_sph, sph_hit = inf_e, no_e
+
+    cd, sd = geom.cos(ent_dir), geom.sin(ent_dir)
+    zero = torch.zeros_like(cd)
+    ax_x = torch.stack([cd, zero, -sd], dim=-1)  # (B, E, 3)
+    ax_z = torch.stack([sd, zero, cd], dim=-1)
+    o_rel = origin - ent_pos
+    o_l = torch.stack([
+        o_rel[..., 0] * ax_x[..., 0] + o_rel[..., 1] * ax_x[..., 1]
+        + o_rel[..., 2] * ax_x[..., 2],
+        o_rel[..., 1],
+        o_rel[..., 0] * ax_z[..., 0] + o_rel[..., 1] * ax_z[..., 1]
+        + o_rel[..., 2] * ax_z[..., 2],
+    ], dim=-1)
+    lo = torch.stack([-ent_size[..., 0] * 0.5, zero, -ent_size[..., 2] * 0.5], dim=-1)
+    hi = torch.stack([ent_size[..., 0] * 0.5, ent_size[..., 1], ent_size[..., 2] * 0.5],
+                     dim=-1)
+    if has_box:
+        d_l = (_ray_dot(ax_x, cam, xv, yv), comp(1).expand(b, E, hw),
+               _ray_dot(ax_z, cam, xv, yv))
+        t_lo, t_hi = [], []
+        for k in range(3):
+            dk = d_l[k]
+            inv = 1.0 / torch.where(dk.abs() < 1e-9, torch.full_like(dk, 1e-9), dk)
+            t1 = (lo[..., k] - o_l[..., k])[:, :, None] * inv
+            t2 = (hi[..., k] - o_l[..., k])[:, :, None] * inv
+            t_lo.append(torch.minimum(t1, t2))
+            t_hi.append(torch.maximum(t1, t2))
+        t_in = torch.maximum(torch.maximum(t_lo[0], t_lo[1]), t_lo[2])
+        t_out = torch.minimum(torch.minimum(t_hi[0], t_hi[1]), t_hi[2])
+        box_hit = (t_in <= t_out) & (t_in > NEAR) & (t_in < FAR)
+    else:
+        t_in, box_hit = inf_e, no_e
+
+    sph_e = is_sphere[:, :, None]
+    t_e = torch.where(sph_e, t_sph, t_in)
+    hit_e = active[:, :, None] & torch.where(sph_e, sph_hit, box_hit & is_box[:, :, None])
+    r_e = torch.where(hit_e, 1.0 / torch.clamp(t_e, min=1e-30), torch.zeros_like(t_e))
+    rkey = r_e.view(torch.int32)
+    idx = torch.arange(E, dtype=torch.int32, device=dev)[None, :, None]
+    key = torch.where(hit_e & (r_e > 0.0), (rkey & ~_IDX_MASK) | idx,
+                      torch.zeros_like(rkey))
+    key_max = key.amax(dim=1)  # (B, HW)
+    any_hit = key_max > 0
+    win = (key_max & _IDX_MASK).long()  # (B, HW)
+    t_best = _t_from_key(key_max)
+
+    col = torch.gather(ent_color, 1, win[:, :, None].expand(-1, -1, 3))
+    col = torch.where(any_hit[:, :, None], col, torch.zeros_like(col))
+
+    normals = []
+    if has_sphere:
+        inv_rv = 1.0 / torch.clamp(r_vis, min=1e-9)
+        t_s = torch.where(sph_hit, t_sph, torch.zeros_like(t_sph))
+        ns = [(oc[..., i, None] + t_s * comp(i)) * inv_rv[:, :, None] for i in range(3)]
+    if has_box:
+        slab = [(t_lo[k] == t_in).to(torch.float32) for k in range(3)]
+        norm = 1.0 / torch.clamp(slab[0] + slab[1] + slab[2], min=1.0)
+        slab = [s * norm for s in slab]
+        sign = -torch.sign(slab[0] * d_l[0] + slab[1] * d_l[1] + slab[2] * d_l[2])
+        nb = [
+            sign * (slab[0] * ax_x[..., 0, None] + slab[2] * ax_z[..., 0, None]),
+            sign * slab[1],
+            sign * (slab[0] * ax_x[..., 2, None] + slab[2] * ax_z[..., 2, None]),
+        ]
+    for i in range(3):
+        if has_sphere and has_box:
+            n_i = torch.where(sph_e, ns[i], nb[i])
+        else:
+            n_i = ns[i] if has_sphere else nb[i]
+        n_w = torch.gather(n_i, 1, win[:, None, :]).squeeze(1)
+        normals.append(torch.where(any_hit, n_w, torch.zeros_like(n_w)))
+    return t_best, col, torch.stack(normals, dim=-1)
+
+
+def entity_pass(ent_pos, ent_size, ent_dir, ent_height, ent_color, flags,
+                cam: Camera, has_sphere: bool = True, has_box: bool = True):
+    """Stage 2 wrapper: the entity_pass kernel for CUDA tensors, the
+    plain version for CPU tensors. Same contract as ``entity_pass_plain``."""
+    args = (ent_pos, ent_size, ent_dir, ent_height, ent_color, flags)
+    if not _is_cuda(*args, cam.origin):
+        return entity_pass_plain(*args, cam, has_sphere, has_box)
+    b, E = flags.shape
+    hw = cam.width * cam.height
+    dev = ent_pos.device
+    t = torch.empty((b, hw), dtype=torch.float32, device=dev)
+    col = torch.empty((b, hw, 3), dtype=torch.float32, device=dev)
+    nrm = torch.empty((b, hw, 3), dtype=torch.float32, device=dev)
+    cam_ptrs, _cam_tensors = _cam_args(cam, b)
+    _launch(
+        "mw_entity_pass", "entity_pass",
+        _check(ent_pos, "ent_pos", torch.float32, (b, E, 3)),
+        _check(ent_size, "ent_size", torch.float32, (b, E, 3)),
+        _check(ent_dir, "ent_dir", torch.float32, (b, E)),
+        _check(ent_height, "ent_height", torch.float32, (b, E)),
+        _check(ent_color, "ent_color", torch.float32, (b, E, 3)),
+        _check(flags, "flags", torch.uint8, (b, E)),
+        *cam_ptrs,
+        ctypes.c_int(b), ctypes.c_int(E), ctypes.c_int(cam.width),
+        ctypes.c_int(cam.height), ctypes.c_int(int(has_sphere)),
+        ctypes.c_int(int(has_box)),
+        _check(t, "t", torch.float32, (b, hw)),
+        _check(col, "col", torch.float32, (b, hw, 3)),
+        _check(nrm, "nrm", torch.float32, (b, hw, 3)),
+        _stream(),
+    )
+    return t, col, nrm
+
+
+# ---------------------------------------------------------------------------
+# stage 3: per-pixel epilogue
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """Round to bf16 (nearest-even) and back: the JAX package's bf16
+    streams, value for value."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _cos_sin_turns(phi: torch.Tensor):
+    """(cos, sin) of 2*pi*phi via turn-wrapped degree-4 polynomials in
+    t^2 (raycast._cos_sin_turns; max abs error 1.2e-4)."""
+    t = phi - torch.round(phi)
+    x = t * t
+    c = (((46.31062891 * x - 82.70142833) * x + 64.7143991) * x
+         - 19.73279735) * x + 0.99997109
+    s = t * ((((33.16881029 * x - 74.67622289) * x + 81.40014212) * x
+              - 41.33325045) * x + 6.2830885)
+    return c, s
+
+
+def eval_fourier(coeffs, slot, uv, k_terms: int, footprint=None,
+                 has_gain: bool = False):
+    """Fourier texture model per pixel (raycast.eval_fourier).
+
+    coeffs (A, 4+8K) atlas; slot (N,) atlas row per pixel (-1 = flat
+    white, >= A = black); uv (N, 2); footprint (N,) uv-space pixel size
+    for the frequency-space anti-aliasing. Returns (N, 3) texels.
+
+    The JAX package feeds frequencies, cos/sin and amplitudes to its dots
+    in bf16 and gets bf16 sums back; the same roundings happen here, and
+    the K-term sums run in order k = 0..K-1 as the kernel runs them.
+    """
+    if has_gain:
+        raise NotImplementedError(
+            "glyph textures (gain != 1, Sign's SDF glyphs) are not ported yet"
+        )
+    n_rows = coeffs.shape[0]
+    k = k_terms
+    slot_i = torch.round(slot.to(torch.float32)).long()
+    in_range = (slot_i >= 0) & (slot_i < n_rows)
+    row = coeffs[slot_i.clamp(0, n_rows - 1)]  # (N, 4+8K)
+    fu = _bf16(row[:, 3:3 + k])
+    fv = _bf16(row[:, 3 + k:3 + 2 * k])
+    phi = fu * uv[:, 0:1] + fv * uv[:, 1:2]
+    c, s = _cos_sin_turns(phi)
+    if footprint is not None:
+        f2 = fu * fu + fv * fv
+        att = 1.0 / (1.0 + (math.pi ** 2) * f2 * (footprint[:, None] * footprint[:, None]))
+        c, s = c * att, s * att
+    ca, sa = _bf16(c), _bf16(s)
+    a0 = 3 + 2 * k
+    w_a = _bf16(row[:, a0:a0 + 3 * k]).reshape(-1, 3, k)
+    w_b = _bf16(row[:, a0 + 3 * k:a0 + 6 * k]).reshape(-1, 3, k)
+    acc_a = ca[:, None, 0] * w_a[:, :, 0]
+    acc_b = sa[:, None, 0] * w_b[:, :, 0]
+    for j in range(1, k):
+        acc_a = acc_a + ca[:, None, j] * w_a[:, :, j]
+        acc_b = acc_b + sa[:, None, j] * w_b[:, :, j]
+    sums = _bf16(_bf16(acc_a) + _bf16(acc_b))
+    texel = _bf16(row[:, 0:3]) + sums
+    texel = torch.where(in_range[:, None], texel, torch.zeros_like(texel))
+    return torch.where((slot_i >= 0)[:, None], torch.clamp(texel, 0.0, 1.0),
+                       torch.ones_like(texel))
+
+
+def eval_nearest(*args, **kwargs):
+    """Nearest-mode texturing (raycast.eval_nearest): not ported yet."""
+    raise NotImplementedError("nearest-mode textures are not ported yet")
+
+
+def entity_mesh_pass(*args, **kwargs):
+    """Mesh-entity pass (raycast._entity_mesh_pass, ROADMAP B2): not
+    ported yet."""
+    raise NotImplementedError("mesh entities (_entity_mesh_pass) are not ported yet")
+
+
+def shade(color, normal, hit_p, light_pos, light_color, light_ambient):
+    """GL fixed-function lighting, one positional light + ambient
+    (glLightfv setup at miniworld.py:1114-1133; GL_MODULATE). Per-pixel
+    (N, 3) color/normal/hit point, per-pixel (N, 3) light terms."""
+    l_vec = light_pos - hit_p
+    norm = torch.sqrt(l_vec[:, 0] * l_vec[:, 0] + l_vec[:, 1] * l_vec[:, 1]
+                      + l_vec[:, 2] * l_vec[:, 2])
+    l_dir = l_vec / torch.clamp(norm, min=1e-9)[:, None]
+    ndotl = torch.clamp(normal[:, 0] * l_dir[:, 0] + normal[:, 1] * l_dir[:, 1]
+                        + normal[:, 2] * l_dir[:, 2], min=0.0)
+    lit = GL_GLOBAL_AMBIENT + light_ambient + light_color * ndotl[:, None]
+    return color * torch.clamp(lit, 0.0, 1.0)
+
+
+def pixel_epilogue_plain(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
+                         light_pos, light_color, light_ambient, sky, k_terms: int,
+                         has_gain: bool = False):
+    """Plain version of the pixel_epilogue kernel (render_rgbd after the
+    hit passes): uv from the winner's affine map, Fourier texel with
+    footprint AA, the entity merge (t_ent may be None: no analytic
+    entities), lighting, sky, truncating u8 pack.
+
+    t_tri (B, HW) f32, attr (B, HW, 16) bf16; t_ent (B, HW), col_ent /
+    n_ent (B, HW, 3); atlas (A, 4+8K); lights and sky (B, 3).
+    Returns (rgb (B, H, W, 3) u8, depth (B, H, W, 1) f32).
+    """
+    b, hw = t_tri.shape
+    h, w = cam.height, cam.width
+    xv, yv = cam.xv().reshape(-1), cam.yv().reshape(-1)
+
+    def per_px(v):  # (B, 3) -> (B*HW, 3)
+        return v[:, None, :].expand(b, hw, 3).reshape(-1, 3)
+
+    fwd, right, up, origin = (per_px(cam.fwd), per_px(cam.right), per_px(cam.up),
+                              per_px(cam.origin))
+    dirs = fwd + xv[:, None] * right + yv[:, None] * up
+    at = attr.reshape(-1, ATTR_DIM).to(torch.float32)
+    tt = t_tri.reshape(-1)
+    t_uv = torch.where(torch.isfinite(tt), tt, torch.zeros_like(tt))
+    p = origin + t_uv[:, None] * dirs
+    uv = torch.stack([
+        at[:, 0] * p[:, 0] + at[:, 1] * p[:, 1] + at[:, 2] * p[:, 2] + at[:, 6],
+        at[:, 3] * p[:, 0] + at[:, 4] * p[:, 1] + at[:, 5] * p[:, 2] + at[:, 7],
+    ], dim=1)
+    pix_angle = (cam.tan_y * (2.0 / h))[:, None].expand(b, hw).reshape(-1)
+    sq = at[:, 0] * at[:, 0]
+    for i in range(1, 6):
+        sq = sq + at[:, i] * at[:, i]
+    footprint = t_uv * pix_angle * torch.sqrt(sq * 0.5)
+    texel = eval_fourier(atlas, at[:, _SLOT], uv, k_terms, footprint, has_gain)
+    color = at[:, _COL] * texel
+    normal = at[:, _NRM]
+    t_hit = tt
+    if t_ent is not None:
+        te = t_ent.reshape(-1)
+        ent_wins = te < tt
+        t_hit = torch.where(ent_wins, te, tt)
+        color = torch.where(ent_wins[:, None], col_ent.reshape(-1, 3), color)
+        normal = torch.where(ent_wins[:, None], n_ent.reshape(-1, 3), normal)
+    hit = torch.isfinite(t_hit)
+    t_safe = torch.where(hit, t_hit, torch.full_like(t_hit, FAR))
+    hit_p = origin + t_safe[:, None] * dirs
+    shaded = shade(color, normal, hit_p, per_px(light_pos), per_px(light_color),
+                   per_px(light_ambient))
+    rgb = torch.where(hit[:, None], shaded, per_px(sky))
+    rgb_u8 = torch.clamp(rgb * 255.0, 0.0, 255.0).to(torch.uint8)
+    return rgb_u8.reshape(b, h, w, 3), t_safe.reshape(b, h, w, 1)
+
+
+def pixel_epilogue(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
+                   light_pos, light_color, light_ambient, sky, k_terms: int,
+                   has_gain: bool = False):
+    """Stage 3 wrapper: the pixel_epilogue kernel for CUDA tensors, the
+    plain version for CPU tensors. Same contract as
+    ``pixel_epilogue_plain``."""
+    args = (t_tri, attr, t_ent, col_ent, n_ent, atlas, cam, light_pos,
+            light_color, light_ambient, sky, k_terms, has_gain)
+    if not _is_cuda(t_tri, attr, atlas, cam.origin, light_pos):
+        return pixel_epilogue_plain(*args)
+    if has_gain:
+        raise NotImplementedError(
+            "glyph textures (gain != 1, Sign's SDF glyphs) are not ported yet"
+        )
+    b, hw = t_tri.shape
+    h, w = cam.height, cam.width
+    n_rows, width = atlas.shape
+    if width != 4 + 8 * k_terms:
+        raise ValueError(f"atlas rows hold {width} floats, expected 4+8K with K={k_terms}")
+    dev = t_tri.device
+    rgb = torch.empty((b, h, w, 3), dtype=torch.uint8, device=dev)
+    depth = torch.empty((b, h, w, 1), dtype=torch.float32, device=dev)
+    has_ent = t_ent is not None
+    if has_ent:
+        ent_ptrs = (
+            _check(t_ent, "t_ent", torch.float32, (b, hw)),
+            _check(col_ent, "col_ent", torch.float32, (b, hw, 3)),
+            _check(n_ent, "n_ent", torch.float32, (b, hw, 3)),
+        )
+    else:
+        ent_ptrs = (ctypes.c_void_p(0),) * 3
+    lights = torch.stack([light_pos, light_color, light_ambient, sky], dim=1).contiguous()
+    cam_ptrs, _cam_tensors = _cam_args(cam, b)
+    _launch(
+        "mw_pixel_epilogue", "pixel_epilogue",
+        _check(t_tri, "t_tri", torch.float32, (b, hw)),
+        _check(attr, "attr", torch.bfloat16, (b, hw, ATTR_DIM)),
+        *ent_ptrs,
+        _check(atlas, "atlas", torch.float32, (n_rows, 4 + 8 * k_terms)),
+        _check(lights, "lights", torch.float32, (b, 4, 3)),
+        *cam_ptrs,
+        ctypes.c_int(b), ctypes.c_int(w), ctypes.c_int(h),
+        ctypes.c_int(n_rows), ctypes.c_int(k_terms), ctypes.c_int(int(has_ent)),
+        _check(rgb, "rgb", torch.uint8, (b, h, w, 3)),
+        _check(depth, "depth", torch.float32, (b, h, w, 1)),
+        _stream(),
+    )
+    return rgb, depth
+
+
+# ---------------------------------------------------------------------------
+# the render
+
+
+def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
+                shapes_present=(True, True, False), all_quads: bool = False,
+                has_gain: bool = False, use_kernels: bool = True):
+    """Render every env's observation: (rgb (B, H, W, 3) u8, depth
+    (B, H, W, 1) f32, FAR for sky). Counterpart of raycast.render_rgbd
+    for single-chunk banks in fourier mode, without domain
+    randomization or supersampling (the statics of the port's slice).
+
+    ``use_kernels=False`` runs the plain PyTorch versions of the three
+    stages on whatever device the tensors are on (for comparisons on
+    the card); otherwise each stage goes through its wrapper.
+    """
+    if shapes_present[2]:
+        entity_mesh_pass()
+    cam = camera_grid(state, width, height)
+    f_tri = tri_pass if use_kernels else tri_pass_plain
+    f_ent = entity_pass if use_kernels else entity_pass_plain
+    f_epi = pixel_epilogue if use_kernels else pixel_epilogue_plain
+    t_tri, attr = f_tri(bank.tri_verts9, bank.tri_attr, state.layout_id, cam, all_quads)
+    t_ent = col_ent = n_ent = None
+    if shapes_present[0] or shapes_present[1]:
+        t_ent, col_ent, n_ent = f_ent(
+            state.ent_pos, state.ent_size, state.ent_dir, state.ent_height,
+            state.ent_color, entity_flags(bank, state), cam,
+            shapes_present[0], shapes_present[1],
+        )
+    return f_epi(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam, state.light_pos,
+                 state.light_color, state.light_ambient, state.sky_color,
+                 k_terms, has_gain)

@@ -1,0 +1,654 @@
+"""Vectorized MiniWorld on PyTorch: a batch of envs stepped, auto-reset
+and rendered on one device.
+
+Counterpart of ``miniworld_tpu/vector.py``. The host half (bank
+compilation and its chunk planners) is numpy, shared in logic with the
+JAX package; the engine half runs every env together on batch-major
+tensors — the JAX package's ``vmap`` is the leading axis B, its
+``lax.scan`` over steps a Python loop:
+
+    env = MiniWorldVec("MiniWorld-Hallway-v0", 1024, device="cuda")
+    state, (obs, depth) = env.reset(seed=0)
+    state, (obs, depth), reward, done, info = env.step(state, actions)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    state, (obs, depth), outs = env.rollout(state, (obs, depth), gen, 50)
+
+On ``done`` an env auto-resets and ``obs`` is the first observation of
+the new episode. Resets draw from the same threefry keys and
+counter-based uniforms as the JAX package (ops/rng.py), so the two
+packages step the same envs through the same episodes.
+
+The port's first slice covers the statics of Hallway: one layout bank
+rendered in one prim chunk (every room sees every room), Fourier
+textures without glyphs, analytic entities, no domain randomization,
+no supersampling. Other statics raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from miniworld_tpu_torch.convert import atlas_from_numpy, layout_from_numpy
+from miniworld_tpu_torch.envs.base import Ctx, EnvSpec
+from miniworld_tpu_torch.ops import physics, place as place_ops, rng as rng_ops
+from miniworld_tpu_torch.render.raycast import render_rgbd, room_of_point
+from miniworld_tpu_torch.render.textures import FOURIER_TERMS, TextureCatalog
+from miniworld_tpu_torch.scene.compile import Layout, compile_world, stack_layouts
+from miniworld_tpu_torch.scene.entities import (
+    SHAPE_BOX, SHAPE_MESH_BOX, SHAPE_MESH_TRIS, SHAPE_SPHERE,
+)
+from miniworld_tpu_torch.scene.world import World
+from miniworld_tpu_torch.state import EnvState, tree_select
+
+# The z-key's row budget (render/raycast._IDX_BITS): the largest prim
+# count one chunk, and so the tri_pass kernel, can take.
+MAX_CHUNK = 1024
+
+
+def build_bank(spec: EnvSpec):
+    """Compile the spec's layout bank + Fourier texture table (host side).
+
+    Same construction as the JAX package's ``build_bank`` in fourier
+    mode with its default bank seed 0. Returns (bank, tex table).
+    """
+    catalog = TextureCatalog()
+    layouts = []
+    seeds = np.random.SeedSequence(0).spawn(spec.num_layouts)
+    for li in range(spec.num_layouts):
+        world = World(catalog)
+        world.agent_radius = spec.agent_radius
+        spec.build(world, None, layout_rng=np.random.default_rng(seeds[li]),
+                   layout_idx=li)
+        layouts.append(compile_world(world, with_pvs=True))
+    return stack_layouts(layouts), catalog.build_fourier(spec.fourier_k or FOURIER_TERMS)
+
+
+def _round_up16(n: int) -> int:
+    return -(-int(n) // 16) * 16
+
+
+def _chunk_visibility(bank_np: Layout, chunk: int) -> np.ndarray:
+    """(L, n_chunks, R) bool: chunk c needed when rendering from room r.
+
+    Mirrors the scan's chunk mapping exactly (last chunk clamps to
+    [S - chunk, S)). A chunk is needed from room r if it contains an
+    always-visible triangle or any triangle of a room in PVS(r).
+    """
+    tri_room, tri_mask = bank_np.tri_room, bank_np.tri_mask
+    pvs = bank_np.room_pvs
+    num_layouts, S = tri_room.shape
+    n_chunks = -(-S // chunk)
+    R = pvs.shape[1]
+    vis = np.zeros((num_layouts, n_chunks, R), dtype=bool)
+    for li in range(num_layouts):
+        for c in range(n_chunks):
+            start = min(c * chunk, S - chunk)
+            rooms = tri_room[li, start:start + chunk]
+            rooms = rooms[tri_mask[li, start:start + chunk]]
+            if (rooms == -1).any():
+                vis[li, c, :] = True
+                continue
+            rset = np.unique(rooms[rooms >= 0])
+            if len(rset):
+                vis[li, c, :] = pvs[li][:, rset].any(axis=1)
+    return vis
+
+
+def _repad_for_chunks(bank_np: Layout, chunk: int) -> Layout:
+    """Pad the bank's triangle axis to a multiple of ``chunk``.
+
+    Aligned chunks let the render scan slice without clamping and view
+    per-tri episode state as clean (n_chunks, chunk) rows
+    (raycast._tri_pass). Padding rows are masked out.
+    """
+    import dataclasses as _dc
+
+    S = bank_np.tri_mask.shape[1]
+    S2 = -(-S // chunk) * chunk
+    if S2 == S:
+        return bank_np
+    pad = S2 - S
+
+    def p(arr, axis, fill):
+        widths = [(0, 0)] * arr.ndim
+        widths[axis] = (0, pad)
+        return np.pad(arr, widths, constant_values=fill)
+
+    extra = {}
+    if bank_np.tri_wall is not None:
+        extra["tri_wall"] = p(bank_np.tri_wall, 1, -1)
+        extra["tri_jwall"] = p(bank_np.tri_jwall, 1, -1)
+        extra["tri_active_base"] = p(bank_np.tri_active_base, 1, 1.0)
+        extra["tri_wall_onehot"] = p(bank_np.tri_wall_onehot, 2, 0.0)
+    return _dc.replace(
+        bank_np,
+        tri_verts=p(bank_np.tri_verts, 1, 0.0),
+        tri_verts9=p(bank_np.tri_verts9, 2, 0.0),
+        tri_attr=p(bank_np.tri_attr, 1, 0.0),
+        tri_uv=p(bank_np.tri_uv, 1, 0.0),
+        tri_normal=p(bank_np.tri_normal, 1, 0.0),
+        tri_tex=p(bank_np.tri_tex, 1, -1),
+        tri_tex_base=p(bank_np.tri_tex_base, 1, -1.0),
+        tri_tex_count=p(bank_np.tri_tex_count, 1, 1.0),
+        tri_color=p(bank_np.tri_color, 1, 0.0),
+        tri_mask=p(bank_np.tri_mask, 1, False),
+        tri_room=p(bank_np.tri_room, 1, -2),
+        tri_is_room=p(bank_np.tri_is_room, 1, False),
+        **extra,
+    )
+
+
+def plan_culling(bank_np: Layout, chunk_cap: int, overhead_tris: int):
+    """Choose (chunk_vis, tri_chunk, sched_len) for PVS chunk culling.
+
+    Tries chunk sizes and picks the one minimizing the modeled scan
+    cost ``worst_case_active_chunks * (chunk + overhead_tris)``, where
+    ``overhead_tris`` is the fixed cost of one chunk iteration in prim
+    equivalents — a property of the device and the render code, so the
+    caller measures and passes it (the JAX package's value was fitted
+    on its TPU and does not carry over); returns
+    (None, chunk_cap, None) when full scans are at least as cheap
+    (single-room scenes, open-air scenes, tiny banks).
+    """
+    pvs, room_mask = bank_np.room_pvs, bank_np.room_mask
+    S = bank_np.tri_room.shape[1]
+    full_k = min(chunk_cap, S)
+    if all(pvs[li][np.ix_(m, m)].all()
+           for li, m in enumerate(room_mask)):
+        return None, full_k, None
+
+    candidates = [k for k in (16, 32, 48, 64, 96, 128, 160, 192, 224, 256)
+                  if k <= full_k] or [full_k]
+    best = (None, full_k, None)
+    # baseline: the full scan at its EFFECTIVE chunk (clamped to S —
+    # using the raw cap here made a useless 2-chunk culling plan beat
+    # a single-chunk full scan on MazeS3 once quads shrank S below it)
+    best_cost = (-(-S // full_k)) * (full_k + overhead_tris)
+    for k in candidates:
+        vis = _chunk_visibility(bank_np, k)
+        # worst case over (layout, valid room) of active chunk count
+        bound = 1
+        for li in range(vis.shape[0]):
+            counts = vis[li].sum(axis=0)[room_mask[li]]
+            if counts.size:
+                bound = max(bound, int(counts.max()))
+        cost = bound * (k + overhead_tris)
+        if cost < best_cost:
+            best_cost = cost
+            best = (vis, k, bound)
+    return best
+
+
+def plan_packed_pvs(bank_np: Layout, chunk_cap: int, overhead_tris: int,
+                    max_bytes: int = 768 << 20,
+                    force_k: int | None = None):
+    """Plan packed per-room PVS banks (the space-time alternative to
+    chunk_vis culling).
+
+    chunk_vis culling visits every chunk CONTAINING a visible triangle;
+    because a room's PVS is scattered over the bank (a maze corridor's
+    visible set is a row segment plus a column segment — no 1-D
+    triangle order keeps both contiguous), the worst-case schedule
+    covers more triangles than the PVS itself. Packing every
+    room's visible set CONTIGUOUSLY (duplicating shared triangles, with
+    identical visible-sets deduped) removes that slack: the schedule
+    becomes ``room_base + arange(sched_len)``.
+
+    Returns (packed dict | None, tri_chunk, sched_len, modeled_cost);
+    None when a single region covers everything (no culling value) or
+    the duplicated bank copies would exceed ``max_bytes``.
+    The duplicated copies are render-exact: the chunk scan's z/tie
+    competition is partition-invariant (raycast._tri_pass).
+    """
+    pvs, room_mask = bank_np.room_pvs, bank_np.room_mask
+    if all(pvs[li][np.ix_(m, m)].all() for li, m in enumerate(room_mask)):
+        return None, chunk_cap, None, np.inf
+
+    L, S = bank_np.tri_room.shape
+
+    # Per-layout room triangle index lists + per-room visible sets
+    # (shared across chunk-size candidates).
+    layouts = []
+    p_max = 1  # largest single visible set, in triangles
+    for li in range(L):
+        tri_room, mask = bank_np.tri_room[li], bank_np.tri_mask[li]
+        glob = np.where((tri_room == -1) & mask)[0]
+        rooms = np.where(room_mask[li])[0]
+        tris_of = {r: np.where((tri_room == r) & mask)[0] for r in rooms}
+        vsets = {}  # frozenset of visible rooms -> region id
+        room_vset = {}
+        for r in rooms:
+            key = frozenset(np.where(pvs[li][r] & room_mask[li])[0].tolist())
+            room_vset[r] = key
+            vsets.setdefault(key, len(vsets))
+            p_max = max(p_max, len(glob) + sum(len(tris_of[q]) for q in key))
+        layouts.append((glob, rooms, tris_of, vsets, room_vset))
+
+    if force_k is not None:  # refresh path: reuse the planned chunk
+        candidates = [force_k]
+    else:
+        # fixed ladder + the chunk sizes that cover the WORST visible
+        # set in exactly 1 or 2 scan iterations
+        ladder = [32, 48, 64, 96, 128, 160, 192, 224, 256,
+                  _round_up16(-(-p_max // 2)), _round_up16(p_max)]
+        candidates = sorted({k for k in ladder
+                             if 16 <= k <= min(chunk_cap, S)}) \
+            or [min(chunk_cap, S)]
+
+    best = (None, chunk_cap, None, np.inf)
+    for k in candidates:
+        sched_len = 1
+        s2_max = 0
+        for glob, rooms, tris_of, vsets, room_vset in layouts:
+            s2 = 0
+            for key in vsets:
+                n = len(glob) + sum(len(tris_of[r]) for r in key)
+                n_chunks = max(-(-n // k), 1)
+                sched_len = max(sched_len, n_chunks)
+                s2 += n_chunks * k
+            s2_max = max(s2_max, s2)
+        cost = sched_len * (k + overhead_tris)
+        # bank copies: verts9(9f) + attr(16f) + tex id/base/count(3f)
+        bytes_needed = L * s2_max * 28 * 4
+        if cost < best[3] and bytes_needed <= max_bytes:
+            best = (k, sched_len, s2_max, cost)
+
+    if best[0] is None:
+        return None, chunk_cap, None, np.inf
+    k, sched_len, s2_max, cost = best
+
+    R = bank_np.room_mask.shape[1]
+    verts9 = np.zeros((L, 9, s2_max), np.float32)
+    attr = np.zeros((L, s2_max, bank_np.tri_attr.shape[2]), np.float32)
+    tri_tex = np.full((L, s2_max), -1, np.int32)
+    tri_tex_base = np.full((L, s2_max), -1.0, np.float32)
+    tri_tex_count = np.ones((L, s2_max), np.float32)
+    room_base = np.zeros((L, R), np.int32)
+    room_nchunks = np.ones((L, R), np.int32)
+    for li, (glob, rooms, tris_of, vsets, room_vset) in enumerate(layouts):
+        region_base = {}
+        region_nchunks = {}
+        pos = 0
+        # room centers for near-to-far region ordering (an occlusion
+        # early-out can skip a chunk once every pixel's z-carry beats
+        # its nearest depth, which only pays when nearer rooms render
+        # first; the z-competition itself is order-invariant)
+        ra = bank_np.room_aabb[li]
+        centers = np.stack(
+            [(ra[:, 0] + ra[:, 1]) * 0.5, (ra[:, 2] + ra[:, 3]) * 0.5],
+            axis=1,
+        )
+        for key, _rid in vsets.items():
+            reps = [r for r in rooms if room_vset[r] == key]
+            # Nearest-neighbor CHAIN from the representative room, not
+            # a plain distance sort: rooms at equal radius ring the
+            # representative, and a sort puts opposite sides of the
+            # ring in consecutive chunks — their AABBs then span the
+            # whole scene and neither the occlusion early-out nor the
+            # tile wedge test can ever fire. The chain keeps
+            # consecutive rooms spatially contiguous (corridors pack
+            # in walk order) while still starting at the camera's room.
+            cur_pt = centers[reps[0]] if reps else centers[0]
+            remaining = set(key)
+            order = []
+            while remaining:
+                nxt = min(
+                    remaining,
+                    key=lambda r: (
+                        float(np.sum((centers[r] - cur_pt) ** 2)), r,
+                    ),
+                )
+                order.append(nxt)
+                remaining.discard(nxt)
+                cur_pt = centers[nxt]
+            idx = np.concatenate(
+                [glob] + [tris_of[r] for r in order]
+            ).astype(np.int64) if (len(glob) or key) else np.zeros(0, np.int64)
+            n_chunks = max(-(-len(idx) // k), 1)
+            region_base[key] = pos // k
+            region_nchunks[key] = n_chunks
+            verts9[li, :, pos:pos + len(idx)] = bank_np.tri_verts9[li][:, idx]
+            attr[li, pos:pos + len(idx)] = bank_np.tri_attr[li][idx]
+            tri_tex[li, pos:pos + len(idx)] = bank_np.tri_tex[li][idx]
+            tri_tex_base[li, pos:pos + len(idx)] = bank_np.tri_tex_base[li][idx]
+            tri_tex_count[li, pos:pos + len(idx)] = bank_np.tri_tex_count[li][idx]
+            pos += n_chunks * k
+        for r in rooms:
+            room_base[li, r] = region_base[room_vset[r]]
+            room_nchunks[li, r] = region_nchunks[room_vset[r]]
+    packed = dict(
+        pvs_verts9=verts9, pvs_attr=attr, pvs_tri_tex=tri_tex,
+        pvs_tri_tex_base=tri_tex_base, pvs_tri_tex_count=tri_tex_count,
+        pvs_room_base=room_base, pvs_room_nchunks=room_nchunks,
+    )
+    return packed, k, sched_len, cost
+
+
+def install_statics(bank_np: Layout, tex_np: np.ndarray):
+    """The static decisions of the JAX package's ``_install_bank`` for
+    a fresh bank in fourier mode without domain randomization.
+
+    Returns (bank, statics dict): the bank with each prim's atlas base
+    baked into its attr slot column (every slot renders variant 0), and
+    ``tri_chunk``, ``all_quads``, ``shapes_present``, ``has_gain``.
+
+    The port renders a bank in ONE chunk: its tri_pass kernel takes up
+    to MAX_CHUNK prims per env in one pass. Banks whose rooms do not all
+    see each other are where the JAX package plans PVS schedules
+    (plan_culling / plan_packed_pvs); those schedules are a later slice.
+    """
+    pvs, room_mask = bank_np.room_pvs, bank_np.room_mask
+    if not all(pvs[li][np.ix_(m, m)].all() for li, m in enumerate(room_mask)):
+        raise NotImplementedError(
+            "PVS chunk schedules (multi-room banks) are not ported yet"
+        )
+    s_nat = bank_np.tri_mask.shape[1]
+    if s_nat > MAX_CHUNK:
+        raise NotImplementedError(
+            f"{s_nat} prims exceed one chunk ({MAX_CHUNK}); multi-chunk "
+            "scans are not ported yet"
+        )
+    bank_np = _repad_for_chunks(bank_np, s_nat)  # one chunk: a no-op pad
+    ta = bank_np.tri_attr.copy()
+    ta[:, :, 14] = bank_np.tri_tex_base
+    bank_np = dataclasses.replace(bank_np, tri_attr=ta)
+    shp = bank_np.proto_shape
+    statics = dict(
+        tri_chunk=s_nat,
+        all_quads=bool((bank_np.tri_attr[:, :, 15][bank_np.tri_mask] == 0.0).all()),
+        shapes_present=(
+            bool((shp == SHAPE_SPHERE).any()),
+            bool(((shp == SHAPE_BOX) | (shp == SHAPE_MESH_BOX)).any()),
+            bool((shp == SHAPE_MESH_TRIS).any()),
+        ),
+        has_gain=bool(((tex_np[:, -1] > 1.0) | (tex_np[:, -1] < 0.0)).any()),
+    )
+    return bank_np, statics
+
+
+def _pick(u, choices):
+    """choices[b, e, min(floor(u * n), n - 1)] with n the valid count."""
+    n = (choices >= 0).sum(dim=-1).to(torch.int32)
+    i = torch.minimum(torch.floor(u * n).to(torch.int32), torch.clamp(n - 1, min=0))
+    return torch.gather(choices, -1, i.long()[..., None])[..., 0]
+
+
+class MiniWorldVec:
+    """Batched env over a compiled layout bank, on one torch device."""
+
+    def __init__(
+        self,
+        spec: EnvSpec | str,
+        num_envs: int,
+        *,
+        device,
+        obs_width: int | None = None,
+        obs_height: int | None = None,
+        with_depth: bool = True,
+        use_kernels: bool = True,
+        domain_rand: bool = False,
+        supersample: int = 1,
+        procgen: bool | None = None,
+        tex_mode: str = "fourier",
+        view: str = "agent",
+    ):
+        # statics of the JAX package that later slices port
+        for name, value, default in (
+            ("domain_rand", domain_rand, False), ("supersample", supersample, 1),
+            ("procgen", bool(procgen), False), ("tex_mode", tex_mode, "fourier"),
+            ("view", view, "agent"),
+        ):
+            if value != default:
+                raise NotImplementedError(
+                    f"{name}={value!r} is not ported to miniworld_tpu_torch yet"
+                )
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' asked for, but torch sees no CUDA device")
+        if isinstance(spec, str):
+            from miniworld_tpu_torch.envs import make_spec
+
+            spec = make_spec(spec)
+        self.spec = spec
+        self.num_envs = int(num_envs)
+        self.device = device
+        self.obs_width = obs_width or spec.obs_width
+        self.obs_height = obs_height or spec.obs_height
+        self.with_depth = with_depth
+        self.place_budget = spec.place_budget
+        self.fourier_k = spec.fourier_k or FOURIER_TERMS
+        # True: each render stage goes through its wrapper (CUDA kernel
+        # for CUDA tensors); False: the plain PyTorch versions.
+        self.use_kernels = use_kernels
+
+        bank_np, tex_np = build_bank(spec)
+        bank_np, statics = install_statics(bank_np, tex_np)
+        if statics["has_gain"]:
+            raise NotImplementedError("glyph textures are not ported yet")
+        if statics["shapes_present"][2]:
+            raise NotImplementedError("mesh entities are not ported yet")
+        self._bank_np = bank_np
+        self.tri_chunk = statics["tri_chunk"]
+        self._all_quads = statics["all_quads"]
+        self._shapes_present = statics["shapes_present"]
+        self._bank = layout_from_numpy(bank_np, device)
+        self._atlas = atlas_from_numpy(tex_np, device)
+        self.num_layouts = bank_np.tri_verts.shape[0]
+        self.num_ent_slots = bank_np.slot_protos.shape[1]
+        if spec.discrete_actions is None:
+            raise NotImplementedError("continuous-action specs are not ported yet")
+        self._action_table = torch.as_tensor(
+            np.asarray(spec.discrete_actions, np.float32), device=device
+        )
+
+    # -- reset ---------------------------------------------------------------
+
+    def _default(self, name: str, n: int) -> torch.Tensor:
+        """(n, *shape) per-episode parameter at its default (no domain
+        randomization)."""
+        d = torch.as_tensor(np.asarray(self.spec.params.params[name].default,
+                                       np.float32), device=self.device)
+        return d.expand((n,) + tuple(d.shape)).clone()
+
+    def _reset_batch(self, keys: torch.Tensor) -> EnvState:
+        """Reset one env per key (B, 2): the JAX package's ``_reset_one``
+        for every env at once, from the same counter-based draws."""
+        spec, bank = self.spec, self._bank
+        n = keys.shape[0]
+        dev = self.device
+        k_rng = rng_ops.split(keys, 2)[:, 0]
+        seed = rng_ops.cheap_seed(keys)
+
+        def u(purpose, shape=()):
+            return rng_ops.uniforms(seed, purpose, shape)
+
+        if self.num_layouts > 1:
+            layout_id = torch.clamp(torch.floor(u(10, (1,))[:, 0] * self.num_layouts),
+                                    max=self.num_layouts - 1).to(torch.int32)
+        else:
+            layout_id = torch.zeros(n, dtype=torch.int32, device=dev)
+        lid = layout_id.long()
+
+        E = self.num_ent_slots
+        ent_proto = torch.clamp(_pick(u(11, (E,)), bank.slot_protos[lid]), min=0)
+        p = ent_proto.long()
+        lid_e = lid[:, None]
+        size_lo, size_hi = bank.slot_size_lo[lid], bank.slot_size_hi[lid]
+        size_mul = size_lo + u(12, (E,)) * (size_hi - size_lo)
+        ent_size = bank.proto_size[lid_e, p] * size_mul[..., None]
+        ent_radius = bank.proto_radius[lid_e, p] * size_mul
+        ent_height = bank.proto_height[lid_e, p] * size_mul
+        # obj_color_bias at its default (no domain randomization)
+        bias = self._default("obj_color_bias", n)[:, None, :].expand(n, E, 3)
+        colorable = bank.proto_colorable[lid_e, p]
+        ent_color = torch.clamp(
+            bank.proto_color[lid_e, p]
+            + torch.where(colorable[..., None], bias, torch.zeros_like(bias)),
+            0.0, 1.0,
+        )
+
+        # placement alternative per slot (row E = the agent)
+        rule_mask = bank.rule_mask[lid]  # (B, E+1, A)
+        n_alts = rule_mask.sum(dim=2).to(torch.int32)
+        alts = torch.minimum(torch.floor(u(14, (E + 1,)) * n_alts).to(torch.int32),
+                             torch.clamp(n_alts - 1, min=0)).long()
+        place_seeds = rng_ops.hash_u32(
+            rng_ops.sub(seed, 18)[:, None],
+            torch.arange(E + 1, dtype=torch.int64, device=dev)[None, :],
+        )
+
+        def rule(name, row):
+            tbl = getattr(bank, name)[lid, row]  # (B, A, ...)
+            return tbl[torch.arange(n, device=dev), alts[:, row]]
+
+        def place(row, radius, ent_pos, placed):
+            return place_ops.place_one(
+                place_seeds[:, row], bank, layout_id,
+                rule("rule_room", row), rule("rule_bbox", row),
+                rule("rule_pos", row), rule("rule_dir", row),
+                rule("rule_dir_lo", row), rule("rule_dir_hi", row),
+                radius, ent_pos[:, :, [0, 2]], ent_radius, placed,
+                budget=self.place_budget,
+            )
+
+        ent_pos = torch.zeros((n, E, 3), dtype=torch.float32, device=dev)
+        ent_dir = torch.zeros((n, E), dtype=torch.float32, device=dev)
+        placed = torch.zeros((n, E), dtype=torch.bool, device=dev)
+        slot_mask = bank.slot_mask[lid]
+        for e in range(E):  # sequential: each slot collides with earlier ones
+            pos, d = place(e, ent_radius[:, e], ent_pos, placed)
+            valid = slot_mask[:, e]
+            ent_pos[:, e] = torch.where(valid[:, None], pos, torch.zeros_like(pos))
+            ent_dir[:, e] = torch.where(valid, d, torch.zeros_like(d))
+            placed[:, e] = valid
+        agent_r = torch.full((n,), spec.agent_radius, dtype=torch.float32, device=dev)
+        agent_pos, agent_dir = place(E, agent_r, ent_pos, placed)
+
+        return EnvState(
+            pos=agent_pos, dir=agent_dir,
+            cam_pitch=self._default("cam_pitch", n),
+            cam_height=self._default("cam_height", n),
+            cam_fov_y=self._default("cam_fov_y", n),
+            cam_fwd_disp=self._default("cam_fwd_disp", n),
+            carrying=torch.full((n,), -1, dtype=torch.int32, device=dev),
+            ent_pos=ent_pos, ent_dir=ent_dir,
+            ent_alive=slot_mask.clone(),
+            ent_proto=ent_proto.to(torch.int32), ent_color=ent_color,
+            ent_size=ent_size, ent_radius=ent_radius, ent_height=ent_height,
+            step_count=torch.zeros(n, dtype=torch.int32, device=dev),
+            rng=k_rng, layout_id=layout_id,
+            sky_color=self._default("sky_color", n),
+            light_pos=self._default("light_pos", n),
+            light_color=self._default("light_color", n),
+            light_ambient=self._default("light_ambient", n),
+            # every texture slot at variant 0 (no domain randomization)
+            tex_map=bank.tex_slot_base[lid].clone(),
+            tri_slots=torch.zeros(n, dtype=torch.int64, device=dev),
+            task={k: torch.as_tensor(v, device=dev).expand(n).clone()
+                  for k, v in spec.init_task().items()},
+        )
+
+    # -- step ------------------------------------------------------------------
+
+    def _step_batch(self, state: EnvState, action: torch.Tensor):
+        spec, bank = self.spec, self._bank
+        keys = rng_ops.split(state.rng, 3)
+        state = state.replace(rng=keys[:, 0], step_count=state.step_count + 1)
+        prev = state
+        params = spec.params.params
+
+        lid = state.layout_id.long()
+        room = room_of_point(bank, state.layout_id, state.pos[:, [0, 2]])
+        segs4 = bank.room_segs[lid, room]  # (B, 4, NS) room-local walls
+
+        if action.dim() == 1:
+            action_idx = action.to(torch.int32)
+            action_vec = self._action_table[action_idx.long()]
+        else:
+            action_idx = torch.full(action.shape[:1], -1, dtype=torch.int32,
+                                    device=self.device)
+            action_vec = physics.clip_action(action.to(torch.float32))
+        state, res = physics.physics_step(
+            bank.proto_pickable[lid], state, action_vec, segs4=segs4,
+            max_forward_step=spec.max_forward_step,
+            fwd_step=float(params["forward_step"].default),
+            fwd_drift=float(params["forward_drift"].default),
+            turn_step=float(params["turn_step"].default),
+            agent_radius=spec.agent_radius,
+        )
+        truncated = state.step_count >= spec.max_episode_steps
+        ctx = Ctx(prev=prev, state=state, res=res, action=action_vec,
+                  action_idx=action_idx, truncated=truncated)
+        reward, term, state = spec.transition(ctx)
+        done = term | truncated
+        info = {
+            "agent_pos": state.pos,
+            "agent_dir": state.dir,
+            "cam_pitch": state.cam_pitch,
+            "termination": term,
+            "truncation": truncated,
+        }
+        # on-device auto-reset, computed for every env like the JAX
+        # package (no host sync to find the done ones)
+        state = tree_select(done, self._reset_batch(keys[:, 2]), state)
+        return state, reward.to(torch.float32), done, info
+
+    # -- observation -------------------------------------------------------------
+
+    def render(self, state: EnvState):
+        """(rgb (B, H, W, 3) u8, depth (B, H, W, 1) f32)."""
+        return render_rgbd(
+            self._bank, state, self._atlas,
+            width=self.obs_width, height=self.obs_height, k_terms=self.fourier_k,
+            shapes_present=self._shapes_present, all_quads=self._all_quads,
+            use_kernels=self.use_kernels,
+        )
+
+    def _obs(self, rgb, depth):
+        return (rgb, depth) if self.with_depth else rgb
+
+    # -- public API -------------------------------------------------------------
+
+    def reset(self, seed: int):
+        """Returns (state, obs); keys are ``split(key(seed), B)`` as in
+        ``jax.random.split(jax.random.key(seed), B)``."""
+        keys = rng_ops.split(rng_ops.key_data(seed, self.device), self.num_envs)
+        state = self._reset_batch(keys)
+        return state, self._obs(*self.render(state))
+
+    def step(self, state: EnvState, actions: torch.Tensor):
+        """Returns (state, obs, reward, done, info). ``actions``: (B,)
+        discrete indices or (B, 6) action vectors."""
+        state, reward, done, info = self._step_batch(state, actions)
+        return state, self._obs(*self.render(state)), reward, done, info
+
+    def sample_actions(self, generator: torch.Generator) -> torch.Tensor:
+        """(B,) uniform discrete actions from ``generator``."""
+        return torch.randint(0, self._action_table.shape[0], (self.num_envs,),
+                             generator=generator, device=self.device)
+
+    def rollout(self, state: EnvState, obs, generator: torch.Generator,
+                horizon: int):
+        """``horizon`` random-policy steps (step + render each).
+
+        Returns (state, obs, outs) with ``outs`` the per-step sums of
+        the JAX package's ``rollout_fn``: "reward" (horizon,) f32,
+        "dones" (horizon,) and "obs_sum" (horizon,) int64, the latter a
+        checksum of every 8th pixel row and column that keeps each
+        render's result live. No host sync happens inside.
+        """
+        rewards, dones, sums = [], [], []
+        for _ in range(horizon):
+            actions = self.sample_actions(generator)
+            state, reward, done, _ = self._step_batch(state, actions)
+            rgb, depth = self.render(state)
+            rewards.append(reward.sum())
+            dones.append(done.sum())
+            sums.append(rgb[:, ::8, ::8].to(torch.int64).sum())
+            obs = self._obs(rgb, depth)
+        outs = {"reward": torch.stack(rewards), "dones": torch.stack(dones),
+                "obs_sum": torch.stack(sums)}
+        return state, obs, outs
