@@ -1,11 +1,11 @@
 // Static-prim hit test: keyed-z winner and winner attributes per pixel.
 //
 // Replaces: miniworld_tpu/render/raycast.py:_tri_pass (single-chunk
-// form, chunk_compete), an XLA-fused jnp stage in the JAX package. The
-// plain PyTorch version is tri_pass_plain in
-// miniworld_tpu_torch/render/raycast.py; the two agree bit for bit (the
-// library is built with -fmad=false and the arithmetic below follows the
-// plain version operation by operation).
+// form, chunk_compete, and the ``init`` seed of the carry), an XLA-fused
+// jnp stage in the JAX package. The plain PyTorch version is
+// tri_pass_plain in miniworld_tpu_torch/render/raycast.py; the two agree
+// bit for bit (the library is built with -fmad=false and the arithmetic
+// below follows the plain version operation by operation).
 //
 // What bounds it on an H100: per (env, pixel) it reads nothing but the
 // env's prim table and writes 4 bytes of t plus 32 bytes of bf16
@@ -23,6 +23,12 @@
 // the integer max. The winner's attribute row is loaded once, by index,
 // at the end (the JAX package used a one-hot matmul because TPU gathers
 // are slow; here it is one 64-byte read from L1/L2).
+//
+// Seeded launch (seed_t != nullptr; scenes with mesh entities): the
+// mesh-entity pass's (t, attr) starts the competition. Its key is 1/t
+// with the row bits all ones, so it wins quantized-depth ties; a prim
+// replaces it only with a strictly greater key, and a pixel no prim
+// wins keeps the seed's attributes (zeros where the seed missed too).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -43,6 +49,8 @@ __global__ void tri_pass_kernel(
     const float* __restrict__ tan_xy,   // (B, 2)
     const float* __restrict__ xbase,    // (W,)
     const float* __restrict__ ybase,    // (H,)
+    const float* __restrict__ seed_t,   // (B, HW) or null
+    const __nv_bfloat16* __restrict__ seed_attr,  // (B, HW, 16) or null
     int S, int W, int H, int all_quads,
     float* __restrict__ t_out,          // (B, HW)
     __nv_bfloat16* __restrict__ attr_out)  // (B, HW, 16)
@@ -114,9 +122,23 @@ __global__ void tri_pass_kernel(
     }
 
     const size_t q = (size_t)b * hw + p;
+    if (seed_t != nullptr) {
+        const float seed_r = 1.0f / seed_t[q];  // 1/inf = 0: no seed
+        const int seed_key =
+            seed_r > 0.0f ? ((__float_as_int(seed_r) & ~IDX_MASK) | IDX_MASK) : 0;
+        if (!(best > seed_key)) {
+            t_out[q] = seed_key > 0
+                ? 1.0f / fmaxf(__int_as_float(seed_key & ~IDX_MASK), 1e-30f) : INFINITY;
+            const uint4* s4 = reinterpret_cast<const uint4*>(seed_attr + q * ATTR_DIM);
+            uint4* d4 = reinterpret_cast<uint4*>(attr_out + q * ATTR_DIM);
+            d4[0] = s4[0];
+            d4[1] = s4[1];
+            return;
+        }
+    }
     t_out[q] = best > 0 ? 1.0f / fmaxf(__int_as_float(best & ~IDX_MASK), 1e-30f)
                         : INFINITY;
-    // winner's row (row 0 for a miss: nothing downstream reads it)
+    // winner's row (row 0 for an unseeded miss: nothing downstream reads it)
     const float4* src = reinterpret_cast<const float4*>(at + (best & IDX_MASK) * ATTR_DIM);
     __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(attr_out + q * ATTR_DIM);
 #pragma unroll
@@ -135,6 +157,7 @@ extern "C" int mw_tri_pass(
     const float* verts9, const float* attr, const int* layout_id,
     const float* origin, const float* fwd, const float* right, const float* up,
     const float* tan_xy, const float* xbase, const float* ybase,
+    const float* seed_t, const __nv_bfloat16* seed_attr,
     int B, int S, int W, int H, int all_quads,
     float* t_out, __nv_bfloat16* attr_out, cudaStream_t stream)
 {
@@ -143,6 +166,6 @@ extern "C" int mw_tri_pass(
     const size_t smem = (size_t)PRIM_FIELDS * S * sizeof(float);
     tri_pass_kernel<<<grid, threads, smem, stream>>>(
         verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase, ybase,
-        S, W, H, all_quads, t_out, attr_out);
+        seed_t, seed_attr, S, W, H, all_quads, t_out, attr_out);
     return (int)cudaGetLastError();
 }

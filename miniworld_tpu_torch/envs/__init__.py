@@ -8,9 +8,10 @@ names the ported set when asked for any other.
 from __future__ import annotations
 
 from miniworld_tpu_torch.envs.base import EnvSpec
-from miniworld_tpu_torch.envs.nav import Hallway
+from miniworld_tpu_torch.envs.interact import PickupObjects
+from miniworld_tpu_torch.envs.nav import FourRooms, Hallway, TMaze, TMazeLeft, TMazeRight
 
-SPEC_CLASSES = [Hallway]
+SPEC_CLASSES = [Hallway, FourRooms, TMaze, TMazeLeft, TMazeRight, PickupObjects]
 
 _REGISTRY = {}
 for cls in SPEC_CLASSES:
@@ -31,4 +32,5 @@ def make_spec(name: str, **kwargs) -> EnvSpec:
     return _REGISTRY[name](**kwargs)
 
 
-__all__ = ["ENV_IDS", "make_spec", "EnvSpec", "Hallway"]
+__all__ = ["ENV_IDS", "make_spec", "EnvSpec", "FourRooms", "Hallway", "PickupObjects",
+           "TMaze", "TMazeLeft", "TMazeRight"]

@@ -3,8 +3,9 @@
 Counterpart of ``miniworld_tpu/envs/base.py``. An ``EnvSpec`` declares
 the world builder (host-side numpy, shared logic with the JAX package)
 and the per-step task logic as functions over a batched ``EnvState``.
-The port's first slice carries the go-to-goal family (Hallway); the
-host-side gymnasium hooks of the JAX package have no counterpart here.
+The port carries the go-to-goal family (Hallway, FourRooms, TMaze) and
+PickupObjects so far; the host-side gymnasium hooks of the JAX package
+have no counterpart here.
 """
 
 from __future__ import annotations
@@ -44,6 +45,12 @@ def default_discrete_actions() -> np.ndarray:
     return acts
 
 
+def action_from_components(forward=0.0, strafe=0.0, turn=0.0, pitch=0.0,
+                           pickup=0.0, drop=0.0) -> np.ndarray:
+    """The action vector from its components (miniworld.py:620-640)."""
+    return np.array([forward, strafe, turn, pitch, pickup, drop], dtype=np.float32)
+
+
 @dataclass
 class EnvSpec:
     """Base spec; concrete envs subclass and override hooks."""
@@ -81,6 +88,10 @@ class EnvSpec:
         dev = ctx.state.pos.device
         return (torch.zeros(b, dtype=torch.float32, device=dev),
                 torch.zeros(b, dtype=torch.bool, device=dev), ctx.state)
+
+    def info(self, ctx: Ctx) -> dict:
+        """Extra per-step info entries ((B, ...) tensors)."""
+        return {}
 
     def reward(self, state: EnvState) -> torch.Tensor:
         """Sparse reward shape (miniworld.py:1095-1100),

@@ -1,8 +1,8 @@
-"""Navigation specs of the port's first slice.
+"""Navigation specs ported so far: go-to-goal tasks over static geometry.
 
-Counterpart of ``miniworld_tpu/envs/nav.py``: the Hallway spec only
-(envs/hallway.py:45-74 in the reference). The other navigation envs
-join with their slices (ROADMAP.md).
+Counterpart of ``miniworld_tpu/envs/nav.py``: Hallway, FourRooms and the
+TMaze family (reference envs/hallway.py, fourrooms.py, tmaze.py). The
+other navigation envs join with their slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import numpy as np
 
 from miniworld_tpu_torch.envs.base import (
     DIR_QUARTER,
+    Ctx,
     GoToEnvSpec,
     default_discrete_actions,
 )
@@ -40,3 +41,86 @@ class Hallway(GoToEnvSpec):
             world.place_agent(dir=d, max_x=room.max_x - 2)
         else:
             world.place_agent(dir_range=DIR_QUARTER, max_x=room.max_x - 2)
+
+
+@dataclass
+class FourRooms(GoToEnvSpec):
+    """Four connected rooms, red box (envs/fourrooms.py:46-73)."""
+
+    name: str = "FourRooms"
+    gym_id: str = "MiniWorld-FourRooms-v0"
+    max_episode_steps: int = 250
+    discrete_actions: np.ndarray = field(default_factory=default_discrete_actions)
+
+    def build(self, world, rng, layout_rng=None, layout_idx=0):
+        room0 = world.add_rect_room(min_x=-7, max_x=-1, min_z=1, max_z=7)
+        room1 = world.add_rect_room(min_x=1, max_x=7, min_z=1, max_z=7)
+        room2 = world.add_rect_room(min_x=1, max_x=7, min_z=-7, max_z=-1)
+        room3 = world.add_rect_room(min_x=-7, max_x=-1, min_z=-7, max_z=-1)
+        world.connect_rooms(room0, room1, min_z=3, max_z=5, max_y=2.2)
+        world.connect_rooms(room1, room2, min_x=3, max_x=5, max_y=2.2)
+        world.connect_rooms(room2, room3, min_z=-5, max_z=-3, max_y=2.2)
+        world.connect_rooms(room3, room0, min_x=-5, max_x=-3, max_y=2.2)
+        world.place(world.proto_id("box", "red"))
+        world.place_agent()
+
+
+@dataclass
+class TMaze(GoToEnvSpec):
+    """T-junction maze, goal in one arm (envs/tmaze.py:45-91)."""
+
+    name: str = "TMaze"
+    gym_id: str = "MiniWorld-TMaze-v0"
+    max_episode_steps: int = 280
+    discrete_actions: np.ndarray = field(default_factory=default_discrete_actions)
+    goal_pos: tuple | None = None
+
+    def build(self, world, rng, layout_rng=None, layout_idx=0):
+        room1 = world.add_rect_room(min_x=-1, max_x=8, min_z=-2, max_z=2)
+        room2 = world.add_rect_room(min_x=8, max_x=12, min_z=-8, max_z=8)
+        world.connect_rooms(room1, room2, min_z=-2, max_z=2)
+
+        box = world.proto_id("box", "red")
+        if self.goal_pos is not None:
+            gp = self.goal_pos
+            world.place(
+                box, min_x=gp[0], max_x=gp[0], min_z=gp[2], max_z=gp[2]
+            )
+        elif rng is not None:
+            # Reference consumption order: integers(0,2) then placement
+            # (tmaze.py:72-75).
+            if rng.integers(0, 2) == 0:
+                world.place(box, room=room2, max_z=room2.min_z + 2)
+            else:
+                world.place(box, room=room2, min_z=room2.max_z - 2)
+        else:
+            world.place(
+                box,
+                rules=[
+                    world._make_rule(room=room2, max_z=room2.min_z + 2),
+                    world._make_rule(room=room2, min_z=room2.max_z - 2),
+                ],
+            )
+        if rng is not None:
+            d = float(rng.uniform(-math.pi / 4, math.pi / 4))
+            world.place_agent(dir=d, room=room1)
+        else:
+            world.place_agent(dir_range=DIR_QUARTER, room=room1)
+
+    def info(self, ctx: Ctx):
+        # info["goal_pos"] every step (tmaze.py:89)
+        return {"goal_pos": ctx.state.ent_pos[:, self.goal_slot]}
+
+
+@dataclass
+class TMazeLeft(TMaze):
+    name: str = "TMazeLeft"
+    gym_id: str = "MiniWorld-TMazeLeft-v0"
+    goal_pos: tuple = (10, 0, -6)
+
+
+@dataclass
+class TMazeRight(TMaze):
+    name: str = "TMazeRight"
+    gym_id: str = "MiniWorld-TMazeRight-v0"
+    goal_pos: tuple = (10, 0, 6)

@@ -3,16 +3,31 @@
 Counterpart of ``miniworld_tpu/ops/place.py`` (reference:
 MiniWorldEnv.place_entity, miniworld/miniworld.py:922-992): a fixed
 retry budget, the first valid try wins, an in-room clamped fallback
-when every try fails. The budgeted tries run as a loop over ``budget``
-with every env advanced together; draws are the counter-based uniforms
-of ops/rng.py, so each env sees the JAX package's numbers.
+when every try fails. Draws are the counter-based uniforms of
+ops/rng.py, so each env sees the JAX package's numbers.
+
+``place_all`` places every entity slot of a reset in order and then the
+agent (the JAX package's ``_reset_one`` placement loop, vector.py:
+935-984): for CUDA tensors in one launch of the ``place`` kernel
+(``csrc/place.cu``, one thread per env), for CPU tensors through
+``place_all_plain``, which runs ``place_one`` per slot with every env
+advanced together.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from miniworld_tpu_torch.ops import geom, rng as rng_ops
+from miniworld_tpu_torch.render.cuda_build import check, is_cuda, launch, stream
+
+# The per-env rule rows ``place_all`` takes: (B, E+1, ...) each, row E
+# the agent's, already picked by the reset's placement alternative.
+RULE_FIELDS = ("rule_room", "rule_bbox", "rule_pos", "rule_dir", "rule_dir_lo",
+               "rule_dir_hi")
+_MAX_SLOTS = 32  # the kernel keeps the placed slots in registers (place.cu)
 
 
 def sample_room(u, room_mask, room_area):
@@ -94,3 +109,101 @@ def place_one(seed, bank, layout_id, rule_room, rule_bbox, rule_pos,
     d = torch.where(torch.isnan(rule_dir),
                     rule_dir_lo + u_dir * (rule_dir_hi - rule_dir_lo), rule_dir)
     return pos, d
+
+
+def _refuse_procgen(room_weight, seg_gate):
+    if room_weight is not None or seg_gate is not None:
+        raise NotImplementedError(
+            "procgen placement (room_weight, seg_gate) is not ported yet"
+        )
+
+
+def place_all_plain(seeds, bank, layout_id, rules, radius, slot_mask,
+                    budget: int = 16, room_weight=None, seg_gate=None):
+    """Plain version of the place kernel: entity slots 0..E-1 in order,
+    each colliding with the valid slots placed before it, then the
+    agent against all of them.
+
+    ``seeds`` (B, E+1) u32 subseeds (int64); ``rules`` the dict of
+    RULE_FIELDS rows (B, E+1, ...); ``radius`` (B, E+1) (the entities'
+    radii, then the agent's); ``slot_mask`` (B, E). Returns (ent_pos
+    (B, E, 3), ent_dir (B, E), agent pos (B, 3), agent dir (B,)); an
+    invalid slot gets position and direction 0. The JAX package's
+    procgen arguments (``room_weight``, ``seg_gate``) raise.
+    """
+    _refuse_procgen(room_weight, seg_gate)
+    n, e_slots = slot_mask.shape
+    dev = radius.device
+    ent_radius = radius[:, :e_slots]
+    ent_pos = torch.zeros((n, e_slots, 3), dtype=torch.float32, device=dev)
+    ent_dir = torch.zeros((n, e_slots), dtype=torch.float32, device=dev)
+    placed = torch.zeros((n, e_slots), dtype=torch.bool, device=dev)
+
+    def place(row):
+        return place_one(
+            seeds[:, row], bank, layout_id,
+            *(rules[name][:, row] for name in RULE_FIELDS),
+            radius[:, row], ent_pos[:, :, [0, 2]], ent_radius, placed,
+            budget=budget,
+        )
+
+    for e in range(e_slots):  # sequential: each slot collides with earlier ones
+        pos, d = place(e)
+        valid = slot_mask[:, e]
+        ent_pos[:, e] = torch.where(valid[:, None], pos, torch.zeros_like(pos))
+        ent_dir[:, e] = torch.where(valid, d, torch.zeros_like(d))
+        placed[:, e] = valid
+    agent_pos, agent_dir = place(e_slots)
+    return ent_pos, ent_dir, agent_pos, agent_dir
+
+
+def place_all(seeds, bank, layout_id, rules, radius, slot_mask, budget: int = 16,
+              room_weight=None, seg_gate=None):
+    """The place kernel for CUDA tensors, ``place_all_plain`` for CPU
+    tensors. Same contract as ``place_all_plain``. Launches count in
+    ``cuda_build.LAUNCHES["place"]`` with the render's kernels."""
+    _refuse_procgen(room_weight, seg_gate)
+    if not is_cuda(seeds, layout_id, radius, slot_mask, bank.room_segs):
+        return place_all_plain(seeds, bank, layout_id, rules, radius, slot_mask, budget)
+    n, e_slots = slot_mask.shape
+    if e_slots > _MAX_SLOTS:
+        raise ValueError(f"place kernel takes at most {_MAX_SLOTS} entity slots, got {e_slots}")
+    L, R, V, _ = bank.room_outline.shape
+    ns = bank.room_segs.shape[3]
+    dev = radius.device
+    ent_pos = torch.empty((n, e_slots, 3), dtype=torch.float32, device=dev)
+    ent_dir = torch.empty((n, e_slots), dtype=torch.float32, device=dev)
+    agent_pos = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    agent_dir = torch.empty((n,), dtype=torch.float32, device=dev)
+    a = e_slots + 1
+    ins = dict(
+        seeds=(seeds.to(torch.int32).contiguous(), torch.int32, (n, a)),
+        layout_id=(layout_id, torch.int32, (n,)),
+        rule_room=(rules["rule_room"].to(torch.int32).contiguous(), torch.int32, (n, a)),
+        rule_bbox=(rules["rule_bbox"].contiguous(), torch.float32, (n, a, 4)),
+        rule_pos=(rules["rule_pos"].contiguous(), torch.float32, (n, a, 3)),
+        rule_dir=(rules["rule_dir"].contiguous(), torch.float32, (n, a)),
+        rule_dir_lo=(rules["rule_dir_lo"].contiguous(), torch.float32, (n, a)),
+        rule_dir_hi=(rules["rule_dir_hi"].contiguous(), torch.float32, (n, a)),
+        radius=(radius.contiguous(), torch.float32, (n, a)),
+        slot_mask=(slot_mask.to(torch.uint8).contiguous(), torch.uint8, (n, e_slots)),
+        room_mask=(bank.room_mask.to(torch.uint8).contiguous(), torch.uint8, (L, R)),
+        room_area=(bank.room_area, torch.float32, (L, R)),
+        room_aabb=(bank.room_aabb, torch.float32, (L, R, 4)),
+        room_outline=(bank.room_outline, torch.float32, (L, R, V, 2)),
+        room_norms=(bank.room_norms, torch.float32, (L, R, V, 2)),
+        room_vmask=(bank.room_vmask.to(torch.uint8).contiguous(), torch.uint8, (L, R, V)),
+        room_segs=(bank.room_segs, torch.float32, (L, R, 4, ns)),
+    )
+    launch(
+        "mw_place", "place",
+        *(check(t, name, dt, shape) for name, (t, dt, shape) in ins.items()),
+        ctypes.c_int(n), ctypes.c_int(e_slots), ctypes.c_int(R), ctypes.c_int(V),
+        ctypes.c_int(ns), ctypes.c_int(budget),
+        check(ent_pos, "ent_pos", torch.float32, (n, e_slots, 3)),
+        check(ent_dir, "ent_dir", torch.float32, (n, e_slots)),
+        check(agent_pos, "agent_pos", torch.float32, (n, 3)),
+        check(agent_dir, "agent_dir", torch.float32, (n,)),
+        stream(),
+    )
+    return ent_pos, ent_dir, agent_pos, agent_dir

@@ -5,7 +5,7 @@ counterpart of the reference's DomainParams, miniworld/params.py:7-130):
 named parameters with (default, min, max) and host-side uniform
 sampling, where a ``None`` rng yields the default. The JAX package's
 device-side ``jax_sample*`` helpers have no counterpart here: the
-port's first slice runs without domain randomization.
+port runs without domain randomization so far.
 
 The registry is immutable-by-copy like the reference: ``no_random()``
 and ``set()`` return/modify copies so env-specific overrides (e.g.

@@ -1,11 +1,14 @@
 """Build and load the port's CUDA kernels (``miniworld_tpu_torch/csrc``).
 
-The three render kernels are compiled at first use with ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface,
-loaded with ``ctypes``: a build of seconds, with no PyTorch headers.
+The kernels (the render's stages and the reset's placement) are
+compiled at first use with ``nvcc`` for Hopper (``sm_90a``), one nvcc
+process per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``: a build of
+seconds, with no PyTorch headers.
 Each C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; the wrappers in render/raycast.py raise when it
-is not 0.
+``cudaGetLastError()``; ``launch`` raises when it is not 0, and counts
+the launch in ``LAUNCHES``. The wrappers (render/raycast.py,
+ops/place.py) launch through it.
 
 The library lands in ``build/kernels/`` at the repository root (listed
 in .gitignore), or in ``$MINIWORLD_TORCH_BUILD_DIR``; its file name
@@ -22,32 +25,52 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
-SOURCES = ("tri_pass.cu", "entity_pass.cu", "pixel_epilogue.cu")
+SOURCES = ("tri_pass.cu", "entity_pass.cu", "pixel_epilogue.cu", "entity_mesh_pass.cu",
+           "place.cu")
 # -fmad=false: no multiply-add contraction, so every hit-test boundary
 # (u >= 0, cov <= det, the r gates, the slab ties) rounds exactly as
 # the plain PyTorch version does and winners agree pixel for pixel.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _CAM = [_P] * 7  # origin, fwd, right, up, tan_xy, xbase, ybase
 ENTRY_POINTS = {
-    # verts9, attr, layout_id, camera, B, S, W, H, all_quads, t, attr_out, stream
-    "mw_tri_pass": [_P, _P, _P, *_CAM, _I, _I, _I, _I, _I, _P, _P, _P],
+    # verts9, attr, layout_id, camera, seed_t, seed_attr, B, S, W, H,
+    # all_quads, t, attr_out, stream
+    "mw_tri_pass": [_P, _P, _P, *_CAM, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     # ent_pos, ent_size, ent_dir, ent_height, ent_color, flags, camera,
     # B, E, W, H, has_sphere, has_box, t, col, nrm, stream
     "mw_entity_pass": [_P] * 6 + _CAM + [_I] * 6 + [_P, _P, _P, _P],
     # t_tri, attr, t_ent, col_ent, n_ent, atlas, lights, camera,
     # B, W, H, A, K, has_ent, rgb, depth, stream
     "mw_pixel_epilogue": [_P] * 7 + _CAM + [_I] * 6 + [_P, _P, _P],
+    # verts9, attrs, camera, B, N, W, H, t, attr_out, stream
+    "mw_entity_mesh_pass": [_P, _P, *_CAM, _I, _I, _I, _I, _P, _P, _P],
+    # seeds, layout_id, 6 rule rows, radius, slot_mask, 7 room tensors,
+    # B, E, R, V, NS, budget, ent_pos, ent_dir, agent_pos, agent_dir, stream
+    "mw_place": [_P] * 17 + [_I] * 6 + [_P] * 5,
 }
 
 _LIB = None
 BUILD_INFO: dict = {}
+
+# Kernel launches per wrapper — the render's stages and the reset's
+# placement; chip_smoke.py reads them to show that a run went through
+# the kernels. Only ``launch`` increments.
+LAUNCHES = {"tri_pass": 0, "entity_pass": 0, "pixel_epilogue": 0,
+            "entity_mesh_pass": 0, "place": 0}
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def build_dir() -> str:
@@ -87,14 +110,30 @@ def load() -> ctypes.CDLL:
     t0 = time.perf_counter()
     log = ""
     if not os.path.exists(lib_path):
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[os.path.join(CSRC_DIR, s) for s in SOURCES]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, lib_path)
+        nvcc = _nvcc()
+        tmp = f"{lib_path}.{os.getpid()}"
+        objs = [f"{tmp}.{os.path.splitext(name)[0]}.o" for name in SOURCES]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                              os.path.join(CSRC_DIR, name)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name, obj in zip(SOURCES, objs)
+        ]
+        outs = [proc.communicate()[0] for proc in procs]
+        log = "".join(outs)
+        failed = [name for name, proc in zip(SOURCES, procs) if proc.returncode != 0]
+        if not failed:
+            link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", f"{tmp}.tmp", *objs],
+                                  capture_output=True, text=True)
+            log += link.stdout + link.stderr
+            if link.returncode != 0:
+                failed = ["link"]
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
+        os.replace(f"{tmp}.tmp", lib_path)
     lib = ctypes.CDLL(lib_path)
     for name, argtypes in ENTRY_POINTS.items():
         fn = getattr(lib, name)
@@ -109,3 +148,38 @@ def load() -> ctypes.CDLL:
 
 def error_string(err: int) -> str:
     return load().mw_error_string(err).decode()
+
+
+def is_cuda(*tensors) -> bool:
+    """True when every tensor is on the card, False when every one is on
+    the CPU (the wrapper then takes its plain version); raises on a mix."""
+    devs = {t.device.type for t in tensors}
+    if devs == {"cpu"}:
+        return False
+    if devs == {"cuda"}:
+        return True
+    raise ValueError(f"tensors on mixed devices: {sorted(devs)}")
+
+
+def check(t: torch.Tensor, name: str, dtype, shape):
+    """Pointer to ``t`` after checking its dtype, shape and layout."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def launch(entry: str, counter: str, *args):
+    """Launch ``entry`` of the kernel library; on success add one to
+    ``LAUNCHES[counter]``."""
+    err = getattr(load(), entry)(*args)
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA error {err} ({error_string(err)})")
+    LAUNCHES[counter] += 1

@@ -2,21 +2,26 @@
 
 Counterpart of ``miniworld_tpu/render/raycast.py`` (the reference's GL
 pipeline, miniworld/miniworld.py:1260-1318 and opengl.py:197-435,
-rebuilt as a raycaster). The render runs three stages, each a
+rebuilt as a raycaster). The render runs up to four stages, each a
 hand-written CUDA kernel for Hopper (``miniworld_tpu_torch/csrc``) with
 its plain PyTorch version beside it in this module:
 
+  0. ``entity_mesh_pass`` (scenes with dynamic mesh entities): the
+     entities' triangle rows, moved to world space per frame by
+     ``entity_mesh_rows`` (plain torch), hit-tested per pixel; its
+     result seeds stage 1's z-competition;
   1. ``tri_pass``: static prims — separable-ray hit test, keyed-z
      winner, the winner's 16-float attribute row (rounded to bf16, as
-     the JAX package carries it);
+     the JAX package carries it), optionally seeded;
   2. ``entity_pass``: analytic boxes and spheres;
   3. ``pixel_epilogue``: affine uv, Fourier texture, lighting, sky,
      u8 pack and depth.
 
 Each wrapper takes the plain version ONLY for tensors on the CPU; for
 CUDA tensors it launches its kernel (and adds one to its count in
-``LAUNCHES``) or raises. ``render_rgbd(..., use_kernels=False)`` runs
-the plain versions on any device, for comparison on the card.
+``cuda_build.LAUNCHES``) or raises. ``render_rgbd(...,
+use_kernels=False)`` runs the plain versions on any device, for
+comparison on the card.
 
 Arithmetic follows the JAX expressions operation by operation, so the
 plain versions agree with the JAX package to float32 rounding, and the
@@ -35,7 +40,8 @@ from typing import NamedTuple
 import torch
 
 from miniworld_tpu_torch.ops import geom
-from miniworld_tpu_torch.scene.entities import SHAPE_BOX, SHAPE_SPHERE
+from miniworld_tpu_torch.render.cuda_build import check, is_cuda, launch, stream
+from miniworld_tpu_torch.scene.entities import SHAPE_BOX, SHAPE_MESH_TRIS, SHAPE_SPHERE
 
 NEAR = 0.04  # miniworld/miniworld.py:1287
 FAR = 100.0
@@ -51,16 +57,6 @@ _NRM, _COL, _SLOT, _KIND = slice(8, 11), slice(11, 14), 14, 15
 # (ties at equal quantized depth go to the larger index).
 _IDX_BITS = 10
 _IDX_MASK = (1 << _IDX_BITS) - 1
-
-# Kernel launches per wrapper; chip_smoke.py reads them to show that a
-# run went through the kernels. Only the CUDA launch path increments.
-LAUNCHES = {"tri_pass": 0, "entity_pass": 0, "pixel_epilogue": 0}
-
-
-def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
 
 class Camera(NamedTuple):
     """Separable ray decomposition for a batch of envs: the ray of pixel
@@ -133,41 +129,6 @@ def room_of_point(bank, layout_id, p_xz):
 # kernel plumbing
 
 
-def _is_cuda(*tensors) -> bool:
-    devs = {t.device.type for t in tensors}
-    if devs == {"cpu"}:
-        return False
-    if devs == {"cuda"}:
-        return True
-    raise ValueError(f"tensors on mixed devices: {sorted(devs)}")
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
-def _launch(entry: str, counter: str, *args):
-    from miniworld_tpu_torch.render import cuda_build
-
-    lib = cuda_build.load()
-    err = getattr(lib, entry)(*args)
-    if err != 0:
-        raise RuntimeError(
-            f"{entry}: CUDA error {err} ({cuda_build.error_string(err)})"
-        )
-    LAUNCHES[counter] += 1
-
-
 def _cam_args(cam: Camera, b: int):
     """Pointers to the camera tensors the kernels take, and the tensors
     themselves (the caller holds them until the launch is issued)."""
@@ -181,7 +142,7 @@ def _cam_args(cam: Camera, b: int):
         ("xbase", cam.xbase.contiguous(), (w,)),
         ("ybase", cam.ybase.contiguous(), (h,)),
     ]
-    ptrs = tuple(_check(t, n, torch.float32, s) for n, t, s in tensors)
+    ptrs = tuple(check(t, n, torch.float32, s) for n, t, s in tensors)
     return ptrs, tensors
 
 
@@ -199,9 +160,12 @@ def _contract(gx, gy, gz, cam: Camera, xv, yv):
     return a[:, :, None] + b[:, :, None] * xv[:, None, :] + c[:, :, None] * yv[:, None, :]
 
 
-def _chunk_compete(v9, attrs, cam: Camera, xv, yv, all_quads: bool):
+def _chunk_compete(v9, attrs, cam: Camera, xv, yv, all_quads: bool,
+                   all_tris: bool = False):
     """Keyed-z competition of one chunk of prims, v9 (B, 9, TC), attrs
-    (B, TC, 16): returns (key_max (B, HW) i32, row (B, HW) i64)."""
+    (B, TC, 16): returns (key_max (B, HW) i32, row (B, HW) i64).
+    ``all_tris``: every row is a triangle (coverage u + v <= det, the
+    mesh-entity pass)."""
     e1x, e1y, e1z = v9[:, 3] - v9[:, 0], v9[:, 4] - v9[:, 1], v9[:, 5] - v9[:, 2]
     e2x, e2y, e2z = v9[:, 6] - v9[:, 0], v9[:, 7] - v9[:, 1], v9[:, 8] - v9[:, 2]
     o = cam.origin
@@ -225,7 +189,9 @@ def _chunk_compete(v9, attrs, cam: Camera, xv, yv, all_quads: bool):
     u_num = _contract(gux, guy, guz, cam, xv, yv)
     v_num = _contract(gvx, gvy, gvz, cam, xv, yv)
     r = det * inv_tnum[:, :, None]
-    if all_quads:
+    if all_tris:
+        cov = u_num + v_num
+    elif all_quads:
         cov = torch.maximum(u_num, v_num)
     else:
         kind = attrs[:, :, _KIND, None]
@@ -256,13 +222,27 @@ def _gather_rows(attrs, row):
     return torch.gather(attrs, 1, row[:, :, None].expand(-1, -1, ATTR_DIM))
 
 
-def tri_pass_plain(verts9, attr, layout_id, cam: Camera, all_quads: bool = False):
+def _seed_key(seed_t: torch.Tensor) -> torch.Tensor:
+    """z-key of a seed given in t-space (raycast._tri_pass ``init``):
+    1/t with the row bits all ones, so the seed wins quantized-depth
+    ties; 0 (no hit) where 1/t is 0 (t = inf)."""
+    seed_r = 1.0 / seed_t
+    return torch.where(seed_r > 0.0, (seed_r.view(torch.int32) & ~_IDX_MASK) | _IDX_MASK,
+                       torch.zeros_like(seed_r, dtype=torch.int32))
+
+
+def tri_pass_plain(verts9, attr, layout_id, cam: Camera, all_quads: bool = False,
+                   seed=None):
     """Plain version of the tri_pass kernel (raycast._tri_pass,
     single-chunk form): every prim of each env's layout in one pass.
 
     verts9 (L, 9, S) f32, attr (L, S, 16) f32, layout_id (B,) ->
-    (t (B, HW) f32, inf where nothing is hit; attr (B, HW, 16) bf16 —
-    a no-hit pixel carries row 0, which nothing downstream reads).
+    (t (B, HW) f32, inf where nothing is hit; attr (B, HW, 16) bf16).
+    Unseeded, a no-hit pixel carries row 0, which nothing downstream
+    reads. ``seed`` = (t (B, HW) f32, attr (B, HW, 16) bf16), the
+    mesh-entity pass's result, starts the z-competition as the JAX
+    package's ``init`` carry does: a prim replaces it only with a
+    strictly greater key, and no-hit pixels keep the seed's attrs.
     """
     if verts9.shape[2] > (1 << _IDX_BITS):
         raise ValueError(f"{verts9.shape[2]} prims exceed the z-key's "
@@ -270,7 +250,14 @@ def tri_pass_plain(verts9, attr, layout_id, cam: Camera, all_quads: bool = False
     lid = layout_id.long()
     v9, attrs = verts9[lid], attr[lid]
     key, row = _chunk_compete(v9, attrs, cam, cam.xv(), cam.yv(), all_quads)
-    return _t_from_key(key), _gather_rows(attrs, row).to(torch.bfloat16)
+    sel = _gather_rows(attrs, row).to(torch.bfloat16)
+    if seed is None:
+        return _t_from_key(key), sel
+    seed_t, seed_attr = seed
+    seed_key = _seed_key(seed_t)
+    closer = key > seed_key
+    key = torch.where(closer, key, seed_key)
+    return _t_from_key(key), torch.where(closer[:, :, None], sel, seed_attr)
 
 
 def tri_pass_chunked(verts9, attr, layout_id, cam: Camera, tri_chunk: int,
@@ -298,11 +285,11 @@ def tri_pass_chunked(verts9, attr, layout_id, cam: Camera, tri_chunk: int,
     return _t_from_key(key_best), attr_best
 
 
-def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False):
+def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, seed=None):
     """Stage 1 wrapper: the tri_pass kernel for CUDA tensors, the plain
     version for CPU tensors. Same contract as ``tri_pass_plain``."""
-    if not _is_cuda(verts9, attr, layout_id, cam.origin):
-        return tri_pass_plain(verts9, attr, layout_id, cam, all_quads)
+    if not is_cuda(verts9, attr, layout_id, cam.origin, *(seed or ())):
+        return tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed)
     L, _, S = verts9.shape
     b = layout_id.shape[0]
     hw = cam.width * cam.height
@@ -310,18 +297,161 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False):
         raise ValueError(f"tri_pass kernel takes at most {1 << _IDX_BITS} prims, got {S}")
     t = torch.empty((b, hw), dtype=torch.float32, device=verts9.device)
     out = torch.empty((b, hw, ATTR_DIM), dtype=torch.bfloat16, device=verts9.device)
+    if seed is None:
+        seed_ptrs = (ctypes.c_void_p(0),) * 2
+    else:
+        seed_ptrs = (check(seed[0], "seed_t", torch.float32, (b, hw)),
+                     check(seed[1], "seed_attr", torch.bfloat16, (b, hw, ATTR_DIM)))
     cam_ptrs, _cam_tensors = _cam_args(cam, b)
-    _launch(
+    launch(
         "mw_tri_pass", "tri_pass",
-        _check(verts9, "verts9", torch.float32, (L, 9, S)),
-        _check(attr, "attr", torch.float32, (L, S, ATTR_DIM)),
-        _check(layout_id, "layout_id", torch.int32, (b,)),
+        check(verts9, "verts9", torch.float32, (L, 9, S)),
+        check(attr, "attr", torch.float32, (L, S, ATTR_DIM)),
+        check(layout_id, "layout_id", torch.int32, (b,)),
         *cam_ptrs,
+        *seed_ptrs,
         ctypes.c_int(b), ctypes.c_int(S), ctypes.c_int(cam.width),
         ctypes.c_int(cam.height), ctypes.c_int(int(all_quads)),
-        _check(t, "t", torch.float32, (b, hw)),
-        _check(out, "attr_out", torch.bfloat16, (b, hw, ATTR_DIM)),
-        _stream(),
+        check(t, "t", torch.float32, (b, hw)),
+        check(out, "attr_out", torch.bfloat16, (b, hw, ATTR_DIM)),
+        stream(),
+    )
+    return t, out
+
+
+# ---------------------------------------------------------------------------
+# stage 0: dynamic mesh entities
+
+
+def entity_mesh_rows(bank, state):
+    """World-space triangle rows of every dynamic mesh entity
+    (raycast.entity_mesh_rows), for the whole batch at once.
+
+    Each SHAPE_MESH_TRIS prototype carries its decimated local-space
+    rows (``bank.proto_mesh``, (L, P, M, 25)); per frame every entity's
+    rows are rotated by its yaw, scaled by ``su`` = height / proto
+    height and moved to its position, and the local affine-uv rows
+    compose as A_w = R a / su, b_w = b - A_w . pos. Rows of inactive
+    entities (dead, static, not a mesh) and padding rows get all-zero
+    vertices, which never hit. The slot column becomes the Fourier
+    atlas base of the row's texture slot (mesh textures have one
+    variant).
+
+    Returns (verts9 (B, 9, E*M) f32 component-major, attrs (B, E*M, 16)
+    f32, valid (B, E*M) bool). The arithmetic is the JAX expression's,
+    operation by operation (rot() sums its three column products in
+    order; the K=3 dots run left to right).
+    """
+    lid = state.layout_id.long()[:, None]  # (B, 1)
+    p = state.ent_proto.long()  # (B, E)
+    rows = bank.proto_mesh[lid, p]  # (B, E, M, 25)
+    rmask = bank.proto_mesh_mask[lid, p]  # (B, E, M)
+    active = (state.ent_alive & ~bank.proto_static[lid, p]
+              & (bank.proto_shape[lid, p] == SHAPE_MESH_TRIS))
+    su = state.ent_height / torch.clamp(bank.proto_height[lid, p], min=1e-9)  # (B, E)
+    cd = geom.cos(state.ent_dir)[:, :, None]  # (B, E, 1)
+    sd = geom.sin(state.ent_dir)[:, :, None]
+    zero = torch.zeros_like(cd)
+    one = torch.ones_like(cd)
+    # rot(a) = a0 * col_x + a1 * col_y + a2 * col_z with col_x = (cd, 0,
+    # -sd), col_y = (0, 1, 0), col_z = (sd, 0, cd), summed in that order
+    cols = ((cd, zero, -sd), (zero, one, zero), (sd, zero, cd))
+
+    def rot(a):  # (B, E, M, 3) local row vectors -> R a
+        return torch.stack([
+            a[..., 0] * cols[0][i] + a[..., 1] * cols[1][i] + a[..., 2] * cols[2][i]
+            for i in range(3)
+        ], dim=-1)
+
+    pos = state.ent_pos[:, :, None, :]  # (B, E, 1, 3)
+    su_m = su[:, :, None, None]
+    verts = torch.stack([rot(rows[..., 3 * v:3 * v + 3]) * su_m + pos for v in range(3)],
+                        dim=-2)  # (B, E, M, 3, 3)
+    inv_su = (1.0 / torch.clamp(su, min=1e-9))[:, :, None, None]
+    a1 = rot(rows[..., 9:12]) * inv_su
+    a2 = rot(rows[..., 12:15]) * inv_su
+
+    def dot_pos(a):  # a @ pos, left to right
+        return a[..., 0] * pos[..., 0] + a[..., 1] * pos[..., 1] + a[..., 2] * pos[..., 2]
+
+    b1 = rows[..., 15] - dot_pos(a1)
+    b2 = rows[..., 16] - dot_pos(a2)
+    nrm = rot(rows[..., 17:20])
+    slot = rows[..., 23]
+    tex_base = bank.tex_slot_base[lid[:, 0]].to(torch.float32)  # (B, T)
+    slot_i = torch.clamp(torch.round(slot).long(), min=0)
+    base = torch.gather(tex_base, 1, slot_i.reshape(slot.shape[0], -1)).reshape(slot.shape)
+    slot = torch.where(slot >= 0.0, base, torch.full_like(slot, -1.0))
+    colorable = bank.proto_colorable[lid, p][:, :, None, None]  # (B, E, 1, 1)
+    tint = torch.where(colorable, state.ent_color[:, :, None, :],
+                       torch.ones_like(state.ent_color[:, :, None, :]))
+    color = rows[..., 20:23] * tint
+    attrs = torch.cat([a1, a2, b1[..., None], b2[..., None], nrm, color,
+                       slot[..., None], rows[..., 24:25]], dim=-1)
+    valid = rmask & active[:, :, None]
+    verts = torch.where(valid[..., None, None], verts, torch.zeros_like(verts))
+    b, e, m = valid.shape
+    verts9 = verts.reshape(b, e * m, 9).transpose(1, 2).contiguous()
+    return verts9, attrs.reshape(b, e * m, ATTR_DIM).contiguous(), valid.reshape(b, e * m)
+
+
+# envs per block of the plain mesh pass: each (B, E*M, HW) float32
+# intermediate at B=4096, E*M=80, 80x60 would take 6.3 GB at once
+_MESH_PLAIN_ELEMS = 1 << 26
+
+
+def entity_mesh_pass_plain(verts9, attrs, cam: Camera):
+    """Plain version of the entity_mesh_pass kernel
+    (raycast._entity_mesh_pass): keyed-z competition of each env's own
+    world rows (``entity_mesh_rows``), triangle coverage u + v <= det.
+
+    verts9 (B, 9, N) f32, attrs (B, N, 16) f32 ->
+    (t (B, HW) f32, inf on a miss; attr (B, HW, 16) bf16, zeros on a
+    miss). Runs over blocks of envs to bound its intermediates.
+    """
+    n = verts9.shape[2]
+    if n > (1 << _IDX_BITS):
+        raise ValueError(f"{n} mesh rows exceed the z-key's {1 << _IDX_BITS}-row budget")
+    xv, yv = cam.xv(), cam.yv()
+    b, hw = xv.shape
+    step = max(1, _MESH_PLAIN_ELEMS // max(n * hw, 1))
+    ts, outs = [], []
+    for lo in range(0, b, step):
+        sl = slice(lo, lo + step)
+        c = Camera(cam.origin[sl], cam.fwd[sl], cam.right[sl], cam.up[sl],
+                   cam.tan_x[sl], cam.tan_y[sl], cam.xbase, cam.ybase)
+        key, row = _chunk_compete(verts9[sl], attrs[sl], c, xv[sl], yv[sl],
+                                  all_quads=False, all_tris=True)
+        sel = _gather_rows(attrs[sl], row).to(torch.bfloat16)
+        ts.append(_t_from_key(key))
+        outs.append(torch.where((key > 0)[:, :, None], sel, torch.zeros_like(sel)))
+    return torch.cat(ts), torch.cat(outs)
+
+
+def entity_mesh_pass(verts9, attrs, cam: Camera):
+    """Stage 0 wrapper: the entity_mesh_pass kernel for CUDA tensors,
+    the plain version for CPU tensors. Same contract as
+    ``entity_mesh_pass_plain``."""
+    if not is_cuda(verts9, attrs, cam.origin):
+        return entity_mesh_pass_plain(verts9, attrs, cam)
+    b, _, n = verts9.shape
+    if n > (1 << _IDX_BITS):
+        raise ValueError(f"entity_mesh_pass kernel takes at most {1 << _IDX_BITS} rows, "
+                         f"got {n}")
+    hw = cam.width * cam.height
+    t = torch.empty((b, hw), dtype=torch.float32, device=verts9.device)
+    out = torch.empty((b, hw, ATTR_DIM), dtype=torch.bfloat16, device=verts9.device)
+    cam_ptrs, _cam_tensors = _cam_args(cam, b)
+    launch(
+        "mw_entity_mesh_pass", "entity_mesh_pass",
+        check(verts9, "verts9", torch.float32, (b, 9, n)),
+        check(attrs, "attrs", torch.float32, (b, n, ATTR_DIM)),
+        *cam_ptrs,
+        ctypes.c_int(b), ctypes.c_int(n), ctypes.c_int(cam.width),
+        ctypes.c_int(cam.height),
+        check(t, "t", torch.float32, (b, hw)),
+        check(out, "attr_out", torch.bfloat16, (b, hw, ATTR_DIM)),
+        stream(),
     )
     return t, out
 
@@ -472,7 +602,7 @@ def entity_pass(ent_pos, ent_size, ent_dir, ent_height, ent_color, flags,
     """Stage 2 wrapper: the entity_pass kernel for CUDA tensors, the
     plain version for CPU tensors. Same contract as ``entity_pass_plain``."""
     args = (ent_pos, ent_size, ent_dir, ent_height, ent_color, flags)
-    if not _is_cuda(*args, cam.origin):
+    if not is_cuda(*args, cam.origin):
         return entity_pass_plain(*args, cam, has_sphere, has_box)
     b, E = flags.shape
     hw = cam.width * cam.height
@@ -481,22 +611,22 @@ def entity_pass(ent_pos, ent_size, ent_dir, ent_height, ent_color, flags,
     col = torch.empty((b, hw, 3), dtype=torch.float32, device=dev)
     nrm = torch.empty((b, hw, 3), dtype=torch.float32, device=dev)
     cam_ptrs, _cam_tensors = _cam_args(cam, b)
-    _launch(
+    launch(
         "mw_entity_pass", "entity_pass",
-        _check(ent_pos, "ent_pos", torch.float32, (b, E, 3)),
-        _check(ent_size, "ent_size", torch.float32, (b, E, 3)),
-        _check(ent_dir, "ent_dir", torch.float32, (b, E)),
-        _check(ent_height, "ent_height", torch.float32, (b, E)),
-        _check(ent_color, "ent_color", torch.float32, (b, E, 3)),
-        _check(flags, "flags", torch.uint8, (b, E)),
+        check(ent_pos, "ent_pos", torch.float32, (b, E, 3)),
+        check(ent_size, "ent_size", torch.float32, (b, E, 3)),
+        check(ent_dir, "ent_dir", torch.float32, (b, E)),
+        check(ent_height, "ent_height", torch.float32, (b, E)),
+        check(ent_color, "ent_color", torch.float32, (b, E, 3)),
+        check(flags, "flags", torch.uint8, (b, E)),
         *cam_ptrs,
         ctypes.c_int(b), ctypes.c_int(E), ctypes.c_int(cam.width),
         ctypes.c_int(cam.height), ctypes.c_int(int(has_sphere)),
         ctypes.c_int(int(has_box)),
-        _check(t, "t", torch.float32, (b, hw)),
-        _check(col, "col", torch.float32, (b, hw, 3)),
-        _check(nrm, "nrm", torch.float32, (b, hw, 3)),
-        _stream(),
+        check(t, "t", torch.float32, (b, hw)),
+        check(col, "col", torch.float32, (b, hw, 3)),
+        check(nrm, "nrm", torch.float32, (b, hw, 3)),
+        stream(),
     )
     return t, col, nrm
 
@@ -571,12 +701,6 @@ def eval_fourier(coeffs, slot, uv, k_terms: int, footprint=None,
 def eval_nearest(*args, **kwargs):
     """Nearest-mode texturing (raycast.eval_nearest): not ported yet."""
     raise NotImplementedError("nearest-mode textures are not ported yet")
-
-
-def entity_mesh_pass(*args, **kwargs):
-    """Mesh-entity pass (raycast._entity_mesh_pass, ROADMAP B2): not
-    ported yet."""
-    raise NotImplementedError("mesh entities (_entity_mesh_pass) are not ported yet")
 
 
 def shade(color, normal, hit_p, light_pos, light_color, light_ambient):
@@ -656,7 +780,7 @@ def pixel_epilogue(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
     ``pixel_epilogue_plain``."""
     args = (t_tri, attr, t_ent, col_ent, n_ent, atlas, cam, light_pos,
             light_color, light_ambient, sky, k_terms, has_gain)
-    if not _is_cuda(t_tri, attr, atlas, cam.origin, light_pos):
+    if not is_cuda(t_tri, attr, atlas, cam.origin, light_pos):
         return pixel_epilogue_plain(*args)
     if has_gain:
         raise NotImplementedError(
@@ -673,27 +797,27 @@ def pixel_epilogue(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
     has_ent = t_ent is not None
     if has_ent:
         ent_ptrs = (
-            _check(t_ent, "t_ent", torch.float32, (b, hw)),
-            _check(col_ent, "col_ent", torch.float32, (b, hw, 3)),
-            _check(n_ent, "n_ent", torch.float32, (b, hw, 3)),
+            check(t_ent, "t_ent", torch.float32, (b, hw)),
+            check(col_ent, "col_ent", torch.float32, (b, hw, 3)),
+            check(n_ent, "n_ent", torch.float32, (b, hw, 3)),
         )
     else:
         ent_ptrs = (ctypes.c_void_p(0),) * 3
     lights = torch.stack([light_pos, light_color, light_ambient, sky], dim=1).contiguous()
     cam_ptrs, _cam_tensors = _cam_args(cam, b)
-    _launch(
+    launch(
         "mw_pixel_epilogue", "pixel_epilogue",
-        _check(t_tri, "t_tri", torch.float32, (b, hw)),
-        _check(attr, "attr", torch.bfloat16, (b, hw, ATTR_DIM)),
+        check(t_tri, "t_tri", torch.float32, (b, hw)),
+        check(attr, "attr", torch.bfloat16, (b, hw, ATTR_DIM)),
         *ent_ptrs,
-        _check(atlas, "atlas", torch.float32, (n_rows, 4 + 8 * k_terms)),
-        _check(lights, "lights", torch.float32, (b, 4, 3)),
+        check(atlas, "atlas", torch.float32, (n_rows, 4 + 8 * k_terms)),
+        check(lights, "lights", torch.float32, (b, 4, 3)),
         *cam_ptrs,
         ctypes.c_int(b), ctypes.c_int(w), ctypes.c_int(h),
         ctypes.c_int(n_rows), ctypes.c_int(k_terms), ctypes.c_int(int(has_ent)),
-        _check(rgb, "rgb", torch.uint8, (b, h, w, 3)),
-        _check(depth, "depth", torch.float32, (b, h, w, 1)),
-        _stream(),
+        check(rgb, "rgb", torch.uint8, (b, h, w, 3)),
+        check(depth, "depth", torch.float32, (b, h, w, 1)),
+        stream(),
     )
     return rgb, depth
 
@@ -708,19 +832,25 @@ def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
     """Render every env's observation: (rgb (B, H, W, 3) u8, depth
     (B, H, W, 1) f32, FAR for sky). Counterpart of raycast.render_rgbd
     for single-chunk banks in fourier mode, without domain
-    randomization or supersampling (the statics of the port's slice).
+    randomization or supersampling (the statics of the port's slices).
 
-    ``use_kernels=False`` runs the plain PyTorch versions of the three
-    stages on whatever device the tensors are on (for comparisons on
-    the card); otherwise each stage goes through its wrapper.
+    With mesh entities (``shapes_present[2]``) their pass runs first and
+    seeds the static prims' z-competition (raycast.py:1174-1182).
+    ``use_kernels=False`` runs the plain PyTorch versions of the stages
+    on whatever device the tensors are on (for comparisons on the card);
+    otherwise each stage goes through its wrapper.
     """
-    if shapes_present[2]:
-        entity_mesh_pass()
     cam = camera_grid(state, width, height)
     f_tri = tri_pass if use_kernels else tri_pass_plain
     f_ent = entity_pass if use_kernels else entity_pass_plain
     f_epi = pixel_epilogue if use_kernels else pixel_epilogue_plain
-    t_tri, attr = f_tri(bank.tri_verts9, bank.tri_attr, state.layout_id, cam, all_quads)
+    seed = None
+    if shapes_present[2]:
+        f_mesh = entity_mesh_pass if use_kernels else entity_mesh_pass_plain
+        rows9, row_attrs, _ = entity_mesh_rows(bank, state)
+        seed = f_mesh(rows9, row_attrs, cam)
+    t_tri, attr = f_tri(bank.tri_verts9, bank.tri_attr, state.layout_id, cam, all_quads,
+                        seed)
     t_ent = col_ent = n_ent = None
     if shapes_present[0] or shapes_present[1]:
         t_ent, col_ent, n_ent = f_ent(

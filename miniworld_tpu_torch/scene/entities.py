@@ -1,8 +1,8 @@
 """Entity definitions and their compiled prototypes.
 
 Jax-free copy of ``miniworld_tpu/scene/entities.py`` for the PyTorch
-port. Boxes, image and text frames are here; mesh-backed prototypes
-raise NotImplementedError until the mesh loader is ported.
+port; mesh textures are read with the port's own PNG reader and
+Pillow-exact resize (utils/image.py), so Pillow stays out.
 
 Host-side entity model replacing the reference's OO entities
 (miniworld/entity.py). Each entity *definition* carries the physical
@@ -32,7 +32,9 @@ from dataclasses import dataclass
 import numpy as np
 
 from miniworld_tpu_torch.render.textures import texture_pixel_size
+from miniworld_tpu_torch.scene.mesh import decimate_mesh, load_mesh
 from miniworld_tpu_torch.scene.room import TriBatch
+from miniworld_tpu_torch.utils import image
 from miniworld_tpu_torch.utils.assets import texture_variant_paths
 
 # Named colors (reference: miniworld/entity.py:30-40)
@@ -91,17 +93,39 @@ class Proto:
         self.color = np.asarray(self.color, dtype=np.float64)
 
 
-def mesh_scale_radius(mesh_name: str, height: float):
-    """MeshEnt scale/radius derivation (miniworld/entity.py:132-148).
-
-    Mesh entities (balls, keys, static and dynamic meshes) are not on the
-    port's first slice (Hallway); the OBJ loader and decimator of
-    ``miniworld_tpu/scene/mesh.py`` are ported in a later slice.
-    """
-    raise NotImplementedError(
-        f"mesh entity {mesh_name!r}: mesh protos are not ported to "
-        "miniworld_tpu_torch yet (ROADMAP queue A)"
+def _face_colors_areas(mesh):
+    """Per-face effective colors (Kd x mean texture color) and areas."""
+    v = mesh.verts
+    areas = 0.5 * np.linalg.norm(
+        np.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]), axis=1
     )
+    colors = mesh.colors.copy()
+    tex_means = {}
+    for t, tex in enumerate(mesh.tex_names):
+        if tex is not None:
+            if tex not in tex_means:
+                # Image.open(tex).convert("RGB").resize((8, 8)), byte for byte
+                tex_means[tex] = image.resize_bicubic(
+                    image.read_png_rgb(tex), 8, 8
+                ).reshape(-1, 3).mean(axis=0) / 255.0
+            colors[t] = colors[t] * tex_means[tex]
+    return colors, areas
+
+
+def _mesh_color(mesh) -> np.ndarray:
+    """Area-weighted mean color of a mesh (Kd x mean texture color)."""
+    colors, areas = _face_colors_areas(mesh)
+    w = areas / max(areas.sum(), 1e-9)
+    return (colors * w[:, None]).sum(axis=0)
+
+
+def mesh_scale_radius(mesh_name: str, height: float):
+    """MeshEnt scale/radius derivation (miniworld/entity.py:132-148)."""
+    mesh = load_mesh(mesh_name)
+    sx, sy, sz = mesh.ref_max_coords
+    scale = height / sy
+    radius = math.sqrt(sx * sx + sz * sz) * scale
+    return mesh, scale, radius
 
 
 def _box_rows(size) -> np.ndarray:
@@ -165,7 +189,14 @@ def ball_proto(color: str, size=0.6) -> Proto:
     Rendered as an analytic sphere (the source mesh is a tessellated
     sphere); physics radius follows the MeshEnt formula.
     """
-    mesh_scale_radius(f"ball_{color}", size)  # raises until meshes are ported
+    mesh, scale, radius = mesh_scale_radius(f"ball_{color}", size)
+    return Proto(
+        shape=SHAPE_SPHERE,
+        size=np.array([size, size, size]),
+        radius=radius,
+        height=float(size),
+        color=_mesh_color(mesh),
+    )
 
 
 def key_proto(color: str, slot_fn=None) -> Proto:
@@ -199,6 +230,37 @@ def affine_uv_maps(verts: np.ndarray, uvs: np.ndarray):
     return a_map, b_map
 
 
+def _mesh_tri_rows(mesh, scale: float, slot_fn=None,
+                   budget: int = MESH_TRI_BUDGET) -> np.ndarray:
+    """Pack a (decimated, scaled) mesh into local-space render rows.
+
+    Row = [verts(9) | A(6) | b(2) | normal(3) | color(3) | slot | one]
+    — the attr half is raycast.ATTR_DIM in the proto's LOCAL frame
+    (recentered, scaled; entity yaw/translation/size_mul are composed
+    in at render time). ``slot_fn`` maps a texture path to a
+    layout-local texture slot; without it textured faces fall back to
+    their Kd color untextured.
+    """
+    dm = decimate_mesh(mesh, budget)
+    verts = dm.verts * scale
+    k = verts.shape[0]
+    a_map, b_map = affine_uv_maps(verts, dm.uvs)
+    n = np.cross(verts[:, 1] - verts[:, 0], verts[:, 2] - verts[:, 0])
+    nl = np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-12)
+    n = n / nl
+    rows = np.zeros((k, MESH_ROW_DIM), dtype=np.float32)
+    rows[:, 0:9] = verts.reshape(k, 9)
+    rows[:, 9:15] = a_map.reshape(k, 6)
+    rows[:, 15:17] = b_map
+    rows[:, 17:20] = n
+    rows[:, 20:23] = dm.colors
+    for t in range(k):
+        tex = dm.tex_names[t]
+        rows[t, 23] = slot_fn(tex) if (tex is not None and slot_fn) else -1
+    rows[:, 24] = 1.0
+    return rows
+
+
 def mesh_box_proto(mesh_name: str, height: float, static: bool = True,
                    slot_fn=None) -> Proto:
     """Mesh entity prototype.
@@ -210,7 +272,20 @@ def mesh_box_proto(mesh_name: str, height: float, static: bool = True,
     round 1's convex-hull impostors (reference objmesh.py:280-292,
     entity.py:124-165).
     """
-    mesh_scale_radius(mesh_name, height)  # raises until meshes are ported
+    mesh, scale, radius = mesh_scale_radius(mesh_name, height)
+    dims = (mesh.bbox_hi - mesh.bbox_lo) * scale
+    proto = Proto(
+        shape=SHAPE_MESH_BOX if static else SHAPE_MESH_TRIS,
+        size=dims,
+        radius=radius,
+        height=float(height),
+        color=_mesh_color(mesh),
+        static=static,
+        pickable=not static,
+    )
+    if not static:
+        proto.mesh_rows = _mesh_tri_rows(mesh, scale, slot_fn)
+    return proto
 
 
 def bake_static_mesh(
@@ -221,7 +296,20 @@ def bake_static_mesh(
     Applies the reference's model transform (translate, uniform scale,
     CCW yaw rotation; miniworld/entity.py:150-161).
     """
-    mesh_scale_radius(mesh_name, height)  # raises until meshes are ported
+    mesh, scale, _ = mesh_scale_radius(mesh_name, height)
+    r = rot_y(float(direction))
+    pos = np.asarray(pos, dtype=np.float64)
+    verts = np.einsum("ij,tvj->tvi", r, mesh.verts * scale) + pos
+    for t in range(mesh.num_tris):
+        v = verts[t]
+        n = np.cross(v[1] - v[0], v[2] - v[0])
+        nl = np.linalg.norm(n)
+        if nl < 1e-12:
+            continue
+        n = n / nl
+        tex = mesh.tex_names[t]
+        slot = tex_slot_fn(tex) if tex is not None else -1
+        tris.add_tri(v, mesh.uvs[t], n, slot, mesh.colors[t])
 
 
 def bake_image_frame(

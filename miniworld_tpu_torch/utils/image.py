@@ -12,6 +12,9 @@ the same texture atlas without Pillow:
     ``max(in/out, 1)``, weights normalised to sum 1 and rounded to
     22-bit fixed point, the horizontal pass first into uint8, then the
     vertical pass.
+  * ``resize_bicubic`` does the same with Pillow's default BICUBIC
+    filter: ``Image.resize((n, n))`` as the JAX package's mesh colours
+    call it (miniworld_tpu/scene/entities.py:_face_colors_areas).
 """
 
 from __future__ import annotations
@@ -107,43 +110,77 @@ def read_png_rgb(path: str) -> np.ndarray:
     return np.ascontiguousarray(px[:, :, :3])
 
 
-def _bilinear_weights(in_size: int, out_size: int) -> np.ndarray:
-    """(out, in) int64 fixed-point weights of Pillow's BILINEAR filter."""
+def _bilinear(x: np.ndarray) -> np.ndarray:
+    """Pillow's triangle filter, support 1."""
+    return np.maximum(0.0, 1.0 - np.abs(x))
+
+
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    """Pillow's bicubic filter (Keys, a = -0.5), support 2."""
+    a = -0.5
+    x = np.abs(x)
+    return np.where(
+        x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+        np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0),
+    )
+
+
+_FILTERS = {"bilinear": (_bilinear, 1.0), "bicubic": (_bicubic, 2.0)}
+
+
+def _weights(in_size: int, out_size: int, kind: str) -> np.ndarray:
+    """(out, in) int64 fixed-point weights of Pillow's resample filter
+    ``kind`` (Resample.c precompute_coeffs / normalize_coeffs_8bpc):
+    negative lobes round half away from zero."""
+    filt, filt_support = _FILTERS[kind]
     scale = in_size / out_size
-    support = max(scale, 1.0)
+    filterscale = max(scale, 1.0)
+    support = filt_support * filterscale
+    ss = 1.0 / filterscale
     wts = np.zeros((out_size, in_size), np.int64)
     for i in range(out_size):
         center = (i + 0.5) * scale
+        # Pillow truncates toward zero after adding 0.5
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
-        x = np.arange(xmax)
-        w = np.maximum(0.0, 1.0 - np.abs((x + xmin - center + 0.5) / support))
+        w = filt((np.arange(xmax) + xmin - center + 0.5) * ss)
         total = w.sum()
         if total != 0.0:
             w = w / total
-        # Pillow truncates toward zero after adding 0.5 (weights >= 0)
-        wts[i, xmin:xmin + xmax] = (0.5 + w * (1 << _PRECISION_BITS)).astype(
-            np.int64
-        )
+        fixed = w * (1 << _PRECISION_BITS)
+        wts[i, xmin:xmin + xmax] = np.where(
+            w < 0, np.trunc(fixed - 0.5), np.trunc(fixed + 0.5)
+        ).astype(np.int64)
     return wts
 
 
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
-    wts = _bilinear_weights(img.shape[axis], out_size)
+def _resample_axis(img: np.ndarray, out_size: int, axis: int, kind: str) -> np.ndarray:
+    wts = _weights(img.shape[axis], out_size, kind)
     moved = np.moveaxis(img, axis, -1).astype(np.float64)  # (..., in)
     # float64 BLAS is exact here: every product and partial sum is an
-    # integer below 2**35, so the sum order cannot change the result
+    # integer of magnitude below 2**35, so the sum order cannot change
+    # the result
     acc = (moved @ wts.T.astype(np.float64)).astype(np.int64)
     acc += 1 << (_PRECISION_BITS - 1)
     out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
     return np.moveaxis(out, -1, axis)
 
 
-def resize_bilinear(img: np.ndarray, width: int, height: int) -> np.ndarray:
-    """Pillow ``resize((width, height), BILINEAR)`` of (H, W, C) uint8."""
+def _resize(img: np.ndarray, width: int, height: int, kind: str) -> np.ndarray:
     out = img
     if out.shape[1] != width:
-        out = _resample_axis(out, width, axis=1)
+        out = _resample_axis(out, width, axis=1, kind=kind)
     if out.shape[0] != height:
-        out = _resample_axis(out, height, axis=0)
+        out = _resample_axis(out, height, axis=0, kind=kind)
     return np.ascontiguousarray(out)
+
+
+def resize_bilinear(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """Pillow ``resize((width, height), BILINEAR)`` of (H, W, C) uint8."""
+    return _resize(img, width, height, "bilinear")
+
+
+def resize_bicubic(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """Pillow ``resize((width, height))`` of (H, W, C) uint8: its default
+    BICUBIC filter, same fixed point and pass order as BILINEAR."""
+    return _resize(img, width, height, "bicubic")

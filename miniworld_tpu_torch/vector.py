@@ -7,7 +7,7 @@ JAX package; the engine half runs every env together on batch-major
 tensors — the JAX package's ``vmap`` is the leading axis B, its
 ``lax.scan`` over steps a Python loop:
 
-    env = MiniWorldVec("MiniWorld-Hallway-v0", 1024, device="cuda")
+    env = MiniWorldVec("MiniWorld-Hallway-v0", 1024)  # device="cuda"
     state, (obs, depth) = env.reset(seed=0)
     state, (obs, depth), reward, done, info = env.step(state, actions)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -18,10 +18,11 @@ the new episode. Resets draw from the same threefry keys and
 counter-based uniforms as the JAX package (ops/rng.py), so the two
 packages step the same envs through the same episodes.
 
-The port's first slice covers the statics of Hallway: one layout bank
-rendered in one prim chunk (every room sees every room), Fourier
-textures without glyphs, analytic entities, no domain randomization,
-no supersampling. Other statics raise NotImplementedError.
+The port covers the statics of Hallway, FourRooms, TMaze and
+PickupObjects: one layout bank rendered in one prim chunk, Fourier
+textures without glyphs, analytic and mesh entities, no domain
+randomization, no supersampling. Other statics raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -336,15 +337,12 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray):
     ``tri_chunk``, ``all_quads``, ``shapes_present``, ``has_gain``.
 
     The port renders a bank in ONE chunk: its tri_pass kernel takes up
-    to MAX_CHUNK prims per env in one pass. Banks whose rooms do not all
-    see each other are where the JAX package plans PVS schedules
-    (plan_culling / plan_packed_pvs); those schedules are a later slice.
+    to MAX_CHUNK prims per env in one pass, whatever the bank's PVS.
+    That is exact: the JAX package's PVS schedules (plan_culling /
+    plan_packed_pvs) only skip prims that cannot be seen, and the
+    keyed-z competition does not depend on how prims are split into
+    chunks. Larger banks need multi-chunk scans, a later slice.
     """
-    pvs, room_mask = bank_np.room_pvs, bank_np.room_mask
-    if not all(pvs[li][np.ix_(m, m)].all() for li, m in enumerate(room_mask)):
-        raise NotImplementedError(
-            "PVS chunk schedules (multi-room banks) are not ported yet"
-        )
     s_nat = bank_np.tri_mask.shape[1]
     if s_nat > MAX_CHUNK:
         raise NotImplementedError(
@@ -377,14 +375,16 @@ def _pick(u, choices):
 
 
 class MiniWorldVec:
-    """Batched env over a compiled layout bank, on one torch device."""
+    """Batched env over a compiled layout bank, on one torch device:
+    the CUDA card unless the caller asks for another (``device="cpu"``
+    runs every stage's plain version)."""
 
     def __init__(
         self,
         spec: EnvSpec | str,
         num_envs: int,
         *,
-        device,
+        device="cuda",
         obs_width: int | None = None,
         obs_height: int | None = None,
         with_depth: bool = True,
@@ -420,16 +420,15 @@ class MiniWorldVec:
         self.with_depth = with_depth
         self.place_budget = spec.place_budget
         self.fourier_k = spec.fourier_k or FOURIER_TERMS
-        # True: each render stage goes through its wrapper (CUDA kernel
-        # for CUDA tensors); False: the plain PyTorch versions.
+        # True: each render stage and the reset's placement go through
+        # their wrappers (CUDA kernels for CUDA tensors); False: the plain
+        # PyTorch versions.
         self.use_kernels = use_kernels
 
         bank_np, tex_np = build_bank(spec)
         bank_np, statics = install_statics(bank_np, tex_np)
         if statics["has_gain"]:
             raise NotImplementedError("glyph textures are not ported yet")
-        if statics["shapes_present"][2]:
-            raise NotImplementedError("mesh entities are not ported yet")
         self._bank_np = bank_np
         self.tri_chunk = statics["tri_chunk"]
         self._all_quads = statics["all_quads"]
@@ -499,33 +498,18 @@ class MiniWorldVec:
             rng_ops.sub(seed, 18)[:, None],
             torch.arange(E + 1, dtype=torch.int64, device=dev)[None, :],
         )
-
-        def rule(name, row):
-            tbl = getattr(bank, name)[lid, row]  # (B, A, ...)
-            return tbl[torch.arange(n, device=dev), alts[:, row]]
-
-        def place(row, radius, ent_pos, placed):
-            return place_ops.place_one(
-                place_seeds[:, row], bank, layout_id,
-                rule("rule_room", row), rule("rule_bbox", row),
-                rule("rule_pos", row), rule("rule_dir", row),
-                rule("rule_dir_lo", row), rule("rule_dir_hi", row),
-                radius, ent_pos[:, :, [0, 2]], ent_radius, placed,
-                budget=self.place_budget,
-            )
-
-        ent_pos = torch.zeros((n, E, 3), dtype=torch.float32, device=dev)
-        ent_dir = torch.zeros((n, E), dtype=torch.float32, device=dev)
-        placed = torch.zeros((n, E), dtype=torch.bool, device=dev)
+        # each slot's rule row at its alternative, (B, E+1, ...); every
+        # slot, then the agent, placed in one call (the kernel on the card)
+        slots = torch.arange(E + 1, device=dev)[None, :]
+        rules = {name: getattr(bank, name)[lid[:, None], slots, alts]
+                 for name in place_ops.RULE_FIELDS}
+        agent_r = torch.full((n, 1), spec.agent_radius, dtype=torch.float32, device=dev)
         slot_mask = bank.slot_mask[lid]
-        for e in range(E):  # sequential: each slot collides with earlier ones
-            pos, d = place(e, ent_radius[:, e], ent_pos, placed)
-            valid = slot_mask[:, e]
-            ent_pos[:, e] = torch.where(valid[:, None], pos, torch.zeros_like(pos))
-            ent_dir[:, e] = torch.where(valid, d, torch.zeros_like(d))
-            placed[:, e] = valid
-        agent_r = torch.full((n,), spec.agent_radius, dtype=torch.float32, device=dev)
-        agent_pos, agent_dir = place(E, agent_r, ent_pos, placed)
+        place = place_ops.place_all if self.use_kernels else place_ops.place_all_plain
+        ent_pos, ent_dir, agent_pos, agent_dir = place(
+            place_seeds, bank, layout_id, rules, torch.cat([ent_radius, agent_r], dim=1),
+            slot_mask, budget=self.place_budget,
+        )
 
         return EnvState(
             pos=agent_pos, dir=agent_dir,
@@ -591,6 +575,7 @@ class MiniWorldVec:
             "termination": term,
             "truncation": truncated,
         }
+        info.update(spec.info(ctx))
         # on-device auto-reset, computed for every env like the JAX
         # package (no host sync to find the done ones)
         state = tree_select(done, self._reset_batch(keys[:, 2]), state)

@@ -21,7 +21,7 @@ from miniworld_tpu import MiniWorldVec as JaxVec
 from miniworld_tpu.ops import geom as jgeom
 from miniworld_tpu.render import raycast as jrc
 from miniworld_tpu_torch.convert import atlas_from_numpy, layout_from_numpy
-from miniworld_tpu_torch.render import raycast as trc
+from miniworld_tpu_torch.render import cuda_build, raycast as trc
 
 from _torch_parity import (
     DEPTH_RTOL, ENV_ID, MAX_WINNER_DIFF, H, W, assert_images_match, to_port_state,
@@ -159,6 +159,46 @@ def _synthetic(jenv, seed=1, S=64, E=4):
     return syn, jstate
 
 
+def test_tri_pass_seeded_wide(hallway):
+    """The seeded pass (raycast._tri_pass with ``init``) on the wide bank:
+    random seeds in front of, behind and tied with the prims, misses
+    (t = inf, zero attrs) included; the seed wins quantized-depth ties."""
+    jenv, _ = hallway
+    bank_np, jstate = _synthetic(jenv, seed=6)
+    cam, (origin, rays) = _port_camera(jstate)
+    jbank = jax.tree.map(jnp.asarray, bank_np)
+    S = bank_np.tri_verts9.shape[2]
+
+    def prims(s, o, r):
+        return jrc._tri_pass(jbank.tri_verts9, jbank.tri_attr, s.layout_id, o, r, S)
+
+    t0, _ = jax.jit(jax.vmap(prims))(jstate, origin, rays)
+    rng = np.random.default_rng(7)
+    t0 = np.asarray(t0)
+    # a third of the seeds sit exactly on the prims' own depth (ties)
+    pick = rng.integers(0, 3, t0.shape)
+    seed_t = np.where(pick == 0, t0, rng.uniform(0.5, 12.0, t0.shape)).astype(np.float32)
+    seed_t[rng.uniform(size=t0.shape) < 0.3] = np.inf
+    seed_a = rng.uniform(-1, 1, t0.shape + (16,)).astype(np.float32)
+    seed_a[np.isinf(seed_t)] = 0.0
+    seed_a = np.asarray(jnp.asarray(seed_a).astype(jnp.bfloat16).astype(jnp.float32))
+
+    def seeded(s, o, r, st, sa):
+        return jrc._tri_pass(jbank.tri_verts9, jbank.tri_attr, s.layout_id, o, r, S,
+                             init=(st, sa.astype(jnp.bfloat16)))
+
+    t_j, a_j = jax.jit(jax.vmap(seeded))(jstate, origin, rays, seed_t, seed_a)
+    seed = (torch.from_numpy(seed_t), torch.from_numpy(seed_a).to(torch.bfloat16))
+    lid = torch.from_numpy(np.array(jstate.layout_id))
+    tb = layout_from_numpy(bank_np)
+    t_t, a_t = trc.tri_pass_plain(tb.tri_verts9, tb.tri_attr, lid, cam, False, seed)
+    a_j = np.asarray(a_j.astype(jnp.float32))
+    same = (a_j == a_t.float().numpy()).all(-1)
+    _winner_stats(t_j, t_t, same)
+    won = same & (a_j == seed_a).all(-1) & np.isfinite(seed_t)
+    assert won.mean() > 0.1 and (same & ~won & np.isfinite(np.asarray(t_j))).mean() > 0.05
+
+
 @pytest.mark.parametrize("case", ["hallway", "wide"])
 def test_entity_pass(hallway, case):
     jenv, jstate = hallway
@@ -228,12 +268,12 @@ def test_render_rgbd(hallway, case):
                  tri_chunk=bank_np.tri_verts9.shape[2], shapes_present=shapes,
                  all_quads=all_quads)
     j_rgb, j_depth = jax.jit(jax.vmap(fn, in_axes=(None, 0)))(jbank, jstate)
-    trc.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     t_rgb, t_depth = trc.render_rgbd(
         layout_from_numpy(bank_np), to_port_state(jstate),
         atlas_from_numpy(np.asarray(jenv._atlas)), width=W, height=H, k_terms=K,
         shapes_present=shapes, all_quads=all_quads)
-    assert not any(trc.LAUNCHES.values())
+    assert not any(cuda_build.LAUNCHES.values())
     assert t_rgb.dtype == torch.uint8 and t_depth.dtype == torch.float32
     differ, _ = assert_images_match(j_rgb, j_depth, t_rgb, t_depth)
     d = t_depth.numpy()
