@@ -4,11 +4,16 @@
 
 Builds the kernels of ``miniworld_tpu_torch`` from
 ``miniworld_tpu_torch/csrc`` with nvcc (one process per source), holds
-each against its plain PyTorch version on the card — at Hallway's and
-PickupObjects' shapes and on wide synthetic cases — then drives the
-port's main paths and checks what comes out: the Hallway fused rollout
-at B=1024 and the PickupObjects one at B=4096 (80x60 RGB-D, random
-policy), each against its plain path, and short FourRooms and TMaze
+each against its plain PyTorch version on the card — at Hallway's,
+PickupObjects' and the 8x8 Maze's shapes (mazegen's mazes also checked
+as spanning trees, tri_pass on the paired procgen bank, place with a
+maze's room weights and gated walls) and on wide synthetic cases — then
+drives the port's main paths and checks what comes out: the Hallway
+fused rollout at B=1024, the PickupObjects one at B=4096 and the Maze
+8x8 procgen one at B=8192 (80x60 RGB-D, random policy), Hallway and
+PickupObjects against their plain paths, a MazeS3 procgen rollout at
+B=1024 with 10-step episodes against its plain path (every env resets
+into fresh mazes), and short FourRooms, TMaze and MazeS3 bank-mode
 rollouts. One line per phase; the JSON summary of the kernels and the
 card's ``nvidia-smi`` name and power limit come before the last line,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -38,7 +43,11 @@ B_PICK = 4096  # PickupObjects, the reference's BASELINE batch for it
 HORIZON = 30
 TRIALS = 2  # Hallway; PickupObjects runs PICK_TRIALS
 PICK_TRIALS = 3
-SHORT_HORIZON = 20  # FourRooms, TMaze and the PickupObjects parity rollouts
+SHORT_HORIZON = 20  # FourRooms, TMaze, MazeS3 and the PickupObjects parity rollouts
+MAZE_ID = "MiniWorld-Maze-v0"  # 8x8, procgen: BASELINE config 4
+MAZE_S3_ID = "MiniWorld-MazeS3-v0"
+B_MAZE = 8192
+MAZE_S3_STEPS = 10  # episode length of the MazeS3 parity rollout: every env resets
 
 # the card's published peaks (H100 SXM data sheet) for the bound column
 PEAK_BYTES_PER_S = 3.35e12
@@ -64,7 +73,10 @@ KERNELS = {
                          "miniworld_tpu/render/raycast.py:838"),
     "place": ("miniworld_tpu_torch/csrc/place.cu",
               "miniworld_tpu/ops/place.py:65"),
+    "mazegen": ("miniworld_tpu_torch/csrc/mazegen.cu",
+                "miniworld_tpu/ops/mazegen.py:92"),
 }
+MAZE_KERNELS = ("tri_pass", "entity_pass", "pixel_epilogue", "place", "mazegen")
 
 
 def say(phase: str, **kw):
@@ -198,11 +210,14 @@ def check_stage(name, case, n_differ, differ, abs_err, rel_err):
                              f"(winner differs {differ:.3e}, rel err {rel_err:.3e})")
 
 
-def run_stage_checks(tri_args, ent_args, epi_rest, case, timings=None, mesh=None):
+def run_stage_checks(tri_args, ent_args, epi_rest, case, timings=None, mesh=None,
+                     paired=None, plain_iters=5):
     """Each render stage's kernel against its plain version on one set of
     inputs; ``mesh`` = (verts9, attrs) adds the mesh-entity pass, whose
-    (kernel) result seeds both tri_pass versions. With ``timings`` each
-    stage is also timed, kernel and plain, by CUDA events."""
+    (kernel) result seeds both tri_pass versions; ``paired`` makes
+    tri_pass read a paired procgen bank. With ``timings`` each stage is
+    also timed by CUDA events, the kernel over 50 runs and the plain
+    version over ``plain_iters``."""
     from miniworld_tpu_torch.render import raycast as rc
 
     verts9, attr, layout_id, cam, all_quads = tri_args
@@ -216,11 +231,11 @@ def run_stage_checks(tri_args, ent_args, epi_rest, case, timings=None, mesh=None
         check_stage("entity_mesh_pass", case, n_differ, differ, abs_err, rel_err)
         out["entity_mesh_pass"] = abs_err
         seed = m_k
-    t_k, a_k = rc.tri_pass(verts9, attr, layout_id, cam, all_quads, seed)
-    t_p, a_p = rc.tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed)
+    t_k, a_k = rc.tri_pass(verts9, attr, layout_id, cam, all_quads, seed, paired)
+    t_p, a_p = rc.tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired)
     n_differ, differ, abs_err, rel_err = compare_hits(t_k, t_p, (a_k == a_p).all(-1))
-    check_stage("tri_pass" + (" seeded" if seed else ""), case, n_differ, differ,
-                abs_err, rel_err)
+    check_stage("tri_pass" + (" seeded" if seed else "") + (" paired" if paired else ""),
+                case, n_differ, differ, abs_err, rel_err)
     out["tri_pass"] = abs_err
 
     ent, has_sphere, has_box = ent_args
@@ -251,19 +266,21 @@ def run_stage_checks(tri_args, ent_args, epi_rest, case, timings=None, mesh=None
         if mesh is not None:
             timings["entity_mesh_pass"] = (
                 cuda_ms(lambda: rc.entity_mesh_pass(*mesh, cam), 50),
-                cuda_ms(lambda: rc.entity_mesh_pass_plain(*mesh, cam), 5))
+                cuda_ms(lambda: rc.entity_mesh_pass_plain(*mesh, cam), plain_iters))
         timings["tri_pass"] = (
-            cuda_ms(lambda: rc.tri_pass(verts9, attr, layout_id, cam, all_quads, seed), 50),
-            cuda_ms(lambda: rc.tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed),
-                    5))
+            cuda_ms(lambda: rc.tri_pass(verts9, attr, layout_id, cam, all_quads, seed,
+                                        paired), 50),
+            cuda_ms(lambda: rc.tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed,
+                                              paired), plain_iters))
         timings["entity_pass"] = (
             cuda_ms(lambda: rc.entity_pass(*ent, cam, has_sphere, has_box), 50),
-            cuda_ms(lambda: rc.entity_pass_plain(*ent, cam, has_sphere, has_box), 5))
+            cuda_ms(lambda: rc.entity_pass_plain(*ent, cam, has_sphere, has_box),
+                    plain_iters))
         timings["pixel_epilogue"] = (
             cuda_ms(lambda: rc.pixel_epilogue(t_k, a_k, *e_k, atlas, cam, *lights,
                                               k_terms), 50),
             cuda_ms(lambda: rc.pixel_epilogue_plain(t_k, a_k, *e_k, atlas, cam,
-                                                    *lights, k_terms), 5))
+                                                    *lights, k_terms), plain_iters))
     return out, (t_k, a_k, e_k)
 
 
@@ -363,11 +380,11 @@ def phase_kernels(hall, pick):
         *wide_case, "wide-mesh B=64 E*M=1000 (20% inactive, 10% behind) seeding S=64",
         mesh=mesh)
     errs = {k: max(errs[k], v) for k, v in w_errs.items()}
-    work = stage_work(pick, state, tri, ent, (rows9, valid), outs)
+    work = stage_work(pick, state, tri, ent, outs, mesh=(rows9, valid))
     return errs, timings, work
 
 
-def stage_work(env, state, tri, ent, mesh, outs):
+def stage_work(env, state, tri, ent, outs, mesh=None, paired=None):
     """(bytes, float operations) each render stage must move and do on
     these inputs: each input read once, each output written once;
     operations counted per (row, pixel) pair that the data needs (live
@@ -375,22 +392,28 @@ def stage_work(env, state, tri, ent, mesh, outs):
     separable hit test 22 (three 2-term contractions 12, 1/t 1, coverage
     3, gates 6), triangle-only 20, analytic sphere 20, box slab 45,
     Fourier texel 41 per term (phase 3, cos/sin 20, anti-aliasing 6,
-    amplitudes 12) plus 60 per pixel for uv, lighting and the pack."""
+    amplitudes 12) plus 60 per pixel for uv, lighting and the pack.
+    ``mesh`` = (rows9, valid) adds the mesh-entity pass, whose result
+    tri_pass reads as its seed; ``paired`` = tri_pass's paired inputs
+    (both variants' rows, the row walls and the envs' mazes)."""
     from miniworld_tpu_torch.render.raycast import ENT_ACTIVE, ENT_BOX, ENT_SPHERE
 
     b, hw = state.pos.shape[0], W * H
     cam_b = b * 14 * 4 + (W + H) * 4
     verts9, attr, _, _, _ = tri
     L, _, S = verts9.shape
-    rows9, valid = mesh
-    n_rows = rows9.shape[2]
     t_k, a_k, e_k = outs
-    work = {
-        "entity_mesh_pass": (b * n_rows * (9 + 16) * 4 + cam_b + b * hw * 36,
-                             int(valid.sum()) * hw * 20),
-        "tri_pass": (L * S * (9 + 16) * 4 + b * 4 + cam_b + b * hw * 36 * 2,
-                     b * hw * (S * 22 + 1)),
-    }
+    tri_bytes = L * S * (9 + 16) * 4 + b * 4 + cam_b + b * hw * 36
+    if paired is not None:
+        tri_bytes += sum(t.numel() * t.element_size() for t in paired)
+    work = {}
+    if mesh is not None:
+        rows9, valid = mesh
+        n_rows = rows9.shape[2]
+        work["entity_mesh_pass"] = (b * n_rows * (9 + 16) * 4 + cam_b + b * hw * 36,
+                                    int(valid.sum()) * hw * 20)
+        tri_bytes += b * hw * 36  # the seed
+    work["tri_pass"] = (tri_bytes, b * hw * (S * 22 + 1))
     flags = ent[0][5]
     E = flags.shape[1]
     active = (flags & ENT_ACTIVE) != 0
@@ -403,6 +426,83 @@ def stage_work(env, state, tri, ent, mesh, outs):
     work["pixel_epilogue"] = (b * hw * (36 + 28) + env._atlas.numel() * 4 + b * 48 + cam_b
                               + b * hw * 7, textured * k * 41 + b * hw * 60)
     return work
+
+
+def random_maze_states(env, gen, seed=7):
+    """States from a reset of the 8x8 maze with each agent at a uniform
+    point of a uniform cell, 0.5 from its walls, facing a uniform yaw:
+    frames show corridors, closed walls, junctions and the box."""
+    spec = env.spec
+    state, _ = env.reset(seed=seed)
+    n = env.num_envs
+    u = torch.rand((n, 5), generator=gen).to(env.device)
+    pitch = spec.room_size + spec.gap_size
+    i = torch.clamp(torch.floor(u[:, 0] * spec.num_rows), max=spec.num_rows - 1)
+    j = torch.clamp(torch.floor(u[:, 1] * spec.num_cols), max=spec.num_cols - 1)
+    inner = spec.room_size - 1.0
+    pos = torch.stack([j * pitch + 0.5 + inner * u[:, 2], torch.zeros_like(u[:, 0]),
+                       i * pitch + 0.5 + inner * u[:, 3]], dim=1)
+    return state.replace(pos=pos, dir=(u[:, 4] * 2.0 - 1.0) * math.pi)
+
+
+def phase_maze_kernels(maze):
+    """The render kernels at the main path's shapes, the 8x8 maze's
+    procgen render at B=8192: tri_pass on the paired bank (Sp = 608 rows,
+    each env's own maze), the box, the epilogue; each timed."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    gen = torch.Generator().manual_seed(4321)
+    state = random_maze_states(maze, gen)
+    cam = rc.camera_grid(state, W, H)
+    bank = maze._bank
+    tri = (bank.pg_verts9, bank.pg_attr, state.layout_id, cam, maze._all_quads)
+    paired = (bank.pg_verts9_alt, bank.pg_attr_alt, maze._pg_wall, state.wall_open)
+    ent = ((state.ent_pos, state.ent_size, state.ent_dir, state.ent_height,
+            state.ent_color, rc.entity_flags(bank, state)), *maze._shapes_present[:2])
+    epi = (maze._atlas, (state.light_pos, state.light_color, state.light_ambient,
+                         state.sky_color), maze.fourier_k)
+    timings = {}
+    errs, outs = run_stage_checks(
+        tri, ent, epi, f"maze8x8-procgen B={B_MAZE} HW={W * H} Sp={tri[0].shape[2]} "
+        f"paired E=1", timings, paired=paired, plain_iters=1)
+    t_k, a_k, _ = outs
+    hit = torch.isfinite(t_k)
+    say("maze-scene", px_hit=f"{float(hit.float().mean()):.3f}",
+        walls_open=f"{float(state.wall_open.mean()):.3f}",
+        rows_alt=f"{float((maze._pg_wall >= 0).float().mean()):.3f}")
+    work = stage_work(maze, state, tri, ent, outs, paired=paired)
+    return errs, timings, work
+
+
+def phase_mazegen(maze, timings):
+    """mazegen kernel vs gen_walls_plain at the main path's shapes (B=8192
+    subseeds of the reset's purpose 17, 8x8 grid): walls equal, and 512
+    of the mazes checked as spanning trees on the host."""
+    from miniworld_tpu_torch.ops import mazegen, rng as rng_ops
+
+    spec = maze.spec
+    rows, cols = spec.num_rows, spec.num_cols
+    keys = rng_ops.split(rng_ops.key_data(13, maze.device), maze.num_envs)
+    seed = rng_ops.sub(rng_ops.cheap_seed(keys), 17)
+    k_out = mazegen.gen_walls(seed, rows, cols)
+    p_out = mazegen.gen_walls_plain(seed, rows, cols)
+    n_differ = int((k_out != p_out).any(dim=1).sum())
+    sample = k_out[:512].cpu().numpy() > 0.5
+    trees = sum(mazegen.maze_is_spanning_tree(w, rows, cols) for w in sample)
+    distinct = len({w.tobytes() for w in sample})
+    say("kernel-vs-plain", kernel="mazegen", case=f"{maze.spec.gym_id} B={maze.num_envs} "
+        f"grid={rows}x{cols} W={k_out.shape[1]}", envs_differ=n_differ,
+        spanning_trees=f"{trees}/{len(sample)}", distinct=f"{distinct}/{len(sample)}")
+    if n_differ or trees != len(sample) or distinct < len(sample) // 2:
+        raise AssertionError(f"mazegen: {n_differ} envs differ from plain, "
+                             f"{len(sample) - trees} of {len(sample)} not spanning trees")
+    timings["mazegen"] = (cuda_ms(lambda: mazegen.gen_walls(seed, rows, cols), 50),
+                          cuda_ms(lambda: mazegen.gen_walls_plain(seed, rows, cols), 3))
+    n, n_cells, n_walls = maze.num_envs, rows * cols, k_out.shape[1]
+    # per step: 4 neighbour reads and visited tests, the pick, the push
+    # or pop, about 25 operations; 2N - 1 steps per env
+    work = (n * 4 + n_cells * 4 * 4 * 2 + n * n_walls * 4, n * (2 * n_cells - 1) * 25)
+    return float((k_out - p_out).abs().max()), work
 
 
 def bound(nbytes, ops):
@@ -433,14 +533,16 @@ def capture_place_args(env, seed):
     return captured["args"], captured["kwargs"]
 
 
-def phase_place(pick, four, timings):
+def phase_place(pick, four, maze, timings):
     """place kernel vs place_all_plain from real reset inputs: positions
-    and directions must be equal, env for env."""
+    and directions must be equal, env for env — PickupObjects (18
+    entity slots), FourRooms, and the 8x8 maze with each env's maze as
+    room weights and gated walls, where the kernel is also timed."""
     from miniworld_tpu_torch.ops import place as place_ops
 
     errs = 0.0
     work = None
-    for env, seed in ((pick, 11), (four, 12)):
+    for env, seed in ((pick, 11), (four, 12), (maze, 13)):
         args, kwargs = capture_place_args(env, seed)
         k_out = place_ops.place_all(*args, **kwargs)
         p_out = place_ops.place_all_plain(*args, **kwargs)
@@ -454,20 +556,25 @@ def phase_place(pick, four, timings):
             envs_differ=int(differ.sum()), max_abs_err=f"{errs:.3e}")
         if bool(differ.any()):
             raise AssertionError(f"place ({env.spec.gym_id}): {int(differ.sum())} envs differ")
-        if env is pick:
+        if env is maze:
+            if kwargs["seg_gate"] is None:
+                raise AssertionError("the maze's reset placed without its maze")
             timings["place"] = (cuda_ms(lambda: place_ops.place_all(*args, **kwargs), 50),
                                 cuda_ms(lambda: place_ops.place_all_plain(*args, **kwargs), 5))
             seeds, bank, _, _, radius, slot_mask = args
             E, R = slot_mask.shape[1], bank.room_mask.shape[1]
             V, ns = bank.room_outline.shape[2], bank.room_segs.shape[3]
             budget = kwargs["budget"]
+            room_seg_wall, wall_open = kwargs["seg_gate"]
             room_bytes = sum(t.numel() * t.element_size() for t in (
                 bank.room_mask, bank.room_area, bank.room_aabb, bank.room_outline,
-                bank.room_norms, bank.room_vmask, bank.room_segs))
-            # per try: room draw 2R, bbox and position 10, outline 4V,
-            # walls 20 per segment, entities 8 per slot
+                bank.room_norms, bank.room_vmask, bank.room_segs, room_seg_wall, wall_open,
+                kwargs["room_weight"]))
+            # per try: room draw 3R (weights), bbox and position 10,
+            # outline 4V, walls 22 per segment (the gate 2), entities 8
+            # per slot
             work = (n * (E + 1) * 44 + n * 4 + n * E + room_bytes + n * (4 * E + 4) * 4,
-                    n * (E + 1) * (budget + 1) * (2 * R + 10 + 4 * V + 20 * ns + 8 * E))
+                    n * (E + 1) * (budget + 1) * (3 * R + 10 + 4 * V + 22 * ns + 8 * E))
     return errs, work
 
 
@@ -478,7 +585,7 @@ def phase_place(pick, four, timings):
 def rollouts(env, label, horizon, trials, warmup=True):
     """Reset, a warm-up rollout, then ``trials`` timed rollouts; returns
     (env-steps/s, per-trial outs, last obs, kernel launches of the timed
-    trials)."""
+    trials, last state)."""
     from miniworld_tpu_torch.render import cuda_build
 
     state, obs = env.reset(seed=0)
@@ -501,7 +608,7 @@ def rollouts(env, label, horizon, trials, warmup=True):
     say("main-path", path=label, env=env.spec.gym_id, B=env.num_envs, obs=f"{W}x{H}",
         horizon=horizon, trials=trials, env_steps_per_s=f"{rate:.1f}",
         trial_s=",".join(f"{t:.4f}" for t in times), launches=launches)
-    return rate, outs, obs, launches
+    return rate, outs, obs, launches, state
 
 
 def check_rollout(env, outs, obs, launches, horizon, trials, kernels):
@@ -532,9 +639,9 @@ def check_rollout(env, outs, obs, launches, horizon, trials, kernels):
         dones=",".join(str(int(o["dones"].sum())) for o in outs))
 
 
-def compare_paths(outs, plain_outs, label):
+def compare_paths(outs, plain_outs, label, obs_sum_rtol=1e-4):
     """Kernel and plain rollouts step the same envs through the same
-    episodes: rewards and dones equal, checksums within 1e-4."""
+    episodes: rewards and dones equal, checksums within ``obs_sum_rtol``."""
     for o_k, o_p in zip(outs, plain_outs):
         if not (np.array_equal(o_k["reward"], o_p["reward"])
                 and np.array_equal(o_k["dones"], o_p["dones"])):
@@ -542,7 +649,7 @@ def compare_paths(outs, plain_outs, label):
     worst = max(float((np.abs(a["obs_sum"] - b["obs_sum"])
                        / np.maximum(b["obs_sum"], 1)).max())
                 for a, b in zip(outs, plain_outs))
-    if worst > 1e-4:
+    if worst > obs_sum_rtol:
         raise AssertionError(f"{label}: obs checksums differ by {worst:.3e}")
     say("main-path-parity", env=label, paths="kernels vs plain", rewards_dones="equal",
         obs_sum_max_rel_diff=f"{worst:.3e}")
@@ -560,10 +667,11 @@ def host_ms(fn, iters: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def phase_breakdown(env, render_iters=10):
+def phase_breakdown(env, render_iters=10, plain_render_iters=3):
     """Where a rollout step's time goes: the step with its auto-reset
-    (placement by the kernel, then by place_all_plain), and the render
-    with the kernels and with the plain versions."""
+    (maze generation and placement by the kernels, then by their plain
+    versions), and the render with the kernels and with the plain
+    versions."""
     state, _ = env.reset(seed=0)
     acts = env.sample_actions(torch.Generator(device=env.device).manual_seed(5))
     step_ms = host_ms(lambda: env._step_batch(state, acts), 10)
@@ -571,11 +679,11 @@ def phase_breakdown(env, render_iters=10):
     env.use_kernels = False
     try:
         step_plain_ms = host_ms(lambda: env._step_batch(state, acts), 5)
-        plain_ms = host_ms(lambda: env.render(state), 3)
+        plain_ms = host_ms(lambda: env.render(state), plain_render_iters)
     finally:
         env.use_kernels = True
     say("breakdown", env=env.spec.gym_id, B=env.num_envs,
-        step_and_reset_ms=f"{step_ms:.3f}", step_and_reset_plain_place_ms=f"{step_plain_ms:.3f}",
+        step_and_reset_ms=f"{step_ms:.3f}", step_and_reset_plain_reset_ms=f"{step_plain_ms:.3f}",
         render_kernels_ms=f"{render_ms:.3f}", render_plain_ms=f"{plain_ms:.3f}")
     phase_profile(env, state)
 
@@ -605,51 +713,88 @@ def phase_profile(env, state, steps=3):
         idle_share=f"{1.0 - busy_ms / wall_ms:.3f}" if busy_ms is not None else "not measured")
 
 
-def kernel_and_plain(env, horizon, trials, kernels):
+def kernel_and_plain(env, horizon, trials, kernels, exact=False):
     """The env's rollouts with the kernels, then with every stage plain
-    (no launch allowed), compared."""
-    rate, outs, obs, launches = rollouts(env, "kernels", horizon, trials)
+    (no launch allowed), compared; ``exact``: checksums and the final
+    mazes (procgen) equal too."""
+    rate, outs, obs, launches, state = rollouts(env, "kernels", horizon, trials)
     check_rollout(env, outs, obs, launches, horizon, trials, kernels)
     env.use_kernels = False
     try:
-        plain_rate, plain_outs, _, plain_launches = rollouts(env, "plain", horizon, trials)
+        plain_rate, plain_outs, _, plain_launches, plain_state = rollouts(
+            env, "plain", horizon, trials)
     finally:
         env.use_kernels = True
     if any(plain_launches.values()):
         raise AssertionError(f"plain path launched kernels: {plain_launches}")
-    compare_paths(outs, plain_outs, env.spec.gym_id)
-    return rate, plain_rate
+    compare_paths(outs, plain_outs, env.spec.gym_id, 0.0 if exact else 1e-4)
+    if exact and env.procgen:
+        if not torch.equal(state.wall_open, plain_state.wall_open):
+            raise AssertionError(f"{env.spec.gym_id}: final mazes differ between the paths")
+        say("main-path-parity", env=env.spec.gym_id, final_wall_open="equal",
+            final_step_count_max=int(state.step_count.max()))
+    return rate, plain_rate, outs, state
 
 
 def phase_main(hall, pick, pick_small, four, tmaze):
     hall_kernels = ("tri_pass", "entity_pass", "pixel_epilogue", "place")
+    pick_kernels = hall_kernels + ("entity_mesh_pass",)
     rates = {}
-    rates["hallway"] = kernel_and_plain(hall, HORIZON, TRIALS, hall_kernels)
+    rates["hallway"] = kernel_and_plain(hall, HORIZON, TRIALS, hall_kernels)[:2]
     phase_breakdown(hall)
 
-    # the PickupObjects main path: B=4096, all five kernels every step
-    rate, outs, obs, launches = rollouts(pick, "kernels", HORIZON, PICK_TRIALS)
-    check_rollout(pick, outs, obs, launches, HORIZON, PICK_TRIALS, list(KERNELS))
+    # the PickupObjects main path: B=4096, its five kernels every step
+    rate, outs, obs, launches, _ = rollouts(pick, "kernels", HORIZON, PICK_TRIALS)
+    check_rollout(pick, outs, obs, launches, HORIZON, PICK_TRIALS, pick_kernels)
     total_reward = sum(float(o["reward"].sum()) for o in outs)
     if not total_reward > 0.0:
         raise AssertionError("no pickup rewarded in the PickupObjects rollouts")
     rates["pickupobjects"] = (rate, None)
     pick_launches = launches
     rates["pickupobjects_b1024"] = kernel_and_plain(pick_small, SHORT_HORIZON, TRIALS,
-                                                    list(KERNELS))
+                                                    pick_kernels)[:2]
     for env in (four, tmaze):
-        r, outs, obs, launches = rollouts(env, "kernels", SHORT_HORIZON, TRIALS)
+        r, outs, obs, launches, _ = rollouts(env, "kernels", SHORT_HORIZON, TRIALS)
         check_rollout(env, outs, obs, launches, SHORT_HORIZON, TRIALS, hall_kernels)
         rates[env.spec.name.lower()] = (r, None)
     phase_breakdown(pick, render_iters=5)
     return pick_launches, rates
 
 
+def phase_maze(maze, maze_s3, maze_s3_bank, rates):
+    """The Maze 8x8 procgen main path at B=8192 (a fresh maze per reset,
+    every reset computed each step), its breakdown; the MazeS3 procgen
+    rollout with 10-step episodes against its plain path, exactly; a
+    short MazeS3 bank-mode rollout. Returns the main path's launches."""
+    rate, outs, obs, launches, _ = rollouts(maze, "kernels", HORIZON, TRIALS)
+    check_rollout(maze, outs, obs, launches, HORIZON, TRIALS, MAZE_KERNELS)
+    rates["maze8x8_procgen_b8192"] = (rate, None)
+    phase_breakdown(maze, render_iters=5, plain_render_iters=1)
+
+    rate, plain_rate, outs, state = kernel_and_plain(
+        maze_s3, SHORT_HORIZON, TRIALS, MAZE_KERNELS, exact=True)
+    # every env resets at least once a trial: each truncates at 10 steps
+    resets = min(int(o["dones"].sum()) for o in outs)
+    if resets < maze_s3.num_envs * (SHORT_HORIZON // MAZE_S3_STEPS):
+        raise AssertionError(f"MazeS3: {resets} resets in a {SHORT_HORIZON}-step trial")
+    if int(state.step_count.max()) > MAZE_S3_STEPS:
+        raise AssertionError("MazeS3: an env ran past its episode length")
+    rates["mazes3_procgen_b1024"] = (rate, plain_rate)
+
+    r, outs, obs, bank_launches, _ = rollouts(maze_s3_bank, "kernels", SHORT_HORIZON, TRIALS)
+    check_rollout(maze_s3_bank, outs, obs, bank_launches, SHORT_HORIZON, TRIALS,
+                  ("tri_pass", "entity_pass", "pixel_epilogue", "place"))
+    if bank_launches["mazegen"]:
+        raise AssertionError("bank-mode MazeS3 generated mazes")
+    rates["mazes3_bank_b1024"] = (r, None)
+    return launches
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, ROOT)
     phase_build()
-    from miniworld_tpu_torch import MiniWorldVec
+    from miniworld_tpu_torch import MiniWorldVec, make_spec
 
     def env(env_id, n):
         return MiniWorldVec(env_id, n, obs_width=W, obs_height=H, device=DEVICE)
@@ -657,19 +802,37 @@ def main():
     hall, pick = env(ENV_ID, B), env(PICK_ID, B_PICK)
     pick_small = env(PICK_ID, B)
     four, tmaze = env("MiniWorld-FourRooms-v0", B), env("MiniWorld-TMaze-v0", B)
-    errs, timings, work = phase_kernels(hall, pick)
-    errs["place"], work["place"] = phase_place(pick, four, timings)
-    for k, (ms, plain) in timings.items():
+    maze = env(MAZE_ID, B_MAZE)
+    maze_s3 = MiniWorldVec(make_spec(MAZE_S3_ID, max_episode_steps=MAZE_S3_STEPS), B,
+                           obs_width=W, obs_height=H, device=DEVICE)
+    maze_s3_bank = MiniWorldVec(MAZE_S3_ID, B, obs_width=W, obs_height=H, device=DEVICE,
+                                procgen=False)
+    if not (maze.procgen and maze_s3.procgen):
+        raise AssertionError("the Maze family does not default to procgen")
+    errs, pick_timings, pick_work = phase_kernels(hall, pick)
+    for k, (ms, plain) in pick_timings.items():
         say("kernel-time", kernel=k, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
             shapes=f"{PICK_ID} B={B_PICK} HW={W * H}")
-    launches, rates = phase_main(hall, pick, pick_small, four, tmaze)
+    maze_errs, timings, work = phase_maze_kernels(maze)
+    errs = {k: max(v, maze_errs.get(k, 0.0)) for k, v in errs.items()}
+    errs["mazegen"], work["mazegen"] = phase_mazegen(maze, timings)
+    errs["place"], work["place"] = phase_place(pick, four, maze, timings)
+    for k, (ms, plain) in timings.items():
+        say("kernel-time", kernel=k, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+            shapes=f"{MAZE_ID} procgen B={B_MAZE} HW={W * H}")
+    pick_launches, rates = phase_main(hall, pick, pick_small, four, tmaze)
+    maze_launches = phase_maze(maze, maze_s3, maze_s3_bank, rates)
     kernels = []
     for k, (src, rep) in KERNELS.items():
-        bound_ms, bound_by = bound(*work[k])
+        # the Maze path's kernels at its shapes; the mesh pass at PickupObjects'
+        path_timings, path_work, launches = (
+            (pick_timings, pick_work, pick_launches) if k == "entity_mesh_pass"
+            else (timings, work, maze_launches))
+        bound_ms, bound_by = bound(*path_work[k])
         kernels.append({
             "name": k, "route": "cuda", "source": src, "replaces": rep,
             "launches": int(launches[k]), "max_abs_err": errs[k],
-            "ms": timings[k][0], "plain_ms": timings[k][1],
+            "ms": path_timings[k][0], "plain_ms": path_timings[k][1],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
     print(json.dumps({

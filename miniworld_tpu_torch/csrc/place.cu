@@ -12,7 +12,12 @@
 // room order), the room's (or the rule's) bbox widened by the radius,
 // the uniform position in it, then three rejections — outside the
 // room's convex outline, overlapping one of the room-local wall
-// segments, overlapping an entity already placed. The first try that
+// segments, overlapping an entity already placed. On a procgen maze
+// (room_weight != nullptr) each room's area is multiplied by the env's
+// room weight (0 for the junction of a closed wall) before it enters the
+// sums, in the JAX order, and a room-local segment whose code names an
+// open wall is shifted by 1e9 on all four coordinates (gate_segs4), which
+// puts it out of reach. The first try that
 // passes wins; when none does, the candidate of try ``budget`` is
 // clamped into the bbox of a fallback room. An exact rule position
 // overrides; the direction is the rule's or a uniform in its range. The
@@ -20,7 +25,9 @@
 // hash01(hash_u32(seed, 1), 4 i + j), in 32-bit unsigned arithmetic.
 //
 // What bounds it on an H100: neither bytes (a few hundred per env) nor
-// operations (about 10^8 at B = 4096 with six placements of 18 tries)
+// operations (about 10^8 at B = 4096 with six placements of 18 tries,
+// about 4 x 10^8 on an 8x8 maze at B = 8192, two placements over 176
+// rooms and 40 segments)
 // come near the card's rates; the E+1 placements of an env are a
 // dependent chain (each collides with the ones before it), so the
 // kernel is latency-bound. What the design buys is the launch count:
@@ -31,18 +38,9 @@
 #include <math.h>
 #include <float.h>
 
+#include "rng.cuh"
+
 #define MAX_SLOTS 32
-
-__device__ __forceinline__ unsigned int hash_u32(unsigned int key, unsigned int id) {
-    unsigned int x = (id * 0x9E3779B9u) ^ key;
-    x = (x ^ (x >> 16)) * 0x7FEB352Du;
-    x = (x ^ (x >> 15)) * 0x846CA68Bu;
-    return x ^ (x >> 16);
-}
-
-__device__ __forceinline__ float hash01(unsigned int key, unsigned int id) {
-    return (float)(hash_u32(key, id) >> 8) * (1.0f / 16777216.0f);
-}
 
 struct Bank {
     const unsigned char* room_mask;  // (L, R)
@@ -53,18 +51,32 @@ struct Bank {
     const unsigned char* room_vmask; // (L, R, V)
     const float* room_segs;          // (L, R, 4, NS) [a_x, a_z, b_x, b_z]
     int R, V, NS;
+    // procgen maze, null otherwise
+    const float* room_weight;        // (B, R)
+    const int* room_seg_wall;        // (L, R, NS), -1 = always solid
+    const float* wall_open;          // (B, Wn), 1 = open
+    int Wn;
 };
 
-// sample_room: first room whose running area sum exceeds u * total
-__device__ int sample_room(const Bank& bk, int lid, float u) {
+// a room's draw weight: its area where it exists, times the env's
+// procgen room weight
+__device__ __forceinline__ float room_prob(const unsigned char* mask, const float* area,
+                                           const float* weight, int r) {
+    const float p = mask[r] ? area[r] : 0.0f;
+    return weight != nullptr ? p * weight[r] : p;
+}
+
+// sample_room: first room whose running weight sum exceeds u * total
+__device__ int sample_room(const Bank& bk, int b, int lid, float u) {
     const unsigned char* mask = bk.room_mask + (size_t)lid * bk.R;
     const float* area = bk.room_area + (size_t)lid * bk.R;
+    const float* weight = bk.room_weight != nullptr ? bk.room_weight + (size_t)b * bk.R : nullptr;
     float total = 0.0f;
-    for (int r = 0; r < bk.R; ++r) total = total + (mask[r] ? area[r] : 0.0f);
+    for (int r = 0; r < bk.R; ++r) total = total + room_prob(mask, area, weight, r);
     const float thr = u * total;
     float cdf = 0.0f;
     for (int r = 0; r < bk.R; ++r) {
-        cdf = cdf + (mask[r] ? area[r] : 0.0f);
+        cdf = cdf + room_prob(mask, area, weight, r);
         if (thr < cdf) return r;
     }
     return 0;
@@ -77,10 +89,10 @@ struct Rule {
 };
 
 // One try: the candidate position (x, z; y is 0) and whether it is free.
-__device__ bool one_try(const Bank& bk, int lid, const Rule& rule, const float* u,
+__device__ bool one_try(const Bank& bk, int b, int lid, const Rule& rule, const float* u,
                         const float* ex, const float* ez, const float* er,
                         const bool* placed, int n_ents, float* px_out, float* pz_out) {
-    const int room = rule.room >= 0 ? rule.room : sample_room(bk, lid, u[0]);
+    const int room = rule.room >= 0 ? rule.room : sample_room(bk, b, lid, u[0]);
     const size_t lr = (size_t)lid * bk.R + room;
     const float* aabb = bk.room_aabb + lr * 4;
     float bbox[4];
@@ -107,10 +119,18 @@ __device__ bool one_try(const Bank& bk, int lid, const Rule& rule, const float* 
 
     bool wall_hit = false;
     const float* segs = bk.room_segs + lr * 4 * bk.NS;
+    const int* codes = bk.room_seg_wall != nullptr ? bk.room_seg_wall + lr * bk.NS : nullptr;
+    const float* wall_open = codes != nullptr ? bk.wall_open + (size_t)b * bk.Wn : nullptr;
     const float rr = r * r;
     for (int j = 0; j < bk.NS; ++j) {
-        const float ax = segs[j], az = segs[bk.NS + j];
-        const float bx = segs[2 * bk.NS + j], bz = segs[3 * bk.NS + j];
+        float ax = segs[j], az = segs[bk.NS + j];
+        float bx = segs[2 * bk.NS + j], bz = segs[3 * bk.NS + j];
+        if (codes != nullptr && codes[j] >= 0 && !(wall_open[codes[j]] < 0.5f)) {
+            ax = ax + 1e9f;
+            az = az + 1e9f;
+            bx = bx + 1e9f;
+            bz = bz + 1e9f;
+        }
         const float abx = bx - ax, abz = bz - az;
         const float apx = px - ax, apz = pz - az;
         float t = (apx * abx + apz * abz) / fmaxf(abx * abx + abz * abz, 1e-12f);
@@ -171,12 +191,12 @@ __global__ void place_kernel(
         float u[4];
         for (int j = 0; j < 4; ++j) u[j] = hash01(key, (unsigned int)(4 * budget + j));
         float px, pz;
-        one_try(bk, lid, rule, u, ex, ez, er, placed, E, &px, &pz);  // the fallback candidate
+        one_try(bk, b, lid, rule, u, ex, ez, er, placed, E, &px, &pz);  // the fallback candidate
         bool found = false;
         for (int t = 0; t < budget; ++t) {
             for (int j = 0; j < 4; ++j) u[j] = hash01(key, (unsigned int)(4 * t + j));
             float cx, cz;
-            const bool ok = one_try(bk, lid, rule, u, ex, ez, er, placed, E, &cx, &cz);
+            const bool ok = one_try(bk, b, lid, rule, u, ex, ez, er, placed, E, &cx, &cz);
             if (ok && !found) {
                 px = cx;
                 pz = cz;
@@ -188,7 +208,7 @@ __global__ void place_kernel(
         float py = 0.0f;
         if (!found) {
             // clamp into the fallback room's bbox inset by the radius
-            const int room = rule.room >= 0 ? rule.room : sample_room(bk, lid, u_room);
+            const int room = rule.room >= 0 ? rule.room : sample_room(bk, b, lid, u_room);
             const float* aabb = bk.room_aabb + ((size_t)lid * bk.R + room) * 4;
             const float r = rule.radius;
             const float lo_x = fminf(aabb[0] + r, aabb[1] - r), hi_x = fmaxf(aabb[0] + r, aabb[1] - r);
@@ -237,13 +257,18 @@ extern "C" int mw_place(
     const unsigned char* room_mask, const float* room_area, const float* room_aabb,
     const float* room_outline, const float* room_norms, const unsigned char* room_vmask,
     const float* room_segs,
-    int B, int E, int R, int V, int NS, int budget,
+    const float* room_weight, const int* room_seg_wall, const float* wall_open,
+    int B, int E, int R, int V, int NS, int Wn, int budget,
     float* ent_pos, float* ent_dir, float* agent_pos, float* agent_dir,
     cudaStream_t stream)
 {
     if (E > MAX_SLOTS) return (int)cudaErrorInvalidValue;
+    if ((room_weight == nullptr) != (room_seg_wall == nullptr) ||
+        (room_seg_wall == nullptr) != (wall_open == nullptr))
+        return (int)cudaErrorInvalidValue;
+    if (B == 0) return 0;
     Bank bk{room_mask, room_area, room_aabb, room_outline, room_norms, room_vmask,
-            room_segs, R, V, NS};
+            room_segs, R, V, NS, room_weight, room_seg_wall, wall_open, Wn};
     const int threads = 128;
     place_kernel<<<(B + threads - 1) / threads, threads, 0, stream>>>(
         seeds, layout_id, rule_room, rule_bbox, rule_pos, rule_dir, rule_dir_lo,

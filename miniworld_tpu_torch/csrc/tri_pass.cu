@@ -11,7 +11,10 @@
 // env's prim table and writes 4 bytes of t plus 32 bytes of bf16
 // attributes, so at Hallway's S = 8 it is bound by those stores
 // (about 36 bytes/pixel, 177 MB at B = 1024, 80x60) rather than by the
-// 2 multiply-adds x 3 per (prim, pixel).
+// 2 multiply-adds x 3 per (prim, pixel). At an 8x8 maze's S = 608 rows
+// it is bound by operations instead: about 22 float operations per
+// (row, pixel), 526 GFLOP at B = 8192, 80x60, or 7.9 ms at the card's
+// 67 TFLOP/s float32 peak.
 //
 // Design: one thread per (env, pixel), one block row per env. The block
 // first stages the env's per-prim coefficients in shared memory — the
@@ -29,6 +32,16 @@
 // with the row bits all ones, so it wins quantized-depth ties; a prim
 // replaces it only with a strictly greater key, and a pixel no prim
 // wins keeps the seed's attributes (zeros where the seed missed too).
+//
+// Paired launch (pg_wall != nullptr; procgen mazes, the paired bank of
+// scene/supermaze.py and raycast.py:259-295 / 1206-1219): every row has
+// a primary and an alternative variant. Row s of env b takes the primary
+// where pg_wall[s] < 0 (no wall) or its wall is open in wall_open[b],
+// the alternative (the wall's closed quads) otherwise. The staging loop
+// picks the variant before computing the row's coefficients and keeps
+// the choice as one byte per row in shared memory after the 11 float
+// fields (11 x 4 + 1 bytes per row: 46,080 B at S = 1024, under the
+// 48 KB default), so the winner's attributes come from its variant.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -51,21 +64,36 @@ __global__ void tri_pass_kernel(
     const float* __restrict__ ybase,    // (H,)
     const float* __restrict__ seed_t,   // (B, HW) or null
     const __nv_bfloat16* __restrict__ seed_attr,  // (B, HW, 16) or null
-    int S, int W, int H, int all_quads,
+    const float* __restrict__ verts9_alt,  // (L, 9, S) or null
+    const float* __restrict__ attr_alt,   // (L, S, 16) or null
+    const int* __restrict__ pg_wall,      // (L, S) or null; -1 = no wall
+    const float* __restrict__ wall_open,  // (B, Wn) or null; 1 = open
+    int S, int W, int H, int Wn, int all_quads,
     float* __restrict__ t_out,          // (B, HW)
     __nv_bfloat16* __restrict__ attr_out)  // (B, HW, 16)
 {
     extern __shared__ float prim[];  // PRIM_FIELDS x S, field-major
+    unsigned char* use_alt = reinterpret_cast<unsigned char*>(prim + PRIM_FIELDS * S);
     const int b = blockIdx.y;
     const int lid = layout_id[b];
-    const float* v9 = verts9 + (size_t)lid * 9 * S;
-    const float* at = attr + (size_t)lid * S * ATTR_DIM;
+    const bool paired = pg_wall != nullptr;
+    const float* v9p = verts9 + (size_t)lid * 9 * S;
+    const float* atp = attr + (size_t)lid * S * ATTR_DIM;
+    const float* v9a = paired ? verts9_alt + (size_t)lid * 9 * S : nullptr;
+    const float* ata = paired ? attr_alt + (size_t)lid * S * ATTR_DIM : nullptr;
     const float ox = origin[3 * b], oy = origin[3 * b + 1], oz = origin[3 * b + 2];
     const float f0 = fwd[3 * b], f1 = fwd[3 * b + 1], f2 = fwd[3 * b + 2];
     const float r0 = right[3 * b], r1 = right[3 * b + 1], r2 = right[3 * b + 2];
     const float u0 = up[3 * b], u1 = up[3 * b + 1], u2 = up[3 * b + 2];
 
     for (int s = threadIdx.x; s < S; s += blockDim.x) {
+        bool alt = false;
+        if (paired) {
+            const int w = pg_wall[(size_t)lid * S + s];
+            alt = w >= 0 && !(wall_open[(size_t)b * Wn + w] > 0.5f);
+            use_alt[s] = alt;
+        }
+        const float* v9 = alt ? v9a : v9p;
         const float e1x = v9[3 * S + s] - v9[s];
         const float e1y = v9[4 * S + s] - v9[S + s];
         const float e1z = v9[5 * S + s] - v9[2 * S + s];
@@ -95,7 +123,7 @@ __global__ void tri_pass_kernel(
         prim[7 * S + s] = gvx * r0 + gvy * r1 + gvz * r2;
         prim[8 * S + s] = gvx * u0 + gvy * u1 + gvz * u2;
         prim[9 * S + s] = t_num > 0.0f ? 1.0f / t_num : 0.0f;
-        prim[10 * S + s] = at[s * ATTR_DIM + 15];  // kind
+        prim[10 * S + s] = (alt ? ata : atp)[s * ATTR_DIM + 15];  // kind
     }
     __syncthreads();
 
@@ -139,7 +167,9 @@ __global__ void tri_pass_kernel(
     t_out[q] = best > 0 ? 1.0f / fmaxf(__int_as_float(best & ~IDX_MASK), 1e-30f)
                         : INFINITY;
     // winner's row (row 0 for an unseeded miss: nothing downstream reads it)
-    const float4* src = reinterpret_cast<const float4*>(at + (best & IDX_MASK) * ATTR_DIM);
+    const int row = best & IDX_MASK;
+    const float* at = (paired && use_alt[row]) ? ata : atp;
+    const float4* src = reinterpret_cast<const float4*>(at + row * ATTR_DIM);
     __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(attr_out + q * ATTR_DIM);
 #pragma unroll
     for (int i = 0; i < ATTR_DIM / 4; ++i) {
@@ -158,14 +188,21 @@ extern "C" int mw_tri_pass(
     const float* origin, const float* fwd, const float* right, const float* up,
     const float* tan_xy, const float* xbase, const float* ybase,
     const float* seed_t, const __nv_bfloat16* seed_attr,
-    int B, int S, int W, int H, int all_quads,
+    const float* verts9_alt, const float* attr_alt, const int* pg_wall,
+    const float* wall_open,
+    int B, int S, int W, int H, int Wn, int all_quads,
     float* t_out, __nv_bfloat16* attr_out, cudaStream_t stream)
 {
+    const bool paired = pg_wall != nullptr;
+    if (paired && (verts9_alt == nullptr || attr_alt == nullptr || wall_open == nullptr))
+        return (int)cudaErrorInvalidValue;
+    if (B == 0) return 0;
     const int threads = 256;
     const dim3 grid((W * H + threads - 1) / threads, B);
-    const size_t smem = (size_t)PRIM_FIELDS * S * sizeof(float);
+    const size_t smem = (size_t)PRIM_FIELDS * S * sizeof(float) + (paired ? (size_t)S : 0);
     tri_pass_kernel<<<grid, threads, smem, stream>>>(
         verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase, ybase,
-        seed_t, seed_attr, S, W, H, all_quads, t_out, attr_out);
+        seed_t, seed_attr, verts9_alt, attr_alt, pg_wall, wall_open,
+        S, W, H, Wn, all_quads, t_out, attr_out);
     return (int)cudaGetLastError();
 }

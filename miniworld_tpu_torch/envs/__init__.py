@@ -9,9 +9,12 @@ from __future__ import annotations
 
 from miniworld_tpu_torch.envs.base import EnvSpec
 from miniworld_tpu_torch.envs.interact import PickupObjects
-from miniworld_tpu_torch.envs.nav import FourRooms, Hallway, TMaze, TMazeLeft, TMazeRight
+from miniworld_tpu_torch.envs.nav import (
+    FourRooms, Hallway, Maze, MazeS2, MazeS3, MazeS3Fast, TMaze, TMazeLeft, TMazeRight,
+)
 
-SPEC_CLASSES = [Hallway, FourRooms, TMaze, TMazeLeft, TMazeRight, PickupObjects]
+SPEC_CLASSES = [Hallway, FourRooms, TMaze, TMazeLeft, TMazeRight, Maze, MazeS2, MazeS3,
+                MazeS3Fast, PickupObjects]
 
 _REGISTRY = {}
 for cls in SPEC_CLASSES:
@@ -32,5 +35,5 @@ def make_spec(name: str, **kwargs) -> EnvSpec:
     return _REGISTRY[name](**kwargs)
 
 
-__all__ = ["ENV_IDS", "make_spec", "EnvSpec", "FourRooms", "Hallway", "PickupObjects",
-           "TMaze", "TMazeLeft", "TMazeRight"]
+__all__ = ["ENV_IDS", "make_spec", "EnvSpec", "FourRooms", "Hallway", "Maze", "MazeS2",
+           "MazeS3", "MazeS3Fast", "PickupObjects", "TMaze", "TMazeLeft", "TMazeRight"]

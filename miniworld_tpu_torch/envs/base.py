@@ -3,8 +3,8 @@
 Counterpart of ``miniworld_tpu/envs/base.py``. An ``EnvSpec`` declares
 the world builder (host-side numpy, shared logic with the JAX package)
 and the per-step task logic as functions over a batched ``EnvState``.
-The port carries the go-to-goal family (Hallway, FourRooms, TMaze) and
-PickupObjects so far; the host-side gymnasium hooks of the JAX package
+The port carries the go-to-goal family (Hallway, FourRooms, TMaze, the
+Maze family) and PickupObjects so far; the host-side gymnasium hooks of the JAX package
 have no counterpart here.
 """
 
@@ -67,6 +67,9 @@ class EnvSpec:
     agent_radius: float = 0.4  # Agent bounding radius (entity.py:470)
     place_budget: int = 16  # on-device placement retry budget (ops/place.py)
     fourier_k: int = 0  # 0 = the global default (textures.FOURIER_TERMS)
+    # MiniWorldVec(procgen=None) follows this: True for the Maze family,
+    # whose resets generate a fresh maze on the device
+    procgen_default: bool = False
 
     @property
     def max_forward_step(self) -> float:

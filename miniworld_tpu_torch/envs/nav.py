@@ -1,8 +1,9 @@
 """Navigation specs ported so far: go-to-goal tasks over static geometry.
 
-Counterpart of ``miniworld_tpu/envs/nav.py``: Hallway, FourRooms and the
-TMaze family (reference envs/hallway.py, fourrooms.py, tmaze.py). The
-other navigation envs join with their slices (ROADMAP.md).
+Counterpart of ``miniworld_tpu/envs/nav.py``: Hallway, FourRooms, the
+TMaze family and the Maze family (reference envs/hallway.py,
+fourrooms.py, tmaze.py, maze.py). The other navigation envs join with
+their slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,6 +19,15 @@ from miniworld_tpu_torch.envs.base import (
     GoToEnvSpec,
     default_discrete_actions,
 )
+from miniworld_tpu_torch.params import DEFAULT_PARAMS
+
+
+def _fast_params():
+    """no_random + big steps (oneroom.py:80-83, maze.py:176-178)."""
+    p = DEFAULT_PARAMS.no_random()
+    p.set("forward_step", 0.7)
+    p.set("turn_step", 45)
+    return p
 
 
 @dataclass
@@ -124,3 +134,112 @@ class TMazeRight(TMaze):
     name: str = "TMazeRight"
     gym_id: str = "MiniWorld-TMazeRight-v0"
     goal_pos: tuple = (10, 0, 6)
+
+
+@dataclass
+class Maze(GoToEnvSpec):
+    """Procedural recursive-backtracking maze (envs/maze.py:48-162).
+
+    By default (``procgen_default``) every reset generates a fresh maze
+    on the device (ops/mazegen.py) over the super bank of
+    scene/supermaze.py. With ``procgen=False`` each env draws one of
+    ``num_layouts`` mazes compiled into a bank; ``build`` then makes
+    layout ``layout_idx`` from its ``layout_rng`` with the reference's
+    rng consumption (choice-based neighbour shuffle, maze.py:113-121).
+    """
+
+    name: str = "Maze"
+    gym_id: str = "MiniWorld-Maze-v0"
+    discrete_actions: np.ndarray = field(default_factory=default_discrete_actions)
+    num_rows: int = 8
+    num_cols: int = 8
+    room_size: float = 3
+    gap_size: float = 0.25
+    num_layouts: int = 64
+    max_episode_steps: int = 0  # derived below
+    procgen_default: bool = True
+
+    def __post_init__(self):
+        if not self.max_episode_steps:
+            self.max_episode_steps = self.num_rows * self.num_cols * 24
+
+    def build(self, world, rng, layout_rng=None, layout_idx=0):
+        if rng is None:
+            rng = layout_rng if layout_rng is not None else np.random.default_rng(0)
+        rows = []
+        for j in range(self.num_rows):
+            row = []
+            for i in range(self.num_cols):
+                min_x = i * (self.room_size + self.gap_size)
+                max_x = min_x + self.room_size
+                min_z = j * (self.room_size + self.gap_size)
+                max_z = min_z + self.room_size
+                row.append(
+                    world.add_rect_room(
+                        min_x=min_x, max_x=max_x, min_z=min_z, max_z=max_z,
+                        wall_tex="brick_wall",
+                    )
+                )
+            rows.append(row)
+
+        visited = set()
+
+        def visit(i, j):
+            room = rows[j][i]
+            visited.add(id(room))
+            orders = [(0, 1), (0, -1), (-1, 0), (1, 0)]
+            neighbors = []
+            while len(neighbors) < 4:
+                elem = orders[rng.choice(len(orders))]
+                orders.remove(elem)
+                neighbors.append(elem)
+            for dj, di in neighbors:
+                ni, nj = i + di, j + dj
+                if nj < 0 or nj >= self.num_rows or ni < 0 or ni >= self.num_cols:
+                    continue
+                neighbor = rows[nj][ni]
+                if id(neighbor) in visited:
+                    continue
+                if di == 0:
+                    world.connect_rooms(room, neighbor, min_x=room.min_x, max_x=room.max_x)
+                elif dj == 0:
+                    world.connect_rooms(room, neighbor, min_z=room.min_z, max_z=room.max_z)
+                visit(ni, nj)
+
+        import sys
+
+        old_limit = sys.getrecursionlimit()
+        sys.setrecursionlimit(max(old_limit, self.num_rows * self.num_cols * 8 + 100))
+        try:
+            visit(0, 0)
+        finally:
+            sys.setrecursionlimit(old_limit)
+
+        world.place(world.proto_id("box", "red"))
+        world.place_agent()
+
+
+@dataclass
+class MazeS2(Maze):
+    name: str = "MazeS2"
+    gym_id: str = "MiniWorld-MazeS2-v0"
+    num_rows: int = 2
+    num_cols: int = 2
+
+
+@dataclass
+class MazeS3(Maze):
+    name: str = "MazeS3"
+    gym_id: str = "MiniWorld-MazeS3-v0"
+    num_rows: int = 3
+    num_cols: int = 3
+
+
+@dataclass
+class MazeS3Fast(MazeS3):
+    name: str = "MazeS3Fast"
+    gym_id: str = "MiniWorld-MazeS3Fast-v0"
+    max_episode_steps: int = 300
+
+    def __post_init__(self):
+        self.params = _fast_params()

@@ -11,7 +11,8 @@ agent (the JAX package's ``_reset_one`` placement loop, vector.py:
 935-984): for CUDA tensors in one launch of the ``place`` kernel
 (``csrc/place.cu``, one thread per env), for CPU tensors through
 ``place_all_plain``, which runs ``place_one`` per slot with every env
-advanced together.
+advanced together. On a procgen maze every placement also takes the
+episode's maze: per-env room weights and wall-gated segments.
 """
 
 from __future__ import annotations
@@ -30,24 +31,50 @@ RULE_FIELDS = ("rule_room", "rule_bbox", "rule_pos", "rule_dir", "rule_dir_lo",
 _MAX_SLOTS = 32  # the kernel keeps the placed slots in registers (place.cu)
 
 
-def sample_room(u, room_mask, room_area):
+def sample_room(u, room_mask, room_area, room_weight=None):
     """(B,) room index drawn proportionally to floor bbox area from
-    uniforms u (B,); room_mask/room_area are (B, R) per-env rows."""
+    uniforms u (B,); room_mask/room_area are (B, R) per-env rows.
+
+    ``room_weight`` ((B, R) f32, procgen) multiplies the area weights:
+    the junction rooms of a maze's closed walls get 0, as the reference
+    chooses among the rooms that exist (miniworld/miniworld.py:957-963).
+    """
     probs = torch.where(room_mask, room_area, torch.zeros_like(room_area))
+    if room_weight is not None:
+        probs = probs * room_weight
     cdf = torch.cumsum(probs, dim=1)
     pick = (u * cdf[:, -1])[:, None] < cdf
     return torch.argmax(pick.to(torch.int32), dim=1)
 
 
+def gate_segs4(segs4, codes, wall_open):
+    """Deactivate each env's non-solid segments in a (B, 4, NS) pack.
+
+    ``codes`` ((B, NS) i32): -1 = always solid; w = solid iff wall w is
+    CLOSED in ``wall_open`` ((B, W) f32, 1 = open). A gated segment is
+    shifted by 1e9 on all four coordinates, as the JAX package adds it
+    (same convention as the pack's SEG_PAD padding), so the distance
+    tests need no mask.
+    """
+    openv = torch.gather(wall_open, 1, torch.clamp(codes, min=0).long())
+    solid = (codes < 0) | (openv < 0.5)
+    shift = torch.where(solid, torch.zeros_like(openv), torch.full_like(openv, 1e9))
+    return segs4 + shift[:, None, :]
+
+
 def place_one(seed, bank, layout_id, rule_room, rule_bbox, rule_pos,
               rule_dir, rule_dir_lo, rule_dir_hi, radius, ent_pos_xz,
-              ent_radius, ent_mask, budget: int = 16):
+              ent_radius, ent_mask, budget: int = 16, room_weight=None,
+              seg_gate=None):
     """Sample one entity pose per env. Returns (pos (B,3), dir (B,)).
 
     ``seed`` (B,) u32 subseeds; ``bank`` the device Layout (leading
     layout axis), rows picked by ``layout_id`` (B,). Rule tensors are
     per env: rule_room (B,), rule_bbox (B,4), rule_pos (B,3), rule_dir /
     lo / hi (B,); radius (B,); ent_* (B,E,...) the entities placed so far.
+    Procgen mazes pass ``room_weight`` (B, R) f32 (sample_room) and
+    ``seg_gate`` = (room_seg_wall (L, R, NS) i32, wall_open (B, W) f32),
+    which gates each sampled room's wall segments (gate_segs4).
     """
     lid = layout_id.long()
     room_mask = bank.room_mask[lid]
@@ -56,7 +83,7 @@ def place_one(seed, bank, layout_id, rule_room, rule_bbox, rule_pos,
 
     def room_for(u0):
         return torch.where(rule_room >= 0, rule_room.long(),
-                           sample_room(u0, room_mask, room_area))
+                           sample_room(u0, room_mask, room_area, room_weight))
 
     def one_try(u):
         room_idx = room_for(u[:, 0])
@@ -74,6 +101,9 @@ def place_one(seed, bank, layout_id, rule_room, rule_bbox, rule_pos,
             bank.room_vmask[lid, room_idx],
         )
         segs4 = bank.room_segs[lid, room_idx]  # (B, 4, NS) room-local walls
+        if seg_gate is not None:
+            room_seg_wall, wall_open = seg_gate
+            segs4 = gate_segs4(segs4, room_seg_wall[lid, room_idx], wall_open)
         wall_hit = geom.circle_segs4(pos_xz, radius, segs4)
         ent_hit = geom.circle_vs_entities(pos_xz, radius, ent_pos_xz,
                                           ent_radius, ent_mask) >= 0
@@ -111,13 +141,6 @@ def place_one(seed, bank, layout_id, rule_room, rule_bbox, rule_pos,
     return pos, d
 
 
-def _refuse_procgen(room_weight, seg_gate):
-    if room_weight is not None or seg_gate is not None:
-        raise NotImplementedError(
-            "procgen placement (room_weight, seg_gate) is not ported yet"
-        )
-
-
 def place_all_plain(seeds, bank, layout_id, rules, radius, slot_mask,
                     budget: int = 16, room_weight=None, seg_gate=None):
     """Plain version of the place kernel: entity slots 0..E-1 in order,
@@ -128,10 +151,9 @@ def place_all_plain(seeds, bank, layout_id, rules, radius, slot_mask,
     RULE_FIELDS rows (B, E+1, ...); ``radius`` (B, E+1) (the entities'
     radii, then the agent's); ``slot_mask`` (B, E). Returns (ent_pos
     (B, E, 3), ent_dir (B, E), agent pos (B, 3), agent dir (B,)); an
-    invalid slot gets position and direction 0. The JAX package's
-    procgen arguments (``room_weight``, ``seg_gate``) raise.
+    invalid slot gets position and direction 0. Procgen mazes pass
+    ``room_weight`` and ``seg_gate`` (place_one) for every placement.
     """
-    _refuse_procgen(room_weight, seg_gate)
     n, e_slots = slot_mask.shape
     dev = radius.device
     ent_radius = radius[:, :e_slots]
@@ -144,7 +166,7 @@ def place_all_plain(seeds, bank, layout_id, rules, radius, slot_mask,
             seeds[:, row], bank, layout_id,
             *(rules[name][:, row] for name in RULE_FIELDS),
             radius[:, row], ent_pos[:, :, [0, 2]], ent_radius, placed,
-            budget=budget,
+            budget=budget, room_weight=room_weight, seg_gate=seg_gate,
         )
 
     for e in range(e_slots):  # sequential: each slot collides with earlier ones
@@ -162,15 +184,27 @@ def place_all(seeds, bank, layout_id, rules, radius, slot_mask, budget: int = 16
     """The place kernel for CUDA tensors, ``place_all_plain`` for CPU
     tensors. Same contract as ``place_all_plain``. Launches count in
     ``cuda_build.LAUNCHES["place"]`` with the render's kernels."""
-    _refuse_procgen(room_weight, seg_gate)
-    if not is_cuda(seeds, layout_id, radius, slot_mask, bank.room_segs):
-        return place_all_plain(seeds, bank, layout_id, rules, radius, slot_mask, budget)
+    procgen = tuple(t for t in (room_weight, *(seg_gate or ())) if t is not None)
+    if not is_cuda(seeds, layout_id, radius, slot_mask, bank.room_segs, *procgen):
+        return place_all_plain(seeds, bank, layout_id, rules, radius, slot_mask, budget,
+                               room_weight, seg_gate)
+    if (room_weight is None) != (seg_gate is None):
+        raise ValueError("the place kernel takes room_weight and seg_gate together")
     n, e_slots = slot_mask.shape
     if e_slots > _MAX_SLOTS:
         raise ValueError(f"place kernel takes at most {_MAX_SLOTS} entity slots, got {e_slots}")
     L, R, V, _ = bank.room_outline.shape
     ns = bank.room_segs.shape[3]
     dev = radius.device
+    if seg_gate is None:
+        n_walls = 0
+        gate_ptrs = (ctypes.c_void_p(0),) * 3
+    else:
+        room_seg_wall, wall_open = seg_gate
+        n_walls = wall_open.shape[1]
+        gate_ptrs = (check(room_weight, "room_weight", torch.float32, (n, R)),
+                     check(room_seg_wall, "room_seg_wall", torch.int32, (L, R, ns)),
+                     check(wall_open, "wall_open", torch.float32, (n, n_walls)))
     ent_pos = torch.empty((n, e_slots, 3), dtype=torch.float32, device=dev)
     ent_dir = torch.empty((n, e_slots), dtype=torch.float32, device=dev)
     agent_pos = torch.empty((n, 3), dtype=torch.float32, device=dev)
@@ -198,8 +232,9 @@ def place_all(seeds, bank, layout_id, rules, radius, slot_mask, budget: int = 16
     launch(
         "mw_place", "place",
         *(check(t, name, dt, shape) for name, (t, dt, shape) in ins.items()),
+        *gate_ptrs,
         ctypes.c_int(n), ctypes.c_int(e_slots), ctypes.c_int(R), ctypes.c_int(V),
-        ctypes.c_int(ns), ctypes.c_int(budget),
+        ctypes.c_int(ns), ctypes.c_int(n_walls), ctypes.c_int(budget),
         check(ent_pos, "ent_pos", torch.float32, (n, e_slots, 3)),
         check(ent_dir, "ent_dir", torch.float32, (n, e_slots)),
         check(agent_pos, "agent_pos", torch.float32, (n, 3)),

@@ -1,14 +1,14 @@
 """Build and load the port's CUDA kernels (``miniworld_tpu_torch/csrc``).
 
-The kernels (the render's stages and the reset's placement) are
-compiled at first use with ``nvcc`` for Hopper (``sm_90a``), one nvcc
-process per source, all started together, and linked into one shared
-library with a plain C interface, loaded with ``ctypes``: a build of
-seconds, with no PyTorch headers.
+The kernels (the render's stages and the reset's maze generation and
+placement) are compiled at first use with ``nvcc`` for Hopper
+(``sm_90a``), one nvcc process per source, all started together, and
+linked into one shared library with a plain C interface, loaded with
+``ctypes``: a build of seconds, with no PyTorch headers.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``launch`` raises when it is not 0, and counts
 the launch in ``LAUNCHES``. The wrappers (render/raycast.py,
-ops/place.py) launch through it.
+ops/place.py, ops/mazegen.py) launch through it.
 
 The library lands in ``build/kernels/`` at the repository root (listed
 in .gitignore), or in ``$MINIWORLD_TORCH_BUILD_DIR``; its file name
@@ -30,7 +30,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 SOURCES = ("tri_pass.cu", "entity_pass.cu", "pixel_epilogue.cu", "entity_mesh_pass.cu",
-           "place.cu")
+           "place.cu", "mazegen.cu")
+HEADERS = ("rng.cuh",)  # included by the sources; part of the build's hash
 # -fmad=false: no multiply-add contraction, so every hit-test boundary
 # (u >= 0, cov <= det, the r gates, the slab ties) rounds exactly as
 # the plain PyTorch version does and winners agree pixel for pixel.
@@ -42,9 +43,10 @@ NVCC_FLAGS = (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _CAM = [_P] * 7  # origin, fwd, right, up, tan_xy, xbase, ybase
 ENTRY_POINTS = {
-    # verts9, attr, layout_id, camera, seed_t, seed_attr, B, S, W, H,
-    # all_quads, t, attr_out, stream
-    "mw_tri_pass": [_P, _P, _P, *_CAM, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # verts9, attr, layout_id, camera, seed_t, seed_attr, verts9_alt,
+    # attr_alt, pg_wall, wall_open, B, S, W, H, n_walls, all_quads, t,
+    # attr_out, stream
+    "mw_tri_pass": [_P, _P, _P, *_CAM, _P] + [_P] * 5 + [_I] * 6 + [_P, _P, _P],
     # ent_pos, ent_size, ent_dir, ent_height, ent_color, flags, camera,
     # B, E, W, H, has_sphere, has_box, t, col, nrm, stream
     "mw_entity_pass": [_P] * 6 + _CAM + [_I] * 6 + [_P, _P, _P, _P],
@@ -54,18 +56,21 @@ ENTRY_POINTS = {
     # verts9, attrs, camera, B, N, W, H, t, attr_out, stream
     "mw_entity_mesh_pass": [_P, _P, *_CAM, _I, _I, _I, _I, _P, _P, _P],
     # seeds, layout_id, 6 rule rows, radius, slot_mask, 7 room tensors,
-    # B, E, R, V, NS, budget, ent_pos, ent_dir, agent_pos, agent_dir, stream
-    "mw_place": [_P] * 17 + [_I] * 6 + [_P] * 5,
+    # room_weight, room_seg_wall, wall_open, B, E, R, V, NS, W, budget,
+    # ent_pos, ent_dir, agent_pos, agent_dir, stream
+    "mw_place": [_P] * 20 + [_I] * 7 + [_P] * 5,
+    # seeds, nbr_cell, nbr_wall, B, N, W, walls, stream
+    "mw_mazegen": [_P, _P, _P, _I, _I, _I, _P, _P],
 }
 
 _LIB = None
 BUILD_INFO: dict = {}
 
 # Kernel launches per wrapper — the render's stages and the reset's
-# placement; chip_smoke.py reads them to show that a run went through
-# the kernels. Only ``launch`` increments.
+# maze generation and placement; chip_smoke.py reads them to show that a
+# run went through the kernels. Only ``launch`` increments.
 LAUNCHES = {"tri_pass": 0, "entity_pass": 0, "pixel_epilogue": 0,
-            "entity_mesh_pass": 0, "place": 0}
+            "entity_mesh_pass": 0, "place": 0, "mazegen": 0}
 
 
 def reset_launch_counts():
@@ -93,7 +98,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode() + f.read())
     return h.hexdigest()[:16]

@@ -12,7 +12,8 @@ its plain PyTorch version beside it in this module:
      result seeds stage 1's z-competition;
   1. ``tri_pass``: static prims — separable-ray hit test, keyed-z
      winner, the winner's 16-float attribute row (rounded to bf16, as
-     the JAX package carries it), optionally seeded;
+     the JAX package carries it), optionally seeded; on a procgen maze
+     each row's live variant (junction or closed wall) picked per env;
   2. ``entity_pass``: analytic boxes and spheres;
   3. ``pixel_epilogue``: affine uv, Fourier texture, lighting, sky,
      u8 pack and depth.
@@ -231,8 +232,44 @@ def _seed_key(seed_t: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(seed_r, dtype=torch.int32))
 
 
+# Largest (env, row, pixel) count a plain hit pass handles at once: it
+# runs over blocks of envs, as each of its (B, S, HW) float32
+# intermediates at an 8x8 maze's S = 608, B = 1024, 80x60 would take
+# 12 GB at once.
+_PLAIN_BLOCK_ELEMS = 1 << 26
+
+
+def _env_blocks(b: int, per_env: int):
+    """Slices of at most ``_PLAIN_BLOCK_ELEMS // per_env`` envs (one at
+    least) covering range(b)."""
+    step = max(1, _PLAIN_BLOCK_ELEMS // max(per_env, 1))
+    return [slice(lo, lo + step) for lo in range(0, b, step)]
+
+
+def _cam_rows(cam: Camera, sl: slice) -> Camera:
+    return Camera(cam.origin[sl], cam.fwd[sl], cam.right[sl], cam.up[sl],
+                  cam.tan_x[sl], cam.tan_y[sl], cam.xbase, cam.ybase)
+
+
+def _paired_rows(verts9, attr, lid, paired):
+    """Each env's prim rows of a paired procgen bank: (v9 (B, 9, S),
+    attrs (B, S, 16)), row s from the primary variant where
+    ``pg_wall[s] < 0`` or its wall is open in the env's ``wall_open``,
+    from the alternative (the wall's closed quads) otherwise
+    (raycast.py:259-295 with use_primary = base + wall_open @ K).
+    ``paired`` = (verts9_alt (L, 9, S), attr_alt (L, S, 16), pg_wall
+    (L, S) i32, wall_open (B, W) f32)."""
+    v9_alt, attr_alt, pg_wall, wall_open = paired
+    codes = pg_wall[lid].long()  # (B, S)
+    openv = torch.gather(wall_open, 1, torch.clamp(codes, min=0))
+    keep = (codes < 0) | (openv > 0.5)
+    v9 = torch.where(keep[:, None, :], verts9[lid], v9_alt[lid])
+    attrs = torch.where(keep[:, :, None], attr[lid], attr_alt[lid])
+    return v9, attrs
+
+
 def tri_pass_plain(verts9, attr, layout_id, cam: Camera, all_quads: bool = False,
-                   seed=None):
+                   seed=None, paired=None):
     """Plain version of the tri_pass kernel (raycast._tri_pass,
     single-chunk form): every prim of each env's layout in one pass.
 
@@ -243,21 +280,36 @@ def tri_pass_plain(verts9, attr, layout_id, cam: Camera, all_quads: bool = False
     mesh-entity pass's result, starts the z-competition as the JAX
     package's ``init`` carry does: a prim replaces it only with a
     strictly greater key, and no-hit pixels keep the seed's attrs.
+    ``paired`` = (verts9_alt, attr_alt, pg_wall, wall_open) renders a
+    paired procgen bank (``_paired_rows``): the winner's attributes come
+    from its row's live variant. Runs over blocks of envs to bound its
+    intermediates.
     """
-    if verts9.shape[2] > (1 << _IDX_BITS):
-        raise ValueError(f"{verts9.shape[2]} prims exceed the z-key's "
+    S = verts9.shape[2]
+    if S > (1 << _IDX_BITS):
+        raise ValueError(f"{S} prims exceed the z-key's "
                          f"{1 << _IDX_BITS}-row budget; use tri_pass_chunked")
-    lid = layout_id.long()
-    v9, attrs = verts9[lid], attr[lid]
-    key, row = _chunk_compete(v9, attrs, cam, cam.xv(), cam.yv(), all_quads)
-    sel = _gather_rows(attrs, row).to(torch.bfloat16)
-    if seed is None:
-        return _t_from_key(key), sel
-    seed_t, seed_attr = seed
-    seed_key = _seed_key(seed_t)
-    closer = key > seed_key
-    key = torch.where(closer, key, seed_key)
-    return _t_from_key(key), torch.where(closer[:, :, None], sel, seed_attr)
+    b = layout_id.shape[0]
+    xv, yv = cam.xv(), cam.yv()
+    ts, outs = [], []
+    for sl in _env_blocks(b, S * xv.shape[1]):
+        lid = layout_id[sl].long()
+        if paired is None:
+            v9, attrs = verts9[lid], attr[lid]
+        else:
+            v9_alt, attr_alt, pg_wall, wall_open = paired
+            v9, attrs = _paired_rows(verts9, attr, lid, (v9_alt, attr_alt, pg_wall,
+                                                        wall_open[sl]))
+        key, row = _chunk_compete(v9, attrs, _cam_rows(cam, sl), xv[sl], yv[sl], all_quads)
+        sel = _gather_rows(attrs, row).to(torch.bfloat16)
+        if seed is not None:
+            seed_key = _seed_key(seed[0][sl])
+            closer = key > seed_key
+            key = torch.where(closer, key, seed_key)
+            sel = torch.where(closer[:, :, None], sel, seed[1][sl])
+        ts.append(_t_from_key(key))
+        outs.append(sel)
+    return torch.cat(ts), torch.cat(outs)
 
 
 def tri_pass_chunked(verts9, attr, layout_id, cam: Camera, tri_chunk: int,
@@ -285,11 +337,12 @@ def tri_pass_chunked(verts9, attr, layout_id, cam: Camera, tri_chunk: int,
     return _t_from_key(key_best), attr_best
 
 
-def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, seed=None):
+def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, seed=None,
+             paired=None):
     """Stage 1 wrapper: the tri_pass kernel for CUDA tensors, the plain
     version for CPU tensors. Same contract as ``tri_pass_plain``."""
-    if not is_cuda(verts9, attr, layout_id, cam.origin, *(seed or ())):
-        return tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed)
+    if not is_cuda(verts9, attr, layout_id, cam.origin, *(seed or ()), *(paired or ())):
+        return tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired)
     L, _, S = verts9.shape
     b = layout_id.shape[0]
     hw = cam.width * cam.height
@@ -302,6 +355,16 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, seed
     else:
         seed_ptrs = (check(seed[0], "seed_t", torch.float32, (b, hw)),
                      check(seed[1], "seed_attr", torch.bfloat16, (b, hw, ATTR_DIM)))
+    if paired is None:
+        n_walls = 0
+        paired_ptrs = (ctypes.c_void_p(0),) * 4
+    else:
+        v9_alt, attr_alt, pg_wall, wall_open = paired
+        n_walls = wall_open.shape[1]
+        paired_ptrs = (check(v9_alt, "verts9_alt", torch.float32, (L, 9, S)),
+                       check(attr_alt, "attr_alt", torch.float32, (L, S, ATTR_DIM)),
+                       check(pg_wall, "pg_wall", torch.int32, (L, S)),
+                       check(wall_open, "wall_open", torch.float32, (b, n_walls)))
     cam_ptrs, _cam_tensors = _cam_args(cam, b)
     launch(
         "mw_tri_pass", "tri_pass",
@@ -310,8 +373,9 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, seed
         check(layout_id, "layout_id", torch.int32, (b,)),
         *cam_ptrs,
         *seed_ptrs,
+        *paired_ptrs,
         ctypes.c_int(b), ctypes.c_int(S), ctypes.c_int(cam.width),
-        ctypes.c_int(cam.height), ctypes.c_int(int(all_quads)),
+        ctypes.c_int(cam.height), ctypes.c_int(n_walls), ctypes.c_int(int(all_quads)),
         check(t, "t", torch.float32, (b, hw)),
         check(out, "attr_out", torch.bfloat16, (b, hw, ATTR_DIM)),
         stream(),
@@ -395,11 +459,6 @@ def entity_mesh_rows(bank, state):
     return verts9, attrs.reshape(b, e * m, ATTR_DIM).contiguous(), valid.reshape(b, e * m)
 
 
-# envs per block of the plain mesh pass: each (B, E*M, HW) float32
-# intermediate at B=4096, E*M=80, 80x60 would take 6.3 GB at once
-_MESH_PLAIN_ELEMS = 1 << 26
-
-
 def entity_mesh_pass_plain(verts9, attrs, cam: Camera):
     """Plain version of the entity_mesh_pass kernel
     (raycast._entity_mesh_pass): keyed-z competition of each env's own
@@ -414,13 +473,9 @@ def entity_mesh_pass_plain(verts9, attrs, cam: Camera):
         raise ValueError(f"{n} mesh rows exceed the z-key's {1 << _IDX_BITS}-row budget")
     xv, yv = cam.xv(), cam.yv()
     b, hw = xv.shape
-    step = max(1, _MESH_PLAIN_ELEMS // max(n * hw, 1))
     ts, outs = [], []
-    for lo in range(0, b, step):
-        sl = slice(lo, lo + step)
-        c = Camera(cam.origin[sl], cam.fwd[sl], cam.right[sl], cam.up[sl],
-                   cam.tan_x[sl], cam.tan_y[sl], cam.xbase, cam.ybase)
-        key, row = _chunk_compete(verts9[sl], attrs[sl], c, xv[sl], yv[sl],
+    for sl in _env_blocks(b, n * hw):
+        key, row = _chunk_compete(verts9[sl], attrs[sl], _cam_rows(cam, sl), xv[sl], yv[sl],
                                   all_quads=False, all_tris=True)
         sel = _gather_rows(attrs[sl], row).to(torch.bfloat16)
         ts.append(_t_from_key(key))
@@ -727,8 +782,25 @@ def pixel_epilogue_plain(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
 
     t_tri (B, HW) f32, attr (B, HW, 16) bf16; t_ent (B, HW), col_ent /
     n_ent (B, HW, 3); atlas (A, 4+8K); lights and sky (B, 3).
-    Returns (rgb (B, H, W, 3) u8, depth (B, H, W, 1) f32).
+    Returns (rgb (B, H, W, 3) u8, depth (B, H, W, 1) f32). Runs over
+    blocks of envs: each pixel gathers its atlas row of 4+8K floats.
     """
+    b, hw = t_tri.shape
+    outs = []
+    for sl in _env_blocks(b, hw * atlas.shape[1]):
+        def rows(x):
+            return None if x is None else x[sl]
+
+        outs.append(_pixel_epilogue_block(
+            t_tri[sl], attr[sl], rows(t_ent), rows(col_ent), rows(n_ent), atlas,
+            _cam_rows(cam, sl), light_pos[sl], light_color[sl], light_ambient[sl], sky[sl],
+            k_terms, has_gain))
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
+def _pixel_epilogue_block(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
+                          light_pos, light_color, light_ambient, sky, k_terms: int,
+                          has_gain: bool):
     b, hw = t_tri.shape
     h, w = cam.height, cam.width
     xv, yv = cam.xv().reshape(-1), cam.yv().reshape(-1)
@@ -828,7 +900,7 @@ def pixel_epilogue(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
 
 def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
                 shapes_present=(True, True, False), all_quads: bool = False,
-                has_gain: bool = False, use_kernels: bool = True):
+                has_gain: bool = False, use_kernels: bool = True, pg_wall=None):
     """Render every env's observation: (rgb (B, H, W, 3) u8, depth
     (B, H, W, 1) f32, FAR for sky). Counterpart of raycast.render_rgbd
     for single-chunk banks in fourier mode, without domain
@@ -836,6 +908,10 @@ def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
 
     With mesh entities (``shapes_present[2]``) their pass runs first and
     seeds the static prims' z-competition (raycast.py:1174-1182).
+    ``pg_wall`` ((L, Sp) i32, vector.install_statics) marks a procgen
+    maze (raycast.py:1206-1219): the static prims are the paired super
+    bank's rows (``bank.pg_*``), each env seeing its own maze through
+    ``state.wall_open``.
     ``use_kernels=False`` runs the plain PyTorch versions of the stages
     on whatever device the tensors are on (for comparisons on the card);
     otherwise each stage goes through its wrapper.
@@ -849,8 +925,13 @@ def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
         f_mesh = entity_mesh_pass if use_kernels else entity_mesh_pass_plain
         rows9, row_attrs, _ = entity_mesh_rows(bank, state)
         seed = f_mesh(rows9, row_attrs, cam)
-    t_tri, attr = f_tri(bank.tri_verts9, bank.tri_attr, state.layout_id, cam, all_quads,
-                        seed)
+    if pg_wall is None:
+        t_tri, attr = f_tri(bank.tri_verts9, bank.tri_attr, state.layout_id, cam, all_quads,
+                            seed)
+    else:
+        t_tri, attr = f_tri(bank.pg_verts9, bank.pg_attr, state.layout_id, cam, all_quads,
+                            seed, (bank.pg_verts9_alt, bank.pg_attr_alt, pg_wall,
+                                   state.wall_open))
     t_ent = col_ent = n_ent = None
     if shapes_present[0] or shapes_present[1]:
         t_ent, col_ent, n_ent = f_ent(

@@ -18,10 +18,12 @@ the new episode. Resets draw from the same threefry keys and
 counter-based uniforms as the JAX package (ops/rng.py), so the two
 packages step the same envs through the same episodes.
 
-The port covers the statics of Hallway, FourRooms, TMaze and
-PickupObjects: one layout bank rendered in one prim chunk, Fourier
-textures without glyphs, analytic and mesh entities, no domain
-randomization, no supersampling. Other statics raise
+The port covers the statics of Hallway, FourRooms, TMaze, the Maze
+family and PickupObjects: one layout bank rendered in one prim chunk,
+Fourier textures without glyphs, analytic and mesh entities, and
+procgen mazes — a fresh maze per reset on the device (``procgen``,
+the Maze family's default), rendered from the paired super bank — but
+no domain randomization, no supersampling. Other statics raise
 NotImplementedError.
 """
 
@@ -34,7 +36,7 @@ import torch
 
 from miniworld_tpu_torch.convert import atlas_from_numpy, layout_from_numpy
 from miniworld_tpu_torch.envs.base import Ctx, EnvSpec
-from miniworld_tpu_torch.ops import physics, place as place_ops, rng as rng_ops
+from miniworld_tpu_torch.ops import mazegen, physics, place as place_ops, rng as rng_ops
 from miniworld_tpu_torch.render.raycast import render_rgbd, room_of_point
 from miniworld_tpu_torch.render.textures import FOURIER_TERMS, TextureCatalog
 from miniworld_tpu_torch.scene.compile import Layout, compile_world, stack_layouts
@@ -65,6 +67,20 @@ def build_bank(spec: EnvSpec):
                    layout_idx=li)
         layouts.append(compile_world(world, with_pvs=True))
     return stack_layouts(layouts), catalog.build_fourier(spec.fourier_k or FOURIER_TERMS)
+
+
+def build_super_bank(spec: EnvSpec):
+    """Compile the spec's maze grid into a procgen super bank (host
+    side): one layout holding every wall variant (scene/supermaze.py);
+    each env's maze is a wall-open bitmask generated at reset
+    (ops/mazegen.py). Returns (bank, tex table) like ``build_bank``."""
+    from miniworld_tpu_torch.scene.supermaze import compile_super_maze, finalize_super_bank
+
+    catalog = TextureCatalog()
+    lay = compile_super_maze(spec, catalog)
+    bank_np = finalize_super_bank(stack_layouts([lay]), lay,
+                                  mazegen.num_walls(spec.num_rows, spec.num_cols))
+    return bank_np, catalog.build_fourier(spec.fourier_k or FOURIER_TERMS)
 
 
 def _round_up16(n: int) -> int:
@@ -333,15 +349,20 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray):
     a fresh bank in fourier mode without domain randomization.
 
     Returns (bank, statics dict): the bank with each prim's atlas base
-    baked into its attr slot column (every slot renders variant 0), and
-    ``tri_chunk``, ``all_quads``, ``shapes_present``, ``has_gain``.
+    baked into its attr slot column (every slot renders variant 0; both
+    variants of a paired procgen bank), and ``tri_chunk``,
+    ``all_quads``, ``shapes_present``, ``has_gain`` and ``pg_wall``:
+    for a paired bank the (L, Sp) i32 wall of each row (-1 = none),
+    from ``pg_sel_onehot`` / ``pg_sel_base``, else None.
 
     The port renders a bank in ONE chunk: its tri_pass kernel takes up
     to MAX_CHUNK prims per env in one pass, whatever the bank's PVS.
     That is exact: the JAX package's PVS schedules (plan_culling /
     plan_packed_pvs) only skip prims that cannot be seen, and the
     keyed-z competition does not depend on how prims are split into
-    chunks. Larger banks need multi-chunk scans, a later slice.
+    chunks. Larger banks need multi-chunk scans, a later slice. A super
+    bank renders its paired rows (``pg_*``, Sp <= S rows), which the
+    tri-axis padding leaves as they are.
     """
     s_nat = bank_np.tri_mask.shape[1]
     if s_nat > MAX_CHUNK:
@@ -353,10 +374,26 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray):
     ta = bank_np.tri_attr.copy()
     ta[:, :, 14] = bank_np.tri_tex_base
     bank_np = dataclasses.replace(bank_np, tri_attr=ta)
+    all_quads = bool((bank_np.tri_attr[:, :, 15][bank_np.tri_mask] == 0.0).all())
+    pg_wall = None
+    if bank_np.tri_wall is not None:
+        if bank_np.pg_verts9 is None:
+            raise NotImplementedError(
+                "procgen super banks render through their paired rows (pg_*); the "
+                "dense tri_active render is not ported yet")
+        pga = bank_np.pg_attr.copy()
+        pga[:, :, 14] = bank_np.pg_tex[:, 0, 1]
+        pgaa = bank_np.pg_attr_alt.copy()
+        pgaa[:, :, 14] = bank_np.pg_tex[:, 1, 1]
+        bank_np = dataclasses.replace(bank_np, pg_attr=pga, pg_attr_alt=pgaa)
+        pg_wall = _paired_walls(bank_np)
+        if all_quads and not ((pga[:, :, 15] == 0.0).all() and (pgaa[:, :, 15] == 0.0).all()):
+            raise ValueError("all_quads holds for the dense bank but not its paired rows")
     shp = bank_np.proto_shape
     statics = dict(
         tri_chunk=s_nat,
-        all_quads=bool((bank_np.tri_attr[:, :, 15][bank_np.tri_mask] == 0.0).all()),
+        all_quads=all_quads,
+        pg_wall=pg_wall,
         shapes_present=(
             bool((shp == SHAPE_SPHERE).any()),
             bool(((shp == SHAPE_BOX) | (shp == SHAPE_MESH_BOX)).any()),
@@ -365,6 +402,21 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray):
         has_gain=bool(((tex_np[:, -1] > 1.0) | (tex_np[:, -1] < 0.0)).any()),
     )
     return bank_np, statics
+
+
+def _paired_walls(bank_np: Layout) -> np.ndarray:
+    """(L, Sp) i32 wall of each paired row, -1 for rows without one: the
+    JAX package's per-env select ``pg_sel_base + wall_open @
+    pg_sel_onehot`` as one lookup (use the primary variant where the
+    wall is -1 or open). Raises unless every column of the one-hot
+    holds at most one 1, its other entries 0, with base 1 exactly where
+    the column is empty."""
+    onehot, base = bank_np.pg_sel_onehot, bank_np.pg_sel_base  # (L, W, Sp), (L, Sp)
+    count = onehot.sum(axis=1)
+    if not (np.isin(onehot, (0.0, 1.0)).all() and (count <= 1).all()
+            and np.array_equal(base, (count == 0).astype(base.dtype))):
+        raise ValueError("pg_sel_onehot / pg_sel_base are not a one-wall-per-row selection")
+    return np.where(count > 0, onehot.argmax(axis=1), -1).astype(np.int32)
 
 
 def _pick(u, choices):
@@ -398,8 +450,7 @@ class MiniWorldVec:
         # statics of the JAX package that later slices port
         for name, value, default in (
             ("domain_rand", domain_rand, False), ("supersample", supersample, 1),
-            ("procgen", bool(procgen), False), ("tex_mode", tex_mode, "fourier"),
-            ("view", view, "agent"),
+            ("tex_mode", tex_mode, "fourier"), ("view", view, "agent"),
         ):
             if value != default:
                 raise NotImplementedError(
@@ -412,6 +463,18 @@ class MiniWorldVec:
             from miniworld_tpu_torch.envs import make_spec
 
             spec = make_spec(spec)
+        # Procgen: a fresh recursive-backtracker maze per reset, generated
+        # on the device (the reference's reset semantics,
+        # miniworld/envs/maze.py:100-149); the bank is one super layout
+        # holding every wall variant and EnvState.wall_open the episode's
+        # maze. None follows the spec (True for the Maze family).
+        self.procgen = bool(spec.procgen_default if procgen is None else procgen)
+        if self.procgen and not all(hasattr(spec, a) for a in
+                                    ("num_rows", "num_cols", "room_size", "gap_size")):
+            raise ValueError(
+                f"procgen=True needs a maze-grid spec (num_rows/num_cols/room_size/"
+                f"gap_size); {spec.name} has none"
+            )
         self.spec = spec
         self.num_envs = int(num_envs)
         self.device = device
@@ -425,7 +488,7 @@ class MiniWorldVec:
         # PyTorch versions.
         self.use_kernels = use_kernels
 
-        bank_np, tex_np = build_bank(spec)
+        bank_np, tex_np = build_super_bank(spec) if self.procgen else build_bank(spec)
         bank_np, statics = install_statics(bank_np, tex_np)
         if statics["has_gain"]:
             raise NotImplementedError("glyph textures are not ported yet")
@@ -434,6 +497,8 @@ class MiniWorldVec:
         self._all_quads = statics["all_quads"]
         self._shapes_present = statics["shapes_present"]
         self._bank = layout_from_numpy(bank_np, device)
+        self._pg_wall = (None if statics["pg_wall"] is None
+                         else torch.from_numpy(statics["pg_wall"]).to(device))
         self._atlas = atlas_from_numpy(tex_np, device)
         self.num_layouts = bank_np.tri_verts.shape[0]
         self.num_ent_slots = bank_np.slot_protos.shape[1]
@@ -470,6 +535,19 @@ class MiniWorldVec:
         else:
             layout_id = torch.zeros(n, dtype=torch.int32, device=dev)
         lid = layout_id.long()
+
+        # Procgen: this episode's maze, a fresh wall-open bitmask per reset.
+        # Placement sees it as junction-room weights (a closed wall's
+        # junction does not exist, miniworld/miniworld.py:957-963) and as
+        # gated collision segments.
+        wall_open = room_weight = seg_gate = None
+        if self.procgen:
+            gen = mazegen.gen_walls if self.use_kernels else mazegen.gen_walls_plain
+            wall_open = gen(rng_ops.sub(seed, 17), spec.num_rows, spec.num_cols)
+            rw = bank.room_wall[lid]  # (B, R): -1 = cell, w = junction of wall w
+            room_weight = torch.where(rw < 0, torch.ones_like(wall_open[:, :1]),
+                                      torch.gather(wall_open, 1, torch.clamp(rw, min=0).long()))
+            seg_gate = (bank.room_seg_wall, wall_open)
 
         E = self.num_ent_slots
         ent_proto = torch.clamp(_pick(u(11, (E,)), bank.slot_protos[lid]), min=0)
@@ -508,7 +586,7 @@ class MiniWorldVec:
         place = place_ops.place_all if self.use_kernels else place_ops.place_all_plain
         ent_pos, ent_dir, agent_pos, agent_dir = place(
             place_seeds, bank, layout_id, rules, torch.cat([ent_radius, agent_r], dim=1),
-            slot_mask, budget=self.place_budget,
+            slot_mask, budget=self.place_budget, room_weight=room_weight, seg_gate=seg_gate,
         )
 
         return EnvState(
@@ -531,6 +609,7 @@ class MiniWorldVec:
             # every texture slot at variant 0 (no domain randomization)
             tex_map=bank.tex_slot_base[lid].clone(),
             tri_slots=torch.zeros(n, dtype=torch.int64, device=dev),
+            wall_open=wall_open,
             task={k: torch.as_tensor(v, device=dev).expand(n).clone()
                   for k, v in spec.init_task().items()},
         )
@@ -547,6 +626,8 @@ class MiniWorldVec:
         lid = state.layout_id.long()
         room = room_of_point(bank, state.layout_id, state.pos[:, [0, 2]])
         segs4 = bank.room_segs[lid, room]  # (B, 4, NS) room-local walls
+        if self.procgen:  # open walls' closed-quad segments stop colliding
+            segs4 = place_ops.gate_segs4(segs4, bank.room_seg_wall[lid, room], state.wall_open)
 
         if action.dim() == 1:
             action_idx = action.to(torch.int32)
@@ -589,7 +670,7 @@ class MiniWorldVec:
             self._bank, state, self._atlas,
             width=self.obs_width, height=self.obs_height, k_terms=self.fourier_k,
             shapes_present=self._shapes_present, all_quads=self._all_quads,
-            use_kernels=self.use_kernels,
+            use_kernels=self.use_kernels, pg_wall=self._pg_wall,
         )
 
     def _obs(self, rgb, depth):

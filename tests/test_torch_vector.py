@@ -14,7 +14,7 @@ import torch
 
 from miniworld_tpu import MiniWorldVec as JaxVec
 from miniworld_tpu_torch import MiniWorldVec, make_spec
-from miniworld_tpu_torch.ops import place as tplace
+from miniworld_tpu_torch.ops import mazegen, place as tplace
 from miniworld_tpu_torch.render import cuda_build, raycast as trc
 from miniworld_tpu_torch.state import tree_select
 
@@ -50,6 +50,30 @@ def _facing(jenv, jstate, slot, dist):
         pos.append(p - [side * dist, 0.0, 0.0])
         yaw.append(0.0 if side > 0 else np.pi)  # forward is (cos d, 0, -sin d)
     return np.asarray(pos), np.asarray(yaw)
+
+
+def adopt_reset_ulps(jstate, tstate, done):
+    """The port's state after a step whose ``done`` envs auto-reset, with
+    the envs whose reset state differs from the JAX one continuing from
+    the JAX state.
+
+    XLA:CPU fuses the JAX placement's multiply-add in some placements
+    and not in others, so the agent's reset position can differ by one
+    ulp, which a wall edge's quantized depth shows on every later frame.
+    Only that difference is allowed; envs whose reset matched bit for
+    bit keep the port's own state.
+    """
+    b = tstate.pos.shape[0]
+    jport = to_port_state(jstate)
+    differs = torch.zeros(b, dtype=torch.bool)
+    for name, v in jport.tensors().items():
+        ne = (v != tstate.tensors()[name]).reshape(b, -1).any(dim=1)
+        assert name == "pos" or not bool(ne.any()), name
+        differs |= ne
+    one_ulp = torch.nextafter(tstate.pos, jport.pos)
+    assert torch.equal(one_ulp, jport.pos), "reset positions differ by more than one ulp"
+    swap = torch.from_numpy(np.array(done)) & differs
+    return tree_select(swap, jport, tstate)
 
 
 @pytest.mark.parametrize("env_id", RESET_ENVS)
@@ -102,23 +126,7 @@ def test_reset_and_ten_steps(port_env, env_id):
         dones += int(t_d.sum())
         rewards += float(t_r.sum())
         if env_id != ENV_ID and bool(t_d.any()):
-            # An env whose auto-reset state differs from the JAX one
-            # continues from the JAX state: XLA:CPU fuses the JAX
-            # placement's multiply-add in some placements and not in
-            # others, so the agent's reset position can differ by one
-            # ulp, which a wall edge's quantized depth shows on every
-            # later frame. Only that difference is allowed; envs whose
-            # reset matched bit for bit keep the port's own state.
-            jport = to_port_state(jstate)
-            differs = torch.zeros(B, dtype=torch.bool)
-            for name, v in jport.tensors().items():
-                ne = (v != tstate.tensors()[name]).reshape(B, -1).any(dim=1)
-                assert name == "pos" or not bool(ne.any()), name
-                differs |= ne
-            one_ulp = torch.nextafter(tstate.pos, jport.pos)
-            assert torch.equal(one_ulp, jport.pos), "reset positions differ by more than one ulp"
-            swap = torch.from_numpy(np.array(j_d)) & differs
-            tstate = tree_select(swap, jport, tstate)
+            tstate = adopt_reset_ulps(jstate, tstate, j_d)
     if pickup:
         assert rewards >= B // 2, rewards
         assert int(tstate.task["num_picked_up"].sum()) == int(rewards)
@@ -154,14 +162,16 @@ def test_without_depth():
 
 
 def test_imports_no_jax_flax_pil():
-    """The port runs resets and steps — Hallway, and PickupObjects with its
-    mesh loading, decimation and mesh-entity render — without jax, flax
-    or Pillow."""
+    """The port runs resets and steps — Hallway, PickupObjects with its
+    mesh loading, decimation and mesh-entity render, and MazeS3 with its
+    super bank and maze generation (procgen) and its layout bank — without
+    jax, flax or Pillow."""
     code = (
         "import sys, torch\n"
         "import miniworld_tpu_torch as m\n"
-        "for name in ('MiniWorld-Hallway-v0', 'MiniWorld-PickupObjects-v0'):\n"
-        "    env = m.MiniWorldVec(name, 2, obs_width=16, obs_height=12, device='cpu')\n"
+        "for name, kw in (('MiniWorld-Hallway-v0', {}), ('MiniWorld-PickupObjects-v0', {}),\n"
+        "                 ('MiniWorld-MazeS3-v0', {}), ('MiniWorld-MazeS3-v0', {'procgen': False})):\n"
+        "    env = m.MiniWorldVec(name, 2, obs_width=16, obs_height=12, device='cpu', **kw)\n"
         "    state, obs = env.reset(0)\n"
         "    env.step(state, torch.tensor([2, 4]))\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in"
@@ -194,7 +204,7 @@ def test_device_is_required():
 
 def test_unported_env_raises():
     with pytest.raises(NotImplementedError, match="not ported"):
-        make_spec("MiniWorld-Maze-v0")
+        make_spec("MiniWorld-Sign-v0")
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -210,7 +220,8 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 def test_wrappers_take_plain_on_cpu(port_env):
     """For CPU tensors each wrapper returns its plain version's result
     and launches nothing: the render's four stages (tri_pass also
-    seeded) and the reset's placement."""
+    seeded and paired) and the reset's placement (also with a maze's
+    room weights and gated segments) and maze generation."""
     state, _ = port_env.reset(5)
     bank = port_env._bank
     cam = trc.camera_grid(state, W, H)
@@ -247,13 +258,27 @@ def test_wrappers_take_plain_on_cpu(port_env):
 
     orig = tplace.place_all
     tplace.place_all = capture
+    maze = MiniWorldVec("MiniWorld-MazeS3-v0", 4, obs_width=W, obs_height=H, device="cpu")
     try:
-        pick.reset(6)
+        for env in (pick, maze):
+            env.reset(6)
+            p1 = tplace.place_all(*captured["args"], **captured["kwargs"])
+            p2 = tplace.place_all_plain(*captured["args"], **captured["kwargs"])
+            assert all(torch.equal(x, y) for x, y in zip(p1, p2))
     finally:
         tplace.place_all = orig
-    p1 = tplace.place_all(*captured["args"], **captured["kwargs"])
-    p2 = tplace.place_all_plain(*captured["args"], **captured["kwargs"])
-    assert all(torch.equal(x, y) for x, y in zip(p1, p2))
+    assert captured["kwargs"]["seg_gate"] is not None
+
+    seed = torch.arange(4, dtype=torch.int64) * 977
+    assert torch.equal(mazegen.gen_walls(seed, 3, 3), mazegen.gen_walls_plain(seed, 3, 3))
+    state, _ = maze.reset(7)
+    bank = maze._bank
+    cam = trc.camera_grid(state, W, H)
+    paired = (bank.pg_verts9_alt, bank.pg_attr_alt, maze._pg_wall, state.wall_open)
+    q1 = trc.tri_pass(bank.pg_verts9, bank.pg_attr, state.layout_id, cam, True, None, paired)
+    q2 = trc.tri_pass_plain(bank.pg_verts9, bank.pg_attr, state.layout_id, cam, True, None,
+                            paired)
+    assert all(torch.equal(x, y) for x, y in zip(q1, q2))
     assert not any(cuda_build.LAUNCHES.values())
 
 
@@ -262,5 +287,12 @@ def test_wrappers_take_plain_on_cpu(port_env):
     {"tex_mode": "nearest"}, {"view": "top"},
 ])
 def test_unported_statics_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """Statics no slice has ported raise NotImplementedError; procgen=True
+    on Hallway, which has no maze grid, raises the JAX package's
+    ValueError (tests/test_procgen.py::test_procgen_requires_maze_spec)."""
+    if "procgen" in kwargs:
+        expect, match = ValueError, "maze-grid"
+    else:
+        expect, match = NotImplementedError, "not ported"
+    with pytest.raises(expect, match=match):
         MiniWorldVec(ENV_ID, 2, obs_width=16, obs_height=12, device="cpu", **kwargs)
