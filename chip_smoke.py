@@ -7,14 +7,17 @@ Builds the kernels of ``miniworld_tpu_torch`` from
 each against its plain PyTorch version on the card — at Hallway's,
 PickupObjects' and the 8x8 Maze's shapes (mazegen's mazes also checked
 as spanning trees, tri_pass on the paired procgen bank, place with a
-maze's room weights and gated walls) and on wide synthetic cases — then
-drives the port's main paths and checks what comes out: the Hallway
-fused rollout at B=1024, the PickupObjects one at B=4096 and the Maze
-8x8 procgen one at B=8192 (80x60 RGB-D, random policy), Hallway and
-PickupObjects against their plain paths, a MazeS3 procgen rollout at
-B=1024 with 10-step episodes against its plain path (every env resets
-into fresh mazes), and short FourRooms, TMaze and MazeS3 bank-mode
-rollouts. One line per phase; the JSON summary of the kernels and the
+maze's room weights and gated walls) and on wide synthetic cases;
+tri_pass and pixel_epilogue must agree on every pixel, tri_pass also on
+rows that graze its cull's margins. It reports what tri_pass's culling
+keeps ([tri-cull]) and times tri_pass rebuilt with other tiles
+([tile-sweep]), then drives the port's main paths and checks what comes
+out: the Hallway fused rollout at B=1024, the PickupObjects one at
+B=4096 and the Maze 8x8 procgen one at B=8192 (80x60 RGB-D, random
+policy), Hallway and PickupObjects against their plain paths, a MazeS3
+procgen rollout at B=1024 with 10-step episodes against its plain path
+(every env resets into fresh mazes), and short FourRooms, TMaze and
+MazeS3 bank-mode rollouts. One line per phase; the JSON summary of the kernels and the
 card's ``nvidia-smi`` name and power limit come before the last line,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed phase raises, so the script exits non-zero and prints no
@@ -55,12 +58,17 @@ PEAK_F32_OPS_PER_S = 67e12
 
 # kernel vs plain on the card: both sides compute the same float32
 # operations in the same order (the library is built with -fmad=false),
-# so winners, depths and u8 colors are expected to agree exactly; the
-# stated limits leave room for a differently rounded math-library call.
+# so winners, depths and u8 colors are expected to agree exactly. tri_pass
+# and pixel_epilogue are held to that: 0 pixels may differ. The entity
+# passes' limits leave room for a differently rounded math-library call
+# (sqrt, division).
 MAX_WINNER_DIFF_FRAC = 1e-4  # pixels whose winning prim / entity differs
 MAX_T_REL_ERR = 1e-6  # hit distance, where the winners agree
-MAX_RGB_ERR = 1  # u8 levels
-MAX_RGB_DIFF_FRAC = 1e-4  # pixels whose color differs at all
+# tri_pass builds timed beside the default one at the Maze's, Hallway's
+# and PickupObjects' shapes: (TILE_W, TILE_H, PIX_PER_THREAD), each also
+# held equal to the default
+TILE_SWEEP = ((16, 12, 1), (16, 12, 2), (16, 12, 3), (16, 16, 1), (16, 16, 2),
+              (8, 8, 1), (32, 12, 2), (32, 16, 2))
 
 KERNELS = {
     "tri_pass": ("miniworld_tpu_torch/csrc/tri_pass.cu",
@@ -120,8 +128,10 @@ def phase_build():
     with open(os.path.join(cuda_build.build_dir(), "kernel_build.log"), "w") as f:
         f.write(log)
     regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+    spills = sorted({ln.strip() for ln in log.splitlines() if "spill" in ln})
     say("build", seconds=f"{secs:.2f}", arch="sm_90a",
-        sources=",".join(cuda_build.SOURCES), ptxas=repr(" | ".join(regs)))
+        sources=",".join(cuda_build.SOURCES), ptxas=repr(" | ".join(regs)),
+        ptxas_spills=repr(" | ".join(spills)))
 
 
 # ---------------------------------------------------------------------------
@@ -139,9 +149,12 @@ def random_hallway_states(env, gen):
     return state.replace(pos=pos, dir=(u[:, 2] * 2.0 - 1.0) * math.pi)
 
 
-def wide_inputs(dev, gen, n=64, S=64, E=4, L=2, A=6, K=16):
+def wide_inputs(dev, gen, n=64, S=64, E=4, L=2, A=96, K=16):
     """Synthetic wide case: S prims of mixed kind around each camera,
-    E entities of mixed shape (some inactive), slots incl. -1 and A."""
+    E entities of mixed shape (some inactive), slots incl. -1 and A. The
+    96-slot atlas's Fourier table (57 KB) is too large for the epilogue
+    kernel's shared memory: it takes the path that reads the table by
+    slot through L1."""
     from miniworld_tpu_torch.ops import geom
     from miniworld_tpu_torch.render import raycast as rc
 
@@ -185,7 +198,68 @@ def wide_inputs(dev, gen, n=64, S=64, E=4, L=2, A=6, K=16):
     lights = [torch.tensor(v).expand(n, 3).contiguous().to(dev) for v in
               ([0.0, 2.5, 0.0], [0.7, 0.7, 0.7], [0.45, 0.45, 0.45], [0.25, 0.82, 1.0])]
     return (verts9.to(dev), attr.to(dev), layout_id.to(dev), cam, ents,
-            atlas.to(dev), lights, K)
+            atlas.to(dev), lights, K, rc.fourier_table(atlas, K).to(dev))
+
+
+def grazing_case(n, tile, n_rows=1024, seed=11):
+    """Synthetic rows at the edges of tri_pass's cull margins, each env
+    (layout_id = arange(n)) with rows made for its own camera: vertices
+    on the rays through the centres of tile-corner pixels (edges through
+    those centres, both windings, quads and triangles), tiny triangles
+    whose det at a corner pixel is 0.5-2 x 1e-12, and rows at t = NEAR
+    and t = FAR times 1 +- 1e-6. numpy draws from ``seed``, built in
+    float64 and rounded to float32, on the CPU: (verts9 (n, 9, S), attr
+    (n, S, 16), layout_id (n,) i32, cam)."""
+    from miniworld_tpu_torch.ops import geom
+    from miniworld_tpu_torch.render import raycast as rc
+
+    rng = np.random.default_rng(seed)
+    tw, th = tile
+    width, height = W, H
+    yaw = torch.from_numpy(rng.uniform(-np.pi, np.pi, n).astype(np.float32))
+    pitch = torch.from_numpy(rng.uniform(-15.0, 15.0, n).astype(np.float32))
+    fwd, up, right = geom.cam_basis(yaw, pitch)
+    origin = np.stack([rng.uniform(-2, 2, n), np.full(n, 1.5), rng.uniform(-2, 2, n)], 1)
+    tan_y = torch.full((n,), math.tan(math.radians(30.0)))
+    xbase = 2.0 * (torch.arange(width, dtype=torch.float32) + 0.5) * (1.0 / width) - 1.0
+    ybase = 1.0 - 2.0 * (torch.arange(height, dtype=torch.float32) + 0.5) * (1.0 / height)
+    cam = rc.Camera(torch.from_numpy(origin.astype(np.float32)), fwd, right, up,
+                    tan_y * (width / height), tan_y, xbase, ybase)
+    xv, yv = cam.xv().double().numpy(), cam.yv().double().numpy()  # (n, HW)
+    basis = [t.double().numpy() for t in (fwd, right, up)]
+    cols = sorted({x for x0 in range(0, width, tw) for x in (x0, min(x0 + tw, width) - 1)})
+    rows_y = sorted({y for y0 in range(0, height, th) for y in (y0, min(y0 + th, height) - 1)})
+
+    def corner_rays():  # (n, 3) direction through a random tile-corner pixel per env
+        p = (rng.choice(rows_y, n) * width + rng.choice(cols, n))
+        a, b = xv[np.arange(n), p], yv[np.arange(n), p]
+        return basis[0] + a[:, None] * basis[1] + b[:, None] * basis[2]
+
+    verts = np.zeros((n, n_rows, 3, 3))
+    kinds = rng.integers(0, 2, (n, n_rows)).astype(np.float64)
+    for s in range(n_rows):
+        d0, d1, d2 = corner_rays(), corner_rays(), corner_rays()
+        style = s % 4
+        if style == 3:  # near or far
+            base = 0.04 if rng.uniform() < 0.5 else 100.0
+            t = base * (1.0 + rng.choice([-1e-6, 1e-6], (n, 1)))
+        else:
+            t = rng.uniform(0.5, 20.0, (n, 1))
+        v = [origin + t * d for d in (d0, d1, d2)]
+        if style == 2:  # tiny triangle: det = (e2 x e1) . d0 near 1e-12 at the corner
+            e1, e2 = v[1] - v[0], v[2] - v[0]
+            det = np.einsum("ni,ni->n", np.cross(e2, e1), d0)
+            scale = np.sqrt(rng.choice([0.5, 1.0, 2.0], n) * 1e-12 / np.maximum(np.abs(det), 1e-30))
+            sign = np.where(det < 0, -1.0, 1.0)  # flip e2 to face the camera
+            v = [v[0], v[0] + e1 * scale[:, None], v[0] + sign[:, None] * e2 * scale[:, None]]
+            kinds[:, s] = 1.0
+        verts[:, s] = np.stack(v, 1)
+    verts9 = torch.from_numpy(verts.reshape(n, n_rows, 9).transpose(0, 2, 1)
+                              .astype(np.float32)).contiguous()
+    attr = rng.uniform(-1, 1, (n, n_rows, 16)).astype(np.float32)
+    attr[:, :, 14] = rng.integers(-1, 6, (n, n_rows))
+    attr[:, :, 15] = kinds
+    return (verts9, torch.from_numpy(attr), torch.arange(n, dtype=torch.int32), cam)
 
 
 def compare_hits(t_k, t_p, same):
@@ -201,10 +275,15 @@ def compare_hits(t_k, t_p, same):
     return int((~same).sum()), 1.0 - float(same.float().mean()), abs_err, rel_err
 
 
-def check_stage(name, case, n_differ, differ, abs_err, rel_err):
+def check_stage(name, case, n_differ, differ, abs_err, rel_err, exact=False):
+    """Raises where the kernel's hits disagree with the plain version's
+    beyond the limits; ``exact``: where any pixel's winner or t differs."""
     say("kernel-vs-plain", kernel=name, case=case, winner_differs_px=n_differ,
         winner_differs=f"{differ:.3e}", t_max_abs_err=f"{abs_err:.3e}",
-        t_max_rel_err=f"{rel_err:.3e}")
+        t_max_rel_err=f"{rel_err:.3e}", exact=exact)
+    if exact and (n_differ or abs_err):
+        raise AssertionError(f"{name} ({case}): kernel differs from plain on {n_differ} "
+                             f"pixels, t by up to {abs_err:.3e}")
     if differ > MAX_WINNER_DIFF_FRAC or rel_err > MAX_T_REL_ERR:
         raise AssertionError(f"{name} ({case}): kernel disagrees with plain "
                              f"(winner differs {differ:.3e}, rel err {rel_err:.3e})")
@@ -235,7 +314,7 @@ def run_stage_checks(tri_args, ent_args, epi_rest, case, timings=None, mesh=None
     t_p, a_p = rc.tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired)
     n_differ, differ, abs_err, rel_err = compare_hits(t_k, t_p, (a_k == a_p).all(-1))
     check_stage("tri_pass" + (" seeded" if seed else "") + (" paired" if paired else ""),
-                case, n_differ, differ, abs_err, rel_err)
+                case, n_differ, differ, abs_err, rel_err, exact=True)
     out["tri_pass"] = abs_err
 
     ent, has_sphere, has_box = ent_args
@@ -246,20 +325,23 @@ def run_stage_checks(tri_args, ent_args, epi_rest, case, timings=None, mesh=None
     check_stage("entity_pass", case, n_differ, differ, abs_err, rel_err)
     out["entity_pass"] = abs_err
 
-    atlas, lights, k_terms = epi_rest
-    # both epilogue versions read the kernels' hit results
-    rgb_k, d_k = rc.pixel_epilogue(t_k, a_k, *e_k, atlas, cam, *lights, k_terms)
+    atlas, lights, k_terms, table = epi_rest
+    # both epilogue versions read the kernels' hit results; the kernel
+    # reads the atlas's Fourier table, the plain version the atlas
+    rgb_k, d_k = rc.pixel_epilogue(t_k, a_k, *e_k, atlas, cam, *lights, k_terms, table=table)
     rgb_p, d_p = rc.pixel_epilogue_plain(t_k, a_k, *e_k, atlas, cam, *lights, k_terms)
     diff = (rgb_k.int() - rgb_p.int()).abs()
     rgb_err = int(diff.max())
     n_rgb = int((diff.amax(-1) > 0).sum())
     frac = n_rgb / diff[..., 0].numel()
     d_err = float(((d_k - d_p).abs() / d_p.abs()).max())
+    n_depth = int((d_k != d_p).sum())
     say("kernel-vs-plain", kernel="pixel_epilogue", case=case, max_rgb_err=rgb_err,
-        rgb_differs_px=n_rgb, rgb_differs=f"{frac:.3e}",
-        depth_max_rel_err=f"{d_err:.3e}")
-    if rgb_err > MAX_RGB_ERR or frac > MAX_RGB_DIFF_FRAC or d_err > MAX_T_REL_ERR:
-        raise AssertionError(f"pixel_epilogue ({case}): kernel disagrees with plain")
+        rgb_differs_px=n_rgb, rgb_differs=f"{frac:.3e}", depth_differs_px=n_depth,
+        depth_max_rel_err=f"{d_err:.3e}", exact=True)
+    if n_rgb or n_depth:
+        raise AssertionError(f"pixel_epilogue ({case}): kernel differs from plain on "
+                             f"{n_rgb} RGB and {n_depth} depth pixels")
     out["pixel_epilogue"] = float(rgb_err)
 
     if timings is not None:  # at the main path's shapes
@@ -278,7 +360,7 @@ def run_stage_checks(tri_args, ent_args, epi_rest, case, timings=None, mesh=None
                     plain_iters))
         timings["pixel_epilogue"] = (
             cuda_ms(lambda: rc.pixel_epilogue(t_k, a_k, *e_k, atlas, cam, *lights,
-                                              k_terms), 50),
+                                              k_terms, table=table), 50),
             cuda_ms(lambda: rc.pixel_epilogue_plain(t_k, a_k, *e_k, atlas, cam,
                                                     *lights, k_terms), plain_iters))
     return out, (t_k, a_k, e_k)
@@ -336,7 +418,7 @@ def stage_inputs(env, state):
     ent = ((state.ent_pos, state.ent_size, state.ent_dir, state.ent_height,
             state.ent_color, rc.entity_flags(env._bank, state)), *env._shapes_present[:2])
     epi = (env._atlas, (state.light_pos, state.light_color, state.light_ambient,
-                        state.sky_color), env.fourier_k)
+                        state.sky_color), env.fourier_k, env._fourier_table)
     return cam, tri, ent, epi
 
 
@@ -349,14 +431,26 @@ def phase_kernels(hall, pick):
 
     dev = torch.device(DEVICE)
     gen = torch.Generator().manual_seed(1234)
+    tile = rc.tri_pass_tile()[:2]
     state = random_hallway_states(hall, gen)
     _, tri, ent, epi = stage_inputs(hall, state)
-    errs, _ = run_stage_checks(
+    errs, outs = run_stage_checks(
         tri, ent, epi, f"hallway B={B} HW={W * H} S={tri[0].shape[2]} "
         f"E={state.ent_pos.shape[1]}")
-    verts9, attr, layout_id, wcam, ents, atlas, lights, k_terms = wide_inputs(dev, gen)
-    wide_case = (verts9, attr, layout_id, wcam, False), (ents, True, True), (atlas, lights,
-                                                                             k_terms)
+    # tri_pass at Hallway's shapes: 8 rows, where culling saves nothing
+    stats = tri_cull_stats(tri, tile=tile)
+    work = stage_work(hall, state, tri, ent, outs, stats["hit_pairs"])
+    say("tri-cull", env=ENV_ID, B=B, **cull_fields(stats, tile, tri[0].shape[2]))
+    hall_ms = (cuda_ms(lambda: rc.tri_pass(*tri), 50), cuda_ms(lambda: rc.tri_pass_plain(*tri), 5))
+    say("kernel-time", kernel="tri_pass", ms=f"{hall_ms[0]:.4f}", plain_ms=f"{hall_ms[1]:.4f}",
+        bound_ms=f"{bound(*work['tri_pass'])[0]:.4f}",
+        bound_full_scan_ms=f"{bound(*work['tri_pass_full_scan'])[0]:.4f}",
+        shapes=f"{ENV_ID} B={B} HW={W * H}")
+    errs["tri_pass"] = max(errs["tri_pass"], phase_grazing(dev, tile))
+    sweep = [(f"{ENV_ID} B={B}", lambda tri=tri: rc.tri_pass(*tri), outs[:2])]
+    verts9, attr, layout_id, wcam, ents, atlas, lights, k_terms, table = wide_inputs(dev, gen)
+    wide_case = ((verts9, attr, layout_id, wcam, False), (ents, True, True),
+                 (atlas, lights, k_terms, table))
     wide, _ = run_stage_checks(*wide_case, "wide B=64 S=64 mixed-kind E=4 spheres+boxes slot<0")
     errs = {k: max(errs[k], wide[k]) for k in errs}
 
@@ -380,15 +474,91 @@ def phase_kernels(hall, pick):
         *wide_case, "wide-mesh B=64 E*M=1000 (20% inactive, 10% behind) seeding S=64",
         mesh=mesh)
     errs = {k: max(errs[k], v) for k, v in w_errs.items()}
-    work = stage_work(pick, state, tri, ent, outs, mesh=(rows9, valid))
-    return errs, timings, work
+    stats = tri_cull_stats(tri, tile=tile)
+    say("tri-cull", env=PICK_ID, B=B_PICK, **cull_fields(stats, tile, tri[0].shape[2]))
+    work = stage_work(pick, state, tri, ent, outs, stats["hit_pairs"], mesh=(rows9, valid))
+    seed = rc.entity_mesh_pass(rows9, row_attrs, cam)
+    sweep.append((f"{PICK_ID} B={B_PICK} seeded", lambda tri=tri: rc.tri_pass(*tri, seed),
+                  outs[:2]))
+    return errs, timings, work, sweep
 
 
-def stage_work(env, state, tri, ent, outs, mesh=None, paired=None):
+def phase_grazing(dev, tile, n=64, n_rows=1024):
+    """tri_pass against its plain version on rows that graze the cull's
+    margins (grazing_case, 1024 rows: the launch above 48 KB of shared
+    memory), quads only and mixed; returns the max abs t error."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    verts9, attr, layout_id, cam = grazing_case(n, tile, n_rows)
+    verts9, attr, layout_id = verts9.to(dev), attr.to(dev), layout_id.to(dev)
+    cam = rc.Camera(*(t.to(dev) for t in cam))
+    err = 0.0
+    for all_quads in (False, True):
+        t_k, a_k = rc.tri_pass(verts9, attr, layout_id, cam, all_quads)
+        t_p, a_p = rc.tri_pass_plain(verts9, attr, layout_id, cam, all_quads)
+        n_differ, differ, abs_err, rel_err = compare_hits(t_k, t_p, (a_k == a_p).all(-1))
+        check_stage("tri_pass", f"grazing B={n} S={n_rows} tile={tile[0]}x{tile[1]} "
+                    f"all_quads={all_quads} px_hit={float(torch.isfinite(t_p).float().mean()):.3f}",
+                    n_differ, differ, abs_err, rel_err, exact=True)
+        err = max(err, abs_err)
+    return err
+
+
+def cam_rows(cam, sl):
+    """The cameras of envs ``sl``."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    return rc.Camera(*(t[sl] for t in cam[:6]), cam.xbase, cam.ybase)
+
+
+def tri_cull_stats(tri, paired=None, tile=None, block=32):
+    """What tri_pass's rows do on these inputs, from the plain versions
+    over blocks of envs: the (row, pixel) pairs that pass the hit test,
+    and with ``tile`` = (w, h) the kernel's culling — the rows a frame
+    keeps after the image test, the survivors per tile and the rows a
+    pixel scans (its tile's survivors), as means."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    verts9, attr, layout_id, cam, all_quads = tri
+    b = layout_id.shape[0]
+    out = dict(hit_pairs=0, image=0.0, tiles=0.0, scanned=0.0)
+    if tile is not None:
+        tw, th = tile
+        cols = torch.tensor([min(tw, W - x) for x in range(0, W, tw)], dtype=torch.float64)
+        rows_px = torch.tensor([min(th, H - y) for y in range(0, H, th)], dtype=torch.float64)
+        px = (rows_px[:, None] * cols[None, :]).reshape(-1).to(verts9.device)  # (T,)
+    for lo in range(0, b, block):
+        sl = slice(lo, lo + block)
+        c = cam_rows(cam, sl)
+        p = None if paired is None else (*paired[:3], paired[3][sl])
+        rows = rc.stage_rows(verts9, attr, layout_id[sl], c, p)
+        out["hit_pairs"] += int(rc.row_hits_plain(rows, c, all_quads).sum())
+        if tile is not None:
+            per_tile = rc.tile_cull_plain(rows, c, tw, th, all_quads).sum(2).double()
+            out["tiles"] += float(per_tile.mean(1).sum())
+            out["scanned"] += float((per_tile * px).sum())
+            out["image"] += float(rc.tile_cull_plain(rows, c, W, H, all_quads).sum())
+    return dict(hit_pairs=out["hit_pairs"], hits_per_px=out["hit_pairs"] / (b * W * H),
+                image_survivors=out["image"] / b, survivors_per_tile=out["tiles"] / b,
+                scanned_per_px=out["scanned"] / (b * W * H))
+
+
+def cull_fields(stats, tile, n_rows):
+    return dict(tile=f"{tile[0]}x{tile[1]}", rows=n_rows,
+                rows_after_image_test=f"{stats['image_survivors']:.3f}",
+                survivors_per_tile=f"{stats['survivors_per_tile']:.3f}",
+                rows_scanned_per_px=f"{stats['scanned_per_px']:.3f}",
+                hit_rows_per_px=f"{stats['hits_per_px']:.4f}")
+
+
+def stage_work(env, state, tri, ent, outs, tri_hits, mesh=None, paired=None):
     """(bytes, float operations) each render stage must move and do on
     these inputs: each input read once, each output written once;
     operations counted per (row, pixel) pair that the data needs (live
-    mesh rows, active entities, textured pixels). Per-pair counts:
+    mesh rows, active entities, textured pixels; for tri_pass the
+    ``tri_hits`` pairs that pass the hit test, tri_cull_stats, and under
+    "tri_pass_full_scan" every (row, pixel) pair, as a full scan tests them).
+    Per-pair counts:
     separable hit test 22 (three 2-term contractions 12, 1/t 1, coverage
     3, gates 6), triangle-only 20, analytic sphere 20, box slab 45,
     Fourier texel 41 per term (phase 3, cos/sin 20, anti-aliasing 6,
@@ -413,7 +583,8 @@ def stage_work(env, state, tri, ent, outs, mesh=None, paired=None):
         work["entity_mesh_pass"] = (b * n_rows * (9 + 16) * 4 + cam_b + b * hw * 36,
                                     int(valid.sum()) * hw * 20)
         tri_bytes += b * hw * 36  # the seed
-    work["tri_pass"] = (tri_bytes, b * hw * (S * 22 + 1))
+    work["tri_pass"] = (tri_bytes, tri_hits * 22 + b * hw)
+    work["tri_pass_full_scan"] = (tri_bytes, b * hw * (S * 22 + 1))
     flags = ent[0][5]
     E = flags.shape[1]
     active = (flags & ENT_ACTIVE) != 0
@@ -423,7 +594,7 @@ def stage_work(env, state, tri, ent, outs, mesh=None, paired=None):
                            hw * (n_sph * 20 + n_box * 45))
     k = env.fourier_k
     textured = int((torch.isfinite(t_k) & (a_k[..., 14].float() >= 0)).sum())
-    work["pixel_epilogue"] = (b * hw * (36 + 28) + env._atlas.numel() * 4 + b * 48 + cam_b
+    work["pixel_epilogue"] = (b * hw * (36 + 28) + env._fourier_table.numel() * 4 + b * 48 + cam_b
                               + b * hw * 7, textured * k * 41 + b * hw * 60)
     return work
 
@@ -460,7 +631,7 @@ def phase_maze_kernels(maze):
     ent = ((state.ent_pos, state.ent_size, state.ent_dir, state.ent_height,
             state.ent_color, rc.entity_flags(bank, state)), *maze._shapes_present[:2])
     epi = (maze._atlas, (state.light_pos, state.light_color, state.light_ambient,
-                         state.sky_color), maze.fourier_k)
+                         state.sky_color), maze.fourier_k, maze._fourier_table)
     timings = {}
     errs, outs = run_stage_checks(
         tri, ent, epi, f"maze8x8-procgen B={B_MAZE} HW={W * H} Sp={tri[0].shape[2]} "
@@ -470,8 +641,44 @@ def phase_maze_kernels(maze):
     say("maze-scene", px_hit=f"{float(hit.float().mean()):.3f}",
         walls_open=f"{float(state.wall_open.mean()):.3f}",
         rows_alt=f"{float((maze._pg_wall >= 0).float().mean()):.3f}")
-    work = stage_work(maze, state, tri, ent, outs, paired=paired)
-    return errs, timings, work
+    tile = rc.tri_pass_tile()[:2]
+    stats = tri_cull_stats(tri, paired, tile)
+    say("tri-cull", env=MAZE_ID, B=B_MAZE, **cull_fields(stats, tile, tri[0].shape[2]))
+    work = stage_work(maze, state, tri, ent, outs, stats["hit_pairs"], paired=paired)
+    sweep = [(f"{MAZE_ID} procgen B={B_MAZE}", lambda: rc.tri_pass(*tri, None, paired),
+              (t_k, a_k))]
+    return errs, timings, work, sweep
+
+
+def phase_tile_sweep(cases):
+    """tri_pass built with each TILE_SWEEP tile and pixels per thread (one
+    nvcc each, all started together) on each case = (label, run, ref):
+    timed over 20 launches of ``run`` after the default build, and held
+    equal to the default build's result ``ref``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from miniworld_tpu_torch.render import cuda_build, raycast as rc
+
+    defines = [(f"-DTILE_W={w}", f"-DTILE_H={h}", f"-DPIX_PER_THREAD={k}")
+               for w, h, k in TILE_SWEEP]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(defines)) as pool:
+        libs = list(pool.map(lambda d: cuda_build.build(d, ("tri_pass.cu",))[0], defines))
+    say("tile-sweep-build", variants=len(libs), seconds=f"{time.perf_counter() - t0:.2f}")
+
+    for label, run, ref in cases:
+        default_ms = cuda_ms(run, 20)
+        for (w, h, k), lib in zip(TILE_SWEEP, libs):
+            with cuda_build.library(lib):
+                t, a = run()
+                equal = torch.equal(t, ref[0]) and torch.equal(a, ref[1])
+                ms = cuda_ms(run, 20)
+            say("tile-sweep", tile=f"{w}x{h}", pix_per_thread=k, threads=w * h // k,
+                ms=f"{ms:.4f}", default_ms=f"{default_ms:.4f}", equal_to_default=equal,
+                shapes=f"{label} HW={W * H}")
+            if not equal:
+                raise AssertionError(f"tri_pass with tile {w}x{h}/{k} differs from the "
+                                     f"default build ({label})")
 
 
 def phase_mazegen(maze, timings):
@@ -809,17 +1016,18 @@ def main():
                                 procgen=False)
     if not (maze.procgen and maze_s3.procgen):
         raise AssertionError("the Maze family does not default to procgen")
-    errs, pick_timings, pick_work = phase_kernels(hall, pick)
+    errs, pick_timings, pick_work, sweep = phase_kernels(hall, pick)
     for k, (ms, plain) in pick_timings.items():
         say("kernel-time", kernel=k, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
-            shapes=f"{PICK_ID} B={B_PICK} HW={W * H}")
-    maze_errs, timings, work = phase_maze_kernels(maze)
+            bound_ms=f"{bound(*pick_work[k])[0]:.4f}", shapes=f"{PICK_ID} B={B_PICK} HW={W * H}")
+    maze_errs, timings, work, maze_sweep = phase_maze_kernels(maze)
+    phase_tile_sweep(maze_sweep + sweep)
     errs = {k: max(v, maze_errs.get(k, 0.0)) for k, v in errs.items()}
     errs["mazegen"], work["mazegen"] = phase_mazegen(maze, timings)
     errs["place"], work["place"] = phase_place(pick, four, maze, timings)
     for k, (ms, plain) in timings.items():
         say("kernel-time", kernel=k, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
-            shapes=f"{MAZE_ID} procgen B={B_MAZE} HW={W * H}")
+            bound_ms=f"{bound(*work[k])[0]:.4f}", shapes=f"{MAZE_ID} procgen B={B_MAZE} HW={W * H}")
     pick_launches, rates = phase_main(hall, pick, pick_small, four, tmaze)
     maze_launches = phase_maze(maze, maze_s3, maze_s3_bank, rates)
     kernels = []
@@ -835,6 +1043,8 @@ def main():
             "ms": path_timings[k][0], "plain_ms": path_timings[k][1],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
+        if k == "tri_pass":  # every (row, pixel) pair counted, as before the culling
+            kernels[-1]["bound_full_scan_ms"] = bound(*path_work["tri_pass_full_scan"])[0]
     print(json.dumps({
         "kernels": kernels,
         "env_steps_per_s": {k: {"kernels": v[0], "plain": v[1]} for k, v in rates.items()},

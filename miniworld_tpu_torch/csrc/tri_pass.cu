@@ -4,28 +4,62 @@
 // form, chunk_compete, and the ``init`` seed of the carry), an XLA-fused
 // jnp stage in the JAX package. The plain PyTorch version is
 // tri_pass_plain in miniworld_tpu_torch/render/raycast.py; the two agree
-// bit for bit (the library is built with -fmad=false and the arithmetic
-// below follows the plain version operation by operation).
+// bit for bit (the library is built with -fmad=false and the per-(row,
+// pixel) arithmetic below follows the plain version operation by
+// operation). The row culling has its own plain version, tile_cull_plain.
 //
-// What bounds it on an H100: per (env, pixel) it reads nothing but the
-// env's prim table and writes 4 bytes of t plus 32 bytes of bf16
-// attributes, so at Hallway's S = 8 it is bound by those stores
-// (about 36 bytes/pixel, 177 MB at B = 1024, 80x60) rather than by the
-// 2 multiply-adds x 3 per (prim, pixel). At an 8x8 maze's S = 608 rows
-// it is bound by operations instead: about 22 float operations per
-// (row, pixel), 526 GFLOP at B = 8192, 80x60, or 7.9 ms at the card's
-// 67 TFLOP/s float32 peak.
+// What bounds it on an H100: per (env, pixel) it writes 4 bytes of t
+// and 32 bytes of bf16 attributes (1.42 GB at an 8x8 maze's B = 8192,
+// 80x60: 0.42 ms at 3.35 TB/s). A pixel passes the hit test for about 2
+// of the maze's S = 608 paired rows, so the operations the data needs
+// (22 per passing (row, pixel) pair) are far below the bytes; what the
+// kernel adds on top is the cull pass (about 100 operations per (row,
+// tile) survivor of the image test) and the scan of each tile's
+// survivors (about 19 rows per 16x12 tile of a maze view).
 //
-// Design: one thread per (env, pixel), one block row per env. The block
-// first stages the env's per-prim coefficients in shared memory — the
-// three basis dots of g_det, g_u and g_v (separable rays:
-// g . d = g.fwd + xv * g.right + yv * g.up), the per-prim reciprocal
-// 1/t_num, and the kind — so the per-pixel loop is pure register work.
-// The running z-key (r's bits with the low 10 mantissa bits replaced by
-// the prim row) stays in a register; ties go to the larger row through
-// the integer max. The winner's attribute row is loaded once, by index,
-// at the end (the JAX package used a one-hot matmul because TPU gathers
-// are slow; here it is one 64-byte read from L1/L2).
+// Design. A block owns one env and loops over screen tiles of TILE_W x
+// TILE_H pixels (the last ones cut at the image's edge); at small B an
+// env's tiles are spread over several blocks. The block
+//   1. stages the env's rows once in shared memory, 12 floats each (three
+//      float4: the camera-basis dots of g_det, g_u and g_v — separable
+//      rays, g . d = g.fwd + xv * g.right + yv * g.up — then 1/t_num,
+//      the kind and a pad), and keeps the rows that may hit the image
+//      (the cull below, against the whole image) in a list;
+//   2. per tile, culls that list against the tile's (xv, yv) box and
+//      compacts the survivors with warp ballots (order does not matter:
+//      the integer max of the keys is the same in any order);
+//   3. scans only the survivors per pixel, PIX_PER_THREAD pixels of one
+//      column per thread (their b * xv products are shared), with the
+//      running z-key (r's bits with the low 10 mantissa bits replaced by
+//      the row) in registers; ties go to the larger row through the
+//      integer max. The winner's attribute row is loaded once, by index,
+//      at the end (the JAX package used a one-hot matmul because TPU
+//      gathers are slow; here it is one 64-byte read from L1/L2).
+//
+// The cull. A row can hit a pixel only where u >= 0, v >= 0, u <= det
+// and v <= det (coverage max(u, v) + kind * min(u, v) >= max(u, v) for
+// kind >= 0), det > 1e-12, and 1/FAR < r = det / t_num < 1/NEAR. Each of
+// det, u, v is f = a + b xv + c yv, affine in the pixel's (xv, yv); the
+// box's corners (the min and max of xv over the tile's columns and of yv
+// over its rows) bound every pixel's exact value. The kernel computes
+// f = (a + b xv) + c yv in three rounded operations, within
+// ((1 + u)^3 - 1) M <= 3.01 u M of the exact value, u = 2^-24,
+// M = |a| + |b| X + |c| Y, X and Y the largest |xv| and |yv| of the box.
+// So a pixel's computed value lies within 6.02 u M of the corners'
+// computed values (another 1.01 u (M_det + M_u) for the rounded
+// difference det - u). The margin m = 2^-20 M + 1e-30 (16 u M, and a
+// floor for subnormal rows) covers both, and a row is culled when, at
+// all four corners, one of these holds:
+//   u < -m_u;  v < -m_v;  det < -m_det (det <= 0 < 1e-12 everywhere);
+//   det - u < -(m_det + m_u) or det - v < -(m_det + m_v)  (kind >= 0 or
+//   all_quads);  1/t_num = 0 (r = 0 everywhere);
+// or, the corners' det being finite, with D_hi = max det + m_det and
+// D_lo = min det - m_det (r is det * (1/t_num), monotone in det):
+//   D_hi / t_num <= 1/FAR,  or  D_lo / t_num >= 1/NEAR.
+// A NaN fails every comparison, so it never culls. A culled row has
+// z-key 0 on every pixel of the tile, and the per-pixel max over the
+// survivors equals the max over all rows: the output is the full scan's,
+// bit for bit.
 //
 // Seeded launch (seed_t != nullptr; scenes with mesh entities): the
 // mesh-entity pass's (t, attr) starts the competition. Its key is 1/t
@@ -39,19 +73,115 @@
 // where pg_wall[s] < 0 (no wall) or its wall is open in wall_open[b],
 // the alternative (the wall's closed quads) otherwise. The staging loop
 // picks the variant before computing the row's coefficients and keeps
-// the choice as one byte per row in shared memory after the 11 float
-// fields (11 x 4 + 1 bytes per row: 46,080 B at S = 1024, under the
-// 48 KB default), so the winner's attributes come from its variant.
+// the choice as one byte per row, so the winner's attributes come from
+// its variant.
+//
+// Shared memory: 48 bytes per row, two 2-byte row lists and (paired) the
+// variant byte: 53,248 B at S = 1024, above the 48 KB default, so the
+// launch raises the kernel's dynamic limit when it needs more.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 
+#ifndef TILE_W
+#define TILE_W 16
+#endif
+#ifndef TILE_H
+#define TILE_H 12
+#endif
+#ifndef PIX_PER_THREAD
+#define PIX_PER_THREAD 2
+#endif
+// 16x12 tiles of 2 pixels per thread (96 threads) came out fastest at an
+// 8x8 maze's B = 8192 and PickupObjects' B = 4096 among the builds
+// chip_smoke.py's tile sweep times (PERF.md).
+#define THREADS (TILE_W * TILE_H / PIX_PER_THREAD)
+#define ROWS_PER_THREAD_Y (TILE_H / PIX_PER_THREAD)
+static_assert(TILE_H % PIX_PER_THREAD == 0, "a thread's pixels share one tile column");
+static_assert(THREADS % 32 == 0 && THREADS >= 64, "whole warps, two for the box");
+static_assert(TILE_W <= 32 && TILE_H <= 32, "one warp reduces a tile's columns / rows");
+
 #define ATTR_DIM 16
 #define IDX_MASK 0x3FF
-#define PRIM_FIELDS 11
+// blocks a launch aims for: at small B an env's tiles spread over blocks
+#define BLOCK_TARGET 1024
 
-__global__ void tri_pass_kernel(
+struct Box {
+    float xlo, xhi, ylo, yhi;
+};
+
+__device__ __forceinline__ float lin(float a, float b, float c, float x, float y) {
+    return (a + b * x) + c * y;
+}
+
+// True when the row (three float4 of staged fields) provably misses
+// every pixel whose (xv, yv) lies in the box; see the header.
+__device__ __forceinline__ bool row_culled(const float4 r0, const float4 r1, const float4 r2,
+                                           const Box bx, const bool all_quads) {
+    const float rel = 9.5367431640625e-07f;  // 2^-20
+    const float floor_abs = 1e-30f;
+    const float xm = fmaxf(fabsf(bx.xlo), fabsf(bx.xhi));
+    const float ym = fmaxf(fabsf(bx.ylo), fabsf(bx.yhi));
+    const float md = ((fabsf(r0.x) + fabsf(r0.y) * xm) + fabsf(r0.z) * ym) * rel + floor_abs;
+    const float mu = ((fabsf(r0.w) + fabsf(r1.x) * xm) + fabsf(r1.y) * ym) * rel + floor_abs;
+    const float mv = ((fabsf(r1.z) + fabsf(r1.w) * xm) + fabsf(r2.x) * ym) * rel + floor_abs;
+    const float mdu = md + mu, mdv = md + mv;
+    const float inv = r2.y;
+    const bool cov_ok = all_quads || r2.z >= 0.0f;
+    bool u_out = true, v_out = true, d_out = true, du_out = true, dv_out = true, finite = true;
+    float d_hi = -INFINITY, d_lo = INFINITY;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+        const float x = (c & 2) ? bx.xhi : bx.xlo;
+        const float y = (c & 1) ? bx.yhi : bx.ylo;
+        const float d = lin(r0.x, r0.y, r0.z, x, y);
+        const float u = lin(r0.w, r1.x, r1.y, x, y);
+        const float v = lin(r1.z, r1.w, r2.x, x, y);
+        u_out = u_out && u < -mu;
+        v_out = v_out && v < -mv;
+        d_out = d_out && d < -md;
+        du_out = du_out && (d - u) < -mdu;
+        dv_out = dv_out && (d - v) < -mdv;
+        finite = finite && isfinite(d);
+        d_hi = fmaxf(d_hi, d);
+        d_lo = fminf(d_lo, d);
+    }
+    const float r_near = (float)(1.0 / 0.04);  // 1 / NEAR
+    const float r_far = (float)(1.0 / 100.0);  // 1 / FAR
+    bool cull = u_out || v_out || d_out || !(inv > 0.0f) || (cov_ok && (du_out || dv_out));
+    cull = cull || (finite && ((d_hi + md) * inv <= r_far || (d_lo - md) * inv >= r_near));
+    return cull;
+}
+
+// Appends s to list where keep holds: one ballot and one shared atomic
+// per warp. Every lane of the warp calls it.
+__device__ __forceinline__ void append(const bool keep, const int s, unsigned short* list,
+                                       int* count) {
+    const int lane = threadIdx.x & 31;
+    const unsigned m = __ballot_sync(0xffffffffu, keep);
+    int base = 0;
+    if (lane == 0 && m) base = atomicAdd(count, __popc(m));
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (keep) list[base + __popc(m & ((1u << lane) - 1u))] = (unsigned short)s;
+}
+
+// two floats rounded to bf16 (nearest even), a first, as 32 bits
+__device__ __forceinline__ unsigned bf16x2(const float a, const float b) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// min / max over the warp's lanes
+__device__ __forceinline__ void warp_span(float& lo, float& hi) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+        hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+    }
+}
+
+__global__ void __launch_bounds__(THREADS) tri_pass_kernel(
     const float* __restrict__ verts9,   // (L, 9, S) component-major
     const float* __restrict__ attr,     // (L, S, 16)
     const int* __restrict__ layout_id,  // (B,)
@@ -72,115 +202,222 @@ __global__ void tri_pass_kernel(
     float* __restrict__ t_out,          // (B, HW)
     __nv_bfloat16* __restrict__ attr_out)  // (B, HW, 16)
 {
-    extern __shared__ float prim[];  // PRIM_FIELDS x S, field-major
-    unsigned char* use_alt = reinterpret_cast<unsigned char*>(prim + PRIM_FIELDS * S);
+    extern __shared__ float4 rows[];  // 3 x S float4
+    unsigned short* env_list = reinterpret_cast<unsigned short*>(rows + 3 * S);
+    unsigned short* tile_list = env_list + S;
+    unsigned char* use_alt = reinterpret_cast<unsigned char*>(tile_list + S);
+    __shared__ Box box;
+    __shared__ int n_env, n_tile;
+
     const int b = blockIdx.y;
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
     const int lid = layout_id[b];
     const bool paired = pg_wall != nullptr;
+    const bool quads = all_quads != 0;
     const float* v9p = verts9 + (size_t)lid * 9 * S;
     const float* atp = attr + (size_t)lid * S * ATTR_DIM;
     const float* v9a = paired ? verts9_alt + (size_t)lid * 9 * S : nullptr;
     const float* ata = paired ? attr_alt + (size_t)lid * S * ATTR_DIM : nullptr;
-    const float ox = origin[3 * b], oy = origin[3 * b + 1], oz = origin[3 * b + 2];
-    const float f0 = fwd[3 * b], f1 = fwd[3 * b + 1], f2 = fwd[3 * b + 2];
-    const float r0 = right[3 * b], r1 = right[3 * b + 1], r2 = right[3 * b + 2];
-    const float u0 = up[3 * b], u1 = up[3 * b + 1], u2 = up[3 * b + 2];
+    const float tan_x = tan_xy[2 * b], tan_y = tan_xy[2 * b + 1];
 
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-        bool alt = false;
-        if (paired) {
-            const int w = pg_wall[(size_t)lid * S + s];
-            alt = w >= 0 && !(wall_open[(size_t)b * Wn + w] > 0.5f);
-            use_alt[s] = alt;
+    // the whole image's box: warp 0 over the columns, warp 1 over the rows
+    if (warp < 2) {
+        const int n = warp == 0 ? W : H;
+        const float* base = warp == 0 ? xbase : ybase;
+        const float tn = warp == 0 ? tan_x : tan_y;
+        float lo = INFINITY, hi = -INFINITY;
+        for (int i = lane; i < n; i += 32) {
+            const float v = base[i] * tn;
+            lo = fminf(lo, v);
+            hi = fmaxf(hi, v);
         }
-        const float* v9 = alt ? v9a : v9p;
-        const float e1x = v9[3 * S + s] - v9[s];
-        const float e1y = v9[4 * S + s] - v9[S + s];
-        const float e1z = v9[5 * S + s] - v9[2 * S + s];
-        const float e2x = v9[6 * S + s] - v9[s];
-        const float e2y = v9[7 * S + s] - v9[S + s];
-        const float e2z = v9[8 * S + s] - v9[2 * S + s];
-        const float sx = ox - v9[s];
-        const float sy = oy - v9[S + s];
-        const float sz = oz - v9[2 * S + s];
-        const float gdx = e2y * e1z - e2z * e1y;
-        const float gdy = e2z * e1x - e2x * e1z;
-        const float gdz = e2x * e1y - e2y * e1x;
-        const float gux = e2y * sz - e2z * sy;
-        const float guy = e2z * sx - e2x * sz;
-        const float guz = e2x * sy - e2y * sx;
-        const float gvx = sy * e1z - sz * e1y;
-        const float gvy = sz * e1x - sx * e1z;
-        const float gvz = sx * e1y - sy * e1x;
-        const float t_num = e2x * gvx + e2y * gvy + e2z * gvz;
-        prim[0 * S + s] = gdx * f0 + gdy * f1 + gdz * f2;
-        prim[1 * S + s] = gdx * r0 + gdy * r1 + gdz * r2;
-        prim[2 * S + s] = gdx * u0 + gdy * u1 + gdz * u2;
-        prim[3 * S + s] = gux * f0 + guy * f1 + guz * f2;
-        prim[4 * S + s] = gux * r0 + guy * r1 + guz * r2;
-        prim[5 * S + s] = gux * u0 + guy * u1 + guz * u2;
-        prim[6 * S + s] = gvx * f0 + gvy * f1 + gvz * f2;
-        prim[7 * S + s] = gvx * r0 + gvy * r1 + gvz * r2;
-        prim[8 * S + s] = gvx * u0 + gvy * u1 + gvz * u2;
-        prim[9 * S + s] = t_num > 0.0f ? 1.0f / t_num : 0.0f;
-        prim[10 * S + s] = (alt ? ata : atp)[s * ATTR_DIM + 15];  // kind
+        warp_span(lo, hi);
+        if (lane == 0) {
+            if (warp == 0) { box.xlo = lo; box.xhi = hi; }
+            else { box.ylo = lo; box.yhi = hi; }
+        }
+    }
+    if (tid == 0) n_env = 0;
+    __syncthreads();
+    const Box image = box;
+
+    // 1. stage every row; list the ones that may hit the image
+    {
+        const float ox = origin[3 * b], oy = origin[3 * b + 1], oz = origin[3 * b + 2];
+        const float f0 = fwd[3 * b], f1 = fwd[3 * b + 1], f2 = fwd[3 * b + 2];
+        const float r0 = right[3 * b], r1 = right[3 * b + 1], r2 = right[3 * b + 2];
+        const float u0 = up[3 * b], u1 = up[3 * b + 1], u2 = up[3 * b + 2];
+        for (int s0 = 0; s0 < S; s0 += THREADS) {
+            const int s = s0 + tid;
+            bool keep = false;
+            if (s < S) {
+                bool alt = false;
+                if (paired) {
+                    const int w = pg_wall[(size_t)lid * S + s];
+                    alt = w >= 0 && !(wall_open[(size_t)b * Wn + w] > 0.5f);
+                    use_alt[s] = alt;
+                }
+                const float* v9 = alt ? v9a : v9p;
+                const float e1x = v9[3 * S + s] - v9[s];
+                const float e1y = v9[4 * S + s] - v9[S + s];
+                const float e1z = v9[5 * S + s] - v9[2 * S + s];
+                const float e2x = v9[6 * S + s] - v9[s];
+                const float e2y = v9[7 * S + s] - v9[S + s];
+                const float e2z = v9[8 * S + s] - v9[2 * S + s];
+                const float sx = ox - v9[s];
+                const float sy = oy - v9[S + s];
+                const float sz = oz - v9[2 * S + s];
+                const float gdx = e2y * e1z - e2z * e1y;
+                const float gdy = e2z * e1x - e2x * e1z;
+                const float gdz = e2x * e1y - e2y * e1x;
+                const float gux = e2y * sz - e2z * sy;
+                const float guy = e2z * sx - e2x * sz;
+                const float guz = e2x * sy - e2y * sx;
+                const float gvx = sy * e1z - sz * e1y;
+                const float gvy = sz * e1x - sx * e1z;
+                const float gvz = sx * e1y - sy * e1x;
+                const float t_num = e2x * gvx + e2y * gvy + e2z * gvz;
+                const float4 q0 = make_float4(gdx * f0 + gdy * f1 + gdz * f2,
+                                              gdx * r0 + gdy * r1 + gdz * r2,
+                                              gdx * u0 + gdy * u1 + gdz * u2,
+                                              gux * f0 + guy * f1 + guz * f2);
+                const float4 q1 = make_float4(gux * r0 + guy * r1 + guz * r2,
+                                              gux * u0 + guy * u1 + guz * u2,
+                                              gvx * f0 + gvy * f1 + gvz * f2,
+                                              gvx * r0 + gvy * r1 + gvz * r2);
+                const float4 q2 = make_float4(gvx * u0 + gvy * u1 + gvz * u2,
+                                              t_num > 0.0f ? 1.0f / t_num : 0.0f,
+                                              (alt ? ata : atp)[s * ATTR_DIM + 15],  // kind
+                                              0.0f);
+                rows[3 * s] = q0;
+                rows[3 * s + 1] = q1;
+                rows[3 * s + 2] = q2;
+                keep = !row_culled(q0, q1, q2, image, quads);
+            }
+            append(keep, s, env_list, &n_env);
+        }
     }
     __syncthreads();
+    const int ne = n_env;
 
     const int hw = W * H;
-    const int p = blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= hw) return;
-    const float xv = xbase[p % W] * tan_xy[2 * b];
-    const float yv = ybase[p / W] * tan_xy[2 * b + 1];
+    const int n_tx = (W + TILE_W - 1) / TILE_W;
+    const int n_tiles = n_tx * ((H + TILE_H - 1) / TILE_H);
+    const int col = tid % TILE_W, row0 = tid / TILE_W;
     const float r_near = (float)(1.0 / 0.04);  // 1 / NEAR
     const float r_far = (float)(1.0 / 100.0);  // 1 / FAR
 
-    int best = 0;
-    for (int s = 0; s < S; ++s) {
-        const float det = prim[s] + prim[S + s] * xv + prim[2 * S + s] * yv;
-        const float un = prim[3 * S + s] + prim[4 * S + s] * xv + prim[5 * S + s] * yv;
-        const float vn = prim[6 * S + s] + prim[7 * S + s] * xv + prim[8 * S + s] * yv;
-        const float r = det * prim[9 * S + s];
-        float cov = fmaxf(un, vn);
-        if (!all_quads) cov = cov + prim[10 * S + s] * fminf(un, vn);
-        const bool hit = det > 1e-12f && un >= 0.0f && vn >= 0.0f &&
-                         cov <= det && r < r_near && r > r_far;
-        const int key = hit ? ((__float_as_int(r) & ~IDX_MASK) | s) : 0;
-        best = max(best, key);
-    }
-
-    const size_t q = (size_t)b * hw + p;
-    if (seed_t != nullptr) {
-        const float seed_r = 1.0f / seed_t[q];  // 1/inf = 0: no seed
-        const int seed_key =
-            seed_r > 0.0f ? ((__float_as_int(seed_r) & ~IDX_MASK) | IDX_MASK) : 0;
-        if (!(best > seed_key)) {
-            t_out[q] = seed_key > 0
-                ? 1.0f / fmaxf(__int_as_float(seed_key & ~IDX_MASK), 1e-30f) : INFINITY;
-            const uint4* s4 = reinterpret_cast<const uint4*>(seed_attr + q * ATTR_DIM);
-            uint4* d4 = reinterpret_cast<uint4*>(attr_out + q * ATTR_DIM);
-            d4[0] = s4[0];
-            d4[1] = s4[1];
-            return;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        const int x0 = (t % n_tx) * TILE_W, y0 = (t / n_tx) * TILE_H;
+        // 2. the tile's box (warp 0: its columns, warp 1: its rows), then
+        // the survivors of the image list
+        if (warp < 2) {
+            const int i = (warp == 0 ? x0 : y0) + lane;
+            const bool in = warp == 0 ? (lane < TILE_W && i < W) : (lane < TILE_H && i < H);
+            const float v = in ? (warp == 0 ? xbase[i] * tan_x : ybase[i] * tan_y) : 0.0f;
+            float lo = in ? v : INFINITY, hi = in ? v : -INFINITY;
+            warp_span(lo, hi);
+            if (lane == 0) {
+                if (warp == 0) { box.xlo = lo; box.xhi = hi; }
+                else { box.ylo = lo; box.yhi = hi; }
+            }
         }
-    }
-    t_out[q] = best > 0 ? 1.0f / fmaxf(__int_as_float(best & ~IDX_MASK), 1e-30f)
-                        : INFINITY;
-    // winner's row (row 0 for an unseeded miss: nothing downstream reads it)
-    const int row = best & IDX_MASK;
-    const float* at = (paired && use_alt[row]) ? ata : atp;
-    const float4* src = reinterpret_cast<const float4*>(at + row * ATTR_DIM);
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(attr_out + q * ATTR_DIM);
+        if (tid == 0) n_tile = 0;
+        __syncthreads();
+        const Box tb = box;
+        for (int i0 = 0; i0 < ne; i0 += THREADS) {
+            const int i = i0 + tid;
+            bool keep = false;
+            int s = 0;
+            if (i < ne) {
+                s = env_list[i];
+                keep = !row_culled(rows[3 * s], rows[3 * s + 1], rows[3 * s + 2], tb, quads);
+            }
+            append(keep, s, tile_list, &n_tile);
+        }
+        __syncthreads();
+        const int nt = n_tile;
+
+        // 3. each pixel scans the tile's survivors
+        const int x = x0 + col;
+        const float xv = xbase[min(x, W - 1)] * tan_x;
+        float yv[PIX_PER_THREAD];
+        int best[PIX_PER_THREAD];
 #pragma unroll
-    for (int i = 0; i < ATTR_DIM / 4; ++i) {
-        const float4 v = src[i];
-        dst[2 * i] = __floats2bfloat162_rn(v.x, v.y);
-        dst[2 * i + 1] = __floats2bfloat162_rn(v.z, v.w);
+        for (int k = 0; k < PIX_PER_THREAD; ++k) {
+            const int y = y0 + row0 + k * ROWS_PER_THREAD_Y;
+            yv[k] = ybase[min(y, H - 1)] * tan_y;
+            best[k] = 0;
+        }
+        for (int i = 0; i < nt; ++i) {
+            const int s = tile_list[i];
+            const float4 q0 = rows[3 * s], q1 = rows[3 * s + 1], q2 = rows[3 * s + 2];
+            const float dx = q0.x + q0.y * xv;
+            const float ux = q0.w + q1.x * xv;
+            const float vx = q1.z + q1.w * xv;
+#pragma unroll
+            for (int k = 0; k < PIX_PER_THREAD; ++k) {
+                const float det = dx + q0.z * yv[k];
+                const float un = ux + q1.y * yv[k];
+                const float vn = vx + q2.x * yv[k];
+                const float r = det * q2.y;
+                float cov = fmaxf(un, vn);
+                if (!quads) cov = cov + q2.z * fminf(un, vn);
+                const bool hit = det > 1e-12f && un >= 0.0f && vn >= 0.0f &&
+                                 cov <= det && r < r_near && r > r_far;
+                const int key = hit ? ((__float_as_int(r) & ~IDX_MASK) | s) : 0;
+                best[k] = max(best[k], key);
+            }
+        }
+
+#pragma unroll
+        for (int k = 0; k < PIX_PER_THREAD; ++k) {
+            const int y = y0 + row0 + k * ROWS_PER_THREAD_Y;
+            if (x >= W || y >= H) continue;
+            const size_t q = (size_t)b * hw + (size_t)y * W + x;
+            if (seed_t != nullptr) {
+                const float seed_r = 1.0f / seed_t[q];  // 1/inf = 0: no seed
+                const int seed_key =
+                    seed_r > 0.0f ? ((__float_as_int(seed_r) & ~IDX_MASK) | IDX_MASK) : 0;
+                if (!(best[k] > seed_key)) {
+                    t_out[q] = seed_key > 0
+                        ? 1.0f / fmaxf(__int_as_float(seed_key & ~IDX_MASK), 1e-30f)
+                        : INFINITY;
+                    const uint4* s4 = reinterpret_cast<const uint4*>(seed_attr + q * ATTR_DIM);
+                    uint4* d4 = reinterpret_cast<uint4*>(attr_out + q * ATTR_DIM);
+                    d4[0] = s4[0];
+                    d4[1] = s4[1];
+                    continue;
+                }
+            }
+            t_out[q] = best[k] > 0
+                ? 1.0f / fmaxf(__int_as_float(best[k] & ~IDX_MASK), 1e-30f) : INFINITY;
+            // winner's row (row 0 for an unseeded miss: nothing downstream reads it)
+            const int row = best[k] & IDX_MASK;
+            const float* at = (paired && use_alt[row]) ? ata : atp;
+            const float4* src = reinterpret_cast<const float4*>(at + row * ATTR_DIM);
+            const float4 a0 = src[0], a1 = src[1], a2 = src[2], a3 = src[3];
+            uint4* d4 = reinterpret_cast<uint4*>(attr_out + q * ATTR_DIM);
+            d4[0] = make_uint4(bf16x2(a0.x, a0.y), bf16x2(a0.z, a0.w),
+                               bf16x2(a1.x, a1.y), bf16x2(a1.z, a1.w));
+            d4[1] = make_uint4(bf16x2(a2.x, a2.y), bf16x2(a2.z, a2.w),
+                               bf16x2(a3.x, a3.y), bf16x2(a3.z, a3.w));
+        }
+        __syncthreads();  // the next tile rewrites box, n_tile and tile_list
     }
 }
 
 extern "C" const char* mw_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
+}
+
+// The kernel's tile and pixels per thread, for reports.
+extern "C" int mw_tri_pass_config(int* out) {
+    out[0] = TILE_W;
+    out[1] = TILE_H;
+    out[2] = PIX_PER_THREAD;
+    return 0;
 }
 
 extern "C" int mw_tri_pass(
@@ -193,14 +430,24 @@ extern "C" int mw_tri_pass(
     int B, int S, int W, int H, int Wn, int all_quads,
     float* t_out, __nv_bfloat16* attr_out, cudaStream_t stream)
 {
+    static size_t smem_opted = 48 * 1024;  // the dynamic limit set so far
     const bool paired = pg_wall != nullptr;
     if (paired && (verts9_alt == nullptr || attr_alt == nullptr || wall_open == nullptr))
         return (int)cudaErrorInvalidValue;
-    if (B == 0) return 0;
-    const int threads = 256;
-    const dim3 grid((W * H + threads - 1) / threads, B);
-    const size_t smem = (size_t)PRIM_FIELDS * S * sizeof(float) + (paired ? (size_t)S : 0);
-    tri_pass_kernel<<<grid, threads, smem, stream>>>(
+    if (S > IDX_MASK + 1) return (int)cudaErrorInvalidValue;
+    if (B == 0 || W == 0 || H == 0) return 0;
+    const int n_tiles = ((W + TILE_W - 1) / TILE_W) * ((H + TILE_H - 1) / TILE_H);
+    const int per_env = min(n_tiles, max(1, (BLOCK_TARGET + B - 1) / B));
+    const dim3 grid(per_env, B);
+    const size_t smem = (size_t)S * (3 * sizeof(float4) + 2 * sizeof(unsigned short)) +
+                        (paired ? (size_t)S : 0);
+    if (smem > smem_opted) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            tri_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        smem_opted = smem;
+    }
+    tri_pass_kernel<<<grid, THREADS, smem, stream>>>(
         verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase, ybase,
         seed_t, seed_attr, verts9_alt, attr_alt, pg_wall, wall_open,
         S, W, H, Wn, all_quads, t_out, attr_out);

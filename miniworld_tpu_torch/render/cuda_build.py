@@ -14,10 +14,14 @@ The library lands in ``build/kernels/`` at the repository root (listed
 in .gitignore), or in ``$MINIWORLD_TORCH_BUILD_DIR``; its file name
 carries a hash of the sources and flags, so an edit rebuilds. A failed
 build raises: there is no fallback to the plain versions on the card.
+``build`` also makes variants with other compile-time constants (nvcc
+``-D`` defines, e.g. tri_pass.cu's tile), which ``library`` puts in
+place of the default one for a measurement.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -47,10 +51,12 @@ ENTRY_POINTS = {
     # attr_alt, pg_wall, wall_open, B, S, W, H, n_walls, all_quads, t,
     # attr_out, stream
     "mw_tri_pass": [_P, _P, _P, *_CAM, _P] + [_P] * 5 + [_I] * 6 + [_P, _P, _P],
+    # out: TILE_W, TILE_H, PIX_PER_THREAD
+    "mw_tri_pass_config": [_P],
     # ent_pos, ent_size, ent_dir, ent_height, ent_color, flags, camera,
     # B, E, W, H, has_sphere, has_box, t, col, nrm, stream
     "mw_entity_pass": [_P] * 6 + _CAM + [_I] * 6 + [_P, _P, _P, _P],
-    # t_tri, attr, t_ent, col_ent, n_ent, atlas, lights, camera,
+    # t_tri, attr, t_ent, col_ent, n_ent, fourier table, lights, camera,
     # B, W, H, A, K, has_ent, rgb, depth, stream
     "mw_pixel_epilogue": [_P] * 7 + _CAM + [_I] * 6 + [_P, _P, _P],
     # verts9, attrs, camera, B, N, W, H, t, attr_out, stream
@@ -96,37 +102,37 @@ def _nvcc() -> str:
                        "the miniworld_tpu_torch kernels")
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+def _digest(defines, sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + defines).encode())
+    for name in sources + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode() + f.read())
     return h.hexdigest()[:16]
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first call (raises if it cannot be)."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
+def build(defines: tuple = (), sources: tuple = SOURCES):
+    """(library, build info) of ``sources`` compiled with the extra nvcc
+    ``defines`` ("-DNAME=VALUE"), built unless an equal build exists
+    (raises if it cannot be). Argument types are set for every entry
+    point the library exports."""
     out_dir = build_dir()
     os.makedirs(out_dir, exist_ok=True)
-    lib_path = os.path.join(out_dir, f"libminiworld_kernels_{_digest()}.so")
+    lib_path = os.path.join(out_dir, f"libminiworld_kernels_{_digest(defines, sources)}.so")
+    flags = NVCC_FLAGS + tuple(defines)
     t0 = time.perf_counter()
     log = ""
     if not os.path.exists(lib_path):
         nvcc = _nvcc()
         tmp = f"{lib_path}.{os.getpid()}"
-        objs = [f"{tmp}.{os.path.splitext(name)[0]}.o" for name in SOURCES]
+        objs = [f"{tmp}.{os.path.splitext(name)[0]}.o" for name in sources]
         procs = [
-            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj,
-                              os.path.join(CSRC_DIR, name)],
+            subprocess.Popen([nvcc, *flags, "-c", "-o", obj, os.path.join(CSRC_DIR, name)],
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for name, obj in zip(SOURCES, objs)
+            for name, obj in zip(sources, objs)
         ]
         outs = [proc.communicate()[0] for proc in procs]
         log = "".join(outs)
-        failed = [name for name, proc in zip(SOURCES, procs) if proc.returncode != 0]
+        failed = [name for name, proc in zip(sources, procs) if proc.returncode != 0]
         if not failed:
             link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", f"{tmp}.tmp", *objs],
                                   capture_output=True, text=True)
@@ -141,14 +147,34 @@ def load() -> ctypes.CDLL:
         os.replace(f"{tmp}.tmp", lib_path)
     lib = ctypes.CDLL(lib_path)
     for name, argtypes in ENTRY_POINTS.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     lib.mw_error_string.argtypes = [ctypes.c_int]
     lib.mw_error_string.restype = ctypes.c_char_p
-    BUILD_INFO.update(path=lib_path, seconds=time.perf_counter() - t0, log=log)
-    _LIB = lib
-    return lib
+    return lib, dict(path=lib_path, seconds=time.perf_counter() - t0, log=log)
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first call (raises if it cannot be)."""
+    global _LIB
+    if _LIB is None:
+        _LIB, info = build()
+        BUILD_INFO.update(info)
+    return _LIB
+
+
+@contextlib.contextmanager
+def library(lib: ctypes.CDLL):
+    """Launch through ``lib`` (a ``build`` with other defines) inside the
+    block, through the default library again after it."""
+    global _LIB
+    saved, _LIB = load(), lib
+    try:
+        yield
+    finally:
+        _LIB = saved
 
 
 def error_string(err: int) -> str:

@@ -13,10 +13,14 @@ its plain PyTorch version beside it in this module:
   1. ``tri_pass``: static prims — separable-ray hit test, keyed-z
      winner, the winner's 16-float attribute row (rounded to bf16, as
      the JAX package carries it), optionally seeded; on a procgen maze
-     each row's live variant (junction or closed wall) picked per env;
+     each row's live variant (junction or closed wall) picked per env.
+     The kernel culls rows per screen tile before the hit test
+     (``tile_cull_plain`` is that cull's plain version) with the full
+     scan's result;
   2. ``entity_pass``: analytic boxes and spheres;
   3. ``pixel_epilogue``: affine uv, Fourier texture, lighting, sky,
-     u8 pack and depth.
+     u8 pack and depth; the kernel reads the atlas's per-slot
+     ``fourier_table``.
 
 Each wrapper takes the plain version ONLY for tensors on the CPU; for
 CUDA tensors it launches its kernel (and adds one to its count in
@@ -41,7 +45,7 @@ from typing import NamedTuple
 import torch
 
 from miniworld_tpu_torch.ops import geom
-from miniworld_tpu_torch.render.cuda_build import check, is_cuda, launch, stream
+from miniworld_tpu_torch.render.cuda_build import check, is_cuda, launch, load, stream
 from miniworld_tpu_torch.scene.entities import SHAPE_BOX, SHAPE_MESH_TRIS, SHAPE_SPHERE
 
 NEAR = 0.04  # miniworld/miniworld.py:1287
@@ -151,22 +155,18 @@ def _cam_args(cam: Camera, b: int):
 # stage 1: static prims
 
 
-def _contract(gx, gy, gz, cam: Camera, xv, yv):
-    """g . d per (env, prim, pixel) via the separable rays: the three
-    basis dots are per prim, then 2 multiply-adds per pixel."""
-    def dot(v):
-        return gx * v[:, 0:1] + gy * v[:, 1:2] + gz * v[:, 2:3]  # (B, S)
-
-    a, b, c = dot(cam.fwd), dot(cam.right), dot(cam.up)
-    return a[:, :, None] + b[:, :, None] * xv[:, None, :] + c[:, :, None] * yv[:, None, :]
+# Fields of a staged row (``_stage``): the camera-basis dots (fwd,
+# right, up) of g_det, g_u and g_v, then 1/t_num and the kind column.
+ROW_FIELDS = 11
+_R_DET, _R_U, _R_V, _R_INV, _R_KIND = 0, 3, 6, 9, 10
 
 
-def _chunk_compete(v9, attrs, cam: Camera, xv, yv, all_quads: bool,
-                   all_tris: bool = False):
-    """Keyed-z competition of one chunk of prims, v9 (B, 9, TC), attrs
-    (B, TC, 16): returns (key_max (B, HW) i32, row (B, HW) i64).
-    ``all_tris``: every row is a triangle (coverage u + v <= det, the
-    mesh-entity pass)."""
+def _stage(v9, kind, cam: Camera):
+    """Per-(env, row) coefficients of the separable hit test, v9 (B, 9,
+    TC), kind (B, TC) -> (B, TC, ROW_FIELDS): g . d = g.fwd + xv *
+    g.right + yv * g.up for g in (g_det, g_u, g_v), the reciprocal
+    1/t_num (0 where t_num <= 0) and the kind. What the kernels keep in
+    shared memory per row."""
     e1x, e1y, e1z = v9[:, 3] - v9[:, 0], v9[:, 4] - v9[:, 1], v9[:, 5] - v9[:, 2]
     e2x, e2y, e2z = v9[:, 6] - v9[:, 0], v9[:, 7] - v9[:, 1], v9[:, 8] - v9[:, 2]
     o = cam.origin
@@ -186,16 +186,31 @@ def _chunk_compete(v9, attrs, cam: Camera, xv, yv, all_quads: bool,
     inv_tnum = torch.where(pos, 1.0 / torch.where(pos, t_num, torch.ones_like(t_num)),
                            torch.zeros_like(t_num))
 
-    det = _contract(gdx, gdy, gdz, cam, xv, yv)  # (B, TC, HW)
-    u_num = _contract(gux, guy, guz, cam, xv, yv)
-    v_num = _contract(gvx, gvy, gvz, cam, xv, yv)
-    r = det * inv_tnum[:, :, None]
+    def dot(gx, gy, gz, v):
+        return gx * v[:, 0:1] + gy * v[:, 1:2] + gz * v[:, 2:3]  # (B, TC)
+
+    return torch.stack([dot(*g, v) for g in ((gdx, gdy, gdz), (gux, guy, guz),
+                                              (gvx, gvy, gvz))
+                        for v in (cam.fwd, cam.right, cam.up)] + [inv_tnum, kind], dim=2)
+
+
+def _row_keys(rows, xv, yv, all_quads: bool, all_tris: bool = False):
+    """z-key of every (env, row, pixel), rows (B, TC, ROW_FIELDS) from
+    ``_stage``, xv / yv (B, HW) -> (B, TC, HW) i32, 0 where the row
+    misses the pixel. ``all_tris``: every row is a triangle (coverage
+    u + v <= det, the mesh-entity pass)."""
+    def lin(i):  # (a + b * xv) + c * yv: 2 multiply-adds per pixel
+        return (rows[:, :, i, None] + rows[:, :, i + 1, None] * xv[:, None, :]
+                + rows[:, :, i + 2, None] * yv[:, None, :])
+
+    det, u_num, v_num = lin(_R_DET), lin(_R_U), lin(_R_V)  # (B, TC, HW)
+    r = det * rows[:, :, _R_INV, None]
     if all_tris:
         cov = u_num + v_num
     elif all_quads:
         cov = torch.maximum(u_num, v_num)
     else:
-        kind = attrs[:, :, _KIND, None]
+        kind = rows[:, :, _R_KIND, None]
         cov = torch.maximum(u_num, v_num) + kind * torch.minimum(u_num, v_num)
     hit = (
         (det > 1e-12)
@@ -206,9 +221,16 @@ def _chunk_compete(v9, attrs, cam: Camera, xv, yv, all_quads: bool,
         & (r > 1.0 / FAR)
     )
     rkey = r.view(torch.int32)
-    idx = torch.arange(v9.shape[2], dtype=torch.int32, device=v9.device)[None, :, None]
-    key = torch.where(hit, (rkey & ~_IDX_MASK) | idx, torch.zeros_like(rkey))
-    key_max = key.amax(dim=1)  # (B, HW)
+    idx = torch.arange(rows.shape[1], dtype=torch.int32, device=rows.device)[None, :, None]
+    return torch.where(hit, (rkey & ~_IDX_MASK) | idx, torch.zeros_like(rkey))
+
+
+def _chunk_compete(v9, attrs, cam: Camera, xv, yv, all_quads: bool,
+                   all_tris: bool = False):
+    """Keyed-z competition of one chunk of prims, v9 (B, 9, TC), attrs
+    (B, TC, 16): returns (key_max (B, HW) i32, row (B, HW) i64)."""
+    rows = _stage(v9, attrs[:, :, _KIND], cam)
+    key_max = _row_keys(rows, xv, yv, all_quads, all_tris).amax(dim=1)  # (B, HW)
     return key_max, (key_max & _IDX_MASK).long()
 
 
@@ -335,6 +357,104 @@ def tri_pass_chunked(verts9, attr, layout_id, cam: Camera, tri_chunk: int,
         key_best = torch.where(closer, key, key_best)
         attr_best = torch.where(closer[:, :, None], sel, attr_best)
     return _t_from_key(key_best), attr_best
+
+
+def stage_rows(verts9, attr, layout_id, cam: Camera, paired=None):
+    """The rows the tri_pass kernel stages for each env: (B, S,
+    ROW_FIELDS) coefficients (``_stage``) of the env's layout, of its
+    live variants on a paired procgen bank (``_paired_rows``)."""
+    lid = layout_id.long()
+    if paired is None:
+        v9, attrs = verts9[lid], attr[lid]
+    else:
+        v9, attrs = _paired_rows(verts9, attr, lid, paired)
+    return _stage(v9, attrs[:, :, _KIND], cam)
+
+
+def row_hits_plain(rows, cam: Camera, all_quads: bool = False):
+    """(B, S, HW) bool: row s of env b passes the hit test at the pixel
+    (its z-key is not 0), by tri_pass_plain's arithmetic; rows from
+    ``stage_rows``."""
+    return _row_keys(rows, cam.xv(), cam.yv(), all_quads) > 0
+
+
+# Cull margin of the tri_pass kernel, per unit of |a| + |b| X + |c| Y
+# (csrc/tri_pass.cu derives it), and its floor for subnormal rows.
+_CULL_REL = 2.0 ** -20
+_CULL_ABS = 1e-30
+
+
+def _may_hit(rows, box, all_quads: bool):
+    """(B, T, S) bool: False only where row s provably misses every
+    pixel whose (xv, yv) lies in box t; rows (B, S, ROW_FIELDS), box
+    (B, T, 4) = (xlo, xhi, ylo, yhi). The kernel's test, operation for
+    operation (tri_pass.cu ``row_culled``)."""
+    xlo, xhi, ylo, yhi = (box[..., i, None] for i in range(4))  # (B, T, 1)
+    xm = torch.maximum(xlo.abs(), xhi.abs())
+    ym = torch.maximum(ylo.abs(), yhi.abs())
+
+    def field(i):  # the value at the 4 corners, and its margin
+        a, b, c = (rows[:, None, :, i + j] for j in range(3))  # (B, 1, S)
+        corners = [(a + b * x) + c * y for x in (xlo, xhi) for y in (ylo, yhi)]
+        return corners, ((a.abs() + b.abs() * xm) + c.abs() * ym) * _CULL_REL + _CULL_ABS
+
+    def every(conds):
+        return conds[0] & conds[1] & conds[2] & conds[3]
+
+    (d, md), (u, mu), (v, mv) = field(_R_DET), field(_R_U), field(_R_V)
+    inv = rows[:, None, :, _R_INV]
+    cull = (every([c < -mu for c in u]) | every([c < -mv for c in v])
+            | every([c < -md for c in d]) | ~(inv > 0.0))
+    # coverage >= max(u, v) needs kind >= 0 (0 quad, 1 triangle)
+    cov_ok = (torch.ones_like(inv, dtype=torch.bool) if all_quads
+              else rows[:, None, :, _R_KIND] >= 0.0)
+    mdu, mdv = md + mu, md + mv
+    cull |= cov_ok & (every([dc - uc < -mdu for dc, uc in zip(d, u)])
+                      | every([dc - vc < -mdv for dc, vc in zip(d, v)]))
+    finite = every([torch.isfinite(c) for c in d])
+    d_hi = torch.maximum(torch.maximum(d[0], d[1]), torch.maximum(d[2], d[3])) + md
+    d_lo = torch.minimum(torch.minimum(d[0], d[1]), torch.minimum(d[2], d[3])) - md
+    cull |= finite & ((d_hi * inv <= 1.0 / FAR) | (d_lo * inv >= 1.0 / NEAR))
+    return ~cull
+
+
+def tile_cull_plain(rows, cam: Camera, tile_w: int, tile_h: int, all_quads: bool = False):
+    """Plain version of the tri_pass kernel's row culling: (B, T, S)
+    bool, True where row s may hit a pixel of tile t. Tiles of tile_w x
+    tile_h pixels run in row-major order, the last ones cut at the
+    image's edge; rows from ``stage_rows``. A row is kept where it
+    survives both the kernel's test against the whole image and its test
+    against the tile. A culled (tile, row) has z-key 0 on every pixel of
+    the tile, so the per-pixel max over the survivors is the max over
+    all rows. Runs over blocks of envs."""
+    xv = cam.xbase[None, :] * cam.tan_x[:, None]  # (B, W), as the kernel rounds it
+    yv = cam.ybase[None, :] * cam.tan_y[:, None]  # (B, H)
+
+    def spans(vals, step):  # per tile column / row: (B, n) lo, hi
+        parts = [vals[:, i:i + step] for i in range(0, vals.shape[1], step)]
+        return (torch.stack([p.amin(1) for p in parts], 1),
+                torch.stack([p.amax(1) for p in parts], 1))
+
+    (xlo, xhi), (ylo, yhi) = spans(xv, tile_w), spans(yv, tile_h)
+    b, n_tx, n_ty = xv.shape[0], xlo.shape[1], ylo.shape[1]
+    shape = (b, n_ty, n_tx)
+    box = torch.stack([xlo[:, None, :].expand(shape), xhi[:, None, :].expand(shape),
+                       ylo[:, :, None].expand(shape), yhi[:, :, None].expand(shape)],
+                      dim=-1).reshape(b, n_ty * n_tx, 4)
+    image = torch.stack([xv.amin(1), xv.amax(1), yv.amin(1), yv.amax(1)], dim=-1)[:, None, :]
+    out = []
+    for sl in _env_blocks(b, n_ty * n_tx * rows.shape[1] * 16):
+        out.append(_may_hit(rows[sl], image[sl], all_quads)
+                   & _may_hit(rows[sl], box[sl], all_quads))
+    return torch.cat(out)
+
+
+def tri_pass_tile():
+    """(TILE_W, TILE_H, PIX_PER_THREAD) of the built tri_pass kernel (its
+    compile-time constants; builds the library if needed)."""
+    out = (ctypes.c_int * 3)()
+    load().mw_tri_pass_config(out)
+    return tuple(out)
 
 
 def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, seed=None,
@@ -753,6 +873,30 @@ def eval_fourier(coeffs, slot, uv, k_terms: int, footprint=None,
                        torch.ones_like(texel))
 
 
+def fourier_table(atlas, k_terms: int):
+    """Per-slot table the pixel_epilogue kernel reads in place of the
+    atlas (A, 4+8K): the atlas values that ``eval_fourier`` rounds to
+    bf16, rounded once, and pi^2 (fu^2 + fv^2) of each term, in the
+    kernel's operation order. Row layout, (A, 4 + 9K) f32: dc(3), 0,
+    then (fu, fv, pi^2 f2, A_0) per term, (A_1, A_2, B_0, B_1) per term,
+    B_2 per term. Made once per atlas (MiniWorldVec makes it on the
+    CPU when it installs its atlas)."""
+    k = k_terms
+    if k % 4:
+        raise ValueError(f"the Fourier table needs K a multiple of 4, got {k}")
+    n = atlas.shape[0]
+    fu = _bf16(atlas[:, 3:3 + k])
+    fv = _bf16(atlas[:, 3 + k:3 + 2 * k])
+    pf2 = (math.pi ** 2) * (fu * fu + fv * fv)
+    a0 = 3 + 2 * k
+    w_a = _bf16(atlas[:, a0:a0 + 3 * k]).reshape(n, 3, k)
+    w_b = _bf16(atlas[:, a0 + 3 * k:a0 + 6 * k]).reshape(n, 3, k)
+    p = torch.stack([fu, fv, pf2, w_a[:, 0]], dim=2).reshape(n, 4 * k)
+    q = torch.stack([w_a[:, 1], w_a[:, 2], w_b[:, 0], w_b[:, 1]], dim=2).reshape(n, 4 * k)
+    return torch.cat([_bf16(atlas[:, 0:3]), torch.zeros_like(atlas[:, :1]), p, q, w_b[:, 2]],
+                     dim=1).contiguous()
+
+
 def eval_nearest(*args, **kwargs):
     """Nearest-mode texturing (raycast.eval_nearest): not ported yet."""
     raise NotImplementedError("nearest-mode textures are not ported yet")
@@ -846,10 +990,12 @@ def _pixel_epilogue_block(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera
 
 def pixel_epilogue(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
                    light_pos, light_color, light_ambient, sky, k_terms: int,
-                   has_gain: bool = False):
+                   has_gain: bool = False, table=None):
     """Stage 3 wrapper: the pixel_epilogue kernel for CUDA tensors, the
     plain version for CPU tensors. Same contract as
-    ``pixel_epilogue_plain``."""
+    ``pixel_epilogue_plain``. The kernel reads ``table``, the atlas's
+    ``fourier_table`` (made here when not given: a caller that renders
+    often makes it once)."""
     args = (t_tri, attr, t_ent, col_ent, n_ent, atlas, cam, light_pos,
             light_color, light_ambient, sky, k_terms, has_gain)
     if not is_cuda(t_tri, attr, atlas, cam.origin, light_pos):
@@ -863,6 +1009,8 @@ def pixel_epilogue(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
     n_rows, width = atlas.shape
     if width != 4 + 8 * k_terms:
         raise ValueError(f"atlas rows hold {width} floats, expected 4+8K with K={k_terms}")
+    if table is None:
+        table = fourier_table(atlas, k_terms)
     dev = t_tri.device
     rgb = torch.empty((b, h, w, 3), dtype=torch.uint8, device=dev)
     depth = torch.empty((b, h, w, 1), dtype=torch.float32, device=dev)
@@ -882,7 +1030,7 @@ def pixel_epilogue(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
         check(t_tri, "t_tri", torch.float32, (b, hw)),
         check(attr, "attr", torch.bfloat16, (b, hw, ATTR_DIM)),
         *ent_ptrs,
-        check(atlas, "atlas", torch.float32, (n_rows, 4 + 8 * k_terms)),
+        check(table, "table", torch.float32, (n_rows, 4 + 9 * k_terms)),
         check(lights, "lights", torch.float32, (b, 4, 3)),
         *cam_ptrs,
         ctypes.c_int(b), ctypes.c_int(w), ctypes.c_int(h),
@@ -900,11 +1048,14 @@ def pixel_epilogue(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
 
 def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
                 shapes_present=(True, True, False), all_quads: bool = False,
-                has_gain: bool = False, use_kernels: bool = True, pg_wall=None):
+                has_gain: bool = False, use_kernels: bool = True, pg_wall=None,
+                table=None):
     """Render every env's observation: (rgb (B, H, W, 3) u8, depth
     (B, H, W, 1) f32, FAR for sky). Counterpart of raycast.render_rgbd
     for single-chunk banks in fourier mode, without domain
     randomization or supersampling (the statics of the port's slices).
+    ``table``: the atlas's ``fourier_table``, which the epilogue kernel
+    reads.
 
     With mesh entities (``shapes_present[2]``) their pass runs first and
     seeds the static prims' z-competition (raycast.py:1174-1182).
@@ -919,7 +1070,6 @@ def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
     cam = camera_grid(state, width, height)
     f_tri = tri_pass if use_kernels else tri_pass_plain
     f_ent = entity_pass if use_kernels else entity_pass_plain
-    f_epi = pixel_epilogue if use_kernels else pixel_epilogue_plain
     seed = None
     if shapes_present[2]:
         f_mesh = entity_mesh_pass if use_kernels else entity_mesh_pass_plain
@@ -939,6 +1089,8 @@ def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
             state.ent_color, entity_flags(bank, state), cam,
             shapes_present[0], shapes_present[1],
         )
-    return f_epi(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam, state.light_pos,
-                 state.light_color, state.light_ambient, state.sky_color,
-                 k_terms, has_gain)
+    epi_args = (t_tri, attr, t_ent, col_ent, n_ent, atlas, cam, state.light_pos,
+                state.light_color, state.light_ambient, state.sky_color, k_terms, has_gain)
+    if use_kernels:
+        return pixel_epilogue(*epi_args, table=table)
+    return pixel_epilogue_plain(*epi_args)

@@ -37,7 +37,7 @@ import torch
 from miniworld_tpu_torch.convert import atlas_from_numpy, layout_from_numpy
 from miniworld_tpu_torch.envs.base import Ctx, EnvSpec
 from miniworld_tpu_torch.ops import mazegen, physics, place as place_ops, rng as rng_ops
-from miniworld_tpu_torch.render.raycast import render_rgbd, room_of_point
+from miniworld_tpu_torch.render.raycast import fourier_table, render_rgbd, room_of_point
 from miniworld_tpu_torch.render.textures import FOURIER_TERMS, TextureCatalog
 from miniworld_tpu_torch.scene.compile import Layout, compile_world, stack_layouts
 from miniworld_tpu_torch.scene.entities import (
@@ -500,6 +500,8 @@ class MiniWorldVec:
         self._pg_wall = (None if statics["pg_wall"] is None
                          else torch.from_numpy(statics["pg_wall"]).to(device))
         self._atlas = atlas_from_numpy(tex_np, device)
+        # what the epilogue kernel reads in place of the atlas, made once
+        self._fourier_table = fourier_table(atlas_from_numpy(tex_np), self.fourier_k).to(device)
         self.num_layouts = bank_np.tri_verts.shape[0]
         self.num_ent_slots = bank_np.slot_protos.shape[1]
         if spec.discrete_actions is None:
@@ -671,6 +673,7 @@ class MiniWorldVec:
             width=self.obs_width, height=self.obs_height, k_terms=self.fourier_k,
             shapes_present=self._shapes_present, all_quads=self._all_quads,
             use_kernels=self.use_kernels, pg_wall=self._pg_wall,
+            table=self._fourier_table,
         )
 
     def _obs(self, rgb, depth):
