@@ -7,10 +7,14 @@ Builds the kernels of ``miniworld_tpu_torch`` from
 each against its plain PyTorch version on the card — at Hallway's,
 PickupObjects' and the 8x8 Maze's shapes (mazegen's mazes also checked
 as spanning trees, tri_pass on the paired procgen bank, place with a
-maze's room weights and gated walls) and on wide synthetic cases;
-tri_pass and pixel_epilogue must agree on every pixel, tri_pass also on
-rows that graze its cull's margins. It reports what tri_pass's culling
-keeps ([tri-cull]) and times tri_pass rebuilt with other tiles
+maze's room weights and gated walls, with budgets exhausted and with
+tries over two rounds of lanes) and on wide synthetic cases; tri_pass
+and pixel_epilogue must agree on every pixel, tri_pass also on rows
+that graze its cull's margins, and tri_pass with mesh rows (the
+mesh-entity pass in its launch) with the mesh pass seeding the plain
+version, at PickupObjects', on 1,000 wide and 1,024 grazing mesh rows
+and on a paired maze. It reports what tri_pass's culling keeps
+([tri-cull]) and times tri_pass rebuilt with other tiles
 ([tile-sweep]), then drives the port's main paths and checks what comes
 out: the Hallway fused rollout at B=1024, the PickupObjects one at
 B=4096 and the Maze 8x8 procgen one at B=8192 (80x60 RGB-D, random
@@ -77,7 +81,8 @@ KERNELS = {
                     "miniworld_tpu/render/raycast.py:912"),
     "pixel_epilogue": ("miniworld_tpu_torch/csrc/pixel_epilogue.cu",
                        "miniworld_tpu/render/raycast.py:1244"),
-    "entity_mesh_pass": ("miniworld_tpu_torch/csrc/entity_mesh_pass.cu",
+    # fused: the tri_pass launch with mesh rows
+    "entity_mesh_pass": ("miniworld_tpu_torch/csrc/tri_pass.cu",
                          "miniworld_tpu/render/raycast.py:838"),
     "place": ("miniworld_tpu_torch/csrc/place.cu",
               "miniworld_tpu/ops/place.py:65"),
@@ -85,6 +90,8 @@ KERNELS = {
                 "miniworld_tpu/ops/mazegen.py:92"),
 }
 MAZE_KERNELS = ("tri_pass", "entity_pass", "pixel_epilogue", "place", "mazegen")
+# (kernel, env id) -> the kernel's own device time per call, kernel_ms
+DEVICE_MS: dict = {}
 
 
 def say(phase: str, **kw):
@@ -102,6 +109,25 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, iters: int, name: str):
+    """Mean device time per fn() of the kernels whose name contains
+    ``name``, from torch.profiler over ``iters`` runs: the kernel alone,
+    without the wrapper's host work and small torch ops, which the CUDA
+    events of ``cuda_ms`` include where the host is the slower side.
+    None where the profiler saw no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA and name in e.name]
+    return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / iters if evs else None
 
 
 def phase_device():
@@ -289,33 +315,38 @@ def check_stage(name, case, n_differ, differ, abs_err, rel_err, exact=False):
                              f"(winner differs {differ:.3e}, rel err {rel_err:.3e})")
 
 
+def check_tri_pass(tri_args, case, mesh=None, paired=None):
+    """The tri_pass kernel against tri_pass_plain on every pixel (t and
+    attributes); with ``mesh`` rows the fused launch against the mesh
+    pass seeding the plain version. Returns (t, attr, max abs t error)."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    verts9, attr, layout_id, cam, all_quads = tri_args
+    t_k, a_k = rc.tri_pass(verts9, attr, layout_id, cam, all_quads, mesh, paired)
+    seed = None if mesh is None else rc.entity_mesh_pass_plain(*mesh, cam)
+    t_p, a_p = rc.tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired)
+    n_differ, differ, abs_err, rel_err = compare_hits(t_k, t_p, (a_k == a_p).all(-1))
+    check_stage("tri_pass" + (" mesh" if mesh else "") + (" paired" if paired else ""),
+                case, n_differ, differ, abs_err, rel_err, exact=True)
+    return t_k, a_k, abs_err
+
+
 def run_stage_checks(tri_args, ent_args, epi_rest, case, timings=None, mesh=None,
                      paired=None, plain_iters=5):
     """Each render stage's kernel against its plain version on one set of
-    inputs; ``mesh`` = (verts9, attrs) adds the mesh-entity pass, whose
-    (kernel) result seeds both tri_pass versions; ``paired`` makes
+    inputs; ``mesh`` = (rows9, row_attrs) gives tri_pass mesh rows (the
+    plain side: the mesh pass seeding tri_pass_plain); ``paired`` makes
     tri_pass read a paired procgen bank. With ``timings`` each stage is
     also timed by CUDA events, the kernel over 50 runs and the plain
-    version over ``plain_iters``."""
+    version over ``plain_iters``; with mesh rows also tri_pass without
+    them ("tri_pass_unmeshed")."""
     from miniworld_tpu_torch.render import raycast as rc
 
     verts9, attr, layout_id, cam, all_quads = tri_args
     out = {}
-    seed = None
+    t_k, a_k, out["tri_pass"] = check_tri_pass(tri_args, case, mesh, paired)
     if mesh is not None:
-        m_k = rc.entity_mesh_pass(*mesh, cam)
-        m_p = rc.entity_mesh_pass_plain(*mesh, cam)
-        n_differ, differ, abs_err, rel_err = compare_hits(
-            m_k[0], m_p[0], (m_k[1] == m_p[1]).all(-1))
-        check_stage("entity_mesh_pass", case, n_differ, differ, abs_err, rel_err)
-        out["entity_mesh_pass"] = abs_err
-        seed = m_k
-    t_k, a_k = rc.tri_pass(verts9, attr, layout_id, cam, all_quads, seed, paired)
-    t_p, a_p = rc.tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired)
-    n_differ, differ, abs_err, rel_err = compare_hits(t_k, t_p, (a_k == a_p).all(-1))
-    check_stage("tri_pass" + (" seeded" if seed else "") + (" paired" if paired else ""),
-                case, n_differ, differ, abs_err, rel_err, exact=True)
-    out["tri_pass"] = abs_err
+        out["entity_mesh_pass"] = out["tri_pass"]
 
     ent, has_sphere, has_box = ent_args
     e_k = rc.entity_pass(*ent, cam, has_sphere, has_box)
@@ -345,15 +376,23 @@ def run_stage_checks(tri_args, ent_args, epi_rest, case, timings=None, mesh=None
     out["pixel_epilogue"] = float(rgb_err)
 
     if timings is not None:  # at the main path's shapes
-        if mesh is not None:
-            timings["entity_mesh_pass"] = (
-                cuda_ms(lambda: rc.entity_mesh_pass(*mesh, cam), 50),
-                cuda_ms(lambda: rc.entity_mesh_pass_plain(*mesh, cam), plain_iters))
+        def plain_tri():
+            seed = None if mesh is None else rc.entity_mesh_pass_plain(*mesh, cam)
+            return rc.tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired)
+
         timings["tri_pass"] = (
-            cuda_ms(lambda: rc.tri_pass(verts9, attr, layout_id, cam, all_quads, seed,
+            cuda_ms(lambda: rc.tri_pass(verts9, attr, layout_id, cam, all_quads, mesh,
                                         paired), 50),
-            cuda_ms(lambda: rc.tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed,
-                                              paired), plain_iters))
+            cuda_ms(plain_tri, plain_iters))
+        if mesh is not None:
+            DEVICE_MS[("tri_pass", "mesh")] = kernel_ms(
+                lambda: rc.tri_pass(verts9, attr, layout_id, cam, all_quads, mesh, paired), 50,
+                "tri_pass_kernel")
+            timings["tri_pass_unmeshed"] = (
+                cuda_ms(lambda: rc.tri_pass(verts9, attr, layout_id, cam, all_quads, None,
+                                            paired), 50),
+                cuda_ms(lambda: rc.tri_pass_plain(verts9, attr, layout_id, cam, all_quads,
+                                                  paired=paired), plain_iters))
         timings["entity_pass"] = (
             cuda_ms(lambda: rc.entity_pass(*ent, cam, has_sphere, has_box), 50),
             cuda_ms(lambda: rc.entity_pass_plain(*ent, cam, has_sphere, has_box),
@@ -425,7 +464,7 @@ def stage_inputs(env, state):
 def phase_kernels(hall, pick):
     """Every kernel against its plain version: Hallway's shapes and the
     wide case (the Hallway slice's checks), then PickupObjects' shapes
-    at B=4096 with the mesh pass seeding tri_pass, timed there, and a
+    at B=4096 with mesh rows in the tri_pass launch, timed there, and a
     wide mesh case."""
     from miniworld_tpu_torch.render import raycast as rc
 
@@ -455,7 +494,7 @@ def phase_kernels(hall, pick):
     errs = {k: max(errs[k], wide[k]) for k in errs}
 
     # PickupObjects at the main path's shapes: spheres analytic, boxes
-    # and keys as mesh rows seeding tri_pass
+    # and keys as mesh rows in the tri_pass launch
     state = facing_states(pick, gen, (0.5, 0.5), (11.5, 11.5))
     cam, tri, ent, epi = stage_inputs(pick, state)
     rows9, row_attrs, valid = rc.entity_mesh_rows(pick._bank, state)
@@ -471,14 +510,20 @@ def phase_kernels(hall, pick):
     errs = {k: max(errs.get(k, 0.0), v) for k, v in p_errs.items()}
     mesh = wide_mesh_rows(wcam, gen)
     w_errs, _ = run_stage_checks(
-        *wide_case, "wide-mesh B=64 E*M=1000 (20% inactive, 10% behind) seeding S=64",
+        *wide_case, "wide-mesh B=64 E*M=1000 (20% inactive, 10% behind) with S=64",
         mesh=mesh)
     errs = {k: max(errs[k], v) for k, v in w_errs.items()}
     stats = tri_cull_stats(tri, tile=tile)
     say("tri-cull", env=PICK_ID, B=B_PICK, **cull_fields(stats, tile, tri[0].shape[2]))
-    work = stage_work(pick, state, tri, ent, outs, stats["hit_pairs"], mesh=(rows9, valid))
-    seed = rc.entity_mesh_pass(rows9, row_attrs, cam)
-    sweep.append((f"{PICK_ID} B={B_PICK} seeded", lambda tri=tri: rc.tri_pass(*tri, seed),
+    m_stats = tri_cull_stats(tri, tile=tile, mesh_rows9=rows9)
+    say("tri-cull", env=PICK_ID, B=B_PICK, mesh_rows="yes",
+        **cull_fields(m_stats, tile, rows9.shape[2]))
+    work = stage_work(pick, state, tri, ent, outs, stats["hit_pairs"],
+                      mesh=(rows9, m_stats["hit_pairs"]))
+    work["tri_pass_unmeshed"] = stage_work(pick, state, tri, ent, outs,
+                                           stats["hit_pairs"])["tri_pass"]
+    mesh = (rows9, row_attrs)
+    sweep.append((f"{PICK_ID} B={B_PICK} mesh", lambda tri=tri: rc.tri_pass(*tri, mesh),
                   outs[:2]))
     return errs, timings, work, sweep
 
@@ -486,7 +531,10 @@ def phase_kernels(hall, pick):
 def phase_grazing(dev, tile, n=64, n_rows=1024):
     """tri_pass against its plain version on rows that graze the cull's
     margins (grazing_case, 1024 rows: the launch above 48 KB of shared
-    memory), quads only and mixed; returns the max abs t error."""
+    memory), quads only and mixed, then with the same 1024 rows of each
+    env also as its mesh rows (106 KB of shared memory; mesh and static
+    rows tie in quantized depth wherever both hit); returns the max abs t
+    error."""
     from miniworld_tpu_torch.render import raycast as rc
 
     verts9, attr, layout_id, cam = grazing_case(n, tile, n_rows)
@@ -501,6 +549,11 @@ def phase_grazing(dev, tile, n=64, n_rows=1024):
                     f"all_quads={all_quads} px_hit={float(torch.isfinite(t_p).float().mean()):.3f}",
                     n_differ, differ, abs_err, rel_err, exact=True)
         err = max(err, abs_err)
+        # each env's rows (layout_id = arange(n)) are its mesh rows too
+        err = max(err, check_tri_pass(
+            (verts9, attr, layout_id, cam, all_quads),
+            f"grazing B={n} S={n_rows} N={n_rows} (the same rows) tile={tile[0]}x{tile[1]} "
+            f"all_quads={all_quads}", mesh=(verts9, attr))[2])
     return err
 
 
@@ -511,12 +564,13 @@ def cam_rows(cam, sl):
     return rc.Camera(*(t[sl] for t in cam[:6]), cam.xbase, cam.ybase)
 
 
-def tri_cull_stats(tri, paired=None, tile=None, block=32):
+def tri_cull_stats(tri, paired=None, tile=None, block=32, mesh_rows9=None):
     """What tri_pass's rows do on these inputs, from the plain versions
     over blocks of envs: the (row, pixel) pairs that pass the hit test,
     and with ``tile`` = (w, h) the kernel's culling — the rows a frame
     keeps after the image test, the survivors per tile and the rows a
-    pixel scans (its tile's survivors), as means."""
+    pixel scans (its tile's survivors), as means. With ``mesh_rows9``
+    (B, 9, N), the same for those mesh rows, as the kernel stages them."""
     from miniworld_tpu_torch.render import raycast as rc
 
     verts9, attr, layout_id, cam, all_quads = tri
@@ -531,13 +585,16 @@ def tri_cull_stats(tri, paired=None, tile=None, block=32):
         sl = slice(lo, lo + block)
         c = cam_rows(cam, sl)
         p = None if paired is None else (*paired[:3], paired[3][sl])
-        rows = rc.stage_rows(verts9, attr, layout_id[sl], c, p)
-        out["hit_pairs"] += int(rc.row_hits_plain(rows, c, all_quads).sum())
+        if mesh_rows9 is None:
+            rows, quads = rc.stage_rows(verts9, attr, layout_id[sl], c, p), all_quads
+        else:
+            rows, quads = rc.stage_mesh_rows(mesh_rows9[sl], c), False
+        out["hit_pairs"] += int(rc.row_hits_plain(rows, c, quads).sum())
         if tile is not None:
-            per_tile = rc.tile_cull_plain(rows, c, tw, th, all_quads).sum(2).double()
+            per_tile = rc.tile_cull_plain(rows, c, tw, th, quads).sum(2).double()
             out["tiles"] += float(per_tile.mean(1).sum())
             out["scanned"] += float((per_tile * px).sum())
-            out["image"] += float(rc.tile_cull_plain(rows, c, W, H, all_quads).sum())
+            out["image"] += float(rc.tile_cull_plain(rows, c, W, H, quads).sum())
     return dict(hit_pairs=out["hit_pairs"], hits_per_px=out["hit_pairs"] / (b * W * H),
                 image_survivors=out["image"] / b, survivors_per_tile=out["tiles"] / b,
                 scanned_per_px=out["scanned"] / (b * W * H))
@@ -563,9 +620,11 @@ def stage_work(env, state, tri, ent, outs, tri_hits, mesh=None, paired=None):
     3, gates 6), triangle-only 20, analytic sphere 20, box slab 45,
     Fourier texel 41 per term (phase 3, cos/sin 20, anti-aliasing 6,
     amplitudes 12) plus 60 per pixel for uv, lighting and the pack.
-    ``mesh`` = (rows9, valid) adds the mesh-entity pass, whose result
-    tri_pass reads as its seed; ``paired`` = tri_pass's paired inputs
-    (both variants' rows, the row walls and the envs' mazes)."""
+    ``mesh`` = (rows9, mesh_hits) adds the mesh rows to the tri_pass
+    launch (their bytes, 20 operations per (mesh row, pixel) pair that
+    passes the hit test), also as "entity_mesh_pass"; ``paired`` =
+    tri_pass's paired inputs (both variants' rows, the row walls and the
+    envs' mazes)."""
     from miniworld_tpu_torch.render.raycast import ENT_ACTIVE, ENT_BOX, ENT_SPHERE
 
     b, hw = state.pos.shape[0], W * H
@@ -577,14 +636,18 @@ def stage_work(env, state, tri, ent, outs, tri_hits, mesh=None, paired=None):
     if paired is not None:
         tri_bytes += sum(t.numel() * t.element_size() for t in paired)
     work = {}
+    tri_ops = tri_hits * 22 + b * hw
+    full_scan_ops = b * hw * (S * 22 + 1)
     if mesh is not None:
-        rows9, valid = mesh
+        rows9, mesh_hits = mesh
         n_rows = rows9.shape[2]
-        work["entity_mesh_pass"] = (b * n_rows * (9 + 16) * 4 + cam_b + b * hw * 36,
-                                    int(valid.sum()) * hw * 20)
-        tri_bytes += b * hw * 36  # the seed
-    work["tri_pass"] = (tri_bytes, tri_hits * 22 + b * hw)
-    work["tri_pass_full_scan"] = (tri_bytes, b * hw * (S * 22 + 1))
+        tri_bytes += b * n_rows * (9 + 16) * 4
+        tri_ops += mesh_hits * 20
+        full_scan_ops += b * hw * n_rows * 20
+    work["tri_pass"] = (tri_bytes, tri_ops)
+    work["tri_pass_full_scan"] = (tri_bytes, full_scan_ops)
+    if mesh is not None:
+        work["entity_mesh_pass"] = work["tri_pass"]
     flags = ent[0][5]
     E = flags.shape[1]
     active = (flags & ENT_ACTIVE) != 0
@@ -616,10 +679,12 @@ def random_maze_states(env, gen, seed=7):
     return state.replace(pos=pos, dir=(u[:, 4] * 2.0 - 1.0) * math.pi)
 
 
-def phase_maze_kernels(maze):
+def phase_maze_kernels(maze, n_mesh_envs=64):
     """The render kernels at the main path's shapes, the 8x8 maze's
     procgen render at B=8192: tri_pass on the paired bank (Sp = 608 rows,
-    each env's own maze), the box, the epilogue; each timed."""
+    each env's own maze), the box, the epilogue; each timed. Then the
+    paired tri_pass with mesh rows, on ``n_mesh_envs`` of those views
+    with 1,000 synthetic mesh rows each around its camera."""
     from miniworld_tpu_torch.render import raycast as rc
 
     gen = torch.Generator().manual_seed(4321)
@@ -641,6 +706,18 @@ def phase_maze_kernels(maze):
     say("maze-scene", px_hit=f"{float(hit.float().mean()):.3f}",
         walls_open=f"{float(state.wall_open.mean()):.3f}",
         rows_alt=f"{float((maze._pg_wall >= 0).float().mean()):.3f}")
+    sl = slice(0, n_mesh_envs)
+    c = cam_rows(cam, sl)
+    rows9, row_attrs = wide_mesh_rows(c, gen)
+    shift = torch.zeros_like(rows9)  # around each camera: its x and z
+    shift[:, 0::3] = c.origin[:, 0, None, None]
+    shift[:, 2::3] = c.origin[:, 2, None, None]
+    _, _, err = check_tri_pass(
+        (*tri[:2], state.layout_id[sl], c, maze._all_quads),
+        f"maze8x8-procgen B={n_mesh_envs} Sp={tri[0].shape[2]} paired "
+        f"N={rows9.shape[2]} wide mesh rows", mesh=(rows9 + shift, row_attrs),
+        paired=(*paired[:3], state.wall_open[sl]))
+    errs["tri_pass"] = max(errs["tri_pass"], err)
     tile = rc.tri_pass_tile()[:2]
     stats = tri_cull_stats(tri, paired, tile)
     say("tri-cull", env=MAZE_ID, B=B_MAZE, **cull_fields(stats, tile, tri[0].shape[2]))
@@ -740,49 +817,127 @@ def capture_place_args(env, seed):
     return captured["args"], captured["kwargs"]
 
 
-def phase_place(pick, four, maze, timings):
+def place_work(args, kwargs, first):
+    """{"place": (bytes, float operations) of the place kernel on these
+    inputs, counting the work its outputs depend on; "place_all_tries":
+    the same bytes with every try of the reference's work (budget + 1
+    tries a slot, each drawing its room over the full CDF, 3R)}.
+
+    The needed work: each env's room CDF once (R multiply-adds), a room
+    draw by bisection (2 ceil(log2(R + 1)) operations) where the rule
+    does not fix the room, and for each live slot its tries up to its
+    first pass (``first``, from ``_place_all_plain`` on the same inputs),
+    or, where all failed, every try, the fallback candidate, the
+    fallback room's draw and the clamp. Per try: bbox and position 10,
+    outline 4V, walls 22 per segment, entities 8 per slot placed before
+    it; direction 3 per slot."""
+    seeds, bank, _, rules, radius, slot_mask = args
+    n, E = slot_mask.shape
+    R = bank.room_mask.shape[1]
+    V, ns = bank.room_outline.shape[2], bank.room_segs.shape[3]
+    budget = kwargs["budget"]
+    procgen = [kwargs["room_weight"], *kwargs["seg_gate"]] if kwargs["seg_gate"] else []
+    room_bytes = sum(t.numel() * t.element_size() for t in [
+        bank.room_mask, bank.room_area, bank.room_aabb, bank.room_outline,
+        bank.room_norms, bank.room_vmask, bank.room_segs, *procgen])
+    nbytes = n * (E + 1) * 44 + n * 4 + n * E + room_bytes + n * (4 * E + 4) * 4
+    all_tries = n * (E + 1) * (budget + 1) * (3 * R + 10 + 4 * V + 22 * ns + 8 * E)
+
+    mask = slot_mask.long()
+    live = torch.cat([mask, torch.ones_like(mask[:, :1])], dim=1)  # (n, E+1)
+    before = torch.cat([torch.cumsum(mask, 1) - mask, mask.sum(1, keepdim=True)], dim=1)
+    draws = (rules["rule_room"] < 0).long() * live
+    draw_ops = draws * 2 * math.ceil(math.log2(R + 1))
+    per_try = draw_ops + 10 + 4 * V + 22 * ns + 8 * before
+    found = first < budget
+    tries = torch.where(found, first + 1, torch.full_like(first, budget))
+    fallback = torch.where(found, torch.zeros_like(first), 2 * draw_ops + 10 + 8)
+    needed = (live * (tries * per_try + fallback + 3)).sum() + 2 * R * int(
+        draws.any(1).sum())
+    return {"place": (nbytes, int(needed)), "place_all_tries": (nbytes, all_tries)}
+
+
+def live_slot_tries(slot_mask, first, budget):
+    """The mean number of tries a live slot makes up to its first pass
+    (``budget`` where all fail), over the valid slots and the agent."""
+    live = torch.cat([slot_mask, torch.ones_like(slot_mask[:, :1])], dim=1)
+    return float(torch.clamp(first + 1, max=budget)[live].float().mean())
+
+
+def check_place(label, args, kwargs):
+    """place kernel vs place_all_plain: positions and directions equal,
+    env for env; returns (the max abs difference (0), each slot's first
+    passing try (B, E+1) in the plain version)."""
+    from miniworld_tpu_torch.ops import place as place_ops
+
+    k_out = place_ops.place_all(*args, **kwargs)
+    *p_out, first = place_ops._place_all_plain(*args, **kwargs)
+    n = args[0].shape[0]
+    differ = torch.zeros(n, dtype=torch.bool, device=args[0].device)
+    err = 0.0
+    for a, b in zip(k_out, p_out):
+        differ |= (a != b).reshape(n, -1).any(dim=1)
+        err = max(err, float((a - b).abs().max()))
+    say("kernel-vs-plain", kernel="place", case=f"{label} B={n} E+1={args[4].shape[1]} "
+        f"R={args[1].room_mask.shape[1]} budget={kwargs['budget']}",
+        envs_differ=int(differ.sum()), max_abs_err=f"{err:.3e}",
+        envs_exhausting_a_slot=f"{float((first == kwargs['budget']).any(1).float().mean()):.3f}")
+    if bool(differ.any()):
+        raise AssertionError(f"place ({label}): {int(differ.sum())} envs differ")
+    return err, first
+
+
+def phase_place(pick, four, maze, timings, pick_timings, work, pick_work):
     """place kernel vs place_all_plain from real reset inputs: positions
     and directions must be equal, env for env — PickupObjects (18
     entity slots), FourRooms, and the 8x8 maze with each env's maze as
-    room weights and gated walls, where the kernel is also timed."""
+    room weights and gated walls; then the maze's inputs with the radii
+    scaled until at least half the envs exhaust a slot's budget; both
+    with budgets 0 (the fallback alone), 30 (budget + 2 = 32 lanes, one
+    round), 31 (the fallback room in lane 0 of a second round) and 40
+    (the tries over two rounds of the kernel's 32 lanes). The kernel is
+    timed at the maze's (``timings``) and PickupObjects'
+    (``pick_timings``) shapes, and their place_work goes into ``work``
+    and ``pick_work``; returns the max abs error."""
     from miniworld_tpu_torch.ops import place as place_ops
 
     errs = 0.0
-    work = None
-    for env, seed in ((pick, 11), (four, 12), (maze, 13)):
+    for env, seed, tm, wk in ((pick, 11, pick_timings, pick_work), (four, 12, None, None),
+                              (maze, 13, timings, work)):
         args, kwargs = capture_place_args(env, seed)
-        k_out = place_ops.place_all(*args, **kwargs)
-        p_out = place_ops.place_all_plain(*args, **kwargs)
-        n = env.num_envs
-        differ = torch.zeros(n, dtype=torch.bool, device=env.device)
-        for a, b in zip(k_out, p_out):
-            differ |= (a != b).reshape(n, -1).any(dim=1)
-            errs = max(errs, float((a - b).abs().max()))
-        say("kernel-vs-plain", kernel="place", case=f"{env.spec.gym_id} B={n} "
-            f"E+1={args[4].shape[1]} R={env._bank.room_mask.shape[1]} budget={kwargs['budget']}",
-            envs_differ=int(differ.sum()), max_abs_err=f"{errs:.3e}")
-        if bool(differ.any()):
-            raise AssertionError(f"place ({env.spec.gym_id}): {int(differ.sum())} envs differ")
-        if env is maze:
-            if kwargs["seg_gate"] is None:
-                raise AssertionError("the maze's reset placed without its maze")
-            timings["place"] = (cuda_ms(lambda: place_ops.place_all(*args, **kwargs), 50),
-                                cuda_ms(lambda: place_ops.place_all_plain(*args, **kwargs), 5))
-            seeds, bank, _, _, radius, slot_mask = args
-            E, R = slot_mask.shape[1], bank.room_mask.shape[1]
-            V, ns = bank.room_outline.shape[2], bank.room_segs.shape[3]
-            budget = kwargs["budget"]
-            room_seg_wall, wall_open = kwargs["seg_gate"]
-            room_bytes = sum(t.numel() * t.element_size() for t in (
-                bank.room_mask, bank.room_area, bank.room_aabb, bank.room_outline,
-                bank.room_norms, bank.room_vmask, bank.room_segs, room_seg_wall, wall_open,
-                kwargs["room_weight"]))
-            # per try: room draw 3R (weights), bbox and position 10,
-            # outline 4V, walls 22 per segment (the gate 2), entities 8
-            # per slot
-            work = (n * (E + 1) * 44 + n * 4 + n * E + room_bytes + n * (4 * E + 4) * 4,
-                    n * (E + 1) * (budget + 1) * (3 * R + 10 + 4 * V + 22 * ns + 8 * E))
-    return errs, work
+        err, first = check_place(env.spec.gym_id, args, kwargs)
+        errs = max(errs, err)
+        if env is maze and kwargs["seg_gate"] is None:
+            raise AssertionError("the maze's reset placed without its maze")
+        if tm is not None:
+            tm["place"] = (cuda_ms(lambda: place_ops.place_all(*args, **kwargs), 50),
+                           cuda_ms(lambda: place_ops.place_all_plain(*args, **kwargs), 5))
+            dev_ms = kernel_ms(lambda: place_ops.place_all(*args, **kwargs), 50, "place_kernel")
+            DEVICE_MS[("place", env.spec.gym_id)] = dev_ms
+            say("kernel-device-time", kernel="place", env=env.spec.gym_id,
+                B=env.num_envs, device_ms=f"{dev_ms:.4f}" if dev_ms else "not measured",
+                events_ms=f"{tm['place'][0]:.4f}",
+                tries_per_live_slot=f"{live_slot_tries(args[5], first, kwargs['budget']):.3f}")
+            wk.update(place_work(args, kwargs, first))
+
+    # the maze's inputs (args, kwargs of the last reset above), harder
+    seeds, bank, layout_id, rules, radius, slot_mask = args
+    for scale in (2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0):
+        big = (seeds, bank, layout_id, rules, radius * scale, slot_mask)
+        first = place_ops._place_all_plain(*big, **kwargs)[4]
+        exhausted = float((first == kwargs["budget"]).any(1).float().mean())
+        if exhausted >= 0.5:
+            break
+    say("place-exhausted", env=maze.spec.gym_id, radius_scale=scale,
+        envs_exhausting_a_slot=f"{exhausted:.3f}")
+    if exhausted < 0.5:
+        raise AssertionError(f"place: only {exhausted:.3f} of the envs exhaust a budget")
+    errs = max(errs, check_place(f"{maze.spec.gym_id} radius x{scale}", big, kwargs)[0])
+    for label, a in (("", args), (f" radius x{scale}", big)):
+        for budget in (0, 30, 31, 40):
+            errs = max(errs, check_place(f"{maze.spec.gym_id}{label} lane rounds", a,
+                                         {**kwargs, "budget": budget})[0])
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -1017,32 +1172,51 @@ def main():
     if not (maze.procgen and maze_s3.procgen):
         raise AssertionError("the Maze family does not default to procgen")
     errs, pick_timings, pick_work, sweep = phase_kernels(hall, pick)
-    for k, (ms, plain) in pick_timings.items():
-        say("kernel-time", kernel=k, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
-            bound_ms=f"{bound(*pick_work[k])[0]:.4f}", shapes=f"{PICK_ID} B={B_PICK} HW={W * H}")
     maze_errs, timings, work, maze_sweep = phase_maze_kernels(maze)
     phase_tile_sweep(maze_sweep + sweep)
     errs = {k: max(v, maze_errs.get(k, 0.0)) for k, v in errs.items()}
     errs["mazegen"], work["mazegen"] = phase_mazegen(maze, timings)
-    errs["place"], work["place"] = phase_place(pick, four, maze, timings)
-    for k, (ms, plain) in timings.items():
-        say("kernel-time", kernel=k, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
-            bound_ms=f"{bound(*work[k])[0]:.4f}", shapes=f"{MAZE_ID} procgen B={B_MAZE} HW={W * H}")
+    errs["place"] = phase_place(pick, four, maze, timings, pick_timings, work, pick_work)
+    for shapes, tms, wk in ((f"{PICK_ID} B={B_PICK} HW={W * H}", pick_timings, pick_work),
+                            (f"{MAZE_ID} procgen B={B_MAZE} HW={W * H}", timings, work)):
+        # at PickupObjects tri_pass is the launch with mesh rows, "_unmeshed"
+        # the same without them
+        for k, (ms, plain) in tms.items():
+            extra = ({"bound_all_tries_ms": f"{bound(*wk['place_all_tries'])[0]:.4f}"}
+                     if k == "place" else {})
+            say("kernel-time", kernel=k, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+                bound_ms=f"{bound(*wk[k])[0]:.4f}", **extra, shapes=shapes)
     pick_launches, rates = phase_main(hall, pick, pick_small, four, tmaze)
     maze_launches = phase_maze(maze, maze_s3, maze_s3_bank, rates)
     kernels = []
     for k, (src, rep) in KERNELS.items():
-        # the Maze path's kernels at its shapes; the mesh pass at PickupObjects'
+        # the Maze path's kernels at its shapes; the mesh pass at
+        # PickupObjects': the tri_pass launch with mesh rows there
+        mesh = k == "entity_mesh_pass"
         path_timings, path_work, launches = (
-            (pick_timings, pick_work, pick_launches) if k == "entity_mesh_pass"
-            else (timings, work, maze_launches))
+            (pick_timings, pick_work, pick_launches) if mesh else (timings, work, maze_launches))
         bound_ms, bound_by = bound(*path_work[k])
+        ms, plain_ms = path_timings["tri_pass" if mesh else k]
         kernels.append({
             "name": k, "route": "cuda", "source": src, "replaces": rep,
             "launches": int(launches[k]), "max_abs_err": errs[k],
-            "ms": path_timings[k][0], "plain_ms": path_timings[k][1],
+            "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
+        if mesh:  # one launch with tri_pass; that launch without mesh rows beside it
+            kernels[-1]["fused_into"] = "tri_pass"
+            kernels[-1]["device_ms"] = DEVICE_MS.get(("tri_pass", "mesh"))
+            kernels[-1]["tri_pass_unmeshed_ms"] = pick_timings["tri_pass_unmeshed"][0]
+            kernels[-1]["tri_pass_unmeshed_bound_ms"] = bound(*pick_work["tri_pass_unmeshed"])[0]
+        if k == "place":  # the kernel alone (profiler), and at PickupObjects' shapes;
+            # beside each bound, every try of the reference's work counted
+            kernels[-1]["device_ms"] = DEVICE_MS.get(("place", MAZE_ID))
+            kernels[-1]["bound_all_tries_ms"] = bound(*work["place_all_tries"])[0]
+            kernels[-1]["ms_pickupobjects"] = pick_timings["place"][0]
+            kernels[-1]["device_ms_pickupobjects"] = DEVICE_MS.get(("place", PICK_ID))
+            kernels[-1]["bound_ms_pickupobjects"] = bound(*pick_work["place"])[0]
+            kernels[-1]["bound_all_tries_ms_pickupobjects"] = bound(
+                *pick_work["place_all_tries"])[0]
         if k == "tri_pass":  # every (row, pixel) pair counted, as before the culling
             kernels[-1]["bound_full_scan_ms"] = bound(*path_work["tri_pass_full_scan"])[0]
     print(json.dumps({

@@ -1,5 +1,6 @@
 // Reset-time placement: every entity slot of a reset, in order, then the
-// agent, by budgeted rejection sampling — one thread per env.
+// agent, by budgeted rejection sampling — one warp per env, the tries of
+// a slot in parallel lanes.
 //
 // Replaces: miniworld_tpu/ops/place.py:place_one chained over the slots
 // as in miniworld_tpu/vector.py:_reset_one's place_body (E entity
@@ -27,12 +28,34 @@
 // What bounds it on an H100: neither bytes (a few hundred per env) nor
 // operations (about 10^8 at B = 4096 with six placements of 18 tries,
 // about 4 x 10^8 on an 8x8 maze at B = 8192, two placements over 176
-// rooms and 40 segments)
-// come near the card's rates; the E+1 placements of an env are a
-// dependent chain (each collides with the ones before it), so the
-// kernel is latency-bound. What the design buys is the launch count:
-// one launch per reset instead of the thousands of small launches of
-// the plain version (PERF.md).
+// rooms and 40 segments) come near the card's rates. What is left is
+// latency: the E+1 placements of an env are a dependent chain (each
+// collides with the ones before it); and, where an env has many rooms,
+// the L1 throughput of the tries' gathers: the lanes of a warp test
+// different rooms, so each load of an outline vertex or wall segment
+// touches up to one line per lane (the reason a lane stops loading at
+// its first failed test).
+//
+// Design. The tries of one slot are independent given the entities
+// already placed (each draws its own counter row u[i]), and the room
+// CDF depends only on the env, so:
+//   - a warp owns an env (WARPS envs a block): B = 8192 gives 8192 warps,
+//     about 62 per SM, where one thread per env gave 64 blocks;
+//   - one lane sums the room weights in room order into shared memory
+//     once per env (sequentially, as the plain version's cumsum is
+//     meant: a warp scan would round differently unless the weights
+//     sum exactly); the last entry is the total, the same bits as a
+//     separate sum. A draw is then a binary search for the first r with
+//     u * total < cdf[r] (0 where there is none, as the linear scan and
+//     torch's argmax of all-false give): exact, since the CDF never
+//     decreases (the weights are >= 0), plateaus included;
+//   - per slot, lane i < budget runs try i, lane ``budget`` computes the
+//     fallback candidate and lane ``budget + 1`` draws the fallback room,
+//     in rounds of 32 lanes where budget + 2 > 32; the first passing try
+//     is the lowest set bit of a ballot, its position broadcast by a
+//     shuffle, and a round with a pass ends the slot;
+//   - the placed entities (x, z, radius, placed) live in shared memory
+//     per warp; lane 0 writes a slot's result and its entry there.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,6 +64,7 @@
 #include "rng.cuh"
 
 #define MAX_SLOTS 32
+#define WARPS 4  // envs (warps) a block
 
 struct Bank {
     const unsigned char* room_mask;  // (L, R)
@@ -58,28 +82,18 @@ struct Bank {
     int Wn;
 };
 
-// a room's draw weight: its area where it exists, times the env's
-// procgen room weight
-__device__ __forceinline__ float room_prob(const unsigned char* mask, const float* area,
-                                           const float* weight, int r) {
-    const float p = mask[r] ? area[r] : 0.0f;
-    return weight != nullptr ? p * weight[r] : p;
-}
-
-// sample_room: first room whose running weight sum exceeds u * total
-__device__ int sample_room(const Bank& bk, int b, int lid, float u) {
-    const unsigned char* mask = bk.room_mask + (size_t)lid * bk.R;
-    const float* area = bk.room_area + (size_t)lid * bk.R;
-    const float* weight = bk.room_weight != nullptr ? bk.room_weight + (size_t)b * bk.R : nullptr;
-    float total = 0.0f;
-    for (int r = 0; r < bk.R; ++r) total = total + room_prob(mask, area, weight, r);
-    const float thr = u * total;
-    float cdf = 0.0f;
-    for (int r = 0; r < bk.R; ++r) {
-        cdf = cdf + room_prob(mask, area, weight, r);
-        if (thr < cdf) return r;
+// sample_room over the env's CDF: the first room whose running weight
+// sum exceeds u * total, 0 where none does (a binary search; the CDF
+// never decreases)
+__device__ __forceinline__ int room_search(const float* cdf, int R, float u) {
+    const float thr = u * cdf[R - 1];
+    int lo = 0, hi = R;
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (thr < cdf[mid]) hi = mid;
+        else lo = mid + 1;
     }
-    return 0;
+    return lo < R ? lo : 0;
 }
 
 struct Rule {
@@ -88,24 +102,37 @@ struct Rule {
     float radius;
 };
 
-// One try: the candidate position (x, z; y is 0) and whether it is free.
-__device__ bool one_try(const Bank& bk, int b, int lid, const Rule& rule, const float* u,
-                        const float* ex, const float* ez, const float* er,
-                        const bool* placed, int n_ents, float* px_out, float* pz_out) {
-    const int room = rule.room >= 0 ? rule.room : sample_room(bk, b, lid, u[0]);
-    const size_t lr = (size_t)lid * bk.R + room;
-    const float* aabb = bk.room_aabb + lr * 4;
+// The entities placed so far in a warp's env.
+struct Placed {
+    float x[MAX_SLOTS], z[MAX_SLOTS], r[MAX_SLOTS];
+    unsigned char on[MAX_SLOTS];
+};
+
+// A try's room and candidate position (x, z; y is 0) from its uniforms.
+__device__ __forceinline__ int candidate(const Bank& bk, int lid, const float* cdf,
+                                         const Rule& rule, const float* u, float* px_out,
+                                         float* pz_out) {
+    const int room = rule.room >= 0 ? rule.room : room_search(cdf, bk.R, u[0]);
+    const float* aabb = bk.room_aabb + ((size_t)lid * bk.R + room) * 4;
     float bbox[4];
     for (int k = 0; k < 4; ++k) bbox[k] = isnan(rule.bbox[k]) ? aabb[k] : rule.bbox[k];
     const float r = rule.radius;
     const float lo_x = bbox[0] - r, hi_x = bbox[1] + r;
     const float lo_z = bbox[2] - r, hi_z = bbox[3] + r;
-    const float px = lo_x + u[1] * (hi_x - lo_x);
-    const float pz = lo_z + u[3] * (hi_z - lo_z);
-    *px_out = px;
-    *pz_out = pz;
+    *px_out = lo_x + u[1] * (hi_x - lo_x);
+    *pz_out = lo_z + u[3] * (hi_z - lo_z);
+    return room;
+}
 
-    bool inside = true;
+// Whether a candidate in ``room`` is free: inside the room's outline,
+// clear of its walls and of the entities placed so far. The plain
+// version ANDs the three tests over every vertex, segment and entity;
+// the first failing one decides the same boolean, so a lane returns
+// there and loads no more of its room (the lanes of a warp read
+// different rooms, and each distinct line is one more L1 wavefront).
+__device__ bool is_free(const Bank& bk, int b, int lid, int room, float r, float px, float pz,
+                        const Placed& pl, int n_ents) {
+    const size_t lr = (size_t)lid * bk.R + room;
     const float* outline = bk.room_outline + lr * bk.V * 2;
     const float* norms = bk.room_norms + lr * bk.V * 2;
     const unsigned char* vmask = bk.room_vmask + lr * bk.V;
@@ -114,10 +141,17 @@ __device__ bool one_try(const Bank& bk, int b, int lid, const Rule& rule, const 
         const float apx = px - outline[2 * v];
         const float apz = pz - outline[2 * v + 1];
         const float dot = norms[2 * v] * apx + norms[2 * v + 1] * apz;
-        inside = inside && (dot > 0.0f);
+        if (!(dot > 0.0f)) return false;  // outside the outline
     }
 
-    bool wall_hit = false;
+    for (int e = 0; e < n_ents; ++e) {
+        if (!pl.on[e]) continue;
+        const float dx = pl.x[e] - px;
+        const float dz = pl.z[e] - pz;
+        const float rsum = r + pl.r[e];
+        if (dx * dx + dz * dz < rsum * rsum) return false;  // overlaps an entity
+    }
+
     const float* segs = bk.room_segs + lr * 4 * bk.NS;
     const int* codes = bk.room_seg_wall != nullptr ? bk.room_seg_wall + lr * bk.NS : nullptr;
     const float* wall_open = codes != nullptr ? bk.wall_open + (size_t)b * bk.Wn : nullptr;
@@ -137,21 +171,12 @@ __device__ bool one_try(const Bank& bk, int b, int lid, const Rule& rule, const 
         t = fminf(fmaxf(t, 0.0f), 1.0f);
         const float dx = ax + t * abx - px;
         const float dz = az + t * abz - pz;
-        wall_hit = wall_hit || (dx * dx + dz * dz < rr);
+        if (dx * dx + dz * dz < rr) return false;  // overlaps a wall
     }
-
-    bool ent_hit = false;
-    for (int e = 0; e < n_ents; ++e) {
-        if (!placed[e]) continue;
-        const float dx = ex[e] - px;
-        const float dz = ez[e] - pz;
-        const float rsum = r + er[e];
-        ent_hit = ent_hit || (dx * dx + dz * dz < rsum * rsum);
-    }
-    return inside && !wall_hit && !ent_hit;
+    return true;
 }
 
-__global__ void place_kernel(
+__global__ void __launch_bounds__(WARPS * 32) place_kernel(
     const unsigned int* __restrict__ seeds,     // (B, E+1) per-slot subseeds
     const int* __restrict__ layout_id,          // (B,)
     const int* __restrict__ rule_room,          // (B, E+1)
@@ -168,18 +193,40 @@ __global__ void place_kernel(
     float* __restrict__ agent_pos,              // (B, 3)
     float* __restrict__ agent_dir)              // (B,)
 {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
+    extern __shared__ float cdf_all[];  // WARPS x R
+    __shared__ Placed placed_all[WARPS];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int b = blockIdx.x * WARPS + warp;
+    if (b >= B) return;  // the whole warp: only warp-level syncs below
     const int lid = layout_id[b];
     const int A = E + 1;
-    float ex[MAX_SLOTS], ez[MAX_SLOTS], er[MAX_SLOTS];
-    bool placed[MAX_SLOTS];
-    for (int e = 0; e < E; ++e) {
-        ex[e] = 0.0f;
-        ez[e] = 0.0f;
-        er[e] = radius[(size_t)b * A + e];
-        placed[e] = false;
+    const int R = bk.R;
+    float* cdf = cdf_all + (size_t)warp * R;
+    Placed& pl = placed_all[warp];
+
+    // the room weights in parallel, then their running sum by one lane
+    const unsigned char* mask = bk.room_mask + (size_t)lid * R;
+    const float* area = bk.room_area + (size_t)lid * R;
+    const float* weight = bk.room_weight != nullptr ? bk.room_weight + (size_t)b * R : nullptr;
+    for (int r = lane; r < R; r += 32) {
+        const float p = mask[r] ? area[r] : 0.0f;
+        cdf[r] = weight != nullptr ? p * weight[r] : p;
     }
+    for (int e = lane; e < E; e += 32) {
+        pl.x[e] = 0.0f;
+        pl.z[e] = 0.0f;
+        pl.r[e] = radius[(size_t)b * A + e];
+        pl.on[e] = 0;
+    }
+    __syncwarp();
+    if (lane == 0) {
+        float c = 0.0f;
+        for (int r = 0; r < R; ++r) {
+            c = c + cdf[r];
+            cdf[r] = c;
+        }
+    }
+    __syncwarp();
 
     for (int slot = 0; slot <= E; ++slot) {
         const size_t i = (size_t)b * A + slot;
@@ -188,64 +235,86 @@ __global__ void place_kernel(
         for (int k = 0; k < 4; ++k) rule.bbox[k] = rule_bbox[i * 4 + k];
         rule.radius = radius[i];
         const unsigned int key = hash_u32(seeds[i], 1u);  // uniforms(seed, 1, ...)
-        float u[4];
-        for (int j = 0; j < 4; ++j) u[j] = hash01(key, (unsigned int)(4 * budget + j));
-        float px, pz;
-        one_try(bk, b, lid, rule, u, ex, ez, er, placed, E, &px, &pz);  // the fallback candidate
+
+        // tries 0..budget-1, the fallback candidate (budget) and the
+        // fallback room draw (budget + 1), 32 lanes a round
         bool found = false;
-        for (int t = 0; t < budget; ++t) {
-            for (int j = 0; j < 4; ++j) u[j] = hash01(key, (unsigned int)(4 * t + j));
-            float cx, cz;
-            const bool ok = one_try(bk, b, lid, rule, u, ex, ez, er, placed, E, &cx, &cz);
-            if (ok && !found) {
-                px = cx;
-                pz = cz;
+        float px = 0.0f, pz = 0.0f;  // the winner's position
+        float fb_x = 0.0f, fb_z = 0.0f;  // lane budget % 32: the fallback candidate
+        int fb_room = 0;  // lane (budget + 1) % 32: the fallback room
+        for (int base = 0; base < budget + 2; base += 32) {
+            const int t = base + lane;
+            bool ok = false;
+            float cx = 0.0f, cz = 0.0f;
+            if (t <= budget) {
+                float u[4];
+                for (int j = 0; j < 4; ++j) u[j] = hash01(key, (unsigned int)(4 * t + j));
+                const int room = candidate(bk, lid, cdf, rule, u, &cx, &cz);
+                if (t < budget) ok = is_free(bk, b, lid, room, rule.radius, cx, cz, pl, E);
+                else {
+                    fb_x = cx;
+                    fb_z = cz;
+                }
+            } else if (t == budget + 1) {
+                const float u_room = hash01(key, (unsigned int)(4 * (budget + 1)));
+                fb_room = rule.room >= 0 ? rule.room : room_search(cdf, R, u_room);
             }
-            found = found || ok;
+            const unsigned pass = __ballot_sync(0xffffffffu, ok);
+            if (pass) {  // the earliest passing try of the earliest round
+                const int w = __ffs(pass) - 1;
+                px = __shfl_sync(0xffffffffu, cx, w);
+                pz = __shfl_sync(0xffffffffu, cz, w);
+                found = true;
+                break;
+            }
         }
-        const float u_room = hash01(key, (unsigned int)(4 * (budget + 1)));
-        const float u_dir = hash01(key, (unsigned int)(4 * (budget + 1) + 1));
         float py = 0.0f;
         if (!found) {
-            // clamp into the fallback room's bbox inset by the radius
-            const int room = rule.room >= 0 ? rule.room : sample_room(bk, b, lid, u_room);
-            const float* aabb = bk.room_aabb + ((size_t)lid * bk.R + room) * 4;
+            // clamp the candidate of try ``budget`` into the fallback
+            // room's bbox inset by the radius
+            px = __shfl_sync(0xffffffffu, fb_x, budget & 31);
+            pz = __shfl_sync(0xffffffffu, fb_z, budget & 31);
+            const int room = __shfl_sync(0xffffffffu, fb_room, (budget + 1) & 31);
+            const float* aabb = bk.room_aabb + ((size_t)lid * R + room) * 4;
             const float r = rule.radius;
             const float lo_x = fminf(aabb[0] + r, aabb[1] - r), hi_x = fmaxf(aabb[0] + r, aabb[1] - r);
             const float lo_z = fminf(aabb[2] + r, aabb[3] - r), hi_z = fmaxf(aabb[2] + r, aabb[3] - r);
             px = fminf(fmaxf(px, lo_x), hi_x);
             pz = fminf(fmaxf(pz, lo_z), hi_z);
         }
-        if (!isnan(rule_pos[i * 3])) {  // exact position, nan_to_num'd
-            float p[3];
-            for (int k = 0; k < 3; ++k) {
-                const float v = rule_pos[i * 3 + k];
-                p[k] = isnan(v) ? 0.0f : (isinf(v) ? (v > 0.0f ? FLT_MAX : -FLT_MAX) : v);
+        if (lane == 0) {
+            if (!isnan(rule_pos[i * 3])) {  // exact position, nan_to_num'd
+                float p[3];
+                for (int k = 0; k < 3; ++k) {
+                    const float v = rule_pos[i * 3 + k];
+                    p[k] = isnan(v) ? 0.0f : (isinf(v) ? (v > 0.0f ? FLT_MAX : -FLT_MAX) : v);
+                }
+                px = p[0];
+                py = p[1];
+                pz = p[2];
             }
-            px = p[0];
-            py = p[1];
-            pz = p[2];
+            const float u_dir = hash01(key, (unsigned int)(4 * (budget + 1) + 1));
+            const float rd = rule_dir[i];
+            const float lo = rule_dir_lo[i];
+            const float d = isnan(rd) ? lo + u_dir * (rule_dir_hi[i] - lo) : rd;
+            if (slot == E) {
+                agent_pos[3 * b] = px;
+                agent_pos[3 * b + 1] = py;
+                agent_pos[3 * b + 2] = pz;
+                agent_dir[b] = d;
+            } else {
+                const bool valid = slot_mask[(size_t)b * E + slot] != 0;
+                const size_t o = (size_t)b * E + slot;
+                ent_pos[3 * o] = valid ? px : 0.0f;
+                ent_pos[3 * o + 1] = valid ? py : 0.0f;
+                ent_pos[3 * o + 2] = valid ? pz : 0.0f;
+                ent_dir[o] = valid ? d : 0.0f;
+                pl.x[slot] = valid ? px : 0.0f;
+                pl.z[slot] = valid ? pz : 0.0f;
+                pl.on[slot] = valid;
+            }
         }
-        const float rd = rule_dir[i];
-        const float lo = rule_dir_lo[i];
-        const float d = isnan(rd) ? lo + u_dir * (rule_dir_hi[i] - lo) : rd;
-
-        if (slot == E) {
-            agent_pos[3 * b] = px;
-            agent_pos[3 * b + 1] = py;
-            agent_pos[3 * b + 2] = pz;
-            agent_dir[b] = d;
-        } else {
-            const bool valid = slot_mask[(size_t)b * E + slot] != 0;
-            const size_t o = (size_t)b * E + slot;
-            ent_pos[3 * o] = valid ? px : 0.0f;
-            ent_pos[3 * o + 1] = valid ? py : 0.0f;
-            ent_pos[3 * o + 2] = valid ? pz : 0.0f;
-            ent_dir[o] = valid ? d : 0.0f;
-            ex[slot] = valid ? px : 0.0f;
-            ez[slot] = valid ? pz : 0.0f;
-            placed[slot] = valid;
-        }
+        __syncwarp();  // the next slot's tries read this one's entry
     }
 }
 
@@ -262,15 +331,22 @@ extern "C" int mw_place(
     float* ent_pos, float* ent_dir, float* agent_pos, float* agent_dir,
     cudaStream_t stream)
 {
-    if (E > MAX_SLOTS) return (int)cudaErrorInvalidValue;
+    static size_t smem_opted = 48 * 1024;  // the dynamic limit set so far
+    if (E > MAX_SLOTS || R < 1 || budget < 0) return (int)cudaErrorInvalidValue;
     if ((room_weight == nullptr) != (room_seg_wall == nullptr) ||
         (room_seg_wall == nullptr) != (wall_open == nullptr))
         return (int)cudaErrorInvalidValue;
     if (B == 0) return 0;
     Bank bk{room_mask, room_area, room_aabb, room_outline, room_norms, room_vmask,
             room_segs, R, V, NS, room_weight, room_seg_wall, wall_open, Wn};
-    const int threads = 128;
-    place_kernel<<<(B + threads - 1) / threads, threads, 0, stream>>>(
+    const size_t smem = (size_t)WARPS * R * sizeof(float);
+    if (smem > smem_opted) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            place_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        smem_opted = smem;
+    }
+    place_kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, smem, stream>>>(
         seeds, layout_id, rule_room, rule_bbox, rule_pos, rule_dir, rule_dir_lo,
         rule_dir_hi, radius, slot_mask, bk, B, E, budget,
         ent_pos, ent_dir, agent_pos, agent_dir);

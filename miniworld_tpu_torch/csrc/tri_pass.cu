@@ -1,12 +1,15 @@
-// Static-prim hit test: keyed-z winner and winner attributes per pixel.
+// Static-prim hit test, with the mesh-entity pass folded in: keyed-z
+// winner and winner attributes per pixel.
 //
 // Replaces: miniworld_tpu/render/raycast.py:_tri_pass (single-chunk
-// form, chunk_compete, and the ``init`` seed of the carry), an XLA-fused
-// jnp stage in the JAX package. The plain PyTorch version is
-// tri_pass_plain in miniworld_tpu_torch/render/raycast.py; the two agree
-// bit for bit (the library is built with -fmad=false and the per-(row,
-// pixel) arithmetic below follows the plain version operation by
-// operation). The row culling has its own plain version, tile_cull_plain.
+// form, chunk_compete, and the ``init`` seed of the carry) and
+// _entity_mesh_pass, XLA-fused jnp stages in the JAX package. The plain
+// PyTorch version is tri_pass_plain in
+// miniworld_tpu_torch/render/raycast.py (with mesh=, entity_mesh_pass_plain
+// seeding it); the two agree bit for bit (the library is built with
+// -fmad=false and the per-(row, pixel) arithmetic below follows the
+// plain version operation by operation). The row culling has its own
+// plain version, tile_cull_plain.
 //
 // What bounds it on an H100: per (env, pixel) it writes 4 bytes of t
 // and 32 bytes of bf16 attributes (1.42 GB at an 8x8 maze's B = 8192,
@@ -15,7 +18,9 @@
 // (22 per passing (row, pixel) pair) are far below the bytes; what the
 // kernel adds on top is the cull pass (about 100 operations per (row,
 // tile) survivor of the image test) and the scan of each tile's
-// survivors (about 19 rows per 16x12 tile of a maze view).
+// survivors (about 19 rows per 16x12 tile of a maze view). With mesh
+// rows (PickupObjects' E*M = 80 per env) the output is the same 36 bytes
+// a pixel; the mesh pass's seed no longer goes through device memory.
 //
 // Design. A block owns one env and loops over screen tiles of TILE_W x
 // TILE_H pixels (the last ones cut at the image's edge); at small B an
@@ -61,11 +66,22 @@
 // survivors equals the max over all rows: the output is the full scan's,
 // bit for bit.
 //
-// Seeded launch (seed_t != nullptr; scenes with mesh entities): the
-// mesh-entity pass's (t, attr) starts the competition. Its key is 1/t
-// with the row bits all ones, so it wins quantized-depth ties; a prim
-// replaces it only with a strictly greater key, and a pixel no prim
-// wins keeps the seed's attributes (zeros where the seed missed too).
+// Mesh launch (mesh_v9 != nullptr; scenes with mesh entities, the MESH
+// instance of the kernel): each env also has its own N world-space
+// triangle rows (render/raycast.entity_mesh_rows). The block stages them
+// once beside the static rows (kind 1.0, a triangle: coverage u + v <=
+// det, which is max(u, v) + 1 * min(u, v) bit for bit, so the cull above
+// holds for them unchanged), culls them against the image and per tile
+// into lists of their own, and runs two competitions per pixel, as the
+// JAX package does: first the mesh survivors give the mesh key, which is
+// turned in registers into the seed the static rows start from, exactly
+// as the mesh pass's t round trip did (t = 1/max(r, 1e-30), inf on a
+// miss; seed key = the bits of 1/t with the row bits all ones, so the
+// seed wins quantized-depth ties). A static row replaces it only with a
+// strictly greater key; a pixel the seed keeps gets the bf16 of the mesh
+// winner's attribute row, zeros where the mesh missed too. One merged
+// max over both row sets would break that tie rule, so the two stay
+// apart. The unmeshed instance compiles without any of it.
 //
 // Paired launch (pg_wall != nullptr; procgen mazes, the paired bank of
 // scene/supermaze.py and raycast.py:259-295 / 1206-1219): every row has
@@ -77,7 +93,8 @@
 // its variant.
 //
 // Shared memory: 48 bytes per row, two 2-byte row lists and (paired) the
-// variant byte: 53,248 B at S = 1024, above the 48 KB default, so the
+// variant byte, and 52 bytes per mesh row: 53,248 B at S = 1024, 106,496
+// B with N = 1024 mesh rows besides, above the 48 KB default, so the
 // launch raises the kernel's dynamic limit when it needs more.
 
 #include <cuda_runtime.h>
@@ -166,6 +183,49 @@ __device__ __forceinline__ void append(const bool keep, const int s, unsigned sh
     if (keep) list[base + __popc(m & ((1u << lane) - 1u))] = (unsigned short)s;
 }
 
+struct CamBasis {
+    float ox, oy, oz, f0, f1, f2, r0, r1, r2, u0, u1, u2;
+};
+
+// The staged fields of row s of v9 ((9, n) component-major) for the
+// camera: the basis dots of g_det, g_u and g_v, 1/t_num (0 where t_num
+// <= 0), the kind and a pad, as three float4.
+__device__ __forceinline__ void stage_row(const float* v9, const int n, const int s,
+                                          const CamBasis& c, const float kind, float4& q0,
+                                          float4& q1, float4& q2) {
+    const float e1x = v9[3 * n + s] - v9[s];
+    const float e1y = v9[4 * n + s] - v9[n + s];
+    const float e1z = v9[5 * n + s] - v9[2 * n + s];
+    const float e2x = v9[6 * n + s] - v9[s];
+    const float e2y = v9[7 * n + s] - v9[n + s];
+    const float e2z = v9[8 * n + s] - v9[2 * n + s];
+    const float sx = c.ox - v9[s];
+    const float sy = c.oy - v9[n + s];
+    const float sz = c.oz - v9[2 * n + s];
+    // g_det = e2 x e1 ; g_u = e2 x s ; g_v = s x e1
+    const float gdx = e2y * e1z - e2z * e1y;
+    const float gdy = e2z * e1x - e2x * e1z;
+    const float gdz = e2x * e1y - e2y * e1x;
+    const float gux = e2y * sz - e2z * sy;
+    const float guy = e2z * sx - e2x * sz;
+    const float guz = e2x * sy - e2y * sx;
+    const float gvx = sy * e1z - sz * e1y;
+    const float gvy = sz * e1x - sx * e1z;
+    const float gvz = sx * e1y - sy * e1x;
+    const float t_num = e2x * gvx + e2y * gvy + e2z * gvz;
+    q0 = make_float4(gdx * c.f0 + gdy * c.f1 + gdz * c.f2, gdx * c.r0 + gdy * c.r1 + gdz * c.r2,
+                     gdx * c.u0 + gdy * c.u1 + gdz * c.u2, gux * c.f0 + guy * c.f1 + guz * c.f2);
+    q1 = make_float4(gux * c.r0 + guy * c.r1 + guz * c.r2, gux * c.u0 + guy * c.u1 + guz * c.u2,
+                     gvx * c.f0 + gvy * c.f1 + gvz * c.f2, gvx * c.r0 + gvy * c.r1 + gvz * c.r2);
+    q2 = make_float4(gvx * c.u0 + gvy * c.u1 + gvz * c.u2, t_num > 0.0f ? 1.0f / t_num : 0.0f,
+                     kind, 0.0f);
+}
+
+// t of a z-key: 1/r of its depth bits, inf for 0 (no hit)
+__device__ __forceinline__ float t_of_key(const int key) {
+    return key > 0 ? 1.0f / fmaxf(__int_as_float(key & ~IDX_MASK), 1e-30f) : INFINITY;
+}
+
 // two floats rounded to bf16 (nearest even), a first, as 32 bits
 __device__ __forceinline__ unsigned bf16x2(const float a, const float b) {
     const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
@@ -181,6 +241,18 @@ __device__ __forceinline__ void warp_span(float& lo, float& hi) {
     }
 }
 
+// 16 floats of an attribute row, rounded to bf16, to 32 bytes at dst
+__device__ __forceinline__ void store_attr_bf16(const float* src_row, __nv_bfloat16* dst) {
+    const float4* src = reinterpret_cast<const float4*>(src_row);
+    const float4 a0 = src[0], a1 = src[1], a2 = src[2], a3 = src[3];
+    uint4* d4 = reinterpret_cast<uint4*>(dst);
+    d4[0] = make_uint4(bf16x2(a0.x, a0.y), bf16x2(a0.z, a0.w),
+                       bf16x2(a1.x, a1.y), bf16x2(a1.z, a1.w));
+    d4[1] = make_uint4(bf16x2(a2.x, a2.y), bf16x2(a2.z, a2.w),
+                       bf16x2(a3.x, a3.y), bf16x2(a3.z, a3.w));
+}
+
+template <bool MESH>
 __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
     const float* __restrict__ verts9,   // (L, 9, S) component-major
     const float* __restrict__ attr,     // (L, S, 16)
@@ -192,22 +264,25 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
     const float* __restrict__ tan_xy,   // (B, 2)
     const float* __restrict__ xbase,    // (W,)
     const float* __restrict__ ybase,    // (H,)
-    const float* __restrict__ seed_t,   // (B, HW) or null
-    const __nv_bfloat16* __restrict__ seed_attr,  // (B, HW, 16) or null
+    const float* __restrict__ mesh_v9,    // (B, 9, N), MESH only
+    const float* __restrict__ mesh_attr,  // (B, N, 16), MESH only
     const float* __restrict__ verts9_alt,  // (L, 9, S) or null
     const float* __restrict__ attr_alt,   // (L, S, 16) or null
     const int* __restrict__ pg_wall,      // (L, S) or null; -1 = no wall
     const float* __restrict__ wall_open,  // (B, Wn) or null; 1 = open
-    int S, int W, int H, int Wn, int all_quads,
+    int S, int N, int W, int H, int Wn, int all_quads,
     float* __restrict__ t_out,          // (B, HW)
     __nv_bfloat16* __restrict__ attr_out)  // (B, HW, 16)
 {
-    extern __shared__ float4 rows[];  // 3 x S float4
-    unsigned short* env_list = reinterpret_cast<unsigned short*>(rows + 3 * S);
+    extern __shared__ float4 rows[];  // 3 x S float4, then (MESH) 3 x N
+    float4* mrows = rows + 3 * S;
+    unsigned short* env_list = reinterpret_cast<unsigned short*>(mrows + (MESH ? 3 * N : 0));
     unsigned short* tile_list = env_list + S;
-    unsigned char* use_alt = reinterpret_cast<unsigned char*>(tile_list + S);
+    unsigned short* menv_list = tile_list + S;
+    unsigned short* mtile_list = menv_list + (MESH ? N : 0);
+    unsigned char* use_alt = reinterpret_cast<unsigned char*>(mtile_list + (MESH ? N : 0));
     __shared__ Box box;
-    __shared__ int n_env, n_tile;
+    __shared__ int n_env, n_tile, m_env, m_tile;
 
     const int b = blockIdx.y;
     const int tid = threadIdx.x;
@@ -238,16 +313,19 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
             else { box.ylo = lo; box.yhi = hi; }
         }
     }
-    if (tid == 0) n_env = 0;
+    if (tid == 0) {
+        n_env = 0;
+        m_env = 0;
+    }
     __syncthreads();
     const Box image = box;
 
     // 1. stage every row; list the ones that may hit the image
     {
-        const float ox = origin[3 * b], oy = origin[3 * b + 1], oz = origin[3 * b + 2];
-        const float f0 = fwd[3 * b], f1 = fwd[3 * b + 1], f2 = fwd[3 * b + 2];
-        const float r0 = right[3 * b], r1 = right[3 * b + 1], r2 = right[3 * b + 2];
-        const float u0 = up[3 * b], u1 = up[3 * b + 1], u2 = up[3 * b + 2];
+        const CamBasis cb{origin[3 * b], origin[3 * b + 1], origin[3 * b + 2],
+                          fwd[3 * b], fwd[3 * b + 1], fwd[3 * b + 2],
+                          right[3 * b], right[3 * b + 1], right[3 * b + 2],
+                          up[3 * b], up[3 * b + 1], up[3 * b + 2]};
         for (int s0 = 0; s0 < S; s0 += THREADS) {
             const int s = s0 + tid;
             bool keep = false;
@@ -258,38 +336,9 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
                     alt = w >= 0 && !(wall_open[(size_t)b * Wn + w] > 0.5f);
                     use_alt[s] = alt;
                 }
-                const float* v9 = alt ? v9a : v9p;
-                const float e1x = v9[3 * S + s] - v9[s];
-                const float e1y = v9[4 * S + s] - v9[S + s];
-                const float e1z = v9[5 * S + s] - v9[2 * S + s];
-                const float e2x = v9[6 * S + s] - v9[s];
-                const float e2y = v9[7 * S + s] - v9[S + s];
-                const float e2z = v9[8 * S + s] - v9[2 * S + s];
-                const float sx = ox - v9[s];
-                const float sy = oy - v9[S + s];
-                const float sz = oz - v9[2 * S + s];
-                const float gdx = e2y * e1z - e2z * e1y;
-                const float gdy = e2z * e1x - e2x * e1z;
-                const float gdz = e2x * e1y - e2y * e1x;
-                const float gux = e2y * sz - e2z * sy;
-                const float guy = e2z * sx - e2x * sz;
-                const float guz = e2x * sy - e2y * sx;
-                const float gvx = sy * e1z - sz * e1y;
-                const float gvy = sz * e1x - sx * e1z;
-                const float gvz = sx * e1y - sy * e1x;
-                const float t_num = e2x * gvx + e2y * gvy + e2z * gvz;
-                const float4 q0 = make_float4(gdx * f0 + gdy * f1 + gdz * f2,
-                                              gdx * r0 + gdy * r1 + gdz * r2,
-                                              gdx * u0 + gdy * u1 + gdz * u2,
-                                              gux * f0 + guy * f1 + guz * f2);
-                const float4 q1 = make_float4(gux * r0 + guy * r1 + guz * r2,
-                                              gux * u0 + guy * u1 + guz * u2,
-                                              gvx * f0 + gvy * f1 + gvz * f2,
-                                              gvx * r0 + gvy * r1 + gvz * r2);
-                const float4 q2 = make_float4(gvx * u0 + gvy * u1 + gvz * u2,
-                                              t_num > 0.0f ? 1.0f / t_num : 0.0f,
-                                              (alt ? ata : atp)[s * ATTR_DIM + 15],  // kind
-                                              0.0f);
+                float4 q0, q1, q2;
+                stage_row(alt ? v9a : v9p, S, s, cb, (alt ? ata : atp)[s * ATTR_DIM + 15],
+                          q0, q1, q2);
                 rows[3 * s] = q0;
                 rows[3 * s + 1] = q1;
                 rows[3 * s + 2] = q2;
@@ -297,9 +346,26 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
             }
             append(keep, s, env_list, &n_env);
         }
+        if (MESH) {  // the env's own triangle rows
+            const float* mv9 = mesh_v9 + (size_t)b * 9 * N;
+            for (int s0 = 0; s0 < N; s0 += THREADS) {
+                const int s = s0 + tid;
+                bool keep = false;
+                if (s < N) {
+                    float4 q0, q1, q2;
+                    stage_row(mv9, N, s, cb, 1.0f, q0, q1, q2);
+                    mrows[3 * s] = q0;
+                    mrows[3 * s + 1] = q1;
+                    mrows[3 * s + 2] = q2;
+                    keep = !row_culled(q0, q1, q2, image, false);
+                }
+                append(keep, s, menv_list, &m_env);
+            }
+        }
     }
     __syncthreads();
     const int ne = n_env;
+    const int nme = MESH ? m_env : 0;
 
     const int hw = W * H;
     const int n_tx = (W + TILE_W - 1) / TILE_W;
@@ -323,7 +389,10 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
                 else { box.ylo = lo; box.yhi = hi; }
             }
         }
-        if (tid == 0) n_tile = 0;
+        if (tid == 0) {
+            n_tile = 0;
+            m_tile = 0;
+        }
         __syncthreads();
         const Box tb = box;
         for (int i0 = 0; i0 < ne; i0 += THREADS) {
@@ -336,19 +405,50 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
             }
             append(keep, s, tile_list, &n_tile);
         }
+        for (int i0 = 0; i0 < nme; i0 += THREADS) {
+            const int i = i0 + tid;
+            bool keep = false;
+            int s = 0;
+            if (i < nme) {
+                s = menv_list[i];
+                keep = !row_culled(mrows[3 * s], mrows[3 * s + 1], mrows[3 * s + 2], tb, false);
+            }
+            append(keep, s, mtile_list, &m_tile);
+        }
         __syncthreads();
         const int nt = n_tile;
+        const int nmt = MESH ? m_tile : 0;
 
         // 3. each pixel scans the tile's survivors
         const int x = x0 + col;
         const float xv = xbase[min(x, W - 1)] * tan_x;
         float yv[PIX_PER_THREAD];
-        int best[PIX_PER_THREAD];
+        int best[PIX_PER_THREAD], mbest[PIX_PER_THREAD];
 #pragma unroll
         for (int k = 0; k < PIX_PER_THREAD; ++k) {
             const int y = y0 + row0 + k * ROWS_PER_THREAD_Y;
             yv[k] = ybase[min(y, H - 1)] * tan_y;
             best[k] = 0;
+            mbest[k] = 0;
+        }
+        // the mesh competition first (triangles: coverage u + v)
+        for (int i = 0; i < nmt; ++i) {
+            const int s = mtile_list[i];
+            const float4 q0 = mrows[3 * s], q1 = mrows[3 * s + 1], q2 = mrows[3 * s + 2];
+            const float dx = q0.x + q0.y * xv;
+            const float ux = q0.w + q1.x * xv;
+            const float vx = q1.z + q1.w * xv;
+#pragma unroll
+            for (int k = 0; k < PIX_PER_THREAD; ++k) {
+                const float det = dx + q0.z * yv[k];
+                const float un = ux + q1.y * yv[k];
+                const float vn = vx + q2.x * yv[k];
+                const float r = det * q2.y;
+                const bool hit = det > 1e-12f && un >= 0.0f && vn >= 0.0f &&
+                                 un + vn <= det && r < r_near && r > r_far;
+                const int key = hit ? ((__float_as_int(r) & ~IDX_MASK) | s) : 0;
+                mbest[k] = max(mbest[k], key);
+            }
         }
         for (int i = 0; i < nt; ++i) {
             const int s = tile_list[i];
@@ -376,33 +476,30 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
             const int y = y0 + row0 + k * ROWS_PER_THREAD_Y;
             if (x >= W || y >= H) continue;
             const size_t q = (size_t)b * hw + (size_t)y * W + x;
-            if (seed_t != nullptr) {
-                const float seed_r = 1.0f / seed_t[q];  // 1/inf = 0: no seed
+            if (MESH) {
+                // the mesh winner as the seed, through t-space as the JAX
+                // carry takes it: 1/inf = 0, no seed
+                const float seed_r = 1.0f / t_of_key(mbest[k]);
                 const int seed_key =
                     seed_r > 0.0f ? ((__float_as_int(seed_r) & ~IDX_MASK) | IDX_MASK) : 0;
                 if (!(best[k] > seed_key)) {
-                    t_out[q] = seed_key > 0
-                        ? 1.0f / fmaxf(__int_as_float(seed_key & ~IDX_MASK), 1e-30f)
-                        : INFINITY;
-                    const uint4* s4 = reinterpret_cast<const uint4*>(seed_attr + q * ATTR_DIM);
-                    uint4* d4 = reinterpret_cast<uint4*>(attr_out + q * ATTR_DIM);
-                    d4[0] = s4[0];
-                    d4[1] = s4[1];
+                    t_out[q] = t_of_key(seed_key);
+                    if (mbest[k] > 0) {
+                        store_attr_bf16(mesh_attr + ((size_t)b * N + (mbest[k] & IDX_MASK)) *
+                                        ATTR_DIM, attr_out + q * ATTR_DIM);
+                    } else {
+                        uint4* d4 = reinterpret_cast<uint4*>(attr_out + q * ATTR_DIM);
+                        d4[0] = make_uint4(0u, 0u, 0u, 0u);
+                        d4[1] = make_uint4(0u, 0u, 0u, 0u);
+                    }
                     continue;
                 }
             }
-            t_out[q] = best[k] > 0
-                ? 1.0f / fmaxf(__int_as_float(best[k] & ~IDX_MASK), 1e-30f) : INFINITY;
-            // winner's row (row 0 for an unseeded miss: nothing downstream reads it)
+            t_out[q] = t_of_key(best[k]);
+            // winner's row (row 0 for an unmeshed miss: nothing downstream reads it)
             const int row = best[k] & IDX_MASK;
-            const float* at = (paired && use_alt[row]) ? ata : atp;
-            const float4* src = reinterpret_cast<const float4*>(at + row * ATTR_DIM);
-            const float4 a0 = src[0], a1 = src[1], a2 = src[2], a3 = src[3];
-            uint4* d4 = reinterpret_cast<uint4*>(attr_out + q * ATTR_DIM);
-            d4[0] = make_uint4(bf16x2(a0.x, a0.y), bf16x2(a0.z, a0.w),
-                               bf16x2(a1.x, a1.y), bf16x2(a1.z, a1.w));
-            d4[1] = make_uint4(bf16x2(a2.x, a2.y), bf16x2(a2.z, a2.w),
-                               bf16x2(a3.x, a3.y), bf16x2(a3.z, a3.w));
+            store_attr_bf16(((paired && use_alt[row]) ? ata : atp) + row * ATTR_DIM,
+                            attr_out + q * ATTR_DIM);
         }
         __syncthreads();  // the next tile rewrites box, n_tile and tile_list
     }
@@ -420,36 +517,59 @@ extern "C" int mw_tri_pass_config(int* out) {
     return 0;
 }
 
+template <bool MESH>
+static int launch_tri_pass(const dim3 grid, const size_t smem, cudaStream_t stream,
+                           const float* verts9, const float* attr, const int* layout_id,
+                           const float* origin, const float* fwd, const float* right,
+                           const float* up, const float* tan_xy, const float* xbase,
+                           const float* ybase, const float* mesh_v9, const float* mesh_attr,
+                           const float* verts9_alt, const float* attr_alt, const int* pg_wall,
+                           const float* wall_open, int S, int N, int W, int H, int Wn,
+                           int all_quads, float* t_out, __nv_bfloat16* attr_out) {
+    static size_t smem_opted = 48 * 1024;  // the dynamic limit set so far
+    if (smem > smem_opted) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            tri_pass_kernel<MESH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        smem_opted = smem;
+    }
+    tri_pass_kernel<MESH><<<grid, THREADS, smem, stream>>>(
+        verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase, ybase,
+        mesh_v9, mesh_attr, verts9_alt, attr_alt, pg_wall, wall_open,
+        S, N, W, H, Wn, all_quads, t_out, attr_out);
+    return (int)cudaGetLastError();
+}
+
 extern "C" int mw_tri_pass(
     const float* verts9, const float* attr, const int* layout_id,
     const float* origin, const float* fwd, const float* right, const float* up,
     const float* tan_xy, const float* xbase, const float* ybase,
-    const float* seed_t, const __nv_bfloat16* seed_attr,
+    const float* mesh_v9, const float* mesh_attr,
     const float* verts9_alt, const float* attr_alt, const int* pg_wall,
     const float* wall_open,
-    int B, int S, int W, int H, int Wn, int all_quads,
+    int B, int S, int N, int W, int H, int Wn, int all_quads,
     float* t_out, __nv_bfloat16* attr_out, cudaStream_t stream)
 {
-    static size_t smem_opted = 48 * 1024;  // the dynamic limit set so far
     const bool paired = pg_wall != nullptr;
+    const bool mesh = mesh_v9 != nullptr;
     if (paired && (verts9_alt == nullptr || attr_alt == nullptr || wall_open == nullptr))
         return (int)cudaErrorInvalidValue;
-    if (S > IDX_MASK + 1) return (int)cudaErrorInvalidValue;
+    if (mesh && mesh_attr == nullptr) return (int)cudaErrorInvalidValue;
+    if (S > IDX_MASK + 1 || N > IDX_MASK + 1) return (int)cudaErrorInvalidValue;
     if (B == 0 || W == 0 || H == 0) return 0;
     const int n_tiles = ((W + TILE_W - 1) / TILE_W) * ((H + TILE_H - 1) / TILE_H);
     const int per_env = min(n_tiles, max(1, (BLOCK_TARGET + B - 1) / B));
     const dim3 grid(per_env, B);
-    const size_t smem = (size_t)S * (3 * sizeof(float4) + 2 * sizeof(unsigned short)) +
-                        (paired ? (size_t)S : 0);
-    if (smem > smem_opted) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            tri_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        smem_opted = smem;
-    }
-    tri_pass_kernel<<<grid, THREADS, smem, stream>>>(
-        verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase, ybase,
-        seed_t, seed_attr, verts9_alt, attr_alt, pg_wall, wall_open,
-        S, W, H, Wn, all_quads, t_out, attr_out);
-    return (int)cudaGetLastError();
+    const size_t per_row = 3 * sizeof(float4) + 2 * sizeof(unsigned short);
+    const size_t smem = (size_t)S * per_row + (paired ? (size_t)S : 0) +
+                        (mesh ? (size_t)N * per_row : 0);
+    return mesh
+        ? launch_tri_pass<true>(grid, smem, stream, verts9, attr, layout_id, origin, fwd, right,
+                                up, tan_xy, xbase, ybase, mesh_v9, mesh_attr, verts9_alt,
+                                attr_alt, pg_wall, wall_open, S, N, W, H, Wn, all_quads, t_out,
+                                attr_out)
+        : launch_tri_pass<false>(grid, smem, stream, verts9, attr, layout_id, origin, fwd,
+                                 right, up, tan_xy, xbase, ybase, nullptr, nullptr, verts9_alt,
+                                 attr_alt, pg_wall, wall_open, S, 0, W, H, Wn, all_quads, t_out,
+                                 attr_out);
 }

@@ -9,10 +9,11 @@ ops/rng.py, so each env sees the JAX package's numbers.
 ``place_all`` places every entity slot of a reset in order and then the
 agent (the JAX package's ``_reset_one`` placement loop, vector.py:
 935-984): for CUDA tensors in one launch of the ``place`` kernel
-(``csrc/place.cu``, one thread per env), for CPU tensors through
-``place_all_plain``, which runs ``place_one`` per slot with every env
-advanced together. On a procgen maze every placement also takes the
-episode's maze: per-env room weights and wall-gated segments.
+(``csrc/place.cu``, one warp per env, a slot's tries in parallel lanes),
+for CPU tensors through ``place_all_plain``, which runs ``place_one``
+per slot with every env advanced together. On a procgen maze every
+placement also takes the episode's maze: per-env room weights and
+wall-gated segments.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from miniworld_tpu_torch.render.cuda_build import check, is_cuda, launch, stream
 # the agent's, already picked by the reset's placement alternative.
 RULE_FIELDS = ("rule_room", "rule_bbox", "rule_pos", "rule_dir", "rule_dir_lo",
                "rule_dir_hi")
-_MAX_SLOTS = 32  # the kernel keeps the placed slots in registers (place.cu)
+_MAX_SLOTS = 32  # the kernel keeps the placed slots in shared memory (place.cu)
 
 
 def sample_room(u, room_mask, room_area, room_weight=None):
@@ -62,11 +63,19 @@ def gate_segs4(segs4, codes, wall_open):
     return segs4 + shift[:, None, :]
 
 
-def place_one(seed, bank, layout_id, rule_room, rule_bbox, rule_pos,
-              rule_dir, rule_dir_lo, rule_dir_hi, radius, ent_pos_xz,
-              ent_radius, ent_mask, budget: int = 16, room_weight=None,
-              seg_gate=None):
-    """Sample one entity pose per env. Returns (pos (B,3), dir (B,)).
+def place_one(*args, **kwargs):
+    """Sample one entity pose per env. Returns (pos (B,3), dir (B,));
+    the arguments are ``_place_one``'s."""
+    return _place_one(*args, **kwargs)[:2]
+
+
+def _place_one(seed, bank, layout_id, rule_room, rule_bbox, rule_pos,
+               rule_dir, rule_dir_lo, rule_dir_hi, radius, ent_pos_xz,
+               ent_radius, ent_mask, budget: int = 16, room_weight=None,
+               seg_gate=None):
+    """``place_one``'s draw: (pos (B,3), dir (B,), first (B,) i64), the
+    index of the first passing try, ``budget`` where every try failed
+    and the fallback placed the entity.
 
     ``seed`` (B,) u32 subseeds; ``bank`` the device Layout (leading
     layout axis), rows picked by ``layout_id`` (B,). Rule tensors are
@@ -110,12 +119,13 @@ def place_one(seed, bank, layout_id, rule_room, rule_bbox, rule_pos,
         return pos, inside & ~wall_hit & ~ent_hit
 
     pos, _ = one_try(us[:, budget])
-    found = torch.zeros_like(radius, dtype=torch.bool)
+    first = torch.full_like(radius, budget, dtype=torch.long)
     for i in range(budget):
         cand, ok = one_try(us[:, i])
-        take = ok & ~found
+        take = ok & (first == budget)
         pos = torch.where(take[:, None], cand, pos)
-        found = found | ok
+        first = torch.where(take, i, first)
+    found = first < budget
 
     # budget exhausted: clamp into the rule room's bbox inset by the radius
     room_idx = room_for(us[:, budget + 1, 0])
@@ -138,11 +148,18 @@ def place_one(seed, bank, layout_id, rule_room, rule_bbox, rule_pos,
     u_dir = us[:, budget + 1, 1]
     d = torch.where(torch.isnan(rule_dir),
                     rule_dir_lo + u_dir * (rule_dir_hi - rule_dir_lo), rule_dir)
-    return pos, d
+    return pos, d, first
 
 
-def place_all_plain(seeds, bank, layout_id, rules, radius, slot_mask,
-                    budget: int = 16, room_weight=None, seg_gate=None):
+def place_all_plain(*args, **kwargs):
+    """Plain version of the place kernel; the arguments are
+    ``_place_all_plain``'s. Returns (ent_pos, ent_dir, agent_pos,
+    agent_dir)."""
+    return _place_all_plain(*args, **kwargs)[:4]
+
+
+def _place_all_plain(seeds, bank, layout_id, rules, radius, slot_mask,
+                     budget: int = 16, room_weight=None, seg_gate=None):
     """Plain version of the place kernel: entity slots 0..E-1 in order,
     each colliding with the valid slots placed before it, then the
     agent against all of them.
@@ -153,6 +170,8 @@ def place_all_plain(seeds, bank, layout_id, rules, radius, slot_mask,
     (B, E, 3), ent_dir (B, E), agent pos (B, 3), agent dir (B,)); an
     invalid slot gets position and direction 0. Procgen mazes pass
     ``room_weight`` and ``seg_gate`` (place_one) for every placement.
+    A fifth output, (B, E+1) i64, holds each slot's first passing try
+    (``_place_one``; the agent's last): the tries its pose depends on.
     """
     n, e_slots = slot_mask.shape
     dev = radius.device
@@ -160,14 +179,17 @@ def place_all_plain(seeds, bank, layout_id, rules, radius, slot_mask,
     ent_pos = torch.zeros((n, e_slots, 3), dtype=torch.float32, device=dev)
     ent_dir = torch.zeros((n, e_slots), dtype=torch.float32, device=dev)
     placed = torch.zeros((n, e_slots), dtype=torch.bool, device=dev)
+    first = []
 
     def place(row):
-        return place_one(
+        pos, d, f = _place_one(
             seeds[:, row], bank, layout_id,
             *(rules[name][:, row] for name in RULE_FIELDS),
             radius[:, row], ent_pos[:, :, [0, 2]], ent_radius, placed,
             budget=budget, room_weight=room_weight, seg_gate=seg_gate,
         )
+        first.append(f)
+        return pos, d
 
     for e in range(e_slots):  # sequential: each slot collides with earlier ones
         pos, d = place(e)
@@ -176,7 +198,7 @@ def place_all_plain(seeds, bank, layout_id, rules, radius, slot_mask,
         ent_dir[:, e] = torch.where(valid, d, torch.zeros_like(d))
         placed[:, e] = valid
     agent_pos, agent_dir = place(e_slots)
-    return ent_pos, ent_dir, agent_pos, agent_dir
+    return ent_pos, ent_dir, agent_pos, agent_dir, torch.stack(first, dim=1)
 
 
 def place_all(seeds, bank, layout_id, rules, radius, slot_mask, budget: int = 16,

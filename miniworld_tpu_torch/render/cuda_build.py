@@ -33,8 +33,7 @@ import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
-SOURCES = ("tri_pass.cu", "entity_pass.cu", "pixel_epilogue.cu", "entity_mesh_pass.cu",
-           "place.cu", "mazegen.cu")
+SOURCES = ("tri_pass.cu", "entity_pass.cu", "pixel_epilogue.cu", "place.cu", "mazegen.cu")
 HEADERS = ("rng.cuh",)  # included by the sources; part of the build's hash
 # -fmad=false: no multiply-add contraction, so every hit-test boundary
 # (u >= 0, cov <= det, the r gates, the slab ties) rounds exactly as
@@ -47,10 +46,10 @@ NVCC_FLAGS = (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _CAM = [_P] * 7  # origin, fwd, right, up, tan_xy, xbase, ybase
 ENTRY_POINTS = {
-    # verts9, attr, layout_id, camera, seed_t, seed_attr, verts9_alt,
-    # attr_alt, pg_wall, wall_open, B, S, W, H, n_walls, all_quads, t,
+    # verts9, attr, layout_id, camera, mesh_v9, mesh_attr, verts9_alt,
+    # attr_alt, pg_wall, wall_open, B, S, N, W, H, n_walls, all_quads, t,
     # attr_out, stream
-    "mw_tri_pass": [_P, _P, _P, *_CAM, _P] + [_P] * 5 + [_I] * 6 + [_P, _P, _P],
+    "mw_tri_pass": [_P, _P, _P, *_CAM, _P] + [_P] * 5 + [_I] * 7 + [_P, _P, _P],
     # out: TILE_W, TILE_H, PIX_PER_THREAD
     "mw_tri_pass_config": [_P],
     # ent_pos, ent_size, ent_dir, ent_height, ent_color, flags, camera,
@@ -59,8 +58,6 @@ ENTRY_POINTS = {
     # t_tri, attr, t_ent, col_ent, n_ent, fourier table, lights, camera,
     # B, W, H, A, K, has_ent, rgb, depth, stream
     "mw_pixel_epilogue": [_P] * 7 + _CAM + [_I] * 6 + [_P, _P, _P],
-    # verts9, attrs, camera, B, N, W, H, t, attr_out, stream
-    "mw_entity_mesh_pass": [_P, _P, *_CAM, _I, _I, _I, _I, _P, _P, _P],
     # seeds, layout_id, 6 rule rows, radius, slot_mask, 7 room tensors,
     # room_weight, room_seg_wall, wall_open, B, E, R, V, NS, W, budget,
     # ent_pos, ent_dir, agent_pos, agent_dir, stream
@@ -74,7 +71,9 @@ BUILD_INFO: dict = {}
 
 # Kernel launches per wrapper — the render's stages and the reset's
 # maze generation and placement; chip_smoke.py reads them to show that a
-# run went through the kernels. Only ``launch`` increments.
+# run went through the kernels. Only ``launch`` increments. The mesh
+# pass runs inside the tri_pass launch: a launch with mesh rows counts
+# under both names.
 LAUNCHES = {"tri_pass": 0, "entity_pass": 0, "pixel_epilogue": 0,
             "entity_mesh_pass": 0, "place": 0, "mazegen": 0}
 
@@ -207,10 +206,11 @@ def stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def launch(entry: str, counter: str, *args):
+def launch(entry: str, counters, *args):
     """Launch ``entry`` of the kernel library; on success add one to
-    ``LAUNCHES[counter]``."""
+    ``LAUNCHES[c]`` for ``counters``, a name or a tuple of names."""
     err = getattr(load(), entry)(*args)
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err} ({error_string(err)})")
-    LAUNCHES[counter] += 1
+    for c in (counters,) if isinstance(counters, str) else counters:
+        LAUNCHES[c] += 1

@@ -2,21 +2,21 @@
 
 Counterpart of ``miniworld_tpu/render/raycast.py`` (the reference's GL
 pipeline, miniworld/miniworld.py:1260-1318 and opengl.py:197-435,
-rebuilt as a raycaster). The render runs up to four stages, each a
+rebuilt as a raycaster). The render runs three stages, each a
 hand-written CUDA kernel for Hopper (``miniworld_tpu_torch/csrc``) with
 its plain PyTorch version beside it in this module:
 
-  0. ``entity_mesh_pass`` (scenes with dynamic mesh entities): the
-     entities' triangle rows, moved to world space per frame by
-     ``entity_mesh_rows`` (plain torch), hit-tested per pixel; its
-     result seeds stage 1's z-competition;
   1. ``tri_pass``: static prims — separable-ray hit test, keyed-z
      winner, the winner's 16-float attribute row (rounded to bf16, as
-     the JAX package carries it), optionally seeded; on a procgen maze
-     each row's live variant (junction or closed wall) picked per env.
-     The kernel culls rows per screen tile before the hit test
-     (``tile_cull_plain`` is that cull's plain version) with the full
-     scan's result;
+     the JAX package carries it); on a procgen maze each row's live
+     variant (junction or closed wall) picked per env. In scenes with
+     dynamic mesh entities the same launch first hit-tests the
+     entities' triangle rows, moved to world space per frame by
+     ``entity_mesh_rows`` (plain torch), and seeds the static rows'
+     z-competition with that result (``entity_mesh_pass_plain`` is the
+     mesh pass's plain version). The kernel culls rows per screen tile
+     before the hit test (``tile_cull_plain`` is that cull's plain
+     version) with the full scan's result;
   2. ``entity_pass``: analytic boxes and spheres;
   3. ``pixel_epilogue``: affine uv, Fourier texture, lighting, sky,
      u8 pack and depth; the kernel reads the atlas's per-slot
@@ -371,6 +371,14 @@ def stage_rows(verts9, attr, layout_id, cam: Camera, paired=None):
     return _stage(v9, attrs[:, :, _KIND], cam)
 
 
+def stage_mesh_rows(rows9, cam: Camera):
+    """The rows the tri_pass kernel stages for each env's mesh rows
+    (``entity_mesh_rows``' verts9 (B, 9, N)): (B, N, ROW_FIELDS), every
+    row a triangle (kind 1.0; the mesh pass's coverage u + v <= det is
+    max(u, v) + 1 * min(u, v) bit for bit)."""
+    return _stage(rows9, torch.ones_like(rows9[:, 0]), cam)
+
+
 def row_hits_plain(rows, cam: Camera, all_quads: bool = False):
     """(B, S, HW) bool: row s of env b passes the hit test at the pixel
     (its z-key is not 0), by tri_pass_plain's arithmetic; rows from
@@ -457,11 +465,21 @@ def tri_pass_tile():
     return tuple(out)
 
 
-def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, seed=None,
+def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh=None,
              paired=None):
     """Stage 1 wrapper: the tri_pass kernel for CUDA tensors, the plain
-    version for CPU tensors. Same contract as ``tri_pass_plain``."""
-    if not is_cuda(verts9, attr, layout_id, cam.origin, *(seed or ()), *(paired or ())):
+    version for CPU tensors. Same contract as ``tri_pass_plain``
+    seeded by ``entity_mesh_pass_plain`` on ``mesh`` = (rows9 (B, 9, N),
+    row_attrs (B, N, 16)), N <= 1024: the kernel hit-tests the mesh rows
+    in the same launch and seeds the static rows' competition with their
+    winner (a launch with mesh rows also counts in
+    ``LAUNCHES["entity_mesh_pass"]``)."""
+    n_mesh = 0 if mesh is None else mesh[0].shape[2]
+    if n_mesh > (1 << _IDX_BITS):
+        raise ValueError(f"{n_mesh} mesh rows exceed the z-key's "
+                         f"{1 << _IDX_BITS}-row budget")
+    if not is_cuda(verts9, attr, layout_id, cam.origin, *(mesh or ()), *(paired or ())):
+        seed = None if mesh is None else entity_mesh_pass_plain(*mesh, cam)
         return tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired)
     L, _, S = verts9.shape
     b = layout_id.shape[0]
@@ -470,11 +488,13 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, seed
         raise ValueError(f"tri_pass kernel takes at most {1 << _IDX_BITS} prims, got {S}")
     t = torch.empty((b, hw), dtype=torch.float32, device=verts9.device)
     out = torch.empty((b, hw, ATTR_DIM), dtype=torch.bfloat16, device=verts9.device)
-    if seed is None:
-        seed_ptrs = (ctypes.c_void_p(0),) * 2
+    if mesh is None:
+        mesh_ptrs = (ctypes.c_void_p(0),) * 2
     else:
-        seed_ptrs = (check(seed[0], "seed_t", torch.float32, (b, hw)),
-                     check(seed[1], "seed_attr", torch.bfloat16, (b, hw, ATTR_DIM)))
+        if n_mesh == 0:
+            raise ValueError("tri_pass kernel takes mesh rows with N >= 1")
+        mesh_ptrs = (check(mesh[0], "mesh rows9", torch.float32, (b, 9, n_mesh)),
+                     check(mesh[1], "mesh row_attrs", torch.float32, (b, n_mesh, ATTR_DIM)))
     if paired is None:
         n_walls = 0
         paired_ptrs = (ctypes.c_void_p(0),) * 4
@@ -487,14 +507,14 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, seed
                        check(wall_open, "wall_open", torch.float32, (b, n_walls)))
     cam_ptrs, _cam_tensors = _cam_args(cam, b)
     launch(
-        "mw_tri_pass", "tri_pass",
+        "mw_tri_pass", ("tri_pass",) if mesh is None else ("tri_pass", "entity_mesh_pass"),
         check(verts9, "verts9", torch.float32, (L, 9, S)),
         check(attr, "attr", torch.float32, (L, S, ATTR_DIM)),
         check(layout_id, "layout_id", torch.int32, (b,)),
         *cam_ptrs,
-        *seed_ptrs,
+        *mesh_ptrs,
         *paired_ptrs,
-        ctypes.c_int(b), ctypes.c_int(S), ctypes.c_int(cam.width),
+        ctypes.c_int(b), ctypes.c_int(S), ctypes.c_int(n_mesh), ctypes.c_int(cam.width),
         ctypes.c_int(cam.height), ctypes.c_int(n_walls), ctypes.c_int(int(all_quads)),
         check(t, "t", torch.float32, (b, hw)),
         check(out, "attr_out", torch.bfloat16, (b, hw, ATTR_DIM)),
@@ -504,7 +524,7 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, seed
 
 
 # ---------------------------------------------------------------------------
-# stage 0: dynamic mesh entities
+# dynamic mesh entities: their rows, and the plain version of their pass
 
 
 def entity_mesh_rows(bank, state):
@@ -580,9 +600,10 @@ def entity_mesh_rows(bank, state):
 
 
 def entity_mesh_pass_plain(verts9, attrs, cam: Camera):
-    """Plain version of the entity_mesh_pass kernel
-    (raycast._entity_mesh_pass): keyed-z competition of each env's own
-    world rows (``entity_mesh_rows``), triangle coverage u + v <= det.
+    """Plain version of the mesh-entity pass that the tri_pass kernel
+    runs first when it is given mesh rows (raycast._entity_mesh_pass):
+    keyed-z competition of each env's own world rows
+    (``entity_mesh_rows``), triangle coverage u + v <= det.
 
     verts9 (B, 9, N) f32, attrs (B, N, 16) f32 ->
     (t (B, HW) f32, inf on a miss; attr (B, HW, 16) bf16, zeros on a
@@ -601,34 +622,6 @@ def entity_mesh_pass_plain(verts9, attrs, cam: Camera):
         ts.append(_t_from_key(key))
         outs.append(torch.where((key > 0)[:, :, None], sel, torch.zeros_like(sel)))
     return torch.cat(ts), torch.cat(outs)
-
-
-def entity_mesh_pass(verts9, attrs, cam: Camera):
-    """Stage 0 wrapper: the entity_mesh_pass kernel for CUDA tensors,
-    the plain version for CPU tensors. Same contract as
-    ``entity_mesh_pass_plain``."""
-    if not is_cuda(verts9, attrs, cam.origin):
-        return entity_mesh_pass_plain(verts9, attrs, cam)
-    b, _, n = verts9.shape
-    if n > (1 << _IDX_BITS):
-        raise ValueError(f"entity_mesh_pass kernel takes at most {1 << _IDX_BITS} rows, "
-                         f"got {n}")
-    hw = cam.width * cam.height
-    t = torch.empty((b, hw), dtype=torch.float32, device=verts9.device)
-    out = torch.empty((b, hw, ATTR_DIM), dtype=torch.bfloat16, device=verts9.device)
-    cam_ptrs, _cam_tensors = _cam_args(cam, b)
-    launch(
-        "mw_entity_mesh_pass", "entity_mesh_pass",
-        check(verts9, "verts9", torch.float32, (b, 9, n)),
-        check(attrs, "attrs", torch.float32, (b, n, ATTR_DIM)),
-        *cam_ptrs,
-        ctypes.c_int(b), ctypes.c_int(n), ctypes.c_int(cam.width),
-        ctypes.c_int(cam.height),
-        check(t, "t", torch.float32, (b, hw)),
-        check(out, "attr_out", torch.bfloat16, (b, hw, ATTR_DIM)),
-        stream(),
-    )
-    return t, out
 
 
 # ---------------------------------------------------------------------------
@@ -1058,7 +1051,8 @@ def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
     reads.
 
     With mesh entities (``shapes_present[2]``) their pass runs first and
-    seeds the static prims' z-competition (raycast.py:1174-1182).
+    seeds the static prims' z-competition (raycast.py:1174-1182), in
+    the tri_pass launch.
     ``pg_wall`` ((L, Sp) i32, vector.install_statics) marks a procgen
     maze (raycast.py:1206-1219): the static prims are the paired super
     bank's rows (``bank.pg_*``), each env seeing its own maze through
@@ -1068,20 +1062,20 @@ def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
     otherwise each stage goes through its wrapper.
     """
     cam = camera_grid(state, width, height)
-    f_tri = tri_pass if use_kernels else tri_pass_plain
     f_ent = entity_pass if use_kernels else entity_pass_plain
-    seed = None
-    if shapes_present[2]:
-        f_mesh = entity_mesh_pass if use_kernels else entity_mesh_pass_plain
-        rows9, row_attrs, _ = entity_mesh_rows(bank, state)
-        seed = f_mesh(rows9, row_attrs, cam)
+    mesh = entity_mesh_rows(bank, state)[:2] if shapes_present[2] else None
+    if use_kernels:
+        f_tri, seeding = tri_pass, dict(mesh=mesh)
+    else:
+        f_tri = tri_pass_plain
+        seeding = dict(seed=None if mesh is None else entity_mesh_pass_plain(*mesh, cam))
     if pg_wall is None:
         t_tri, attr = f_tri(bank.tri_verts9, bank.tri_attr, state.layout_id, cam, all_quads,
-                            seed)
+                            **seeding)
     else:
         t_tri, attr = f_tri(bank.pg_verts9, bank.pg_attr, state.layout_id, cam, all_quads,
-                            seed, (bank.pg_verts9_alt, bank.pg_attr_alt, pg_wall,
-                                   state.wall_open))
+                            paired=(bank.pg_verts9_alt, bank.pg_attr_alt, pg_wall,
+                                    state.wall_open), **seeding)
     t_ent = col_ent = n_ent = None
     if shapes_present[0] or shapes_present[1]:
         t_ent, col_ent, n_ent = f_ent(

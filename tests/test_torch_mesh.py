@@ -218,10 +218,12 @@ def test_render_rgbd(pickup):
 
 
 def test_entity_mesh_pass_row_budget():
-    """More rows than the z-key's 10 index bits can name are refused."""
+    """More mesh rows than the z-key's 10 index bits can name are refused
+    by the tri_pass wrapper, which runs the mesh pass in its launch."""
     n = (1 << 10) + 1
     cam = trc.Camera(torch.zeros(1, 3), torch.tensor([[1.0, 0, 0]]), torch.tensor([[0, 0, 1.0]]),
                      torch.tensor([[0, 1.0, 0]]), torch.ones(1), torch.ones(1),
                      torch.zeros(4), torch.zeros(3))
     with pytest.raises(ValueError, match="budget"):
-        trc.entity_mesh_pass(torch.zeros(1, 9, n), torch.zeros(1, n, 16), cam)
+        trc.tri_pass(torch.zeros(1, 9, 8), torch.zeros(1, 8, 16), torch.zeros(1, dtype=torch.int32),
+                     cam, mesh=(torch.zeros(1, 9, n), torch.zeros(1, n, 16)))

@@ -219,9 +219,10 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 def test_wrappers_take_plain_on_cpu(port_env):
     """For CPU tensors each wrapper returns its plain version's result
-    and launches nothing: the render's four stages (tri_pass also
-    seeded and paired) and the reset's placement (also with a maze's
-    room weights and gated segments) and maze generation."""
+    and launches nothing: the render's three stages (tri_pass also
+    with mesh rows, against the mesh pass seeding it, and paired) and
+    the reset's placement (also with a maze's room weights and gated
+    segments) and maze generation."""
     state, _ = port_env.reset(5)
     bank = port_env._bank
     cam = trc.camera_grid(state, W, H)
@@ -244,11 +245,10 @@ def test_wrappers_take_plain_on_cpu(port_env):
     bank = pick._bank
     cam = trc.camera_grid(state, W, H)
     rows9, attrs, _ = trc.entity_mesh_rows(bank, state)
-    m1 = trc.entity_mesh_pass(rows9, attrs, cam)
-    m2 = trc.entity_mesh_pass_plain(rows9, attrs, cam)
-    assert all(torch.equal(x, y) for x, y in zip(m1, m2))
-    s1 = trc.tri_pass(bank.tri_verts9, bank.tri_attr, state.layout_id, cam, False, m1)
-    s2 = trc.tri_pass_plain(bank.tri_verts9, bank.tri_attr, state.layout_id, cam, False, m1)
+    seed = trc.entity_mesh_pass_plain(rows9, attrs, cam)
+    s1 = trc.tri_pass(bank.tri_verts9, bank.tri_attr, state.layout_id, cam, False,
+                      mesh=(rows9, attrs))
+    s2 = trc.tri_pass_plain(bank.tri_verts9, bank.tri_attr, state.layout_id, cam, False, seed)
     assert all(torch.equal(x, y) for x, y in zip(s1, s2))
     captured = {}
 
