@@ -5,24 +5,30 @@
 Builds the kernels of ``miniworld_tpu_torch`` from
 ``miniworld_tpu_torch/csrc`` with nvcc (one process per source), holds
 each against its plain PyTorch version on the card — at Hallway's,
-PickupObjects' and the 8x8 Maze's shapes (mazegen's mazes also checked
-as spanning trees, tri_pass on the paired procgen bank, place with a
-maze's room weights and gated walls, with budgets exhausted and with
-tries over two rounds of lanes) and on wide synthetic cases; tri_pass
-and pixel_epilogue must agree on every pixel, tri_pass also on rows
-that graze its cull's margins, and tri_pass with mesh rows (the
+PickupObjects', the 8x8 Maze's and Sidewalk's shapes (mazegen's mazes
+also checked as spanning trees, tri_pass on the paired procgen bank,
+place with a maze's room weights and gated walls, with budgets exhausted
+and with tries over two rounds of lanes) and on wide synthetic cases;
+tri_pass and pixel_epilogue must agree on every pixel, tri_pass also on
+rows that graze its cull's margins, tri_pass with mesh rows (the
 mesh-entity pass in its launch) with the mesh pass seeding the plain
 version, at PickupObjects', on 1,000 wide and 1,024 grazing mesh rows
-and on a paired maze. It reports what tri_pass's culling keeps
-([tri-cull]) and times tri_pass rebuilt with other tiles
-([tile-sweep]), then drives the port's main paths and checks what comes
-out: the Hallway fused rollout at B=1024, the PickupObjects one at
-B=4096 and the Maze 8x8 procgen one at B=8192 (80x60 RGB-D, random
-policy), Hallway and PickupObjects against their plain paths, a MazeS3
-procgen rollout at B=1024 with 10-step episodes against its plain path
-(every env resets into fresh mazes), and short FourRooms, TMaze and
-MazeS3 bank-mode rollouts. One line per phase; the JSON summary of the kernels and the
-card's ``nvidia-smi`` name and power limit come before the last line,
+and on a paired maze, and the multi-chunk tri_pass with tri_pass_chunked on
+Sidewalk views (chunks of 1,024, 496 and 16), WallGap views and a bank
+whose prims repeat across chunk boundaries (the ties the chunk rule
+decides). It reports what tri_pass's culling keeps ([tri-cull]) and
+times tri_pass rebuilt with other tiles ([tile-sweep]), then drives the
+port's main paths and checks what comes out: the Hallway fused rollout
+at B=1024, the PickupObjects one at B=4096, the Maze 8x8 procgen one at
+B=8192 and the Sidewalk, WallGap and NavigateWallGap ones at B=1024
+(80x60 RGB-D, random policy from a key), Hallway and PickupObjects
+against their plain paths, a MazeS3 procgen rollout at B=1024 with
+10-step episodes against its plain path (every env resets into fresh
+mazes), Sidewalk, WallGap, NavigateWallGap and YMaze at B=128 against
+their plain paths, and short FourRooms, TMaze, MazeS3 bank-mode, OneRoom
+and YMaze-family rollouts. One line per phase; the JSON summary of the
+kernels and the card's ``nvidia-smi`` name and power limit come before
+the last line,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed phase raises, so the script exits non-zero and prints no
 result; so does a machine without CUDA, or a directory without the
@@ -55,6 +61,15 @@ MAZE_ID = "MiniWorld-Maze-v0"  # 8x8, procgen: BASELINE config 4
 MAZE_S3_ID = "MiniWorld-MazeS3-v0"
 B_MAZE = 8192
 MAZE_S3_STEPS = 10  # episode length of the MazeS3 parity rollout: every env resets
+# the widest static banks: Sidewalk (S = 3,072 in 3 chunks of 1,024) and
+# WallGap / NavigateWallGap (S = 2,048, 2 chunks), main paths at B
+SIDE_ID, WALL_ID, NAV_ID = ("MiniWorld-Sidewalk-v0", "MiniWorld-WallGap-v0",
+                            "MiniWorld-NavigateWallGap-v0")
+B_STAGE = 64  # the multi-chunk stage checks
+B_PLAIN = 128  # the multi-chunk ids' and YMaze's kernel-vs-plain rollouts
+PLAIN_HORIZON = 10
+SHORT_IDS = ("MiniWorld-OneRoom-v0", "MiniWorld-OneRoomS6-v0", "MiniWorld-OneRoomS6Fast-v0",
+             "MiniWorld-YMaze-v0", "MiniWorld-YMazeLeft-v0", "MiniWorld-YMazeRight-v0")
 
 # the card's published peaks (H100 SXM data sheet) for the bound column
 PEAK_BYTES_PER_S = 3.35e12
@@ -98,9 +113,27 @@ def say(phase: str, **kw):
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
 
 
+# Before the first timing of the process, the timed function runs this
+# long (wall clock), so that the card's clocks have ramped up under load;
+# before every timing, WARMUP_CALLS times.
+WARMUP_S = 1.0
+WARMUP_CALLS = 3
+_CLOCKS_WARM = False
+
+
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of fn() over ``iters`` runs, by CUDA events."""
-    fn()
+    """Mean device time of fn() over ``iters`` runs, by CUDA events, after
+    the warm-up (WARMUP_S the first time in the process)."""
+    global _CLOCKS_WARM
+    if not _CLOCKS_WARM:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < WARMUP_S:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        _CLOCKS_WARM = True
+    for _ in range(WARMUP_CALLS):
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -164,14 +197,15 @@ def phase_build():
 # phase 3: each kernel against its plain version
 
 
-def random_hallway_states(env, gen):
-    """Hallway states at B envs with agents spread over the hallway,
-    random yaw, the goal box where reset put it."""
-    state, _ = env.reset(seed=7)
+def spread_states(env, gen, lo, hi, seed=7):
+    """States from a reset with the agents spread uniformly over the box
+    [lo, hi] (x, z), each at a uniform yaw; entities where reset put
+    them."""
+    state, _ = env.reset(seed=seed)
     n = env.num_envs
     u = torch.rand((n, 3), generator=gen).to(env.device)
-    pos = torch.stack([-0.5 + 11.0 * u[:, 0], torch.zeros_like(u[:, 0]),
-                       -1.5 + 3.0 * u[:, 1]], dim=1)
+    pos = torch.stack([lo[0] + (hi[0] - lo[0]) * u[:, 0], torch.zeros_like(u[:, 0]),
+                       lo[1] + (hi[1] - lo[1]) * u[:, 1]], dim=1)
     return state.replace(pos=pos, dir=(u[:, 2] * 2.0 - 1.0) * math.pi)
 
 
@@ -315,36 +349,53 @@ def check_stage(name, case, n_differ, differ, abs_err, rel_err, exact=False):
                              f"(winner differs {differ:.3e}, rel err {rel_err:.3e})")
 
 
-def check_tri_pass(tri_args, case, mesh=None, paired=None):
-    """The tri_pass kernel against tri_pass_plain on every pixel (t and
-    attributes); with ``mesh`` rows the fused launch against the mesh
-    pass seeding the plain version. Returns (t, attr, max abs t error)."""
+def plain_tri_pass(tri_args, mesh=None, paired=None, tri_chunk=None):
+    """tri_pass's plain version on these inputs: tri_pass_plain (seeded by
+    the mesh pass on ``mesh`` rows), or tri_pass_chunked over more than
+    one chunk of ``tri_chunk``."""
     from miniworld_tpu_torch.render import raycast as rc
 
     verts9, attr, layout_id, cam, all_quads = tri_args
-    t_k, a_k = rc.tri_pass(verts9, attr, layout_id, cam, all_quads, mesh, paired)
+    if tri_chunk is not None and verts9.shape[2] > tri_chunk:
+        return rc.tri_pass_chunked(verts9, attr, layout_id, cam, tri_chunk, all_quads)
     seed = None if mesh is None else rc.entity_mesh_pass_plain(*mesh, cam)
-    t_p, a_p = rc.tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired)
+    return rc.tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired)
+
+
+def check_tri_pass(tri_args, case, mesh=None, paired=None, tri_chunk=None):
+    """The tri_pass kernel against its plain version on every pixel (t
+    and attributes); with ``mesh`` rows the fused launch against the mesh
+    pass seeding tri_pass_plain; over more than one chunk of
+    ``tri_chunk`` the multi-chunk launch against tri_pass_chunked.
+    Returns (t, attr, max abs t error)."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    verts9, attr, layout_id, cam, all_quads = tri_args
+    t_k, a_k = rc.tri_pass(verts9, attr, layout_id, cam, all_quads, mesh, paired, tri_chunk)
+    t_p, a_p = plain_tri_pass(tri_args, mesh, paired, tri_chunk)
     n_differ, differ, abs_err, rel_err = compare_hits(t_k, t_p, (a_k == a_p).all(-1))
-    check_stage("tri_pass" + (" mesh" if mesh else "") + (" paired" if paired else ""),
-                case, n_differ, differ, abs_err, rel_err, exact=True)
+    multi = tri_chunk is not None and verts9.shape[2] > tri_chunk
+    check_stage("tri_pass" + (" mesh" if mesh else "") + (" paired" if paired else "")
+                + (" multi-chunk" if multi else ""), case, n_differ, differ, abs_err,
+                rel_err, exact=True)
     return t_k, a_k, abs_err
 
 
 def run_stage_checks(tri_args, ent_args, epi_rest, case, timings=None, mesh=None,
-                     paired=None, plain_iters=5):
+                     paired=None, plain_iters=5, tri_chunk=None):
     """Each render stage's kernel against its plain version on one set of
     inputs; ``mesh`` = (rows9, row_attrs) gives tri_pass mesh rows (the
     plain side: the mesh pass seeding tri_pass_plain); ``paired`` makes
     tri_pass read a paired procgen bank. With ``timings`` each stage is
     also timed by CUDA events, the kernel over 50 runs and the plain
     version over ``plain_iters``; with mesh rows also tri_pass without
-    them ("tri_pass_unmeshed")."""
+    them ("tri_pass_unmeshed"). ``tri_chunk``: tri_pass scans the rows in
+    chunks of it (the multi-chunk launch above one chunk)."""
     from miniworld_tpu_torch.render import raycast as rc
 
     verts9, attr, layout_id, cam, all_quads = tri_args
     out = {}
-    t_k, a_k, out["tri_pass"] = check_tri_pass(tri_args, case, mesh, paired)
+    t_k, a_k, out["tri_pass"] = check_tri_pass(tri_args, case, mesh, paired, tri_chunk)
     if mesh is not None:
         out["entity_mesh_pass"] = out["tri_pass"]
 
@@ -376,14 +427,10 @@ def run_stage_checks(tri_args, ent_args, epi_rest, case, timings=None, mesh=None
     out["pixel_epilogue"] = float(rgb_err)
 
     if timings is not None:  # at the main path's shapes
-        def plain_tri():
-            seed = None if mesh is None else rc.entity_mesh_pass_plain(*mesh, cam)
-            return rc.tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired)
-
         timings["tri_pass"] = (
             cuda_ms(lambda: rc.tri_pass(verts9, attr, layout_id, cam, all_quads, mesh,
-                                        paired), 50),
-            cuda_ms(plain_tri, plain_iters))
+                                        paired, tri_chunk), 50),
+            cuda_ms(lambda: plain_tri_pass(tri_args, mesh, paired, tri_chunk), plain_iters))
         if mesh is not None:
             DEVICE_MS[("tri_pass", "mesh")] = kernel_ms(
                 lambda: rc.tri_pass(verts9, attr, layout_id, cam, all_quads, mesh, paired), 50,
@@ -471,7 +518,7 @@ def phase_kernels(hall, pick):
     dev = torch.device(DEVICE)
     gen = torch.Generator().manual_seed(1234)
     tile = rc.tri_pass_tile()[:2]
-    state = random_hallway_states(hall, gen)
+    state = spread_states(hall, gen, (-0.5, -1.5), (10.5, 1.5))
     _, tri, ent, epi = stage_inputs(hall, state)
     errs, outs = run_stage_checks(
         tri, ent, epi, f"hallway B={B} HW={W * H} S={tri[0].shape[2]} "
@@ -727,6 +774,116 @@ def phase_maze_kernels(maze, n_mesh_envs=64):
     return errs, timings, work, sweep
 
 
+def tie_case(dev, n=B_STAGE, g=256, seed=21):
+    """Synthetic bank of 4 x g prims in front of n cameras (facing +x,
+    numpy draws from ``seed``): a group of g random quads and triangles
+    (rows 1 and 2 equal: a tie inside a chunk), the group again (at
+    tri_chunk g or a divisor of it, the same chunk-local indices in a
+    later chunk), the group rolled by 37 rows (other local indices), and
+    new prims. Every copy has its own attributes. Returns the tri_pass
+    arguments (verts9 (1, 9, 4g), attr, layout_id, cam, all_quads)."""
+    from miniworld_tpu_torch.ops import geom
+    from miniworld_tpu_torch.render import raycast as rc
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    yaw = torch.from_numpy(rng.uniform(-0.4, 0.4, n).astype(f32))
+    pitch = torch.from_numpy(rng.uniform(-10.0, 10.0, n).astype(f32))
+    fwd, up, right = geom.cam_basis(yaw, pitch)
+    origin = np.stack([rng.uniform(-0.5, 3.0, n), np.full(n, 1.5), rng.uniform(-1, 1, n)], 1)
+    tan_y = torch.full((n,), math.tan(math.radians(30.0)))
+    xbase = 2.0 * (torch.arange(W, dtype=torch.float32) + 0.5) * (1.0 / W) - 1.0
+    ybase = 1.0 - 2.0 * (torch.arange(H, dtype=torch.float32) + 0.5) * (1.0 / H)
+    cam = rc.Camera(*(t.to(dev) for t in (torch.from_numpy(origin.astype(f32)), fwd, right, up,
+                                          tan_y * (W / H), tan_y, xbase, ybase)))
+    v0 = np.stack([rng.uniform(4, 10, g), rng.uniform(0.0, 2.5, g), rng.uniform(-2, 2, g)])
+    base = np.concatenate([v0, v0 + rng.uniform(-2, 2, (3, g)), v0 + rng.uniform(-2, 2, (3, g))])
+    base[:, 2] = base[:, 1]
+    new = base[:, rng.permutation(g)] + rng.uniform(-0.5, 0.5, (9, 1))
+    verts9 = np.concatenate([base, base, np.roll(base, 37, axis=1), new], 1)[None].astype(f32)
+    attr = rng.uniform(-1, 1, (1, 4 * g, 16)).astype(f32)
+    kinds = (rng.uniform(size=g) < 0.5).astype(f32)
+    attr[0, :, 15] = np.concatenate([kinds, kinds, np.roll(kinds, 37), kinds])
+    return (torch.from_numpy(verts9).to(dev), torch.from_numpy(attr).to(dev),
+            torch.zeros(n, dtype=torch.int32, device=dev), cam, False)
+
+
+def phase_chunks(side, side_stage, wall_stage, hall_run):
+    """The multi-chunk tri_pass against tri_pass_chunked, exactly: Sidewalk
+    views at B=64 in chunks of 1,024 (3), of 496 (6, the bank repadded as
+    the JAX package plans it at 160x120, B=1024) and of 16 (192); WallGap
+    views at B=64 in chunks of 1,024 (2); the tie case in chunks of 256
+    and 16, where the chunk rule decides hundreds of pixels (against the
+    global row index of one chunk). Then every render stage at the
+    Sidewalk main path's shapes (B=1024, 3 chunks), timed, and a second
+    timing of Hallway's single-chunk tri_pass (``hall_run``). Returns
+    (errs, timings, work)."""
+    from miniworld_tpu_torch import vector as tvector
+    from miniworld_tpu_torch.convert import layout_from_numpy
+    from miniworld_tpu_torch.render import raycast as rc
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(2468)
+    tile = rc.tri_pass_tile()[:2]
+    err = 0.0
+    lo, hi = (-2.5, 0.5), (5.5, 11.5)  # the sidewalk and the street beside it
+    state = spread_states(side_stage, gen, lo, hi)
+    cam = rc.camera_grid(state, W, H)
+    bank = side_stage._bank
+    tri = (bank.tri_verts9, bank.tri_attr, state.layout_id, cam, side_stage._all_quads)
+    bank496_np, st = tvector.install_statics(*tvector.build_bank(side_stage.spec), 1024,
+                                             160 * 120)
+    b496 = layout_from_numpy(bank496_np, dev)
+    if (st["tri_chunk"], b496.tri_verts9.shape[2]) != (496, 2976):
+        raise AssertionError(f"Sidewalk at 160x120, B=1024 plans {st['plan']}")
+    cases = [(tri, 1024, f"{SIDE_ID} B={B_STAGE} S=3072 3 chunks of 1024"),
+             ((b496.tri_verts9, b496.tri_attr, *tri[2:]), 496,
+              f"{SIDE_ID} B={B_STAGE} S=2976 6 chunks of 496 (the 160x120 plan)"),
+             (tri, 16, f"{SIDE_ID} B={B_STAGE} S=3072 192 chunks of 16")]
+    w_state = spread_states(wall_stage, gen, (-6.5, -7.5), (6.5, 7.5))
+    w_cam = rc.camera_grid(w_state, W, H)
+    w_tri = (wall_stage._bank.tri_verts9, wall_stage._bank.tri_attr, w_state.layout_id, w_cam,
+             wall_stage._all_quads)
+    cases.append((w_tri, 1024, f"{WALL_ID} B={B_STAGE} S=2048 2 chunks of 1024"))
+    ties = tie_case(dev)
+    for tc in (256, 16):
+        cases.append((ties, tc, f"ties B={B_STAGE} S=1024 {1024 // tc} chunks of {tc}"))
+    for args, tc, label in cases:
+        t_k, a_k, e = check_tri_pass(args, label, tri_chunk=tc)
+        err = max(err, e)
+        if args is ties:  # pixels where the chunk rule, not the row index, decides
+            _, a_one = rc.tri_pass_plain(*args)
+            decided = int((a_one != a_k).any(-1).sum())
+            say("tie-case", tri_chunk=tc, px_hit=f"{float(torch.isfinite(t_k).float().mean()):.3f}",
+                px_decided_by_chunk_rule=decided)
+            if decided < 100:
+                raise AssertionError(f"the tie case decides only {decided} pixels")
+    for label, args in ((SIDE_ID, tri), (WALL_ID, w_tri)):
+        stats = tri_cull_stats(args, tile=tile, block=16)
+        say("tri-cull", env=label, B=B_STAGE, **cull_fields(stats, tile, args[0].shape[2]))
+
+    # every render stage at the Sidewalk main path's shapes, timed
+    state = spread_states(side, gen, lo, hi)
+    s_cam, s_tri, s_ent, s_epi = stage_inputs(side, state)
+    timings = {}
+    errs, outs = run_stage_checks(
+        s_tri, s_ent, s_epi, f"{SIDE_ID} B={side.num_envs} HW={W * H} S=3072 3 chunks "
+        f"E={state.ent_pos.shape[1]}", timings, plain_iters=1, tri_chunk=side.tri_chunk)
+    errs["tri_pass"] = max(errs["tri_pass"], err)
+    stats = tri_cull_stats(s_tri, tile=tile, block=16)
+    say("tri-cull", env=SIDE_ID, B=side.num_envs, **cull_fields(stats, tile, 3072))
+    work = stage_work(side, state, s_tri, s_ent, outs, stats["hit_pairs"])
+    ms, plain_ms = timings["tri_pass"]
+    say("kernel-time", kernel="tri_pass", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{bound(*work['tri_pass'])[0]:.4f}",
+        bound_full_scan_ms=f"{bound(*work['tri_pass_full_scan'])[0]:.4f}",
+        parent_ms="not run: the parent's tri_pass refuses S > 1024",
+        shapes=f"{SIDE_ID} B={side.num_envs} HW={W * H} S=3072 tri_chunk=1024")
+    say("kernel-time", kernel="tri_pass", reading="second",
+        ms=f"{cuda_ms(hall_run, 50):.4f}", shapes=f"{ENV_ID} B={B} HW={W * H}")
+    return errs, timings, work
+
+
 def phase_tile_sweep(cases):
     """tri_pass built with each TILE_SWEEP tile and pixels per thread (one
     nvcc each, all started together) on each case = (label, run, ref):
@@ -945,22 +1102,23 @@ def phase_place(pick, four, maze, timings, pick_timings, work, pick_work):
 
 
 def rollouts(env, label, horizon, trials, warmup=True):
-    """Reset, a warm-up rollout, then ``trials`` timed rollouts; returns
+    """Reset, a warm-up rollout, then ``trials`` timed rollouts, each from
+    its own key (``key_data(1000 + trial)``); returns
     (env-steps/s, per-trial outs, last obs, kernel launches of the timed
     trials, last state)."""
+    from miniworld_tpu_torch.ops.rng import key_data
     from miniworld_tpu_torch.render import cuda_build
 
     state, obs = env.reset(seed=0)
     if warmup:
-        gen = torch.Generator(device=env.device).manual_seed(100)
-        state, obs, _ = env.rollout(state, obs, gen, horizon)
+        state, obs, _ = env.rollout(state, obs, key_data(100, env.device), horizon)
     torch.cuda.synchronize()
     cuda_build.reset_launch_counts()
     times, outs = [], []
     for trial in range(trials):
-        gen = torch.Generator(device=env.device).manual_seed(1000 + trial)
+        key = key_data(1000 + trial, env.device)
         t0 = time.perf_counter()
-        state, obs, out = env.rollout(state, obs, gen, horizon)
+        state, obs, out = env.rollout(state, obs, key, horizon)
         torch.cuda.synchronize()
         out = {k: v.cpu().numpy() for k, v in out.items()}  # host fetch fence
         times.append(time.perf_counter() - t0)
@@ -1034,8 +1192,10 @@ def phase_breakdown(env, render_iters=10, plain_render_iters=3):
     (maze generation and placement by the kernels, then by their plain
     versions), and the render with the kernels and with the plain
     versions."""
+    from miniworld_tpu_torch.ops.rng import key_data
+
     state, _ = env.reset(seed=0)
-    acts = env.sample_actions(torch.Generator(device=env.device).manual_seed(5))
+    acts = env.sample_actions(key_data(5, env.device))
     step_ms = host_ms(lambda: env._step_batch(state, acts), 10)
     render_ms = host_ms(lambda: env.render(state), render_iters)
     env.use_kernels = False
@@ -1050,26 +1210,34 @@ def phase_breakdown(env, render_iters=10, plain_render_iters=3):
     phase_profile(env, state)
 
 
-def phase_profile(env, state, steps=3):
-    """torch.profiler over a few kernel-path rollout steps: device events
-    and device-busy time per step, and the wall time under the profiler
-    (the idle share is 1 - busy / wall)."""
+def phase_profile(env, state, steps=HORIZON):
+    """torch.profiler over a kernel-path rollout of the main path's
+    horizon: device events and device-busy time per step (the rollout's
+    action draw for the whole horizon included, as on the main path; the
+    draw's own device events beside them), and the wall time under the
+    profiler (the idle share is 1 - busy / wall)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device=env.device).manual_seed(9)
+    from miniworld_tpu_torch.ops.rng import key_data
+
     obs = env.render(state)
-    env.rollout(state, obs, gen, 1)
+    env.rollout(state, obs, key_data(9, env.device), 1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        env.rollout(state, obs, gen, steps)
+        env.rollout(state, obs, key_data(10, env.device), steps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / steps if events else None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as draw:
+        env.rollout_actions(key_data(10, env.device), steps)
+        torch.cuda.synchronize()
+    n_draw = sum(e.device_type == DeviceType.CUDA for e in draw.events())
     say("profile", env=env.spec.gym_id, B=env.num_envs, steps=steps,
         device_events_per_step=len(events) // steps if events else "not measured",
+        action_draw_device_events=n_draw if events else "not measured",
         device_busy_ms_per_step=f"{busy_ms:.3f}" if busy_ms is not None else "not measured",
         wall_ms_per_step_under_profiler=f"{wall_ms:.3f}",
         idle_share=f"{1.0 - busy_ms / wall_ms:.3f}" if busy_ms is not None else "not measured")
@@ -1098,11 +1266,28 @@ def kernel_and_plain(env, horizon, trials, kernels, exact=False):
     return rate, plain_rate, outs, state
 
 
+def phase_rollout_keys(env, horizon=5):
+    """A rollout is a function of its state and key: one key gives the
+    same per-step sums twice, another key other sums."""
+    from miniworld_tpu_torch.ops.rng import key_data
+
+    state, obs = env.reset(seed=3)
+    outs = [env.rollout(state, obs, key_data(k, env.device), horizon)[2] for k in (7, 7, 8)]
+    outs = [{k: v.cpu().numpy() for k, v in o.items()} for o in outs]
+    same = all(np.array_equal(outs[0][k], outs[1][k]) for k in outs[0])
+    other = not np.array_equal(outs[0]["obs_sum"], outs[2]["obs_sum"])
+    say("rollout-keys", env=env.spec.gym_id, B=env.num_envs, horizon=horizon,
+        same_key_same_sums=same, other_key_other_sums=other)
+    if not (same and other):
+        raise AssertionError("rollouts do not follow their keys")
+
+
 def phase_main(hall, pick, pick_small, four, tmaze):
     hall_kernels = ("tri_pass", "entity_pass", "pixel_epilogue", "place")
     pick_kernels = hall_kernels + ("entity_mesh_pass",)
     rates = {}
     rates["hallway"] = kernel_and_plain(hall, HORIZON, TRIALS, hall_kernels)[:2]
+    phase_rollout_keys(hall)
     phase_breakdown(hall)
 
     # the PickupObjects main path: B=4096, its five kernels every step
@@ -1152,6 +1337,40 @@ def phase_maze(maze, maze_s3, maze_s3_bank, rates):
     return launches
 
 
+def phase_wide(side, wall, nav, rates):
+    """The multi-chunk main paths: Sidewalk, WallGap and NavigateWallGap at
+    B=1024 through MiniWorldVec.rollout (every kernel each step, the
+    tri_pass launch scanning 3 or 2 chunks); Sidewalk's breakdown.
+    Returns Sidewalk's launches."""
+    kernels = ("tri_pass", "entity_pass", "pixel_epilogue", "place")
+    side_launches = None
+    for env in (side, wall, nav):
+        rate, outs, obs, launches, _ = rollouts(env, "kernels", HORIZON, TRIALS)
+        check_rollout(env, outs, obs, launches, HORIZON, TRIALS, kernels)
+        rates[env.spec.name.lower() + f"_b{env.num_envs}"] = (rate, None)
+        if env is side:
+            side_launches = launches
+    phase_breakdown(side, render_iters=5, plain_render_iters=1)
+    return side_launches
+
+
+def phase_new_ids(make_env, rates):
+    """Kernel and plain rollouts agree on rewards and dones (checksums
+    within 1e-4) for Sidewalk, WallGap, NavigateWallGap and YMaze at
+    B_PLAIN; short B=1024 rollouts of the OneRoom and YMaze families,
+    each checked."""
+    kernels = ("tri_pass", "entity_pass", "pixel_epilogue", "place")
+    for env_id in (SIDE_ID, WALL_ID, NAV_ID, "MiniWorld-YMaze-v0"):
+        env = make_env(env_id, B_PLAIN)
+        rate, plain_rate, _, _ = kernel_and_plain(env, PLAIN_HORIZON, TRIALS, kernels)
+        rates[env.spec.name.lower() + f"_b{B_PLAIN}"] = (rate, plain_rate)
+    for env_id in SHORT_IDS:
+        env = make_env(env_id, B)
+        rate, outs, obs, launches, _ = rollouts(env, "kernels", SHORT_HORIZON, TRIALS)
+        check_rollout(env, outs, obs, launches, SHORT_HORIZON, TRIALS, kernels)
+        rates[env.spec.name.lower()] = (rate, None)
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, ROOT)
@@ -1171,10 +1390,16 @@ def main():
                                 procgen=False)
     if not (maze.procgen and maze_s3.procgen):
         raise AssertionError("the Maze family does not default to procgen")
+    side, wall, nav = env(SIDE_ID, B), env(WALL_ID, B), env(NAV_ID, B)
+    for e, n_chunks in ((side, 3), (wall, 2), (nav, 2)):
+        if (e.plan["kind"], e._bank.tri_verts9.shape[2] // e.tri_chunk) != ("dense", n_chunks):
+            raise AssertionError(f"{e.spec.gym_id} plans {e.plan}")
     errs, pick_timings, pick_work, sweep = phase_kernels(hall, pick)
     maze_errs, timings, work, maze_sweep = phase_maze_kernels(maze)
+    side_errs, side_timings, side_work = phase_chunks(side, env(SIDE_ID, B_STAGE),
+                                                      env(WALL_ID, B_STAGE), sweep[0][1])
     phase_tile_sweep(maze_sweep + sweep)
-    errs = {k: max(v, maze_errs.get(k, 0.0)) for k, v in errs.items()}
+    errs = {k: max(v, maze_errs.get(k, 0.0), side_errs.get(k, 0.0)) for k, v in errs.items()}
     errs["mazegen"], work["mazegen"] = phase_mazegen(maze, timings)
     errs["place"] = phase_place(pick, four, maze, timings, pick_timings, work, pick_work)
     for shapes, tms, wk in ((f"{PICK_ID} B={B_PICK} HW={W * H}", pick_timings, pick_work),
@@ -1188,6 +1413,8 @@ def main():
                 bound_ms=f"{bound(*wk[k])[0]:.4f}", **extra, shapes=shapes)
     pick_launches, rates = phase_main(hall, pick, pick_small, four, tmaze)
     maze_launches = phase_maze(maze, maze_s3, maze_s3_bank, rates)
+    side_launches = phase_wide(side, wall, nav, rates)
+    phase_new_ids(env, rates)
     kernels = []
     for k, (src, rep) in KERNELS.items():
         # the Maze path's kernels at its shapes; the mesh pass at
@@ -1219,6 +1446,15 @@ def main():
                 *pick_work["place_all_tries"])[0]
         if k == "tri_pass":  # every (row, pixel) pair counted, as before the culling
             kernels[-1]["bound_full_scan_ms"] = bound(*path_work["tri_pass_full_scan"])[0]
+            # the multi-chunk launch at the Sidewalk main path's shapes
+            kernels[-1].update({
+                "shapes_sidewalk": f"B={B} HW={W * H} S=3072 tri_chunk=1024",
+                "ms_sidewalk": side_timings["tri_pass"][0],
+                "plain_ms_sidewalk": side_timings["tri_pass"][1],
+                "bound_ms_sidewalk": bound(*side_work["tri_pass"])[0],
+                "bound_by_sidewalk": bound(*side_work["tri_pass"])[1],
+                "bound_full_scan_ms_sidewalk": bound(*side_work["tri_pass_full_scan"])[0],
+                "launches_sidewalk": int(side_launches["tri_pass"])})
     print(json.dumps({
         "kernels": kernels,
         "env_steps_per_s": {k: {"kernels": v[0], "plain": v[1]} for k, v in rates.items()},

@@ -2,11 +2,12 @@
 // winner and winner attributes per pixel.
 //
 // Replaces: miniworld_tpu/render/raycast.py:_tri_pass (single-chunk
-// form, chunk_compete, and the ``init`` seed of the carry) and
-// _entity_mesh_pass, XLA-fused jnp stages in the JAX package. The plain
-// PyTorch version is tri_pass_plain in
-// miniworld_tpu_torch/render/raycast.py (with mesh=, entity_mesh_pass_plain
-// seeding it); the two agree bit for bit (the library is built with
+// form, chunk_compete, the ``init`` seed of the carry, and the
+// multi-chunk scan with its carry) and _entity_mesh_pass, XLA-fused jnp
+// stages in the JAX package. The plain PyTorch versions are
+// tri_pass_plain in miniworld_tpu_torch/render/raycast.py (with mesh=,
+// entity_mesh_pass_plain seeding it) and, for more than one chunk,
+// tri_pass_chunked; they agree bit for bit (the library is built with
 // -fmad=false and the per-(row, pixel) arithmetic below follows the
 // plain version operation by operation). The row culling has its own
 // plain version, tile_cull_plain.
@@ -92,10 +93,27 @@
 // the choice as one byte per row, so the winner's attributes come from
 // its variant.
 //
+// Multi-chunk launch (S > tri_chunk, the MULTI instance; dense banks wider
+// than one chunk, e.g. Sidewalk's S = 3,072 in chunks of 1,024): the JAX
+// package scans chunks of tri_chunk rows, keys each row by its index
+// WITHIN its chunk, and carries a chunk's winner only on a strictly
+// greater key. So of two rows at the same key (equal quantized depth,
+// same chunk-local index) the earlier chunk wins. The kernel keeps its one
+// pass over all the survivors and ranks each hit by the 64-bit
+// (key << 8) | (255 - chunk), whose unsigned max is the lexicographic max
+// of (key, -chunk): the chunk loop's winner, in any scan order. A no-hit
+// is 0, below every hit. The winner's row is chunk * tri_chunk + its
+// chunk-local index; a pixel no row hits gets t = inf and zero
+// attributes (the scan's zero init). S <= 4096 and tri_chunk >= 16 keep
+// the chunk under 256 and the rows in shared memory. Mesh rows and paired
+// banks are single-chunk only.
+//
 // Shared memory: 48 bytes per row, two 2-byte row lists and (paired) the
 // variant byte, and 52 bytes per mesh row: 53,248 B at S = 1024, 106,496
-// B with N = 1024 mesh rows besides, above the 48 KB default, so the
-// launch raises the kernel's dynamic limit when it needs more.
+// B with N = 1024 mesh rows besides, 159,744 B at S = 3,072, above the
+// 48 KB default, so the launch raises the kernel's dynamic limit when it
+// needs more (up to 212,992 B at S = 4,096). Above about 113 KB one block
+// fits an SM.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -252,7 +270,7 @@ __device__ __forceinline__ void store_attr_bf16(const float* src_row, __nv_bfloa
                        bf16x2(a3.x, a3.y), bf16x2(a3.z, a3.w));
 }
 
-template <bool MESH>
+template <bool MESH, bool MULTI>
 __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
     const float* __restrict__ verts9,   // (L, 9, S) component-major
     const float* __restrict__ attr,     // (L, S, 16)
@@ -271,6 +289,7 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
     const int* __restrict__ pg_wall,      // (L, S) or null; -1 = no wall
     const float* __restrict__ wall_open,  // (B, Wn) or null; 1 = open
     int S, int N, int W, int H, int Wn, int all_quads,
+    int tri_chunk,                      // MULTI only: rows per chunk
     float* __restrict__ t_out,          // (B, HW)
     __nv_bfloat16* __restrict__ attr_out)  // (B, HW, 16)
 {
@@ -424,13 +443,19 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
         const float xv = xbase[min(x, W - 1)] * tan_x;
         float yv[PIX_PER_THREAD];
         int best[PIX_PER_THREAD], mbest[PIX_PER_THREAD];
+        unsigned long long cbest[PIX_PER_THREAD];  // MULTI: (key << 8) | (255 - chunk)
 #pragma unroll
         for (int k = 0; k < PIX_PER_THREAD; ++k) {
             const int y = y0 + row0 + k * ROWS_PER_THREAD_Y;
             yv[k] = ybase[min(y, H - 1)] * tan_y;
             best[k] = 0;
             mbest[k] = 0;
+            cbest[k] = 0ull;
         }
+        // MULTI: the chunk of row s is floor((s + 0.5) * (1 / tri_chunk)),
+        // exact: the product is within 256 * 2^-23 of (s + 0.5) /
+        // tri_chunk, which lies at least 0.5 / 1024 from an integer
+        const float inv_chunk = MULTI ? 1.0f / (float)tri_chunk : 0.0f;
         // the mesh competition first (triangles: coverage u + v)
         for (int i = 0; i < nmt; ++i) {
             const int s = mtile_list[i];
@@ -466,8 +491,16 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
                 if (!quads) cov = cov + q2.z * fminf(un, vn);
                 const bool hit = det > 1e-12f && un >= 0.0f && vn >= 0.0f &&
                                  cov <= det && r < r_near && r > r_far;
-                const int key = hit ? ((__float_as_int(r) & ~IDX_MASK) | s) : 0;
-                best[k] = max(best[k], key);
+                if (MULTI) {
+                    const int c = __float2int_rz(((float)s + 0.5f) * inv_chunk);
+                    const int key = (__float_as_int(r) & ~IDX_MASK) | (s - c * tri_chunk);
+                    const unsigned long long v =
+                        hit ? (((unsigned long long)key << 8) | (unsigned)(255 - c)) : 0ull;
+                    cbest[k] = cbest[k] > v ? cbest[k] : v;
+                } else {
+                    const int key = hit ? ((__float_as_int(r) & ~IDX_MASK) | s) : 0;
+                    best[k] = max(best[k], key);
+                }
             }
         }
 
@@ -495,6 +528,19 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
                     continue;
                 }
             }
+            if (MULTI) {
+                const int key = (int)(cbest[k] >> 8);
+                t_out[q] = t_of_key(key);
+                if (key > 0) {
+                    const int row = (255 - (int)(cbest[k] & 0xFFu)) * tri_chunk + (key & IDX_MASK);
+                    store_attr_bf16(atp + (size_t)row * ATTR_DIM, attr_out + q * ATTR_DIM);
+                } else {
+                    uint4* d4 = reinterpret_cast<uint4*>(attr_out + q * ATTR_DIM);
+                    d4[0] = make_uint4(0u, 0u, 0u, 0u);
+                    d4[1] = make_uint4(0u, 0u, 0u, 0u);
+                }
+                continue;
+            }
             t_out[q] = t_of_key(best[k]);
             // winner's row (row 0 for an unmeshed miss: nothing downstream reads it)
             const int row = best[k] & IDX_MASK;
@@ -517,7 +563,7 @@ extern "C" int mw_tri_pass_config(int* out) {
     return 0;
 }
 
-template <bool MESH>
+template <bool MESH, bool MULTI>
 static int launch_tri_pass(const dim3 grid, const size_t smem, cudaStream_t stream,
                            const float* verts9, const float* attr, const int* layout_id,
                            const float* origin, const float* fwd, const float* right,
@@ -525,18 +571,19 @@ static int launch_tri_pass(const dim3 grid, const size_t smem, cudaStream_t stre
                            const float* ybase, const float* mesh_v9, const float* mesh_attr,
                            const float* verts9_alt, const float* attr_alt, const int* pg_wall,
                            const float* wall_open, int S, int N, int W, int H, int Wn,
-                           int all_quads, float* t_out, __nv_bfloat16* attr_out) {
+                           int all_quads, int tri_chunk, float* t_out,
+                           __nv_bfloat16* attr_out) {
     static size_t smem_opted = 48 * 1024;  // the dynamic limit set so far
     if (smem > smem_opted) {
         const cudaError_t err = cudaFuncSetAttribute(
-            tri_pass_kernel<MESH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            tri_pass_kernel<MESH, MULTI>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
         smem_opted = smem;
     }
-    tri_pass_kernel<MESH><<<grid, THREADS, smem, stream>>>(
+    tri_pass_kernel<MESH, MULTI><<<grid, THREADS, smem, stream>>>(
         verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase, ybase,
         mesh_v9, mesh_attr, verts9_alt, attr_alt, pg_wall, wall_open,
-        S, N, W, H, Wn, all_quads, t_out, attr_out);
+        S, N, W, H, Wn, all_quads, tri_chunk, t_out, attr_out);
     return (int)cudaGetLastError();
 }
 
@@ -547,15 +594,20 @@ extern "C" int mw_tri_pass(
     const float* mesh_v9, const float* mesh_attr,
     const float* verts9_alt, const float* attr_alt, const int* pg_wall,
     const float* wall_open,
-    int B, int S, int N, int W, int H, int Wn, int all_quads,
+    int B, int S, int N, int W, int H, int Wn, int all_quads, int tri_chunk,
     float* t_out, __nv_bfloat16* attr_out, cudaStream_t stream)
 {
     const bool paired = pg_wall != nullptr;
     const bool mesh = mesh_v9 != nullptr;
+    const bool multi = S > tri_chunk;
     if (paired && (verts9_alt == nullptr || attr_alt == nullptr || wall_open == nullptr))
         return (int)cudaErrorInvalidValue;
     if (mesh && mesh_attr == nullptr) return (int)cudaErrorInvalidValue;
-    if (S > IDX_MASK + 1 || N > IDX_MASK + 1) return (int)cudaErrorInvalidValue;
+    if (N > IDX_MASK + 1) return (int)cudaErrorInvalidValue;
+    if (multi ? (mesh || paired || tri_chunk < 16 || tri_chunk > IDX_MASK + 1 ||
+                 S % tri_chunk != 0 || S > 4096)
+              : S > IDX_MASK + 1)
+        return (int)cudaErrorInvalidValue;
     if (B == 0 || W == 0 || H == 0) return 0;
     const int n_tiles = ((W + TILE_W - 1) / TILE_W) * ((H + TILE_H - 1) / TILE_H);
     const int per_env = min(n_tiles, max(1, (BLOCK_TARGET + B - 1) / B));
@@ -563,13 +615,18 @@ extern "C" int mw_tri_pass(
     const size_t per_row = 3 * sizeof(float4) + 2 * sizeof(unsigned short);
     const size_t smem = (size_t)S * per_row + (paired ? (size_t)S : 0) +
                         (mesh ? (size_t)N * per_row : 0);
+    if (multi)
+        return launch_tri_pass<false, true>(grid, smem, stream, verts9, attr, layout_id, origin,
+                                            fwd, right, up, tan_xy, xbase, ybase, nullptr,
+                                            nullptr, nullptr, nullptr, nullptr, nullptr, S, 0,
+                                            W, H, 0, all_quads, tri_chunk, t_out, attr_out);
     return mesh
-        ? launch_tri_pass<true>(grid, smem, stream, verts9, attr, layout_id, origin, fwd, right,
-                                up, tan_xy, xbase, ybase, mesh_v9, mesh_attr, verts9_alt,
-                                attr_alt, pg_wall, wall_open, S, N, W, H, Wn, all_quads, t_out,
-                                attr_out)
-        : launch_tri_pass<false>(grid, smem, stream, verts9, attr, layout_id, origin, fwd,
-                                 right, up, tan_xy, xbase, ybase, nullptr, nullptr, verts9_alt,
-                                 attr_alt, pg_wall, wall_open, S, 0, W, H, Wn, all_quads, t_out,
-                                 attr_out);
+        ? launch_tri_pass<true, false>(grid, smem, stream, verts9, attr, layout_id, origin, fwd,
+                                       right, up, tan_xy, xbase, ybase, mesh_v9, mesh_attr,
+                                       verts9_alt, attr_alt, pg_wall, wall_open, S, N, W, H, Wn,
+                                       all_quads, S, t_out, attr_out)
+        : launch_tri_pass<false, false>(grid, smem, stream, verts9, attr, layout_id, origin,
+                                        fwd, right, up, tan_xy, xbase, ybase, nullptr, nullptr,
+                                        verts9_alt, attr_alt, pg_wall, wall_open, S, 0, W, H,
+                                        Wn, all_quads, S, t_out, attr_out);
 }

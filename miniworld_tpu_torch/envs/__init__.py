@@ -10,11 +10,14 @@ from __future__ import annotations
 from miniworld_tpu_torch.envs.base import EnvSpec
 from miniworld_tpu_torch.envs.interact import PickupObjects
 from miniworld_tpu_torch.envs.nav import (
-    FourRooms, Hallway, Maze, MazeS2, MazeS3, MazeS3Fast, TMaze, TMazeLeft, TMazeRight,
+    FourRooms, Hallway, Maze, MazeS2, MazeS3, MazeS3Fast, NavigateWallGap, OneRoom, OneRoomS6,
+    OneRoomS6Fast, Sidewalk, TMaze, TMazeLeft, TMazeRight, WallGap, YMaze, YMazeLeft,
+    YMazeRight,
 )
 
-SPEC_CLASSES = [Hallway, FourRooms, TMaze, TMazeLeft, TMazeRight, Maze, MazeS2, MazeS3,
-                MazeS3Fast, PickupObjects]
+SPEC_CLASSES = [Hallway, OneRoom, OneRoomS6, OneRoomS6Fast, FourRooms, TMaze, TMazeLeft,
+                TMazeRight, YMaze, YMazeLeft, YMazeRight, Maze, MazeS2, MazeS3, MazeS3Fast,
+                WallGap, NavigateWallGap, Sidewalk, PickupObjects]
 
 _REGISTRY = {}
 for cls in SPEC_CLASSES:
@@ -36,4 +39,6 @@ def make_spec(name: str, **kwargs) -> EnvSpec:
 
 
 __all__ = ["ENV_IDS", "make_spec", "EnvSpec", "FourRooms", "Hallway", "Maze", "MazeS2",
-           "MazeS3", "MazeS3Fast", "PickupObjects", "TMaze", "TMazeLeft", "TMazeRight"]
+           "MazeS3", "MazeS3Fast", "NavigateWallGap", "OneRoom", "OneRoomS6", "OneRoomS6Fast",
+           "PickupObjects", "Sidewalk", "TMaze", "TMazeLeft", "TMazeRight", "WallGap", "YMaze",
+           "YMazeLeft", "YMazeRight"]

@@ -3,8 +3,9 @@
 Counterpart of ``miniworld_tpu/envs/base.py``. An ``EnvSpec`` declares
 the world builder (host-side numpy, shared logic with the JAX package)
 and the per-step task logic as functions over a batched ``EnvState``.
-The port carries the go-to-goal family (Hallway, FourRooms, TMaze, the
-Maze family) and PickupObjects so far; the host-side gymnasium hooks of the JAX package
+The port carries the go-to-goal family (Hallway, OneRoom, FourRooms,
+TMaze, YMaze, the Maze family, WallGap, Sidewalk), NavigateWallGap and
+PickupObjects so far; the host-side gymnasium hooks of the JAX package
 have no counterpart here.
 """
 
@@ -12,12 +13,12 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
-from miniworld_tpu_torch.ops import physics
+from miniworld_tpu_torch.ops import geom, physics
 from miniworld_tpu_torch.params import DEFAULT_PARAMS, DomainParams
 from miniworld_tpu_torch.state import EnvState, StepResult
 
@@ -31,6 +32,7 @@ class Ctx(NamedTuple):
     action: torch.Tensor  # (B, 6) clipped continuous action
     action_idx: torch.Tensor  # (B,) i32 discrete action index, or -1
     truncated: torch.Tensor  # (B,) bool — step limit reached this step
+    bank: Any = None  # the layout bank (scene/compile.Layout of tensors)
 
 
 def default_discrete_actions() -> np.ndarray:
@@ -109,6 +111,15 @@ class EnvSpec:
     def near_agent(self, state: EnvState, idx0: int) -> torch.Tensor:
         return physics.near(state, idx0, None,
                             max_forward_step=self.max_forward_step)
+
+    def agent_in_room(self, bank, state: EnvState, room_idx: int) -> torch.Tensor:
+        """(B,) bool: the agent strictly inside room ``room_idx`` of its
+        layout (Room.point_inside; sidewalk.py:99)."""
+        lid = state.layout_id.long()
+        return geom.point_inside_convex(
+            state.pos[:, [0, 2]], bank.room_outline[lid, room_idx],
+            bank.room_norms[lid, room_idx], bank.room_vmask[lid, room_idx],
+        )
 
 
 class GoToEnvSpec(EnvSpec):

@@ -1,8 +1,10 @@
 """Navigation specs ported so far: go-to-goal tasks over static geometry.
 
-Counterpart of ``miniworld_tpu/envs/nav.py``: Hallway, FourRooms, the
-TMaze family and the Maze family (reference envs/hallway.py,
-fourrooms.py, tmaze.py, maze.py). The other navigation envs join with
+Counterpart of ``miniworld_tpu/envs/nav.py``: Hallway, the OneRoom
+family, FourRooms, the TMaze and YMaze families, the Maze family,
+WallGap, NavigateWallGap and Sidewalk (reference envs/hallway.py,
+oneroom.py, fourrooms.py, tmaze.py, ymaze.py, maze.py, wallgap.py,
+navigatewallgap.py, sidewalk.py). The other navigation envs join with
 their slices (ROADMAP.md).
 """
 
@@ -12,6 +14,7 @@ import math
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from miniworld_tpu_torch.envs.base import (
     DIR_QUARTER,
@@ -51,6 +54,40 @@ class Hallway(GoToEnvSpec):
             world.place_agent(dir=d, max_x=room.max_x - 2)
         else:
             world.place_agent(dir_range=DIR_QUARTER, max_x=room.max_x - 2)
+
+
+@dataclass
+class OneRoom(GoToEnvSpec):
+    """Red box in one square room (envs/oneroom.py:46-72)."""
+
+    name: str = "OneRoom"
+    gym_id: str = "MiniWorld-OneRoom-v0"
+    max_episode_steps: int = 1800
+    discrete_actions: np.ndarray = field(default_factory=default_discrete_actions)
+    size: float = 10
+
+    def build(self, world, rng, layout_rng=None, layout_idx=0):
+        world.add_rect_room(min_x=0, max_x=self.size, min_z=0, max_z=self.size)
+        world.place(world.proto_id("box", "red"))
+        world.place_agent()
+
+
+@dataclass
+class OneRoomS6(OneRoom):
+    name: str = "OneRoomS6"
+    gym_id: str = "MiniWorld-OneRoomS6-v0"
+    size: float = 6
+    max_episode_steps: int = 100
+
+
+@dataclass
+class OneRoomS6Fast(OneRoomS6):
+    name: str = "OneRoomS6Fast"
+    gym_id: str = "MiniWorld-OneRoomS6Fast-v0"
+    max_episode_steps: int = 50
+
+    def __post_init__(self):
+        self.params = _fast_params()
 
 
 @dataclass
@@ -134,6 +171,94 @@ class TMazeRight(TMaze):
     name: str = "TMazeRight"
     gym_id: str = "MiniWorld-TMazeRight-v0"
     goal_pos: tuple = (10, 0, 6)
+
+
+def _ymaze_outlines():
+    """Main/left/right arm outlines (envs/ymaze.py:56-88)."""
+    main_outline = np.array(
+        [[-9.15, 0, -2], [-9.15, 0, +2], [-1.15, 0, +2], [-1.15, 0, -2]]
+    )
+    hub = np.array([[-1.15, -2], [-1.15, +2], [2.31, 0]])
+
+    def rot(angle_deg):
+        # numpy version of the reference's gen_rot_matrix row product
+        axis = np.array([0.0, 1.0, 0.0])
+        a = math.cos(angle_deg * math.pi / 360)
+        b, c, d = -axis * math.sin(angle_deg * math.pi / 360)
+        return np.array(
+            [
+                [a * a + b * b - c * c - d * d, 2 * (b * c - a * d), 2 * (b * d + a * c)],
+                [2 * (b * c + a * d), a * a + c * c - b * b - d * d, 2 * (c * d - a * b)],
+                [2 * (b * d - a * c), 2 * (c * d + a * b), a * a + d * d - b * b - c * c],
+            ]
+        )
+
+    left = main_outline @ rot(-120)
+    right = main_outline @ rot(+120)
+    return main_outline, hub, left, right
+
+
+@dataclass
+class YMaze(GoToEnvSpec):
+    """Y-shaped maze with a triangular hub (envs/ymaze.py:47-127)."""
+
+    name: str = "YMaze"
+    gym_id: str = "MiniWorld-YMaze-v0"
+    max_episode_steps: int = 280
+    discrete_actions: np.ndarray = field(default_factory=default_discrete_actions)
+    goal_pos: tuple | None = None
+
+    def build(self, world, rng, layout_rng=None, layout_idx=0):
+        main_outline, hub, left, right = _ymaze_outlines()
+        main_arm = world.add_room(outline=np.delete(main_outline, 1, 1))
+        hub_room = world.add_room(outline=hub)
+        left_arm = world.add_room(outline=np.delete(left, 1, 1))
+        right_arm = world.add_room(outline=np.delete(right, 1, 1))
+
+        world.connect_rooms(main_arm, hub_room, min_z=-2, max_z=2)
+        world.connect_rooms(left_arm, hub_room, min_z=-1.995, max_z=0)
+        world.connect_rooms(right_arm, hub_room, min_z=0, max_z=1.995)
+
+        box = world.proto_id("box", "red")
+        if self.goal_pos is not None:
+            gp = self.goal_pos
+            world.place(box, min_x=gp[0], max_x=gp[0], min_z=gp[2], max_z=gp[2])
+        elif rng is not None:
+            if rng.integers(0, 2) == 0:
+                world.place(box, room=left_arm, max_z=left_arm.min_z + 2.5)
+            else:
+                world.place(box, room=right_arm, min_z=right_arm.max_z - 2.5)
+        else:
+            world.place(
+                box,
+                rules=[
+                    world._make_rule(room=left_arm, max_z=left_arm.min_z + 2.5),
+                    world._make_rule(room=right_arm, min_z=right_arm.max_z - 2.5),
+                ],
+            )
+        if rng is not None:
+            d = float(rng.uniform(-math.pi / 4, math.pi / 4))
+            world.place_agent(dir=d, room=main_arm)
+        else:
+            world.place_agent(dir_range=DIR_QUARTER, room=main_arm)
+
+    def info(self, ctx: Ctx):
+        # info["goal_pos"] every step (ymaze.py:125)
+        return {"goal_pos": ctx.state.ent_pos[:, self.goal_slot]}
+
+
+@dataclass
+class YMazeLeft(YMaze):
+    name: str = "YMazeLeft"
+    gym_id: str = "MiniWorld-YMazeLeft-v0"
+    goal_pos: tuple = (3.9, 0, -7.0)
+
+
+@dataclass
+class YMazeRight(YMaze):
+    name: str = "YMazeRight"
+    gym_id: str = "MiniWorld-YMazeRight-v0"
+    goal_pos: tuple = (3.9, 0, 7.0)
 
 
 @dataclass
@@ -243,3 +368,97 @@ class MazeS3Fast(MazeS3):
 
     def __post_init__(self):
         self.params = _fast_params()
+
+
+@dataclass
+class WallGap(GoToEnvSpec):
+    """Two open-air rooms with a gap (envs/wallgap.py:42-89)."""
+
+    name: str = "WallGap"
+    gym_id: str = "MiniWorld-WallGap-v0"
+    max_episode_steps: int = 2000
+    discrete_actions: np.ndarray = field(default_factory=default_discrete_actions)
+
+    def _build_rooms(self, world):
+        room0 = world.add_rect_room(
+            min_x=-7, max_x=7, min_z=0.5, max_z=8,
+            wall_tex="brick_wall", floor_tex="asphalt", no_ceiling=True,
+        )
+        room1 = world.add_rect_room(
+            min_x=-7, max_x=7, min_z=-8, max_z=-0.5,
+            wall_tex="brick_wall", floor_tex="asphalt", no_ceiling=True,
+        )
+        world.connect_rooms(room0, room1, min_x=-1.5, max_x=1.5)
+        return room0, room1
+
+    def build(self, world, rng, layout_rng=None, layout_idx=0):
+        room0, room1 = self._build_rooms(world)
+        world.place(world.proto_id("box", "red"), room=room1)
+        # Decorative building (wallgap.py:74-78)
+        world.bake_mesh("building", 30, pos=np.array([30.0, 0, 30]), direction=-math.pi)
+        world.place_agent(room=room0)
+
+
+@dataclass
+class NavigateWallGap(WallGap):
+    """Reward for crossing into the bottom room
+    (envs/navigatewallgap.py:48-100)."""
+
+    name: str = "NavigateWallGap"
+    gym_id: str = "MiniWorld-NavigateWallGap-v0"
+    bottom_room_bbox: tuple = (-7.0, 7.0, -8.0, -0.5)
+
+    def init_task(self):
+        return {"passed_gap": False}
+
+    def transition(self, ctx: Ctx):
+        x, z = ctx.state.pos[:, 0], ctx.state.pos[:, 2]
+        bx0, bx1, bz0, bz1 = self.bottom_room_bbox
+        in_bottom = (x >= bx0) & (x <= bx1) & (z >= bz0) & (z <= bz1)
+        fire = ~ctx.state.task["passed_gap"] & in_bottom
+        reward = fire.to(torch.float32)
+        new_task = {"passed_gap": ctx.state.task["passed_gap"] | fire}
+        return reward, fire, ctx.state.replace(task=new_task)
+
+
+@dataclass
+class Sidewalk(GoToEnvSpec):
+    """Sidewalk with cones; entering the street ends the episode
+    (envs/sidewalk.py:50-107)."""
+
+    name: str = "Sidewalk"
+    gym_id: str = "MiniWorld-Sidewalk-v0"
+    max_episode_steps: int = 150
+    discrete_actions: np.ndarray = field(default_factory=default_discrete_actions)
+    street_room_idx: int = 1
+    goal_slot: int = 0  # set in build
+
+    def build(self, world, rng, layout_rng=None, layout_idx=0):
+        sidewalk = world.add_rect_room(
+            min_x=-3, max_x=0, min_z=0, max_z=12,
+            wall_tex="brick_wall", floor_tex="concrete_tiles", no_ceiling=True,
+        )
+        world.add_rect_room(
+            min_x=0, max_x=6, min_z=-80, max_z=80,
+            floor_tex="asphalt", no_ceiling=True,
+        )
+        world.connect_rooms(sidewalk, world.rooms[1], min_z=0, max_z=12)
+
+        world.bake_mesh("building", 30, pos=np.array([30.0, 0, 30]), direction=-math.pi)
+        for i in range(1, int(sidewalk.max_z) // 2):
+            # no dir: one rng uniform per cone, like the reference's
+            # place_entity(..., pos=...) (sidewalk.py:82-84)
+            world.bake_mesh("cone", 0.75, pos=np.array([1.0, 0, 2 * i]))
+        self.goal_slot = world.place(
+            world.proto_id("box", "red"),
+            room=sidewalk, min_z=sidewalk.max_z - 2, max_z=sidewalk.max_z,
+        )
+        world.place_agent(room=sidewalk, min_z=0, max_z=1.5)
+
+    def transition(self, ctx: Ctx):
+        in_street = self.agent_in_room(ctx.bank, ctx.state, self.street_room_idx)
+        reached = self.near_agent(ctx.state, self.goal_slot)
+        # Street check runs first; reaching the box overrides its reward
+        # (sidewalk.py:95-106).
+        reward = torch.where(reached, self.reward(ctx.state), torch.zeros_like(ctx.state.dir))
+        return reward, in_street | reached, ctx.state

@@ -1,10 +1,12 @@
 """Counter-based uniforms and threefry key splitting, bit-exact with JAX.
 
-Counterpart of ``miniworld_tpu/ops/rng.py`` plus the one piece of
-``jax.random`` the env engine consumes: ``split`` on raw threefry2x32
-key data, in the ``jax_threefry_partitionable=True`` form (split i of
-key k is ``threefry2x32(k, (0, i))``). Keys are (..., 2) tensors of the
-two uint32 key words.
+Counterpart of ``miniworld_tpu/ops/rng.py`` plus the pieces of
+``jax.random`` the env engine consumes: ``split``, ``random_bits`` and
+``randint`` on raw threefry2x32 key data, in the
+``jax_threefry_partitionable=True`` form (JAX's default: word i of a
+draw from key k is ``threefry2x32(k, (0, i))``, its two outputs xored
+for 32-bit bits, kept apart for a split). Keys are (..., 2) tensors of
+the two uint32 key words.
 
 All u32 arithmetic runs in int64 with an explicit ``& 0xFFFFFFFF``:
 torch's uint32 kernels cover few ops on either CPU or CUDA. Products
@@ -60,6 +62,30 @@ def split(key: torch.Tensor, num: int) -> torch.Tensor:
     counts = torch.arange(num, dtype=torch.int64, device=key.device)
     b0, b1 = threefry2x32(k0, k1, torch.zeros_like(counts), counts)
     return torch.stack([b0, b1], dim=-1)
+
+
+def random_bits(key: torch.Tensor, num: int) -> torch.Tensor:
+    """``jax.random.bits(key, (num,), jnp.uint32)`` on key data: (..., 2)
+    -> (..., num) u32 in int64 (jax/_src/prng.py
+    _threefry_random_bits_partitionable)."""
+    counts = torch.arange(num, dtype=torch.int64, device=key.device)
+    b0, b1 = threefry2x32(key[..., 0:1], key[..., 1:2], torch.zeros_like(counts), counts)
+    return b0 ^ b1
+
+
+def randint(key: torch.Tensor, num: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, (num,), 0, maxval)`` (int32) on key data:
+    (..., 2) -> (..., num) int64 in [0, maxval), 0 < maxval < 2**31
+    (jax/_src/random.py _randint): two words of bits from the key's two
+    splits, folded with the multiplier (2**16 mod maxval)**2 mod
+    maxval."""
+    if not 0 < int(maxval) < (1 << 31):
+        raise ValueError(f"randint needs 0 < maxval < 2**31, got {maxval}")
+    span = int(maxval)
+    bits = random_bits(split(key, 2), num)  # both splits' words in one threefry call
+    hi, lo = bits[..., 0, :], bits[..., 1, :]
+    mult = ((1 << 16) % span) ** 2 % span
+    return ((hi % span) * mult + lo % span) % span
 
 
 def hash_u32(key, ids: torch.Tensor) -> torch.Tensor:

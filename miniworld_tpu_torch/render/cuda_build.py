@@ -47,9 +47,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _CAM = [_P] * 7  # origin, fwd, right, up, tan_xy, xbase, ybase
 ENTRY_POINTS = {
     # verts9, attr, layout_id, camera, mesh_v9, mesh_attr, verts9_alt,
-    # attr_alt, pg_wall, wall_open, B, S, N, W, H, n_walls, all_quads, t,
-    # attr_out, stream
-    "mw_tri_pass": [_P, _P, _P, *_CAM, _P] + [_P] * 5 + [_I] * 7 + [_P, _P, _P],
+    # attr_alt, pg_wall, wall_open, B, S, N, W, H, n_walls, all_quads,
+    # tri_chunk, t, attr_out, stream
+    "mw_tri_pass": [_P, _P, _P, *_CAM, _P] + [_P] * 5 + [_I] * 8 + [_P, _P, _P],
     # out: TILE_W, TILE_H, PIX_PER_THREAD
     "mw_tri_pass_config": [_P],
     # ent_pos, ent_size, ent_dir, ent_height, ent_color, flags, camera,

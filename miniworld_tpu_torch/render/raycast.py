@@ -336,27 +336,43 @@ def tri_pass_plain(verts9, attr, layout_id, cam: Camera, all_quads: bool = False
 
 def tri_pass_chunked(verts9, attr, layout_id, cam: Camera, tri_chunk: int,
                      all_quads: bool = False):
-    """Chunk loop with the keyed-z carry (raycast._tri_pass scan body),
-    plain PyTorch. Chunks compete by key; a pixel no chunk hits keeps
-    the all-zero attribute init. Kept for the multi-chunk slices."""
-    lid = layout_id.long()
-    v9_all, at_all = verts9[lid], attr[lid]
+    """Plain version of the tri_pass kernel's multi-chunk scan
+    (raycast._tri_pass scan body, zero init, no seed): the prims in
+    chunks of ``tri_chunk``, each chunk's keyed-z winner by its rows'
+    indices within the chunk, carried across chunks on a strictly
+    greater key. So a tie at equal quantized depth goes to the larger
+    chunk-local index, then to the earlier chunk; a pixel no chunk hits
+    gets t = inf and all-zero attributes.
+
+    verts9 (L, 9, S) f32 and attr (L, S, 16) f32 with S a multiple of
+    ``tri_chunk`` <= 1024 -> (t (B, HW) f32, attr (B, HW, 16) bf16).
+    Runs over blocks of envs to bound its intermediates.
+    """
+    S = verts9.shape[2]
+    if S % tri_chunk or tri_chunk > (1 << _IDX_BITS):
+        raise ValueError(f"{S} prims do not split into chunks of tri_chunk={tri_chunk} "
+                         f"<= {1 << _IDX_BITS}")
+    b = layout_id.shape[0]
     xv, yv = cam.xv(), cam.yv()
-    num = v9_all.shape[2]
-    if num % tri_chunk:
-        raise ValueError(f"{num} prims are not a multiple of tri_chunk={tri_chunk}")
-    b, hw = xv.shape
-    key_best = torch.zeros((b, hw), dtype=torch.int32, device=xv.device)
-    attr_best = torch.zeros((b, hw, ATTR_DIM), dtype=torch.bfloat16, device=xv.device)
-    for start in range(0, num, tri_chunk):
-        v9 = v9_all[:, :, start:start + tri_chunk]
-        attrs = at_all[:, start:start + tri_chunk]
-        key, row = _chunk_compete(v9, attrs, cam, xv, yv, all_quads)
-        sel = _gather_rows(attrs, row).to(torch.bfloat16)
-        closer = key > key_best
-        key_best = torch.where(closer, key, key_best)
-        attr_best = torch.where(closer[:, :, None], sel, attr_best)
-    return _t_from_key(key_best), attr_best
+    hw = xv.shape[1]
+    ts, outs = [], []
+    for sl in _env_blocks(b, tri_chunk * hw):
+        lid = layout_id[sl].long()
+        c = _cam_rows(cam, sl)
+        n = lid.shape[0]
+        key_best = torch.zeros((n, hw), dtype=torch.int32, device=xv.device)
+        attr_best = torch.zeros((n, hw, ATTR_DIM), dtype=torch.bfloat16, device=xv.device)
+        for start in range(0, S, tri_chunk):
+            v9 = verts9[:, :, start:start + tri_chunk][lid]
+            attrs = attr[:, start:start + tri_chunk][lid]
+            key, row = _chunk_compete(v9, attrs, c, xv[sl], yv[sl], all_quads)
+            sel = _gather_rows(attrs, row).to(torch.bfloat16)
+            closer = key > key_best
+            key_best = torch.where(closer, key, key_best)
+            attr_best = torch.where(closer[:, :, None], sel, attr_best)
+        ts.append(_t_from_key(key_best))
+        outs.append(attr_best)
+    return torch.cat(ts), torch.cat(outs)
 
 
 def stage_rows(verts9, attr, layout_id, cam: Camera, paired=None):
@@ -465,27 +481,48 @@ def tri_pass_tile():
     return tuple(out)
 
 
+# The most prims the tri_pass kernel stages in shared memory (52 bytes a
+# row: 213 KB of the 227 KB a block can opt into on an H100).
+MAX_KERNEL_ROWS = 4096
+
+
 def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh=None,
-             paired=None):
+             paired=None, tri_chunk: int | None = None):
     """Stage 1 wrapper: the tri_pass kernel for CUDA tensors, the plain
-    version for CPU tensors. Same contract as ``tri_pass_plain``
-    seeded by ``entity_mesh_pass_plain`` on ``mesh`` = (rows9 (B, 9, N),
-    row_attrs (B, N, 16)), N <= 1024: the kernel hit-tests the mesh rows
-    in the same launch and seeds the static rows' competition with their
-    winner (a launch with mesh rows also counts in
-    ``LAUNCHES["entity_mesh_pass"]``)."""
+    version for CPU tensors. With S <= ``tri_chunk`` (None: S), one
+    chunk: the contract of ``tri_pass_plain`` seeded by
+    ``entity_mesh_pass_plain`` on ``mesh`` = (rows9 (B, 9, N), row_attrs
+    (B, N, 16)), N <= 1024: the kernel hit-tests the mesh rows in the
+    same launch and seeds the static rows' competition with their winner
+    (a launch with mesh rows also counts in
+    ``LAUNCHES["entity_mesh_pass"]``). With S > ``tri_chunk``, the
+    multi-chunk scan of ``tri_pass_chunked`` in one launch, S <=
+    MAX_KERNEL_ROWS, without mesh rows or a paired bank (raises)."""
+    S = verts9.shape[2]
+    tri_chunk = S if tri_chunk is None else int(tri_chunk)
+    multi = S > tri_chunk
     n_mesh = 0 if mesh is None else mesh[0].shape[2]
     if n_mesh > (1 << _IDX_BITS):
         raise ValueError(f"{n_mesh} mesh rows exceed the z-key's "
                          f"{1 << _IDX_BITS}-row budget")
+    if multi and (mesh is not None or paired is not None):
+        raise NotImplementedError("tri_pass over more than one chunk with mesh rows or a "
+                                  "paired bank is not ported yet")
     if not is_cuda(verts9, attr, layout_id, cam.origin, *(mesh or ()), *(paired or ())):
+        if multi:
+            return tri_pass_chunked(verts9, attr, layout_id, cam, tri_chunk, all_quads)
         seed = None if mesh is None else entity_mesh_pass_plain(*mesh, cam)
         return tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired)
-    L, _, S = verts9.shape
+    L = verts9.shape[0]
     b = layout_id.shape[0]
     hw = cam.width * cam.height
-    if S > (1 << _IDX_BITS):
-        raise ValueError(f"tri_pass kernel takes at most {1 << _IDX_BITS} prims, got {S}")
+    if multi:
+        if S % tri_chunk or tri_chunk < 16 or S > MAX_KERNEL_ROWS:
+            raise ValueError(f"tri_pass kernel scans S a multiple of tri_chunk >= 16, S <= "
+                             f"{MAX_KERNEL_ROWS}; got S={S}, tri_chunk={tri_chunk}")
+    elif S > (1 << _IDX_BITS):
+        raise ValueError(f"tri_pass kernel takes at most {1 << _IDX_BITS} prims in one chunk, "
+                         f"got {S}")
     t = torch.empty((b, hw), dtype=torch.float32, device=verts9.device)
     out = torch.empty((b, hw, ATTR_DIM), dtype=torch.bfloat16, device=verts9.device)
     if mesh is None:
@@ -516,6 +553,7 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
         *paired_ptrs,
         ctypes.c_int(b), ctypes.c_int(S), ctypes.c_int(n_mesh), ctypes.c_int(cam.width),
         ctypes.c_int(cam.height), ctypes.c_int(n_walls), ctypes.c_int(int(all_quads)),
+        ctypes.c_int(tri_chunk),
         check(t, "t", torch.float32, (b, hw)),
         check(out, "attr_out", torch.bfloat16, (b, hw, ATTR_DIM)),
         stream(),
@@ -1039,14 +1077,42 @@ def pixel_epilogue(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
 # the render
 
 
+def static_rows(bank, state, cam: Camera, pg_wall=None, packed_pvs: bool = False):
+    """What stage 1 scans for each env: ((verts9, attr, layout_id),
+    paired), the arguments of ``tri_pass``. The layout bank's rows; a
+    procgen maze's paired rows with ``paired`` = (verts9_alt, attr_alt,
+    pg_wall, wall_open); or, ``packed_pvs``, the packed visible set of
+    the room the camera stands in: chunk ``pvs_room_base[layout, room]``
+    of the layout, as rows of ``bank.pvs_v9_rows`` / ``pvs_attr_rows``
+    read as (L * NC, 9, k) and (L * NC, k, 16) banks of one chunk, with
+    layout_id = layout * NC + base (raycast.py:1173-1176, 1207-1214)."""
+    if packed_pvs:
+        n_rows = bank.pvs_v9_rows.shape[0]
+        nc = n_rows // bank.pvs_verts9.shape[0]
+        room = room_of_point(bank, state.layout_id, cam.origin[:, [0, 2]])
+        base = bank.pvs_room_base[state.layout_id.long(), room]
+        return (bank.pvs_v9_rows.view(n_rows, 9, -1),
+                bank.pvs_attr_rows.view(n_rows, -1, ATTR_DIM),
+                (state.layout_id * nc + base).to(torch.int32)), None
+    if pg_wall is None:
+        return (bank.tri_verts9, bank.tri_attr, state.layout_id), None
+    return ((bank.pg_verts9, bank.pg_attr, state.layout_id),
+            (bank.pg_verts9_alt, bank.pg_attr_alt, pg_wall, state.wall_open))
+
+
 def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
                 shapes_present=(True, True, False), all_quads: bool = False,
                 has_gain: bool = False, use_kernels: bool = True, pg_wall=None,
-                table=None):
+                table=None, tri_chunk: int | None = None, packed_pvs: bool = False):
     """Render every env's observation: (rgb (B, H, W, 3) u8, depth
     (B, H, W, 1) f32, FAR for sky). Counterpart of raycast.render_rgbd
-    for single-chunk banks in fourier mode, without domain
-    randomization or supersampling (the statics of the port's slices).
+    for dense chunk plans in fourier mode, without domain randomization
+    or supersampling (the statics of the port's slices): the static
+    prims in chunks of ``tri_chunk`` (None: one chunk of all of them;
+    more than one without mesh entities or a paired bank).
+    ``packed_pvs``: the bank's packed per-room visible sets, one chunk
+    of ``tri_chunk`` a render: each env scans its camera room's chunk
+    (``static_rows``).
     ``table``: the atlas's ``fourier_table``, which the epilogue kernel
     reads.
 
@@ -1064,18 +1130,17 @@ def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
     cam = camera_grid(state, width, height)
     f_ent = entity_pass if use_kernels else entity_pass_plain
     mesh = entity_mesh_rows(bank, state)[:2] if shapes_present[2] else None
+    rows, paired = static_rows(bank, state, cam, pg_wall, packed_pvs)
     if use_kernels:
-        f_tri, seeding = tri_pass, dict(mesh=mesh)
+        t_tri, attr = tri_pass(*rows, cam, all_quads, mesh, paired, tri_chunk)
+    elif tri_chunk is not None and rows[0].shape[2] > tri_chunk:
+        if mesh is not None or paired is not None:
+            raise NotImplementedError("more than one chunk with mesh rows or a paired bank "
+                                      "is not ported yet")
+        t_tri, attr = tri_pass_chunked(*rows, cam, tri_chunk, all_quads)
     else:
-        f_tri = tri_pass_plain
-        seeding = dict(seed=None if mesh is None else entity_mesh_pass_plain(*mesh, cam))
-    if pg_wall is None:
-        t_tri, attr = f_tri(bank.tri_verts9, bank.tri_attr, state.layout_id, cam, all_quads,
-                            **seeding)
-    else:
-        t_tri, attr = f_tri(bank.pg_verts9, bank.pg_attr, state.layout_id, cam, all_quads,
-                            paired=(bank.pg_verts9_alt, bank.pg_attr_alt, pg_wall,
-                                    state.wall_open), **seeding)
+        seed = None if mesh is None else entity_mesh_pass_plain(*mesh, cam)
+        t_tri, attr = tri_pass_plain(*rows, cam, all_quads, seed, paired)
     t_ent = col_ent = n_ent = None
     if shapes_present[0] or shapes_present[1]:
         t_ent, col_ent, n_ent = f_ent(

@@ -10,21 +10,22 @@ tensors — the JAX package's ``vmap`` is the leading axis B, its
     env = MiniWorldVec("MiniWorld-Hallway-v0", 1024)  # device="cuda"
     state, (obs, depth) = env.reset(seed=0)
     state, (obs, depth), reward, done, info = env.step(state, actions)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    state, (obs, depth), outs = env.rollout(state, (obs, depth), gen, 50)
+    key = rng_ops.key_data(1, "cuda")
+    state, (obs, depth), outs = env.rollout(state, (obs, depth), key, 50)
 
 On ``done`` an env auto-resets and ``obs`` is the first observation of
 the new episode. Resets draw from the same threefry keys and
 counter-based uniforms as the JAX package (ops/rng.py), so the two
 packages step the same envs through the same episodes.
 
-The port covers the statics of Hallway, FourRooms, TMaze, the Maze
-family and PickupObjects: one layout bank rendered in one prim chunk,
-Fourier textures without glyphs, analytic and mesh entities, and
-procgen mazes — a fresh maze per reset on the device (``procgen``,
-the Maze family's default), rendered from the paired super bank — but
-no domain randomization, no supersampling. Other statics raise
-NotImplementedError.
+The port covers the statics of 19 of the 27 env ids (``envs.ENV_IDS``):
+one layout bank rendered in the JAX package's chunk plan (one chunk, a
+dense multi-chunk scan, or the one-chunk packed-PVS plan of the Maze
+family's layout bank; ``install_statics``), Fourier textures without
+glyphs, analytic and mesh entities, and procgen mazes — a fresh maze
+per reset on the device (``procgen``, the Maze family's default),
+rendered from the paired super bank — but no domain randomization, no
+supersampling. Other statics and plans raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -46,8 +47,13 @@ from miniworld_tpu_torch.scene.entities import (
 from miniworld_tpu_torch.scene.world import World
 from miniworld_tpu_torch.state import EnvState, tree_select
 
-# The z-key's row budget (render/raycast._IDX_BITS): the largest prim
-# count one chunk, and so the tri_pass kernel, can take.
+# The JAX package's per-chunk scan overhead in prim equivalents
+# (miniworld_tpu/vector.py _CHUNK_OVERHEAD_TRIS), fitted on its TPU. It
+# decides the JAX package's chunk plan, which the port reproduces
+# (``plan_chunks``) because the split decides quantized-depth ties.
+JAX_CHUNK_OVERHEAD_TRIS = 56
+# The z-key's row budget (render/raycast._IDX_BITS): the most prims one
+# chunk can hold.
 MAX_CHUNK = 1024
 
 
@@ -217,8 +223,9 @@ def plan_packed_pvs(bank_np: Layout, chunk_cap: int, overhead_tris: int,
     Returns (packed dict | None, tri_chunk, sched_len, modeled_cost);
     None when a single region covers everything (no culling value) or
     the duplicated bank copies would exceed ``max_bytes``.
-    The duplicated copies are render-exact: the chunk scan's z/tie
-    competition is partition-invariant (raycast._tri_pass).
+    The copies change which rows share a chunk and their indices within
+    it, and so which row wins a tie at equal quantized depth: a render
+    of this plan scans the packed chunks (vector.install_statics).
     """
     pvs, room_mask = bank_np.room_pvs, bank_np.room_mask
     if all(pvs[li][np.ix_(m, m)].all() for li, m in enumerate(room_mask)):
@@ -344,36 +351,127 @@ def plan_packed_pvs(bank_np: Layout, chunk_cap: int, overhead_tris: int,
     return packed, k, sched_len, cost
 
 
-def install_statics(bank_np: Layout, tex_np: np.ndarray):
-    """The static decisions of the JAX package's ``_install_bank`` for
-    a fresh bank in fourier mode without domain randomization.
+def chunk_cap(num_envs: int, hw: int) -> int:
+    """The JAX package's largest prim chunk for a batch of ``num_envs``
+    envs rendering ``hw`` pixels each (``MiniWorldVec._chunk_cap``,
+    miniworld_tpu/vector.py:470-489): a runaway guard on its (B', HW,
+    chunk) f32 intermediates, B' = min(B, 1024), in multiples of 16, at
+    most 1024 (the z-key's row budget)."""
+    auto = int(4e10 / 4 / max(min(int(num_envs), 1024) * int(hw), 1))
+    return min((auto // 16) * 16 or 16, MAX_CHUNK)
 
-    Returns (bank, statics dict): the bank with each prim's atlas base
-    baked into its attr slot column (every slot renders variant 0; both
-    variants of a paired procgen bank), and ``tri_chunk``,
-    ``all_quads``, ``shapes_present``, ``has_gain`` and ``pg_wall``:
-    for a paired bank the (L, Sp) i32 wall of each row (-1 = none),
-    from ``pg_sel_onehot`` / ``pg_sel_base``, else None.
 
-    The port renders a bank in ONE chunk: its tri_pass kernel takes up
-    to MAX_CHUNK prims per env in one pass, whatever the bank's PVS.
-    That is exact: the JAX package's PVS schedules (plan_culling /
-    plan_packed_pvs) only skip prims that cannot be seen, and the
-    keyed-z competition does not depend on how prims are split into
-    chunks. Larger banks need multi-chunk scans, a later slice. A super
-    bank renders its paired rows (``pg_*``, Sp <= S rows), which the
-    tri-axis padding leaves as they are.
+def plan_chunks(bank_np: Layout, num_envs: int, hw: int):
+    """The JAX package's chunk plan for a fresh bank (``_install_bank``
+    with ``fresh=True``, miniworld_tpu/vector.py:573-625), from the port's
+    copies of its planners at its per-chunk overhead.
+
+    Returns (bank repadded to a multiple of ``tri_chunk``, with the
+    packed copies for "packed_pvs"; plan dict): ``kind`` "dense" (full
+    scans of S / tri_chunk chunks), "packed_pvs" (per-room visible sets
+    packed contiguously, ``sched_len`` chunks a render from the camera
+    room's ``pvs_room_base``) or "chunk_vis" (the chunks visible from
+    the camera's room, ``sched_len`` at most); ``tri_chunk``;
+    ``sched_len`` (None for dense); ``cap``, the chunk cap.
     """
+    cap = chunk_cap(num_envs, hw)
     s_nat = bank_np.tri_mask.shape[1]
-    if s_nat > MAX_CHUNK:
+    _, chunks_k, chunks_bound = plan_culling(bank_np, cap, JAX_CHUNK_OVERHEAD_TRIS)
+    if chunks_bound is not None:
+        chunks_cost = chunks_bound * (chunks_k + JAX_CHUNK_OVERHEAD_TRIS)
+    else:
+        chunks_cost = (-(-s_nat // chunks_k)) * (chunks_k + JAX_CHUNK_OVERHEAD_TRIS)
+    packed, packed_k, packed_sched, packed_cost = plan_packed_pvs(
+        bank_np, cap, JAX_CHUNK_OVERHEAD_TRIS)
+    plan = dict(kind="dense", tri_chunk=None, sched_len=None, cap=cap)
+    if packed is not None and packed_cost < chunks_cost:
+        plan.update(kind="packed_pvs", tri_chunk=packed_k, sched_len=packed_sched)
+        return dataclasses.replace(_repad_for_chunks(bank_np, packed_k), **packed), plan
+    tri_chunk = min(chunks_k, s_nat)
+    trial = _repad_for_chunks(bank_np, tri_chunk)
+    vis = _chunk_visibility(trial, tri_chunk)
+    bound = 1
+    for li in range(vis.shape[0]):
+        counts = vis[li].sum(axis=0)[trial.room_mask[li]]
+        if counts.size:
+            bound = max(bound, int(counts.max()))
+    if bound < vis.shape[1]:
+        plan.update(kind="chunk_vis", tri_chunk=tri_chunk, sched_len=bound)
+        return trial, plan
+    plan["tri_chunk"] = min(cap, s_nat)
+    return _repad_for_chunks(bank_np, plan["tri_chunk"]), plan
+
+
+def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int):
+    """The static decisions of the JAX package's ``_install_bank`` for
+    a fresh bank in fourier mode without domain randomization, for a
+    batch of ``num_envs`` envs rendering ``hw`` pixels each.
+
+    Returns (bank, statics dict): the bank repadded for its chunk plan
+    (``plan_chunks``), with each prim's atlas base baked into its attr
+    slot column (every slot renders variant 0; both variants of a
+    paired procgen bank), and ``plan``, ``tri_chunk``, ``all_quads``,
+    ``shapes_present``, ``has_gain`` and ``pg_wall``: for a paired bank
+    the (L, Sp) i32 wall of each row (-1 = none), from
+    ``pg_sel_onehot`` / ``pg_sel_base``, else None.
+
+    The port renders the JAX package's split, because the split decides
+    ties. Each row's z-key carries its index WITHIN its chunk
+    (raycast.py:421-425), and the carry across chunks takes a chunk's
+    winner only on a strictly greater key (raycast.py:444-456): a tie at
+    equal quantized depth goes to the larger chunk-local index, and
+    between chunks to the earlier chunk. So the port renders a dense
+    plan in its chunks (one, or the multi-chunk scan), and the
+    packed-PVS plan of one chunk a render (the 8x8 Maze's layout bank)
+    as that one chunk: each env scans its camera room's packed visible
+    set, ``pvs_v9_rows`` / ``pvs_attr_rows`` row ``layout * NC +
+    pvs_room_base[layout, room]``, as the JAX package's one-hot chunk
+    read does. It raises NotImplementedError, naming the plan, for every
+    other plan:
+    ``chunk_vis`` schedules, packed PVS of more than one chunk a render,
+    mesh entities over more than one chunk, and a paired procgen bank
+    whose Sp rows exceed one chunk (JAX clamps its last chunk's start,
+    so that chunk re-reads rows at shifted local indices). A super bank
+    renders its paired rows (``pg_*``), which the repad leaves as they
+    are.
+    """
+    bank_np, plan = plan_chunks(bank_np, num_envs, hw)
+    tri_chunk, s_bank = plan["tri_chunk"], bank_np.tri_mask.shape[1]
+    where = f"(B={num_envs}, {hw} px: chunk cap {plan['cap']})"
+    if plan["kind"] == "chunk_vis" or (plan["kind"] == "packed_pvs" and plan["sched_len"] > 1):
         raise NotImplementedError(
-            f"{s_nat} prims exceed one chunk ({MAX_CHUNK}); multi-chunk "
-            "scans are not ported yet"
-        )
-    bank_np = _repad_for_chunks(bank_np, s_nat)  # one chunk: a no-op pad
+            f"the JAX package's {plan['kind']} plan (tri_chunk {tri_chunk}, sched_len "
+            f"{plan['sched_len']}) {where} is not ported yet")
+    shp = bank_np.proto_shape
+    shapes_present = (
+        bool((shp == SHAPE_SPHERE).any()),
+        bool(((shp == SHAPE_BOX) | (shp == SHAPE_MESH_BOX)).any()),
+        bool((shp == SHAPE_MESH_TRIS).any()),
+    )
+    if plan["kind"] == "dense" and s_bank > tri_chunk and shapes_present[2]:
+        raise NotImplementedError(
+            f"mesh entities over {s_bank // tri_chunk} chunks of {tri_chunk} prims {where} "
+            "(a seeded multi-chunk scan) are not ported yet")
+    if bank_np.pg_verts9 is not None and bank_np.pg_verts9.shape[2] > tri_chunk:
+        raise NotImplementedError(
+            f"a paired procgen bank of Sp={bank_np.pg_verts9.shape[2]} rows in chunks of "
+            f"{tri_chunk} {where} is not ported yet")
     ta = bank_np.tri_attr.copy()
     ta[:, :, 14] = bank_np.tri_tex_base
     bank_np = dataclasses.replace(bank_np, tri_attr=ta)
+    if plan["kind"] == "packed_pvs":
+        # slot columns baked as in the bank; the chunk-row views of the
+        # JAX package's one-hot chunk read, (L * NC, 9 * k) and (L * NC,
+        # k * 16), which the render reads as (L * NC, 9, k) and (L * NC,
+        # k, 16) banks of one chunk
+        pa = bank_np.pvs_attr.copy()
+        pa[:, :, 14] = bank_np.pvs_tri_tex_base
+        L, _, s2 = bank_np.pvs_verts9.shape
+        nc = s2 // tri_chunk
+        v9r = np.ascontiguousarray(bank_np.pvs_verts9.reshape(L, 9, nc, tri_chunk)
+                                   .transpose(0, 2, 1, 3).reshape(L * nc, 9 * tri_chunk))
+        atr = np.ascontiguousarray(pa.reshape(L * nc, -1))
+        bank_np = dataclasses.replace(bank_np, pvs_attr=pa, pvs_v9_rows=v9r, pvs_attr_rows=atr)
     all_quads = bool((bank_np.tri_attr[:, :, 15][bank_np.tri_mask] == 0.0).all())
     pg_wall = None
     if bank_np.tri_wall is not None:
@@ -389,16 +487,12 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray):
         pg_wall = _paired_walls(bank_np)
         if all_quads and not ((pga[:, :, 15] == 0.0).all() and (pgaa[:, :, 15] == 0.0).all()):
             raise ValueError("all_quads holds for the dense bank but not its paired rows")
-    shp = bank_np.proto_shape
     statics = dict(
-        tri_chunk=s_nat,
+        plan=plan,
+        tri_chunk=tri_chunk,
         all_quads=all_quads,
         pg_wall=pg_wall,
-        shapes_present=(
-            bool((shp == SHAPE_SPHERE).any()),
-            bool(((shp == SHAPE_BOX) | (shp == SHAPE_MESH_BOX)).any()),
-            bool((shp == SHAPE_MESH_TRIS).any()),
-        ),
+        shapes_present=shapes_present,
         has_gain=bool(((tex_np[:, -1] > 1.0) | (tex_np[:, -1] < 0.0)).any()),
     )
     return bank_np, statics
@@ -489,10 +583,13 @@ class MiniWorldVec:
         self.use_kernels = use_kernels
 
         bank_np, tex_np = build_super_bank(spec) if self.procgen else build_bank(spec)
-        bank_np, statics = install_statics(bank_np, tex_np)
+        bank_np, statics = install_statics(bank_np, tex_np, self.num_envs,
+                                           self.obs_width * self.obs_height)
         if statics["has_gain"]:
             raise NotImplementedError("glyph textures are not ported yet")
         self._bank_np = bank_np
+        # the JAX package's chunk plan (plan_chunks), which the render follows
+        self.plan = statics["plan"]
         self.tri_chunk = statics["tri_chunk"]
         self._all_quads = statics["all_quads"]
         self._shapes_present = statics["shapes_present"]
@@ -648,7 +745,7 @@ class MiniWorldVec:
         )
         truncated = state.step_count >= spec.max_episode_steps
         ctx = Ctx(prev=prev, state=state, res=res, action=action_vec,
-                  action_idx=action_idx, truncated=truncated)
+                  action_idx=action_idx, truncated=truncated, bank=bank)
         reward, term, state = spec.transition(ctx)
         done = term | truncated
         info = {
@@ -673,7 +770,8 @@ class MiniWorldVec:
             width=self.obs_width, height=self.obs_height, k_terms=self.fourier_k,
             shapes_present=self._shapes_present, all_quads=self._all_quads,
             use_kernels=self.use_kernels, pg_wall=self._pg_wall,
-            table=self._fourier_table,
+            table=self._fourier_table, tri_chunk=self.tri_chunk,
+            packed_pvs=self.plan["kind"] == "packed_pvs",
         )
 
     def _obs(self, rgb, depth):
@@ -694,24 +792,36 @@ class MiniWorldVec:
         state, reward, done, info = self._step_batch(state, actions)
         return state, self._obs(*self.render(state)), reward, done, info
 
-    def sample_actions(self, generator: torch.Generator) -> torch.Tensor:
-        """(B,) uniform discrete actions from ``generator``."""
-        return torch.randint(0, self._action_table.shape[0], (self.num_envs,),
-                             generator=generator, device=self.device)
+    def sample_actions(self, key: torch.Tensor) -> torch.Tensor:
+        """(..., B) uniform discrete actions from key data (..., 2): the
+        JAX package's ``sample_actions`` for a table-action spec,
+        ``jax.random.randint(key, (B,), 0, A)``, value for value."""
+        return rng_ops.randint(key.to(self.device), self.num_envs, self._action_table.shape[0])
 
-    def rollout(self, state: EnvState, obs, generator: torch.Generator,
-                horizon: int):
-        """``horizon`` random-policy steps (step + render each).
+    def rollout_actions(self, key: torch.Tensor, horizon: int) -> torch.Tensor:
+        """(horizon, B) actions of ``rollout`` from key data (2,): step t
+        acts on the first split of ``split(key, horizon)[t]``, as the JAX
+        package's ``rollout_fn`` does, in four batched threefry calls."""
+        step_keys = rng_ops.split(key.to(self.device), horizon)  # (horizon, 2)
+        # the first of two splits is split(k, 1)[0]: split i of k is
+        # threefry(k, (0, i)) whatever their number
+        return self.sample_actions(rng_ops.split(step_keys, 1)[:, 0])
+
+    def rollout(self, state: EnvState, obs, key: torch.Tensor, horizon: int):
+        """``horizon`` random-policy steps (step + render each) from the
+        (2,) key data ``key`` (``ops.rng.key_data(seed)``).
 
         Returns (state, obs, outs) with ``outs`` the per-step sums of
         the JAX package's ``rollout_fn``: "reward" (horizon,) f32,
         "dones" (horizon,) and "obs_sum" (horizon,) int64, the latter a
         checksum of every 8th pixel row and column that keeps each
-        render's result live. No host sync happens inside.
+        render's result live. The actions are ``rollout_fn``'s
+        (``rollout_actions``); they depend only on the key and the step,
+        so the whole horizon's are drawn before the loop, once, not per
+        step. No host sync happens inside.
         """
         rewards, dones, sums = [], [], []
-        for _ in range(horizon):
-            actions = self.sample_actions(generator)
+        for actions in self.rollout_actions(key, horizon):
             state, reward, done, _ = self._step_batch(state, actions)
             rgb, depth = self.render(state)
             rewards.append(reward.sum())

@@ -24,14 +24,17 @@ TEXTURES = sorted(glob.glob(os.path.join(
     "miniworld_tpu", "assets", "textures", "*.png")))
 FIELDS = [f.name for f in dataclasses.fields(Layout)]
 ENV_IDS = ["MiniWorld-Hallway-v0", "MiniWorld-FourRooms-v0", "MiniWorld-TMaze-v0",
-           "MiniWorld-PickupObjects-v0"]
+           "MiniWorld-PickupObjects-v0", "MiniWorld-OneRoom-v0", "MiniWorld-OneRoomS6-v0",
+           "MiniWorld-OneRoomS6Fast-v0", "MiniWorld-YMaze-v0", "MiniWorld-YMazeLeft-v0",
+           "MiniWorld-YMazeRight-v0", "MiniWorld-WallGap-v0", "MiniWorld-NavigateWallGap-v0",
+           "MiniWorld-Sidewalk-v0"]
 
 
 @pytest.fixture(scope="module", params=ENV_IDS)
 def banks(request):
     jenv = JaxVec(request.param, num_envs=2, obs_width=80, obs_height=60)
     bank_np, tex_np = tvector.build_bank(make_spec(request.param))
-    bank_np, statics = tvector.install_statics(bank_np, tex_np)
+    bank_np, statics = tvector.install_statics(bank_np, tex_np, 2, 80 * 60)
     return jenv, bank_np, tex_np, statics
 
 

@@ -1,0 +1,319 @@
+"""The port's chunk plans and chunked scans against the JAX package's.
+
+The split of a bank into chunks decides ties at equal quantized depth
+(the z-key carries a row's index within its chunk, and the carry across
+chunks keeps the earlier chunk's winner), so the port reproduces the
+JAX package's plan: for every ported id at three (B, W, H), the port's
+plan equals JAX's or the port raises NotImplementedError naming it.
+The multi-chunk scan's plain version is held against JAX's ``_tri_pass``
+on a bank whose prims are copied across chunk boundaries (ties on many
+pixels), and the kernel's one-pass select, copied in torch, against the
+chunk loop; the Maze layout bank's packed-PVS plan renders its packed
+chunks as JAX's scan does.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from miniworld_tpu import MiniWorldVec as JaxVec
+from miniworld_tpu import vector as jvector
+from miniworld_tpu.envs import make_spec as jax_make_spec
+from miniworld_tpu.ops import geom as jgeom
+from miniworld_tpu.render import raycast as jrc
+from miniworld_tpu_torch import MiniWorldVec, vector as tvector
+from miniworld_tpu_torch.convert import layout_from_numpy
+from miniworld_tpu_torch.envs import ENV_IDS, make_spec
+from miniworld_tpu_torch.render import raycast as trc
+
+from _torch_parity import to_port_state
+
+SIZES = [(8, 80, 60), (1024, 80, 60), (1024, 160, 120)]
+BANK_MODE = ["MiniWorld-MazeS2-v0", "MiniWorld-MazeS3-v0", "MiniWorld-MazeS3Fast-v0"]
+CASES = [(env_id, None) for env_id in ENV_IDS] + [(env_id, False) for env_id in BANK_MODE]
+_BANKS = {}
+
+
+def _port_bank(env_id, procgen):
+    """The port's host-built bank and atlas of an id, built once."""
+    if (env_id, procgen) not in _BANKS:
+        spec = make_spec(env_id)
+        use_pg = spec.procgen_default if procgen is None else procgen
+        build = tvector.build_super_bank if use_pg else tvector.build_bank
+        _BANKS[env_id, procgen] = build(spec)
+    return _BANKS[env_id, procgen]
+
+
+@pytest.mark.parametrize("size", SIZES, ids=lambda s: "B%d-%dx%d" % s)
+@pytest.mark.parametrize("env_id,procgen", CASES,
+                         ids=lambda v: {None: "", False: "bank"}.get(v, v))
+def test_plan_matches_jax(env_id, procgen, size):
+    """tri_chunk, the padded S, the plan's kind and schedule length and
+    the chunk cap equal the JAX package's; where JAX scans a paired
+    procgen bank in more than one chunk (its last chunk clamped), the
+    port raises instead."""
+    b, w, h = size
+    jenv = JaxVec(env_id, num_envs=b, obs_width=w, obs_height=h, procgen=procgen)
+    bank_np, tex_np = _port_bank(env_id, procgen)
+    pg = jenv._bank_np.pg_verts9
+    if pg is not None and pg.shape[2] > jenv.tri_chunk:
+        with pytest.raises(NotImplementedError, match="paired procgen bank"):
+            tvector.install_statics(bank_np, tex_np, b, w * h)
+        return
+    got, statics = tvector.install_statics(bank_np, tex_np, b, w * h)
+    plan = statics["plan"]
+    assert plan["cap"] == jenv._chunk_cap
+    assert statics["tri_chunk"] == plan["tri_chunk"] == jenv.tri_chunk
+    assert got.tri_mask.shape == jenv._bank_np.tri_mask.shape
+    assert (plan["kind"] == "chunk_vis") == (jenv._chunk_vis is not None)
+    assert (plan["kind"] == "packed_pvs") == jenv._pvs_packed
+    assert plan["sched_len"] == jenv._sched_len
+    if env_id == "MiniWorld-Sidewalk-v0":  # the widest dense bank: 3 or 6 chunks
+        assert (got.tri_mask.shape[1], plan["tri_chunk"]) == (
+            (2976, 496) if w == 160 else (3072, 1024))
+
+
+def test_port_plans_its_maze_at_160x120_raises():
+    """The port's constructor raises for the one plan it cannot render
+    among the ported ids' defaults: procgen Maze 8x8 (Sp = 608 paired
+    rows) at 160x120 with B = 1024, chunk cap 496."""
+    assert tvector.chunk_cap(1024, 160 * 120) == 496
+    with pytest.raises(NotImplementedError, match="Sp=608 rows in chunks of 496"):
+        tvector.install_statics(*_port_bank("MiniWorld-Maze-v0", None), 1024, 160 * 120)
+
+
+@pytest.fixture(scope="module")
+def maze2_bank():
+    """The 8x8 Maze's layout bank from its first 2 layouts (JAX's build)."""
+    return jvector.build_bank(jax_make_spec("MiniWorld-Maze-v0", num_layouts=2))[0]
+
+
+@pytest.mark.parametrize("kind", ["packed_pvs", "chunk_vis"])
+def test_unported_plans_raise(maze2_bank, kind, monkeypatch):
+    """Packed PVS over more than one chunk a render, and a chunk_vis
+    schedule, raise NotImplementedError naming the plan: the 8x8 Maze's
+    layout bank at a chunk cap of 96 plans packed PVS of 2 chunks of 96
+    a render, in the port as in the JAX package; without the packed
+    planner it plans chunk_vis culling."""
+    hw = int(4e10 / 4 / 1024 / 96)
+    assert tvector.chunk_cap(1024, hw) == 96
+    if kind == "packed_pvs":
+        j_packed = jvector.plan_packed_pvs(maze2_bank, 96)
+        assert j_packed[1:3] == (96, 2)
+    else:
+        monkeypatch.setattr(tvector, "plan_packed_pvs",
+                            lambda bank, cap, over: (None, cap, None, np.inf))
+    _, plan = tvector.plan_chunks(maze2_bank, 1024, hw)
+    assert plan["kind"] == kind and plan["sched_len"] > 1
+    if kind == "packed_pvs":
+        assert (plan["tri_chunk"], plan["sched_len"]) == j_packed[1:3]
+    tex = np.ones((2, 4 + 8 * 16), np.float32)
+    with pytest.raises(NotImplementedError, match=f"{kind} plan"):
+        tvector.install_statics(maze2_bank, tex, 1024, hw)
+
+
+# ---------------------------------------------------------------------------
+# the multi-chunk scan
+
+
+def _jax_cameras(jstate, w, h):
+    def one(state):
+        origin = jgeom.cam_position(state.pos, state.dir, state.cam_height, state.cam_fwd_disp)
+        return origin, jrc.camera_grid(state, w, h)
+
+    return jax.jit(jax.vmap(one))(jstate)
+
+
+def _port_camera(jstate, w, h):
+    """The port's Camera of a JAX state, its rays equal to JAX's."""
+    origin, (fwd, right, up, xv, yv) = _jax_cameras(jstate, w, h)
+    cam = trc.camera_grid(to_port_state(jstate), w, h)
+    np.testing.assert_array_equal(cam.origin.numpy(), np.asarray(origin))
+    np.testing.assert_array_equal(cam.xv().numpy(), np.asarray(xv))
+    np.testing.assert_array_equal(cam.yv().numpy(), np.asarray(yv))
+    return cam, (origin, (fwd, right, up, xv, yv))
+
+
+TIE_W, TIE_H, TIE_B = 40, 30, 8
+
+
+@pytest.fixture(scope="module")
+def tie_case():
+    """Hallway cameras spread over the hallway facing +x, and a bank of
+    4 x 16 prims in front of them: chunk-sized groups of 16 random
+    quads and triangles, the second group a copy of the first (the same
+    chunk-local indices at tri_chunk 16), the third the first rolled by
+    5 rows (other local indices), the fourth new prims, and rows 1 and
+    2 equal (a tie inside a chunk). Every copy carries its own colours,
+    so the attributes tell the copies apart."""
+    jenv = JaxVec("MiniWorld-Hallway-v0", num_envs=TIE_B, obs_width=TIE_W, obs_height=TIE_H)
+    jstate, _ = jenv.reset(jax.random.key(5))
+    rng = np.random.default_rng(5)
+    pos = np.stack([rng.uniform(-0.5, 3.0, TIE_B), np.zeros(TIE_B),
+                    rng.uniform(-1.0, 1.0, TIE_B)], 1)
+    jstate = jstate.replace(pos=jnp.asarray(pos, jnp.float32),
+                            dir=jnp.asarray(rng.uniform(-0.4, 0.4, TIE_B), jnp.float32))
+    g = 16
+    v0 = np.stack([rng.uniform(4, 10, g), rng.uniform(0.0, 2.5, g), rng.uniform(-2, 2, g)])
+    e1 = rng.uniform(-2, 2, (3, g))
+    e2 = rng.uniform(-2, 2, (3, g))
+    base = np.concatenate([v0, v0 + e1, v0 + e2])  # (9, g)
+    base[:, 2] = base[:, 1]
+    new = base[:, rng.permutation(g)] + rng.uniform(-0.5, 0.5, (9, 1))
+    verts9 = np.concatenate([base, base, np.roll(base, 5, axis=1), new], 1)[None]
+    S = verts9.shape[2]
+    attr = rng.uniform(-1, 1, (1, S, 16)).astype(np.float32)
+    attr[0, :, 15] = np.tile((np.arange(g) % 2).astype(np.float32), 4)
+    attr[0, 32:48, 15] = np.roll(attr[0, :16, 15], 5)
+    return jstate, verts9.astype(np.float32), attr
+
+
+@pytest.mark.parametrize("tri_chunk", [16, 4])
+def test_tri_pass_chunked_matches_jax_on_ties(tie_case, tri_chunk):
+    """tri_pass_chunked equals JAX's ``_tri_pass`` with the same chunk on
+    every pixel, t and attributes, on the tie bank; the ties decide
+    hundreds of pixels (there the global row index would pick another
+    copy than the chunk rule)."""
+    jstate, verts9, attr = tie_case
+
+    def one(s, o, r):
+        return jrc._tri_pass(jnp.asarray(verts9), jnp.asarray(attr), jnp.int32(0), o, r,
+                             tri_chunk)
+
+    origin, rays = _jax_cameras(jstate, TIE_W, TIE_H)
+    t_j, a_j = jax.jit(jax.vmap(one))(jstate, origin, rays)
+    cam, _ = _port_camera(jstate, TIE_W, TIE_H)
+    lid = torch.zeros(TIE_B, dtype=torch.int32)
+    v9, at = torch.from_numpy(verts9), torch.from_numpy(attr)
+    t_t, a_t = trc.tri_pass_chunked(v9, at, lid, cam, tri_chunk)
+    assert a_t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t_t.numpy(), np.asarray(t_j))
+    np.testing.assert_array_equal(a_t.float().numpy(), np.asarray(a_j.astype(jnp.float32)))
+    assert np.isfinite(np.asarray(t_j)).mean() > 0.2
+    # the global-index rule of one 64-row chunk picks other copies
+    _, a_global = trc.tri_pass_plain(v9, at, lid, cam)
+    decided = int((a_global != a_t).any(-1).sum())
+    assert decided >= 100, decided
+
+
+def _one_pass_select(verts9, attr, layout_id, cam, tri_chunk):
+    """Torch copy of the tri_pass kernel's multi-chunk select: one max
+    over every row of the 64-bit (key << 8) | (255 - chunk), the key
+    built from the row's chunk-local index, the chunk from the kernel's
+    float formula."""
+    rows = trc.stage_rows(verts9, attr, layout_id, cam)
+    keys = trc._row_keys(rows, cam.xv(), cam.yv(), False).long()  # (B, S, HW)
+    s = torch.arange(rows.shape[1])
+    chunk = torch.floor((s.float() + 0.5) * (1.0 / torch.tensor(float(tri_chunk)))).long()
+    local = s - chunk * tri_chunk
+    key = (keys & ~trc._IDX_MASK) | local[None, :, None]
+    ranked = torch.where(keys > 0, (key << 8) | (255 - chunk)[None, :, None],
+                         torch.zeros_like(keys))
+    best = ranked.amax(dim=1)
+    key = (best >> 8).to(torch.int32)
+    row = (255 - (best & 0xFF)) * tri_chunk + (key & trc._IDX_MASK).long()
+    row = torch.where(key > 0, row, torch.zeros_like(row))
+    sel = trc._gather_rows(attr[layout_id.long()], row).to(torch.bfloat16)
+    return trc._t_from_key(key), torch.where((key > 0)[:, :, None], sel, torch.zeros_like(sel))
+
+
+@pytest.mark.parametrize("tri_chunk", [16, 4])
+def test_kernel_select_matches_chunk_loop(tie_case, tri_chunk):
+    jstate, verts9, attr = tie_case
+    cam, _ = _port_camera(jstate, TIE_W, TIE_H)
+    lid = torch.zeros(TIE_B, dtype=torch.int32)
+    v9, at = torch.from_numpy(verts9), torch.from_numpy(attr)
+    t_k, a_k = _one_pass_select(v9, at, lid, cam, tri_chunk)
+    t_p, a_p = trc.tri_pass_chunked(v9, at, lid, cam, tri_chunk)
+    assert torch.equal(t_k, t_p) and torch.equal(a_k, a_p)
+
+
+def test_kernel_chunk_index_formula():
+    """floor((s + 0.5) * (1 / tri_chunk)) in float32 is s // tri_chunk
+    for every row s < 4096 and every chunk 16 <= tri_chunk <= 1024."""
+    s = torch.arange(4096, dtype=torch.int64)
+    for tc in range(16, 1025):
+        inv = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(float(tc))
+        got = torch.floor((s.float() + 0.5) * inv).long()
+        assert torch.equal(got, s // tc), tc
+
+
+def test_render_plain_multi_chunk():
+    """Sidewalk at B=4, 40x30, plans 3 chunks of 1024; its render with
+    use_kernels=False scans them with tri_pass_chunked, as the wrapper
+    does for CPU tensors."""
+    env = MiniWorldVec("MiniWorld-Sidewalk-v0", 4, obs_width=40, obs_height=30, device="cpu")
+    assert env.plan["kind"] == "dense" and env.tri_chunk == 1024
+    assert env._bank.tri_verts9.shape[2] == 3072
+    state, (rgb, depth) = env.reset(2)
+    env.use_kernels = False
+    rgb_p, depth_p = env.render(state)
+    assert torch.equal(rgb, rgb_p) and torch.equal(depth, depth_p)
+
+
+# ---------------------------------------------------------------------------
+# the packed-PVS plan (the 8x8 Maze's layout bank)
+
+
+@pytest.fixture(scope="module")
+def maze_bank():
+    """The 8x8 Maze's layout bank from its first 4 layouts, in the JAX
+    package and the port, at B=16 (packed PVS: chunks of 176, one a
+    render, as the full 64-layout bank plans)."""
+    b = 16
+    jenv = JaxVec(jax_make_spec("MiniWorld-Maze-v0", num_layouts=4), num_envs=b,
+                  obs_width=TIE_W, obs_height=TIE_H, procgen=False)
+    tenv = MiniWorldVec(make_spec("MiniWorld-Maze-v0", num_layouts=4), b, obs_width=TIE_W,
+                        obs_height=TIE_H, procgen=False, device="cpu")
+    assert jenv._pvs_packed and (jenv.tri_chunk, jenv._sched_len) == (176, 1)
+    assert tenv.plan["kind"] == "packed_pvs" and tenv.tri_chunk == 176
+    return jenv, tenv
+
+
+def test_packed_bank_matches_jax(maze_bank):
+    """The installed packed bank (copies, room bases, chunk rows, baked
+    slot columns) equals the JAX package's, array for array."""
+    jenv, tenv = maze_bank
+    for name in ("pvs_verts9", "pvs_attr", "pvs_tri_tex_base", "pvs_room_base",
+                 "pvs_room_nchunks", "pvs_v9_rows", "pvs_attr_rows", "tri_attr"):
+        np.testing.assert_array_equal(getattr(tenv._bank_np, name),
+                                      getattr(jenv._bank_np, name), err_msg=name)
+
+
+def test_packed_scan_matches_jax(maze_bank):
+    """Each env scans its camera room's packed chunk: tri_pass on the
+    port's static_rows equals JAX's packed ``_tri_pass`` (the schedule
+    room_base + arange(1), the one-hot chunk read) on every pixel, t and
+    attributes, with the agents spread over every cell of the maze."""
+    jenv, tenv = maze_bank
+    b = tenv.num_envs
+    jstate, _ = jenv.reset(jax.random.key(8))
+    rng = np.random.default_rng(8)
+    cells = rng.permutation(64)[:b]
+    pos = np.stack([(cells % 8) * 3.25 + rng.uniform(0.5, 2.5, b), np.zeros(b),
+                    (cells // 8) * 3.25 + rng.uniform(0.5, 2.5, b)], 1)
+    jstate = jstate.replace(pos=jnp.asarray(pos, jnp.float32),
+                            dir=jnp.asarray(rng.uniform(-np.pi, np.pi, b), jnp.float32))
+    jbank = jenv._bank
+    ncl = jbank.pvs_v9_rows.shape[0] // jbank.pvs_verts9.shape[0]
+
+    def one(s, o, r):
+        room = jrc.room_of_point(jbank, s.layout_id, o[jnp.array([0, 2])])
+        sched = jbank.pvs_room_base[s.layout_id, room] + jnp.arange(1, dtype=jnp.int32)
+        return jrc._tri_pass(jbank.pvs_verts9, jbank.pvs_attr, s.layout_id, o, r, 176,
+                             chunk_sched=sched,
+                             chunk_rows=(jbank.pvs_v9_rows, jbank.pvs_attr_rows, ncl),
+                             all_quads=jenv._all_quads)
+
+    origin, rays = _jax_cameras(jstate, TIE_W, TIE_H)
+    t_j, a_j = jax.jit(jax.vmap(one))(jstate, origin, rays)
+    cam, _ = _port_camera(jstate, TIE_W, TIE_H)
+    bank = layout_from_numpy(tenv._bank_np)
+    rows, paired = trc.static_rows(bank, to_port_state(jstate), cam, packed_pvs=True)
+    assert paired is None and rows[0].shape == (4 * ncl, 9, 176)
+    t_t, a_t = trc.tri_pass(*rows, cam, tenv._all_quads, tri_chunk=176)
+    np.testing.assert_array_equal(t_t.numpy(), np.asarray(t_j))
+    np.testing.assert_array_equal(a_t.float().numpy(), np.asarray(a_j.astype(jnp.float32)))
+    assert np.isfinite(np.asarray(t_j)).mean() > 0.5

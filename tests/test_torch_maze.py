@@ -107,7 +107,7 @@ def test_installed_super_bank():
     ``pg_sel_base + wall_open @ pg_sel_onehot`` selects."""
     jenv = JaxVec("MiniWorld-MazeS3-v0", num_envs=2, obs_width=16, obs_height=12)
     bank_np, tex_np = tvector.build_super_bank(make_spec("MiniWorld-MazeS3-v0"))
-    got, statics = tvector.install_statics(bank_np, tex_np)
+    got, statics = tvector.install_statics(bank_np, tex_np, 2, 16 * 12)
     _assert_layouts_equal(got, jenv._bank_np)
     assert statics["tri_chunk"] == jenv.tri_chunk
     assert statics["all_quads"] == jenv._all_quads is True
@@ -127,11 +127,13 @@ def test_installed_super_bank():
     _assert_layouts_equal(tvector._repad_for_chunks(bank_np, 48), j_rep)
 
     with pytest.raises(NotImplementedError, match="tri_active"):
-        tvector.install_statics(dataclasses.replace(bank_np, pg_verts9=None), tex_np)
+        tvector.install_statics(dataclasses.replace(bank_np, pg_verts9=None), tex_np, 2,
+                                16 * 12)
     two = bank_np.pg_sel_onehot.copy()
     two[0, 0, int(np.argmax(pg_wall[0] == 1))] = 1.0  # a row of wall 1 also names wall 0
     with pytest.raises(ValueError, match="one-wall-per-row"):
-        tvector.install_statics(dataclasses.replace(bank_np, pg_sel_onehot=two), tex_np)
+        tvector.install_statics(dataclasses.replace(bank_np, pg_sel_onehot=two), tex_np, 2,
+                                16 * 12)
 
 
 def test_maze_specs():
@@ -271,7 +273,7 @@ def test_tri_pass_paired(maze3):
 
     t_j, a_j = jax.jit(jax.vmap(one))(jstate, origin, rays)
     bank_np, statics = tvector.install_statics(
-        *tvector.build_super_bank(make_spec("MiniWorld-MazeS3-v0")))
+        *tvector.build_super_bank(make_spec("MiniWorld-MazeS3-v0")), 2, 16 * 12)
     tb = layout_from_numpy(bank_np)
     ts = to_port_state(jstate)
     paired = (tb.pg_verts9_alt, tb.pg_attr_alt, torch.from_numpy(statics["pg_wall"]),

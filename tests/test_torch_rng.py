@@ -67,3 +67,23 @@ def test_sub_and_uniforms(purpose, shape):
     )
     want = np.asarray(jax.vmap(lambda s: jrng.uniforms(s, purpose, shape))(j_seed))
     np.testing.assert_array_equal(trng.uniforms(t_seed, purpose, shape).numpy(), want)
+
+
+@pytest.mark.parametrize("maxval", [3, 6, 8])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_randint(seed, maxval):
+    """``randint`` on key data equals ``jax.random.randint(key, (n,), 0,
+    maxval)``, from a seed's key and from split keys, batched."""
+    keys = jax.random.split(jax.random.key(seed), 5)
+    want = np.stack([np.asarray(jax.random.randint(k, (300,), 0, maxval)) for k in keys])
+    got = trng.randint(torch.from_numpy(_kd(keys)), 300, maxval).numpy()
+    np.testing.assert_array_equal(got, want)
+    want = np.asarray(jax.random.randint(jax.random.key(seed), (7,), 0, maxval))
+    np.testing.assert_array_equal(trng.randint(trng.key_data(seed), 7, maxval).numpy(), want)
+    assert set(np.unique(got)) == set(range(maxval))
+
+
+def test_random_bits():
+    key = jax.random.key(9)
+    want = np.asarray(jax.random.bits(key, (64,), jnp.uint32)).astype(np.int64)
+    np.testing.assert_array_equal(trng.random_bits(trng.key_data(9), 64).numpy(), want)

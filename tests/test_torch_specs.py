@@ -1,0 +1,46 @@
+"""The OneRoom and YMaze families against the JAX package: reset and 8
+steps at B=8, 40x30, half the agents walking to the red box from 1 m
+(their episodes end and auto-reset); YMaze's ``goal_pos`` info every
+step. Their banks are one chunk on today's kernels."""
+
+import numpy as np
+import pytest
+
+from miniworld_tpu.envs import make_spec as jax_make_spec
+from miniworld_tpu_torch.envs import make_spec
+
+from _torch_parity import facing, reset_and_steps
+
+B, W, H, STEPS = 8, 40, 30, 8
+IDS = ["MiniWorld-OneRoom-v0", "MiniWorld-OneRoomS6-v0", "MiniWorld-OneRoomS6Fast-v0",
+       "MiniWorld-YMaze-v0", "MiniWorld-YMazeLeft-v0", "MiniWorld-YMazeRight-v0"]
+
+
+def _half_to_the_box(jenv, jstate):
+    pos, yaw = facing(jenv, jstate, 0, 1.0)
+    forced = np.arange(B) < B // 2
+    return (np.where(forced[:, None], pos, np.asarray(jstate.pos)),
+            np.where(forced, yaw, np.asarray(jstate.dir)), forced)
+
+
+@pytest.mark.parametrize("env_id", IDS)
+def test_reset_and_steps(env_id):
+    dones, rewards, j_info, t_info = reset_and_steps(env_id, B, W, H, STEPS, seed=41,
+                                                     start=_half_to_the_box)
+    assert dones >= B // 2 and rewards > 0.0, (dones, rewards)
+    if "YMaze" in env_id:
+        assert "goal_pos" in t_info
+
+
+@pytest.mark.parametrize("env_id", IDS)
+def test_spec_fields(env_id):
+    """Step limits, goal positions and the per-episode parameters equal
+    the JAX package's specs."""
+    spec, jspec = make_spec(env_id), jax_make_spec(env_id)
+    assert spec.max_episode_steps == jspec.max_episode_steps
+    assert getattr(spec, "goal_pos", None) == getattr(jspec, "goal_pos", None)
+    np.testing.assert_array_equal(spec.discrete_actions, jspec.discrete_actions)
+    for name, p in jspec.params.params.items():
+        q = spec.params.params[name]
+        for k in ("default", "min", "max"):
+            np.testing.assert_array_equal(getattr(q, k), getattr(p, k), err_msg=name)

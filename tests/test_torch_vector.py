@@ -14,12 +14,12 @@ import torch
 
 from miniworld_tpu import MiniWorldVec as JaxVec
 from miniworld_tpu_torch import MiniWorldVec, make_spec
-from miniworld_tpu_torch.ops import mazegen, place as tplace
+from miniworld_tpu_torch.ops import mazegen, place as tplace, rng as trng
 from miniworld_tpu_torch.render import cuda_build, raycast as trc
-from miniworld_tpu_torch.state import tree_select
 
 from _torch_parity import (
-    ENV_ID, FLOAT_ATOL, H, W, assert_images_match, assert_states_match, to_port_state,
+    ENV_ID, FLOAT_ATOL, H, W, adopt_reset_ulps, assert_images_match, assert_states_match,
+    facing, to_port_state,
 )
 
 B = 8
@@ -33,47 +33,6 @@ def port_env():
 
 PICK_ID = "MiniWorld-PickupObjects-v0"
 RESET_ENVS = ["MiniWorld-Hallway-v0", "MiniWorld-FourRooms-v0", "MiniWorld-TMaze-v0", PICK_ID]
-
-
-def _facing(jenv, jstate, slot, dist):
-    """(pos, dir) that put each agent ``dist`` from entity ``slot`` along
-    x, on the side of the entity's room centre, facing it."""
-    bank = jenv._bank_np
-    target = np.asarray(jstate.ent_pos)[:, slot]
-    aabb = bank.room_aabb[0][bank.room_mask[0]]  # (R, 4) [min_x, max_x, min_z, max_z]
-    pos, yaw = [], []
-    for p in target:
-        inside = ((aabb[:, 0] <= p[0]) & (p[0] <= aabb[:, 1])
-                  & (aabb[:, 2] <= p[2]) & (p[2] <= aabb[:, 3]))
-        room = aabb[np.argmax(inside)]
-        side = 1.0 if p[0] > 0.5 * (room[0] + room[1]) else -1.0  # stand towards the centre
-        pos.append(p - [side * dist, 0.0, 0.0])
-        yaw.append(0.0 if side > 0 else np.pi)  # forward is (cos d, 0, -sin d)
-    return np.asarray(pos), np.asarray(yaw)
-
-
-def adopt_reset_ulps(jstate, tstate, done):
-    """The port's state after a step whose ``done`` envs auto-reset, with
-    the envs whose reset state differs from the JAX one continuing from
-    the JAX state.
-
-    XLA:CPU fuses the JAX placement's multiply-add in some placements
-    and not in others, so the agent's reset position can differ by one
-    ulp, which a wall edge's quantized depth shows on every later frame.
-    Only that difference is allowed; envs whose reset matched bit for
-    bit keep the port's own state.
-    """
-    b = tstate.pos.shape[0]
-    jport = to_port_state(jstate)
-    differs = torch.zeros(b, dtype=torch.bool)
-    for name, v in jport.tensors().items():
-        ne = (v != tstate.tensors()[name]).reshape(b, -1).any(dim=1)
-        assert name == "pos" or not bool(ne.any()), name
-        differs |= ne
-    one_ulp = torch.nextafter(tstate.pos, jport.pos)
-    assert torch.equal(one_ulp, jport.pos), "reset positions differ by more than one ulp"
-    swap = torch.from_numpy(np.array(done)) & differs
-    return tree_select(swap, jport, tstate)
 
 
 @pytest.mark.parametrize("env_id", RESET_ENVS)
@@ -93,7 +52,7 @@ def test_reset_and_ten_steps(port_env, env_id):
     dist = 1.5
     if pickup:  # the probe reaches 0.6 + 0.48 + the entity's radius ahead
         dist = 0.4 + float(np.asarray(jstate.ent_radius)[:, 0].max()) + 0.2
-    pos, yaw = _facing(jenv, jstate, 0, dist)
+    pos, yaw = facing(jenv, jstate, 0, dist)
     near = np.arange(B) < B // 2
     pos = np.where(near[:, None], pos, np.asarray(jstate.pos))
     jstate = jstate.replace(pos=jnp.asarray(pos, jnp.float32),
@@ -140,18 +99,32 @@ def test_rollout(port_env):
     state, obs = port_env.reset(0)
     outs = []
     for seed in (1, 2):
-        gen = torch.Generator().manual_seed(seed)
-        s, o, out = port_env.rollout(state, obs, gen, 4)
+        s, o, out = port_env.rollout(state, obs, trng.key_data(seed), 4)
         assert set(out) == {"reward", "dones", "obs_sum"}
         for v in out.values():
             assert v.shape == (4,)
         assert o[0].shape == (B, H, W, 3) and o[1].shape == (B, H, W, 1)
         assert s.step_count.shape == (B,)
         outs.append(out["obs_sum"])
-    assert not torch.equal(outs[0], outs[1]), "obs_sum must follow the generator"
-    # same generator seed, same trajectory
-    s, o, again = port_env.rollout(state, obs, torch.Generator().manual_seed(1), 4)
+    assert not torch.equal(outs[0], outs[1]), "obs_sum must follow the key"
+    # same key, same trajectory
+    s, o, again = port_env.rollout(state, obs, trng.key_data(1), 4)
     assert torch.equal(again["obs_sum"], outs[0])
+
+
+def test_rollout_matches_jax(port_env):
+    """The port's rollout from a key steps the JAX package's
+    ``rollout(state, obs, key, horizon)``: Hallway at B=8, horizon 4,
+    from the same reset; per-step reward, dones and obs_sum equal."""
+    jenv = JaxVec(ENV_ID, num_envs=B, obs_width=W, obs_height=H)
+    jstate, jobs = jenv.reset(jax.random.key(3))
+    tstate, tobs = port_env.reset(3)
+    for seed in (7, 8):
+        _, _, j_out = jenv.rollout(jstate, jobs, jax.random.key(seed), 4)
+        _, _, t_out = port_env.rollout(tstate, tobs, trng.key_data(seed), 4)
+        for k in ("reward", "dones", "obs_sum"):
+            np.testing.assert_array_equal(t_out[k].numpy(), np.asarray(j_out[k]).astype(
+                t_out[k].numpy().dtype), err_msg=k)
 
 
 def test_without_depth():
