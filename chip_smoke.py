@@ -16,17 +16,30 @@ version, at PickupObjects', on 1,000 wide and 1,024 grazing mesh rows
 and on a paired maze, and the multi-chunk tri_pass with tri_pass_chunked on
 Sidewalk views (chunks of 1,024, 496 and 16), WallGap views and a bank
 whose prims repeat across chunk boundaries (the ties the chunk rule
-decides). It reports what tri_pass's culling keeps ([tri-cull]) and
-times tri_pass rebuilt with other tiles ([tile-sweep]), then drives the
-port's main paths and checks what comes out: the Hallway fused rollout
+decides). Domain randomisation's texture-variant override in tri_pass is
+held against the plain versions' per-row override on every route
+([dr-stages]: FourRooms and Hallway in one chunk, Sidewalk in 3, the 8x8
+procgen Maze's paired bank at B=8192, the 8x8 Maze's layout bank as
+packed PVS, PickupObjects with mesh rows; each env's camera spread; the
+banks' own variant tables and synthetic ones), with winners and t equal
+to the launch without the key, and the supersample=2 epilogue against
+its plain version ([ss-epilogue]). It reports what tri_pass's culling
+keeps ([tri-cull]) and times tri_pass rebuilt with other tiles
+([tile-sweep]), then drives the port's main paths and checks what comes
+out: the Hallway fused rollout
 at B=1024, the PickupObjects one at B=4096, the Maze 8x8 procgen one at
 B=8192 and the Sidewalk, WallGap and NavigateWallGap ones at B=1024
 (80x60 RGB-D, random policy from a key), Hallway and PickupObjects
 against their plain paths, a MazeS3 procgen rollout at B=1024 with
 10-step episodes against its plain path (every env resets into fresh
 mazes), Sidewalk, WallGap, NavigateWallGap and YMaze at B=128 against
-their plain paths, and short FourRooms, TMaze, MazeS3 bank-mode, OneRoom
-and YMaze-family rollouts. One line per phase; the JSON summary of the
+their plain paths, short FourRooms, TMaze, MazeS3 bank-mode, OneRoom
+and YMaze-family rollouts, then the Maze 8x8 procgen rollout at B=8192
+and the FourRooms one at B=1024 with domain randomisation, the Hallway
+one at B=1024 and the PickupObjects one at B=4096 with supersample=2,
+and FourRooms and MazeS3 procgen with domain randomisation and Hallway
+with supersample=2 at B=128 against their plain paths, exactly. One line
+per phase; the JSON summary of the
 kernels and the card's ``nvidia-smi`` name and power limit come before
 the last line,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -53,21 +66,24 @@ ENV_ID = "MiniWorld-Hallway-v0"
 PICK_ID = "MiniWorld-PickupObjects-v0"
 B, W, H = 1024, 80, 60  # Hallway, and the FourRooms / TMaze / parity rollouts
 B_PICK = 4096  # PickupObjects, the reference's BASELINE batch for it
-HORIZON = 30
+# The horizons are cut to keep the run near five minutes as paths are
+# added: 20 steps for the main paths, 10 for the short ones
+HORIZON = 20
 TRIALS = 2  # Hallway; PickupObjects runs PICK_TRIALS
 PICK_TRIALS = 3
-SHORT_HORIZON = 20  # FourRooms, TMaze, MazeS3 and the PickupObjects parity rollouts
+SHORT_HORIZON = 10  # FourRooms, TMaze, MazeS3 bank-mode and the PickupObjects parity rollouts
 MAZE_ID = "MiniWorld-Maze-v0"  # 8x8, procgen: BASELINE config 4
 MAZE_S3_ID = "MiniWorld-MazeS3-v0"
 B_MAZE = 8192
 MAZE_S3_STEPS = 10  # episode length of the MazeS3 parity rollout: every env resets
+MAZE_S3_HORIZON = 2 * MAZE_S3_STEPS  # its trials: two episodes each
 # the widest static banks: Sidewalk (S = 3,072 in 3 chunks of 1,024) and
 # WallGap / NavigateWallGap (S = 2,048, 2 chunks), main paths at B
 SIDE_ID, WALL_ID, NAV_ID = ("MiniWorld-Sidewalk-v0", "MiniWorld-WallGap-v0",
                             "MiniWorld-NavigateWallGap-v0")
 B_STAGE = 64  # the multi-chunk stage checks
 B_PLAIN = 128  # the multi-chunk ids' and YMaze's kernel-vs-plain rollouts
-PLAIN_HORIZON = 10
+PLAIN_HORIZON = 6
 SHORT_IDS = ("MiniWorld-OneRoom-v0", "MiniWorld-OneRoomS6-v0", "MiniWorld-OneRoomS6Fast-v0",
              "MiniWorld-YMaze-v0", "MiniWorld-YMazeLeft-v0", "MiniWorld-YMazeRight-v0")
 
@@ -111,6 +127,16 @@ DEVICE_MS: dict = {}
 
 def say(phase: str, **kw):
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
+
+
+_LAP = [time.perf_counter(), time.perf_counter()]  # start of the run, of the phase
+
+
+def lap(phase: str):
+    """[time]: the host seconds since the last lap and since the start."""
+    now = time.perf_counter()
+    say("time", after=phase, seconds=f"{now - _LAP[1]:.1f}", total=f"{now - _LAP[0]:.1f}")
+    _LAP[1] = now
 
 
 # Before the first timing of the process, the timed function runs this
@@ -349,35 +375,39 @@ def check_stage(name, case, n_differ, differ, abs_err, rel_err, exact=False):
                              f"(winner differs {differ:.3e}, rel err {rel_err:.3e})")
 
 
-def plain_tri_pass(tri_args, mesh=None, paired=None, tri_chunk=None):
+def plain_tri_pass(tri_args, mesh=None, paired=None, tri_chunk=None, override=None):
     """tri_pass's plain version on these inputs: tri_pass_plain (seeded by
     the mesh pass on ``mesh`` rows), or tri_pass_chunked over more than
-    one chunk of ``tri_chunk``."""
+    one chunk of ``tri_chunk``; ``override``: every row's texture
+    variant in its slot column."""
     from miniworld_tpu_torch.render import raycast as rc
 
     verts9, attr, layout_id, cam, all_quads = tri_args
     if tri_chunk is not None and verts9.shape[2] > tri_chunk:
-        return rc.tri_pass_chunked(verts9, attr, layout_id, cam, tri_chunk, all_quads)
+        return rc.tri_pass_chunked(verts9, attr, layout_id, cam, tri_chunk, all_quads,
+                                   override)
     seed = None if mesh is None else rc.entity_mesh_pass_plain(*mesh, cam)
-    return rc.tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired)
+    return rc.tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired, override)
 
 
-def check_tri_pass(tri_args, case, mesh=None, paired=None, tri_chunk=None):
+def check_tri_pass(tri_args, case, mesh=None, paired=None, tri_chunk=None, override=None):
     """The tri_pass kernel against its plain version on every pixel (t
     and attributes); with ``mesh`` rows the fused launch against the mesh
     pass seeding tri_pass_plain; over more than one chunk of
-    ``tri_chunk`` the multi-chunk launch against tri_pass_chunked.
+    ``tri_chunk`` the multi-chunk launch against tri_pass_chunked; with
+    ``override`` the winner's texture variant against every row's.
     Returns (t, attr, max abs t error)."""
     from miniworld_tpu_torch.render import raycast as rc
 
     verts9, attr, layout_id, cam, all_quads = tri_args
-    t_k, a_k = rc.tri_pass(verts9, attr, layout_id, cam, all_quads, mesh, paired, tri_chunk)
-    t_p, a_p = plain_tri_pass(tri_args, mesh, paired, tri_chunk)
+    t_k, a_k = rc.tri_pass(verts9, attr, layout_id, cam, all_quads, mesh, paired, tri_chunk,
+                           override)
+    t_p, a_p = plain_tri_pass(tri_args, mesh, paired, tri_chunk, override)
     n_differ, differ, abs_err, rel_err = compare_hits(t_k, t_p, (a_k == a_p).all(-1))
     multi = tri_chunk is not None and verts9.shape[2] > tri_chunk
     check_stage("tri_pass" + (" mesh" if mesh else "") + (" paired" if paired else "")
-                + (" multi-chunk" if multi else ""), case, n_differ, differ, abs_err,
-                rel_err, exact=True)
+                + (" multi-chunk" if multi else "") + (" override" if override else ""),
+                case, n_differ, differ, abs_err, rel_err, exact=True)
     return t_k, a_k, abs_err
 
 
@@ -1098,6 +1128,242 @@ def phase_place(pick, four, maze, timings, pick_timings, work, pick_work):
 
 
 # ---------------------------------------------------------------------------
+# domain randomisation's texture-variant override and the supersample=2
+# epilogue
+
+
+def widen_cameras(state, gen):
+    """The states with each env's camera spread further than domain
+    randomisation draws it: fov 45-75 degrees, pitch -20 to 20, height
+    1.2-1.8, so that a kernel reading one env's camera for another, or a
+    cull margin that assumes one fov, shows."""
+    n = state.pos.shape[0]
+    u = torch.rand((n, 3), generator=gen).to(state.pos.device)
+    return state.replace(cam_fov_y=45.0 + 30.0 * u[:, 0], cam_pitch=-20.0 + 40.0 * u[:, 1],
+                         cam_height=1.2 + 0.6 * u[:, 2])
+
+
+def spread_tex(tex, gen, n_atlas=64):
+    """A synthetic table of the same rows as ``tex`` (slot id, atlas base,
+    variant count, 0): ids up to 2^20, bases -1 on a tenth of the rows,
+    counts 1-6, so that every route's rows take several variants (the
+    real banks of the Maze and PickupObjects have none)."""
+    if tex is None:
+        return None
+    shape = tex.shape[:-1]
+    ids = torch.randint(0, 1 << 20, shape, generator=gen).float()
+    base = torch.randint(0, n_atlas, shape, generator=gen).float()
+    base = torch.where(torch.rand(shape, generator=gen) < 0.1, torch.full_like(base, -1.0), base)
+    cnt = torch.randint(1, 7, shape, generator=gen).float()
+    return torch.stack([ids, base, cnt, torch.zeros_like(ids)], dim=-1).to(tex.device)
+
+
+def check_override(tri_args, override, case, mesh=None, paired=None, tri_chunk=None):
+    """tri_pass with the override against its plain version (0 differing
+    pixels in t and all 16 attributes), and against the same launch
+    without it: t and every attribute but the slot column equal (the
+    override never moves a winner). Returns (max abs t error, share of
+    the hit pixels whose slot the override changed)."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    t_k, a_k, err = check_tri_pass(tri_args, case, mesh, paired, tri_chunk, override)
+    t_n, a_n = rc.tri_pass(*tri_args, mesh, paired, tri_chunk)
+    if not (torch.equal(t_k, t_n) and torch.equal(a_k[..., :14], a_n[..., :14])
+            and torch.equal(a_k[..., 15], a_n[..., 15])):
+        raise AssertionError(f"tri_pass override ({case}): winners or t differ from the "
+                             "launch without the key")
+    hit = torch.isfinite(t_k)
+    changed = float((a_k[..., 14] != a_n[..., 14])[hit].float().mean()) if bool(hit.any()) else 0.0
+    say("override-vs-unkeyed", case=case, t_equal=True, other_attrs_equal=True,
+        hit_px_slot_changed=f"{changed:.3f}")
+    return err, changed
+
+
+def dr_route(env, state):
+    """(tri_args, mesh, paired, tri_chunk, override) of the env's render
+    of ``state``: its static_rows, mesh rows and the override from its
+    slot table, as render_rgbd passes them to tri_pass."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    cam = rc.camera_grid(state, W, H)
+    rows, paired = rc.static_rows(env._bank, state, cam, env._pg_wall,
+                                  env.plan["kind"] == "packed_pvs")
+    mesh = rc.entity_mesh_rows(env._bank, state)[:2] if env._shapes_present[2] else None
+    override = (state.tri_slots, *env._slot_tex)
+    return (*rows, cam, env._all_quads), mesh, paired, env.tri_chunk, override
+
+
+def phase_dr_stages(routes):
+    """[dr-stages]: tri_pass with the texture-variant override against
+    its plain version on every route, with each env's camera spread
+    (widen_cameras), once with the bank's own variant table and once
+    with a synthetic one (spread_tex); ``routes`` = [(label, env,
+    timed)]. The timed routes time the override launch beside the same
+    launch without the key, and the plain version. Returns (max abs t
+    error, {label: timings}, {label: work})."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    gen = torch.Generator().manual_seed(97)
+    err, timings, work = 0.0, {}, {}
+    for label, env, timed in routes:
+        if env.procgen:
+            state = random_maze_states(env, gen, seed=5)
+        elif env.spec.gym_id == PICK_ID:
+            state = facing_states(env, gen, (0.5, 0.5), (11.5, 11.5), seed=5)
+        else:  # over the rooms of the first layout
+            aabb = env._bank_np.room_aabb[0][env._bank_np.room_mask[0]]
+            state = spread_states(env, gen, (float(aabb[:, 0].min()), float(aabb[:, 2].min())),
+                                  (float(aabb[:, 1].max()), float(aabb[:, 3].max())), seed=5)
+        state = widen_cameras(state, gen)
+        tri, mesh, paired, tc, override = dr_route(env, state)
+        case = (f"{label} B={env.num_envs} HW={W * H} S={tri[0].shape[2]} tri_chunk={tc} "
+                f"plan={env.plan['kind']}{' mesh' if mesh else ''}{' paired' if paired else ''}")
+        e, _ = check_override(tri, override, case + " bank variants", mesh, paired, tc)
+        err = max(err, e)
+        synth = (override[0], spread_tex(override[1], gen), spread_tex(override[2], gen))
+        e, changed_s = check_override(tri, synth, case + " synthetic variants", mesh, paired, tc)
+        err = max(err, e)
+        if changed_s < 0.2:
+            raise AssertionError(f"{case}: the synthetic variants change only {changed_s:.3f} "
+                                 "of the slots")
+        if timed:
+            timings[label] = {
+                "override": (cuda_ms(lambda: rc.tri_pass(*tri, mesh, paired, tc, override), 50),
+                             cuda_ms(lambda: plain_tri_pass(tri, mesh, paired, tc, override), 1)),
+                "unkeyed": (cuda_ms(lambda: rc.tri_pass(*tri, mesh, paired, tc), 50), None),
+            }
+            stats = tri_cull_stats(tri, paired, block=64)
+            work[label] = tri_work(tri, stats["hit_pairs"], paired, override)
+            unkeyed_work = tri_work(tri, stats["hit_pairs"], paired)
+            say("kernel-time", kernel="tri_pass", instance="override",
+                ms=f"{timings[label]['override'][0]:.4f}",
+                plain_ms=f"{timings[label]['override'][1]:.4f}",
+                ms_without_override=f"{timings[label]['unkeyed'][0]:.4f}",
+                bound_ms=f"{bound(*work[label])[0]:.4f}", bound_by=bound(*work[label])[1],
+                bound_without_override_ms=f"{bound(*unkeyed_work)[0]:.4f}",
+                shapes=case)
+    return err, timings, work
+
+
+def tri_work(tri, hit_pairs, paired=None, override=None):
+    """(bytes, operations) of a tri_pass launch without mesh rows on these
+    inputs, as stage_work counts them; ``override`` adds its table and
+    keys (each read once) and 20 operations per pixel (the hash, the
+    floor, the clamp and the add)."""
+    verts9, _, layout_id, _, _ = tri
+    L, _, S = verts9.shape
+    b, hw = layout_id.shape[0], W * H
+    nbytes = L * S * (9 + 16) * 4 + b * 4 + b * 14 * 4 + (W + H) * 4 + b * hw * 36
+    if paired is not None:
+        nbytes += sum(t.numel() * t.element_size() for t in paired)
+    ops = hit_pairs * 22 + b * hw
+    if override is not None:
+        nbytes += b * 4 + sum(t.numel() * 4 for t in override[1:] if t is not None)
+        ops += b * hw * 20
+    return nbytes, ops
+
+
+def ss_stage_inputs(env, state):
+    """The SS=2 epilogue's inputs for the env's render of ``state``: the
+    kernels' tri_pass and entity_pass results on the 2W x 2H samples."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    cam = rc.camera_grid(state, 2 * W, 2 * H)
+    rows, paired = rc.static_rows(env._bank, state, cam, env._pg_wall,
+                                  env.plan["kind"] == "packed_pvs")
+    mesh = rc.entity_mesh_rows(env._bank, state)[:2] if env._shapes_present[2] else None
+    t_tri, attr = rc.tri_pass(*rows, cam, env._all_quads, mesh, paired, env.tri_chunk)
+    ent = (None,) * 3
+    if env._shapes_present[0] or env._shapes_present[1]:
+        ent = rc.entity_pass(state.ent_pos, state.ent_size, state.ent_dir, state.ent_height,
+                             state.ent_color, rc.entity_flags(env._bank, state), cam,
+                             *env._shapes_present[:2])
+    lights = (state.light_pos, state.light_color, state.light_ambient, state.sky_color)
+    return (t_tri, attr, *ent, env._atlas, cam, *lights, env.fourier_k)
+
+
+def phase_ss_epilogue(envs):
+    """[ss-epilogue]: the SS=2 pixel_epilogue against pixel_epilogue_plain
+    with ss=2 on each env's 2x2 samples (0 differing u8 values, equal
+    depth), timed with its plain version; ``envs`` = [(label, env)] at
+    their main paths' shapes. Returns ({label: (ms, plain ms)}, {label:
+    work}, the max abs u8 difference)."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    gen = torch.Generator().manual_seed(99)
+    timings, work, rgb_err = {}, {}, 0.0
+    for label, env in envs:
+        if env.spec.gym_id == PICK_ID:
+            state = facing_states(env, gen, (0.5, 0.5), (11.5, 11.5))
+        else:
+            state = spread_states(env, gen, (-0.5, -1.5), (10.5, 1.5))
+        args = ss_stage_inputs(env, state)
+        table = env._fourier_table
+        rgb_k, d_k = rc.pixel_epilogue(*args, table=table, ss=2)
+        rgb_p, d_p = rc.pixel_epilogue_plain(*args, ss=2)
+        diff = (rgb_k.int() - rgb_p.int()).abs()
+        n_rgb = int((diff.amax(-1) > 0).sum())
+        rgb_err = max(rgb_err, float(diff.max()))
+        n_depth = int((d_k != d_p).sum())
+        say("kernel-vs-plain", kernel="pixel_epilogue", instance="SS=2",
+            case=f"{label} B={env.num_envs} out={W}x{H} samples={2 * W}x{2 * H}",
+            rgb_differs_px=n_rgb, depth_differs_px=n_depth, exact=True)
+        if n_rgb or n_depth or rgb_k.shape != (env.num_envs, H, W, 3):
+            raise AssertionError(f"pixel_epilogue SS=2 ({label}): kernel differs from plain on "
+                                 f"{n_rgb} RGB and {n_depth} depth pixels")
+        timings[label] = (cuda_ms(lambda: rc.pixel_epilogue(*args, table=table, ss=2), 50),
+                          cuda_ms(lambda: rc.pixel_epilogue_plain(*args, ss=2), 1))
+        t_tri, attr, t_ent = args[0], args[1], args[2]
+        b, hws = t_tri.shape
+        textured = int((torch.isfinite(t_tri) & (attr[..., 14].float() >= 0)).sum())
+        in_bytes = b * hws * (36 + (28 if t_ent is not None else 0))
+        work[label] = (in_bytes + table.numel() * 4 + b * 48 + b * 14 * 4 + 3 * (W + H) * 4
+                       + b * W * H * 7, textured * env.fourier_k * 41 + b * hws * 60
+                       + b * W * H * 4)
+        say("kernel-time", kernel="pixel_epilogue", instance="SS=2",
+            ms=f"{timings[label][0]:.4f}", plain_ms=f"{timings[label][1]:.4f}",
+            bound_ms=f"{bound(*work[label])[0]:.4f}", bound_by=bound(*work[label])[1],
+            shapes=f"{label} B={b} out={W}x{H} samples={2 * W}x{2 * H}")
+    return timings, work, rgb_err
+
+
+def phase_dr_ss_paths(maze_dr, four_dr, hall_ss, pick_ss, make_env, rates):
+    """The four new main paths at published widths: Maze 8x8 procgen at
+    B=8192 and FourRooms at B=1024 with domain randomisation, Hallway at
+    B=1024 and PickupObjects at B=4096 with supersample=2, each with its
+    breakdown and profile; then kernel-vs-plain rollouts at B_PLAIN,
+    exact: FourRooms and MazeS3 procgen (10-step episodes) with domain
+    randomisation, Hallway with supersample=2. Returns {label:
+    launches}."""
+    base = ("tri_pass", "entity_pass", "pixel_epilogue", "place")
+    paths = ((maze_dr, "dr", MAZE_KERNELS + ("tri_pass_override",)),
+             (four_dr, "dr", base + ("tri_pass_override",)),
+             (hall_ss, "ss2", base + ("pixel_epilogue_ss2",)),
+             (pick_ss, "ss2", base + ("entity_mesh_pass", "pixel_epilogue_ss2")))
+    launches = {}
+    for env, tag, kernels in paths:
+        label = f"{env.spec.name.lower()}_{tag}_b{env.num_envs}"
+        rate, outs, obs, lc, _ = rollouts(env, tag, HORIZON, TRIALS)
+        check_rollout(env, outs, obs, lc, HORIZON, TRIALS, kernels)
+        rates[label] = (rate, None)
+        launches[env.spec.gym_id, tag] = lc
+        phase_breakdown(env, render_iters=5, plain_render_iters=1)
+    from miniworld_tpu_torch import MiniWorldVec, make_spec
+
+    maze_s3 = MiniWorldVec(make_spec(MAZE_S3_ID, max_episode_steps=MAZE_S3_STEPS), B_PLAIN,
+                           obs_width=W, obs_height=H, device=DEVICE, domain_rand=True)
+    for env, kernels in ((make_env("MiniWorld-FourRooms-v0", B_PLAIN, domain_rand=True),
+                          base + ("tri_pass_override",)),
+                         (maze_s3, MAZE_KERNELS + ("tri_pass_override",)),
+                         (make_env(ENV_ID, B_PLAIN, supersample=2),
+                          base + ("pixel_epilogue_ss2",))):
+        tag = "dr" if env.domain_rand else "ss2"
+        rate, plain_rate, _, _ = kernel_and_plain(env, PLAIN_HORIZON, TRIALS, kernels, exact=True)
+        rates[f"{env.spec.name.lower()}_{tag}_b{B_PLAIN}"] = (rate, plain_rate)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the main paths
 
 
@@ -1319,11 +1585,11 @@ def phase_maze(maze, maze_s3, maze_s3_bank, rates):
     phase_breakdown(maze, render_iters=5, plain_render_iters=1)
 
     rate, plain_rate, outs, state = kernel_and_plain(
-        maze_s3, SHORT_HORIZON, TRIALS, MAZE_KERNELS, exact=True)
+        maze_s3, MAZE_S3_HORIZON, TRIALS, MAZE_KERNELS, exact=True)
     # every env resets at least once a trial: each truncates at 10 steps
     resets = min(int(o["dones"].sum()) for o in outs)
-    if resets < maze_s3.num_envs * (SHORT_HORIZON // MAZE_S3_STEPS):
-        raise AssertionError(f"MazeS3: {resets} resets in a {SHORT_HORIZON}-step trial")
+    if resets < maze_s3.num_envs * (MAZE_S3_HORIZON // MAZE_S3_STEPS):
+        raise AssertionError(f"MazeS3: {resets} resets in a {MAZE_S3_HORIZON}-step trial")
     if int(state.step_count.max()) > MAZE_S3_STEPS:
         raise AssertionError("MazeS3: an env ran past its episode length")
     rates["mazes3_procgen_b1024"] = (rate, plain_rate)
@@ -1375,10 +1641,11 @@ def main():
     smi = phase_device()
     sys.path.insert(0, ROOT)
     phase_build()
+    lap("build")
     from miniworld_tpu_torch import MiniWorldVec, make_spec
 
-    def env(env_id, n):
-        return MiniWorldVec(env_id, n, obs_width=W, obs_height=H, device=DEVICE)
+    def env(env_id, n, **kw):
+        return MiniWorldVec(env_id, n, obs_width=W, obs_height=H, device=DEVICE, **kw)
 
     hall, pick = env(ENV_ID, B), env(PICK_ID, B_PICK)
     pick_small = env(PICK_ID, B)
@@ -1394,14 +1661,19 @@ def main():
     for e, n_chunks in ((side, 3), (wall, 2), (nav, 2)):
         if (e.plan["kind"], e._bank.tri_verts9.shape[2] // e.tri_chunk) != ("dense", n_chunks):
             raise AssertionError(f"{e.spec.gym_id} plans {e.plan}")
+    lap("envs")
     errs, pick_timings, pick_work, sweep = phase_kernels(hall, pick)
     maze_errs, timings, work, maze_sweep = phase_maze_kernels(maze)
+    lap("kernels")
     side_errs, side_timings, side_work = phase_chunks(side, env(SIDE_ID, B_STAGE),
                                                       env(WALL_ID, B_STAGE), sweep[0][1])
+    lap("chunks")
     phase_tile_sweep(maze_sweep + sweep)
+    lap("tile-sweep")
     errs = {k: max(v, maze_errs.get(k, 0.0), side_errs.get(k, 0.0)) for k, v in errs.items()}
     errs["mazegen"], work["mazegen"] = phase_mazegen(maze, timings)
     errs["place"] = phase_place(pick, four, maze, timings, pick_timings, work, pick_work)
+    lap("mazegen, place")
     for shapes, tms, wk in ((f"{PICK_ID} B={B_PICK} HW={W * H}", pick_timings, pick_work),
                             (f"{MAZE_ID} procgen B={B_MAZE} HW={W * H}", timings, work)):
         # at PickupObjects tri_pass is the launch with mesh rows, "_unmeshed"
@@ -1411,10 +1683,38 @@ def main():
                      if k == "place" else {})
             say("kernel-time", kernel=k, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
                 bound_ms=f"{bound(*wk[k])[0]:.4f}", **extra, shapes=shapes)
+    # domain randomisation and supersample=2: the override on every route,
+    # the SS=2 epilogue, then their main paths
+    maze_dr, four_dr = env(MAZE_ID, B_MAZE, domain_rand=True), env("MiniWorld-FourRooms-v0", B,
+                                                                   domain_rand=True)
+    hall_ss, pick_ss = env(ENV_ID, B, supersample=2), env(PICK_ID, B_PICK, supersample=2)
+    routes = [("fourrooms", four_dr, True), ("hallway", env(ENV_ID, B, domain_rand=True), False),
+              ("sidewalk", env(SIDE_ID, B_STAGE, domain_rand=True), False),
+              ("maze8x8-procgen", maze_dr, True),
+              ("maze8x8-bank", MiniWorldVec(make_spec(MAZE_ID, num_layouts=4), B, obs_width=W,
+                                            obs_height=H, device=DEVICE, procgen=False,
+                                            domain_rand=True), False),
+              ("pickupobjects", env(PICK_ID, B, domain_rand=True), False)]
+    plans = [(e.plan["kind"], e._bank.tri_verts9.shape[2] // e.tri_chunk, e._pg_wall is not None,
+              e._shapes_present[2]) for _, e, _ in routes]
+    if plans[2][:2] != ("dense", 3) or plans[3][2] is not True or plans[4][0] != "packed_pvs" \
+            or plans[5][3] is not True:
+        raise AssertionError(f"the override's routes plan {plans}")
+    lap("dr, ss envs")
+    dr_err, dr_timings, dr_work = phase_dr_stages(routes)
+    ss_timings, ss_work, ss_err = phase_ss_epilogue([("hallway", hall_ss),
+                                                    ("pickupobjects", pick_ss)])
+    lap("dr-stages, ss-epilogue")
     pick_launches, rates = phase_main(hall, pick, pick_small, four, tmaze)
+    lap("main: hallway, pickupobjects, fourrooms, tmaze")
     maze_launches = phase_maze(maze, maze_s3, maze_s3_bank, rates)
+    lap("main: maze")
     side_launches = phase_wide(side, wall, nav, rates)
+    lap("main: sidewalk, wallgap, navigatewallgap")
     phase_new_ids(env, rates)
+    lap("new ids")
+    new_launches = phase_dr_ss_paths(maze_dr, four_dr, hall_ss, pick_ss, env, rates)
+    lap("main: domain_rand, supersample=2")
     kernels = []
     for k, (src, rep) in KERNELS.items():
         # the Maze path's kernels at its shapes; the mesh pass at
@@ -1455,6 +1755,46 @@ def main():
                 "bound_by_sidewalk": bound(*side_work["tri_pass"])[1],
                 "bound_full_scan_ms_sidewalk": bound(*side_work["tri_pass_full_scan"])[0],
                 "launches_sidewalk": int(side_launches["tri_pass"])})
+    # the texture-variant override (an instance of tri_pass) at the Maze
+    # 8x8 procgen and FourRooms domain_rand main paths' shapes, beside the
+    # same launch without the key; the SS=2 epilogue at PickupObjects' and
+    # Hallway's supersample=2 main paths' shapes
+    ov, ov4 = dr_timings["maze8x8-procgen"], dr_timings["fourrooms"]
+    kernels.append({
+        "name": "tri_pass_override", "route": "cuda", "source": KERNELS["tri_pass"][0],
+        "replaces": "miniworld_tpu/render/raycast.py:277",
+        "launches": int(new_launches[MAZE_ID, "dr"]["tri_pass_override"]), "max_abs_err": dr_err,
+        "ms": ov["override"][0], "plain_ms": ov["override"][1],
+        "bound_ms": bound(*dr_work["maze8x8-procgen"])[0],
+        "bound_by": bound(*dr_work["maze8x8-procgen"])[1], "library_ms": None,
+        "instance_of": "tri_pass", "shapes": f"{MAZE_ID} procgen domain_rand B={B_MAZE} HW={W * H}",
+        "ms_without_override": ov["unkeyed"][0],
+        "ms_fourrooms": ov4["override"][0], "plain_ms_fourrooms": ov4["override"][1],
+        "ms_fourrooms_without_override": ov4["unkeyed"][0],
+        "bound_ms_fourrooms": bound(*dr_work["fourrooms"])[0],
+        "launches_fourrooms": int(
+            new_launches["MiniWorld-FourRooms-v0", "dr"]["tri_pass_override"]),
+        "checked_on": [r[0] for r in routes]})
+    kernels.append({
+        "name": "pixel_epilogue_ss2", "route": "cuda", "source": KERNELS["pixel_epilogue"][0],
+        "replaces": "miniworld_tpu/render/raycast.py:1294",
+        "launches": int(new_launches[PICK_ID, "ss2"]["pixel_epilogue_ss2"]), "max_abs_err": ss_err,
+        "ms": ss_timings["pickupobjects"][0], "plain_ms": ss_timings["pickupobjects"][1],
+        "bound_ms": bound(*ss_work["pickupobjects"])[0],
+        "bound_by": bound(*ss_work["pickupobjects"])[1], "library_ms": None,
+        "instance_of": "pixel_epilogue",
+        "shapes": f"{PICK_ID} supersample=2 B={B_PICK} out={W}x{H}",
+        "ms_hallway": ss_timings["hallway"][0], "plain_ms_hallway": ss_timings["hallway"][1],
+        "bound_ms_hallway": bound(*ss_work["hallway"])[0],
+        "launches_hallway": int(new_launches[ENV_ID, "ss2"]["pixel_epilogue_ss2"]),
+        "checked_on": ["hallway", "pickupobjects"]})
+    for k in kernels:  # what each kernel was held against its plain version on
+        if k["name"] == "tri_pass":
+            k["checked_on"] = ["single chunk", "mesh rows", "paired", "multi-chunk", "packed PVS",
+                               "grazing", "ties", "override: " + ", ".join(r[0] for r in routes)]
+        elif k["name"] == "pixel_epilogue":
+            k["checked_on"] = ["SS=1: hallway, wide, pickupobjects, maze, sidewalk",
+                               "SS=2: hallway, pickupobjects"]
     print(json.dumps({
         "kernels": kernels,
         "env_steps_per_s": {k: {"kernels": v[0], "plain": v[1]} for k, v in rates.items()},

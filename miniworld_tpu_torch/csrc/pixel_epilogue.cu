@@ -11,7 +11,8 @@
 //
 // What bounds it on an H100: bytes. Per pixel it reads 4 + 32 (+ 28 with
 // entities) bytes and writes 3 + 4: 71 bytes, 2.79 GB at an 8x8 maze's
-// B = 8192, 80x60, or 0.83 ms at 3.35 TB/s. Its arithmetic, K = 16
+// B = 8192, 80x60, or 0.83 ms at 3.35 TB/s (with SS = 2, per output pixel
+// four samples' 36 (+ 28) bytes in and the same 7 out). Its arithmetic, K = 16
 // Fourier terms of about 40 operations (phase, turn-wrapped cos/sin
 // polynomials, the anti-aliasing reciprocal, 6 amplitude products), sits
 // just under that at the card's float32 rate.
@@ -28,6 +29,16 @@
 // threads walk the (env, 256-pixel chunk) items with a grid stride, so a
 // block stages the table once for many chunks; each thread reads its
 // pixel's 32-byte bf16 attribute row with two 16-byte loads.
+//
+// supersample=2 (the SS = 2 instance; raycast.py:1143-1160, 1294-1301):
+// the hit passes ran on the 2W x 2H image of samples, and W, H here are
+// that image's. One thread per output pixel shades its 2x2 samples, each
+// as one pixel above (uv, the footprint from the doubled height's pixel
+// angle, the texel, the entity merge, the light or the sky), sums the
+// shaded float colours in row-major order, ((s00 + s01) + s10) + s11, the
+// order XLA's reduce runs the JAX package's mean over the (2, 2) axes in,
+// multiplies by 0.25 (its / 4, exact), then clips and packs. Depth is the
+// top-left sample's. pixel_epilogue_plain sums in the same order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -76,7 +87,122 @@ __device__ __forceinline__ void fourier_term(const float4 pt, const float4 qt, c
     pb[2] = s * b2;
 }
 
-template <bool kSmemTable>
+// One sample: the shaded colour (before the clip and the u8 pack) and
+// the depth of pixel p of env b in the W x H image of the hit passes.
+__device__ __forceinline__ float sample_rgb(
+    const int b, const int p, const float* __restrict__ t_tri,
+    const __nv_bfloat16* __restrict__ attr, const float* __restrict__ t_ent,
+    const float* __restrict__ col_ent, const float* __restrict__ n_ent,
+    const float* tab, const float* __restrict__ lights, const float* __restrict__ origin,
+    const float* __restrict__ fwd, const float* __restrict__ right,
+    const float* __restrict__ up, const float* __restrict__ tan_xy,
+    const float* __restrict__ xbase, const float* __restrict__ ybase, const int W,
+    const int hw, const float pix_scale, const int A, const int K, const int has_ent,
+    float* out)
+{
+    const int row_len = 4 + 9 * K;  // floats per table row, a multiple of 4
+    const size_t q = (size_t)b * hw + p;
+    const float xv = xbase[p % W] * tan_xy[2 * b];
+    const float tan_y = tan_xy[2 * b + 1];
+    const float yv = ybase[p / W] * tan_y;
+    float o[3], d[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+        o[i] = origin[3 * b + i];
+        d[i] = fwd[3 * b + i] + xv * right[3 * b + i] + yv * up[3 * b + i];
+    }
+    float at[ATTR_DIM];
+    {
+        const uint4* src = reinterpret_cast<const uint4*>(attr + q * ATTR_DIM);
+        unpack8(src[0], at);
+        unpack8(src[1], at + 8);
+    }
+
+    // uv from the winner's affine map at the hit point; uv-space footprint
+    const float tt = t_tri[q];
+    const float t_uv = isfinite(tt) ? tt : 0.0f;
+    const float h0 = o[0] + t_uv * d[0], h1 = o[1] + t_uv * d[1], h2 = o[2] + t_uv * d[2];
+    const float uu = at[0] * h0 + at[1] * h1 + at[2] * h2 + at[6];
+    const float vv = at[3] * h0 + at[4] * h1 + at[5] * h2 + at[7];
+    float sq = at[0] * at[0];
+#pragma unroll
+    for (int i = 1; i < 6; ++i) sq = sq + at[i] * at[i];
+    const float pix_angle = tan_y * pix_scale;
+    const float fp = t_uv * pix_angle * sqrtf(sq * 0.5f);
+
+    // Fourier texel; table row: dc(3), 0 | (fu, fv, pi2 f2, A0) x K |
+    // (A1, A2, B0, B1) x K | B2 x K
+    float tex[3];
+    const int slot = (int)rintf(at[14]);
+    if (slot < 0) {
+        tex[0] = tex[1] = tex[2] = 1.0f;  // flat white
+    } else if (slot >= A) {
+        tex[0] = tex[1] = tex[2] = 0.0f;  // no such row: black, as in the JAX one-hot
+    } else {
+        const float* row = tab + (size_t)slot * row_len;
+        const float4* pk = reinterpret_cast<const float4*>(row + 4);
+        const float4* qk = pk + K;
+        const float* rk = reinterpret_cast<const float*>(qk + K);
+        const float fp2 = fp * fp;
+        float acc_a[3], acc_b[3];
+        fourier_term(pk[0], qk[0], rk[0], uu, vv, fp2, acc_a, acc_b);  // k = 0 starts the sums
+        for (int k = 1; k < K; ++k) {
+            float pa[3], pb[3];
+            fourier_term(pk[k], qk[k], rk[k], uu, vv, fp2, pa, pb);
+#pragma unroll
+            for (int ch = 0; ch < 3; ++ch) {
+                acc_a[ch] = acc_a[ch] + pa[ch];
+                acc_b[ch] = acc_b[ch] + pb[ch];
+            }
+        }
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+            const float v = row[ch] + bf16r(bf16r(acc_a[ch]) + bf16r(acc_b[ch]));
+            tex[ch] = fminf(fmaxf(v, 0.0f), 1.0f);
+        }
+    }
+    float col[3] = {at[11] * tex[0], at[12] * tex[1], at[13] * tex[2]};
+    float nrm[3] = {at[8], at[9], at[10]};
+
+    // analytic entities win where they are strictly closer
+    float t_hit = tt;
+    if (has_ent) {
+        const float te = t_ent[q];
+        if (te < tt) {
+            t_hit = te;
+#pragma unroll
+            for (int i = 0; i < 3; ++i) {
+                col[i] = col_ent[3 * q + i];
+                nrm[i] = n_ent[3 * q + i];
+            }
+        }
+    }
+
+    const bool hit = isfinite(t_hit);
+    const float t_safe = hit ? t_hit : 100.0f;  // FAR
+    const float* lt = lights + (size_t)b * 12;
+    if (hit) {
+        float l[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) l[i] = lt[i] - (o[i] + t_safe * d[i]);
+        const float len = fmaxf(sqrtf(l[0] * l[0] + l[1] * l[1] + l[2] * l[2]), 1e-9f);
+        const float ndotl = fmaxf(nrm[0] * (l[0] / len) + nrm[1] * (l[1] / len) +
+                                  nrm[2] * (l[2] / len), 0.0f);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+            const float lit = (0.2f + lt[6 + i]) + lt[3 + i] * ndotl;
+            out[i] = col[i] * fminf(fmaxf(lit, 0.0f), 1.0f);
+        }
+    } else {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) out[i] = lt[9 + i];
+    }
+    return t_safe;
+}
+
+// SS x SS samples per output pixel (SS = 1: the sample is the pixel);
+// W, H: the samples' image.
+template <bool kSmemTable, int SS>
 __global__ void __launch_bounds__(THREADS) pixel_epilogue_kernel(
     const float* __restrict__ t_tri,           // (B, HW)
     const __nv_bfloat16* __restrict__ attr,    // (B, HW, 16)
@@ -90,128 +216,71 @@ __global__ void __launch_bounds__(THREADS) pixel_epilogue_kernel(
     const float* __restrict__ tan_xy, const float* __restrict__ xbase,
     const float* __restrict__ ybase,
     int B, int W, int H, int A, int K, int has_ent,
-    uint8_t* __restrict__ rgb_out,             // (B, H, W, 3)
-    float* __restrict__ depth_out)             // (B, H, W, 1)
+    uint8_t* __restrict__ rgb_out,             // (B, H / SS, W / SS, 3)
+    float* __restrict__ depth_out)             // (B, H / SS, W / SS, 1)
 {
     extern __shared__ float4 tab_smem[];
-    const int row_len = 4 + 9 * K;  // floats per table row, a multiple of 4
     const float* tab = table;
     if (kSmemTable) {
         const float4* src = reinterpret_cast<const float4*>(table);
-        for (int i = threadIdx.x; i < A * row_len / 4; i += THREADS) tab_smem[i] = src[i];
+        for (int i = threadIdx.x; i < A * (4 + 9 * K) / 4; i += THREADS) tab_smem[i] = src[i];
         __syncthreads();
         tab = reinterpret_cast<const float*>(tab_smem);
     }
     const int hw = W * H;
-    const int chunks = (hw + THREADS - 1) / THREADS;
+    const int wo = W / SS;
+    const int hwo = wo * (H / SS);
+    const int chunks = (hwo + THREADS - 1) / THREADS;
     const float pix_scale = (float)(2.0 / H);
     for (int item = blockIdx.x; item < B * chunks; item += gridDim.x) {
         const int b = item / chunks;
-        const int p = (item - b * chunks) * THREADS + threadIdx.x;
-        if (p >= hw) continue;
-        const size_t q = (size_t)b * hw + p;
-        const float xv = xbase[p % W] * tan_xy[2 * b];
-        const float tan_y = tan_xy[2 * b + 1];
-        const float yv = ybase[p / W] * tan_y;
-        float o[3], d[3];
+        const int po = (item - b * chunks) * THREADS + threadIdx.x;
+        if (po >= hwo) continue;
+        const int p0 = SS == 1 ? po : (po / wo) * SS * W + (po % wo) * SS;  // top-left sample
+        float rgb[3];
+        const float depth = sample_rgb(
+            b, p0, t_tri, attr, t_ent, col_ent, n_ent, tab, lights, origin, fwd, right, up,
+            tan_xy, xbase, ybase, W, hw, pix_scale, A, K, has_ent, rgb);
+        if (SS == 2) {
+            // ((s00 + s01) + s10) + s11, then the mean's / 4
+            float s[3];
 #pragma unroll
-        for (int i = 0; i < 3; ++i) {
-            o[i] = origin[3 * b + i];
-            d[i] = fwd[3 * b + i] + xv * right[3 * b + i] + yv * up[3 * b + i];
-        }
-        float at[ATTR_DIM];
-        {
-            const uint4* src = reinterpret_cast<const uint4*>(attr + q * ATTR_DIM);
-            unpack8(src[0], at);
-            unpack8(src[1], at + 8);
-        }
-
-        // uv from the winner's affine map at the hit point; uv-space footprint
-        const float tt = t_tri[q];
-        const float t_uv = isfinite(tt) ? tt : 0.0f;
-        const float h0 = o[0] + t_uv * d[0], h1 = o[1] + t_uv * d[1], h2 = o[2] + t_uv * d[2];
-        const float uu = at[0] * h0 + at[1] * h1 + at[2] * h2 + at[6];
-        const float vv = at[3] * h0 + at[4] * h1 + at[5] * h2 + at[7];
-        float sq = at[0] * at[0];
+            for (int j = 1; j < 4; ++j) {
+                sample_rgb(b, p0 + (j >> 1) * W + (j & 1), t_tri, attr, t_ent,
+                                       col_ent, n_ent, tab, lights, origin, fwd, right, up,
+                                       tan_xy, xbase, ybase, W, hw, pix_scale, A, K, has_ent, s);
 #pragma unroll
-        for (int i = 1; i < 6; ++i) sq = sq + at[i] * at[i];
-        const float pix_angle = tan_y * pix_scale;
-        const float fp = t_uv * pix_angle * sqrtf(sq * 0.5f);
-
-        // Fourier texel; table row: dc(3), 0 | (fu, fv, pi2 f2, A0) x K |
-        // (A1, A2, B0, B1) x K | B2 x K
-        float tex[3];
-        const int slot = (int)rintf(at[14]);
-        if (slot < 0) {
-            tex[0] = tex[1] = tex[2] = 1.0f;  // flat white
-        } else if (slot >= A) {
-            tex[0] = tex[1] = tex[2] = 0.0f;  // no such row: black, as in the JAX one-hot
-        } else {
-            const float* row = tab + (size_t)slot * row_len;
-            const float4* pk = reinterpret_cast<const float4*>(row + 4);
-            const float4* qk = pk + K;
-            const float* rk = reinterpret_cast<const float*>(qk + K);
-            const float fp2 = fp * fp;
-            float acc_a[3], acc_b[3];
-            fourier_term(pk[0], qk[0], rk[0], uu, vv, fp2, acc_a, acc_b);  // k = 0 starts the sums
-            for (int k = 1; k < K; ++k) {
-                float pa[3], pb[3];
-                fourier_term(pk[k], qk[k], rk[k], uu, vv, fp2, pa, pb);
-#pragma unroll
-                for (int ch = 0; ch < 3; ++ch) {
-                    acc_a[ch] = acc_a[ch] + pa[ch];
-                    acc_b[ch] = acc_b[ch] + pb[ch];
-                }
+                for (int i = 0; i < 3; ++i) rgb[i] = rgb[i] + s[i];
             }
 #pragma unroll
-            for (int ch = 0; ch < 3; ++ch) {
-                const float v = row[ch] + bf16r(bf16r(acc_a[ch]) + bf16r(acc_b[ch]));
-                tex[ch] = fminf(fmaxf(v, 0.0f), 1.0f);
-            }
+            for (int i = 0; i < 3; ++i) rgb[i] = rgb[i] * 0.25f;
         }
-        float col[3] = {at[11] * tex[0], at[12] * tex[1], at[13] * tex[2]};
-        float nrm[3] = {at[8], at[9], at[10]};
-
-        // analytic entities win where they are strictly closer
-        float t_hit = tt;
-        if (has_ent) {
-            const float te = t_ent[q];
-            if (te < tt) {
-                t_hit = te;
-#pragma unroll
-                for (int i = 0; i < 3; ++i) {
-                    col[i] = col_ent[3 * q + i];
-                    nrm[i] = n_ent[3 * q + i];
-                }
-            }
-        }
-
-        const bool hit = isfinite(t_hit);
-        const float t_safe = hit ? t_hit : 100.0f;  // FAR
-        const float* lt = lights + (size_t)b * 12;
-        float out[3];
-        if (hit) {
-            float l[3];
-#pragma unroll
-            for (int i = 0; i < 3; ++i) l[i] = lt[i] - (o[i] + t_safe * d[i]);
-            const float len = fmaxf(sqrtf(l[0] * l[0] + l[1] * l[1] + l[2] * l[2]), 1e-9f);
-            const float ndotl = fmaxf(nrm[0] * (l[0] / len) + nrm[1] * (l[1] / len) +
-                                      nrm[2] * (l[2] / len), 0.0f);
-#pragma unroll
-            for (int i = 0; i < 3; ++i) {
-                const float lit = (0.2f + lt[6 + i]) + lt[3 + i] * ndotl;
-                out[i] = col[i] * fminf(fmaxf(lit, 0.0f), 1.0f);
-            }
-        } else {
-#pragma unroll
-            for (int i = 0; i < 3; ++i) out[i] = lt[9 + i];
-        }
+        const size_t qo = (size_t)b * hwo + po;
 #pragma unroll
         for (int i = 0; i < 3; ++i) {
             // truncating pack, as (rgb * 255).clip(0, 255).astype(uint8)
-            rgb_out[3 * q + i] = (uint8_t)fminf(fmaxf(out[i] * 255.0f, 0.0f), 255.0f);
+            rgb_out[3 * qo + i] = (uint8_t)fminf(fmaxf(rgb[i] * 255.0f, 0.0f), 255.0f);
         }
-        depth_out[q] = t_safe;
+        depth_out[qo] = depth;
+    }
+}
+
+template <int SS>
+static void launch_epilogue(const int grid, const size_t smem, cudaStream_t stream,
+                            const float* t_tri, const __nv_bfloat16* attr, const float* t_ent,
+                            const float* col_ent, const float* n_ent, const float* table,
+                            const float* lights, const float* origin, const float* fwd,
+                            const float* right, const float* up, const float* tan_xy,
+                            const float* xbase, const float* ybase, int B, int W, int H, int A,
+                            int K, int has_ent, uint8_t* rgb_out, float* depth_out) {
+    if (smem <= TABLE_SMEM_MAX) {
+        pixel_epilogue_kernel<true, SS><<<grid, THREADS, smem, stream>>>(
+            t_tri, attr, t_ent, col_ent, n_ent, table, lights, origin, fwd, right,
+            up, tan_xy, xbase, ybase, B, W, H, A, K, has_ent, rgb_out, depth_out);
+    } else {
+        pixel_epilogue_kernel<false, SS><<<grid, THREADS, 0, stream>>>(
+            t_tri, attr, t_ent, col_ent, n_ent, table, lights, origin, fwd, right,
+            up, tan_xy, xbase, ybase, B, W, H, A, K, has_ent, rgb_out, depth_out);
     }
 }
 
@@ -221,11 +290,12 @@ extern "C" int mw_pixel_epilogue(
     const float* lights, const float* origin, const float* fwd,
     const float* right, const float* up, const float* tan_xy,
     const float* xbase, const float* ybase,
-    int B, int W, int H, int A, int K, int has_ent,
+    int B, int W, int H, int A, int K, int has_ent, int ss,
     uint8_t* rgb_out, float* depth_out, cudaStream_t stream)
 {
     static int n_sm = 0;
     if (K <= 0 || K % 4) return (int)cudaErrorInvalidValue;  // float4 table rows
+    if ((ss != 1 && ss != 2) || W % ss || H % ss) return (int)cudaErrorInvalidValue;
     if (B == 0 || W == 0 || H == 0) return 0;
     if (n_sm == 0) {
         int dev = 0;
@@ -234,18 +304,17 @@ extern "C" int mw_pixel_epilogue(
             err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
         if (err != cudaSuccess) return (int)err;
     }
-    const long long items = (long long)B * ((W * H + THREADS - 1) / THREADS);
+    const long long items = (long long)B * ((W / ss * (H / ss) + THREADS - 1) / THREADS);
     // 8 blocks of 256 threads fill an SM's 2048 threads
     const int grid = (int)(items < 8LL * n_sm ? items : 8LL * n_sm);
     const size_t smem = (size_t)A * (4 + 9 * K) * sizeof(float);
-    if (smem <= TABLE_SMEM_MAX) {
-        pixel_epilogue_kernel<true><<<grid, THREADS, smem, stream>>>(
-            t_tri, attr, t_ent, col_ent, n_ent, table, lights, origin, fwd, right,
-            up, tan_xy, xbase, ybase, B, W, H, A, K, has_ent, rgb_out, depth_out);
-    } else {
-        pixel_epilogue_kernel<false><<<grid, THREADS, 0, stream>>>(
-            t_tri, attr, t_ent, col_ent, n_ent, table, lights, origin, fwd, right,
-            up, tan_xy, xbase, ybase, B, W, H, A, K, has_ent, rgb_out, depth_out);
-    }
+    if (ss == 2)
+        launch_epilogue<2>(grid, smem, stream, t_tri, attr, t_ent, col_ent, n_ent, table,
+                           lights, origin, fwd, right, up, tan_xy, xbase, ybase, B, W, H, A, K,
+                           has_ent, rgb_out, depth_out);
+    else
+        launch_epilogue<1>(grid, smem, stream, t_tri, attr, t_ent, col_ent, n_ent, table,
+                           lights, origin, fwd, right, up, tan_xy, xbase, ybase, B, W, H, A, K,
+                           has_ent, rgb_out, depth_out);
     return (int)cudaGetLastError();
 }

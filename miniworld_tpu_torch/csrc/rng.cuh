@@ -1,6 +1,7 @@
 // Counter-based uniforms of miniworld_tpu_torch/ops/rng.py (the JAX
 // package's ops/rng.py) in 32-bit unsigned arithmetic, for the kernels
-// that draw their own numbers (place.cu, mazegen.cu).
+// that draw their own numbers (place.cu, mazegen.cu) and tri_pass.cu's
+// texture-variant override.
 #pragma once
 
 static __device__ __forceinline__ unsigned int hash_u32(unsigned int key, unsigned int id) {

@@ -108,6 +108,22 @@
 // the chunk under 256 and the rows in shared memory. Mesh rows and paired
 // banks are single-chunk only.
 //
+// Texture-variant override (slot_key != nullptr, the OVERRIDE instances;
+// domain randomization, raycast.py:277-310): the JAX package replaces
+// every scanned row's slot column by base + min(floor(hash01(key, id) *
+// count), count - 1), -1 where base < 0, before its competition. The
+// competition reads only the vertices and the kind column, and the
+// override is a function of the row alone, so the kernel selects first
+// and overrides only the winner, at its attribute store: one hash and one
+// 16-byte load of the row's (id, base, count, 0) per pixel, not per
+// (row, pixel). slot_key[b] is the
+// env's u32 key (EnvState.tri_slots); slot_tex is indexed like attr, by
+// the global row (chunk * tri_chunk + local in the MULTI instance; the
+// packed-PVS plan's chunk rows arrive as a bank of one-chunk layouts);
+// on a paired bank slot_tex_alt holds the alternative variants' rows,
+// picked by use_alt as the attributes are. A mesh winner keeps its own
+// slot, as the JAX package's seed does.
+//
 // Shared memory: 48 bytes per row, two 2-byte row lists and (paired) the
 // variant byte, and 52 bytes per mesh row: 53,248 B at S = 1024, 106,496
 // B with N = 1024 mesh rows besides, 159,744 B at S = 3,072, above the
@@ -118,6 +134,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+
+#include "rng.cuh"
 
 #ifndef TILE_W
 #define TILE_W 16
@@ -259,18 +277,31 @@ __device__ __forceinline__ void warp_span(float& lo, float& hi) {
     }
 }
 
-// 16 floats of an attribute row, rounded to bf16, to 32 bytes at dst
-__device__ __forceinline__ void store_attr_bf16(const float* src_row, __nv_bfloat16* dst) {
+// The atlas row of a prim's texture variant under the env's key, from
+// its (slot id, atlas base, variant count, 0): raycast.variant_slots.
+__device__ __forceinline__ float variant_slot(const float4 t, const unsigned key) {
+    if (!(t.y >= 0.0f)) return -1.0f;  // no texture
+    const float u = hash01(key, (unsigned)(int)t.x);
+    return t.y + fminf(floorf(u * t.z), t.z - 1.0f);
+}
+
+// 16 floats of an attribute row, rounded to bf16, to 32 bytes at dst;
+// with tex != nullptr the slot column (14) is the row's texture variant
+// under key
+__device__ __forceinline__ void store_attr_bf16(const float* src_row, __nv_bfloat16* dst,
+                                                const float4* tex = nullptr,
+                                                const unsigned key = 0u) {
     const float4* src = reinterpret_cast<const float4*>(src_row);
     const float4 a0 = src[0], a1 = src[1], a2 = src[2], a3 = src[3];
+    const float slot = tex != nullptr ? variant_slot(*tex, key) : a3.z;
     uint4* d4 = reinterpret_cast<uint4*>(dst);
     d4[0] = make_uint4(bf16x2(a0.x, a0.y), bf16x2(a0.z, a0.w),
                        bf16x2(a1.x, a1.y), bf16x2(a1.z, a1.w));
     d4[1] = make_uint4(bf16x2(a2.x, a2.y), bf16x2(a2.z, a2.w),
-                       bf16x2(a3.x, a3.y), bf16x2(a3.z, a3.w));
+                       bf16x2(a3.x, a3.y), bf16x2(slot, a3.w));
 }
 
-template <bool MESH, bool MULTI>
+template <bool MESH, bool MULTI, bool OVERRIDE>
 __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
     const float* __restrict__ verts9,   // (L, 9, S) component-major
     const float* __restrict__ attr,     // (L, S, 16)
@@ -288,6 +319,9 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
     const float* __restrict__ attr_alt,   // (L, S, 16) or null
     const int* __restrict__ pg_wall,      // (L, S) or null; -1 = no wall
     const float* __restrict__ wall_open,  // (B, Wn) or null; 1 = open
+    const unsigned* __restrict__ slot_key,   // (B,) or null: no override
+    const float4* __restrict__ slot_tex,     // (L, S) (id, base, count, 0)
+    const float4* __restrict__ slot_tex_alt,  // (L, S), paired only
     int S, int N, int W, int H, int Wn, int all_quads,
     int tri_chunk,                      // MULTI only: rows per chunk
     float* __restrict__ t_out,          // (B, HW)
@@ -314,6 +348,9 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
     const float* v9a = paired ? verts9_alt + (size_t)lid * 9 * S : nullptr;
     const float* ata = paired ? attr_alt + (size_t)lid * S * ATTR_DIM : nullptr;
     const float tan_x = tan_xy[2 * b], tan_y = tan_xy[2 * b + 1];
+    const unsigned env_key = OVERRIDE ? slot_key[b] : 0u;
+    const float4* txp = OVERRIDE ? slot_tex + (size_t)lid * S : nullptr;
+    const float4* txa = OVERRIDE && paired ? slot_tex_alt + (size_t)lid * S : nullptr;
 
     // the whole image's box: warp 0 over the columns, warp 1 over the rows
     if (warp < 2) {
@@ -533,7 +570,8 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
                 t_out[q] = t_of_key(key);
                 if (key > 0) {
                     const int row = (255 - (int)(cbest[k] & 0xFFu)) * tri_chunk + (key & IDX_MASK);
-                    store_attr_bf16(atp + (size_t)row * ATTR_DIM, attr_out + q * ATTR_DIM);
+                    store_attr_bf16(atp + (size_t)row * ATTR_DIM, attr_out + q * ATTR_DIM,
+                                    OVERRIDE ? txp + row : nullptr, env_key);
                 } else {
                     uint4* d4 = reinterpret_cast<uint4*>(attr_out + q * ATTR_DIM);
                     d4[0] = make_uint4(0u, 0u, 0u, 0u);
@@ -544,8 +582,9 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
             t_out[q] = t_of_key(best[k]);
             // winner's row (row 0 for an unmeshed miss: nothing downstream reads it)
             const int row = best[k] & IDX_MASK;
-            store_attr_bf16(((paired && use_alt[row]) ? ata : atp) + row * ATTR_DIM,
-                            attr_out + q * ATTR_DIM);
+            const bool alt = paired && use_alt[row];
+            store_attr_bf16((alt ? ata : atp) + row * ATTR_DIM, attr_out + q * ATTR_DIM,
+                            OVERRIDE ? (alt ? txa : txp) + row : nullptr, env_key);
         }
         __syncthreads();  // the next tile rewrites box, n_tile and tile_list
     }
@@ -563,6 +602,36 @@ extern "C" int mw_tri_pass_config(int* out) {
     return 0;
 }
 
+template <bool MESH, bool MULTI, bool OVERRIDE>
+static int launch_instance(const dim3 grid, const size_t smem, cudaStream_t stream,
+                           const float* verts9, const float* attr, const int* layout_id,
+                           const float* origin, const float* fwd, const float* right,
+                           const float* up, const float* tan_xy, const float* xbase,
+                           const float* ybase, const float* mesh_v9, const float* mesh_attr,
+                           const float* verts9_alt, const float* attr_alt, const int* pg_wall,
+                           const float* wall_open, const unsigned* slot_key,
+                           const float4* slot_tex, const float4* slot_tex_alt, int S, int N,
+                           int W, int H, int Wn, int all_quads, int tri_chunk, float* t_out,
+                           __nv_bfloat16* attr_out) {
+    static size_t smem_opted = 48 * 1024;  // the dynamic limit set so far
+    if (smem > smem_opted) {
+        const cudaError_t err = cudaFuncSetAttribute(tri_pass_kernel<MESH, MULTI, OVERRIDE>,
+                                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                     (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        smem_opted = smem;
+    }
+    tri_pass_kernel<MESH, MULTI, OVERRIDE><<<grid, THREADS, smem, stream>>>(
+        verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase, ybase,
+        mesh_v9, mesh_attr, verts9_alt, attr_alt, pg_wall, wall_open, slot_key, slot_tex,
+        slot_tex_alt, S, N, W, H, Wn, all_quads, tri_chunk, t_out, attr_out);
+    return (int)cudaGetLastError();
+}
+
+// The override is an instance of its own (OVERRIDE), so that the
+// launches without it compile to the code they had before it existed: as
+// a runtime branch it slowed the multi-chunk launch without the key from
+// 2.26 to 2.93 ms (Sidewalk, B = 1024, 80x60, on an H100).
 template <bool MESH, bool MULTI>
 static int launch_tri_pass(const dim3 grid, const size_t smem, cudaStream_t stream,
                            const float* verts9, const float* attr, const int* layout_id,
@@ -570,21 +639,19 @@ static int launch_tri_pass(const dim3 grid, const size_t smem, cudaStream_t stre
                            const float* up, const float* tan_xy, const float* xbase,
                            const float* ybase, const float* mesh_v9, const float* mesh_attr,
                            const float* verts9_alt, const float* attr_alt, const int* pg_wall,
-                           const float* wall_open, int S, int N, int W, int H, int Wn,
-                           int all_quads, int tri_chunk, float* t_out,
+                           const float* wall_open, const unsigned* slot_key,
+                           const float4* slot_tex, const float4* slot_tex_alt, int S, int N,
+                           int W, int H, int Wn, int all_quads, int tri_chunk, float* t_out,
                            __nv_bfloat16* attr_out) {
-    static size_t smem_opted = 48 * 1024;  // the dynamic limit set so far
-    if (smem > smem_opted) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            tri_pass_kernel<MESH, MULTI>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        smem_opted = smem;
-    }
-    tri_pass_kernel<MESH, MULTI><<<grid, THREADS, smem, stream>>>(
-        verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase, ybase,
-        mesh_v9, mesh_attr, verts9_alt, attr_alt, pg_wall, wall_open,
-        S, N, W, H, Wn, all_quads, tri_chunk, t_out, attr_out);
-    return (int)cudaGetLastError();
+    return slot_key != nullptr
+        ? launch_instance<MESH, MULTI, true>(
+              grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase,
+              ybase, mesh_v9, mesh_attr, verts9_alt, attr_alt, pg_wall, wall_open, slot_key,
+              slot_tex, slot_tex_alt, S, N, W, H, Wn, all_quads, tri_chunk, t_out, attr_out)
+        : launch_instance<MESH, MULTI, false>(
+              grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase,
+              ybase, mesh_v9, mesh_attr, verts9_alt, attr_alt, pg_wall, wall_open, nullptr,
+              nullptr, nullptr, S, N, W, H, Wn, all_quads, tri_chunk, t_out, attr_out);
 }
 
 extern "C" int mw_tri_pass(
@@ -593,7 +660,8 @@ extern "C" int mw_tri_pass(
     const float* tan_xy, const float* xbase, const float* ybase,
     const float* mesh_v9, const float* mesh_attr,
     const float* verts9_alt, const float* attr_alt, const int* pg_wall,
-    const float* wall_open,
+    const float* wall_open, const unsigned* slot_key, const float* slot_tex,
+    const float* slot_tex_alt,
     int B, int S, int N, int W, int H, int Wn, int all_quads, int tri_chunk,
     float* t_out, __nv_bfloat16* attr_out, cudaStream_t stream)
 {
@@ -603,6 +671,8 @@ extern "C" int mw_tri_pass(
     if (paired && (verts9_alt == nullptr || attr_alt == nullptr || wall_open == nullptr))
         return (int)cudaErrorInvalidValue;
     if (mesh && mesh_attr == nullptr) return (int)cudaErrorInvalidValue;
+    if (slot_key != nullptr && (slot_tex == nullptr || (paired && slot_tex_alt == nullptr)))
+        return (int)cudaErrorInvalidValue;
     if (N > IDX_MASK + 1) return (int)cudaErrorInvalidValue;
     if (multi ? (mesh || paired || tri_chunk < 16 || tri_chunk > IDX_MASK + 1 ||
                  S % tri_chunk != 0 || S > 4096)
@@ -615,18 +685,21 @@ extern "C" int mw_tri_pass(
     const size_t per_row = 3 * sizeof(float4) + 2 * sizeof(unsigned short);
     const size_t smem = (size_t)S * per_row + (paired ? (size_t)S : 0) +
                         (mesh ? (size_t)N * per_row : 0);
+    const float4* tex = reinterpret_cast<const float4*>(slot_tex);
+    const float4* tex_alt = reinterpret_cast<const float4*>(slot_tex_alt);
     if (multi)
         return launch_tri_pass<false, true>(grid, smem, stream, verts9, attr, layout_id, origin,
                                             fwd, right, up, tan_xy, xbase, ybase, nullptr,
-                                            nullptr, nullptr, nullptr, nullptr, nullptr, S, 0,
-                                            W, H, 0, all_quads, tri_chunk, t_out, attr_out);
+                                            nullptr, nullptr, nullptr, nullptr, nullptr,
+                                            slot_key, tex, nullptr, S, 0, W, H, 0, all_quads,
+                                            tri_chunk, t_out, attr_out);
     return mesh
         ? launch_tri_pass<true, false>(grid, smem, stream, verts9, attr, layout_id, origin, fwd,
                                        right, up, tan_xy, xbase, ybase, mesh_v9, mesh_attr,
-                                       verts9_alt, attr_alt, pg_wall, wall_open, S, N, W, H, Wn,
-                                       all_quads, S, t_out, attr_out)
+                                       verts9_alt, attr_alt, pg_wall, wall_open, slot_key, tex,
+                                       tex_alt, S, N, W, H, Wn, all_quads, S, t_out, attr_out)
         : launch_tri_pass<false, false>(grid, smem, stream, verts9, attr, layout_id, origin,
                                         fwd, right, up, tan_xy, xbase, ybase, nullptr, nullptr,
-                                        verts9_alt, attr_alt, pg_wall, wall_open, S, 0, W, H,
-                                        Wn, all_quads, S, t_out, attr_out);
+                                        verts9_alt, attr_alt, pg_wall, wall_open, slot_key, tex,
+                                        tex_alt, S, 0, W, H, Wn, all_quads, S, t_out, attr_out);
 }

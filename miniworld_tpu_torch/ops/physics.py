@@ -146,11 +146,13 @@ def move_agent(segs4, state: EnvState, fwd_dist, strafe_dist,
 
 
 def physics_step(proto_pickable, state: EnvState, action, *, segs4,
-                 max_forward_step: float, fwd_step: float, fwd_drift: float,
-                 turn_step: float, agent_radius: float = AGENT_RADIUS):
+                 max_forward_step: float, fwd_step, fwd_drift, turn_step,
+                 agent_radius: float = AGENT_RADIUS):
     """One physics step from clipped 6-D actions (B, 6)
     (miniworld.py:778-797). ``proto_pickable`` (B, P) is each env's
-    prototype table row. Returns (state, StepResult)."""
+    prototype table row. ``fwd_step`` / ``fwd_drift`` / ``turn_step``
+    are this step's parameters: floats (their defaults) or (B,) tensors
+    (each env's domain-randomized draw). Returns (state, StepResult)."""
     yaw_delta = action[:, 2] * turn_step * (math.pi / 180.0)
     pitch_delta = action[:, 3] * turn_step
     state = update_orientation(segs4, state, yaw_delta, pitch_delta,

@@ -16,6 +16,8 @@ into 16-bit halves.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 M32 = 0xFFFFFFFF
@@ -86,6 +88,25 @@ def randint(key: torch.Tensor, num: int, maxval: int) -> torch.Tensor:
     hi, lo = bits[..., 0, :], bits[..., 1, :]
     mult = ((1 << 16) % span) ** 2 % span
     return ((hi % span) * mult + lo % span) % span
+
+
+def uniform(key: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, jnp.float32, minval, maxval)`` on
+    key data: (..., 2) -> (..., *shape) f32 (jax/_src/random.py
+    _uniform): the top 23 of each word of ``random_bits`` as the
+    mantissa of a float in [1, 2), minus 1, then ``f * (max - min) +
+    min``, rounded twice, and ``max(min, .)``. ``minval`` / ``maxval``
+    broadcast against the result's trailing axes; a batch of keys (...,
+    k, 2) with (k,) bounds draws k parameters of shape () in one
+    threefry call. (XLA:CPU contracts the scaling into one fused
+    multiply-add inside some of the JAX package's step programs: ROADMAP
+    C1.)"""
+    n = math.prod(int(s) for s in shape)
+    bits = random_bits(key, n).reshape(key.shape[:-1] + tuple(shape))
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.as_tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.as_tensor(maxval, dtype=torch.float32, device=key.device)
+    return torch.maximum(lo, f * (hi - lo) + lo)
 
 
 def hash_u32(key, ids: torch.Tensor) -> torch.Tensor:

@@ -47,17 +47,17 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _CAM = [_P] * 7  # origin, fwd, right, up, tan_xy, xbase, ybase
 ENTRY_POINTS = {
     # verts9, attr, layout_id, camera, mesh_v9, mesh_attr, verts9_alt,
-    # attr_alt, pg_wall, wall_open, B, S, N, W, H, n_walls, all_quads,
-    # tri_chunk, t, attr_out, stream
-    "mw_tri_pass": [_P, _P, _P, *_CAM, _P] + [_P] * 5 + [_I] * 8 + [_P, _P, _P],
+    # attr_alt, pg_wall, wall_open, slot_key, slot_tex, slot_tex_alt, B,
+    # S, N, W, H, n_walls, all_quads, tri_chunk, t, attr_out, stream
+    "mw_tri_pass": [_P, _P, _P, *_CAM, _P] + [_P] * 8 + [_I] * 8 + [_P, _P, _P],
     # out: TILE_W, TILE_H, PIX_PER_THREAD
     "mw_tri_pass_config": [_P],
     # ent_pos, ent_size, ent_dir, ent_height, ent_color, flags, camera,
     # B, E, W, H, has_sphere, has_box, t, col, nrm, stream
     "mw_entity_pass": [_P] * 6 + _CAM + [_I] * 6 + [_P, _P, _P, _P],
     # t_tri, attr, t_ent, col_ent, n_ent, fourier table, lights, camera,
-    # B, W, H, A, K, has_ent, rgb, depth, stream
-    "mw_pixel_epilogue": [_P] * 7 + _CAM + [_I] * 6 + [_P, _P, _P],
+    # B, W, H (the samples' image), A, K, has_ent, ss, rgb, depth, stream
+    "mw_pixel_epilogue": [_P] * 7 + _CAM + [_I] * 7 + [_P, _P, _P],
     # seeds, layout_id, 6 rule rows, radius, slot_mask, 7 room tensors,
     # room_weight, room_seg_wall, wall_open, B, E, R, V, NS, W, budget,
     # ent_pos, ent_dir, agent_pos, agent_dir, stream
@@ -73,9 +73,12 @@ BUILD_INFO: dict = {}
 # maze generation and placement; chip_smoke.py reads them to show that a
 # run went through the kernels. Only ``launch`` increments. The mesh
 # pass runs inside the tri_pass launch: a launch with mesh rows counts
-# under both names.
+# under both names; so does a tri_pass launch with the texture-variant
+# override ("tri_pass_override") and a pixel_epilogue launch of its
+# supersample=2 instance ("pixel_epilogue_ss2").
 LAUNCHES = {"tri_pass": 0, "entity_pass": 0, "pixel_epilogue": 0,
-            "entity_mesh_pass": 0, "place": 0, "mazegen": 0}
+            "entity_mesh_pass": 0, "place": 0, "mazegen": 0,
+            "tri_pass_override": 0, "pixel_epilogue_ss2": 0}
 
 
 def reset_launch_counts():

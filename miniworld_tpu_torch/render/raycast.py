@@ -16,11 +16,15 @@ its plain PyTorch version beside it in this module:
      z-competition with that result (``entity_mesh_pass_plain`` is the
      mesh pass's plain version). The kernel culls rows per screen tile
      before the hit test (``tile_cull_plain`` is that cull's plain
-     version) with the full scan's result;
+     version) with the full scan's result. With domain randomization
+     the winner's slot column is its texture variant under the env's
+     key (``variant_slots``);
   2. ``entity_pass``: analytic boxes and spheres;
   3. ``pixel_epilogue``: affine uv, Fourier texture, lighting, sky,
      u8 pack and depth; the kernel reads the atlas's per-slot
-     ``fourier_table``.
+     ``fourier_table``. With supersample=2 the hit passes run on a 2x2
+     grid of samples per pixel and the epilogue averages each pixel's
+     shaded samples.
 
 Each wrapper takes the plain version ONLY for tensors on the CPU; for
 CUDA tensors it launches its kernel (and adds one to its count in
@@ -44,7 +48,7 @@ from typing import NamedTuple
 
 import torch
 
-from miniworld_tpu_torch.ops import geom
+from miniworld_tpu_torch.ops import geom, rng as rng_ops
 from miniworld_tpu_torch.render.cuda_build import check, is_cuda, launch, load, stream
 from miniworld_tpu_torch.scene.entities import SHAPE_BOX, SHAPE_MESH_TRIS, SHAPE_SPHERE
 
@@ -275,11 +279,11 @@ def _cam_rows(cam: Camera, sl: slice) -> Camera:
 
 def _paired_rows(verts9, attr, lid, paired):
     """Each env's prim rows of a paired procgen bank: (v9 (B, 9, S),
-    attrs (B, S, 16)), row s from the primary variant where
-    ``pg_wall[s] < 0`` or its wall is open in the env's ``wall_open``,
-    from the alternative (the wall's closed quads) otherwise
-    (raycast.py:259-295 with use_primary = base + wall_open @ K).
-    ``paired`` = (verts9_alt (L, 9, S), attr_alt (L, S, 16), pg_wall
+    attrs (B, S, 16), keep (B, S) bool), row s from the primary variant
+    (``keep``) where ``pg_wall[s] < 0`` or its wall is open in the env's
+    ``wall_open``, from the alternative (the wall's closed quads)
+    otherwise (raycast.py:259-295 with use_primary = base + wall_open @
+    K). ``paired`` = (verts9_alt (L, 9, S), attr_alt (L, S, 16), pg_wall
     (L, S) i32, wall_open (B, W) f32)."""
     v9_alt, attr_alt, pg_wall, wall_open = paired
     codes = pg_wall[lid].long()  # (B, S)
@@ -287,11 +291,46 @@ def _paired_rows(verts9, attr, lid, paired):
     keep = (codes < 0) | (openv > 0.5)
     v9 = torch.where(keep[:, None, :], verts9[lid], v9_alt[lid])
     attrs = torch.where(keep[:, :, None], attr[lid], attr_alt[lid])
+    return v9, attrs, keep
+
+
+def variant_slots(key, tex):
+    """Atlas row of each prim's texture variant this episode
+    (raycast.py:285-288, 301-310): key (B,) u32 values (EnvState.tri_slots),
+    tex (B, S, 4) f32 rows of (slot id, atlas base, variant count, 0)
+    (vector.install_statics) -> (B, S) f32, ``base + min(floor(hash01(key,
+    id) * count), count - 1)``, -1 where the base is (no texture)."""
+    ids, base, cnt = tex[..., 0], tex[..., 1], tex[..., 2]
+    u = rng_ops.hash01(key[:, None], ids.to(torch.int64))
+    offs = torch.minimum(torch.floor(u * cnt), cnt - 1.0)
+    return torch.where(base >= 0.0, base + offs, torch.full_like(base, -1.0))
+
+
+def _with_slots(attrs, slots):
+    """attrs (B, S, 16) with the slot column replaced by ``slots`` (B, S)."""
+    return torch.cat([attrs[..., :_SLOT], slots[..., None], attrs[..., _SLOT + 1:]], dim=-1)
+
+
+def _env_rows(verts9, attr, lid, paired=None, override=None):
+    """Each env's rows: (v9 (B, 9, S), attrs (B, S, 16)) of its layout,
+    of its live variants on a paired bank (``_paired_rows``), and with
+    ``override`` = (key (B,), tex (L, S, 4), tex_alt (L, S, 4) or None)
+    every row's slot column replaced by its texture variant
+    (``variant_slots``; a paired row's from its variant's table), as the
+    JAX package's chunk read does per row."""
+    if paired is None:
+        v9, attrs, keep = verts9[lid], attr[lid], None
+    else:
+        v9, attrs, keep = _paired_rows(verts9, attr, lid, paired)
+    if override is not None:
+        key, tex, tex_alt = override
+        rows = tex[lid] if keep is None else torch.where(keep[:, :, None], tex[lid], tex_alt[lid])
+        attrs = _with_slots(attrs, variant_slots(key, rows))
     return v9, attrs
 
 
 def tri_pass_plain(verts9, attr, layout_id, cam: Camera, all_quads: bool = False,
-                   seed=None, paired=None):
+                   seed=None, paired=None, override=None):
     """Plain version of the tri_pass kernel (raycast._tri_pass,
     single-chunk form): every prim of each env's layout in one pass.
 
@@ -304,7 +343,10 @@ def tri_pass_plain(verts9, attr, layout_id, cam: Camera, all_quads: bool = False
     strictly greater key, and no-hit pixels keep the seed's attrs.
     ``paired`` = (verts9_alt, attr_alt, pg_wall, wall_open) renders a
     paired procgen bank (``_paired_rows``): the winner's attributes come
-    from its row's live variant. Runs over blocks of envs to bound its
+    from its row's live variant. ``override`` = (key (B,), tex, tex_alt)
+    replaces every row's slot column by its texture variant
+    (``_env_rows``) before the competition, which reads only the
+    vertices and the kind column. Runs over blocks of envs to bound its
     intermediates.
     """
     S = verts9.shape[2]
@@ -316,12 +358,9 @@ def tri_pass_plain(verts9, attr, layout_id, cam: Camera, all_quads: bool = False
     ts, outs = [], []
     for sl in _env_blocks(b, S * xv.shape[1]):
         lid = layout_id[sl].long()
-        if paired is None:
-            v9, attrs = verts9[lid], attr[lid]
-        else:
-            v9_alt, attr_alt, pg_wall, wall_open = paired
-            v9, attrs = _paired_rows(verts9, attr, lid, (v9_alt, attr_alt, pg_wall,
-                                                        wall_open[sl]))
+        v9, attrs = _env_rows(verts9, attr, lid,
+                              None if paired is None else (*paired[:3], paired[3][sl]),
+                              None if override is None else (override[0][sl], *override[1:]))
         key, row = _chunk_compete(v9, attrs, _cam_rows(cam, sl), xv[sl], yv[sl], all_quads)
         sel = _gather_rows(attrs, row).to(torch.bfloat16)
         if seed is not None:
@@ -335,7 +374,7 @@ def tri_pass_plain(verts9, attr, layout_id, cam: Camera, all_quads: bool = False
 
 
 def tri_pass_chunked(verts9, attr, layout_id, cam: Camera, tri_chunk: int,
-                     all_quads: bool = False):
+                     all_quads: bool = False, override=None):
     """Plain version of the tri_pass kernel's multi-chunk scan
     (raycast._tri_pass scan body, zero init, no seed): the prims in
     chunks of ``tri_chunk``, each chunk's keyed-z winner by its rows'
@@ -346,7 +385,9 @@ def tri_pass_chunked(verts9, attr, layout_id, cam: Camera, tri_chunk: int,
 
     verts9 (L, 9, S) f32 and attr (L, S, 16) f32 with S a multiple of
     ``tri_chunk`` <= 1024 -> (t (B, HW) f32, attr (B, HW, 16) bf16).
-    Runs over blocks of envs to bound its intermediates.
+    ``override`` = (key (B,), tex (L, S, 4), None) gives each chunk's
+    rows their texture variants, as ``tri_pass_plain`` does. Runs over
+    blocks of envs to bound its intermediates.
     """
     S = verts9.shape[2]
     if S % tri_chunk or tri_chunk > (1 << _IDX_BITS):
@@ -363,8 +404,10 @@ def tri_pass_chunked(verts9, attr, layout_id, cam: Camera, tri_chunk: int,
         key_best = torch.zeros((n, hw), dtype=torch.int32, device=xv.device)
         attr_best = torch.zeros((n, hw, ATTR_DIM), dtype=torch.bfloat16, device=xv.device)
         for start in range(0, S, tri_chunk):
-            v9 = verts9[:, :, start:start + tri_chunk][lid]
-            attrs = attr[:, start:start + tri_chunk][lid]
+            part = slice(start, start + tri_chunk)
+            v9, attrs = _env_rows(verts9[:, :, part], attr[:, part], lid, None,
+                                  None if override is None
+                                  else (override[0][sl], override[1][:, part], None))
             key, row = _chunk_compete(v9, attrs, c, xv[sl], yv[sl], all_quads)
             sel = _gather_rows(attrs, row).to(torch.bfloat16)
             closer = key > key_best
@@ -379,11 +422,7 @@ def stage_rows(verts9, attr, layout_id, cam: Camera, paired=None):
     """The rows the tri_pass kernel stages for each env: (B, S,
     ROW_FIELDS) coefficients (``_stage``) of the env's layout, of its
     live variants on a paired procgen bank (``_paired_rows``)."""
-    lid = layout_id.long()
-    if paired is None:
-        v9, attrs = verts9[lid], attr[lid]
-    else:
-        v9, attrs = _paired_rows(verts9, attr, lid, paired)
+    v9, attrs = _env_rows(verts9, attr, layout_id.long(), paired)
     return _stage(v9, attrs[:, :, _KIND], cam)
 
 
@@ -487,7 +526,7 @@ MAX_KERNEL_ROWS = 4096
 
 
 def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh=None,
-             paired=None, tri_chunk: int | None = None):
+             paired=None, tri_chunk: int | None = None, override=None):
     """Stage 1 wrapper: the tri_pass kernel for CUDA tensors, the plain
     version for CPU tensors. With S <= ``tri_chunk`` (None: S), one
     chunk: the contract of ``tri_pass_plain`` seeded by
@@ -497,7 +536,14 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
     (a launch with mesh rows also counts in
     ``LAUNCHES["entity_mesh_pass"]``). With S > ``tri_chunk``, the
     multi-chunk scan of ``tri_pass_chunked`` in one launch, S <=
-    MAX_KERNEL_ROWS, without mesh rows or a paired bank (raises)."""
+    MAX_KERNEL_ROWS, without mesh rows or a paired bank (raises).
+    ``override`` = (key (B,) int64 u32 values, tex (L, S, 4), tex_alt
+    (L, S, 4) with a paired bank, else None): domain randomization's
+    texture variants (``variant_slots``). The plain versions override
+    every row before the competition; the kernel only the winner's slot
+    column, at its store (the override is a function of the row alone,
+    and a mesh winner keeps its own slot), so both give the same
+    attributes. The key is converted to the kernel's u32 once here."""
     S = verts9.shape[2]
     tri_chunk = S if tri_chunk is None else int(tri_chunk)
     multi = S > tri_chunk
@@ -508,11 +554,16 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
     if multi and (mesh is not None or paired is not None):
         raise NotImplementedError("tri_pass over more than one chunk with mesh rows or a "
                                   "paired bank is not ported yet")
-    if not is_cuda(verts9, attr, layout_id, cam.origin, *(mesh or ()), *(paired or ())):
+    ov_tensors = () if override is None else tuple(t for t in override if t is not None)
+    if override is not None and (override[2] is None) != (paired is None):
+        raise ValueError("override needs tex_alt exactly when the bank is paired")
+    if not is_cuda(verts9, attr, layout_id, cam.origin, *(mesh or ()), *(paired or ()),
+                   *ov_tensors):
         if multi:
-            return tri_pass_chunked(verts9, attr, layout_id, cam, tri_chunk, all_quads)
+            return tri_pass_chunked(verts9, attr, layout_id, cam, tri_chunk, all_quads,
+                                    override)
         seed = None if mesh is None else entity_mesh_pass_plain(*mesh, cam)
-        return tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired)
+        return tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired, override)
     L = verts9.shape[0]
     b = layout_id.shape[0]
     hw = cam.width * cam.height
@@ -542,15 +593,26 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
                        check(attr_alt, "attr_alt", torch.float32, (L, S, ATTR_DIM)),
                        check(pg_wall, "pg_wall", torch.int32, (L, S)),
                        check(wall_open, "wall_open", torch.float32, (b, n_walls)))
+    if override is None:
+        ov_ptrs = (ctypes.c_void_p(0),) * 3
+    else:
+        key32 = override[0].to(torch.int32)  # u32 bits, wrapped
+        ov_ptrs = (check(key32, "slot key", torch.int32, (b,)),
+                   check(override[1], "slot tex", torch.float32, (L, S, 4)),
+                   ctypes.c_void_p(0) if paired is None
+                   else check(override[2], "slot tex_alt", torch.float32, (L, S, 4)))
     cam_ptrs, _cam_tensors = _cam_args(cam, b)
+    counters = (("tri_pass",) + (() if mesh is None else ("entity_mesh_pass",))
+                + (() if override is None else ("tri_pass_override",)))
     launch(
-        "mw_tri_pass", ("tri_pass",) if mesh is None else ("tri_pass", "entity_mesh_pass"),
+        "mw_tri_pass", counters,
         check(verts9, "verts9", torch.float32, (L, 9, S)),
         check(attr, "attr", torch.float32, (L, S, ATTR_DIM)),
         check(layout_id, "layout_id", torch.int32, (b,)),
         *cam_ptrs,
         *mesh_ptrs,
         *paired_ptrs,
+        *ov_ptrs,
         ctypes.c_int(b), ctypes.c_int(S), ctypes.c_int(n_mesh), ctypes.c_int(cam.width),
         ctypes.c_int(cam.height), ctypes.c_int(n_walls), ctypes.c_int(int(all_quads)),
         ctypes.c_int(tri_chunk),
@@ -949,27 +1011,44 @@ def shade(color, normal, hit_p, light_pos, light_color, light_ambient):
 
 def pixel_epilogue_plain(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
                          light_pos, light_color, light_ambient, sky, k_terms: int,
-                         has_gain: bool = False):
+                         has_gain: bool = False, ss: int = 1):
     """Plain version of the pixel_epilogue kernel (render_rgbd after the
     hit passes): uv from the winner's affine map, Fourier texel with
     footprint AA, the entity merge (t_ent may be None: no analytic
     entities), lighting, sky, truncating u8 pack.
 
     t_tri (B, HW) f32, attr (B, HW, 16) bf16; t_ent (B, HW), col_ent /
-    n_ent (B, HW, 3); atlas (A, 4+8K); lights and sky (B, 3).
-    Returns (rgb (B, H, W, 3) u8, depth (B, H, W, 1) f32). Runs over
-    blocks of envs: each pixel gathers its atlas row of 4+8K floats.
+    n_ent (B, HW, 3); atlas (A, 4+8K); lights and sky (B, 3); HW the
+    camera's W x H samples. ``ss`` = 2 (supersample=2,
+    raycast.py:1294-1301): each output pixel is the mean of its 2x2
+    samples' shaded colours, summed in row-major order, ((s00 + s01) +
+    s10) + s11, as XLA reduces the JAX package's mean and the kernel
+    sums, times 0.25, before the pack; its depth the top-left sample's.
+    Returns (rgb (B, H/ss, W/ss, 3) u8, depth (B, H/ss, W/ss, 1) f32).
+    Runs over blocks of envs: each pixel gathers its atlas row of 4+8K
+    floats.
     """
     b, hw = t_tri.shape
+    h, w = cam.height, cam.width
+    if ss not in (1, 2) or h % ss or w % ss:
+        raise ValueError(f"ss={ss} must be 1 or 2 and divide the {w}x{h} samples")
     outs = []
     for sl in _env_blocks(b, hw * atlas.shape[1]):
         def rows(x):
             return None if x is None else x[sl]
 
-        outs.append(_pixel_epilogue_block(
+        rgb, depth = _pixel_epilogue_block(
             t_tri[sl], attr[sl], rows(t_ent), rows(col_ent), rows(n_ent), atlas,
             _cam_rows(cam, sl), light_pos[sl], light_color[sl], light_ambient[sl], sky[sl],
-            k_terms, has_gain))
+            k_terms, has_gain)
+        n = rgb.shape[0]
+        if ss == 2:
+            q = rgb.reshape(n, h // 2, 2, w // 2, 2, 3)
+            rgb = (((q[:, :, 0, :, 0] + q[:, :, 0, :, 1]) + q[:, :, 1, :, 0])
+                   + q[:, :, 1, :, 1]) * 0.25
+            depth = depth[:, ::2, ::2]
+        rgb_u8 = torch.clamp(rgb * 255.0, 0.0, 255.0).to(torch.uint8)
+        outs.append((rgb_u8, depth.contiguous()))
     return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
 
@@ -1015,20 +1094,19 @@ def _pixel_epilogue_block(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera
     shaded = shade(color, normal, hit_p, per_px(light_pos), per_px(light_color),
                    per_px(light_ambient))
     rgb = torch.where(hit[:, None], shaded, per_px(sky))
-    rgb_u8 = torch.clamp(rgb * 255.0, 0.0, 255.0).to(torch.uint8)
-    return rgb_u8.reshape(b, h, w, 3), t_safe.reshape(b, h, w, 1)
+    return rgb.reshape(b, h, w, 3), t_safe.reshape(b, h, w, 1)
 
 
 def pixel_epilogue(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
                    light_pos, light_color, light_ambient, sky, k_terms: int,
-                   has_gain: bool = False, table=None):
+                   has_gain: bool = False, table=None, ss: int = 1):
     """Stage 3 wrapper: the pixel_epilogue kernel for CUDA tensors, the
     plain version for CPU tensors. Same contract as
-    ``pixel_epilogue_plain``. The kernel reads ``table``, the atlas's
-    ``fourier_table`` (made here when not given: a caller that renders
-    often makes it once)."""
+    ``pixel_epilogue_plain`` (``ss`` = 2: the kernel's SS = 2 instance).
+    The kernel reads ``table``, the atlas's ``fourier_table`` (made here
+    when not given: a caller that renders often makes it once)."""
     args = (t_tri, attr, t_ent, col_ent, n_ent, atlas, cam, light_pos,
-            light_color, light_ambient, sky, k_terms, has_gain)
+            light_color, light_ambient, sky, k_terms, has_gain, ss)
     if not is_cuda(t_tri, attr, atlas, cam.origin, light_pos):
         return pixel_epilogue_plain(*args)
     if has_gain:
@@ -1037,14 +1115,17 @@ def pixel_epilogue(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
         )
     b, hw = t_tri.shape
     h, w = cam.height, cam.width
+    if ss not in (1, 2) or h % ss or w % ss:
+        raise ValueError(f"ss={ss} must be 1 or 2 and divide the {w}x{h} samples")
     n_rows, width = atlas.shape
     if width != 4 + 8 * k_terms:
         raise ValueError(f"atlas rows hold {width} floats, expected 4+8K with K={k_terms}")
     if table is None:
         table = fourier_table(atlas, k_terms)
     dev = t_tri.device
-    rgb = torch.empty((b, h, w, 3), dtype=torch.uint8, device=dev)
-    depth = torch.empty((b, h, w, 1), dtype=torch.float32, device=dev)
+    ho, wo = h // ss, w // ss
+    rgb = torch.empty((b, ho, wo, 3), dtype=torch.uint8, device=dev)
+    depth = torch.empty((b, ho, wo, 1), dtype=torch.float32, device=dev)
     has_ent = t_ent is not None
     if has_ent:
         ent_ptrs = (
@@ -1057,7 +1138,8 @@ def pixel_epilogue(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
     lights = torch.stack([light_pos, light_color, light_ambient, sky], dim=1).contiguous()
     cam_ptrs, _cam_tensors = _cam_args(cam, b)
     launch(
-        "mw_pixel_epilogue", "pixel_epilogue",
+        "mw_pixel_epilogue",
+        ("pixel_epilogue",) if ss == 1 else ("pixel_epilogue", "pixel_epilogue_ss2"),
         check(t_tri, "t_tri", torch.float32, (b, hw)),
         check(attr, "attr", torch.bfloat16, (b, hw, ATTR_DIM)),
         *ent_ptrs,
@@ -1066,8 +1148,9 @@ def pixel_epilogue(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
         *cam_ptrs,
         ctypes.c_int(b), ctypes.c_int(w), ctypes.c_int(h),
         ctypes.c_int(n_rows), ctypes.c_int(k_terms), ctypes.c_int(int(has_ent)),
-        check(rgb, "rgb", torch.uint8, (b, h, w, 3)),
-        check(depth, "depth", torch.float32, (b, h, w, 1)),
+        ctypes.c_int(ss),
+        check(rgb, "rgb", torch.uint8, (b, ho, wo, 3)),
+        check(depth, "depth", torch.float32, (b, ho, wo, 1)),
         stream(),
     )
     return rgb, depth
@@ -1103,18 +1186,26 @@ def static_rows(bank, state, cam: Camera, pg_wall=None, packed_pvs: bool = False
 def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
                 shapes_present=(True, True, False), all_quads: bool = False,
                 has_gain: bool = False, use_kernels: bool = True, pg_wall=None,
-                table=None, tri_chunk: int | None = None, packed_pvs: bool = False):
+                table=None, tri_chunk: int | None = None, packed_pvs: bool = False,
+                slot_tex=None, supersample: int = 1):
     """Render every env's observation: (rgb (B, H, W, 3) u8, depth
     (B, H, W, 1) f32, FAR for sky). Counterpart of raycast.render_rgbd
-    for dense chunk plans in fourier mode, without domain randomization
-    or supersampling (the statics of the port's slices): the static
-    prims in chunks of ``tri_chunk`` (None: one chunk of all of them;
-    more than one without mesh entities or a paired bank).
+    in fourier mode for the plans the port renders: the static prims in
+    chunks of ``tri_chunk`` (None: one chunk of all of them; more than
+    one without mesh entities or a paired bank).
     ``packed_pvs``: the bank's packed per-room visible sets, one chunk
     of ``tri_chunk`` a render: each env scans its camera room's chunk
     (``static_rows``).
     ``table``: the atlas's ``fourier_table``, which the epilogue kernel
     reads.
+    ``slot_tex`` = (tex, tex_alt) (vector.install_statics with
+    domain_rand): each scanned row's texture variant under
+    ``state.tri_slots`` goes into its slot column (``tri_pass``'s
+    ``override``; raycast.py:1190-1232); None: the slot columns hold
+    their atlas bases already.
+    ``supersample`` = 2: the hit passes run on a 2W x 2H grid of samples
+    and the epilogue box-filters each pixel's 2x2 shaded samples, depth
+    from the top-left one (raycast.py:1143-1160, 1294-1301).
 
     With mesh entities (``shapes_present[2]``) their pass runs first and
     seeds the static prims' z-competition (raycast.py:1174-1182), in
@@ -1127,20 +1218,22 @@ def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
     on whatever device the tensors are on (for comparisons on the card);
     otherwise each stage goes through its wrapper.
     """
-    cam = camera_grid(state, width, height)
+    ss = int(supersample)
+    cam = camera_grid(state, width * ss, height * ss)
     f_ent = entity_pass if use_kernels else entity_pass_plain
     mesh = entity_mesh_rows(bank, state)[:2] if shapes_present[2] else None
     rows, paired = static_rows(bank, state, cam, pg_wall, packed_pvs)
+    override = None if slot_tex is None else (state.tri_slots, *slot_tex)
     if use_kernels:
-        t_tri, attr = tri_pass(*rows, cam, all_quads, mesh, paired, tri_chunk)
+        t_tri, attr = tri_pass(*rows, cam, all_quads, mesh, paired, tri_chunk, override)
     elif tri_chunk is not None and rows[0].shape[2] > tri_chunk:
         if mesh is not None or paired is not None:
             raise NotImplementedError("more than one chunk with mesh rows or a paired bank "
                                       "is not ported yet")
-        t_tri, attr = tri_pass_chunked(*rows, cam, tri_chunk, all_quads)
+        t_tri, attr = tri_pass_chunked(*rows, cam, tri_chunk, all_quads, override)
     else:
         seed = None if mesh is None else entity_mesh_pass_plain(*mesh, cam)
-        t_tri, attr = tri_pass_plain(*rows, cam, all_quads, seed, paired)
+        t_tri, attr = tri_pass_plain(*rows, cam, all_quads, seed, paired, override)
     t_ent = col_ent = n_ent = None
     if shapes_present[0] or shapes_present[1]:
         t_ent, col_ent, n_ent = f_ent(
@@ -1151,5 +1244,5 @@ def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
     epi_args = (t_tri, attr, t_ent, col_ent, n_ent, atlas, cam, state.light_pos,
                 state.light_color, state.light_ambient, state.sky_color, k_terms, has_gain)
     if use_kernels:
-        return pixel_epilogue(*epi_args, table=table)
-    return pixel_epilogue_plain(*epi_args)
+        return pixel_epilogue(*epi_args, table=table, ss=ss)
+    return pixel_epilogue_plain(*epi_args, ss=ss)

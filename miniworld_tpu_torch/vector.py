@@ -22,10 +22,12 @@ The port covers the statics of 19 of the 27 env ids (``envs.ENV_IDS``):
 one layout bank rendered in the JAX package's chunk plan (one chunk, a
 dense multi-chunk scan, or the one-chunk packed-PVS plan of the Maze
 family's layout bank; ``install_statics``), Fourier textures without
-glyphs, analytic and mesh entities, and procgen mazes — a fresh maze
-per reset on the device (``procgen``, the Maze family's default),
-rendered from the paired super bank — but no domain randomization, no
-supersampling. Other statics and plans raise NotImplementedError.
+glyphs, analytic and mesh entities, procgen mazes — a fresh maze per
+reset on the device (``procgen``, the Maze family's default), rendered
+from the paired super bank — domain randomization (``domain_rand``: the
+per-episode and per-step parameter draws and each episode's texture
+variants) and ``supersample=2``. Other statics (nearest textures, the
+top view) and plans raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -55,6 +57,12 @@ JAX_CHUNK_OVERHEAD_TRIS = 56
 # The z-key's row budget (render/raycast._IDX_BITS): the most prims one
 # chunk can hold.
 MAX_CHUNK = 1024
+# The per-episode parameters a reset draws, in the order of the JAX
+# package's ``_reset_one`` (its rows of the (8, 3) uniforms), and the
+# per-step ones (``_step_one``'s ``split(k_params, 3)``).
+RESET_PARAMS = ("sky_color", "light_pos", "light_color", "light_ambient",
+                "cam_height", "cam_fwd_disp", "cam_pitch", "cam_fov_y")
+STEP_PARAMS = ("forward_step", "forward_drift", "turn_step")
 
 
 def build_bank(spec: EnvSpec):
@@ -402,18 +410,32 @@ def plan_chunks(bank_np: Layout, num_envs: int, hw: int):
     return _repad_for_chunks(bank_np, plan["tri_chunk"]), plan
 
 
-def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int):
+def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
+                    domain_rand: bool = False):
     """The static decisions of the JAX package's ``_install_bank`` for
-    a fresh bank in fourier mode without domain randomization, for a
-    batch of ``num_envs`` envs rendering ``hw`` pixels each.
+    a fresh bank in fourier mode, for a batch of ``num_envs`` envs
+    rendering ``hw`` pixels each (the supersampled count with
+    supersample=2).
 
     Returns (bank, statics dict): the bank repadded for its chunk plan
-    (``plan_chunks``), with each prim's atlas base baked into its attr
-    slot column (every slot renders variant 0; both variants of a
-    paired procgen bank), and ``plan``, ``tri_chunk``, ``all_quads``,
-    ``shapes_present``, ``has_gain`` and ``pg_wall``: for a paired bank
+    (``plan_chunks``), and ``plan``, ``tri_chunk``, ``all_quads``,
+    ``shapes_present``, ``has_gain``, ``pg_wall``: for a paired bank
     the (L, Sp) i32 wall of each row (-1 = none), from
-    ``pg_sel_onehot`` / ``pg_sel_base``, else None.
+    ``pg_sel_onehot`` / ``pg_sel_base``, else None, and ``slot_tex``.
+    Without ``domain_rand`` every slot renders variant 0: each prim's
+    atlas base is baked into its attr slot column (both variants of a
+    paired procgen bank) and ``slot_tex`` is None. With it the slot
+    columns stay as built, and ``slot_tex`` = (tex, tex_alt) gives the
+    render each scanned row's (slot id, atlas base, variant count, 0),
+    f32, from which a render draws the row's variant
+    (raycast.py:277-310): (L, S, 4) from ``tri_tex*`` for a dense plan
+    (one chunk or several, by the global row), the (L * NC, k, 4) chunk
+    rows of ``pvs_tri_tex*`` for packed PVS, in the view of
+    ``pvs_v9_rows``, and both variants' rows of ``pg_tex`` for a paired
+    bank (``tex_alt``; None otherwise).
+    The slot column is carried in bf16, exact for atlas rows up to 256
+    (the JAX package carries it in f32 above, raycast.py:512-527): a
+    larger atlas raises ValueError.
 
     The port renders the JAX package's split, because the split decides
     ties. Each row's z-key carries its index WITHIN its chunk
@@ -456,22 +478,36 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int)
         raise NotImplementedError(
             f"a paired procgen bank of Sp={bank_np.pg_verts9.shape[2]} rows in chunks of "
             f"{tri_chunk} {where} is not ported yet")
-    ta = bank_np.tri_attr.copy()
-    ta[:, :, 14] = bank_np.tri_tex_base
-    bank_np = dataclasses.replace(bank_np, tri_attr=ta)
+    if tex_np.shape[0] > 256:
+        raise ValueError(
+            f"an atlas of {tex_np.shape[0]} rows: slot ids above 256 are not exact in the "
+            "bf16 attribute carry (the JAX package's f32 carry is not ported)")
+
+    def slot_rows(ids, base, cnt):  # (..., n) each -> (..., n, 4) f32
+        return np.ascontiguousarray(np.stack(
+            [ids.astype(np.float32), base, cnt, np.zeros_like(base)], axis=-1), np.float32)
+
+    if not domain_rand:
+        ta = bank_np.tri_attr.copy()
+        ta[:, :, 14] = bank_np.tri_tex_base
+        bank_np = dataclasses.replace(bank_np, tri_attr=ta)
+    slot_tex = (slot_rows(bank_np.tri_tex, bank_np.tri_tex_base, bank_np.tri_tex_count), None)
     if plan["kind"] == "packed_pvs":
-        # slot columns baked as in the bank; the chunk-row views of the
-        # JAX package's one-hot chunk read, (L * NC, 9 * k) and (L * NC,
-        # k * 16), which the render reads as (L * NC, 9, k) and (L * NC,
-        # k, 16) banks of one chunk
-        pa = bank_np.pvs_attr.copy()
-        pa[:, :, 14] = bank_np.pvs_tri_tex_base
+        # the chunk-row views of the JAX package's one-hot chunk read,
+        # (L * NC, 9 * k) and (L * NC, k * 16), which the render reads as
+        # (L * NC, 9, k) and (L * NC, k, 16) banks of one chunk
+        pa = bank_np.pvs_attr
+        if not domain_rand:  # slot columns baked as in the bank
+            pa = pa.copy()
+            pa[:, :, 14] = bank_np.pvs_tri_tex_base
         L, _, s2 = bank_np.pvs_verts9.shape
         nc = s2 // tri_chunk
         v9r = np.ascontiguousarray(bank_np.pvs_verts9.reshape(L, 9, nc, tri_chunk)
                                    .transpose(0, 2, 1, 3).reshape(L * nc, 9 * tri_chunk))
         atr = np.ascontiguousarray(pa.reshape(L * nc, -1))
         bank_np = dataclasses.replace(bank_np, pvs_attr=pa, pvs_v9_rows=v9r, pvs_attr_rows=atr)
+        slot_tex = (slot_rows(bank_np.pvs_tri_tex, bank_np.pvs_tri_tex_base,
+                              bank_np.pvs_tri_tex_count).reshape(L * nc, tri_chunk, 4), None)
     all_quads = bool((bank_np.tri_attr[:, :, 15][bank_np.tri_mask] == 0.0).all())
     pg_wall = None
     if bank_np.tri_wall is not None:
@@ -479,12 +515,15 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int)
             raise NotImplementedError(
                 "procgen super banks render through their paired rows (pg_*); the "
                 "dense tri_active render is not ported yet")
-        pga = bank_np.pg_attr.copy()
-        pga[:, :, 14] = bank_np.pg_tex[:, 0, 1]
-        pgaa = bank_np.pg_attr_alt.copy()
-        pgaa[:, :, 14] = bank_np.pg_tex[:, 1, 1]
-        bank_np = dataclasses.replace(bank_np, pg_attr=pga, pg_attr_alt=pgaa)
+        pga, pgaa = bank_np.pg_attr, bank_np.pg_attr_alt
+        if not domain_rand:
+            pga, pgaa = pga.copy(), pgaa.copy()
+            pga[:, :, 14] = bank_np.pg_tex[:, 0, 1]
+            pgaa[:, :, 14] = bank_np.pg_tex[:, 1, 1]
+            bank_np = dataclasses.replace(bank_np, pg_attr=pga, pg_attr_alt=pgaa)
         pg_wall = _paired_walls(bank_np)
+        pgt = bank_np.pg_tex  # (L, 2, 3, Sp): [variant][ids | base | count]
+        slot_tex = tuple(slot_rows(pgt[:, v, 0], pgt[:, v, 1], pgt[:, v, 2]) for v in (0, 1))
         if all_quads and not ((pga[:, :, 15] == 0.0).all() and (pgaa[:, :, 15] == 0.0).all()):
             raise ValueError("all_quads holds for the dense bank but not its paired rows")
     statics = dict(
@@ -494,6 +533,7 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int)
         pg_wall=pg_wall,
         shapes_present=shapes_present,
         has_gain=bool(((tex_np[:, -1] > 1.0) | (tex_np[:, -1] < 0.0)).any()),
+        slot_tex=slot_tex if domain_rand else None,
     )
     return bank_np, statics
 
@@ -542,14 +582,13 @@ class MiniWorldVec:
         view: str = "agent",
     ):
         # statics of the JAX package that later slices port
-        for name, value, default in (
-            ("domain_rand", domain_rand, False), ("supersample", supersample, 1),
-            ("tex_mode", tex_mode, "fourier"), ("view", view, "agent"),
-        ):
+        for name, value, default in (("tex_mode", tex_mode, "fourier"), ("view", view, "agent")):
             if value != default:
                 raise NotImplementedError(
                     f"{name}={value!r} is not ported to miniworld_tpu_torch yet"
                 )
+        if supersample not in (1, 2):
+            raise ValueError(f"supersample must be 1 or 2, got {supersample!r}")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' asked for, but torch sees no CUDA device")
@@ -575,6 +614,11 @@ class MiniWorldVec:
         self.obs_width = obs_width or spec.obs_width
         self.obs_height = obs_height or spec.obs_height
         self.with_depth = with_depth
+        # per-episode and per-step parameter draws, and each episode's
+        # texture variants (the JAX package's domain_rand)
+        self.domain_rand = bool(domain_rand)
+        # 2: each pixel the box-filtered mean of a 2x2 grid of samples
+        self.supersample = int(supersample)
         self.place_budget = spec.place_budget
         self.fourier_k = spec.fourier_k or FOURIER_TERMS
         # True: each render stage and the reset's placement go through
@@ -583,8 +627,9 @@ class MiniWorldVec:
         self.use_kernels = use_kernels
 
         bank_np, tex_np = build_super_bank(spec) if self.procgen else build_bank(spec)
-        bank_np, statics = install_statics(bank_np, tex_np, self.num_envs,
-                                           self.obs_width * self.obs_height)
+        bank_np, statics = install_statics(
+            bank_np, tex_np, self.num_envs,
+            self.obs_width * self.obs_height * self.supersample ** 2, self.domain_rand)
         if statics["has_gain"]:
             raise NotImplementedError("glyph textures are not ported yet")
         self._bank_np = bank_np
@@ -596,6 +641,11 @@ class MiniWorldVec:
         self._bank = layout_from_numpy(bank_np, device)
         self._pg_wall = (None if statics["pg_wall"] is None
                          else torch.from_numpy(statics["pg_wall"]).to(device))
+        # domain_rand: each scanned row's (slot id, atlas base, variant
+        # count), in the rows' view (a paired bank's two variants)
+        self._slot_tex = (None if statics["slot_tex"] is None else
+                          tuple(None if t is None else torch.from_numpy(t).to(device)
+                                for t in statics["slot_tex"]))
         self._atlas = atlas_from_numpy(tex_np, device)
         # what the epilogue kernel reads in place of the atlas, made once
         self._fourier_table = fourier_table(atlas_from_numpy(tex_np), self.fourier_k).to(device)
@@ -606,6 +656,10 @@ class MiniWorldVec:
         self._action_table = torch.as_tensor(
             np.asarray(spec.discrete_actions, np.float32), device=device
         )
+        # domain randomization's (lo, hi) per parameter, on the device once
+        self._param_bounds = {name: tuple(t[0] for t in self._bounds([name]))
+                              for name in RESET_PARAMS + ("obj_color_bias",)}
+        self._param_bounds["step"] = self._bounds(STEP_PARAMS)
 
     # -- reset ---------------------------------------------------------------
 
@@ -615,6 +669,42 @@ class MiniWorldVec:
         d = torch.as_tensor(np.asarray(self.spec.params.params[name].default,
                                        np.float32), device=self.device)
         return d.expand((n,) + tuple(d.shape)).clone()
+
+    def _bounds(self, names):
+        """(lo, hi) float32 tensors of the parameters ``names``, stacked
+        on a leading axis."""
+        params = self.spec.params.params
+        return tuple(torch.as_tensor(np.stack([np.asarray(getattr(params[n], side), np.float32)
+                                               for n in names]), device=self.device)
+                     for side in ("min", "max"))
+
+    def _reset_params(self, u3, n: int) -> dict:
+        """The per-episode parameters of ``RESET_PARAMS`` from their (n, 8,
+        3) counter-based uniform rows ``u3`` (the JAX package's
+        ``_sample_param_u``: ``lo + u * (hi - lo)``, a () parameter from
+        the row's first column); at their defaults without domain
+        randomization (``u3`` None)."""
+        if u3 is None:
+            return {name: self._default(name, n) for name in RESET_PARAMS}
+        out = {}
+        for i, name in enumerate(RESET_PARAMS):
+            lo, hi = self._param_bounds[name]
+            uu = u3[:, i] if lo.dim() == 1 else u3[:, i, 0]
+            out[name] = lo + uu * (hi - lo)
+        return out
+
+    def _step_params(self, k_params: torch.Tensor):
+        """(forward_step, forward_drift, turn_step) of a step: each env's
+        ``jax.random.uniform`` draws from ``split(k_params, 3)`` (the JAX
+        package's ``_sample_param``), one threefry call for the three, as
+        (B,) tensors; floats at their defaults without domain
+        randomization."""
+        params = self.spec.params.params
+        if not self.domain_rand:
+            return tuple(float(params[name].default) for name in STEP_PARAMS)
+        lo, hi = self._param_bounds["step"]
+        draws = rng_ops.uniform(rng_ops.split(k_params, 3), (), lo, hi)  # (B, 3)
+        return tuple(draws[:, i] for i in range(3))
 
     def _reset_batch(self, keys: torch.Tensor) -> EnvState:
         """Reset one env per key (B, 2): the JAX package's ``_reset_one``
@@ -657,8 +747,12 @@ class MiniWorldVec:
         ent_size = bank.proto_size[lid_e, p] * size_mul[..., None]
         ent_radius = bank.proto_radius[lid_e, p] * size_mul
         ent_height = bank.proto_height[lid_e, p] * size_mul
-        # obj_color_bias at its default (no domain randomization)
-        bias = self._default("obj_color_bias", n)[:, None, :].expand(n, E, 3)
+        # obj_color_bias per entity (entity.py:405-407)
+        if self.domain_rand:
+            b_lo, b_hi = self._param_bounds["obj_color_bias"]
+            bias = b_lo + u(13, (E, 3)) * (b_hi - b_lo)
+        else:
+            bias = self._default("obj_color_bias", n)[:, None, :].expand(n, E, 3)
         colorable = bank.proto_colorable[lid_e, p]
         ent_color = torch.clamp(
             bank.proto_color[lid_e, p]
@@ -688,12 +782,24 @@ class MiniWorldVec:
             slot_mask, budget=self.place_budget, room_weight=room_weight, seg_gate=seg_gate,
         )
 
+        # per-episode params (reset consumption; miniworld.py:586-599)
+        par = self._reset_params(u(15, (8, 3)) if self.domain_rand else None, n)
+        # Texture variants (opengl.py:136-140): one draw per (room, role)
+        # slot from the keyed hash of its id, as the slot table and as
+        # the key the render resolves each prim's variant from
+        tex_map = bank.tex_slot_base[lid]
+        tkey = torch.zeros(n, dtype=torch.int64, device=dev)
+        if self.domain_rand:
+            tkey = rng_ops.sub(seed, 16)
+            u_var = rng_ops.hash01(tkey[:, None], torch.arange(tex_map.shape[1], device=dev))
+            count = bank.tex_slot_count[lid]
+            offs = torch.minimum(torch.floor(u_var * count.to(torch.float32)).to(torch.int32),
+                                 count - 1)
+            tex_map = tex_map + offs
         return EnvState(
             pos=agent_pos, dir=agent_dir,
-            cam_pitch=self._default("cam_pitch", n),
-            cam_height=self._default("cam_height", n),
-            cam_fov_y=self._default("cam_fov_y", n),
-            cam_fwd_disp=self._default("cam_fwd_disp", n),
+            cam_pitch=par["cam_pitch"], cam_height=par["cam_height"],
+            cam_fov_y=par["cam_fov_y"], cam_fwd_disp=par["cam_fwd_disp"],
             carrying=torch.full((n,), -1, dtype=torch.int32, device=dev),
             ent_pos=ent_pos, ent_dir=ent_dir,
             ent_alive=slot_mask.clone(),
@@ -701,13 +807,9 @@ class MiniWorldVec:
             ent_size=ent_size, ent_radius=ent_radius, ent_height=ent_height,
             step_count=torch.zeros(n, dtype=torch.int32, device=dev),
             rng=k_rng, layout_id=layout_id,
-            sky_color=self._default("sky_color", n),
-            light_pos=self._default("light_pos", n),
-            light_color=self._default("light_color", n),
-            light_ambient=self._default("light_ambient", n),
-            # every texture slot at variant 0 (no domain randomization)
-            tex_map=bank.tex_slot_base[lid].clone(),
-            tri_slots=torch.zeros(n, dtype=torch.int64, device=dev),
+            sky_color=par["sky_color"], light_pos=par["light_pos"],
+            light_color=par["light_color"], light_ambient=par["light_ambient"],
+            tex_map=tex_map.to(torch.int32), tri_slots=tkey,
             wall_open=wall_open,
             task={k: torch.as_tensor(v, device=dev).expand(n).clone()
                   for k, v in spec.init_task().items()},
@@ -720,7 +822,7 @@ class MiniWorldVec:
         keys = rng_ops.split(state.rng, 3)
         state = state.replace(rng=keys[:, 0], step_count=state.step_count + 1)
         prev = state
-        params = spec.params.params
+        fwd_step, fwd_drift, turn_step = self._step_params(keys[:, 1])
 
         lid = state.layout_id.long()
         room = room_of_point(bank, state.layout_id, state.pos[:, [0, 2]])
@@ -738,9 +840,7 @@ class MiniWorldVec:
         state, res = physics.physics_step(
             bank.proto_pickable[lid], state, action_vec, segs4=segs4,
             max_forward_step=spec.max_forward_step,
-            fwd_step=float(params["forward_step"].default),
-            fwd_drift=float(params["forward_drift"].default),
-            turn_step=float(params["turn_step"].default),
+            fwd_step=fwd_step, fwd_drift=fwd_drift, turn_step=turn_step,
             agent_radius=spec.agent_radius,
         )
         truncated = state.step_count >= spec.max_episode_steps
@@ -771,7 +871,8 @@ class MiniWorldVec:
             shapes_present=self._shapes_present, all_quads=self._all_quads,
             use_kernels=self.use_kernels, pg_wall=self._pg_wall,
             table=self._fourier_table, tri_chunk=self.tri_chunk,
-            packed_pvs=self.plan["kind"] == "packed_pvs",
+            packed_pvs=self.plan["kind"] == "packed_pvs", slot_tex=self._slot_tex,
+            supersample=self.supersample,
         )
 
     def _obs(self, rgb, depth):

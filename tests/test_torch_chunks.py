@@ -30,7 +30,9 @@ from miniworld_tpu_torch.render import raycast as trc
 
 from _torch_parity import to_port_state
 
-SIZES = [(8, 80, 60), (1024, 80, 60), (1024, 160, 120)]
+# (B, W, H, supersample): at ss=2 the plan sees W x H x 4 samples a frame
+SIZES = [(8, 80, 60, 1), (1024, 80, 60, 1), (1024, 160, 120, 1), (8, 80, 60, 2),
+         (1024, 80, 60, 2)]
 BANK_MODE = ["MiniWorld-MazeS2-v0", "MiniWorld-MazeS3-v0", "MiniWorld-MazeS3Fast-v0"]
 CASES = [(env_id, None) for env_id in ENV_IDS] + [(env_id, False) for env_id in BANK_MODE]
 _BANKS = {}
@@ -46,23 +48,27 @@ def _port_bank(env_id, procgen):
     return _BANKS[env_id, procgen]
 
 
-@pytest.mark.parametrize("size", SIZES, ids=lambda s: "B%d-%dx%d" % s)
+@pytest.mark.parametrize("size", SIZES,
+                         ids=lambda s: "B%d-%dx%d" % s[:3] + ("-ss%d" % s[3] if s[3] > 1 else ""))
 @pytest.mark.parametrize("env_id,procgen", CASES,
                          ids=lambda v: {None: "", False: "bank"}.get(v, v))
 def test_plan_matches_jax(env_id, procgen, size):
     """tri_chunk, the padded S, the plan's kind and schedule length and
-    the chunk cap equal the JAX package's; where JAX scans a paired
-    procgen bank in more than one chunk (its last chunk clamped), the
-    port raises instead."""
-    b, w, h = size
-    jenv = JaxVec(env_id, num_envs=b, obs_width=w, obs_height=h, procgen=procgen)
+    the chunk cap equal the JAX package's (at supersample=2 for the
+    samples of a frame, as MiniWorldVec passes them); where JAX scans a
+    paired procgen bank in more than one chunk (its last chunk clamped),
+    the port raises instead."""
+    b, w, h, ss = size
+    jenv = JaxVec(env_id, num_envs=b, obs_width=w, obs_height=h, procgen=procgen,
+                  supersample=ss)
     bank_np, tex_np = _port_bank(env_id, procgen)
     pg = jenv._bank_np.pg_verts9
+    hw = w * h * ss * ss
     if pg is not None and pg.shape[2] > jenv.tri_chunk:
         with pytest.raises(NotImplementedError, match="paired procgen bank"):
-            tvector.install_statics(bank_np, tex_np, b, w * h)
+            tvector.install_statics(bank_np, tex_np, b, hw)
         return
-    got, statics = tvector.install_statics(bank_np, tex_np, b, w * h)
+    got, statics = tvector.install_statics(bank_np, tex_np, b, hw)
     plan = statics["plan"]
     assert plan["cap"] == jenv._chunk_cap
     assert statics["tri_chunk"] == plan["tri_chunk"] == jenv.tri_chunk
@@ -72,7 +78,7 @@ def test_plan_matches_jax(env_id, procgen, size):
     assert plan["sched_len"] == jenv._sched_len
     if env_id == "MiniWorld-Sidewalk-v0":  # the widest dense bank: 3 or 6 chunks
         assert (got.tri_mask.shape[1], plan["tri_chunk"]) == (
-            (2976, 496) if w == 160 else (3072, 1024))
+            (2976, 496) if plan["cap"] == 496 else (3072, 1024))
 
 
 def test_port_plans_its_maze_at_160x120_raises():

@@ -256,8 +256,7 @@ def test_wrappers_take_plain_on_cpu(port_env):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"domain_rand": True}, {"supersample": 2}, {"procgen": True},
-    {"tex_mode": "nearest"}, {"view": "top"},
+    {"procgen": True}, {"tex_mode": "nearest"}, {"view": "top"},
 ])
 def test_unported_statics_raise(kwargs):
     """Statics no slice has ported raise NotImplementedError; procgen=True
