@@ -38,7 +38,15 @@ and YMaze-family rollouts, then the Maze 8x8 procgen rollout at B=8192
 and the FourRooms one at B=1024 with domain randomisation, the Hallway
 one at B=1024 and the PickupObjects one at B=4096 with supersample=2,
 and FourRooms and MazeS3 procgen with domain randomisation and Hallway
-with supersample=2 at B=128 against their plain paths, exactly. One line
+with supersample=2 at B=128 against their plain paths, exactly. Sign's
+glyph epilogue (K=64, the GAIN instances) is held against its plain
+version at SS=1 and SS=2 ([gain-epilogue]), and the paired tri_pass over
+2 chunks of 496 whose second is clamped to rows 112-607 against
+tri_pass_chunked on the 8x8 procgen Maze at supersample=2, with and
+without the override, and on a paired tie bank ([paired-chunks]); then
+the Sign rollout at B=1024 and the Maze 8x8 procgen one at B=8192 with
+supersample=2, short GreenKey and ThreeRooms rollouts, and Sign (exactly),
+GreenKey and ThreeRooms at B=128 against their plain paths. One line
 per phase; the JSON summary of the
 kernels and the card's ``nvidia-smi`` name and power limit come before
 the last line,
@@ -84,6 +92,10 @@ SIDE_ID, WALL_ID, NAV_ID = ("MiniWorld-Sidewalk-v0", "MiniWorld-WallGap-v0",
 B_STAGE = 64  # the multi-chunk stage checks
 B_PLAIN = 128  # the multi-chunk ids' and YMaze's kernel-vs-plain rollouts
 PLAIN_HORIZON = 6
+# Sign: the SDF glyph branch of the epilogue at K = 64, dict observations;
+# GreenKey and ThreeRooms: the other discrete-table ids of the slice
+SIGN_ID, GREEN_ID, THREE_ID = ("MiniWorld-Sign-v0", "MiniWorld-GreenKey-v0",
+                               "MiniWorld-ThreeRooms-v0")
 SHORT_IDS = ("MiniWorld-OneRoom-v0", "MiniWorld-OneRoomS6-v0", "MiniWorld-OneRoomS6Fast-v0",
              "MiniWorld-YMaze-v0", "MiniWorld-YMazeLeft-v0", "MiniWorld-YMazeRight-v0")
 
@@ -385,7 +397,7 @@ def plain_tri_pass(tri_args, mesh=None, paired=None, tri_chunk=None, override=No
     verts9, attr, layout_id, cam, all_quads = tri_args
     if tri_chunk is not None and verts9.shape[2] > tri_chunk:
         return rc.tri_pass_chunked(verts9, attr, layout_id, cam, tri_chunk, all_quads,
-                                   override)
+                                   override, paired)
     seed = None if mesh is None else rc.entity_mesh_pass_plain(*mesh, cam)
     return rc.tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired, override)
 
@@ -804,18 +816,13 @@ def phase_maze_kernels(maze, n_mesh_envs=64):
     return errs, timings, work, sweep
 
 
-def tie_case(dev, n=B_STAGE, g=256, seed=21):
-    """Synthetic bank of 4 x g prims in front of n cameras (facing +x,
-    numpy draws from ``seed``): a group of g random quads and triangles
-    (rows 1 and 2 equal: a tie inside a chunk), the group again (at
-    tri_chunk g or a divisor of it, the same chunk-local indices in a
-    later chunk), the group rolled by 37 rows (other local indices), and
-    new prims. Every copy has its own attributes. Returns the tri_pass
-    arguments (verts9 (1, 9, 4g), attr, layout_id, cam, all_quads)."""
+def tie_cameras(dev, n, rng):
+    """n W x H cameras 1.5 m up over x in [-0.5, 3], z in [-1, 1],
+    facing +x within 0.4 rad (yaw) and 10 degrees (pitch), 60 degrees
+    of vertical field of view: the tie cases' views."""
     from miniworld_tpu_torch.ops import geom
     from miniworld_tpu_torch.render import raycast as rc
 
-    rng = np.random.default_rng(seed)
     f32 = np.float32
     yaw = torch.from_numpy(rng.uniform(-0.4, 0.4, n).astype(f32))
     pitch = torch.from_numpy(rng.uniform(-10.0, 10.0, n).astype(f32))
@@ -824,8 +831,21 @@ def tie_case(dev, n=B_STAGE, g=256, seed=21):
     tan_y = torch.full((n,), math.tan(math.radians(30.0)))
     xbase = 2.0 * (torch.arange(W, dtype=torch.float32) + 0.5) * (1.0 / W) - 1.0
     ybase = 1.0 - 2.0 * (torch.arange(H, dtype=torch.float32) + 0.5) * (1.0 / H)
-    cam = rc.Camera(*(t.to(dev) for t in (torch.from_numpy(origin.astype(f32)), fwd, right, up,
-                                          tan_y * (W / H), tan_y, xbase, ybase)))
+    return rc.Camera(*(t.to(dev) for t in (torch.from_numpy(origin.astype(f32)), fwd, right,
+                                           up, tan_y * (W / H), tan_y, xbase, ybase)))
+
+
+def tie_case(dev, n=B_STAGE, g=256, seed=21):
+    """Synthetic bank of 4 x g prims in front of n cameras (facing +x,
+    numpy draws from ``seed``): a group of g random quads and triangles
+    (rows 1 and 2 equal: a tie inside a chunk), the group again (at
+    tri_chunk g or a divisor of it, the same chunk-local indices in a
+    later chunk), the group rolled by 37 rows (other local indices), and
+    new prims. Every copy has its own attributes. Returns the tri_pass
+    arguments (verts9 (1, 9, 4g), attr, layout_id, cam, all_quads)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    cam = tie_cameras(dev, n, rng)
     v0 = np.stack([rng.uniform(4, 10, g), rng.uniform(0.0, 2.5, g), rng.uniform(-2, 2, g)])
     base = np.concatenate([v0, v0 + rng.uniform(-2, 2, (3, g)), v0 + rng.uniform(-2, 2, (3, g))])
     base[:, 2] = base[:, 1]
@@ -1247,13 +1267,15 @@ def phase_dr_stages(routes):
 
 def tri_work(tri, hit_pairs, paired=None, override=None):
     """(bytes, operations) of a tri_pass launch without mesh rows on these
-    inputs, as stage_work counts them; ``override`` adds its table and
+    inputs (at the camera's samples), as stage_work counts them, each row
+    tested once; ``override`` adds its table and
     keys (each read once) and 20 operations per pixel (the hash, the
     floor, the clamp and the add)."""
-    verts9, _, layout_id, _, _ = tri
+    verts9, _, layout_id, cam, _ = tri
     L, _, S = verts9.shape
-    b, hw = layout_id.shape[0], W * H
-    nbytes = L * S * (9 + 16) * 4 + b * 4 + b * 14 * 4 + (W + H) * 4 + b * hw * 36
+    b, hw = layout_id.shape[0], cam.width * cam.height
+    nbytes = (L * S * (9 + 16) * 4 + b * 4 + b * 14 * 4 + (cam.width + cam.height) * 4
+              + b * hw * 36)
     if paired is not None:
         nbytes += sum(t.numel() * t.element_size() for t in paired)
     ops = hit_pairs * 22 + b * hw
@@ -1313,18 +1335,32 @@ def phase_ss_epilogue(envs):
                                  f"{n_rgb} RGB and {n_depth} depth pixels")
         timings[label] = (cuda_ms(lambda: rc.pixel_epilogue(*args, table=table, ss=2), 50),
                           cuda_ms(lambda: rc.pixel_epilogue_plain(*args, ss=2), 1))
-        t_tri, attr, t_ent = args[0], args[1], args[2]
-        b, hws = t_tri.shape
-        textured = int((torch.isfinite(t_tri) & (attr[..., 14].float() >= 0)).sum())
-        in_bytes = b * hws * (36 + (28 if t_ent is not None else 0))
-        work[label] = (in_bytes + table.numel() * 4 + b * 48 + b * 14 * 4 + 3 * (W + H) * 4
-                       + b * W * H * 7, textured * env.fourier_k * 41 + b * hws * 60
-                       + b * W * H * 4)
+        work[label] = epi_work(args, table, env.fourier_k, 2)
         say("kernel-time", kernel="pixel_epilogue", instance="SS=2",
             ms=f"{timings[label][0]:.4f}", plain_ms=f"{timings[label][1]:.4f}",
             bound_ms=f"{bound(*work[label])[0]:.4f}", bound_by=bound(*work[label])[1],
-            shapes=f"{label} B={b} out={W}x{H} samples={2 * W}x{2 * H}")
+            shapes=f"{label} B={env.num_envs} out={W}x{H} samples={2 * W}x{2 * H}")
     return timings, work, rgb_err
+
+
+def epi_work(args, table, k_terms, ss, glyph_px=0):
+    """(bytes, operations) of a pixel_epilogue launch on ``args`` (its
+    plain version's positional arguments up to k_terms) with SS = ``ss``:
+    each sample's t and bf16 attributes (and the entity pass's 28 bytes)
+    read once, the table, lights and camera once, 7 bytes out a pixel;
+    41 operations per Fourier term of each textured sample, 60 per
+    sample for uv, lighting and the pack, 4 per output pixel for the
+    box filter, and 12 per glyph sample (``glyph_px``: the edge width,
+    the threshold and the blend)."""
+    t_tri, attr, t_ent, cam = args[0], args[1], args[2], args[6]
+    b, hws = t_tri.shape
+    n_out = hws // (ss * ss)
+    textured = int((torch.isfinite(t_tri) & (attr[..., 14].float() >= 0)).sum())
+    in_bytes = b * hws * (36 + (28 if t_ent is not None else 0))
+    return (in_bytes + table.numel() * 4 + b * 48 + b * 14 * 4
+            + (cam.width + cam.height) * 4 + b * n_out * 7,
+            textured * k_terms * 41 + b * hws * 60 + (b * n_out * 4 if ss > 1 else 0)
+            + glyph_px * 12)
 
 
 def phase_dr_ss_paths(maze_dr, four_dr, hall_ss, pick_ss, make_env, rates):
@@ -1361,6 +1397,232 @@ def phase_dr_ss_paths(maze_dr, four_dr, hall_ss, pick_ss, make_env, rates):
         rate, plain_rate, _, _ = kernel_and_plain(env, PLAIN_HORIZON, TRIALS, kernels, exact=True)
         rates[f"{env.spec.name.lower()}_{tag}_b{B_PLAIN}"] = (rate, plain_rate)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Sign's glyph epilogue and the paired scan over a clamped second chunk
+
+
+def sign_states(env, gen, share=0.6, seed=7):
+    """States from a reset of Sign with the first ``share`` of the envs
+    1-4 m in front of the sign (at x = 10, z = 10.25, facing -x) and
+    facing it within 0.35 rad, so their frames show its glyphs; the
+    others where they reset."""
+    state, _ = env.reset(seed=seed)
+    n = env.num_envs
+    m = int(n * share)
+    u = torch.rand((m, 3), generator=gen).to(env.device)
+    pos = state.pos.clone()
+    pos[:m, 0] = 6.3 + 2.7 * u[:, 0]
+    pos[:m, 2] = 9.3 + 1.9 * u[:, 1]
+    yaw = state.dir.clone()
+    yaw[:m] = (u[:, 2] * 2.0 - 1.0) * 0.35
+    return state.replace(pos=pos, dir=yaw)
+
+
+def glyph_px(args, table):
+    """Samples whose tri_pass winner is a glyph row (bf16 gain < 0 in the
+    table) and that no nearer analytic entity covers."""
+    t_tri, attr, t_ent = args[0], args[1], args[2]
+    slot = torch.round(attr[..., 14].float()).long()
+    inside = (slot >= 0) & (slot < table.shape[0])
+    glyph = inside & (table[slot.clamp(0, table.shape[0] - 1), 3] < 0.0) & torch.isfinite(t_tri)
+    if t_ent is not None:
+        glyph &= ~(t_ent < t_tri)
+    return int(glyph.sum())
+
+
+def phase_gain_epilogue(sign):
+    """[gain-epilogue]: the GAIN pixel_epilogue against pixel_epilogue_plain
+    with has_gain on Sign's render at the main path's shapes (B=1024,
+    80x60, K=64), its cameras facing the sign, at SS=1 and SS=2 (the hit
+    passes on 160x120 samples): 0 differing u8 values, equal depth, and
+    the glyph samples counted; each timed with its plain version.
+    Returns ({ss: (ms, plain ms)}, {ss: work}, {ss: glyph samples}, the
+    max abs u8 difference)."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    gen = torch.Generator().manual_seed(64)
+    state = sign_states(sign, gen)
+    table = sign._fourier_table
+    timings, work, glyphs, rgb_err = {}, {}, {}, 0.0
+    for ss in (1, 2):
+        cam = rc.camera_grid(state, W * ss, H * ss)
+        rows, paired = rc.static_rows(sign._bank, state, cam)
+        mesh = rc.entity_mesh_rows(sign._bank, state)[:2]
+        t_tri, attr = rc.tri_pass(*rows, cam, sign._all_quads, mesh, paired, sign.tri_chunk)
+        ent = (None,) * 3  # Sign's boxes and keys are all mesh rows
+        if sign._shapes_present[0] or sign._shapes_present[1]:
+            ent = rc.entity_pass(state.ent_pos, state.ent_size, state.ent_dir,
+                                 state.ent_height, state.ent_color,
+                                 rc.entity_flags(sign._bank, state), cam,
+                                 *sign._shapes_present[:2])
+        args = (t_tri, attr, *ent, sign._atlas, cam, state.light_pos, state.light_color,
+                state.light_ambient, state.sky_color, sign.fourier_k)
+        rgb_k, d_k = rc.pixel_epilogue(*args, True, table=table, ss=ss)
+        rgb_p, d_p = rc.pixel_epilogue_plain(*args, True, ss=ss)
+        diff = (rgb_k.int() - rgb_p.int()).abs()
+        n_rgb = int((diff.amax(-1) > 0).sum())
+        n_depth = int((d_k != d_p).sum())
+        rgb_err = max(rgb_err, float(diff.max()))
+        glyphs[ss] = glyph_px(args, table)
+        case = (f"{SIGN_ID} B={sign.num_envs} out={W}x{H} samples={W * ss}x{H * ss} "
+                f"K={sign.fourier_k} A={table.shape[0]}")
+        say("kernel-vs-plain", kernel="pixel_epilogue", instance=f"GAIN SS={ss}", case=case,
+            glyph_samples=glyphs[ss], rgb_differs_px=n_rgb, depth_differs_px=n_depth,
+            exact=True)
+        if n_rgb or n_depth or rgb_k.shape != (sign.num_envs, H, W, 3):
+            raise AssertionError(f"pixel_epilogue GAIN SS={ss}: kernel differs from plain on "
+                                 f"{n_rgb} RGB and {n_depth} depth pixels")
+        if glyphs[ss] < 0.01 * t_tri.numel():
+            raise AssertionError(f"only {glyphs[ss]} glyph samples on Sign's frames")
+        timings[ss] = (cuda_ms(lambda: rc.pixel_epilogue(*args, True, table=table, ss=ss), 50),
+                       cuda_ms(lambda: rc.pixel_epilogue_plain(*args, True, ss=ss), 1))
+        work[ss] = epi_work(args, table, sign.fourier_k, ss, glyphs[ss])
+        say("kernel-time", kernel="pixel_epilogue", instance=f"GAIN SS={ss}",
+            ms=f"{timings[ss][0]:.4f}", plain_ms=f"{timings[ss][1]:.4f}",
+            bound_ms=f"{bound(*work[ss])[0]:.4f}", bound_by=bound(*work[ss])[1],
+            table_bytes=table.numel() * 4, shapes=case)
+    return timings, work, glyphs, rgb_err
+
+
+def paired_tie_case(dev, n=B_STAGE, g=48, seed=31):
+    """A paired bank of Sp = 608 rows in front of n cameras (tie_cameras):
+    a group of g random quads and triangles (rows 1 and 2 equal) at rows
+    40-87 (read by chunk 0 only), again at 90-137 (across row 112) and
+    300-347 (read by both chunks of 496), rolled by 7 at 540-587 (chunk 1
+    only), new prims at 400-447; half the rows on one of 6 walls whose
+    closed variant is the same prim with other attributes, each env's
+    walls open at random. Returns (tri_pass arguments, paired)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    cam = tie_cameras(dev, n, rng)
+    sp = 608
+    v0 = np.stack([rng.uniform(4, 10, g), rng.uniform(0.0, 2.5, g), rng.uniform(-2, 2, g)])
+    base = np.concatenate([v0, v0 + rng.uniform(-2, 2, (3, g)), v0 + rng.uniform(-2, 2, (3, g))])
+    base[:, 2] = base[:, 1]
+    kinds = (rng.uniform(size=g) < 0.5).astype(f32)
+    verts9 = np.zeros((1, 9, sp), f32)
+    kind = np.zeros(sp, f32)
+    for start, roll in ((40, 0), (90, 0), (300, 0), (540, 7)):
+        verts9[0, :, start:start + g] = np.roll(base, roll, axis=1)
+        kind[start:start + g] = np.roll(kinds, roll)
+    verts9[0, :, 400:400 + g] = base[:, rng.permutation(g)] + rng.uniform(-0.5, 0.5, (9, 1))
+    kind[400:400 + g] = kinds
+    attr = rng.uniform(-1, 1, (1, sp, 16)).astype(f32)
+    attr_alt = rng.uniform(-1, 1, (1, sp, 16)).astype(f32)
+    attr[0, :, 15] = attr_alt[0, :, 15] = kind
+    pg_wall = np.where(rng.uniform(size=(1, sp)) < 0.5, rng.integers(0, 6, (1, sp)), -1)
+    wall_open = (rng.uniform(size=(n, 6)) < 0.5).astype(f32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    tri = (t(verts9), t(attr), torch.zeros(n, dtype=torch.int32, device=dev), cam, False)
+    return tri, (t(verts9), t(attr_alt), t(pg_wall.astype(np.int32)), t(wall_open))
+
+
+def phase_paired_chunks(maze_ss):
+    """[paired-chunks]: the paired tri_pass over 2 chunks of 496, the
+    second clamped to rows 112-607 (the 8x8 procgen Maze at
+    supersample=2, B >= 1024), against tri_pass_chunked, exactly: on 1024
+    of the main path's views (160x120 samples, each env its own maze),
+    without and with a synthetic texture-variant override (checked as in
+    [dr-stages]), and on the paired tie bank, where the chunk rule
+    decides hundreds of pixels. Then timed at the main path's shapes
+    (B=8192, 160x120 samples). Returns (max abs t error, (ms, plain ms),
+    work)."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(608)
+    tc = maze_ss.tri_chunk
+    bank = maze_ss._bank
+    sp = bank.pg_verts9.shape[2]
+    if (tc, sp, maze_ss.plan["chunk_starts"]) != (496, 608, [0, 112]):
+        raise AssertionError(f"{MAZE_ID} supersample=2 B={maze_ss.num_envs} plans "
+                             f"{maze_ss.plan}, Sp={sp}")
+    state = random_maze_states(maze_ss, gen)
+    cam = rc.camera_grid(state, 2 * W, 2 * H)
+    tri = (bank.pg_verts9, bank.pg_attr, state.layout_id, cam, maze_ss._all_quads)
+    paired = (bank.pg_verts9_alt, bank.pg_attr_alt, maze_ss._pg_wall, state.wall_open)
+    sl = slice(0, 1024)
+    sub = (*tri[:2], state.layout_id[sl], cam_rows(cam, sl), tri[4])
+    sub_paired = (*paired[:3], state.wall_open[sl])
+    case = (f"{MAZE_ID} procgen ss=2 B={sub[2].shape[0]} samples={2 * W}x{2 * H} Sp={sp} "
+            f"2 chunks of {tc}")
+    _, _, err = check_tri_pass(sub, case, paired=sub_paired, tri_chunk=tc)
+    keys = torch.randint(0, 1 << 32, sub[2].shape, generator=gen).to(dev)
+    zeros = torch.zeros((1, sp, 4), device=dev)
+    override = (keys, spread_tex(zeros, gen), spread_tex(zeros, gen))
+    e, changed = check_override(sub, override, case + " synthetic variants", paired=sub_paired,
+                                tri_chunk=tc)
+    err = max(err, e)
+    if changed < 0.2:
+        raise AssertionError(f"{case}: the synthetic variants change only {changed:.3f}")
+    ties, t_paired = paired_tie_case(dev)
+    t_k, a_k, e = check_tri_pass(ties, f"paired ties B={B_STAGE} Sp=608 2 chunks of 496",
+                                 paired=t_paired, tri_chunk=496)
+    err = max(err, e)
+    _, a_one = rc.tri_pass_plain(*ties, paired=t_paired)
+    decided = int((a_one != a_k).any(-1).sum())
+    say("tie-case", route="paired", tri_chunk=496, chunk_starts="0,112",
+        px_hit=f"{float(torch.isfinite(t_k).float().mean()):.3f}",
+        px_decided_by_chunk_rule=decided)
+    if decided < 100:
+        raise AssertionError(f"the paired tie case decides only {decided} pixels")
+    timings = (cuda_ms(lambda: rc.tri_pass(*tri, None, paired, tc), 50),
+               cuda_ms(lambda: plain_tri_pass(tri, None, paired, tc), 1))
+    stats = tri_cull_stats(tri, paired, block=16)
+    work = tri_work(tri, stats["hit_pairs"], paired)
+    say("kernel-time", kernel="tri_pass", instance="paired 2 chunks", ms=f"{timings[0]:.4f}",
+        plain_ms=f"{timings[1]:.4f}", bound_ms=f"{bound(*work)[0]:.4f}",
+        bound_by=bound(*work)[1], hit_rows_per_sample=f"{stats['hits_per_px'] / 4:.4f}",
+        shapes=f"{MAZE_ID} procgen ss=2 B={maze_ss.num_envs} samples={2 * W}x{2 * H} "
+        f"Sp={sp} tri_chunk={tc}")
+    return err, timings, work
+
+
+def phase_glyph_paths(sign, maze_ss, make_env, rates):
+    """The new main paths: Sign at B=1024 (K=64, dict observations, the
+    GAIN epilogue and mesh rows every step) and the Maze 8x8 procgen one
+    at B=8192 with supersample=2 (the paired tri_pass over 2 chunks of
+    496), each with its breakdown and profile; short B=1024 rollouts of
+    GreenKey and ThreeRooms; kernel-vs-plain rollouts at B_PLAIN of Sign
+    (exact: checksums too), GreenKey and ThreeRooms. Returns {label:
+    launches}."""
+    launches = {}
+    for env, label in ((sign, "sign_b1024"), (maze_ss, "maze8x8_procgen_ss2_b8192")):
+        rate, outs, obs, lc, _ = rollouts(env, label, HORIZON, TRIALS)
+        check_rollout(env, outs, obs, lc, HORIZON, TRIALS, path_kernels(env))
+        rates[label] = (rate, None)
+        launches[label] = lc
+        phase_breakdown(env, render_iters=5, plain_render_iters=1)
+    for env_id in (GREEN_ID, THREE_ID):
+        env = make_env(env_id, B)
+        rate, outs, obs, lc, _ = rollouts(env, "kernels", SHORT_HORIZON, TRIALS)
+        check_rollout(env, outs, obs, lc, SHORT_HORIZON, TRIALS, path_kernels(env))
+        rates[env.spec.name.lower()] = (rate, None)
+    for env_id in (SIGN_ID, GREEN_ID, THREE_ID):
+        env = make_env(env_id, B_PLAIN)
+        rate, plain_rate, _, _ = kernel_and_plain(env, PLAIN_HORIZON, TRIALS, path_kernels(env),
+                                                  exact=env_id == SIGN_ID)
+        rates[env.spec.name.lower() + f"_b{B_PLAIN}"] = (rate, plain_rate)
+    return launches
+
+
+def path_kernels(env):
+    """The kernels every step of the env's rollout launches: tri_pass, the
+    epilogue and place, entity_pass with analytic entities, the mesh rows
+    in tri_pass with mesh entities, mazegen on a procgen maze, and the
+    instances its statics take (the glyph epilogue, SS=2, the paired scan
+    over more than one chunk)."""
+    present = env._shapes_present
+    names = ["tri_pass", "pixel_epilogue", "place"]
+    names += ["entity_pass"] if present[0] or present[1] else []
+    names += ["entity_mesh_pass"] if present[2] else []
+    names += ["mazegen"] if env.procgen else []
+    names += ["pixel_epilogue_gain"] if env._has_gain else []
+    names += ["pixel_epilogue_ss2"] if env.supersample == 2 else []
+    names += ["tri_pass_paired_chunks"] if env.procgen and len(env.plan["chunk_starts"]) > 1 else []
+    return tuple(names)
 
 
 # ---------------------------------------------------------------------------
@@ -1414,6 +1676,12 @@ def check_rollout(env, outs, obs, launches, horizon, trials, kernels):
             if o[k].shape != (horizon,):
                 raise AssertionError(f"{k} shape {o[k].shape}")
     rgb, depth = obs
+    if env.spec.dict_obs:  # {"obs": image, "goal": (B,) int32}
+        goal = rgb["goal"]
+        if goal.shape != (env.num_envs,) or goal.dtype != torch.int32 or \
+                bool((goal != env.spec.goal).any()):
+            raise AssertionError(f"goal {tuple(goal.shape)} {goal.dtype}")
+        rgb = rgb["obs"]
     if rgb.shape != (env.num_envs, H, W, 3) or rgb.dtype != torch.uint8:
         raise AssertionError(f"rgb {tuple(rgb.shape)} {rgb.dtype}")
     d = depth.float()
@@ -1701,6 +1969,10 @@ def main():
             or plans[5][3] is not True:
         raise AssertionError(f"the override's routes plan {plans}")
     lap("dr, ss envs")
+    sign, maze_ss = env(SIGN_ID, B), env(MAZE_ID, B_MAZE, supersample=2)
+    gain_timings, gain_work, glyphs, gain_err = phase_gain_epilogue(sign)
+    pc_err, pc_timings, pc_work = phase_paired_chunks(maze_ss)
+    lap("gain-epilogue, paired-chunks")
     dr_err, dr_timings, dr_work = phase_dr_stages(routes)
     ss_timings, ss_work, ss_err = phase_ss_epilogue([("hallway", hall_ss),
                                                     ("pickupobjects", pick_ss)])
@@ -1715,6 +1987,8 @@ def main():
     lap("new ids")
     new_launches = phase_dr_ss_paths(maze_dr, four_dr, hall_ss, pick_ss, env, rates)
     lap("main: domain_rand, supersample=2")
+    glyph_launches = phase_glyph_paths(sign, maze_ss, env, rates)
+    lap("main: sign, maze ss=2, greenkey, threerooms")
     kernels = []
     for k, (src, rep) in KERNELS.items():
         # the Maze path's kernels at its shapes; the mesh pass at
@@ -1788,13 +2062,38 @@ def main():
         "bound_ms_hallway": bound(*ss_work["hallway"])[0],
         "launches_hallway": int(new_launches[ENV_ID, "ss2"]["pixel_epilogue_ss2"]),
         "checked_on": ["hallway", "pickupobjects"]})
+    # Sign's glyph epilogue (an instance of pixel_epilogue) at its main
+    # path's shapes, SS=1, and at SS=2 beside it; the paired tri_pass over
+    # the clamped second chunk at the Maze 8x8 procgen supersample=2 path's
+    kernels.append({
+        "name": "pixel_epilogue_gain", "route": "cuda", "source": KERNELS["pixel_epilogue"][0],
+        "replaces": "miniworld_tpu/render/raycast.py:656",
+        "launches": int(glyph_launches["sign_b1024"]["pixel_epilogue_gain"]),
+        "max_abs_err": gain_err, "ms": gain_timings[1][0], "plain_ms": gain_timings[1][1],
+        "bound_ms": bound(*gain_work[1])[0], "bound_by": bound(*gain_work[1])[1],
+        "library_ms": None, "instance_of": "pixel_epilogue",
+        "shapes": f"{SIGN_ID} B={B} out={W}x{H} K=64", "glyph_samples": glyphs[1],
+        "ms_ss2": gain_timings[2][0], "plain_ms_ss2": gain_timings[2][1],
+        "bound_ms_ss2": bound(*gain_work[2])[0], "glyph_samples_ss2": glyphs[2],
+        "checked_on": ["sign SS=1", "sign SS=2"]})
+    kernels.append({
+        "name": "tri_pass_paired_chunks", "route": "cuda", "source": KERNELS["tri_pass"][0],
+        "replaces": "miniworld_tpu/render/raycast.py:252",
+        "launches": int(glyph_launches["maze8x8_procgen_ss2_b8192"]["tri_pass_paired_chunks"]),
+        "max_abs_err": pc_err, "ms": pc_timings[0], "plain_ms": pc_timings[1],
+        "bound_ms": bound(*pc_work)[0], "bound_by": bound(*pc_work)[1], "library_ms": None,
+        "instance_of": "tri_pass",
+        "shapes": f"{MAZE_ID} procgen supersample=2 B={B_MAZE} samples={2 * W}x{2 * H} "
+                  "Sp=608 chunks 0-495, 112-607",
+        "checked_on": ["maze8x8 procgen ss=2", "override", "paired ties"]})
     for k in kernels:  # what each kernel was held against its plain version on
         if k["name"] == "tri_pass":
             k["checked_on"] = ["single chunk", "mesh rows", "paired", "multi-chunk", "packed PVS",
-                               "grazing", "ties", "override: " + ", ".join(r[0] for r in routes)]
+                               "grazing", "ties", "override: " + ", ".join(r[0] for r in routes),
+                               "paired multi-chunk: maze8x8 ss=2, paired ties"]
         elif k["name"] == "pixel_epilogue":
             k["checked_on"] = ["SS=1: hallway, wide, pickupobjects, maze, sidewalk",
-                               "SS=2: hallway, pickupobjects"]
+                               "SS=2: hallway, pickupobjects", "GAIN SS=1, SS=2: sign"]
     print(json.dumps({
         "kernels": kernels,
         "env_steps_per_s": {k: {"kernels": v[0], "plain": v[1]} for k, v in rates.items()},

@@ -39,6 +39,20 @@
 // order XLA's reduce runs the JAX package's mean over the (2, 2) axes in,
 // multiplies by 0.25 (its / 4, exact), then clips and packs. Depth is the
 // top-left sample's. pixel_epilogue_plain sums in the same order.
+//
+// Glyphs (the GAIN instances; raycast.py:656-724, Sign's K = 64 atlas):
+// a table row's column 3 holds its bf16 gain. Where it is < 0 the row is
+// a Fourier-SDF glyph whose channels are [sdf | ink | bg]: the edge
+// half-width w0 = -1 / (2 min(gain, -1e-9)) texels, grown to (0.55 fp)
+// * 256 under minification, thresholds the signed distance, s = clip(0.5
+// + sdf / (2 w), 0, 1), and every channel becomes ink + (bg - ink) * s;
+// where it is > 1 each channel moves away from its DC term, dc + (v -
+// dc) * gain. XLA:CPU computes both multiply-adds as fused ones, so the
+// kernel calls fmaf there (-fmad=false contracts nothing else) and
+// raycast._fma rounds them once in the plain version. Atlases without a
+// glyph row launch the instances without GAIN, whose code is the one
+// they had before. Sign's K = 64 table, 78 rows of 580 floats (181 KB),
+// is above TABLE_SMEM_MAX and is read through L1.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -89,6 +103,7 @@ __device__ __forceinline__ void fourier_term(const float4 pt, const float4 qt, c
 
 // One sample: the shaded colour (before the clip and the u8 pack) and
 // the depth of pixel p of env b in the W x H image of the hit passes.
+template <bool GAIN>
 __device__ __forceinline__ float sample_rgb(
     const int b, const int p, const float* __restrict__ t_tri,
     const __nv_bfloat16* __restrict__ attr, const float* __restrict__ t_ent,
@@ -155,11 +170,23 @@ __device__ __forceinline__ float sample_rgb(
                 acc_b[ch] = acc_b[ch] + pb[ch];
             }
         }
+        float v[3];
 #pragma unroll
-        for (int ch = 0; ch < 3; ++ch) {
-            const float v = row[ch] + bf16r(bf16r(acc_a[ch]) + bf16r(acc_b[ch]));
-            tex[ch] = fminf(fmaxf(v, 0.0f), 1.0f);
+        for (int ch = 0; ch < 3; ++ch) v[ch] = row[ch] + bf16r(bf16r(acc_a[ch]) + bf16r(acc_b[ch]));
+        if (GAIN) {
+            const float gain = row[3];
+            if (gain < 0.0f) {  // SDF glyph: [sdf | ink | bg]
+                const float w0 = -1.0f / (2.0f * fminf(gain, -1e-9f));
+                const float w_eff = fmaxf(w0, (0.55f * fp) * 256.0f);  // ATLAS_RES texels
+                const float sd = fminf(fmaxf(0.5f + v[0] / (2.0f * w_eff), 0.0f), 1.0f);
+                v[0] = v[1] = v[2] = fmaf(v[2] - v[1], sd, v[1]);
+            } else if (gain > 1.0f) {  // contrast expansion away from the DC term
+#pragma unroll
+                for (int ch = 0; ch < 3; ++ch) v[ch] = fmaf(v[ch] - row[ch], gain, row[ch]);
+            }
         }
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) tex[ch] = fminf(fmaxf(v[ch], 0.0f), 1.0f);
     }
     float col[3] = {at[11] * tex[0], at[12] * tex[1], at[13] * tex[2]};
     float nrm[3] = {at[8], at[9], at[10]};
@@ -201,8 +228,8 @@ __device__ __forceinline__ float sample_rgb(
 }
 
 // SS x SS samples per output pixel (SS = 1: the sample is the pixel);
-// W, H: the samples' image.
-template <bool kSmemTable, int SS>
+// W, H: the samples' image. GAIN: the atlas has glyph rows.
+template <bool kSmemTable, int SS, bool GAIN>
 __global__ void __launch_bounds__(THREADS) pixel_epilogue_kernel(
     const float* __restrict__ t_tri,           // (B, HW)
     const __nv_bfloat16* __restrict__ attr,    // (B, HW, 16)
@@ -238,7 +265,7 @@ __global__ void __launch_bounds__(THREADS) pixel_epilogue_kernel(
         if (po >= hwo) continue;
         const int p0 = SS == 1 ? po : (po / wo) * SS * W + (po % wo) * SS;  // top-left sample
         float rgb[3];
-        const float depth = sample_rgb(
+        const float depth = sample_rgb<GAIN>(
             b, p0, t_tri, attr, t_ent, col_ent, n_ent, tab, lights, origin, fwd, right, up,
             tan_xy, xbase, ybase, W, hw, pix_scale, A, K, has_ent, rgb);
         if (SS == 2) {
@@ -246,7 +273,7 @@ __global__ void __launch_bounds__(THREADS) pixel_epilogue_kernel(
             float s[3];
 #pragma unroll
             for (int j = 1; j < 4; ++j) {
-                sample_rgb(b, p0 + (j >> 1) * W + (j & 1), t_tri, attr, t_ent,
+                sample_rgb<GAIN>(b, p0 + (j >> 1) * W + (j & 1), t_tri, attr, t_ent,
                                        col_ent, n_ent, tab, lights, origin, fwd, right, up,
                                        tan_xy, xbase, ybase, W, hw, pix_scale, A, K, has_ent, s);
 #pragma unroll
@@ -265,7 +292,7 @@ __global__ void __launch_bounds__(THREADS) pixel_epilogue_kernel(
     }
 }
 
-template <int SS>
+template <int SS, bool GAIN>
 static void launch_epilogue(const int grid, const size_t smem, cudaStream_t stream,
                             const float* t_tri, const __nv_bfloat16* attr, const float* t_ent,
                             const float* col_ent, const float* n_ent, const float* table,
@@ -274,11 +301,11 @@ static void launch_epilogue(const int grid, const size_t smem, cudaStream_t stre
                             const float* xbase, const float* ybase, int B, int W, int H, int A,
                             int K, int has_ent, uint8_t* rgb_out, float* depth_out) {
     if (smem <= TABLE_SMEM_MAX) {
-        pixel_epilogue_kernel<true, SS><<<grid, THREADS, smem, stream>>>(
+        pixel_epilogue_kernel<true, SS, GAIN><<<grid, THREADS, smem, stream>>>(
             t_tri, attr, t_ent, col_ent, n_ent, table, lights, origin, fwd, right,
             up, tan_xy, xbase, ybase, B, W, H, A, K, has_ent, rgb_out, depth_out);
     } else {
-        pixel_epilogue_kernel<false, SS><<<grid, THREADS, 0, stream>>>(
+        pixel_epilogue_kernel<false, SS, GAIN><<<grid, THREADS, 0, stream>>>(
             t_tri, attr, t_ent, col_ent, n_ent, table, lights, origin, fwd, right,
             up, tan_xy, xbase, ybase, B, W, H, A, K, has_ent, rgb_out, depth_out);
     }
@@ -290,7 +317,7 @@ extern "C" int mw_pixel_epilogue(
     const float* lights, const float* origin, const float* fwd,
     const float* right, const float* up, const float* tan_xy,
     const float* xbase, const float* ybase,
-    int B, int W, int H, int A, int K, int has_ent, int ss,
+    int B, int W, int H, int A, int K, int has_ent, int ss, int gain,
     uint8_t* rgb_out, float* depth_out, cudaStream_t stream)
 {
     static int n_sm = 0;
@@ -308,13 +335,9 @@ extern "C" int mw_pixel_epilogue(
     // 8 blocks of 256 threads fill an SM's 2048 threads
     const int grid = (int)(items < 8LL * n_sm ? items : 8LL * n_sm);
     const size_t smem = (size_t)A * (4 + 9 * K) * sizeof(float);
-    if (ss == 2)
-        launch_epilogue<2>(grid, smem, stream, t_tri, attr, t_ent, col_ent, n_ent, table,
-                           lights, origin, fwd, right, up, tan_xy, xbase, ybase, B, W, H, A, K,
-                           has_ent, rgb_out, depth_out);
-    else
-        launch_epilogue<1>(grid, smem, stream, t_tri, attr, t_ent, col_ent, n_ent, table,
-                           lights, origin, fwd, right, up, tan_xy, xbase, ybase, B, W, H, A, K,
-                           has_ent, rgb_out, depth_out);
+    auto launch = ss == 2 ? (gain ? launch_epilogue<2, true> : launch_epilogue<2, false>)
+                          : (gain ? launch_epilogue<1, true> : launch_epilogue<1, false>);
+    launch(grid, smem, stream, t_tri, attr, t_ent, col_ent, n_ent, table, lights, origin, fwd,
+           right, up, tan_xy, xbase, ybase, B, W, H, A, K, has_ent, rgb_out, depth_out);
     return (int)cudaGetLastError();
 }

@@ -94,20 +94,31 @@
 // its variant.
 //
 // Multi-chunk launch (S > tri_chunk, the MULTI instance; dense banks wider
-// than one chunk, e.g. Sidewalk's S = 3,072 in chunks of 1,024): the JAX
+// than one chunk, e.g. Sidewalk's S = 3,072 in chunks of 1,024, and the
+// paired bank of an 8x8 procgen maze, Sp = 608 in chunks of 496): the JAX
 // package scans chunks of tri_chunk rows, keys each row by its index
 // WITHIN its chunk, and carries a chunk's winner only on a strictly
 // greater key. So of two rows at the same key (equal quantized depth,
-// same chunk-local index) the earlier chunk wins. The kernel keeps its one
-// pass over all the survivors and ranks each hit by the 64-bit
-// (key << 8) | (255 - chunk), whose unsigned max is the lexicographic max
-// of (key, -chunk): the chunk loop's winner, in any scan order. A no-hit
-// is 0, below every hit. The winner's row is chunk * tri_chunk + its
-// chunk-local index; a pixel no row hits gets t = inf and zero
-// attributes (the scan's zero init). S <= 4096 and tri_chunk >= 16 keep
-// the chunk under 256 and the rows in shared memory. Mesh rows and paired
-// banks are single-chunk only.
-//
+// same chunk-local index) the earlier chunk wins. Chunk c starts at row
+// c * tri_chunk, the last one clamped to S - tri_chunk (dynamic_slice
+// clamps its start; raycast.py:252-269): with Sp = 608, chunk 1 reads
+// rows 112-607 at local indices 0-495, so rows 112-495 compete in both
+// chunks. The kernel keeps its one pass over all the survivors and ranks
+// each hit by the 64-bit (key << 8) | (255 - chunk), whose unsigned max is
+// the lexicographic max of (key, -chunk): the chunk loop's winner, in any
+// scan order; the staging loop writes each row's (255 - chunk, local
+// index) into its pad field, so the scan adds two integer operations a
+// (row, pixel) pair. A row read by two chunks takes the first one only: its
+// second occurrence has the same depth bits and a smaller local index (s
+// - (S - tri_chunk) < s - (n - 2) tri_chunk, as S > (n - 1) tri_chunk
+// for n chunks), so its key is below the first's and it can never be the
+// max. A no-hit is 0, below every hit. The winner's row is its chunk's
+// start plus its local index; a pixel no row hits gets t = inf and zero
+// attributes (the scan's zero init). On a paired bank the staged variant
+// of each row (below) holds in every chunk, and the winner's attributes
+// come from it. S <= 4096 and tri_chunk >= 16 keep the chunk under 256
+// and the rows in shared memory. Mesh rows are single-chunk only.
+
 // Texture-variant override (slot_key != nullptr, the OVERRIDE instances;
 // domain randomization, raycast.py:277-310): the JAX package replaces
 // every scanned row's slot column by base + min(floor(hash01(key, id) *
@@ -225,7 +236,8 @@ struct CamBasis {
 
 // The staged fields of row s of v9 ((9, n) component-major) for the
 // camera: the basis dots of g_det, g_u and g_v, 1/t_num (0 where t_num
-// <= 0), the kind and a pad, as three float4.
+// <= 0), the kind and a pad (0; the MULTI instance's row rank), as three
+// float4.
 __device__ __forceinline__ void stage_row(const float* v9, const int n, const int s,
                                           const CamBasis& c, const float kind, float4& q0,
                                           float4& q1, float4& q2) {
@@ -395,6 +407,11 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
                 float4 q0, q1, q2;
                 stage_row(alt ? v9a : v9p, S, s, cb, (alt ? ata : atp)[s * ATTR_DIM + 15],
                           q0, q1, q2);
+                if (MULTI) {  // the row's rank bits in the pad: its first chunk, its index there
+                    const int c = min(s / tri_chunk, (S - 1) / tri_chunk);
+                    q2.w = __int_as_float(((255 - c) << 10) | (s - min(c * tri_chunk,
+                                                                       S - tri_chunk)));
+                }
                 rows[3 * s] = q0;
                 rows[3 * s + 1] = q1;
                 rows[3 * s + 2] = q2;
@@ -489,10 +506,7 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
             mbest[k] = 0;
             cbest[k] = 0ull;
         }
-        // MULTI: the chunk of row s is floor((s + 0.5) * (1 / tri_chunk)),
-        // exact: the product is within 256 * 2^-23 of (s + 0.5) /
-        // tri_chunk, which lies at least 0.5 / 1024 from an integer
-        const float inv_chunk = MULTI ? 1.0f / (float)tri_chunk : 0.0f;
+        const int last_start = S - tri_chunk;  // MULTI: the last chunk's first row
         // the mesh competition first (triangles: coverage u + v)
         for (int i = 0; i < nmt; ++i) {
             const int s = mtile_list[i];
@@ -515,6 +529,7 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
         for (int i = 0; i < nt; ++i) {
             const int s = tile_list[i];
             const float4 q0 = rows[3 * s], q1 = rows[3 * s + 1], q2 = rows[3 * s + 2];
+            const int rank = __float_as_int(q2.w);  // MULTI: (255 - chunk) << 10 | local
             const float dx = q0.x + q0.y * xv;
             const float ux = q0.w + q1.x * xv;
             const float vx = q1.z + q1.w * xv;
@@ -529,10 +544,9 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
                 const bool hit = det > 1e-12f && un >= 0.0f && vn >= 0.0f &&
                                  cov <= det && r < r_near && r > r_far;
                 if (MULTI) {
-                    const int c = __float2int_rz(((float)s + 0.5f) * inv_chunk);
-                    const int key = (__float_as_int(r) & ~IDX_MASK) | (s - c * tri_chunk);
+                    const int key = (__float_as_int(r) & ~IDX_MASK) | (rank & IDX_MASK);
                     const unsigned long long v =
-                        hit ? (((unsigned long long)key << 8) | (unsigned)(255 - c)) : 0ull;
+                        hit ? (((unsigned long long)key << 8) | (unsigned)(rank >> 10)) : 0ull;
                     cbest[k] = cbest[k] > v ? cbest[k] : v;
                 } else {
                     const int key = hit ? ((__float_as_int(r) & ~IDX_MASK) | s) : 0;
@@ -569,9 +583,12 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
                 const int key = (int)(cbest[k] >> 8);
                 t_out[q] = t_of_key(key);
                 if (key > 0) {
-                    const int row = (255 - (int)(cbest[k] & 0xFFu)) * tri_chunk + (key & IDX_MASK);
-                    store_attr_bf16(atp + (size_t)row * ATTR_DIM, attr_out + q * ATTR_DIM,
-                                    OVERRIDE ? txp + row : nullptr, env_key);
+                    const int row = min((255 - (int)(cbest[k] & 0xFFu)) * tri_chunk, last_start) +
+                                    (key & IDX_MASK);
+                    const bool alt = paired && use_alt[row];
+                    store_attr_bf16((alt ? ata : atp) + (size_t)row * ATTR_DIM,
+                                    attr_out + q * ATTR_DIM,
+                                    OVERRIDE ? (alt ? txa : txp) + row : nullptr, env_key);
                 } else {
                     uint4* d4 = reinterpret_cast<uint4*>(attr_out + q * ATTR_DIM);
                     d4[0] = make_uint4(0u, 0u, 0u, 0u);
@@ -674,8 +691,7 @@ extern "C" int mw_tri_pass(
     if (slot_key != nullptr && (slot_tex == nullptr || (paired && slot_tex_alt == nullptr)))
         return (int)cudaErrorInvalidValue;
     if (N > IDX_MASK + 1) return (int)cudaErrorInvalidValue;
-    if (multi ? (mesh || paired || tri_chunk < 16 || tri_chunk > IDX_MASK + 1 ||
-                 S % tri_chunk != 0 || S > 4096)
+    if (multi ? (mesh || tri_chunk < 16 || tri_chunk > IDX_MASK + 1 || S > 4096)
               : S > IDX_MASK + 1)
         return (int)cudaErrorInvalidValue;
     if (B == 0 || W == 0 || H == 0) return 0;
@@ -690,8 +706,8 @@ extern "C" int mw_tri_pass(
     if (multi)
         return launch_tri_pass<false, true>(grid, smem, stream, verts9, attr, layout_id, origin,
                                             fwd, right, up, tan_xy, xbase, ybase, nullptr,
-                                            nullptr, nullptr, nullptr, nullptr, nullptr,
-                                            slot_key, tex, nullptr, S, 0, W, H, 0, all_quads,
+                                            nullptr, verts9_alt, attr_alt, pg_wall, wall_open,
+                                            slot_key, tex, tex_alt, S, 0, W, H, Wn, all_quads,
                                             tri_chunk, t_out, attr_out);
     return mesh
         ? launch_tri_pass<true, false>(grid, smem, stream, verts9, attr, layout_id, origin, fwd,

@@ -4,9 +4,9 @@ Counterpart of ``miniworld_tpu/envs/base.py``. An ``EnvSpec`` declares
 the world builder (host-side numpy, shared logic with the JAX package)
 and the per-step task logic as functions over a batched ``EnvState``.
 The port carries the go-to-goal family (Hallway, OneRoom, FourRooms,
-TMaze, YMaze, the Maze family, WallGap, Sidewalk), NavigateWallGap and
-PickupObjects so far; the host-side gymnasium hooks of the JAX package
-have no counterpart here.
+TMaze, YMaze, the Maze family, WallGap, Sidewalk, GreenKey),
+NavigateWallGap, ThreeRooms, PickupObjects and Sign so far; the
+host-side gymnasium hooks of the JAX package have no counterpart here.
 """
 
 from __future__ import annotations
@@ -66,6 +66,8 @@ class EnvSpec:
     num_layouts: int = 1  # layout bank size (procedural envs > 1)
     obs_width: int = 80
     obs_height: int = 60
+    # Sign wraps observations in {"obs": image, "goal": int}
+    dict_obs: bool = False
     agent_radius: float = 0.4  # Agent bounding radius (entity.py:470)
     place_budget: int = 16  # on-device placement retry budget (ops/place.py)
     fourier_k: int = 0  # 0 = the global default (textures.FOURIER_TERMS)

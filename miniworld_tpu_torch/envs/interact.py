@@ -1,18 +1,20 @@
-"""Interactive specs ported so far: PickupObjects.
+"""Interactive specs ported so far: PickupObjects and Sign.
 
 Counterpart of ``miniworld_tpu/envs/interact.py`` (reference
-envs/pickupobjects.py); the other pickup/drop tasks and Sign join with
+envs/pickupobjects.py, sign.py); the other pickup/drop tasks join with
 their slices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from miniworld_tpu_torch.envs.base import Ctx, EnvSpec, action_from_components
+from miniworld_tpu_torch.params import DEFAULT_PARAMS
 from miniworld_tpu_torch.scene.entities import COLOR_NAMES
 
 
@@ -85,3 +87,82 @@ class PickupObjects(EnvSpec):
         reward = has.to(torch.float32)
         term = n >= self.num_objs
         return reward, term, new_state
+
+
+@dataclass
+class Sign(EnvSpec):
+    """U-maze with coloured boxes and keys and a coloured-word sign
+    (envs/sign.py:23-195).
+
+    The sign's text is drawn per episode, so the layout bank has 3
+    entries (BLUE, RED, GREEN) and the layout index is the colour
+    index. Observations are dicts {"obs": image, "goal": 0 or 1}.
+    """
+
+    name: str = "Sign"
+    gym_id: str = "MiniWorld-Sign-v0"
+    max_episode_steps: int = 200
+    size: float = 10
+    goal: int = 0
+    num_layouts: int = 3
+    dict_obs: bool = True
+    # the sign's text must be readable: SDF glyphs need K=64
+    fourier_k: int = 64
+    end_action_index: int = 3
+    discrete_actions: np.ndarray = field(
+        default_factory=lambda: np.stack(
+            [
+                action_from_components(turn=-1.0),
+                action_from_components(turn=1.0),
+                action_from_components(forward=1.0),
+                action_from_components(),  # end the episode (sign.py:101-110)
+            ]
+        )
+    )
+
+    def __post_init__(self):
+        # no_random + big turn steps (sign.py:80-82)
+        p = DEFAULT_PARAMS.no_random()
+        p.set("forward_step", 0.15)
+        p.set("turn_step", 45)
+        self.params = p
+
+    def build(self, world, rng, layout_rng=None, layout_idx=0):
+        color_index = int(rng.integers(0, 3)) if rng is not None else layout_idx  # sign.py:117
+        gap_size = 0.25
+        sz = self.size
+        top_room = world.add_rect_room(min_x=0, max_x=sz, min_z=0, max_z=sz * 0.65)
+        left_room = world.add_rect_room(
+            min_x=0, max_x=sz * 3 / 5, min_z=sz * 0.65 + gap_size, max_z=sz * 1.3
+        )
+        right_room = world.add_rect_room(
+            min_x=sz * 3 / 5, max_x=sz, min_z=sz * 0.65 + gap_size, max_z=sz * 1.3
+        )
+        world.connect_rooms(top_room, left_room, min_x=0, max_x=sz * 3 / 5)
+        world.connect_rooms(left_room, right_room, min_z=sz * 0.65 + gap_size, max_z=sz * 1.3)
+
+        # exact placements (sign.py:143-156)
+        world.place(world.proto_id("box", "blue"), pos=(1, 0, 1))
+        world.place(world.proto_id("box", "red"), pos=(9, 0, 1))
+        world.place(world.proto_id("box", "green"), pos=(9, 0, 5))
+        world.place(world.proto_id("mesh", "key_blue", 0.6, False), pos=(5, 0, 1))
+        world.place(world.proto_id("mesh", "key_red", 0.6, False), pos=(1, 0, 5))
+        world.place(world.proto_id("mesh", "key_green", 0.6, False), pos=(1, 0, 9))
+
+        text = ["BLUE", "RED", "GREEN"][color_index]
+        world.bake_text_frame(pos=[sz, 1.35, sz + gap_size], direction=math.pi, text=text,
+                              height=1)
+        world.place_agent(room=top_room)
+
+    # slots: 0-2 boxes (blue, red, green), 3-5 keys (blue, red, green)
+    def transition(self, ctx: Ctx):
+        s = ctx.state
+        color_index = s.layout_id  # the bank entry is the sign's colour
+        touched = torch.zeros_like(s.step_count, dtype=torch.bool)
+        for obj_index in range(2):
+            for ci in range(3):
+                touched = touched | (self.near_agent(s, obj_index * 3 + ci)
+                                     & (color_index == ci))
+        term = (ctx.action_idx == self.end_action_index) | touched
+        reward = touched.to(torch.float32)
+        return reward, term, s

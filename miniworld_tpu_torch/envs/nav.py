@@ -2,9 +2,10 @@
 
 Counterpart of ``miniworld_tpu/envs/nav.py``: Hallway, the OneRoom
 family, FourRooms, the TMaze and YMaze families, the Maze family,
-WallGap, NavigateWallGap and Sidewalk (reference envs/hallway.py,
-oneroom.py, fourrooms.py, tmaze.py, ymaze.py, maze.py, wallgap.py,
-navigatewallgap.py, sidewalk.py). The other navigation envs join with
+WallGap, NavigateWallGap, Sidewalk, GreenKey and ThreeRooms (reference
+envs/hallway.py, oneroom.py, fourrooms.py, tmaze.py, ymaze.py, maze.py,
+wallgap.py, navigatewallgap.py, sidewalk.py, greenkey.py,
+threerooms.py). The other navigation envs join with
 their slices (ROADMAP.md).
 """
 
@@ -19,6 +20,7 @@ import torch
 from miniworld_tpu_torch.envs.base import (
     DIR_QUARTER,
     Ctx,
+    EnvSpec,
     GoToEnvSpec,
     default_discrete_actions,
 )
@@ -462,3 +464,48 @@ class Sidewalk(GoToEnvSpec):
         # (sidewalk.py:95-106).
         reward = torch.where(reached, self.reward(ctx.state), torch.zeros_like(ctx.state.dir))
         return reward, in_street | reached, ctx.state
+
+
+@dataclass
+class GreenKey(GoToEnvSpec):
+    """Go to the green key among distractors (envs/greenkey.py:41-66)."""
+
+    name: str = "GreenKey"
+    gym_id: str = "MiniWorld-GreenKey-v0"
+    max_episode_steps: int = 2000
+    discrete_actions: np.ndarray = field(default_factory=default_discrete_actions)
+    size: float = 8
+
+    def build(self, world, rng, layout_rng=None, layout_idx=0):
+        world.add_rect_room(min_x=0, max_x=self.size, min_z=0, max_z=self.size)
+        world.place(world.proto_id("key", "green"))
+        world.place(world.proto_id("ball", "red"))
+        world.place(world.proto_id("box", "blue"))
+        world.place_agent()
+
+
+@dataclass
+class ThreeRooms(EnvSpec):
+    """Exploration env: three rooms, assorted objects, no reward
+    (envs/threerooms.py:41-80)."""
+
+    name: str = "ThreeRooms"
+    gym_id: str = "MiniWorld-ThreeRooms-v0"
+    max_episode_steps: int = 400
+    discrete_actions: np.ndarray = field(default_factory=default_discrete_actions)
+
+    def build(self, world, rng, layout_rng=None, layout_idx=0):
+        room0 = world.add_rect_room(min_x=-7, max_x=7, min_z=0.5, max_z=7)
+        room1 = world.add_rect_room(min_x=-7, max_x=-1, min_z=-7, max_z=-0.5)
+        room2 = world.add_rect_room(min_x=1, max_x=7, min_z=-7, max_z=-0.5)
+        world.connect_rooms(room0, room1, min_x=-5.25, max_x=-2.75)
+        world.connect_rooms(room0, room2, min_x=2.75, max_x=5.25)
+
+        world.place(world.proto_id("box", "red"))
+        world.place(world.proto_id("box", "green", 0.6))
+        world.bake_image_frame(pos=[0, 1.35, 7], direction=math.pi / 2, tex_name="logo_mila",
+                               width=1.8)
+        world.place(world.proto_id("mesh", "duckie", 0.25, False))
+        world.place(world.proto_id("key", "blue"))
+        world.place(world.proto_id("ball", "green"))
+        world.place_agent()

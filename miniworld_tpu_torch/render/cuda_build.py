@@ -56,8 +56,9 @@ ENTRY_POINTS = {
     # B, E, W, H, has_sphere, has_box, t, col, nrm, stream
     "mw_entity_pass": [_P] * 6 + _CAM + [_I] * 6 + [_P, _P, _P, _P],
     # t_tri, attr, t_ent, col_ent, n_ent, fourier table, lights, camera,
-    # B, W, H (the samples' image), A, K, has_ent, ss, rgb, depth, stream
-    "mw_pixel_epilogue": [_P] * 7 + _CAM + [_I] * 7 + [_P, _P, _P],
+    # B, W, H (the samples' image), A, K, has_ent, ss, gain, rgb, depth,
+    # stream
+    "mw_pixel_epilogue": [_P] * 7 + _CAM + [_I] * 8 + [_P, _P, _P],
     # seeds, layout_id, 6 rule rows, radius, slot_mask, 7 room tensors,
     # room_weight, room_seg_wall, wall_open, B, E, R, V, NS, W, budget,
     # ent_pos, ent_dir, agent_pos, agent_dir, stream
@@ -74,11 +75,14 @@ BUILD_INFO: dict = {}
 # run went through the kernels. Only ``launch`` increments. The mesh
 # pass runs inside the tri_pass launch: a launch with mesh rows counts
 # under both names; so does a tri_pass launch with the texture-variant
-# override ("tri_pass_override") and a pixel_epilogue launch of its
-# supersample=2 instance ("pixel_epilogue_ss2").
+# override ("tri_pass_override"), a tri_pass launch over a paired
+# procgen bank in more than one chunk ("tri_pass_paired_chunks"), and a
+# pixel_epilogue launch of its supersample=2 instance
+# ("pixel_epilogue_ss2") or of its glyph instance ("pixel_epilogue_gain").
 LAUNCHES = {"tri_pass": 0, "entity_pass": 0, "pixel_epilogue": 0,
             "entity_mesh_pass": 0, "place": 0, "mazegen": 0,
-            "tri_pass_override": 0, "pixel_epilogue_ss2": 0}
+            "tri_pass_override": 0, "pixel_epilogue_ss2": 0,
+            "tri_pass_paired_chunks": 0, "pixel_epilogue_gain": 0}
 
 
 def reset_launch_counts():

@@ -18,9 +18,12 @@ its plain PyTorch version beside it in this module:
      before the hit test (``tile_cull_plain`` is that cull's plain
      version) with the full scan's result. With domain randomization
      the winner's slot column is its texture variant under the env's
-     key (``variant_slots``);
+     key (``variant_slots``). Over more than one chunk it ranks rows by
+     the JAX scan's chunk rule, the last chunk clamped
+     (``chunk_starts``);
   2. ``entity_pass``: analytic boxes and spheres;
-  3. ``pixel_epilogue``: affine uv, Fourier texture, lighting, sky,
+  3. ``pixel_epilogue``: affine uv, Fourier texture (with
+     ``has_gain``, the SDF glyph branch of Sign's atlas), lighting, sky,
      u8 pack and depth; the kernel reads the atlas's per-slot
      ``fourier_table``. With supersample=2 the hit passes run on a 2x2
      grid of samples per pixel and the epilogue averages each pixel's
@@ -50,6 +53,7 @@ import torch
 
 from miniworld_tpu_torch.ops import geom, rng as rng_ops
 from miniworld_tpu_torch.render.cuda_build import check, is_cuda, launch, load, stream
+from miniworld_tpu_torch.render.textures import ATLAS_RES
 from miniworld_tpu_torch.scene.entities import SHAPE_BOX, SHAPE_MESH_TRIS, SHAPE_SPHERE
 
 NEAR = 0.04  # miniworld/miniworld.py:1287
@@ -373,26 +377,39 @@ def tri_pass_plain(verts9, attr, layout_id, cam: Camera, all_quads: bool = False
     return torch.cat(ts), torch.cat(outs)
 
 
+def chunk_starts(n_rows: int, tri_chunk: int) -> list:
+    """First row of each chunk of the JAX package's scan over ``n_rows``
+    rows in chunks of ``tri_chunk``: c * tri_chunk, the last one clamped
+    to n_rows - tri_chunk as ``dynamic_slice`` clamps it (raycast.py:252-
+    269), so a bank that is not a multiple of the chunk re-reads rows in
+    its last chunk at other chunk-local indices."""
+    return [min(c * tri_chunk, n_rows - tri_chunk) for c in range(-(-n_rows // tri_chunk))]
+
+
 def tri_pass_chunked(verts9, attr, layout_id, cam: Camera, tri_chunk: int,
-                     all_quads: bool = False, override=None):
+                     all_quads: bool = False, override=None, paired=None):
     """Plain version of the tri_pass kernel's multi-chunk scan
     (raycast._tri_pass scan body, zero init, no seed): the prims in
-    chunks of ``tri_chunk``, each chunk's keyed-z winner by its rows'
-    indices within the chunk, carried across chunks on a strictly
-    greater key. So a tie at equal quantized depth goes to the larger
-    chunk-local index, then to the earlier chunk; a pixel no chunk hits
-    gets t = inf and all-zero attributes.
+    chunks of ``tri_chunk`` from ``chunk_starts``, each chunk's keyed-z
+    winner by its rows' indices within the chunk, carried across chunks
+    on a strictly greater key. So a tie at equal quantized depth goes to
+    the larger chunk-local index, then to the earlier chunk; a pixel no
+    chunk hits gets t = inf and all-zero attributes. A row that two
+    chunks read competes in both, as in the JAX scan.
 
-    verts9 (L, 9, S) f32 and attr (L, S, 16) f32 with S a multiple of
-    ``tri_chunk`` <= 1024 -> (t (B, HW) f32, attr (B, HW, 16) bf16).
-    ``override`` = (key (B,), tex (L, S, 4), None) gives each chunk's
-    rows their texture variants, as ``tri_pass_plain`` does. Runs over
-    blocks of envs to bound its intermediates.
+    verts9 (L, 9, S) f32 and attr (L, S, 16) f32 with tri_chunk <= S,
+    1024 -> (t (B, HW) f32, attr (B, HW, 16) bf16). ``paired`` =
+    (verts9_alt, attr_alt, pg_wall, wall_open), a paired procgen bank:
+    each chunk's rows are the env's live variants (``_paired_rows``).
+    ``override`` = (key (B,), tex (L, S, 4), tex_alt (L, S, 4) with a
+    paired bank, else None) gives each chunk's rows their texture
+    variants, as ``tri_pass_plain`` does. Runs over blocks of envs to
+    bound its intermediates.
     """
     S = verts9.shape[2]
-    if S % tri_chunk or tri_chunk > (1 << _IDX_BITS):
-        raise ValueError(f"{S} prims do not split into chunks of tri_chunk={tri_chunk} "
-                         f"<= {1 << _IDX_BITS}")
+    if tri_chunk > min(S, 1 << _IDX_BITS):
+        raise ValueError(f"tri_chunk={tri_chunk} must be at most {S} prims and "
+                         f"{1 << _IDX_BITS}")
     b = layout_id.shape[0]
     xv, yv = cam.xv(), cam.yv()
     hw = xv.shape[1]
@@ -403,11 +420,14 @@ def tri_pass_chunked(verts9, attr, layout_id, cam: Camera, tri_chunk: int,
         n = lid.shape[0]
         key_best = torch.zeros((n, hw), dtype=torch.int32, device=xv.device)
         attr_best = torch.zeros((n, hw, ATTR_DIM), dtype=torch.bfloat16, device=xv.device)
-        for start in range(0, S, tri_chunk):
+        for start in chunk_starts(S, tri_chunk):
             part = slice(start, start + tri_chunk)
-            v9, attrs = _env_rows(verts9[:, :, part], attr[:, part], lid, None,
-                                  None if override is None
-                                  else (override[0][sl], override[1][:, part], None))
+            pp = None if paired is None else (paired[0][:, :, part], paired[1][:, part],
+                                              paired[2][:, part], paired[3][sl])
+            ov = None if override is None else (
+                override[0][sl], override[1][:, part],
+                None if override[2] is None else override[2][:, part])
+            v9, attrs = _env_rows(verts9[:, :, part], attr[:, part], lid, pp, ov)
             key, row = _chunk_compete(v9, attrs, c, xv[sl], yv[sl], all_quads)
             sel = _gather_rows(attrs, row).to(torch.bfloat16)
             closer = key > key_best
@@ -536,7 +556,8 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
     (a launch with mesh rows also counts in
     ``LAUNCHES["entity_mesh_pass"]``). With S > ``tri_chunk``, the
     multi-chunk scan of ``tri_pass_chunked`` in one launch, S <=
-    MAX_KERNEL_ROWS, without mesh rows or a paired bank (raises).
+    MAX_KERNEL_ROWS, without mesh rows (raises); over a paired bank it
+    also counts in ``LAUNCHES["tri_pass_paired_chunks"]``.
     ``override`` = (key (B,) int64 u32 values, tex (L, S, 4), tex_alt
     (L, S, 4) with a paired bank, else None): domain randomization's
     texture variants (``variant_slots``). The plain versions override
@@ -551,9 +572,9 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
     if n_mesh > (1 << _IDX_BITS):
         raise ValueError(f"{n_mesh} mesh rows exceed the z-key's "
                          f"{1 << _IDX_BITS}-row budget")
-    if multi and (mesh is not None or paired is not None):
-        raise NotImplementedError("tri_pass over more than one chunk with mesh rows or a "
-                                  "paired bank is not ported yet")
+    if multi and mesh is not None:
+        raise NotImplementedError("tri_pass over more than one chunk with mesh rows is not "
+                                  "ported yet")
     ov_tensors = () if override is None else tuple(t for t in override if t is not None)
     if override is not None and (override[2] is None) != (paired is None):
         raise ValueError("override needs tex_alt exactly when the bank is paired")
@@ -561,15 +582,15 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
                    *ov_tensors):
         if multi:
             return tri_pass_chunked(verts9, attr, layout_id, cam, tri_chunk, all_quads,
-                                    override)
+                                    override, paired)
         seed = None if mesh is None else entity_mesh_pass_plain(*mesh, cam)
         return tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired, override)
     L = verts9.shape[0]
     b = layout_id.shape[0]
     hw = cam.width * cam.height
     if multi:
-        if S % tri_chunk or tri_chunk < 16 or S > MAX_KERNEL_ROWS:
-            raise ValueError(f"tri_pass kernel scans S a multiple of tri_chunk >= 16, S <= "
+        if tri_chunk < 16 or tri_chunk > (1 << _IDX_BITS) or S > MAX_KERNEL_ROWS:
+            raise ValueError(f"tri_pass kernel scans chunks of 16 to {1 << _IDX_BITS} rows, S <= "
                              f"{MAX_KERNEL_ROWS}; got S={S}, tri_chunk={tri_chunk}")
     elif S > (1 << _IDX_BITS):
         raise ValueError(f"tri_pass kernel takes at most {1 << _IDX_BITS} prims in one chunk, "
@@ -603,7 +624,8 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
                    else check(override[2], "slot tex_alt", torch.float32, (L, S, 4)))
     cam_ptrs, _cam_tensors = _cam_args(cam, b)
     counters = (("tri_pass",) + (() if mesh is None else ("entity_mesh_pass",))
-                + (() if override is None else ("tri_pass_override",)))
+                + (() if override is None else ("tri_pass_override",))
+                + (("tri_pass_paired_chunks",) if multi and paired is not None else ()))
     launch(
         "mw_tri_pass", counters,
         check(verts9, "verts9", torch.float32, (L, 9, S)),
@@ -909,6 +931,21 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c rounded once, as a fused multiply-add (the
+    kernels' ``fmaf``): the product is exact in float64, the sum is
+    rounded to odd in float64 (its error from a two-sum), and rounding
+    to odd at 29 extra bits and then to float32 rounds the exact value
+    once."""
+    p, c64 = a.double() * b.double(), c.double()
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, math.inf), torch.full_like(s, -math.inf))
+    return torch.where((err != 0) & even, torch.nextafter(s, toward), s).to(torch.float32)
+
+
 def _cos_sin_turns(phi: torch.Tensor):
     """(cos, sin) of 2*pi*phi via turn-wrapped degree-4 polynomials in
     t^2 (raycast._cos_sin_turns; max abs error 1.2e-4)."""
@@ -932,11 +969,17 @@ def eval_fourier(coeffs, slot, uv, k_terms: int, footprint=None,
     The JAX package feeds frequencies, cos/sin and amplitudes to its dots
     in bf16 and gets bf16 sums back; the same roundings happen here, and
     the K-term sums run in order k = 0..K-1 as the kernel runs them.
+
+    ``has_gain``: the atlas holds glyph rows (any gain, its last
+    column, other than 1; raycast.py:656-724). A row's bf16 gain < 0
+    marks a Fourier-SDF glyph (textures.fit_sdf_texture): the channels
+    are [sdf | ink | bg], and the texel is ink + (bg - ink) * s with s
+    the signed distance thresholded at the edge half-width -1 / (2
+    gain), grown to 0.55 of the footprint in texels; gain > 1 expands
+    the contrast away from the DC term. Operation for operation as the
+    JAX expression, whose two multiply-adds ``a + (b - a) * s`` XLA:CPU
+    fuses into one rounding each (``_fma``).
     """
-    if has_gain:
-        raise NotImplementedError(
-            "glyph textures (gain != 1, Sign's SDF glyphs) are not ported yet"
-        )
     n_rows = coeffs.shape[0]
     k = k_terms
     slot_i = torch.round(slot.to(torch.float32)).long()
@@ -960,8 +1003,17 @@ def eval_fourier(coeffs, slot, uv, k_terms: int, footprint=None,
         acc_a = acc_a + ca[:, None, j] * w_a[:, :, j]
         acc_b = acc_b + sa[:, None, j] * w_b[:, :, j]
     sums = _bf16(_bf16(acc_a) + _bf16(acc_b))
-    texel = _bf16(row[:, 0:3]) + sums
-    texel = torch.where(in_range[:, None], texel, torch.zeros_like(texel))
+    dc = torch.where(in_range[:, None], _bf16(row[:, 0:3]), torch.zeros_like(sums))
+    texel = dc + torch.where(in_range[:, None], sums, torch.zeros_like(sums))
+    if has_gain:
+        gain = torch.where(in_range, _bf16(row[:, -1]), torch.zeros_like(sums[:, 0]))[:, None]
+        w0 = -1.0 / (2.0 * torch.clamp(gain, max=-1e-9))
+        w_eff = w0 if footprint is None else torch.maximum(
+            w0, (0.55 * footprint[:, None]) * float(ATLAS_RES))
+        sdf = torch.clamp(0.5 + texel[:, 0:1] / (2.0 * w_eff), 0.0, 1.0)
+        sdf_texel = _fma(texel[:, 2:3] - texel[:, 1:2], sdf, texel[:, 1:2])
+        texel = torch.where(gain < 0.0, sdf_texel, texel)
+        texel = torch.where(gain > 1.0, _fma(texel - dc, gain, dc), texel)
     return torch.where((slot_i >= 0)[:, None], torch.clamp(texel, 0.0, 1.0),
                        torch.ones_like(texel))
 
@@ -970,7 +1022,8 @@ def fourier_table(atlas, k_terms: int):
     """Per-slot table the pixel_epilogue kernel reads in place of the
     atlas (A, 4+8K): the atlas values that ``eval_fourier`` rounds to
     bf16, rounded once, and pi^2 (fu^2 + fv^2) of each term, in the
-    kernel's operation order. Row layout, (A, 4 + 9K) f32: dc(3), 0,
+    kernel's operation order. Row layout, (A, 4 + 9K) f32: dc(3), the
+    bf16 gain (``eval_fourier``'s glyph marker, 1 for the plain rows),
     then (fu, fv, pi^2 f2, A_0) per term, (A_1, A_2, B_0, B_1) per term,
     B_2 per term. Made once per atlas (MiniWorldVec makes it on the
     CPU when it installs its atlas)."""
@@ -986,7 +1039,7 @@ def fourier_table(atlas, k_terms: int):
     w_b = _bf16(atlas[:, a0 + 3 * k:a0 + 6 * k]).reshape(n, 3, k)
     p = torch.stack([fu, fv, pf2, w_a[:, 0]], dim=2).reshape(n, 4 * k)
     q = torch.stack([w_a[:, 1], w_a[:, 2], w_b[:, 0], w_b[:, 1]], dim=2).reshape(n, 4 * k)
-    return torch.cat([_bf16(atlas[:, 0:3]), torch.zeros_like(atlas[:, :1]), p, q, w_b[:, 2]],
+    return torch.cat([_bf16(atlas[:, 0:3]), _bf16(atlas[:, -1:]), p, q, w_b[:, 2]],
                      dim=1).contiguous()
 
 
@@ -1102,17 +1155,16 @@ def pixel_epilogue(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
                    has_gain: bool = False, table=None, ss: int = 1):
     """Stage 3 wrapper: the pixel_epilogue kernel for CUDA tensors, the
     plain version for CPU tensors. Same contract as
-    ``pixel_epilogue_plain`` (``ss`` = 2: the kernel's SS = 2 instance).
+    ``pixel_epilogue_plain`` (``ss`` = 2: the kernel's SS = 2 instance;
+    ``has_gain``: its GAIN instances, the glyph branch of
+    ``eval_fourier``, counted in ``LAUNCHES["pixel_epilogue_gain"]``
+    too).
     The kernel reads ``table``, the atlas's ``fourier_table`` (made here
     when not given: a caller that renders often makes it once)."""
     args = (t_tri, attr, t_ent, col_ent, n_ent, atlas, cam, light_pos,
             light_color, light_ambient, sky, k_terms, has_gain, ss)
     if not is_cuda(t_tri, attr, atlas, cam.origin, light_pos):
         return pixel_epilogue_plain(*args)
-    if has_gain:
-        raise NotImplementedError(
-            "glyph textures (gain != 1, Sign's SDF glyphs) are not ported yet"
-        )
     b, hw = t_tri.shape
     h, w = cam.height, cam.width
     if ss not in (1, 2) or h % ss or w % ss:
@@ -1139,7 +1191,8 @@ def pixel_epilogue(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
     cam_ptrs, _cam_tensors = _cam_args(cam, b)
     launch(
         "mw_pixel_epilogue",
-        ("pixel_epilogue",) if ss == 1 else ("pixel_epilogue", "pixel_epilogue_ss2"),
+        ("pixel_epilogue",) + (("pixel_epilogue_ss2",) if ss == 2 else ())
+        + (("pixel_epilogue_gain",) if has_gain else ()),
         check(t_tri, "t_tri", torch.float32, (b, hw)),
         check(attr, "attr", torch.bfloat16, (b, hw, ATTR_DIM)),
         *ent_ptrs,
@@ -1148,7 +1201,7 @@ def pixel_epilogue(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
         *cam_ptrs,
         ctypes.c_int(b), ctypes.c_int(w), ctypes.c_int(h),
         ctypes.c_int(n_rows), ctypes.c_int(k_terms), ctypes.c_int(int(has_ent)),
-        ctypes.c_int(ss),
+        ctypes.c_int(ss), ctypes.c_int(int(has_gain)),
         check(rgb, "rgb", torch.uint8, (b, ho, wo, 3)),
         check(depth, "depth", torch.float32, (b, ho, wo, 1)),
         stream(),
@@ -1192,7 +1245,7 @@ def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
     (B, H, W, 1) f32, FAR for sky). Counterpart of raycast.render_rgbd
     in fourier mode for the plans the port renders: the static prims in
     chunks of ``tri_chunk`` (None: one chunk of all of them; more than
-    one without mesh entities or a paired bank).
+    one without mesh entities, the last clamped: ``chunk_starts``).
     ``packed_pvs``: the bank's packed per-room visible sets, one chunk
     of ``tri_chunk`` a render: each env scans its camera room's chunk
     (``static_rows``).
@@ -1227,10 +1280,9 @@ def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
     if use_kernels:
         t_tri, attr = tri_pass(*rows, cam, all_quads, mesh, paired, tri_chunk, override)
     elif tri_chunk is not None and rows[0].shape[2] > tri_chunk:
-        if mesh is not None or paired is not None:
-            raise NotImplementedError("more than one chunk with mesh rows or a paired bank "
-                                      "is not ported yet")
-        t_tri, attr = tri_pass_chunked(*rows, cam, tri_chunk, all_quads, override)
+        if mesh is not None:
+            raise NotImplementedError("more than one chunk with mesh rows is not ported yet")
+        t_tri, attr = tri_pass_chunked(*rows, cam, tri_chunk, all_quads, override, paired)
     else:
         seed = None if mesh is None else entity_mesh_pass_plain(*mesh, cam)
         t_tri, attr = tri_pass_plain(*rows, cam, all_quads, seed, paired, override)

@@ -18,13 +18,14 @@ the new episode. Resets draw from the same threefry keys and
 counter-based uniforms as the JAX package (ops/rng.py), so the two
 packages step the same envs through the same episodes.
 
-The port covers the statics of 19 of the 27 env ids (``envs.ENV_IDS``):
+The port covers the statics of 22 of the 27 env ids (``envs.ENV_IDS``):
 one layout bank rendered in the JAX package's chunk plan (one chunk, a
-dense multi-chunk scan, or the one-chunk packed-PVS plan of the Maze
-family's layout bank; ``install_statics``), Fourier textures without
-glyphs, analytic and mesh entities, procgen mazes — a fresh maze per
-reset on the device (``procgen``, the Maze family's default), rendered
-from the paired super bank — domain randomization (``domain_rand``: the
+dense or paired multi-chunk scan, or the one-chunk packed-PVS plan of
+the Maze family's layout bank; ``install_statics``), Fourier textures
+with Sign's SDF glyphs and its dict observations, analytic and mesh
+entities, procgen mazes — a fresh maze per reset on the device
+(``procgen``, the Maze family's default), rendered from the paired
+super bank — domain randomization (``domain_rand``: the
 per-episode and per-step parameter draws and each episode's texture
 variants) and ``supersample=2``. Other statics (nearest textures, the
 top view) and plans raise NotImplementedError.
@@ -40,7 +41,9 @@ import torch
 from miniworld_tpu_torch.convert import atlas_from_numpy, layout_from_numpy
 from miniworld_tpu_torch.envs.base import Ctx, EnvSpec
 from miniworld_tpu_torch.ops import mazegen, physics, place as place_ops, rng as rng_ops
-from miniworld_tpu_torch.render.raycast import fourier_table, render_rgbd, room_of_point
+from miniworld_tpu_torch.render.raycast import (
+    chunk_starts, fourier_table, render_rgbd, room_of_point,
+)
 from miniworld_tpu_torch.render.textures import FOURIER_TERMS, TextureCatalog
 from miniworld_tpu_torch.scene.compile import Layout, compile_world, stack_layouts
 from miniworld_tpu_torch.scene.entities import (
@@ -418,7 +421,8 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
     supersample=2).
 
     Returns (bank, statics dict): the bank repadded for its chunk plan
-    (``plan_chunks``), and ``plan``, ``tri_chunk``, ``all_quads``,
+    (``plan_chunks``), and ``plan`` (with ``chunk_starts``, the first
+    row of each chunk the render scans), ``tri_chunk``, ``all_quads``,
     ``shapes_present``, ``has_gain``, ``pg_wall``: for a paired bank
     the (L, Sp) i32 wall of each row (-1 = none), from
     ``pg_sel_onehot`` / ``pg_sel_base``, else None, and ``slot_tex``.
@@ -448,14 +452,14 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
     as that one chunk: each env scans its camera room's packed visible
     set, ``pvs_v9_rows`` / ``pvs_attr_rows`` row ``layout * NC +
     pvs_room_base[layout, room]``, as the JAX package's one-hot chunk
-    read does. It raises NotImplementedError, naming the plan, for every
-    other plan:
-    ``chunk_vis`` schedules, packed PVS of more than one chunk a render,
-    mesh entities over more than one chunk, and a paired procgen bank
-    whose Sp rows exceed one chunk (JAX clamps its last chunk's start,
-    so that chunk re-reads rows at shifted local indices). A super bank
-    renders its paired rows (``pg_*``), which the repad leaves as they
-    are.
+    read does. A super bank renders its paired rows (``pg_*``), which
+    the repad leaves as they are: Sp rows over more than one chunk are
+    scanned as JAX scans them, the last chunk's start clamped to Sp -
+    tri_chunk, so that chunk re-reads rows at shifted local indices
+    (``chunk_starts``; the 8x8 Maze's Sp = 608 in 2 chunks of 496 at a
+    chunk cap of 496). It raises NotImplementedError, naming the plan,
+    for every other plan: ``chunk_vis`` schedules, packed PVS of more
+    than one chunk a render, and mesh entities over more than one chunk.
     """
     bank_np, plan = plan_chunks(bank_np, num_envs, hw)
     tri_chunk, s_bank = plan["tri_chunk"], bank_np.tri_mask.shape[1]
@@ -474,10 +478,11 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
         raise NotImplementedError(
             f"mesh entities over {s_bank // tri_chunk} chunks of {tri_chunk} prims {where} "
             "(a seeded multi-chunk scan) are not ported yet")
-    if bank_np.pg_verts9 is not None and bank_np.pg_verts9.shape[2] > tri_chunk:
-        raise NotImplementedError(
-            f"a paired procgen bank of Sp={bank_np.pg_verts9.shape[2]} rows in chunks of "
-            f"{tri_chunk} {where} is not ported yet")
+    # the first row of each chunk the render scans (of the paired rows on
+    # a super bank; packed PVS scans one chunk of its own a render)
+    n_scan = s_bank if bank_np.pg_verts9 is None else bank_np.pg_verts9.shape[2]
+    plan["chunk_starts"] = ([0] if plan["kind"] == "packed_pvs"
+                            else chunk_starts(n_scan, min(tri_chunk, n_scan)))
     if tex_np.shape[0] > 256:
         raise ValueError(
             f"an atlas of {tex_np.shape[0]} rows: slot ids above 256 are not exact in the "
@@ -630,14 +635,14 @@ class MiniWorldVec:
         bank_np, statics = install_statics(
             bank_np, tex_np, self.num_envs,
             self.obs_width * self.obs_height * self.supersample ** 2, self.domain_rand)
-        if statics["has_gain"]:
-            raise NotImplementedError("glyph textures are not ported yet")
         self._bank_np = bank_np
         # the JAX package's chunk plan (plan_chunks), which the render follows
         self.plan = statics["plan"]
         self.tri_chunk = statics["tri_chunk"]
         self._all_quads = statics["all_quads"]
         self._shapes_present = statics["shapes_present"]
+        # the atlas has glyph rows (Sign): the epilogue's glyph branch
+        self._has_gain = statics["has_gain"]
         self._bank = layout_from_numpy(bank_np, device)
         self._pg_wall = (None if statics["pg_wall"] is None
                          else torch.from_numpy(statics["pg_wall"]).to(device))
@@ -869,13 +874,20 @@ class MiniWorldVec:
             self._bank, state, self._atlas,
             width=self.obs_width, height=self.obs_height, k_terms=self.fourier_k,
             shapes_present=self._shapes_present, all_quads=self._all_quads,
-            use_kernels=self.use_kernels, pg_wall=self._pg_wall,
+            has_gain=self._has_gain, use_kernels=self.use_kernels, pg_wall=self._pg_wall,
             table=self._fourier_table, tri_chunk=self.tri_chunk,
             packed_pvs=self.plan["kind"] == "packed_pvs", slot_tex=self._slot_tex,
             supersample=self.supersample,
         )
 
     def _obs(self, rgb, depth):
+        """The observation of a render: the image, as {"obs": image,
+        "goal": (B,) int32} for a ``dict_obs`` spec (Sign; the JAX
+        package's ``_wrap_obs_one``), with the depth beside it when
+        ``with_depth``."""
+        if self.spec.dict_obs:
+            rgb = {"obs": rgb, "goal": torch.full((rgb.shape[0],), self.spec.goal,
+                                                  dtype=torch.int32, device=rgb.device)}
         return (rgb, depth) if self.with_depth else rgb
 
     # -- public API -------------------------------------------------------------
@@ -915,8 +927,9 @@ class MiniWorldVec:
         Returns (state, obs, outs) with ``outs`` the per-step sums of
         the JAX package's ``rollout_fn``: "reward" (horizon,) f32,
         "dones" (horizon,) and "obs_sum" (horizon,) int64, the latter a
-        checksum of every 8th pixel row and column that keeps each
-        render's result live. The actions are ``rollout_fn``'s
+        checksum of every 8th pixel row and column of the image (a dict
+        observation's "obs", the JAX package's image leaf) that keeps
+        each render's result live. The actions are ``rollout_fn``'s
         (``rollout_actions``); they depend only on the key and the step,
         so the whole horizon's are drawn before the loop, once, not per
         step. No host sync happens inside.

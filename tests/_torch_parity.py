@@ -79,6 +79,20 @@ def assert_images_match(j_rgb, j_depth, t_rgb, t_depth):
     return differ, rgb_err
 
 
+def split_obs(j_obs, t_obs):
+    """(JAX image, port image) of two observations: a dict observation
+    (Sign's {"obs": image, "goal": (B,) int32}) must be one in both
+    packages, with the same keys and an equal ``goal``."""
+    if not isinstance(j_obs, dict):
+        assert not isinstance(t_obs, dict)
+        return j_obs, t_obs
+    assert isinstance(t_obs, dict) and set(t_obs) == set(j_obs) == {"obs", "goal"}
+    goal = np.asarray(j_obs["goal"])
+    assert t_obs["goal"].dtype == torch.int32 and t_obs["goal"].shape == goal.shape
+    np.testing.assert_array_equal(t_obs["goal"].numpy(), goal)
+    return j_obs["obs"], t_obs["obs"]
+
+
 def facing(jenv, jstate, slot, dist):
     """(pos, dir) that put each agent ``dist`` from entity ``slot`` along
     x, on the side of the entity's room centre, facing it."""
@@ -120,27 +134,33 @@ def adopt_reset_ulps(jstate, tstate, done):
     return tree_select(swap, jport, tstate)
 
 
-def reset_and_steps(env_id, b, w, h, steps, seed, start=None, forced_action=2):
+def reset_and_steps(env_id, b, w, h, steps, seed, start=None, forced_action=2,
+                    frames=None, **env_kwargs):
     """Reset the JAX package's env and the port's at (b, w, h) from
     ``seed`` and step both ``steps`` times with the same actions, checking
     as tests/test_torch_vector.py::test_reset_and_ten_steps does: rewards,
     dones, step counts, layouts, info and task state exact, states within
     FLOAT_ATOL, images by ``assert_images_match``. ``start(jenv, jstate)``
     may return (pos (b, 3), yaw (b,), forced (b,) bool) to move the
-    agents after the reset; forced envs take ``forced_action`` every
-    step; an env that resets goes on from the JAX package's reset state.
+    agents after the reset; forced envs take ``forced_action`` (an int,
+    or one per env) every step; an env that resets goes on from the JAX
+    package's reset state. A dict observation's goal must be equal and
+    its images are compared (``split_obs``). ``frames``, a list, gets
+    (port state, JAX rgb, JAX depth, port rgb, port depth) of every step.
+    ``env_kwargs`` go to both constructors.
     Returns (dones, total reward, the last infos of JAX and the port)."""
     from miniworld_tpu import MiniWorldVec as JaxVec
     from miniworld_tpu_torch import MiniWorldVec
 
     import jax.numpy as jnp
 
-    env = MiniWorldVec(env_id, b, obs_width=w, obs_height=h, device="cpu")
-    jenv = JaxVec(env_id, num_envs=b, obs_width=w, obs_height=h)
+    env = MiniWorldVec(env_id, b, obs_width=w, obs_height=h, device="cpu", **env_kwargs)
+    jenv = JaxVec(env_id, num_envs=b, obs_width=w, obs_height=h, **env_kwargs)
     jstate, (j_rgb, j_depth) = jenv.reset(jax.random.key(seed))
     tstate, (t_rgb, t_depth) = env.reset(seed)
     assert_states_match(jstate, tstate)
-    assert_images_match(j_rgb, j_depth, t_rgb, t_depth)
+    j_img, t_img = split_obs(j_rgb, t_rgb)
+    assert_images_match(j_img, j_depth, t_img, t_depth)
     forced = np.zeros(b, bool)
     if start is not None:
         pos, yaw, forced = start(jenv, jstate)
@@ -151,8 +171,7 @@ def reset_and_steps(env_id, b, w, h, steps, seed, start=None, forced_action=2):
     n_act = env._action_table.shape[0]
     dones, rewards = 0, 0.0
     for _ in range(steps):
-        acts = rng.integers(0, n_act, b).astype(np.int32)
-        acts[forced] = forced_action
+        acts = np.where(forced, forced_action, rng.integers(0, n_act, b)).astype(np.int32)
         jstate, (j_rgb, j_depth), j_r, j_d, j_info = jenv.step(jstate, jnp.asarray(acts))
         tstate, (t_rgb, t_depth), t_r, t_d, t_info = env.step(tstate, torch.from_numpy(acts))
         np.testing.assert_array_equal(t_r.numpy(), np.asarray(j_r))
@@ -169,7 +188,10 @@ def reset_and_steps(env_id, b, w, h, steps, seed, start=None, forced_action=2):
         for k, v in jstate.task.items():
             np.testing.assert_array_equal(tstate.task[k].numpy(), np.asarray(v), err_msg=k)
         assert_states_match(jstate, tstate)
-        assert_images_match(j_rgb, j_depth, t_rgb, t_depth)
+        j_img, t_img = split_obs(j_rgb, t_rgb)
+        assert_images_match(j_img, j_depth, t_img, t_depth)
+        if frames is not None:
+            frames.append((tstate, j_img, j_depth, t_img, t_depth))
         dones += int(t_d.sum())
         rewards += float(t_r.sum())
         if bool(t_d.any()):
@@ -179,5 +201,5 @@ def reset_and_steps(env_id, b, w, h, steps, seed, start=None, forced_action=2):
             # frame's quantized depth shows: the envs that reset go on
             # from the JAX state
             tstate = tree_select(torch.from_numpy(np.array(j_d)), to_port_state(jstate), tstate)
-    assert t_rgb.shape == (b, h, w, 3) and t_depth.shape == (b, h, w, 1)
+    assert t_img.shape == (b, h, w, 3) and t_depth.shape == (b, h, w, 1)
     return dones, rewards, j_info, t_info

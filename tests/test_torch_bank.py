@@ -27,7 +27,8 @@ ENV_IDS = ["MiniWorld-Hallway-v0", "MiniWorld-FourRooms-v0", "MiniWorld-TMaze-v0
            "MiniWorld-PickupObjects-v0", "MiniWorld-OneRoom-v0", "MiniWorld-OneRoomS6-v0",
            "MiniWorld-OneRoomS6Fast-v0", "MiniWorld-YMaze-v0", "MiniWorld-YMazeLeft-v0",
            "MiniWorld-YMazeRight-v0", "MiniWorld-WallGap-v0", "MiniWorld-NavigateWallGap-v0",
-           "MiniWorld-Sidewalk-v0"]
+           "MiniWorld-Sidewalk-v0", "MiniWorld-GreenKey-v0", "MiniWorld-ThreeRooms-v0",
+           "MiniWorld-Sign-v0"]
 
 
 @pytest.fixture(scope="module", params=ENV_IDS)
@@ -61,7 +62,7 @@ def test_statics_match(banks):
 def test_atlas(banks):
     jenv, _, tex_np, _ = banks
     want = np.asarray(jenv._atlas)
-    assert tex_np.shape == want.shape and want.shape[1] == 4 + 8 * 16
+    assert tex_np.shape == want.shape and want.shape[1] == 4 + 8 * (jenv.spec.fourier_k or 16)
     np.testing.assert_allclose(tex_np, want, rtol=0, atol=1e-6)
 
 

@@ -55,20 +55,22 @@ def _port_bank(env_id, procgen):
 def test_plan_matches_jax(env_id, procgen, size):
     """tri_chunk, the padded S, the plan's kind and schedule length and
     the chunk cap equal the JAX package's (at supersample=2 for the
-    samples of a frame, as MiniWorldVec passes them); where JAX scans a
-    paired procgen bank in more than one chunk (its last chunk clamped),
-    the port raises instead."""
+    samples of a frame, as MiniWorldVec passes them); the chunks start
+    where JAX's dynamic_slice reads them, the last clamped (a paired
+    procgen bank in more than one chunk)."""
     b, w, h, ss = size
     jenv = JaxVec(env_id, num_envs=b, obs_width=w, obs_height=h, procgen=procgen,
                   supersample=ss)
     bank_np, tex_np = _port_bank(env_id, procgen)
     pg = jenv._bank_np.pg_verts9
     hw = w * h * ss * ss
-    if pg is not None and pg.shape[2] > jenv.tri_chunk:
-        with pytest.raises(NotImplementedError, match="paired procgen bank"):
-            tvector.install_statics(bank_np, tex_np, b, hw)
-        return
     got, statics = tvector.install_statics(bank_np, tex_np, b, hw)
+    n_scan = (jenv._bank_np.tri_mask if pg is None else pg[0, 0]).shape[-1]
+    tc = min(jenv.tri_chunk, n_scan)
+    if not jenv._pvs_packed:
+        want = [int(jax.lax.dynamic_slice(jnp.arange(n_scan), (c * tc,), (tc,))[0])
+                for c in range(-(-n_scan // tc))]
+        assert statics["plan"]["chunk_starts"] == want
     plan = statics["plan"]
     assert plan["cap"] == jenv._chunk_cap
     assert statics["tri_chunk"] == plan["tri_chunk"] == jenv.tri_chunk
@@ -82,12 +84,15 @@ def test_plan_matches_jax(env_id, procgen, size):
 
 
 def test_port_plans_its_maze_at_160x120_raises():
-    """The port's constructor raises for the one plan it cannot render
-    among the ported ids' defaults: procgen Maze 8x8 (Sp = 608 paired
-    rows) at 160x120 with B = 1024, chunk cap 496."""
+    """Procgen Maze 8x8 (Sp = 608 paired rows) at 160x120 with B = 1024,
+    chunk cap 496, which the port refused before it scanned a paired
+    bank in more than one chunk: it plans JAX's 2 chunks of 496, the
+    second from row 112, and raises for none of the ported ids'
+    defaults."""
     assert tvector.chunk_cap(1024, 160 * 120) == 496
-    with pytest.raises(NotImplementedError, match="Sp=608 rows in chunks of 496"):
-        tvector.install_statics(*_port_bank("MiniWorld-Maze-v0", None), 1024, 160 * 120)
+    _, statics = tvector.install_statics(*_port_bank("MiniWorld-Maze-v0", None), 1024,
+                                         160 * 120)
+    assert (statics["tri_chunk"], statics["plan"]["chunk_starts"]) == (496, [0, 112])
 
 
 @pytest.fixture(scope="module")
@@ -204,16 +209,22 @@ def test_tri_pass_chunked_matches_jax_on_ties(tie_case, tri_chunk):
     assert decided >= 100, decided
 
 
+def _kernel_rank(n_rows, tri_chunk):
+    """(chunk, local index) of each row as the tri_pass kernel's staging
+    loop packs them: the row's first chunk and its index there, the last
+    chunk starting at n_rows - tri_chunk."""
+    s = torch.arange(n_rows)
+    chunk = torch.clamp(s // tri_chunk, max=(n_rows - 1) // tri_chunk)
+    return chunk, s - torch.clamp(chunk * tri_chunk, max=n_rows - tri_chunk)
+
+
 def _one_pass_select(verts9, attr, layout_id, cam, tri_chunk):
     """Torch copy of the tri_pass kernel's multi-chunk select: one max
     over every row of the 64-bit (key << 8) | (255 - chunk), the key
-    built from the row's chunk-local index, the chunk from the kernel's
-    float formula."""
+    built from the row's chunk-local index (``_kernel_rank``)."""
     rows = trc.stage_rows(verts9, attr, layout_id, cam)
     keys = trc._row_keys(rows, cam.xv(), cam.yv(), False).long()  # (B, S, HW)
-    s = torch.arange(rows.shape[1])
-    chunk = torch.floor((s.float() + 0.5) * (1.0 / torch.tensor(float(tri_chunk)))).long()
-    local = s - chunk * tri_chunk
+    chunk, local = _kernel_rank(rows.shape[1], tri_chunk)
     key = (keys & ~trc._IDX_MASK) | local[None, :, None]
     ranked = torch.where(keys > 0, (key << 8) | (255 - chunk)[None, :, None],
                          torch.zeros_like(keys))
@@ -236,14 +247,23 @@ def test_kernel_select_matches_chunk_loop(tie_case, tri_chunk):
     assert torch.equal(t_k, t_p) and torch.equal(a_k, a_p)
 
 
-def test_kernel_chunk_index_formula():
-    """floor((s + 0.5) * (1 / tri_chunk)) in float32 is s // tri_chunk
-    for every row s < 4096 and every chunk 16 <= tri_chunk <= 1024."""
-    s = torch.arange(4096, dtype=torch.int64)
-    for tc in range(16, 1025):
-        inv = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(float(tc))
-        got = torch.floor((s.float() + 0.5) * inv).long()
-        assert torch.equal(got, s // tc), tc
+@pytest.mark.parametrize("n_rows", [608, 3072, 4096])
+def test_kernel_chunk_index_formula(n_rows):
+    """The tri_pass kernel's row rank, (chunk, local index) packed as
+    (255 - chunk) << 10 | local: for every chunk 16 <= tri_chunk <= 1024
+    below n_rows each row's chunk is the first of JAX's clamped chunks
+    that reads it (``trc.chunk_starts``), at its index there, under
+    256 chunks and 1024 rows; the packing round-trips."""
+    s = torch.arange(n_rows)
+    for tc in range(16, min(n_rows, 1024) + 1):
+        chunk, local = _kernel_rank(n_rows, tc)
+        starts = torch.tensor(trc.chunk_starts(n_rows, tc))
+        assert int(chunk.max()) < 256 and int(local.min()) >= 0 and int(local.max()) < tc
+        assert torch.equal(starts[chunk] + local, s), tc
+        first = ((s[:, None] >= starts[None]) & (s[:, None] < starts[None] + tc)).long().argmax(1)
+        assert torch.equal(chunk, first), tc
+        packed = ((255 - chunk) << 10) | local
+        assert torch.equal(255 - (packed >> 10), chunk) and torch.equal(packed & 1023, local)
 
 
 def test_render_plain_multi_chunk():

@@ -126,7 +126,7 @@ def test_fourier_table(case):
     pf2 = np.float32(math.pi ** 2) * (fu * fu + fv * fv)  # float32, element by element
     p = table[:, 4:4 + 4 * K].reshape(n, K, 4)
     q = table[:, 4 + 4 * K:4 + 8 * K].reshape(n, K, 4)
-    for got, want in ((table[:, :3], _bf16(atlas[:, :3])), (table[:, 3], 0.0),
+    for got, want in ((table[:, :3], _bf16(atlas[:, :3])), (table[:, 3], _bf16(atlas[:, -1])),
                       (p[..., 0], fu), (p[..., 1], fv), (p[..., 2], pf2), (p[..., 3], w_a[:, 0]),
                       (q[..., 0], w_a[:, 1]), (q[..., 1], w_a[:, 2]), (q[..., 2], w_b[:, 0]),
                       (q[..., 3], w_b[:, 1]), (table[:, 4 + 8 * K:], w_b[:, 2])):

@@ -1,7 +1,9 @@
-"""The OneRoom and YMaze families against the JAX package: reset and 8
-steps at B=8, 40x30, half the agents walking to the red box from 1 m
-(their episodes end and auto-reset); YMaze's ``goal_pos`` info every
-step. Their banks are one chunk on today's kernels."""
+"""The OneRoom and YMaze families, GreenKey and ThreeRooms against the
+JAX package: reset and 8 steps at B=8, 40x30, half the agents walking
+to entity 0 from 1 m (the red box, GreenKey's green key: their episodes
+end and auto-reset; ThreeRooms has no reward and never ends); YMaze's
+``goal_pos`` info every step. Their banks are one chunk on today's
+kernels. The spec fields are also held against Sign's."""
 
 import numpy as np
 import pytest
@@ -13,7 +15,8 @@ from _torch_parity import facing, reset_and_steps
 
 B, W, H, STEPS = 8, 40, 30, 8
 IDS = ["MiniWorld-OneRoom-v0", "MiniWorld-OneRoomS6-v0", "MiniWorld-OneRoomS6Fast-v0",
-       "MiniWorld-YMaze-v0", "MiniWorld-YMazeLeft-v0", "MiniWorld-YMazeRight-v0"]
+       "MiniWorld-YMaze-v0", "MiniWorld-YMazeLeft-v0", "MiniWorld-YMazeRight-v0",
+       "MiniWorld-GreenKey-v0", "MiniWorld-ThreeRooms-v0"]
 
 
 def _half_to_the_box(jenv, jstate):
@@ -27,18 +30,25 @@ def _half_to_the_box(jenv, jstate):
 def test_reset_and_steps(env_id):
     dones, rewards, j_info, t_info = reset_and_steps(env_id, B, W, H, STEPS, seed=41,
                                                      start=_half_to_the_box)
-    assert dones >= B // 2 and rewards > 0.0, (dones, rewards)
+    if env_id == "MiniWorld-ThreeRooms-v0":  # exploration only (threerooms.py:41-80)
+        assert dones == 0 and rewards == 0.0, (dones, rewards)
+    else:
+        assert dones >= B // 2 and rewards > 0.0, (dones, rewards)
     if "YMaze" in env_id:
         assert "goal_pos" in t_info
 
 
-@pytest.mark.parametrize("env_id", IDS)
+@pytest.mark.parametrize("env_id", IDS + ["MiniWorld-Sign-v0"])
 def test_spec_fields(env_id):
-    """Step limits, goal positions and the per-episode parameters equal
-    the JAX package's specs."""
+    """Step limits, goal positions, layouts, Fourier terms, observation
+    kind, Sign's goal and end action and the per-episode parameters
+    equal the JAX package's specs."""
     spec, jspec = make_spec(env_id), jax_make_spec(env_id)
     assert spec.max_episode_steps == jspec.max_episode_steps
-    assert getattr(spec, "goal_pos", None) == getattr(jspec, "goal_pos", None)
+    for name in ("goal_pos", "goal", "end_action_index"):
+        assert getattr(spec, name, None) == getattr(jspec, name, None), name
+    for name in ("num_layouts", "fourier_k", "dict_obs", "agent_radius", "place_budget"):
+        assert getattr(spec, name) == getattr(jspec, name), name
     np.testing.assert_array_equal(spec.discrete_actions, jspec.discrete_actions)
     for name, p in jspec.params.params.items():
         q = spec.params.params[name]

@@ -67,11 +67,12 @@ def test_box_filter_order_matches_jax_mean():
 def test_plans_that_still_raise():
     """At ss=2 the 8x8 procgen Maze's paired bank (Sp = 608 rows) meets a
     chunk cap of 496 at B=1024, 80x60 (19,200 samples a frame): the port
-    raises NotImplementedError naming the plan, as at 160x120; other
-    supersample values raise ValueError."""
-    with pytest.raises(NotImplementedError, match="Sp=608 rows in chunks of 496"):
-        MiniWorldVec("MiniWorld-Maze-v0", 1024, obs_width=80, obs_height=60, device="cpu",
-                     supersample=2)
+    plans it as JAX does, 2 chunks of 496 (it raised before the paired
+    multi-chunk scan was ported); other supersample values raise
+    ValueError."""
+    env = MiniWorldVec("MiniWorld-Maze-v0", 1024, obs_width=80, obs_height=60, device="cpu",
+                       supersample=2)
+    assert (env.tri_chunk, env.plan["chunk_starts"]) == (496, [0, 112])
     with pytest.raises(ValueError, match="supersample"):
         MiniWorldVec("MiniWorld-Hallway-v0", 2, obs_width=16, obs_height=12, device="cpu",
                      supersample=3)

@@ -177,7 +177,7 @@ def test_device_is_required():
 
 def test_unported_env_raises():
     with pytest.raises(NotImplementedError, match="not ported"):
-        make_spec("MiniWorld-Sign-v0")
+        make_spec("MiniWorld-CollectHealth-v0")
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
