@@ -46,8 +46,18 @@ tri_pass_chunked on the 8x8 procgen Maze at supersample=2, with and
 without the override, and on a paired tie bank ([paired-chunks]); then
 the Sign rollout at B=1024 and the Maze 8x8 procgen one at B=8192 with
 supersample=2, short GreenKey and ThreeRooms rollouts, and Sign (exactly),
-GreenKey and ThreeRooms at B=128 against their plain paths. One line
-per phase; the JSON summary of the
+GreenKey and ThreeRooms at B=128 against their plain paths. With
+tex_mode="nearest", tri_pass (the bf16 and float32 attribute carries) and
+the NEAREST epilogue are held exactly against their plain versions on
+Hallway (B=128 and B=1024), PickupObjects, Sidewalk, Sign, the 8x8
+procgen Maze (also at supersample=2 in 2 chunks of 496, and at B=8192,
+timed) and FourRooms with domain randomisation ([nearest-stages]); then
+the Maze 8x8 procgen nearest rollout at B=8192, the Hallway one at
+B=1024, and Hallway nearest at B=128 against its plain path, exactly.
+The continuous-action ids follow: RoomObjects' render stages at B=4096
+against their plain versions, its rollout at B=4096 and a short PutNext
+one on (B, 6) action vectors, both at B=128 against their plain paths.
+One line per phase; the JSON summary of the
 kernels and the card's ``nvidia-smi`` name and power limit come before
 the last line,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -96,6 +106,10 @@ PLAIN_HORIZON = 6
 # GreenKey and ThreeRooms: the other discrete-table ids of the slice
 SIGN_ID, GREEN_ID, THREE_ID = ("MiniWorld-Sign-v0", "MiniWorld-GreenKey-v0",
                                "MiniWorld-ThreeRooms-v0")
+# the continuous-action ids (raw 6-D actions): RoomObjects at B_ROOM, its
+# placement at budget 48 and agent radius 1.5, and PutNext
+ROOM_ID, PUTNEXT_ID = "MiniWorld-RoomObjects-v0", "MiniWorld-PutNext-v0"
+B_ROOM = 4096
 SHORT_IDS = ("MiniWorld-OneRoom-v0", "MiniWorld-OneRoomS6-v0", "MiniWorld-OneRoomS6Fast-v0",
              "MiniWorld-YMaze-v0", "MiniWorld-YMazeLeft-v0", "MiniWorld-YMazeRight-v0")
 
@@ -133,6 +147,7 @@ KERNELS = {
                 "miniworld_tpu/ops/mazegen.py:92"),
 }
 MAZE_KERNELS = ("tri_pass", "entity_pass", "pixel_epilogue", "place", "mazegen")
+KERNEL_ORDER = {k: i for i, k in enumerate(KERNELS)}  # their rows in the kernels line
 # (kernel, env id) -> the kernel's own device time per call, kernel_ms
 DEVICE_MS: dict = {}
 
@@ -387,19 +402,21 @@ def check_stage(name, case, n_differ, differ, abs_err, rel_err, exact=False):
                              f"(winner differs {differ:.3e}, rel err {rel_err:.3e})")
 
 
-def plain_tri_pass(tri_args, mesh=None, paired=None, tri_chunk=None, override=None):
+def plain_tri_pass(tri_args, mesh=None, paired=None, tri_chunk=None, override=None,
+                   attr_dtype=torch.bfloat16):
     """tri_pass's plain version on these inputs: tri_pass_plain (seeded by
     the mesh pass on ``mesh`` rows), or tri_pass_chunked over more than
     one chunk of ``tri_chunk``; ``override``: every row's texture
-    variant in its slot column."""
+    variant in its slot column; ``attr_dtype``: the carry."""
     from miniworld_tpu_torch.render import raycast as rc
 
     verts9, attr, layout_id, cam, all_quads = tri_args
     if tri_chunk is not None and verts9.shape[2] > tri_chunk:
         return rc.tri_pass_chunked(verts9, attr, layout_id, cam, tri_chunk, all_quads,
-                                   override, paired)
-    seed = None if mesh is None else rc.entity_mesh_pass_plain(*mesh, cam)
-    return rc.tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired, override)
+                                   override, paired, attr_dtype)
+    seed = None if mesh is None else rc.entity_mesh_pass_plain(*mesh, cam, attr_dtype)
+    return rc.tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired, override,
+                             attr_dtype)
 
 
 def check_tri_pass(tri_args, case, mesh=None, paired=None, tri_chunk=None, override=None):
@@ -746,8 +763,9 @@ def stage_work(env, state, tri, ent, outs, tri_hits, mesh=None, paired=None):
                            hw * (n_sph * 20 + n_box * 45))
     k = env.fourier_k
     textured = int((torch.isfinite(t_k) & (a_k[..., 14].float() >= 0)).sum())
-    work["pixel_epilogue"] = (b * hw * (36 + 28) + env._fourier_table.numel() * 4 + b * 48 + cam_b
-                              + b * hw * 7, textured * k * 41 + b * hw * 60)
+    work["pixel_epilogue"] = (b * hw * 36 + ent_read_bytes(t_k, e_k[0])
+                              + env._fourier_table.numel() * 4 + b * 48 + cam_b + b * hw * 7,
+                              textured * k * 41 + b * hw * 60)
     return work
 
 
@@ -1001,6 +1019,15 @@ def bound(nbytes, ops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def ent_read_bytes(t_tri, t_ent):
+    """Bytes pixel_epilogue must read of the entity pass's results on
+    these inputs: its t at every sample (4), its colour and normal (24)
+    only at the samples where the entity is strictly closer and wins."""
+    if t_ent is None:
+        return 0
+    return t_ent.numel() * 4 + int((t_ent < t_tri).sum()) * 24
+
+
 # ---------------------------------------------------------------------------
 # the placement kernel
 
@@ -1094,15 +1121,16 @@ def check_place(label, args, kwargs):
     return err, first
 
 
-def phase_place(pick, four, maze, timings, pick_timings, work, pick_work):
+def phase_place(pick, four, maze, room, timings, pick_timings, work, pick_work):
     """place kernel vs place_all_plain from real reset inputs: positions
     and directions must be equal, env for env — PickupObjects (18
-    entity slots), FourRooms, and the 8x8 maze with each env's maze as
-    room weights and gated walls; then the maze's inputs with the radii
-    scaled until at least half the envs exhaust a slot's budget; both
-    with budgets 0 (the fallback alone), 30 (budget + 2 = 32 lanes, one
-    round), 31 (the fallback room in lane 0 of a second round) and 40
-    (the tries over two rounds of the kernel's 32 lanes). The kernel is
+    entity slots), FourRooms, RoomObjects (its budget of 48, agent radius
+    1.5: tries over two rounds of lanes), and the 8x8 maze with each env's
+    maze as room weights and gated walls; then the maze's inputs with the
+    radii scaled until at least half the envs exhaust a slot's budget;
+    both with budgets 0 (the fallback alone), 30 (budget + 2 = 32 lanes,
+    one round), 31 (the fallback room in lane 0 of a second round), 40 and
+    48 (the tries over two rounds of the kernel's 32 lanes). The kernel is
     timed at the maze's (``timings``) and PickupObjects'
     (``pick_timings``) shapes, and their place_work goes into ``work``
     and ``pick_work``; returns the max abs error."""
@@ -1110,8 +1138,10 @@ def phase_place(pick, four, maze, timings, pick_timings, work, pick_work):
 
     errs = 0.0
     for env, seed, tm, wk in ((pick, 11, pick_timings, pick_work), (four, 12, None, None),
-                              (maze, 13, timings, work)):
+                              (room, 14, None, None), (maze, 13, timings, work)):
         args, kwargs = capture_place_args(env, seed)
+        if env is room and kwargs["budget"] != 48:
+            raise AssertionError(f"RoomObjects placed at budget {kwargs['budget']}")
         err, first = check_place(env.spec.gym_id, args, kwargs)
         errs = max(errs, err)
         if env is maze and kwargs["seg_gate"] is None:
@@ -1141,7 +1171,7 @@ def phase_place(pick, four, maze, timings, pick_timings, work, pick_work):
         raise AssertionError(f"place: only {exhausted:.3f} of the envs exhaust a budget")
     errs = max(errs, check_place(f"{maze.spec.gym_id} radius x{scale}", big, kwargs)[0])
     for label, a in (("", args), (f" radius x{scale}", big)):
-        for budget in (0, 30, 31, 40):
+        for budget in (0, 30, 31, 40, 48):
             errs = max(errs, check_place(f"{maze.spec.gym_id}{label} lane rounds", a,
                                          {**kwargs, "budget": budget})[0])
     return errs
@@ -1226,16 +1256,7 @@ def phase_dr_stages(routes):
     gen = torch.Generator().manual_seed(97)
     err, timings, work = 0.0, {}, {}
     for label, env, timed in routes:
-        if env.procgen:
-            state = random_maze_states(env, gen, seed=5)
-        elif env.spec.gym_id == PICK_ID:
-            state = facing_states(env, gen, (0.5, 0.5), (11.5, 11.5), seed=5)
-        else:  # over the rooms of the first layout
-            aabb = env._bank_np.room_aabb[0][env._bank_np.room_mask[0]]
-            state = spread_states(env, gen, (float(aabb[:, 0].min()), float(aabb[:, 2].min())),
-                                  (float(aabb[:, 1].max()), float(aabb[:, 3].max())), seed=5)
-        state = widen_cameras(state, gen)
-        tri, mesh, paired, tc, override = dr_route(env, state)
+        tri, mesh, paired, tc, override = dr_route(env, view_states(env, gen, seed=5))
         case = (f"{label} B={env.num_envs} HW={W * H} S={tri[0].shape[2]} tri_chunk={tc} "
                 f"plan={env.plan['kind']}{' mesh' if mesh else ''}{' paired' if paired else ''}")
         e, _ = check_override(tri, override, case + " bank variants", mesh, paired, tc)
@@ -1265,17 +1286,18 @@ def phase_dr_stages(routes):
     return err, timings, work
 
 
-def tri_work(tri, hit_pairs, paired=None, override=None):
+def tri_work(tri, hit_pairs, paired=None, override=None, attr_bytes=32):
     """(bytes, operations) of a tri_pass launch without mesh rows on these
     inputs (at the camera's samples), as stage_work counts them, each row
     tested once; ``override`` adds its table and
     keys (each read once) and 20 operations per pixel (the hash, the
-    floor, the clamp and the add)."""
+    floor, the clamp and the add); ``attr_bytes``: the winner's row as
+    stored, 32 in bf16, 64 with the float32 carry."""
     verts9, _, layout_id, cam, _ = tri
     L, _, S = verts9.shape
     b, hw = layout_id.shape[0], cam.width * cam.height
     nbytes = (L * S * (9 + 16) * 4 + b * 4 + b * 14 * 4 + (cam.width + cam.height) * 4
-              + b * hw * 36)
+              + b * hw * (4 + attr_bytes))
     if paired is not None:
         nbytes += sum(t.numel() * t.element_size() for t in paired)
     ops = hit_pairs * 22 + b * hw
@@ -1346,8 +1368,9 @@ def phase_ss_epilogue(envs):
 def epi_work(args, table, k_terms, ss, glyph_px=0):
     """(bytes, operations) of a pixel_epilogue launch on ``args`` (its
     plain version's positional arguments up to k_terms) with SS = ``ss``:
-    each sample's t and bf16 attributes (and the entity pass's 28 bytes)
-    read once, the table, lights and camera once, 7 bytes out a pixel;
+    each sample's t and bf16 attributes read once (and of the entity
+    pass's results what ent_read_bytes counts), the table, lights and
+    camera once, 7 bytes out a pixel;
     41 operations per Fourier term of each textured sample, 60 per
     sample for uv, lighting and the pack, 4 per output pixel for the
     box filter, and 12 per glyph sample (``glyph_px``: the edge width,
@@ -1356,7 +1379,7 @@ def epi_work(args, table, k_terms, ss, glyph_px=0):
     b, hws = t_tri.shape
     n_out = hws // (ss * ss)
     textured = int((torch.isfinite(t_tri) & (attr[..., 14].float() >= 0)).sum())
-    in_bytes = b * hws * (36 + (28 if t_ent is not None else 0))
+    in_bytes = b * hws * 36 + ent_read_bytes(t_tri, t_ent)
     return (in_bytes + table.numel() * 4 + b * 48 + b * 14 * 4
             + (cam.width + cam.height) * 4 + b * n_out * 7,
             textured * k_terms * 41 + b * hws * 60 + (b * n_out * 4 if ss > 1 else 0)
@@ -1613,7 +1636,7 @@ def path_kernels(env):
     epilogue and place, entity_pass with analytic entities, the mesh rows
     in tri_pass with mesh entities, mazegen on a procgen maze, and the
     instances its statics take (the glyph epilogue, SS=2, the paired scan
-    over more than one chunk)."""
+    over more than one chunk, the nearest epilogue, the float32 carry)."""
     present = env._shapes_present
     names = ["tri_pass", "pixel_epilogue", "place"]
     names += ["entity_pass"] if present[0] or present[1] else []
@@ -1622,7 +1645,250 @@ def path_kernels(env):
     names += ["pixel_epilogue_gain"] if env._has_gain else []
     names += ["pixel_epilogue_ss2"] if env.supersample == 2 else []
     names += ["tri_pass_paired_chunks"] if env.procgen and len(env.plan["chunk_starts"]) > 1 else []
+    names += ["tri_pass_override"] if env._slot_tex is not None else []
+    if env.tex_mode == "nearest":
+        names += ["pixel_epilogue_nearest"]
+        if env._bank.tex_slot_base.shape[1] > 256:  # the float32 carry
+            names += ["tri_pass_f32", "pixel_epilogue_f32"]
     return tuple(names)
+
+
+# ---------------------------------------------------------------------------
+# nearest-mode textures (the F32 tri_pass, the NEAREST epilogue) and the
+# continuous-action ids
+
+
+def view_states(env, gen, seed=7):
+    """States whose frames show the env's scene: each agent in a random
+    cell of a procgen maze, facing an entity (PickupObjects), in front of
+    the sign (Sign), or spread over the rooms of the first layout; the
+    cameras spread further than domain randomisation draws them
+    (widen_cameras)."""
+    if env.procgen:
+        state = random_maze_states(env, gen, seed=seed)
+    elif env.spec.gym_id == PICK_ID:
+        state = facing_states(env, gen, (0.5, 0.5), (11.5, 11.5), seed=seed)
+    elif env.spec.gym_id == SIGN_ID:
+        state = sign_states(env, gen, seed=seed)
+    else:
+        aabb = env._bank_np.room_aabb[0][env._bank_np.room_mask[0]]
+        state = spread_states(env, gen, (float(aabb[:, 0].min()), float(aabb[:, 2].min())),
+                              (float(aabb[:, 1].max()), float(aabb[:, 3].max())), seed=seed)
+    return widen_cameras(state, gen)
+
+
+def max_abs_diff(k, p):
+    """max |k - p| over the elements, 0 where their bits are equal (the
+    same infinity), inf where only one is finite."""
+    bits = {4: torch.int32, 2: torch.int16, 1: torch.uint8}[k.element_size()]
+    same = k.view(bits) == p.view(bits)
+    return float(torch.where(same, 0.0, (k.float() - p.float()).abs()).max())
+
+
+def check_nearest(label, env, state, tri_chunk=None):
+    """The env's nearest render of ``state``, stage by stage, kernels
+    against plain versions on the same inputs: tri_pass in the render's
+    carry dtype (t and the 16 attributes bit for bit), then the NEAREST
+    pixel_epilogue on the kernel's hits (u8 images and depth equal).
+    ``tri_chunk`` overrides the env's plan (the chunks of B >= 1024 on a
+    B=128 env). Returns the epilogue's and tri_pass's inputs and the max
+    abs difference over t, the attribute rows, the u8 images and depth."""
+    from miniworld_tpu_torch.render import cuda_build
+    from miniworld_tpu_torch.render import raycast as rc
+
+    ss = env.supersample
+    cam = rc.camera_grid(state, W * ss, H * ss)
+    carry = rc.attr_carry_dtype(state.tex_map.shape[1])
+    mesh = (rc.entity_mesh_rows(env._bank, state, fourier=False)[:2] if env._shapes_present[2]
+            else None)
+    rows, paired = rc.static_rows(env._bank, state, cam, env._pg_wall,
+                                  env.plan["kind"] == "packed_pvs")
+    tc = env.tri_chunk if tri_chunk is None else tri_chunk
+    tri = (*rows, cam, env._all_quads)
+    before = dict(cuda_build.LAUNCHES)
+    t_k, a_k = rc.tri_pass(*tri, mesh, paired, tc, None, carry)
+    t_p, a_p = plain_tri_pass(tri, mesh, paired, tc, attr_dtype=carry)
+    bits = torch.int32 if carry == torch.float32 else torch.int16
+    n_t = int((t_k.view(torch.int32) != t_p.view(torch.int32)).sum())
+    n_attr = int((a_k.view(bits) != a_p.view(bits)).any(-1).sum())
+    ent = (None,) * 3
+    if env._shapes_present[0] or env._shapes_present[1]:
+        ent = rc.entity_pass(state.ent_pos, state.ent_size, state.ent_dir, state.ent_height,
+                             state.ent_color, rc.entity_flags(env._bank, state), cam,
+                             *env._shapes_present[:2])
+    epi = (t_k, a_k, *ent, env._atlas, cam, state.light_pos, state.light_color,
+           state.light_ambient, state.sky_color, env.fourier_k)
+    rgb_k, d_k = rc.pixel_epilogue(*epi, ss=ss, tex_map=state.tex_map)
+    rgb_p, d_p = rc.pixel_epilogue_plain(*epi, ss=ss, tex_map=state.tex_map)
+    n_rgb = int((rgb_k != rgb_p).any(-1).sum())
+    n_depth = int((d_k.view(torch.int32) != d_p.view(torch.int32)).sum())
+    err = max(max_abs_diff(t_k, t_p), max_abs_diff(a_k, a_p), max_abs_diff(rgb_k, rgb_p),
+              max_abs_diff(d_k, d_p))
+    launched = {k: v - before[k] for k, v in cuda_build.LAUNCHES.items() if v > before[k]}
+    multi = tri[0].shape[2] > tc
+    textured = int((torch.isfinite(t_k) & (a_k[..., 14].float() >= 0)).sum())
+    case = (f"{label} B={env.num_envs} samples={W * ss}x{H * ss} T={state.tex_map.shape[1]} "
+            f"A={env._atlas.shape[0]} S={tri[0].shape[2]} tri_chunk={tc}"
+            f"{' mesh' if mesh else ''}{' paired' if paired else ''}")
+    say("kernel-vs-plain", kernel="tri_pass, pixel_epilogue",
+        instance=f"{'F32' if carry == torch.float32 else 'bf16'}"
+        f"{' multi-chunk' if multi else ''}, NEAREST SS={ss}", case=case,
+        t_differs_px=n_t, attr_differs_px=n_attr, rgb_differs_px=n_rgb,
+        depth_differs_px=n_depth, max_abs_err=f"{err:.3e}", textured_samples=textured,
+        px_hit=f"{float(torch.isfinite(t_k).float().mean()):.3f}", launched=launched,
+        exact=True)
+    if n_t or n_attr or n_rgb or n_depth:
+        raise AssertionError(f"nearest ({case}): kernels differ from plain on {n_t} t, "
+                             f"{n_attr} attribute, {n_rgb} RGB and {n_depth} depth pixels")
+    want = {"pixel_epilogue_nearest"} | ({"tri_pass_f32", "pixel_epilogue_f32"}
+                                         if carry == torch.float32 else set())
+    if not want <= set(launched) or textured < 0.1 * t_k.numel():
+        raise AssertionError(f"nearest ({case}): launched {launched}, {textured} textured")
+    return epi, (tri, paired, tc, carry), err
+
+
+def nearest_epi_work(epi, tex_map):
+    """(bytes, operations) of a NEAREST pixel_epilogue launch on ``epi``
+    (its plain version's positional arguments up to k_terms): each
+    sample's t and attribute row (2 or 4 bytes a float) read once, of
+    the entity pass's results what ent_read_bytes counts, tex_map, the u8
+    atlas, lights and camera once,
+    7 bytes out a pixel; 60 operations per sample for uv, lighting and
+    the pack, 12 per textured sample for the texel (round, floor and
+    subtract twice, two scales and clamps, three conversions and scales),
+    4 per output pixel for the SS=2 box filter."""
+    t_tri, attr, t_ent, atlas, cam = epi[0], epi[1], epi[2], epi[5], epi[6]
+    b, hws = t_tri.shape
+    ss = 2 if cam.width == 2 * W else 1
+    n_out = hws // (ss * ss)
+    textured = int((torch.isfinite(t_tri) & (attr[..., 14].float() >= 0)).sum())
+    in_bytes = b * hws * (4 + 16 * attr.element_size()) + ent_read_bytes(t_tri, t_ent)
+    return (in_bytes + tex_map.numel() * 4 + atlas.numel() + b * 48 + b * 14 * 4
+            + (cam.width + cam.height) * 4 + b * n_out * 7,
+            b * hws * 60 + textured * 12 + (b * n_out * 4 if ss > 1 else 0))
+
+
+def phase_nearest_stages(cases, maze_n):
+    """[nearest-stages]: check_nearest on every case, [(label, env,
+    tri_chunk)] (at B_PLAIN: bf16 and F32 carries, one chunk, the MULTI
+    scan, mesh rows, the 78-row atlas, the paired F32 scan over 2 chunks
+    with the SS=2 epilogue, domain_rand's variants in tex_map; Hallway at
+    the B=1024 of its nearest path); then at
+    the Maze 8x8 procgen nearest main path's shapes (B=8192, 80x60,
+    T=528: the F32 carry), checked the same way and timed: the F32
+    tri_pass beside the same launch in bf16, and the NEAREST F32 epilogue,
+    each with its plain version. Returns (the max abs difference of every
+    check, {name: (ms, plain ms)}, {name: work}, {label checked: its carry
+    is float32})."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    gen = torch.Generator().manual_seed(727)
+    checked, errs = {}, []
+    for label, env, tc in cases:
+        _, (_, _, _, carry), err = check_nearest(label, env, view_states(env, gen), tc)
+        checked[label] = carry == torch.float32
+        errs.append(err)
+    state = random_maze_states(maze_n, gen, seed=11)
+    epi, (tri, paired, tc, carry), err = check_nearest("maze8x8-procgen", maze_n, state)
+    errs.append(err)
+    if carry != torch.float32 or tri[0].shape[2] > tc:
+        raise AssertionError(f"{MAZE_ID} nearest B={B_MAZE}: carry {carry}, tri_chunk {tc}")
+    tex_map = state.tex_map
+    timings = {
+        "tri_pass_f32": (cuda_ms(lambda: rc.tri_pass(*tri, None, paired, tc, None, carry), 50),
+                         cuda_ms(lambda: plain_tri_pass(tri, None, paired, tc,
+                                                        attr_dtype=carry), 1)),
+        "tri_pass_bf16": (cuda_ms(lambda: rc.tri_pass(*tri, None, paired, tc), 50), None),
+        "pixel_epilogue_nearest": (
+            cuda_ms(lambda: rc.pixel_epilogue(*epi, tex_map=tex_map), 50),
+            cuda_ms(lambda: rc.pixel_epilogue_plain(*epi, tex_map=tex_map), 1)),
+    }
+    stats = tri_cull_stats(tri, paired, block=64)
+    work = {"tri_pass_f32": tri_work(tri, stats["hit_pairs"], paired, attr_bytes=64),
+            "tri_pass_bf16": tri_work(tri, stats["hit_pairs"], paired),
+            "pixel_epilogue_nearest": nearest_epi_work(epi, tex_map)}
+    shapes = f"{MAZE_ID} procgen nearest B={B_MAZE} HW={W * H} Sp={tri[0].shape[2]} T=528"
+    for name, (ms, plain) in timings.items():
+        say("kernel-time", kernel=name, ms=f"{ms:.4f}",
+            plain_ms="not measured" if plain is None else f"{plain:.4f}",
+            bound_ms=f"{bound(*work[name])[0]:.4f}", bound_by=bound(*work[name])[1],
+            shapes=shapes)
+    checked[f"maze8x8-procgen B={B_MAZE}"] = True
+    return max(errs), timings, work, checked
+
+
+def phase_nearest_paths(maze_n, hall_n, make_env, rates):
+    """The nearest main paths: the Maze 8x8 procgen one at B=8192 (the F32
+    tri_pass and NEAREST F32 epilogue every step), with its breakdown and
+    profile, and a short Hallway one at B=1024 (``hall_n``, bf16 carry); Hallway
+    nearest at B_PLAIN against its plain path, exactly. Returns the
+    Maze path's launches."""
+    rate, outs, obs, launches, _ = rollouts(maze_n, "nearest", HORIZON, TRIALS)
+    check_rollout(maze_n, outs, obs, launches, HORIZON, TRIALS, path_kernels(maze_n))
+    rates["maze8x8_procgen_nearest_b8192"] = (rate, None)
+    phase_breakdown(maze_n, render_iters=5, plain_render_iters=1)
+    rate, outs, obs, lc, _ = rollouts(hall_n, "nearest", SHORT_HORIZON, TRIALS)
+    check_rollout(hall_n, outs, obs, lc, SHORT_HORIZON, TRIALS, path_kernels(hall_n))
+    rates["hallway_nearest"] = (rate, None)
+    env = make_env(ENV_ID, B_PLAIN, tex_mode="nearest")
+    rates[f"hallway_nearest_b{B_PLAIN}"] = kernel_and_plain(
+        env, PLAIN_HORIZON, TRIALS, path_kernels(env), exact=True)[:2]
+    return launches
+
+
+def room_stage_checks(room):
+    """Each render stage's kernel against its plain version at the
+    RoomObjects main path's shapes (B=4096, no ceiling, the box and key as
+    mesh rows in the tri_pass launch, the ball analytic), each agent
+    facing one of its entities. Returns {kernel: max abs error}."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    gen = torch.Generator().manual_seed(4096)
+    aabb = room._bank_np.room_aabb[0][room._bank_np.room_mask[0]]
+    state = facing_states(room, gen, (float(aabb[:, 0].min()) + 0.5, float(aabb[:, 2].min()) + 0.5),
+                          (float(aabb[:, 1].max()) - 0.5, float(aabb[:, 3].max()) - 0.5))
+    _, tri, ent, epi = stage_inputs(room, state)
+    rows9, row_attrs, valid = rc.entity_mesh_rows(room._bank, state)
+    errs, outs = run_stage_checks(
+        tri, ent, epi, f"roomobjects B={room.num_envs} HW={W * H} S={tri[0].shape[2]} "
+        f"E*M={rows9.shape[2]}", mesh=(rows9, row_attrs))
+    say("roomobjects-scene", px_hit=f"{float(torch.isfinite(outs[0]).float().mean()):.3f}",
+        live_mesh_rows=int(valid.sum()))
+    return errs
+
+
+def phase_continuous(room, make_env, rates):
+    """The continuous-action ids: RoomObjects' render stages at B=4096
+    against their plain versions (room_stage_checks); RoomObjects at
+    B=4096 (placement at budget 48 with agent radius 1.5, a ball, a box
+    and a key as mesh rows, actions drawn as (B, 6) vectors) with its
+    breakdown and profile, a short PutNext rollout at B=1024, and both at
+    B_PLAIN against their plain paths. Returns RoomObjects' launches and
+    the stage checks' {kernel: max abs error}."""
+    if room.spec.place_budget != 48 or room._action_table is not None:
+        raise AssertionError("RoomObjects: budget 48 and the raw 6-D actions expected")
+    from miniworld_tpu_torch.ops.rng import key_data
+
+    if room.plan["kind"] != "dense" or room._bank.tri_verts9.shape[2] > room.tri_chunk:
+        raise AssertionError(f"RoomObjects plans {room.plan}")
+    stage_errs = room_stage_checks(room)
+    acts = room.rollout_actions(key_data(3, room.device), 2)
+    lo = torch.tensor([-1.0, -1.0, -1.0, -1.0, 0.0, 0.0], device=room.device)
+    if acts.shape != (2, room.num_envs, 6) or bool((acts < lo).any() | (acts >= 1.0).any()):
+        raise AssertionError(f"continuous actions {tuple(acts.shape)} outside their box")
+    rate, outs, obs, launches, _ = rollouts(room, "continuous", HORIZON, TRIALS)
+    check_rollout(room, outs, obs, launches, HORIZON, TRIALS, path_kernels(room))
+    rates["roomobjects_b4096"] = (rate, None)
+    phase_breakdown(room, render_iters=5, plain_render_iters=1)
+    put = make_env(PUTNEXT_ID, B)
+    rate, outs, obs, lc, _ = rollouts(put, "continuous", SHORT_HORIZON, TRIALS)
+    check_rollout(put, outs, obs, lc, SHORT_HORIZON, TRIALS, path_kernels(put))
+    rates["putnext"] = (rate, None)
+    for env_id in (ROOM_ID, PUTNEXT_ID):
+        env = make_env(env_id, B_PLAIN)
+        rates[env.spec.name.lower() + f"_b{B_PLAIN}"] = kernel_and_plain(
+            env, PLAIN_HORIZON, TRIALS, path_kernels(env))[:2]
+    return launches, stage_errs
 
 
 # ---------------------------------------------------------------------------
@@ -1926,6 +2192,7 @@ def main():
     if not (maze.procgen and maze_s3.procgen):
         raise AssertionError("the Maze family does not default to procgen")
     side, wall, nav = env(SIDE_ID, B), env(WALL_ID, B), env(NAV_ID, B)
+    room = env(ROOM_ID, B_ROOM)
     for e, n_chunks in ((side, 3), (wall, 2), (nav, 2)):
         if (e.plan["kind"], e._bank.tri_verts9.shape[2] // e.tri_chunk) != ("dense", n_chunks):
             raise AssertionError(f"{e.spec.gym_id} plans {e.plan}")
@@ -1940,7 +2207,7 @@ def main():
     lap("tile-sweep")
     errs = {k: max(v, maze_errs.get(k, 0.0), side_errs.get(k, 0.0)) for k, v in errs.items()}
     errs["mazegen"], work["mazegen"] = phase_mazegen(maze, timings)
-    errs["place"] = phase_place(pick, four, maze, timings, pick_timings, work, pick_work)
+    errs["place"] = phase_place(pick, four, maze, room, timings, pick_timings, work, pick_work)
     lap("mazegen, place")
     for shapes, tms, wk in ((f"{PICK_ID} B={B_PICK} HW={W * H}", pick_timings, pick_work),
                             (f"{MAZE_ID} procgen B={B_MAZE} HW={W * H}", timings, work)):
@@ -1989,6 +2256,29 @@ def main():
     lap("main: domain_rand, supersample=2")
     glyph_launches = phase_glyph_paths(sign, maze_ss, env, rates)
     lap("main: sign, maze ss=2, greenkey, threerooms")
+    # nearest-mode textures: every new instance against its plain version
+    # at B_PLAIN, then at the Maze 8x8 procgen nearest main path's shapes;
+    # its main path, then the continuous-action ids'
+    maze_n, hall_n = env(MAZE_ID, B_MAZE, tex_mode="nearest"), env(ENV_ID, B, tex_mode="nearest")
+    near_cases = [
+        ("hallway", env(ENV_ID, B_PLAIN, tex_mode="nearest"), None),
+        ("pickupobjects", env(PICK_ID, B_PLAIN, tex_mode="nearest"), None),
+        ("sidewalk", env(SIDE_ID, B_PLAIN, tex_mode="nearest"), None),
+        ("sign", env(SIGN_ID, B_PLAIN, tex_mode="nearest"), None),
+        ("maze8x8-procgen", env(MAZE_ID, B_PLAIN, tex_mode="nearest"), None),
+        ("maze8x8-procgen ss=2", env(MAZE_ID, B_PLAIN, tex_mode="nearest", supersample=2), 496),
+        ("fourrooms domain_rand", env("MiniWorld-FourRooms-v0", B_PLAIN, tex_mode="nearest",
+                                      domain_rand=True), None),
+        ("hallway (nearest path)", hall_n, None)]
+    if near_cases[2][1].plan["chunk_starts"] != [0, 1024, 2048]:
+        raise AssertionError(f"Sidewalk nearest plans {near_cases[2][1].plan}")
+    near_err, near_timings, near_work, near_checked = phase_nearest_stages(near_cases, maze_n)
+    lap("nearest-stages")
+    near_launches = phase_nearest_paths(maze_n, hall_n, env, rates)
+    lap("main: maze nearest, hallway nearest")
+    room_launches, room_errs = phase_continuous(room, env, rates)
+    errs = {k: max(v, room_errs.get(k, 0.0)) for k, v in errs.items()}
+    lap("main: roomobjects, putnext")
     kernels = []
     for k, (src, rep) in KERNELS.items():
         # the Maze path's kernels at its shapes; the mesh pass at
@@ -2086,14 +2376,43 @@ def main():
         "shapes": f"{MAZE_ID} procgen supersample=2 B={B_MAZE} samples={2 * W}x{2 * H} "
                   "Sp=608 chunks 0-495, 112-607",
         "checked_on": ["maze8x8 procgen ss=2", "override", "paired ties"]})
+    # nearest mode: the F32 tri_pass (the float32 attribute carry) and the
+    # NEAREST epilogue (F32 load) at the Maze 8x8 procgen nearest main
+    # path's shapes, the F32 tri_pass beside the same launch in bf16
+    for name, replaces, extra in (
+            ("tri_pass_f32", "miniworld_tpu/render/raycast.py:512",
+             {"instance_of": "tri_pass",
+              "ms_bf16_same_rows": near_timings["tri_pass_bf16"][0],
+              "bound_ms_bf16_same_rows": bound(*near_work["tri_pass_bf16"])[0]}),
+            ("pixel_epilogue_nearest", "miniworld_tpu/render/raycast.py:727",
+             {"instance_of": "pixel_epilogue",
+              "launches_f32": int(near_launches["pixel_epilogue_f32"])})):
+        ms, plain_ms = near_timings[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": KERNELS[extra["instance_of"]][0],
+            "replaces": replaces, "launches": int(near_launches[name]),
+            "max_abs_err": near_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound(*near_work[name])[0], "bound_by": bound(*near_work[name])[1],
+            "library_ms": None, **extra,
+            "shapes": f"{MAZE_ID} procgen nearest B={B_MAZE} HW={W * H} T=528",
+            "checked_on": [k for k, f32 in near_checked.items()
+                           if f32 or name == "pixel_epilogue_nearest"]})
+    kernels[KERNEL_ORDER["place"]]["launches_roomobjects"] = int(room_launches["place"])
     for k in kernels:  # what each kernel was held against its plain version on
         if k["name"] == "tri_pass":
-            k["checked_on"] = ["single chunk", "mesh rows", "paired", "multi-chunk", "packed PVS",
-                               "grazing", "ties", "override: " + ", ".join(r[0] for r in routes),
-                               "paired multi-chunk: maze8x8 ss=2, paired ties"]
+            k["checked_on"] = ["single chunk", "mesh rows: pickupobjects, roomobjects", "paired",
+                               "multi-chunk", "packed PVS", "grazing", "ties",
+                               "override: " + ", ".join(r[0] for r in routes),
+                               "paired multi-chunk: maze8x8 ss=2, paired ties",
+                               "nearest, local slots: " + ", ".join(
+                                   k for k, f32 in near_checked.items() if not f32)]
         elif k["name"] == "pixel_epilogue":
-            k["checked_on"] = ["SS=1: hallway, wide, pickupobjects, maze, sidewalk",
-                               "SS=2: hallway, pickupobjects", "GAIN SS=1, SS=2: sign"]
+            k["checked_on"] = ["SS=1: hallway, wide, pickupobjects, maze, sidewalk, roomobjects",
+                               "SS=2: hallway, pickupobjects", "GAIN SS=1, SS=2: sign",
+                               "NEAREST: " + ", ".join(near_checked)]
+        elif k["name"] == "place":
+            k["checked_on"] = ["pickupobjects", "fourrooms", "roomobjects (budget 48)",
+                               "maze8x8 procgen", "radius scaled", "budgets 0, 30, 31, 40, 48"]
     print(json.dumps({
         "kernels": kernels,
         "env_steps_per_s": {k: {"kernels": v[0], "plain": v[1]} for k, v in rates.items()},

@@ -1,10 +1,12 @@
-// Per-pixel epilogue: uv, Fourier texel, entity merge, lighting, u8 pack.
+// Per-pixel epilogue: uv, Fourier or nearest texel, entity merge, lighting,
+// u8 pack.
 //
 // Replaces: the pixel stage of miniworld_tpu/render/raycast.py:render_rgbd
-// (affine uv and footprint, eval_fourier with _cos_sin_turns, shade, the
-// sky select and the truncating u8 / depth outputs), XLA-fused jnp work
-// in the JAX package. The plain PyTorch version is pixel_epilogue_plain
-// in miniworld_tpu_torch/render/raycast.py; with -fmad=false the
+// (affine uv and footprint, eval_fourier with _cos_sin_turns, or
+// eval_nearest, shade, the sky select and the truncating u8 / depth
+// outputs), XLA-fused jnp work in the JAX package. The plain PyTorch
+// version is pixel_epilogue_plain in
+// miniworld_tpu_torch/render/raycast.py; with -fmad=false the
 // arithmetic below matches it operation by operation, bf16 roundings
 // included (the JAX package's texture dots take bf16 cos/sin and
 // amplitudes and return bf16 sums; both ports round at those points).
@@ -53,6 +55,23 @@
 // glyph row launch the instances without GAIN, whose code is the one
 // they had before. Sign's K = 64 table, 78 rows of 580 floats (181 KB),
 // is above TABLE_SMEM_MAX and is read through L1.
+//
+// Nearest mode (the NEAREST instances; raycast.py:727-745, 1274-1275, the
+// JAX package's bit-accurate texture path): the slot column holds the
+// winner's layout-local slot id, which tex_map[b] (B, T) resolves to a row
+// of the (N, R, R, 3) u8 atlas. Per pixel: the slot rounded half to even
+// (rintf), one tex_map load, the fractional uv, the texel's column and its
+// flipped row ((int) of frac * R, clamped to [0, R - 1]: fmaxf turns a NaN
+// into 0, as XLA's conversion does), a 3-byte gather from the atlas, times
+// 1/255; 1.0 where the slot is < 0. No footprint, no table. The atlas is
+// 590 KB at the 8x8 maze's 3 rows and 15 MB at Sign's 78, so the gather
+// hits the 50 MB L2. NEAREST excludes GAIN: the glyph branch is
+// fourier-only. The F32 instances load the float32 attribute carry (the
+// 8x8 procgen maze's 528 slot ids, raycast.py:512-528) with four 16-byte
+// loads in place of the two of the bf16 row; they are built for nearest
+// mode only, the one a ported id reaches. A nearest pixel reads 4 + 64
+// (F32) or 4 + 32 bytes of hit results and writes 7: with the F32 carry 75
+// bytes, 2.95 GB at the 8x8 maze's B = 8192, 80x60, 0.88 ms at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -101,14 +120,35 @@ __device__ __forceinline__ void fourier_term(const float4 pt, const float4 qt, c
     pb[2] = s * b2;
 }
 
+// The nearest texel of eval_nearest: slot id ``slot`` >= 0 of env b at
+// (uu, vv), from tex_map (B, T) and the (A, R, R, 3) u8 atlas
+__device__ __forceinline__ void nearest_texel(const int b, const int slot, const float uu,
+                                              const float vv,
+                                              const uint8_t* __restrict__ atlas,
+                                              const int* __restrict__ tex_map, const int T,
+                                              const int R, const int A, float* tex) {
+    // a slot id above T - 1 takes row T - 1, as the JAX gather clamps it
+    const int row = min(max(tex_map[(size_t)b * T + min(slot, T - 1)], 0), A - 1);
+    const float fu = uu - floorf(uu), fv = vv - floorf(vv);
+    const float rmax = (float)(R - 1);
+    const int tx = (int)fminf(fmaxf(fu * (float)R, 0.0f), rmax);
+    const int ty = (R - 1) - (int)fminf(fmaxf(fv * (float)R, 0.0f), rmax);
+    const uint8_t* px = atlas + (((size_t)row * R + ty) * R + tx) * 3;
+    const float inv255 = (float)(1.0 / 255.0);
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) tex[ch] = (float)px[ch] * inv255;
+}
+
 // One sample: the shaded colour (before the clip and the u8 pack) and
 // the depth of pixel p of env b in the W x H image of the hit passes.
-template <bool GAIN>
+template <bool GAIN, bool NEAREST, bool F32>
 __device__ __forceinline__ float sample_rgb(
     const int b, const int p, const float* __restrict__ t_tri,
-    const __nv_bfloat16* __restrict__ attr, const float* __restrict__ t_ent,
+    const void* __restrict__ attr, const float* __restrict__ t_ent,
     const float* __restrict__ col_ent, const float* __restrict__ n_ent,
-    const float* tab, const float* __restrict__ lights, const float* __restrict__ origin,
+    const float* tab, const uint8_t* __restrict__ atlas, const int* __restrict__ tex_map,
+    const int T, const int R, const float* __restrict__ lights,
+    const float* __restrict__ origin,
     const float* __restrict__ fwd, const float* __restrict__ right,
     const float* __restrict__ up, const float* __restrict__ tan_xy,
     const float* __restrict__ xbase, const float* __restrict__ ybase, const int W,
@@ -127,8 +167,18 @@ __device__ __forceinline__ float sample_rgb(
         d[i] = fwd[3 * b + i] + xv * right[3 * b + i] + yv * up[3 * b + i];
     }
     float at[ATTR_DIM];
-    {
-        const uint4* src = reinterpret_cast<const uint4*>(attr + q * ATTR_DIM);
+    if (F32) {
+        const float4* src = reinterpret_cast<const float4*>(attr) + q * (ATTR_DIM / 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float4 v = src[i];
+            at[4 * i] = v.x;
+            at[4 * i + 1] = v.y;
+            at[4 * i + 2] = v.z;
+            at[4 * i + 3] = v.w;
+        }
+    } else {
+        const uint4* src = reinterpret_cast<const uint4*>(attr) + q * 2;
         unpack8(src[0], at);
         unpack8(src[1], at + 8);
     }
@@ -139,21 +189,24 @@ __device__ __forceinline__ float sample_rgb(
     const float h0 = o[0] + t_uv * d[0], h1 = o[1] + t_uv * d[1], h2 = o[2] + t_uv * d[2];
     const float uu = at[0] * h0 + at[1] * h1 + at[2] * h2 + at[6];
     const float vv = at[3] * h0 + at[4] * h1 + at[5] * h2 + at[7];
-    float sq = at[0] * at[0];
-#pragma unroll
-    for (int i = 1; i < 6; ++i) sq = sq + at[i] * at[i];
-    const float pix_angle = tan_y * pix_scale;
-    const float fp = t_uv * pix_angle * sqrtf(sq * 0.5f);
 
-    // Fourier texel; table row: dc(3), 0 | (fu, fv, pi2 f2, A0) x K |
-    // (A1, A2, B0, B1) x K | B2 x K
     float tex[3];
     const int slot = (int)rintf(at[14]);
-    if (slot < 0) {
+    if (NEAREST) {
+        if (slot < 0) tex[0] = tex[1] = tex[2] = 1.0f;  // flat white
+        else nearest_texel(b, slot, uu, vv, atlas, tex_map, T, R, A, tex);
+    } else if (slot < 0) {
+        // Fourier texel; table row: dc(3), 0 | (fu, fv, pi2 f2, A0) x K |
+        // (A1, A2, B0, B1) x K | B2 x K
         tex[0] = tex[1] = tex[2] = 1.0f;  // flat white
     } else if (slot >= A) {
         tex[0] = tex[1] = tex[2] = 0.0f;  // no such row: black, as in the JAX one-hot
     } else {
+        float sq = at[0] * at[0];
+#pragma unroll
+        for (int i = 1; i < 6; ++i) sq = sq + at[i] * at[i];
+        const float pix_angle = tan_y * pix_scale;
+        const float fp = t_uv * pix_angle * sqrtf(sq * 0.5f);
         const float* row = tab + (size_t)slot * row_len;
         const float4* pk = reinterpret_cast<const float4*>(row + 4);
         const float4* qk = pk + K;
@@ -228,21 +281,24 @@ __device__ __forceinline__ float sample_rgb(
 }
 
 // SS x SS samples per output pixel (SS = 1: the sample is the pixel);
-// W, H: the samples' image. GAIN: the atlas has glyph rows.
-template <bool kSmemTable, int SS, bool GAIN>
+// W, H: the samples' image. GAIN: the atlas has glyph rows. NEAREST: the
+// nearest texel of the u8 atlas. F32: the float32 attribute carry.
+template <bool kSmemTable, int SS, bool GAIN, bool NEAREST, bool F32>
 __global__ void __launch_bounds__(THREADS) pixel_epilogue_kernel(
     const float* __restrict__ t_tri,           // (B, HW)
-    const __nv_bfloat16* __restrict__ attr,    // (B, HW, 16)
+    const void* __restrict__ attr,             // (B, HW, 16) bf16, or f32 (F32)
     const float* __restrict__ t_ent,           // (B, HW) or null
     const float* __restrict__ col_ent,         // (B, HW, 3) or null
     const float* __restrict__ n_ent,           // (B, HW, 3) or null
-    const float* __restrict__ table,           // (A, 4 + 9K), fourier_table
+    const float* __restrict__ table,           // (A, 4 + 9K), fourier_table; null (NEAREST)
+    const uint8_t* __restrict__ atlas,         // (A, R, R, 3) u8, NEAREST only
+    const int* __restrict__ tex_map,           // (B, T), NEAREST only
     const float* __restrict__ lights,          // (B, 4, 3): pos, color, ambient, sky
     const float* __restrict__ origin, const float* __restrict__ fwd,
     const float* __restrict__ right, const float* __restrict__ up,
     const float* __restrict__ tan_xy, const float* __restrict__ xbase,
     const float* __restrict__ ybase,
-    int B, int W, int H, int A, int K, int has_ent,
+    int B, int W, int H, int A, int K, int has_ent, int T, int R,
     uint8_t* __restrict__ rgb_out,             // (B, H / SS, W / SS, 3)
     float* __restrict__ depth_out)             // (B, H / SS, W / SS, 1)
 {
@@ -265,17 +321,18 @@ __global__ void __launch_bounds__(THREADS) pixel_epilogue_kernel(
         if (po >= hwo) continue;
         const int p0 = SS == 1 ? po : (po / wo) * SS * W + (po % wo) * SS;  // top-left sample
         float rgb[3];
-        const float depth = sample_rgb<GAIN>(
-            b, p0, t_tri, attr, t_ent, col_ent, n_ent, tab, lights, origin, fwd, right, up,
-            tan_xy, xbase, ybase, W, hw, pix_scale, A, K, has_ent, rgb);
+        const float depth = sample_rgb<GAIN, NEAREST, F32>(
+            b, p0, t_tri, attr, t_ent, col_ent, n_ent, tab, atlas, tex_map, T, R, lights,
+            origin, fwd, right, up, tan_xy, xbase, ybase, W, hw, pix_scale, A, K, has_ent, rgb);
         if (SS == 2) {
             // ((s00 + s01) + s10) + s11, then the mean's / 4
             float s[3];
 #pragma unroll
             for (int j = 1; j < 4; ++j) {
-                sample_rgb<GAIN>(b, p0 + (j >> 1) * W + (j & 1), t_tri, attr, t_ent,
-                                       col_ent, n_ent, tab, lights, origin, fwd, right, up,
-                                       tan_xy, xbase, ybase, W, hw, pix_scale, A, K, has_ent, s);
+                sample_rgb<GAIN, NEAREST, F32>(
+                    b, p0 + (j >> 1) * W + (j & 1), t_tri, attr, t_ent, col_ent, n_ent, tab,
+                    atlas, tex_map, T, R, lights, origin, fwd, right, up, tan_xy, xbase, ybase,
+                    W, hw, pix_scale, A, K, has_ent, s);
 #pragma unroll
                 for (int i = 0; i < 3; ++i) rgb[i] = rgb[i] + s[i];
             }
@@ -294,34 +351,53 @@ __global__ void __launch_bounds__(THREADS) pixel_epilogue_kernel(
 
 template <int SS, bool GAIN>
 static void launch_epilogue(const int grid, const size_t smem, cudaStream_t stream,
-                            const float* t_tri, const __nv_bfloat16* attr, const float* t_ent,
+                            const float* t_tri, const void* attr, const float* t_ent,
                             const float* col_ent, const float* n_ent, const float* table,
                             const float* lights, const float* origin, const float* fwd,
                             const float* right, const float* up, const float* tan_xy,
                             const float* xbase, const float* ybase, int B, int W, int H, int A,
                             int K, int has_ent, uint8_t* rgb_out, float* depth_out) {
     if (smem <= TABLE_SMEM_MAX) {
-        pixel_epilogue_kernel<true, SS, GAIN><<<grid, THREADS, smem, stream>>>(
-            t_tri, attr, t_ent, col_ent, n_ent, table, lights, origin, fwd, right,
-            up, tan_xy, xbase, ybase, B, W, H, A, K, has_ent, rgb_out, depth_out);
+        pixel_epilogue_kernel<true, SS, GAIN, false, false><<<grid, THREADS, smem, stream>>>(
+            t_tri, attr, t_ent, col_ent, n_ent, table, nullptr, nullptr, lights, origin, fwd,
+            right, up, tan_xy, xbase, ybase, B, W, H, A, K, has_ent, 0, 0, rgb_out, depth_out);
     } else {
-        pixel_epilogue_kernel<false, SS, GAIN><<<grid, THREADS, 0, stream>>>(
-            t_tri, attr, t_ent, col_ent, n_ent, table, lights, origin, fwd, right,
-            up, tan_xy, xbase, ybase, B, W, H, A, K, has_ent, rgb_out, depth_out);
+        pixel_epilogue_kernel<false, SS, GAIN, false, false><<<grid, THREADS, 0, stream>>>(
+            t_tri, attr, t_ent, col_ent, n_ent, table, nullptr, nullptr, lights, origin, fwd,
+            right, up, tan_xy, xbase, ybase, B, W, H, A, K, has_ent, 0, 0, rgb_out, depth_out);
     }
 }
 
+template <int SS, bool F32>
+static void launch_nearest(const int grid, cudaStream_t stream, const float* t_tri,
+                           const void* attr, const float* t_ent, const float* col_ent,
+                           const float* n_ent, const uint8_t* atlas, const int* tex_map,
+                           const float* lights, const float* origin, const float* fwd,
+                           const float* right, const float* up, const float* tan_xy,
+                           const float* xbase, const float* ybase, int B, int W, int H, int A,
+                           int has_ent, int T, int R, uint8_t* rgb_out, float* depth_out) {
+    pixel_epilogue_kernel<false, SS, false, true, F32><<<grid, THREADS, 0, stream>>>(
+        t_tri, attr, t_ent, col_ent, n_ent, nullptr, atlas, tex_map, lights, origin, fwd, right,
+        up, tan_xy, xbase, ybase, B, W, H, A, 0, has_ent, T, R, rgb_out, depth_out);
+}
+
 extern "C" int mw_pixel_epilogue(
-    const float* t_tri, const __nv_bfloat16* attr, const float* t_ent,
+    const float* t_tri, const void* attr, const float* t_ent,
     const float* col_ent, const float* n_ent, const float* table,
+    const uint8_t* atlas, const int* tex_map,
     const float* lights, const float* origin, const float* fwd,
     const float* right, const float* up, const float* tan_xy,
     const float* xbase, const float* ybase,
-    int B, int W, int H, int A, int K, int has_ent, int ss, int gain,
-    uint8_t* rgb_out, float* depth_out, cudaStream_t stream)
+    int B, int W, int H, int A, int K, int has_ent, int ss, int gain, int nearest, int f32,
+    int T, int R, uint8_t* rgb_out, float* depth_out, cudaStream_t stream)
 {
     static int n_sm = 0;
-    if (K <= 0 || K % 4) return (int)cudaErrorInvalidValue;  // float4 table rows
+    if (nearest) {  // the u8 atlas and tex_map; no glyph branch
+        if (gain || atlas == nullptr || tex_map == nullptr || T <= 0 || R <= 0 || A <= 0)
+            return (int)cudaErrorInvalidValue;
+    } else if (f32 || table == nullptr || K <= 0 || K % 4) {  // float4 table rows
+        return (int)cudaErrorInvalidValue;
+    }
     if ((ss != 1 && ss != 2) || W % ss || H % ss) return (int)cudaErrorInvalidValue;
     if (B == 0 || W == 0 || H == 0) return 0;
     if (n_sm == 0) {
@@ -334,6 +410,14 @@ extern "C" int mw_pixel_epilogue(
     const long long items = (long long)B * ((W / ss * (H / ss) + THREADS - 1) / THREADS);
     // 8 blocks of 256 threads fill an SM's 2048 threads
     const int grid = (int)(items < 8LL * n_sm ? items : 8LL * n_sm);
+    if (nearest) {
+        auto launch = ss == 2 ? (f32 ? launch_nearest<2, true> : launch_nearest<2, false>)
+                              : (f32 ? launch_nearest<1, true> : launch_nearest<1, false>);
+        launch(grid, stream, t_tri, attr, t_ent, col_ent, n_ent, atlas, tex_map, lights, origin,
+               fwd, right, up, tan_xy, xbase, ybase, B, W, H, A, has_ent, T, R, rgb_out,
+               depth_out);
+        return (int)cudaGetLastError();
+    }
     const size_t smem = (size_t)A * (4 + 9 * K) * sizeof(float);
     auto launch = ss == 2 ? (gain ? launch_epilogue<2, true> : launch_epilogue<2, false>)
                           : (gain ? launch_epilogue<1, true> : launch_epilogue<1, false>);

@@ -135,6 +135,17 @@
 // picked by use_alt as the attributes are. A mesh winner keeps its own
 // slot, as the JAX package's seed does.
 //
+// Float32 carry (f32 != 0, the F32 instances; nearest-mode textures with
+// more than 256 layout-local slot ids, raycast.py:512-528): the JAX
+// package carries the winner's attribute row in float32 where its slot
+// column can hold ids above 256, which bf16 would round (the 8x8 procgen
+// maze's 528 slots). The F32 instances store the row's 16 floats as they
+// are, 64 bytes in four 16-byte stores, in place of the 32 bytes of bf16,
+// at every store site; the competition is the same code. Nearest mode
+// never runs the override, and no mesh id has more than 256 slots, so the
+// F32 instances are built without MESH and OVERRIDE: the single-chunk and
+// the multi-chunk launch. The bf16 instances compile as before.
+//
 // Shared memory: 48 bytes per row, two 2-byte row lists and (paired) the
 // variant byte, and 52 bytes per mesh row: 53,248 B at S = 1024, 106,496
 // B with N = 1024 mesh rows besides, 159,744 B at S = 3,072, above the
@@ -313,7 +324,40 @@ __device__ __forceinline__ void store_attr_bf16(const float* src_row, __nv_bfloa
                        bf16x2(a3.x, a3.y), bf16x2(slot, a3.w));
 }
 
-template <bool MESH, bool MULTI, bool OVERRIDE>
+// 16 floats of an attribute row as they are, to 64 bytes at dst; the
+// slot column as in store_attr_bf16
+__device__ __forceinline__ void store_attr_f32(const float* src_row, float* dst,
+                                               const float4* tex = nullptr,
+                                               const unsigned key = 0u) {
+    const float4* src = reinterpret_cast<const float4*>(src_row);
+    float4 a3 = src[3];
+    if (tex != nullptr) a3.z = variant_slot(*tex, key);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    d4[0] = src[0];
+    d4[1] = src[1];
+    d4[2] = src[2];
+    d4[3] = a3;
+}
+
+// The winner's row to pixel q of attr_out, in the instance's carry dtype
+template <bool F32>
+__device__ __forceinline__ void store_attr(const float* src_row, void* attr_out, const size_t q,
+                                           const float4* tex = nullptr,
+                                           const unsigned key = 0u) {
+    if (F32) store_attr_f32(src_row, static_cast<float*>(attr_out) + q * ATTR_DIM, tex, key);
+    else store_attr_bf16(src_row, static_cast<__nv_bfloat16*>(attr_out) + q * ATTR_DIM, tex, key);
+}
+
+// All-zero attributes at pixel q (a miss of a seeded or multi-chunk scan)
+template <bool F32>
+__device__ __forceinline__ void store_zero(void* attr_out, const size_t q) {
+    uint4* d4 = reinterpret_cast<uint4*>(static_cast<char*>(attr_out) +
+                                         q * ATTR_DIM * (F32 ? 4 : 2));
+#pragma unroll
+    for (int i = 0; i < (F32 ? 4 : 2); ++i) d4[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+template <bool MESH, bool MULTI, bool OVERRIDE, bool F32>
 __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
     const float* __restrict__ verts9,   // (L, 9, S) component-major
     const float* __restrict__ attr,     // (L, S, 16)
@@ -337,7 +381,7 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
     int S, int N, int W, int H, int Wn, int all_quads,
     int tri_chunk,                      // MULTI only: rows per chunk
     float* __restrict__ t_out,          // (B, HW)
-    __nv_bfloat16* __restrict__ attr_out)  // (B, HW, 16)
+    void* __restrict__ attr_out)        // (B, HW, 16) bf16, or f32 (F32)
 {
     extern __shared__ float4 rows[];  // 3 x S float4, then (MESH) 3 x N
     float4* mrows = rows + 3 * S;
@@ -569,12 +613,10 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
                 if (!(best[k] > seed_key)) {
                     t_out[q] = t_of_key(seed_key);
                     if (mbest[k] > 0) {
-                        store_attr_bf16(mesh_attr + ((size_t)b * N + (mbest[k] & IDX_MASK)) *
-                                        ATTR_DIM, attr_out + q * ATTR_DIM);
+                        store_attr<F32>(mesh_attr + ((size_t)b * N + (mbest[k] & IDX_MASK)) *
+                                        ATTR_DIM, attr_out, q);
                     } else {
-                        uint4* d4 = reinterpret_cast<uint4*>(attr_out + q * ATTR_DIM);
-                        d4[0] = make_uint4(0u, 0u, 0u, 0u);
-                        d4[1] = make_uint4(0u, 0u, 0u, 0u);
+                        store_zero<F32>(attr_out, q);
                     }
                     continue;
                 }
@@ -586,13 +628,10 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
                     const int row = min((255 - (int)(cbest[k] & 0xFFu)) * tri_chunk, last_start) +
                                     (key & IDX_MASK);
                     const bool alt = paired && use_alt[row];
-                    store_attr_bf16((alt ? ata : atp) + (size_t)row * ATTR_DIM,
-                                    attr_out + q * ATTR_DIM,
+                    store_attr<F32>((alt ? ata : atp) + (size_t)row * ATTR_DIM, attr_out, q,
                                     OVERRIDE ? (alt ? txa : txp) + row : nullptr, env_key);
                 } else {
-                    uint4* d4 = reinterpret_cast<uint4*>(attr_out + q * ATTR_DIM);
-                    d4[0] = make_uint4(0u, 0u, 0u, 0u);
-                    d4[1] = make_uint4(0u, 0u, 0u, 0u);
+                    store_zero<F32>(attr_out, q);
                 }
                 continue;
             }
@@ -600,7 +639,7 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
             // winner's row (row 0 for an unmeshed miss: nothing downstream reads it)
             const int row = best[k] & IDX_MASK;
             const bool alt = paired && use_alt[row];
-            store_attr_bf16((alt ? ata : atp) + row * ATTR_DIM, attr_out + q * ATTR_DIM,
+            store_attr<F32>((alt ? ata : atp) + row * ATTR_DIM, attr_out, q,
                             OVERRIDE ? (alt ? txa : txp) + row : nullptr, env_key);
         }
         __syncthreads();  // the next tile rewrites box, n_tile and tile_list
@@ -619,7 +658,7 @@ extern "C" int mw_tri_pass_config(int* out) {
     return 0;
 }
 
-template <bool MESH, bool MULTI, bool OVERRIDE>
+template <bool MESH, bool MULTI, bool OVERRIDE, bool F32>
 static int launch_instance(const dim3 grid, const size_t smem, cudaStream_t stream,
                            const float* verts9, const float* attr, const int* layout_id,
                            const float* origin, const float* fwd, const float* right,
@@ -629,16 +668,16 @@ static int launch_instance(const dim3 grid, const size_t smem, cudaStream_t stre
                            const float* wall_open, const unsigned* slot_key,
                            const float4* slot_tex, const float4* slot_tex_alt, int S, int N,
                            int W, int H, int Wn, int all_quads, int tri_chunk, float* t_out,
-                           __nv_bfloat16* attr_out) {
+                           void* attr_out) {
     static size_t smem_opted = 48 * 1024;  // the dynamic limit set so far
     if (smem > smem_opted) {
-        const cudaError_t err = cudaFuncSetAttribute(tri_pass_kernel<MESH, MULTI, OVERRIDE>,
+        const cudaError_t err = cudaFuncSetAttribute(tri_pass_kernel<MESH, MULTI, OVERRIDE, F32>,
                                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                      (int)smem);
         if (err != cudaSuccess) return (int)err;
         smem_opted = smem;
     }
-    tri_pass_kernel<MESH, MULTI, OVERRIDE><<<grid, THREADS, smem, stream>>>(
+    tri_pass_kernel<MESH, MULTI, OVERRIDE, F32><<<grid, THREADS, smem, stream>>>(
         verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase, ybase,
         mesh_v9, mesh_attr, verts9_alt, attr_alt, pg_wall, wall_open, slot_key, slot_tex,
         slot_tex_alt, S, N, W, H, Wn, all_quads, tri_chunk, t_out, attr_out);
@@ -659,13 +698,13 @@ static int launch_tri_pass(const dim3 grid, const size_t smem, cudaStream_t stre
                            const float* wall_open, const unsigned* slot_key,
                            const float4* slot_tex, const float4* slot_tex_alt, int S, int N,
                            int W, int H, int Wn, int all_quads, int tri_chunk, float* t_out,
-                           __nv_bfloat16* attr_out) {
+                           void* attr_out) {
     return slot_key != nullptr
-        ? launch_instance<MESH, MULTI, true>(
+        ? launch_instance<MESH, MULTI, true, false>(
               grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase,
               ybase, mesh_v9, mesh_attr, verts9_alt, attr_alt, pg_wall, wall_open, slot_key,
               slot_tex, slot_tex_alt, S, N, W, H, Wn, all_quads, tri_chunk, t_out, attr_out)
-        : launch_instance<MESH, MULTI, false>(
+        : launch_instance<MESH, MULTI, false, false>(
               grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase,
               ybase, mesh_v9, mesh_attr, verts9_alt, attr_alt, pg_wall, wall_open, nullptr,
               nullptr, nullptr, S, N, W, H, Wn, all_quads, tri_chunk, t_out, attr_out);
@@ -679,8 +718,8 @@ extern "C" int mw_tri_pass(
     const float* verts9_alt, const float* attr_alt, const int* pg_wall,
     const float* wall_open, const unsigned* slot_key, const float* slot_tex,
     const float* slot_tex_alt,
-    int B, int S, int N, int W, int H, int Wn, int all_quads, int tri_chunk,
-    float* t_out, __nv_bfloat16* attr_out, cudaStream_t stream)
+    int B, int S, int N, int W, int H, int Wn, int all_quads, int tri_chunk, int f32,
+    float* t_out, void* attr_out, cudaStream_t stream)
 {
     const bool paired = pg_wall != nullptr;
     const bool mesh = mesh_v9 != nullptr;
@@ -691,6 +730,8 @@ extern "C" int mw_tri_pass(
     if (slot_key != nullptr && (slot_tex == nullptr || (paired && slot_tex_alt == nullptr)))
         return (int)cudaErrorInvalidValue;
     if (N > IDX_MASK + 1) return (int)cudaErrorInvalidValue;
+    // the F32 instances: without mesh rows and without the override
+    if (f32 && (mesh || slot_key != nullptr)) return (int)cudaErrorInvalidValue;
     if (multi ? (mesh || tri_chunk < 16 || tri_chunk > IDX_MASK + 1 || S > 4096)
               : S > IDX_MASK + 1)
         return (int)cudaErrorInvalidValue;
@@ -703,6 +744,17 @@ extern "C" int mw_tri_pass(
                         (mesh ? (size_t)N * per_row : 0);
     const float4* tex = reinterpret_cast<const float4*>(slot_tex);
     const float4* tex_alt = reinterpret_cast<const float4*>(slot_tex_alt);
+    if (f32)
+        return multi
+            ? launch_instance<false, true, false, true>(
+                  grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy,
+                  xbase, ybase, nullptr, nullptr, verts9_alt, attr_alt, pg_wall, wall_open,
+                  nullptr, nullptr, nullptr, S, 0, W, H, Wn, all_quads, tri_chunk, t_out,
+                  attr_out)
+            : launch_instance<false, false, false, true>(
+                  grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy,
+                  xbase, ybase, nullptr, nullptr, verts9_alt, attr_alt, pg_wall, wall_open,
+                  nullptr, nullptr, nullptr, S, 0, W, H, Wn, all_quads, S, t_out, attr_out);
     if (multi)
         return launch_tri_pass<false, true>(grid, smem, stream, verts9, attr, layout_id, origin,
                                             fwd, right, up, tan_xy, xbase, ybase, nullptr,

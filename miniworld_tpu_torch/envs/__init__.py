@@ -8,16 +8,17 @@ names the ported set when asked for any other.
 from __future__ import annotations
 
 from miniworld_tpu_torch.envs.base import EnvSpec
-from miniworld_tpu_torch.envs.interact import PickupObjects, Sign
+from miniworld_tpu_torch.envs.interact import PickupObjects, PutNext, Sign
 from miniworld_tpu_torch.envs.nav import (
     FourRooms, GreenKey, Hallway, Maze, MazeS2, MazeS3, MazeS3Fast, NavigateWallGap, OneRoom,
-    OneRoomS6, OneRoomS6Fast, Sidewalk, ThreeRooms, TMaze, TMazeLeft, TMazeRight, WallGap, YMaze,
-    YMazeLeft, YMazeRight,
+    OneRoomS6, OneRoomS6Fast, RoomObjects, Sidewalk, ThreeRooms, TMaze, TMazeLeft, TMazeRight,
+    WallGap, YMaze, YMazeLeft, YMazeRight,
 )
 
 SPEC_CLASSES = [Hallway, OneRoom, OneRoomS6, OneRoomS6Fast, FourRooms, TMaze, TMazeLeft,
                 TMazeRight, YMaze, YMazeLeft, YMazeRight, Maze, MazeS2, MazeS3, MazeS3Fast,
-                WallGap, NavigateWallGap, Sidewalk, GreenKey, ThreeRooms, PickupObjects, Sign]
+                WallGap, NavigateWallGap, Sidewalk, GreenKey, ThreeRooms, RoomObjects,
+                PickupObjects, PutNext, Sign]
 
 _REGISTRY = {}
 for cls in SPEC_CLASSES:
@@ -40,5 +41,6 @@ def make_spec(name: str, **kwargs) -> EnvSpec:
 
 __all__ = ["ENV_IDS", "make_spec", "EnvSpec", "FourRooms", "GreenKey", "Hallway", "Maze",
            "MazeS2", "MazeS3", "MazeS3Fast", "NavigateWallGap", "OneRoom", "OneRoomS6",
-           "OneRoomS6Fast", "PickupObjects", "Sidewalk", "Sign", "TMaze", "TMazeLeft",
-           "TMazeRight", "ThreeRooms", "WallGap", "YMaze", "YMazeLeft", "YMazeRight"]
+           "OneRoomS6Fast", "PickupObjects", "PutNext", "RoomObjects", "Sidewalk", "Sign",
+           "TMaze", "TMazeLeft", "TMazeRight", "ThreeRooms", "WallGap", "YMaze", "YMazeLeft",
+           "YMazeRight"]

@@ -5,7 +5,8 @@ the world builder (host-side numpy, shared logic with the JAX package)
 and the per-step task logic as functions over a batched ``EnvState``.
 The port carries the go-to-goal family (Hallway, OneRoom, FourRooms,
 TMaze, YMaze, the Maze family, WallGap, Sidewalk, GreenKey),
-NavigateWallGap, ThreeRooms, PickupObjects and Sign so far; the
+NavigateWallGap, ThreeRooms, RoomObjects, PickupObjects, PutNext and Sign
+so far; the
 host-side gymnasium hooks of the JAX package have no counterpart here.
 """
 
@@ -110,9 +111,12 @@ class EnvSpec:
         c = np.float32(np.float32(0.2) * np.float32(1.0 / self.max_episode_steps))
         return 1.0 - state.step_count.to(torch.float32) * float(c)
 
+    def near(self, state: EnvState, idx0: int, idx1: int | None = None) -> torch.Tensor:
+        """(B,) entity ``idx0`` near entity ``idx1`` (None: the agent)."""
+        return physics.near(state, idx0, idx1, max_forward_step=self.max_forward_step)
+
     def near_agent(self, state: EnvState, idx0: int) -> torch.Tensor:
-        return physics.near(state, idx0, None,
-                            max_forward_step=self.max_forward_step)
+        return self.near(state, idx0)
 
     def agent_in_room(self, bank, state: EnvState, room_idx: int) -> torch.Tensor:
         """(B,) bool: the agent strictly inside room ``room_idx`` of its

@@ -1,8 +1,8 @@
-"""Interactive specs ported so far: PickupObjects and Sign.
+"""Interactive specs ported so far: PickupObjects, PutNext and Sign.
 
 Counterpart of ``miniworld_tpu/envs/interact.py`` (reference
-envs/pickupobjects.py, sign.py); the other pickup/drop tasks join with
-their slices (ROADMAP.md).
+envs/pickupobjects.py, putnext.py, sign.py); CollectHealth joins with
+its slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -87,6 +87,36 @@ class PickupObjects(EnvSpec):
         reward = has.to(torch.float32)
         term = n >= self.num_objs
         return reward, term, new_state
+
+
+@dataclass
+class PutNext(EnvSpec):
+    """Put the red box next to the yellow box (envs/putnext.py:49-80):
+    six boxes of sizes 0.6-0.85, the raw 6-D action space."""
+
+    name: str = "PutNext"
+    gym_id: str = "MiniWorld-PutNext-v0"
+    max_episode_steps: int = 250
+    size: float = 12
+    red_slot: int = 4  # COLOR_NAMES order: blue, green, grey, purple, red, yellow
+    yellow_slot: int = 5
+
+    def build(self, world, rng, layout_rng=None, layout_idx=0):
+        world.add_rect_room(min_x=0, max_x=self.size, min_z=0, max_z=self.size)
+        for color in COLOR_NAMES:
+            if rng is not None:
+                s = float(rng.uniform(0.6, 0.85))
+                world.place(world.proto_id("box", color, s))
+            else:
+                world.place(world.proto_id("box", color, 1.0), size_lo=0.6, size_hi=0.85)
+        world.place_agent()
+
+    def transition(self, ctx: Ctx):
+        # putnext.py:72-80: nothing carried and the red box near the yellow
+        s = ctx.state
+        done = (s.carrying < 0) & self.near(s, self.red_slot, self.yellow_slot)
+        reward = torch.where(done, self.reward(s), torch.zeros_like(s.dir))
+        return reward, done, s
 
 
 @dataclass

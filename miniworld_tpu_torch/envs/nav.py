@@ -2,10 +2,10 @@
 
 Counterpart of ``miniworld_tpu/envs/nav.py``: Hallway, the OneRoom
 family, FourRooms, the TMaze and YMaze families, the Maze family,
-WallGap, NavigateWallGap, Sidewalk, GreenKey and ThreeRooms (reference
-envs/hallway.py, oneroom.py, fourrooms.py, tmaze.py, ymaze.py, maze.py,
-wallgap.py, navigatewallgap.py, sidewalk.py, greenkey.py,
-threerooms.py). The other navigation envs join with
+WallGap, NavigateWallGap, Sidewalk, GreenKey, ThreeRooms and
+RoomObjects (reference envs/hallway.py, oneroom.py, fourrooms.py,
+tmaze.py, ymaze.py, maze.py, wallgap.py, navigatewallgap.py,
+sidewalk.py, greenkey.py, threerooms.py, roomobjects.py). The other navigation envs join with
 their slices (ROADMAP.md).
 """
 
@@ -25,6 +25,7 @@ from miniworld_tpu_torch.envs.base import (
     default_discrete_actions,
 )
 from miniworld_tpu_torch.params import DEFAULT_PARAMS
+from miniworld_tpu_torch.scene.entities import COLOR_NAMES
 
 
 def _fast_params():
@@ -508,4 +509,40 @@ class ThreeRooms(EnvSpec):
         world.place(world.proto_id("mesh", "duckie", 0.25, False))
         world.place(world.proto_id("key", "blue"))
         world.place(world.proto_id("ball", "green"))
+        world.place_agent()
+
+
+@dataclass
+class RoomObjects(EnvSpec):
+    """Observation-only room with one box, ball and key of random colours
+    (envs/roomobjects.py:48-82); the raw 6-D action space, no reward."""
+
+    name: str = "RoomObjects"
+    gym_id: str = "MiniWorld-RoomObjects-v0"
+    max_episode_steps: int = 10**9  # the reference's math.inf
+    size: float = 10
+    # roomobjects.py:67 sets agent.radius = 1.5 every reset: the whole
+    # episode (collision, the pickup probe) runs at 1.5, not just placement
+    agent_radius: float = 1.5
+    # at radius 1.5 a try passes about 1 time in 5; 48 tries keep a
+    # budget's exhaustion (the clamped fallback) rare
+    place_budget: int = 48
+
+    def build(self, world, rng, layout_rng=None, layout_idx=0):
+        world.add_rect_room(
+            min_x=0, max_x=self.size, min_z=0, max_z=self.size,
+            wall_tex="brick_wall", floor_tex="asphalt", no_ceiling=True,
+        )
+        world.agent_radius = 1.5  # roomobjects.py:67
+        if rng is not None:
+            # each colour draw interleaves with its placement's rejection
+            # sampling (roomobjects.py:70-76)
+            for kind, scale in (("box", 0.9), ("ball", 0.9), ("key", None)):
+                c = COLOR_NAMES[int(rng.choice(len(COLOR_NAMES)))]
+                world.place(world.proto_id(kind, c) if scale is None
+                            else world.proto_id(kind, c, scale))
+        else:
+            world.place([world.proto_id("box", c, 0.9) for c in COLOR_NAMES])
+            world.place([world.proto_id("ball", c, 0.9) for c in COLOR_NAMES])
+            world.place([world.proto_id("key", c) for c in COLOR_NAMES])
         world.place_agent()

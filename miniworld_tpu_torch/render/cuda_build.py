@@ -48,17 +48,17 @@ _CAM = [_P] * 7  # origin, fwd, right, up, tan_xy, xbase, ybase
 ENTRY_POINTS = {
     # verts9, attr, layout_id, camera, mesh_v9, mesh_attr, verts9_alt,
     # attr_alt, pg_wall, wall_open, slot_key, slot_tex, slot_tex_alt, B,
-    # S, N, W, H, n_walls, all_quads, tri_chunk, t, attr_out, stream
-    "mw_tri_pass": [_P, _P, _P, *_CAM, _P] + [_P] * 8 + [_I] * 8 + [_P, _P, _P],
+    # S, N, W, H, n_walls, all_quads, tri_chunk, f32, t, attr_out, stream
+    "mw_tri_pass": [_P, _P, _P, *_CAM, _P] + [_P] * 8 + [_I] * 9 + [_P, _P, _P],
     # out: TILE_W, TILE_H, PIX_PER_THREAD
     "mw_tri_pass_config": [_P],
     # ent_pos, ent_size, ent_dir, ent_height, ent_color, flags, camera,
     # B, E, W, H, has_sphere, has_box, t, col, nrm, stream
     "mw_entity_pass": [_P] * 6 + _CAM + [_I] * 6 + [_P, _P, _P, _P],
-    # t_tri, attr, t_ent, col_ent, n_ent, fourier table, lights, camera,
-    # B, W, H (the samples' image), A, K, has_ent, ss, gain, rgb, depth,
-    # stream
-    "mw_pixel_epilogue": [_P] * 7 + _CAM + [_I] * 8 + [_P, _P, _P],
+    # t_tri, attr, t_ent, col_ent, n_ent, fourier table, u8 atlas,
+    # tex_map, lights, camera, B, W, H (the samples' image), A, K,
+    # has_ent, ss, gain, nearest, f32, T, R, rgb, depth, stream
+    "mw_pixel_epilogue": [_P] * 9 + _CAM + [_I] * 12 + [_P, _P, _P],
     # seeds, layout_id, 6 rule rows, radius, slot_mask, 7 room tensors,
     # room_weight, room_seg_wall, wall_open, B, E, R, V, NS, W, budget,
     # ent_pos, ent_dir, agent_pos, agent_dir, stream
@@ -76,13 +76,17 @@ BUILD_INFO: dict = {}
 # pass runs inside the tri_pass launch: a launch with mesh rows counts
 # under both names; so does a tri_pass launch with the texture-variant
 # override ("tri_pass_override"), a tri_pass launch over a paired
-# procgen bank in more than one chunk ("tri_pass_paired_chunks"), and a
-# pixel_epilogue launch of its supersample=2 instance
-# ("pixel_epilogue_ss2") or of its glyph instance ("pixel_epilogue_gain").
+# procgen bank in more than one chunk ("tri_pass_paired_chunks"), a
+# tri_pass launch with the float32 attribute carry ("tri_pass_f32"), and
+# a pixel_epilogue launch of its supersample=2 instance
+# ("pixel_epilogue_ss2"), of its glyph instance ("pixel_epilogue_gain"),
+# of its nearest-texture instance ("pixel_epilogue_nearest") or reading
+# the float32 carry ("pixel_epilogue_f32").
 LAUNCHES = {"tri_pass": 0, "entity_pass": 0, "pixel_epilogue": 0,
             "entity_mesh_pass": 0, "place": 0, "mazegen": 0,
             "tri_pass_override": 0, "pixel_epilogue_ss2": 0,
-            "tri_pass_paired_chunks": 0, "pixel_epilogue_gain": 0}
+            "tri_pass_paired_chunks": 0, "pixel_epilogue_gain": 0,
+            "tri_pass_f32": 0, "pixel_epilogue_nearest": 0, "pixel_epilogue_f32": 0}
 
 
 def reset_launch_counts():

@@ -7,8 +7,9 @@ hand-written CUDA kernel for Hopper (``miniworld_tpu_torch/csrc``) with
 its plain PyTorch version beside it in this module:
 
   1. ``tri_pass``: static prims — separable-ray hit test, keyed-z
-     winner, the winner's 16-float attribute row (rounded to bf16, as
-     the JAX package carries it); on a procgen maze each row's live
+     winner, the winner's 16-float attribute row in the JAX package's
+     carry dtype (``attr_carry_dtype``: bf16, or float32 where the slot
+     ids exceed 256); on a procgen maze each row's live
      variant (junction or closed wall) picked per env. In scenes with
      dynamic mesh entities the same launch first hit-tests the
      entities' triangle rows, moved to world space per frame by
@@ -23,9 +24,10 @@ its plain PyTorch version beside it in this module:
      (``chunk_starts``);
   2. ``entity_pass``: analytic boxes and spheres;
   3. ``pixel_epilogue``: affine uv, Fourier texture (with
-     ``has_gain``, the SDF glyph branch of Sign's atlas), lighting, sky,
-     u8 pack and depth; the kernel reads the atlas's per-slot
-     ``fourier_table``. With supersample=2 the hit passes run on a 2x2
+     ``has_gain``, the SDF glyph branch of Sign's atlas) or, in nearest
+     mode, the exact texel of the u8 atlas (``eval_nearest``), lighting,
+     sky, u8 pack and depth; in fourier mode the kernel reads the atlas's
+     per-slot ``fourier_table``. With supersample=2 the hit passes run on a 2x2
      grid of samples per pixel and the epilogue averages each pixel's
      shaded samples.
 
@@ -315,6 +317,17 @@ def _with_slots(attrs, slots):
     return torch.cat([attrs[..., :_SLOT], slots[..., None], attrs[..., _SLOT + 1:]], dim=-1)
 
 
+def attr_carry_dtype(n_ids: int) -> torch.dtype:
+    """The dtype the winner's attribute row is carried in
+    (raycast.attr_carry_dtype): bf16 while every slot id the slot
+    column can hold is an exact bf16 integer (``n_ids`` <= 256), float32
+    above. ``n_ids`` is the atlas's rows in fourier mode (the column
+    holds atlas rows) and ``state.tex_map.shape[1]`` in nearest mode (it
+    holds layout-local slot ids, resolved per env through
+    ``state.tex_map``; the 8x8 procgen maze has 528)."""
+    return torch.bfloat16 if n_ids <= 256 else torch.float32
+
+
 def _env_rows(verts9, attr, lid, paired=None, override=None):
     """Each env's rows: (v9 (B, 9, S), attrs (B, S, 16)) of its layout,
     of its live variants on a paired bank (``_paired_rows``), and with
@@ -334,14 +347,16 @@ def _env_rows(verts9, attr, lid, paired=None, override=None):
 
 
 def tri_pass_plain(verts9, attr, layout_id, cam: Camera, all_quads: bool = False,
-                   seed=None, paired=None, override=None):
+                   seed=None, paired=None, override=None, attr_dtype=torch.bfloat16):
     """Plain version of the tri_pass kernel (raycast._tri_pass,
     single-chunk form): every prim of each env's layout in one pass.
 
     verts9 (L, 9, S) f32, attr (L, S, 16) f32, layout_id (B,) ->
-    (t (B, HW) f32, inf where nothing is hit; attr (B, HW, 16) bf16).
-    Unseeded, a no-hit pixel carries row 0, which nothing downstream
-    reads. ``seed`` = (t (B, HW) f32, attr (B, HW, 16) bf16), the
+    (t (B, HW) f32, inf where nothing is hit; attr (B, HW, 16) in
+    ``attr_dtype``, the carry dtype: bf16 rounds the winner's row, float32
+    keeps it). Unseeded, a no-hit pixel carries row 0, which nothing
+    downstream reads. ``seed`` = (t (B, HW) f32, attr (B, HW, 16) in
+    ``attr_dtype``), the
     mesh-entity pass's result, starts the z-competition as the JAX
     package's ``init`` carry does: a prim replaces it only with a
     strictly greater key, and no-hit pixels keep the seed's attrs.
@@ -366,7 +381,7 @@ def tri_pass_plain(verts9, attr, layout_id, cam: Camera, all_quads: bool = False
                               None if paired is None else (*paired[:3], paired[3][sl]),
                               None if override is None else (override[0][sl], *override[1:]))
         key, row = _chunk_compete(v9, attrs, _cam_rows(cam, sl), xv[sl], yv[sl], all_quads)
-        sel = _gather_rows(attrs, row).to(torch.bfloat16)
+        sel = _gather_rows(attrs, row).to(attr_dtype)
         if seed is not None:
             seed_key = _seed_key(seed[0][sl])
             closer = key > seed_key
@@ -387,7 +402,8 @@ def chunk_starts(n_rows: int, tri_chunk: int) -> list:
 
 
 def tri_pass_chunked(verts9, attr, layout_id, cam: Camera, tri_chunk: int,
-                     all_quads: bool = False, override=None, paired=None):
+                     all_quads: bool = False, override=None, paired=None,
+                     attr_dtype=torch.bfloat16):
     """Plain version of the tri_pass kernel's multi-chunk scan
     (raycast._tri_pass scan body, zero init, no seed): the prims in
     chunks of ``tri_chunk`` from ``chunk_starts``, each chunk's keyed-z
@@ -398,7 +414,7 @@ def tri_pass_chunked(verts9, attr, layout_id, cam: Camera, tri_chunk: int,
     chunks read competes in both, as in the JAX scan.
 
     verts9 (L, 9, S) f32 and attr (L, S, 16) f32 with tri_chunk <= S,
-    1024 -> (t (B, HW) f32, attr (B, HW, 16) bf16). ``paired`` =
+    1024 -> (t (B, HW) f32, attr (B, HW, 16) in ``attr_dtype``). ``paired`` =
     (verts9_alt, attr_alt, pg_wall, wall_open), a paired procgen bank:
     each chunk's rows are the env's live variants (``_paired_rows``).
     ``override`` = (key (B,), tex (L, S, 4), tex_alt (L, S, 4) with a
@@ -419,7 +435,7 @@ def tri_pass_chunked(verts9, attr, layout_id, cam: Camera, tri_chunk: int,
         c = _cam_rows(cam, sl)
         n = lid.shape[0]
         key_best = torch.zeros((n, hw), dtype=torch.int32, device=xv.device)
-        attr_best = torch.zeros((n, hw, ATTR_DIM), dtype=torch.bfloat16, device=xv.device)
+        attr_best = torch.zeros((n, hw, ATTR_DIM), dtype=attr_dtype, device=xv.device)
         for start in chunk_starts(S, tri_chunk):
             part = slice(start, start + tri_chunk)
             pp = None if paired is None else (paired[0][:, :, part], paired[1][:, part],
@@ -429,7 +445,7 @@ def tri_pass_chunked(verts9, attr, layout_id, cam: Camera, tri_chunk: int,
                 None if override[2] is None else override[2][:, part])
             v9, attrs = _env_rows(verts9[:, :, part], attr[:, part], lid, pp, ov)
             key, row = _chunk_compete(v9, attrs, c, xv[sl], yv[sl], all_quads)
-            sel = _gather_rows(attrs, row).to(torch.bfloat16)
+            sel = _gather_rows(attrs, row).to(attr_dtype)
             closer = key > key_best
             key_best = torch.where(closer, key, key_best)
             attr_best = torch.where(closer[:, :, None], sel, attr_best)
@@ -546,7 +562,8 @@ MAX_KERNEL_ROWS = 4096
 
 
 def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh=None,
-             paired=None, tri_chunk: int | None = None, override=None):
+             paired=None, tri_chunk: int | None = None, override=None,
+             attr_dtype=torch.bfloat16):
     """Stage 1 wrapper: the tri_pass kernel for CUDA tensors, the plain
     version for CPU tensors. With S <= ``tri_chunk`` (None: S), one
     chunk: the contract of ``tri_pass_plain`` seeded by
@@ -564,8 +581,18 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
     every row before the competition; the kernel only the winner's slot
     column, at its store (the override is a function of the row alone,
     and a mesh winner keeps its own slot), so both give the same
-    attributes. The key is converted to the kernel's u32 once here."""
+    attributes. The key is converted to the kernel's u32 once here.
+    ``attr_dtype``: the carry dtype of the attribute rows
+    (``attr_carry_dtype``); float32 launches the kernel's F32 instances
+    (also counted in ``LAUNCHES["tri_pass_f32"]``), built for the
+    single-chunk and multi-chunk launches without mesh rows and without
+    the override, the ones a ported id reaches (nearest mode never
+    overrides, and no mesh id has more than 256 slots); the others
+    raise."""
     S = verts9.shape[2]
+    if attr_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"attr_dtype {attr_dtype}: the carry is bf16 or float32")
+    f32 = attr_dtype == torch.float32
     tri_chunk = S if tri_chunk is None else int(tri_chunk)
     multi = S > tri_chunk
     n_mesh = 0 if mesh is None else mesh[0].shape[2]
@@ -582,9 +609,16 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
                    *ov_tensors):
         if multi:
             return tri_pass_chunked(verts9, attr, layout_id, cam, tri_chunk, all_quads,
-                                    override, paired)
-        seed = None if mesh is None else entity_mesh_pass_plain(*mesh, cam)
-        return tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired, override)
+                                    override, paired, attr_dtype)
+        seed = None if mesh is None else entity_mesh_pass_plain(*mesh, cam, attr_dtype)
+        return tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired, override,
+                              attr_dtype)
+    if f32 and (mesh is not None or override is not None):
+        raise NotImplementedError(
+            "the tri_pass kernel's F32 " + ("MESH" if mesh is not None else "OVERRIDE")
+            + " instance (a float32 attribute carry with "
+            + ("mesh rows" if mesh is not None else "the texture-variant override")
+            + ") is not built")
     L = verts9.shape[0]
     b = layout_id.shape[0]
     hw = cam.width * cam.height
@@ -596,7 +630,7 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
         raise ValueError(f"tri_pass kernel takes at most {1 << _IDX_BITS} prims in one chunk, "
                          f"got {S}")
     t = torch.empty((b, hw), dtype=torch.float32, device=verts9.device)
-    out = torch.empty((b, hw, ATTR_DIM), dtype=torch.bfloat16, device=verts9.device)
+    out = torch.empty((b, hw, ATTR_DIM), dtype=attr_dtype, device=verts9.device)
     if mesh is None:
         mesh_ptrs = (ctypes.c_void_p(0),) * 2
     else:
@@ -625,7 +659,8 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
     cam_ptrs, _cam_tensors = _cam_args(cam, b)
     counters = (("tri_pass",) + (() if mesh is None else ("entity_mesh_pass",))
                 + (() if override is None else ("tri_pass_override",))
-                + (("tri_pass_paired_chunks",) if multi and paired is not None else ()))
+                + (("tri_pass_paired_chunks",) if multi and paired is not None else ())
+                + (("tri_pass_f32",) if f32 else ()))
     launch(
         "mw_tri_pass", counters,
         check(verts9, "verts9", torch.float32, (L, 9, S)),
@@ -637,9 +672,9 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
         *ov_ptrs,
         ctypes.c_int(b), ctypes.c_int(S), ctypes.c_int(n_mesh), ctypes.c_int(cam.width),
         ctypes.c_int(cam.height), ctypes.c_int(n_walls), ctypes.c_int(int(all_quads)),
-        ctypes.c_int(tri_chunk),
+        ctypes.c_int(tri_chunk), ctypes.c_int(int(f32)),
         check(t, "t", torch.float32, (b, hw)),
-        check(out, "attr_out", torch.bfloat16, (b, hw, ATTR_DIM)),
+        check(out, "attr_out", attr_dtype, (b, hw, ATTR_DIM)),
         stream(),
     )
     return t, out
@@ -649,7 +684,7 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
 # dynamic mesh entities: their rows, and the plain version of their pass
 
 
-def entity_mesh_rows(bank, state):
+def entity_mesh_rows(bank, state, fourier: bool = True):
     """World-space triangle rows of every dynamic mesh entity
     (raycast.entity_mesh_rows), for the whole batch at once.
 
@@ -659,9 +694,11 @@ def entity_mesh_rows(bank, state):
     height and moved to its position, and the local affine-uv rows
     compose as A_w = R a / su, b_w = b - A_w . pos. Rows of inactive
     entities (dead, static, not a mesh) and padding rows get all-zero
-    vertices, which never hit. The slot column becomes the Fourier
-    atlas base of the row's texture slot (mesh textures have one
-    variant).
+    vertices, which never hit. With ``fourier`` the slot column becomes
+    the atlas base of the row's texture slot (mesh textures have one
+    variant), which the Fourier epilogue reads; without it (nearest
+    mode) it keeps the layout-local slot, which ``eval_nearest``
+    resolves through ``state.tex_map``.
 
     Returns (verts9 (B, 9, E*M) f32 component-major, attrs (B, E*M, 16)
     f32, valid (B, E*M) bool). The arithmetic is the JAX expression's,
@@ -704,10 +741,11 @@ def entity_mesh_rows(bank, state):
     b2 = rows[..., 16] - dot_pos(a2)
     nrm = rot(rows[..., 17:20])
     slot = rows[..., 23]
-    tex_base = bank.tex_slot_base[lid[:, 0]].to(torch.float32)  # (B, T)
-    slot_i = torch.clamp(torch.round(slot).long(), min=0)
-    base = torch.gather(tex_base, 1, slot_i.reshape(slot.shape[0], -1)).reshape(slot.shape)
-    slot = torch.where(slot >= 0.0, base, torch.full_like(slot, -1.0))
+    if fourier:
+        tex_base = bank.tex_slot_base[lid[:, 0]].to(torch.float32)  # (B, T)
+        slot_i = torch.clamp(torch.round(slot).long(), min=0)
+        base = torch.gather(tex_base, 1, slot_i.reshape(slot.shape[0], -1)).reshape(slot.shape)
+        slot = torch.where(slot >= 0.0, base, torch.full_like(slot, -1.0))
     colorable = bank.proto_colorable[lid, p][:, :, None, None]  # (B, E, 1, 1)
     tint = torch.where(colorable, state.ent_color[:, :, None, :],
                        torch.ones_like(state.ent_color[:, :, None, :]))
@@ -721,15 +759,16 @@ def entity_mesh_rows(bank, state):
     return verts9, attrs.reshape(b, e * m, ATTR_DIM).contiguous(), valid.reshape(b, e * m)
 
 
-def entity_mesh_pass_plain(verts9, attrs, cam: Camera):
+def entity_mesh_pass_plain(verts9, attrs, cam: Camera, attr_dtype=torch.bfloat16):
     """Plain version of the mesh-entity pass that the tri_pass kernel
     runs first when it is given mesh rows (raycast._entity_mesh_pass):
     keyed-z competition of each env's own world rows
     (``entity_mesh_rows``), triangle coverage u + v <= det.
 
     verts9 (B, 9, N) f32, attrs (B, N, 16) f32 ->
-    (t (B, HW) f32, inf on a miss; attr (B, HW, 16) bf16, zeros on a
-    miss). Runs over blocks of envs to bound its intermediates.
+    (t (B, HW) f32, inf on a miss; attr (B, HW, 16) in ``attr_dtype``,
+    zeros on a miss). Runs over blocks of envs to bound its
+    intermediates.
     """
     n = verts9.shape[2]
     if n > (1 << _IDX_BITS):
@@ -740,7 +779,7 @@ def entity_mesh_pass_plain(verts9, attrs, cam: Camera):
     for sl in _env_blocks(b, n * hw):
         key, row = _chunk_compete(verts9[sl], attrs[sl], _cam_rows(cam, sl), xv[sl], yv[sl],
                                   all_quads=False, all_tris=True)
-        sel = _gather_rows(attrs[sl], row).to(torch.bfloat16)
+        sel = _gather_rows(attrs[sl], row).to(attr_dtype)
         ts.append(_t_from_key(key))
         outs.append(torch.where((key > 0)[:, :, None], sel, torch.zeros_like(sel)))
     return torch.cat(ts), torch.cat(outs)
@@ -1043,9 +1082,35 @@ def fourier_table(atlas, k_terms: int):
                      dim=1).contiguous()
 
 
-def eval_nearest(*args, **kwargs):
-    """Nearest-mode texturing (raycast.eval_nearest): not ported yet."""
-    raise NotImplementedError("nearest-mode textures are not ported yet")
+def _texel_index(frac, res: int):
+    """The texel column of ``frac`` in [0, 1] as (frac * res).astype(int32)
+    clipped to [0, res - 1]: XLA converts a NaN to 0 and saturates
+    (clamping first gives the same index for every float)."""
+    v = frac * float(res)
+    v = torch.where(torch.isnan(v), torch.zeros_like(v), v)
+    return torch.clamp(v, 0.0, float(res - 1)).long()
+
+
+def eval_nearest(atlas, tex_map, slot, uv):
+    """Exact nearest-neighbour GL_REPEAT texel per pixel
+    (raycast.eval_nearest), operation for operation: the slot rounded
+    half to even, its atlas row ``tex_map[b, max(slot, 0)]`` per env, the
+    fractional uv, the texel's column and (flipped: atlas rows run top
+    down, v = 0 is the bottom) row, the u8 value times 1/255; 1.0 where
+    the slot is < 0 (flat white).
+
+    atlas (N, R, R, 3) u8; tex_map (B, T) int, each env's atlas row of
+    every layout-local slot; slot (B, P) the winner's slot column; uv
+    (B, P, 2) -> (B, P, 3) f32. A slot id above T - 1 takes row T - 1, as
+    the JAX gather clamps it."""
+    res = atlas.shape[1]
+    slot_i = torch.round(slot.to(torch.float32)).long()
+    rows = torch.gather(tex_map.long(), 1, slot_i.clamp(0, tex_map.shape[1] - 1))
+    frac = uv - torch.floor(uv)
+    tx = _texel_index(frac[..., 0], res)
+    ty = (res - 1) - _texel_index(frac[..., 1], res)
+    texel = atlas[rows.clamp(0, atlas.shape[0] - 1), ty, tx].to(torch.float32) * (1.0 / 255.0)
+    return torch.where((slot_i >= 0)[..., None], texel, torch.ones_like(texel))
 
 
 def shade(color, normal, hit_p, light_pos, light_color, light_ambient):
@@ -1064,36 +1129,39 @@ def shade(color, normal, hit_p, light_pos, light_color, light_ambient):
 
 def pixel_epilogue_plain(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
                          light_pos, light_color, light_ambient, sky, k_terms: int,
-                         has_gain: bool = False, ss: int = 1):
+                         has_gain: bool = False, ss: int = 1, tex_map=None):
     """Plain version of the pixel_epilogue kernel (render_rgbd after the
     hit passes): uv from the winner's affine map, Fourier texel with
     footprint AA, the entity merge (t_ent may be None: no analytic
     entities), lighting, sky, truncating u8 pack.
 
-    t_tri (B, HW) f32, attr (B, HW, 16) bf16; t_ent (B, HW), col_ent /
-    n_ent (B, HW, 3); atlas (A, 4+8K); lights and sky (B, 3); HW the
-    camera's W x H samples. ``ss`` = 2 (supersample=2,
+    t_tri (B, HW) f32, attr (B, HW, 16) bf16 or f32 (the carry dtype);
+    t_ent (B, HW), col_ent / n_ent (B, HW, 3); atlas (A, 4+8K); lights
+    and sky (B, 3); HW the camera's W x H samples. With ``tex_map`` (B,
+    T) int, nearest mode (raycast.py:1274-1275): atlas is the (N, R, R,
+    3) u8 atlas and the texel is ``eval_nearest``'s, with no footprint;
+    k_terms and has_gain are not read. ``ss`` = 2 (supersample=2,
     raycast.py:1294-1301): each output pixel is the mean of its 2x2
     samples' shaded colours, summed in row-major order, ((s00 + s01) +
     s10) + s11, as XLA reduces the JAX package's mean and the kernel
     sums, times 0.25, before the pack; its depth the top-left sample's.
     Returns (rgb (B, H/ss, W/ss, 3) u8, depth (B, H/ss, W/ss, 1) f32).
-    Runs over blocks of envs: each pixel gathers its atlas row of 4+8K
-    floats.
+    Runs over blocks of envs: in fourier mode each pixel gathers its
+    atlas row of 4+8K floats.
     """
     b, hw = t_tri.shape
     h, w = cam.height, cam.width
     if ss not in (1, 2) or h % ss or w % ss:
         raise ValueError(f"ss={ss} must be 1 or 2 and divide the {w}x{h} samples")
     outs = []
-    for sl in _env_blocks(b, hw * atlas.shape[1]):
+    for sl in _env_blocks(b, hw * (atlas.shape[1] if tex_map is None else ATTR_DIM)):
         def rows(x):
             return None if x is None else x[sl]
 
         rgb, depth = _pixel_epilogue_block(
             t_tri[sl], attr[sl], rows(t_ent), rows(col_ent), rows(n_ent), atlas,
             _cam_rows(cam, sl), light_pos[sl], light_color[sl], light_ambient[sl], sky[sl],
-            k_terms, has_gain)
+            k_terms, has_gain, rows(tex_map))
         n = rgb.shape[0]
         if ss == 2:
             q = rgb.reshape(n, h // 2, 2, w // 2, 2, 3)
@@ -1107,7 +1175,7 @@ def pixel_epilogue_plain(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
 
 def _pixel_epilogue_block(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
                           light_pos, light_color, light_ambient, sky, k_terms: int,
-                          has_gain: bool):
+                          has_gain: bool, tex_map=None):
     b, hw = t_tri.shape
     h, w = cam.height, cam.width
     xv, yv = cam.xv().reshape(-1), cam.yv().reshape(-1)
@@ -1126,12 +1194,16 @@ def _pixel_epilogue_block(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera
         at[:, 0] * p[:, 0] + at[:, 1] * p[:, 1] + at[:, 2] * p[:, 2] + at[:, 6],
         at[:, 3] * p[:, 0] + at[:, 4] * p[:, 1] + at[:, 5] * p[:, 2] + at[:, 7],
     ], dim=1)
-    pix_angle = (cam.tan_y * (2.0 / h))[:, None].expand(b, hw).reshape(-1)
-    sq = at[:, 0] * at[:, 0]
-    for i in range(1, 6):
-        sq = sq + at[:, i] * at[:, i]
-    footprint = t_uv * pix_angle * torch.sqrt(sq * 0.5)
-    texel = eval_fourier(atlas, at[:, _SLOT], uv, k_terms, footprint, has_gain)
+    if tex_map is None:
+        pix_angle = (cam.tan_y * (2.0 / h))[:, None].expand(b, hw).reshape(-1)
+        sq = at[:, 0] * at[:, 0]
+        for i in range(1, 6):
+            sq = sq + at[:, i] * at[:, i]
+        footprint = t_uv * pix_angle * torch.sqrt(sq * 0.5)
+        texel = eval_fourier(atlas, at[:, _SLOT], uv, k_terms, footprint, has_gain)
+    else:
+        texel = eval_nearest(atlas, tex_map, at[:, _SLOT].reshape(b, hw),
+                             uv.reshape(b, hw, 2)).reshape(-1, 3)
     color = at[:, _COL] * texel
     normal = at[:, _NRM]
     t_hit = tt
@@ -1152,28 +1224,50 @@ def _pixel_epilogue_block(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera
 
 def pixel_epilogue(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
                    light_pos, light_color, light_ambient, sky, k_terms: int,
-                   has_gain: bool = False, table=None, ss: int = 1):
+                   has_gain: bool = False, table=None, ss: int = 1, tex_map=None):
     """Stage 3 wrapper: the pixel_epilogue kernel for CUDA tensors, the
     plain version for CPU tensors. Same contract as
     ``pixel_epilogue_plain`` (``ss`` = 2: the kernel's SS = 2 instance;
     ``has_gain``: its GAIN instances, the glyph branch of
     ``eval_fourier``, counted in ``LAUNCHES["pixel_epilogue_gain"]``
-    too).
-    The kernel reads ``table``, the atlas's ``fourier_table`` (made here
-    when not given: a caller that renders often makes it once)."""
+    too; ``tex_map``: nearest mode, its NEAREST instances, counted in
+    ``LAUNCHES["pixel_epilogue_nearest"]``, which read the u8 atlas and
+    ``tex_map``, with a float32 attribute carry
+    ``LAUNCHES["pixel_epilogue_f32"]`` too; the float32 carry is built
+    for nearest mode only, the one that reaches it).
+    In fourier mode the kernel reads ``table``, the atlas's
+    ``fourier_table`` (made here when not given: a caller that renders
+    often makes it once)."""
     args = (t_tri, attr, t_ent, col_ent, n_ent, atlas, cam, light_pos,
-            light_color, light_ambient, sky, k_terms, has_gain, ss)
-    if not is_cuda(t_tri, attr, atlas, cam.origin, light_pos):
+            light_color, light_ambient, sky, k_terms, has_gain, ss, tex_map)
+    nearest = tex_map is not None
+    if not is_cuda(t_tri, attr, atlas, cam.origin, light_pos, *((tex_map,) if nearest else ())):
         return pixel_epilogue_plain(*args)
     b, hw = t_tri.shape
     h, w = cam.height, cam.width
     if ss not in (1, 2) or h % ss or w % ss:
         raise ValueError(f"ss={ss} must be 1 or 2 and divide the {w}x{h} samples")
-    n_rows, width = atlas.shape
-    if width != 4 + 8 * k_terms:
-        raise ValueError(f"atlas rows hold {width} floats, expected 4+8K with K={k_terms}")
-    if table is None:
-        table = fourier_table(atlas, k_terms)
+    f32 = attr.dtype == torch.float32
+    if nearest:
+        if has_gain:
+            raise ValueError("the glyph branch is fourier-only (raycast.py:1257-1273)")
+        n_rows, res = atlas.shape[0], atlas.shape[1]
+        n_ids = tex_map.shape[1]
+        atlas_ptr = check(atlas, "atlas", torch.uint8, (n_rows, res, res, 3))
+        tex_ptr = check(tex_map, "tex_map", torch.int32, (b, n_ids))
+        table_ptr = ctypes.c_void_p(0)
+    else:
+        if f32:
+            raise NotImplementedError("the pixel_epilogue kernel's fourier F32 instance (a "
+                                      "float32 attribute carry in fourier mode) is not built")
+        n_rows, width = atlas.shape
+        if width != 4 + 8 * k_terms:
+            raise ValueError(f"atlas rows hold {width} floats, expected 4+8K with K={k_terms}")
+        if table is None:
+            table = fourier_table(atlas, k_terms)
+        table_ptr = check(table, "table", torch.float32, (n_rows, 4 + 9 * k_terms))
+        atlas_ptr = tex_ptr = ctypes.c_void_p(0)
+        res = n_ids = 0
     dev = t_tri.device
     ho, wo = h // ss, w // ss
     rgb = torch.empty((b, ho, wo, 3), dtype=torch.uint8, device=dev)
@@ -1192,16 +1286,19 @@ def pixel_epilogue(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
     launch(
         "mw_pixel_epilogue",
         ("pixel_epilogue",) + (("pixel_epilogue_ss2",) if ss == 2 else ())
-        + (("pixel_epilogue_gain",) if has_gain else ()),
+        + (("pixel_epilogue_gain",) if has_gain else ())
+        + (("pixel_epilogue_nearest",) if nearest else ())
+        + (("pixel_epilogue_f32",) if f32 else ()),
         check(t_tri, "t_tri", torch.float32, (b, hw)),
-        check(attr, "attr", torch.bfloat16, (b, hw, ATTR_DIM)),
+        check(attr, "attr", attr.dtype if f32 else torch.bfloat16, (b, hw, ATTR_DIM)),
         *ent_ptrs,
-        check(table, "table", torch.float32, (n_rows, 4 + 9 * k_terms)),
+        table_ptr, atlas_ptr, tex_ptr,
         check(lights, "lights", torch.float32, (b, 4, 3)),
         *cam_ptrs,
         ctypes.c_int(b), ctypes.c_int(w), ctypes.c_int(h),
         ctypes.c_int(n_rows), ctypes.c_int(k_terms), ctypes.c_int(int(has_ent)),
-        ctypes.c_int(ss), ctypes.c_int(int(has_gain)),
+        ctypes.c_int(ss), ctypes.c_int(int(has_gain)), ctypes.c_int(int(nearest)),
+        ctypes.c_int(int(f32)), ctypes.c_int(n_ids), ctypes.c_int(res),
         check(rgb, "rgb", torch.uint8, (b, ho, wo, 3)),
         check(depth, "depth", torch.float32, (b, ho, wo, 1)),
         stream(),
@@ -1240,19 +1337,25 @@ def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
                 shapes_present=(True, True, False), all_quads: bool = False,
                 has_gain: bool = False, use_kernels: bool = True, pg_wall=None,
                 table=None, tri_chunk: int | None = None, packed_pvs: bool = False,
-                slot_tex=None, supersample: int = 1):
+                slot_tex=None, supersample: int = 1, tex_mode: str = "fourier"):
     """Render every env's observation: (rgb (B, H, W, 3) u8, depth
     (B, H, W, 1) f32, FAR for sky). Counterpart of raycast.render_rgbd
-    in fourier mode for the plans the port renders: the static prims in
+    for the plans the port renders: the static prims in
     chunks of ``tri_chunk`` (None: one chunk of all of them; more than
     one without mesh entities, the last clamped: ``chunk_starts``).
+    ``tex_mode``: "fourier" (``atlas`` the Fourier table, the slot
+    columns atlas rows) or "nearest" (``atlas`` the (N, R, R, 3) u8
+    atlas, the slot columns layout-local slot ids that the epilogue
+    resolves through ``state.tex_map``: ``eval_nearest``). The hit
+    passes carry the winner's attributes in ``attr_carry_dtype`` of the
+    atlas's rows (fourier) or of the slot ids (nearest).
     ``packed_pvs``: the bank's packed per-room visible sets, one chunk
     of ``tri_chunk`` a render: each env scans its camera room's chunk
     (``static_rows``).
     ``table``: the atlas's ``fourier_table``, which the epilogue kernel
     reads.
     ``slot_tex`` = (tex, tex_alt) (vector.install_statics with
-    domain_rand): each scanned row's texture variant under
+    domain_rand in fourier mode): each scanned row's texture variant under
     ``state.tri_slots`` goes into its slot column (``tri_pass``'s
     ``override``; raycast.py:1190-1232); None: the slot columns hold
     their atlas bases already.
@@ -1271,21 +1374,29 @@ def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
     on whatever device the tensors are on (for comparisons on the card);
     otherwise each stage goes through its wrapper.
     """
+    if tex_mode not in ("fourier", "nearest"):
+        raise ValueError(f"tex_mode {tex_mode!r}")
+    nearest = tex_mode == "nearest"
+    if nearest and (slot_tex is not None or has_gain):
+        raise ValueError("nearest mode has no texture-variant override and no glyph branch")
     ss = int(supersample)
     cam = camera_grid(state, width * ss, height * ss)
     f_ent = entity_pass if use_kernels else entity_pass_plain
-    mesh = entity_mesh_rows(bank, state)[:2] if shapes_present[2] else None
+    carry = attr_carry_dtype(state.tex_map.shape[1] if nearest else atlas.shape[0])
+    mesh = (entity_mesh_rows(bank, state, fourier=not nearest)[:2] if shapes_present[2]
+            else None)
     rows, paired = static_rows(bank, state, cam, pg_wall, packed_pvs)
     override = None if slot_tex is None else (state.tri_slots, *slot_tex)
     if use_kernels:
-        t_tri, attr = tri_pass(*rows, cam, all_quads, mesh, paired, tri_chunk, override)
+        t_tri, attr = tri_pass(*rows, cam, all_quads, mesh, paired, tri_chunk, override, carry)
     elif tri_chunk is not None and rows[0].shape[2] > tri_chunk:
         if mesh is not None:
             raise NotImplementedError("more than one chunk with mesh rows is not ported yet")
-        t_tri, attr = tri_pass_chunked(*rows, cam, tri_chunk, all_quads, override, paired)
+        t_tri, attr = tri_pass_chunked(*rows, cam, tri_chunk, all_quads, override, paired,
+                                       carry)
     else:
-        seed = None if mesh is None else entity_mesh_pass_plain(*mesh, cam)
-        t_tri, attr = tri_pass_plain(*rows, cam, all_quads, seed, paired, override)
+        seed = None if mesh is None else entity_mesh_pass_plain(*mesh, cam, carry)
+        t_tri, attr = tri_pass_plain(*rows, cam, all_quads, seed, paired, override, carry)
     t_ent = col_ent = n_ent = None
     if shapes_present[0] or shapes_present[1]:
         t_ent, col_ent, n_ent = f_ent(
@@ -1295,6 +1406,7 @@ def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
         )
     epi_args = (t_tri, attr, t_ent, col_ent, n_ent, atlas, cam, state.light_pos,
                 state.light_color, state.light_ambient, state.sky_color, k_terms, has_gain)
+    tex_map = state.tex_map if nearest else None
     if use_kernels:
-        return pixel_epilogue(*epi_args, table=table, ss=ss)
-    return pixel_epilogue_plain(*epi_args, ss=ss)
+        return pixel_epilogue(*epi_args, table=table, ss=ss, tex_map=tex_map)
+    return pixel_epilogue_plain(*epi_args, ss=ss, tex_map=tex_map)

@@ -18,17 +18,19 @@ the new episode. Resets draw from the same threefry keys and
 counter-based uniforms as the JAX package (ops/rng.py), so the two
 packages step the same envs through the same episodes.
 
-The port covers the statics of 22 of the 27 env ids (``envs.ENV_IDS``):
+The port covers the statics of 24 of the 27 env ids (``envs.ENV_IDS``):
 one layout bank rendered in the JAX package's chunk plan (one chunk, a
 dense or paired multi-chunk scan, or the one-chunk packed-PVS plan of
 the Maze family's layout bank; ``install_statics``), Fourier textures
-with Sign's SDF glyphs and its dict observations, analytic and mesh
+with Sign's SDF glyphs and its dict observations, or the exact nearest
+texels of the u8 atlas (``tex_mode="nearest"``), analytic and mesh
 entities, procgen mazes — a fresh maze per reset on the device
 (``procgen``, the Maze family's default), rendered from the paired
 super bank — domain randomization (``domain_rand``: the
 per-episode and per-step parameter draws and each episode's texture
-variants) and ``supersample=2``. Other statics (nearest textures, the
-top view) and plans raise NotImplementedError.
+variants), ``supersample=2``, and the raw 6-D actions of the specs
+without a discrete table (RoomObjects, PutNext). Other statics (the top
+view) and plans raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -68,11 +70,20 @@ RESET_PARAMS = ("sky_color", "light_pos", "light_color", "light_ambient",
 STEP_PARAMS = ("forward_step", "forward_drift", "turn_step")
 
 
-def build_bank(spec: EnvSpec):
-    """Compile the spec's layout bank + Fourier texture table (host side).
+def _tex_table(catalog: TextureCatalog, spec: EnvSpec, tex_mode: str) -> np.ndarray:
+    """The mode's texture table: the Fourier coefficients, or the (N, R,
+    R, 3) u8 atlas in nearest mode (JAX vector.py:85-88, 116-119)."""
+    if tex_mode == "nearest":
+        return catalog.build_atlas()
+    return catalog.build_fourier(spec.fourier_k or FOURIER_TERMS)
 
-    Same construction as the JAX package's ``build_bank`` in fourier
-    mode with its default bank seed 0. Returns (bank, tex table).
+
+def build_bank(spec: EnvSpec, tex_mode: str = "fourier"):
+    """Compile the spec's layout bank + texture table (host side).
+
+    Same construction as the JAX package's ``build_bank`` with its
+    default bank seed 0. Returns (bank, tex table): the Fourier table,
+    or the u8 atlas in nearest mode.
     """
     catalog = TextureCatalog()
     layouts = []
@@ -83,10 +94,10 @@ def build_bank(spec: EnvSpec):
         spec.build(world, None, layout_rng=np.random.default_rng(seeds[li]),
                    layout_idx=li)
         layouts.append(compile_world(world, with_pvs=True))
-    return stack_layouts(layouts), catalog.build_fourier(spec.fourier_k or FOURIER_TERMS)
+    return stack_layouts(layouts), _tex_table(catalog, spec, tex_mode)
 
 
-def build_super_bank(spec: EnvSpec):
+def build_super_bank(spec: EnvSpec, tex_mode: str = "fourier"):
     """Compile the spec's maze grid into a procgen super bank (host
     side): one layout holding every wall variant (scene/supermaze.py);
     each env's maze is a wall-open bitmask generated at reset
@@ -97,7 +108,7 @@ def build_super_bank(spec: EnvSpec):
     lay = compile_super_maze(spec, catalog)
     bank_np = finalize_super_bank(stack_layouts([lay]), lay,
                                   mazegen.num_walls(spec.num_rows, spec.num_cols))
-    return bank_np, catalog.build_fourier(spec.fourier_k or FOURIER_TERMS)
+    return bank_np, _tex_table(catalog, spec, tex_mode)
 
 
 def _round_up16(n: int) -> int:
@@ -414,11 +425,10 @@ def plan_chunks(bank_np: Layout, num_envs: int, hw: int):
 
 
 def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
-                    domain_rand: bool = False):
+                    domain_rand: bool = False, tex_mode: str = "fourier"):
     """The static decisions of the JAX package's ``_install_bank`` for
-    a fresh bank in fourier mode, for a batch of ``num_envs`` envs
-    rendering ``hw`` pixels each (the supersampled count with
-    supersample=2).
+    a fresh bank, for a batch of ``num_envs`` envs rendering ``hw``
+    pixels each (the supersampled count with supersample=2).
 
     Returns (bank, statics dict): the bank repadded for its chunk plan
     (``plan_chunks``), and ``plan`` (with ``chunk_starts``, the first
@@ -426,20 +436,26 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
     ``shapes_present``, ``has_gain``, ``pg_wall``: for a paired bank
     the (L, Sp) i32 wall of each row (-1 = none), from
     ``pg_sel_onehot`` / ``pg_sel_base``, else None, and ``slot_tex``.
-    Without ``domain_rand`` every slot renders variant 0: each prim's
-    atlas base is baked into its attr slot column (both variants of a
-    paired procgen bank) and ``slot_tex`` is None. With it the slot
-    columns stay as built, and ``slot_tex`` = (tex, tex_alt) gives the
-    render each scanned row's (slot id, atlas base, variant count, 0),
-    f32, from which a render draws the row's variant
-    (raycast.py:277-310): (L, S, 4) from ``tri_tex*`` for a dense plan
-    (one chunk or several, by the global row), the (L * NC, k, 4) chunk
-    rows of ``pvs_tri_tex*`` for packed PVS, in the view of
-    ``pvs_v9_rows``, and both variants' rows of ``pg_tex`` for a paired
-    bank (``tex_alt``; None otherwise).
-    The slot column is carried in bf16, exact for atlas rows up to 256
-    (the JAX package carries it in f32 above, raycast.py:512-527): a
-    larger atlas raises ValueError.
+    In fourier mode without ``domain_rand`` every slot renders variant
+    0: each prim's atlas base is baked into its attr slot column (both
+    variants of a paired procgen bank; JAX vector.py:672) and
+    ``slot_tex`` is None. With it the slot columns stay as built, and
+    ``slot_tex`` = (tex, tex_alt) gives the render each scanned row's
+    (slot id, atlas base, variant count, 0), f32, from which a render
+    draws the row's variant (raycast.py:277-310): (L, S, 4) from
+    ``tri_tex*`` for a dense plan (one chunk or several, by the global
+    row), the (L * NC, k, 4) chunk rows of ``pvs_tri_tex*`` for packed
+    PVS, in the view of ``pvs_v9_rows``, and both variants' rows of
+    ``pg_tex`` for a paired bank (``tex_alt``; None otherwise). In
+    ``tex_mode="nearest"`` the slot columns keep their layout-local slot
+    ids, which the render resolves through ``EnvState.tex_map`` (where
+    domain_rand draws the variants), and ``slot_tex`` is None.
+    The render carries the slot column in bf16 while the ids are at
+    most 256 and in float32 above (``raycast.attr_carry_dtype``: the 8x8
+    procgen maze's 528 local slots in nearest mode); a Fourier atlas
+    above 256 rows raises ValueError: its float32 carry needs the
+    tri_pass kernel's F32 OVERRIDE instance and the epilogue's fourier
+    F32 instance, which are not built (no id has such an atlas).
 
     The port renders the JAX package's split, because the split decides
     ties. Each row's z-key carries its index WITHIN its chunk
@@ -483,16 +499,19 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
     n_scan = s_bank if bank_np.pg_verts9 is None else bank_np.pg_verts9.shape[2]
     plan["chunk_starts"] = ([0] if plan["kind"] == "packed_pvs"
                             else chunk_starts(n_scan, min(tri_chunk, n_scan)))
-    if tex_np.shape[0] > 256:
+    fourier = tex_mode == "fourier"
+    if fourier and tex_np.shape[0] > 256:
         raise ValueError(
-            f"an atlas of {tex_np.shape[0]} rows: slot ids above 256 are not exact in the "
-            "bf16 attribute carry (the JAX package's f32 carry is not ported)")
+            f"a Fourier atlas of {tex_np.shape[0]} rows needs the float32 attribute carry in "
+            "fourier mode: the tri_pass kernel's F32 OVERRIDE instance and the epilogue's "
+            "fourier F32 instance are not built")
+    bake = fourier and not domain_rand
 
     def slot_rows(ids, base, cnt):  # (..., n) each -> (..., n, 4) f32
         return np.ascontiguousarray(np.stack(
             [ids.astype(np.float32), base, cnt, np.zeros_like(base)], axis=-1), np.float32)
 
-    if not domain_rand:
+    if bake:
         ta = bank_np.tri_attr.copy()
         ta[:, :, 14] = bank_np.tri_tex_base
         bank_np = dataclasses.replace(bank_np, tri_attr=ta)
@@ -502,7 +521,7 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
         # (L * NC, 9 * k) and (L * NC, k * 16), which the render reads as
         # (L * NC, 9, k) and (L * NC, k, 16) banks of one chunk
         pa = bank_np.pvs_attr
-        if not domain_rand:  # slot columns baked as in the bank
+        if bake:  # slot columns baked as in the bank
             pa = pa.copy()
             pa[:, :, 14] = bank_np.pvs_tri_tex_base
         L, _, s2 = bank_np.pvs_verts9.shape
@@ -521,7 +540,7 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
                 "procgen super banks render through their paired rows (pg_*); the "
                 "dense tri_active render is not ported yet")
         pga, pgaa = bank_np.pg_attr, bank_np.pg_attr_alt
-        if not domain_rand:
+        if bake:
             pga, pgaa = pga.copy(), pgaa.copy()
             pga[:, :, 14] = bank_np.pg_tex[:, 0, 1]
             pgaa[:, :, 14] = bank_np.pg_tex[:, 1, 1]
@@ -537,8 +556,8 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
         all_quads=all_quads,
         pg_wall=pg_wall,
         shapes_present=shapes_present,
-        has_gain=bool(((tex_np[:, -1] > 1.0) | (tex_np[:, -1] < 0.0)).any()),
-        slot_tex=slot_tex if domain_rand else None,
+        has_gain=fourier and bool(((tex_np[:, -1] > 1.0) | (tex_np[:, -1] < 0.0)).any()),
+        slot_tex=slot_tex if fourier and domain_rand else None,
     )
     return bank_np, statics
 
@@ -586,12 +605,11 @@ class MiniWorldVec:
         tex_mode: str = "fourier",
         view: str = "agent",
     ):
-        # statics of the JAX package that later slices port
-        for name, value, default in (("tex_mode", tex_mode, "fourier"), ("view", view, "agent")):
-            if value != default:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not ported to miniworld_tpu_torch yet"
-                )
+        # the top view (JAX vector.py:1133-1146) is ported by a later slice
+        if view != "agent":
+            raise NotImplementedError(f"view={view!r} is not ported to miniworld_tpu_torch yet")
+        if tex_mode not in ("fourier", "nearest"):
+            raise ValueError(f"tex_mode must be 'fourier' or 'nearest', got {tex_mode!r}")
         if supersample not in (1, 2):
             raise ValueError(f"supersample must be 1 or 2, got {supersample!r}")
         device = torch.device(device)
@@ -624,6 +642,9 @@ class MiniWorldVec:
         self.domain_rand = bool(domain_rand)
         # 2: each pixel the box-filtered mean of a 2x2 grid of samples
         self.supersample = int(supersample)
+        # "nearest": exact texels of the u8 atlas, the JAX package's
+        # bit-accurate texture path; "fourier": its Fourier texture model
+        self.tex_mode = tex_mode
         self.place_budget = spec.place_budget
         self.fourier_k = spec.fourier_k or FOURIER_TERMS
         # True: each render stage and the reset's placement go through
@@ -631,10 +652,11 @@ class MiniWorldVec:
         # PyTorch versions.
         self.use_kernels = use_kernels
 
-        bank_np, tex_np = build_super_bank(spec) if self.procgen else build_bank(spec)
+        build = build_super_bank if self.procgen else build_bank
+        bank_np, tex_np = build(spec, tex_mode)
         bank_np, statics = install_statics(
             bank_np, tex_np, self.num_envs,
-            self.obs_width * self.obs_height * self.supersample ** 2, self.domain_rand)
+            self.obs_width * self.obs_height * self.supersample ** 2, self.domain_rand, tex_mode)
         self._bank_np = bank_np
         # the JAX package's chunk plan (plan_chunks), which the render follows
         self.plan = statics["plan"]
@@ -651,16 +673,20 @@ class MiniWorldVec:
         self._slot_tex = (None if statics["slot_tex"] is None else
                           tuple(None if t is None else torch.from_numpy(t).to(device)
                                 for t in statics["slot_tex"]))
-        self._atlas = atlas_from_numpy(tex_np, device)
-        # what the epilogue kernel reads in place of the atlas, made once
-        self._fourier_table = fourier_table(atlas_from_numpy(tex_np), self.fourier_k).to(device)
+        self._fourier_table = None
+        if tex_mode == "nearest":  # the (N, R, R, 3) u8 atlas
+            self._atlas = torch.from_numpy(np.ascontiguousarray(tex_np, np.uint8)).to(device)
+        else:
+            self._atlas = atlas_from_numpy(tex_np, device)
+            # what the epilogue kernel reads in place of the atlas, made once
+            self._fourier_table = fourier_table(atlas_from_numpy(tex_np),
+                                                self.fourier_k).to(device)
         self.num_layouts = bank_np.tri_verts.shape[0]
         self.num_ent_slots = bank_np.slot_protos.shape[1]
-        if spec.discrete_actions is None:
-            raise NotImplementedError("continuous-action specs are not ported yet")
-        self._action_table = torch.as_tensor(
-            np.asarray(spec.discrete_actions, np.float32), device=device
-        )
+        # the discrete table, or None: the raw 6-D actions (RoomObjects,
+        # PutNext; the reference's Box space)
+        self._action_table = (None if spec.discrete_actions is None else torch.as_tensor(
+            np.asarray(spec.discrete_actions, np.float32), device=device))
         # domain randomization's (lo, hi) per parameter, on the device once
         self._param_bounds = {name: tuple(t[0] for t in self._bounds([name]))
                               for name in RESET_PARAMS + ("obj_color_bias",)}
@@ -836,6 +862,9 @@ class MiniWorldVec:
             segs4 = place_ops.gate_segs4(segs4, bank.room_seg_wall[lid, room], state.wall_open)
 
         if action.dim() == 1:
+            if self._action_table is None:
+                raise ValueError(f"{spec.name} takes (B, 6) action vectors: it has no "
+                                 "discrete action table")
             action_idx = action.to(torch.int32)
             action_vec = self._action_table[action_idx.long()]
         else:
@@ -877,7 +906,7 @@ class MiniWorldVec:
             has_gain=self._has_gain, use_kernels=self.use_kernels, pg_wall=self._pg_wall,
             table=self._fourier_table, tri_chunk=self.tri_chunk,
             packed_pvs=self.plan["kind"] == "packed_pvs", slot_tex=self._slot_tex,
-            supersample=self.supersample,
+            supersample=self.supersample, tex_mode=self.tex_mode,
         )
 
     def _obs(self, rgb, depth):
@@ -906,13 +935,20 @@ class MiniWorldVec:
         return state, self._obs(*self.render(state)), reward, done, info
 
     def sample_actions(self, key: torch.Tensor) -> torch.Tensor:
-        """(..., B) uniform discrete actions from key data (..., 2): the
-        JAX package's ``sample_actions`` for a table-action spec,
-        ``jax.random.randint(key, (B,), 0, A)``, value for value."""
-        return rng_ops.randint(key.to(self.device), self.num_envs, self._action_table.shape[0])
+        """Uniform random actions from key data (..., 2), the JAX
+        package's ``sample_actions`` value for value: (..., B) discrete
+        indices, ``jax.random.randint(key, (B,), 0, A)``, for a
+        table-action spec; (..., B, 6) vectors, ``jax.random.uniform(key,
+        (B, 6), minval=[-1, -1, -1, -1, 0, 0], maxval=1)``, for one
+        without a table (JAX vector.py:1254-1257)."""
+        key = key.to(self.device)
+        if self._action_table is None:
+            return rng_ops.uniform(key, (self.num_envs, 6), [-1.0, -1.0, -1.0, -1.0, 0.0, 0.0],
+                                   [1.0] * 6)
+        return rng_ops.randint(key, self.num_envs, self._action_table.shape[0])
 
     def rollout_actions(self, key: torch.Tensor, horizon: int) -> torch.Tensor:
-        """(horizon, B) actions of ``rollout`` from key data (2,): step t
+        """(horizon, B[, 6]) actions of ``rollout`` from key data (2,): step t
         acts on the first split of ``split(key, horizon)[t]``, as the JAX
         package's ``rollout_fn`` does, in four batched threefry calls."""
         step_keys = rng_ops.split(key.to(self.device), horizon)  # (horizon, 2)

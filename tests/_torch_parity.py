@@ -135,7 +135,7 @@ def adopt_reset_ulps(jstate, tstate, done):
 
 
 def reset_and_steps(env_id, b, w, h, steps, seed, start=None, forced_action=2,
-                    frames=None, **env_kwargs):
+                    frames=None, follow_jax=False, **env_kwargs):
     """Reset the JAX package's env and the port's at (b, w, h) from
     ``seed`` and step both ``steps`` times with the same actions, checking
     as tests/test_torch_vector.py::test_reset_and_ten_steps does: rewards,
@@ -143,11 +143,17 @@ def reset_and_steps(env_id, b, w, h, steps, seed, start=None, forced_action=2,
     FLOAT_ATOL, images by ``assert_images_match``. ``start(jenv, jstate)``
     may return (pos (b, 3), yaw (b,), forced (b,) bool) to move the
     agents after the reset; forced envs take ``forced_action`` (an int,
-    or one per env) every step; an env that resets goes on from the JAX
+    or one per env) every step; an env without a discrete table (the
+    raw 6-D actions) steps with uniform vectors in the action box, its
+    forced envs with the vector ``forced_action``; an env that resets goes on from the JAX
     package's reset state. A dict observation's goal must be equal and
     its images are compared (``split_obs``). ``frames``, a list, gets
     (port state, JAX rgb, JAX depth, port rgb, port depth) of every step.
-    ``env_kwargs`` go to both constructors.
+    ``follow_jax``: after each step's checks the port goes on from the JAX
+    state, and its image is the render of that state (the raw 6-D
+    actions: XLA:CPU fuses some of their multiply-adds, moving states by
+    ulps a step, ROADMAP C1; the states are still held within
+    FLOAT_ATOL). ``env_kwargs`` go to both constructors.
     Returns (dones, total reward, the last infos of JAX and the port)."""
     from miniworld_tpu import MiniWorldVec as JaxVec
     from miniworld_tpu_torch import MiniWorldVec
@@ -168,10 +174,14 @@ def reset_and_steps(env_id, b, w, h, steps, seed, start=None, forced_action=2,
                                 dir=jnp.asarray(yaw, jnp.float32))
         tstate = to_port_state(jstate)
     rng = np.random.default_rng(seed)
-    n_act = env._action_table.shape[0]
     dones, rewards = 0, 0.0
     for _ in range(steps):
-        acts = np.where(forced, forced_action, rng.integers(0, n_act, b)).astype(np.int32)
+        if env._action_table is None:
+            acts = rng.uniform([-1, -1, -1, -1, 0, 0], 1.0, (b, 6)).astype(np.float32)
+            acts = np.where(forced[:, None], np.asarray(forced_action, np.float32), acts)
+        else:
+            acts = np.where(forced, forced_action,
+                            rng.integers(0, env._action_table.shape[0], b)).astype(np.int32)
         jstate, (j_rgb, j_depth), j_r, j_d, j_info = jenv.step(jstate, jnp.asarray(acts))
         tstate, (t_rgb, t_depth), t_r, t_d, t_info = env.step(tstate, torch.from_numpy(acts))
         np.testing.assert_array_equal(t_r.numpy(), np.asarray(j_r))
@@ -188,6 +198,9 @@ def reset_and_steps(env_id, b, w, h, steps, seed, start=None, forced_action=2,
         for k, v in jstate.task.items():
             np.testing.assert_array_equal(tstate.task[k].numpy(), np.asarray(v), err_msg=k)
         assert_states_match(jstate, tstate)
+        if follow_jax:
+            tstate = to_port_state(jstate)
+            t_rgb, t_depth = env._obs(*env.render(tstate))
         j_img, t_img = split_obs(j_rgb, t_rgb)
         assert_images_match(j_img, j_depth, t_img, t_depth)
         if frames is not None:

@@ -1,7 +1,8 @@
 """A rollout of every id the port runs, on the CPU: ``MiniWorldVec.rollout``
 at B=2, 16x12, 3 steps from a key. Rewards, dones and checksums are
 finite, the observations have their shapes (Sign's a dict with its
-image and goal), and two rollouts from one key agree. The parity tests
+image and goal), and two rollouts from one key agree (RoomObjects' and
+PutNext's with the raw 6-D actions). The parity tests
 hold each id against the JAX package; this one shows that every id's
 whole path starts."""
 
@@ -17,7 +18,7 @@ B, W, H, HORIZON = 2, 16, 12, 3
 
 
 def test_every_id_counted():
-    assert len(ENV_IDS) == 22 and len(set(ENV_IDS)) == 22
+    assert len(ENV_IDS) == 24 and len(set(ENV_IDS)) == 24
 
 
 @pytest.mark.parametrize("env_id", ENV_IDS)

@@ -28,7 +28,7 @@ ENV_IDS = ["MiniWorld-Hallway-v0", "MiniWorld-FourRooms-v0", "MiniWorld-TMaze-v0
            "MiniWorld-OneRoomS6Fast-v0", "MiniWorld-YMaze-v0", "MiniWorld-YMazeLeft-v0",
            "MiniWorld-YMazeRight-v0", "MiniWorld-WallGap-v0", "MiniWorld-NavigateWallGap-v0",
            "MiniWorld-Sidewalk-v0", "MiniWorld-GreenKey-v0", "MiniWorld-ThreeRooms-v0",
-           "MiniWorld-Sign-v0"]
+           "MiniWorld-Sign-v0", "MiniWorld-RoomObjects-v0", "MiniWorld-PutNext-v0"]
 
 
 @pytest.fixture(scope="module", params=ENV_IDS)

@@ -171,8 +171,9 @@ def test_rollout_matches_jax():
 
 
 def test_atlas_over_256_rows_raises():
-    """Slot ids above 256 are not exact in the bf16 attribute carry:
-    install_statics refuses such an atlas."""
+    """Slot ids above 256 are not exact in the bf16 attribute carry, and a
+    Fourier atlas's float32 carry needs kernel instances that are not
+    built: install_statics refuses such an atlas."""
     bank_np, tex_np = tvector.build_bank(make_spec("MiniWorld-Hallway-v0"))
     big = np.concatenate([tex_np] * (257 // tex_np.shape[0] + 1))[:257]
     with pytest.raises(ValueError, match="257 rows"):

@@ -3,7 +3,8 @@ JAX package: reset and 8 steps at B=8, 40x30, half the agents walking
 to entity 0 from 1 m (the red box, GreenKey's green key: their episodes
 end and auto-reset; ThreeRooms has no reward and never ends); YMaze's
 ``goal_pos`` info every step. Their banks are one chunk on today's
-kernels. The spec fields are also held against Sign's."""
+kernels. The spec fields are also held against Sign's, RoomObjects'
+and PutNext's."""
 
 import numpy as np
 import pytest
@@ -38,18 +39,22 @@ def test_reset_and_steps(env_id):
         assert "goal_pos" in t_info
 
 
-@pytest.mark.parametrize("env_id", IDS + ["MiniWorld-Sign-v0"])
+@pytest.mark.parametrize("env_id", IDS + ["MiniWorld-Sign-v0", "MiniWorld-RoomObjects-v0",
+                                    "MiniWorld-PutNext-v0"])
 def test_spec_fields(env_id):
     """Step limits, goal positions, layouts, Fourier terms, observation
-    kind, Sign's goal and end action and the per-episode parameters
-    equal the JAX package's specs."""
+    kind, Sign's goal and end action, the discrete table (None for the
+    raw 6-D actions of RoomObjects and PutNext), PutNext's box slots and
+    the per-episode parameters equal the JAX package's specs."""
     spec, jspec = make_spec(env_id), jax_make_spec(env_id)
     assert spec.max_episode_steps == jspec.max_episode_steps
-    for name in ("goal_pos", "goal", "end_action_index"):
+    for name in ("goal_pos", "goal", "end_action_index", "red_slot", "yellow_slot"):
         assert getattr(spec, name, None) == getattr(jspec, name, None), name
     for name in ("num_layouts", "fourier_k", "dict_obs", "agent_radius", "place_budget"):
         assert getattr(spec, name) == getattr(jspec, name), name
-    np.testing.assert_array_equal(spec.discrete_actions, jspec.discrete_actions)
+    assert (spec.discrete_actions is None) == (jspec.discrete_actions is None)
+    if jspec.discrete_actions is not None:
+        np.testing.assert_array_equal(spec.discrete_actions, jspec.discrete_actions)
     for name, p in jspec.params.params.items():
         q = spec.params.params[name]
         for k in ("default", "min", "max"):

@@ -180,6 +180,13 @@ def test_unported_env_raises():
         make_spec("MiniWorld-CollectHealth-v0")
 
 
+@pytest.mark.parametrize("env_id", ["MiniWorld-CameraControl-v0",
+                                    "MiniWorld-CameraControlClick-v0"])
+def test_unported_camera_ids_raise(env_id):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        make_spec(env_id)
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     """No toolkit, no kernels: the build raises instead of falling back."""
     monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
@@ -259,9 +266,18 @@ def test_wrappers_take_plain_on_cpu(port_env):
     {"procgen": True}, {"tex_mode": "nearest"}, {"view": "top"},
 ])
 def test_unported_statics_raise(kwargs):
-    """Statics no slice has ported raise NotImplementedError; procgen=True
-    on Hallway, which has no maze grid, raises the JAX package's
-    ValueError (tests/test_procgen.py::test_procgen_requires_maze_spec)."""
+    """Statics no slice has ported (the top view) raise
+    NotImplementedError; procgen=True on Hallway, which has no maze grid,
+    raises the JAX package's ValueError
+    (tests/test_procgen.py::test_procgen_requires_maze_spec).
+    tex_mode="nearest", which raised until its slice, constructs and
+    renders the u8 atlas's texels (tests/test_torch_nearest.py holds it
+    against the JAX package)."""
+    if "tex_mode" in kwargs:
+        env = MiniWorldVec(ENV_ID, 2, obs_width=16, obs_height=12, device="cpu", **kwargs)
+        _, (rgb, _) = env.reset(0)
+        assert env._atlas.dtype == torch.uint8 and rgb.shape == (2, 12, 16, 3)
+        return
     if "procgen" in kwargs:
         expect, match = ValueError, "maze-grid"
     else:
