@@ -57,6 +57,15 @@ B=1024, and Hallway nearest at B=128 against its plain path, exactly.
 The continuous-action ids follow: RoomObjects' render stages at B=4096
 against their plain versions, its rollout at B=4096 and a short PutNext
 one on (B, 6) action vectors, both at B=128 against their plain paths.
+Then the top view (view="top"): tri_pass_ortho and topview_epilogue held
+exactly against their plain versions at B=128 on Hallway, PickupObjects,
+FourRooms nearest, Sign and the 8x8 procgen Maze and at the Maze's
+B=8192, timed there ([topview-stages]); visible_ents against its plain
+version on every (env, entity) at PickupObjects B=4096 and the Maze
+B=8192, timed, and its own path of steps and queries ([visible-ents]);
+the Maze 8x8 procgen top-view rollout at B=8192 with its breakdown and
+profile, the PickupObjects one at B=4096, and Hallway's top view at B=128
+against its plain path, exactly.
 One line per phase; the JSON summary of the
 kernels and the card's ``nvidia-smi`` name and power limit come before
 the last line,
@@ -147,6 +156,15 @@ KERNELS = {
                 "miniworld_tpu/ops/mazegen.py:92"),
 }
 MAZE_KERNELS = ("tri_pass", "entity_pass", "pixel_epilogue", "place", "mazegen")
+# the top view's kernels (view="top") and the visibility query's
+TOP_KERNELS = {
+    "tri_pass_ortho": ("miniworld_tpu_torch/csrc/tri_pass_ortho.cu",
+                       "miniworld_tpu/render/topview.py:155"),
+    "topview_epilogue": ("miniworld_tpu_torch/csrc/topview_epilogue.cu",
+                         "miniworld_tpu/render/topview.py:88"),
+    "visible_ents": ("miniworld_tpu_torch/csrc/visible_ents.cu",
+                     "miniworld_tpu/render/visibility.py:105"),
+}
 KERNEL_ORDER = {k: i for i, k in enumerate(KERNELS)}  # their rows in the kernels line
 # (kernel, env id) -> the kernel's own device time per call, kernel_ms
 DEVICE_MS: dict = {}
@@ -174,9 +192,10 @@ WARMUP_CALLS = 3
 _CLOCKS_WARM = False
 
 
-def cuda_ms(fn, iters: int) -> float:
+def cuda_ms(fn, iters: int, warmup_calls: int = WARMUP_CALLS) -> float:
     """Mean device time of fn() over ``iters`` runs, by CUDA events, after
-    the warm-up (WARMUP_S the first time in the process)."""
+    the warm-up (WARMUP_S the first time in the process, then
+    ``warmup_calls`` calls)."""
     global _CLOCKS_WARM
     if not _CLOCKS_WARM:
         t0 = time.perf_counter()
@@ -185,7 +204,7 @@ def cuda_ms(fn, iters: int) -> float:
                 fn()
             torch.cuda.synchronize()
         _CLOCKS_WARM = True
-    for _ in range(WARMUP_CALLS):
+    for _ in range(warmup_calls):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1636,7 +1655,12 @@ def path_kernels(env):
     epilogue and place, entity_pass with analytic entities, the mesh rows
     in tri_pass with mesh entities, mazegen on a procgen maze, and the
     instances its statics take (the glyph epilogue, SS=2, the paired scan
-    over more than one chunk, the nearest epilogue, the float32 carry)."""
+    over more than one chunk, the nearest epilogue, the float32 carry);
+    with view="top" the top view's kernels instead of the render's."""
+    if env.view == "top":  # the top view's two kernels and the reset's
+        return (("tri_pass_ortho", "topview_epilogue", "place")
+                + (("mazegen",) if env.procgen else ())
+                + (("topview_epilogue_nearest",) if env.tex_mode == "nearest" else ()))
     present = env._shapes_present
     names = ["tri_pass", "pixel_epilogue", "place"]
     names += ["entity_pass"] if present[0] or present[1] else []
@@ -1889,6 +1913,243 @@ def phase_continuous(room, make_env, rates):
         rates[env.spec.name.lower() + f"_b{B_PLAIN}"] = kernel_and_plain(
             env, PLAIN_HORIZON, TRIALS, path_kernels(env))[:2]
     return launches, stage_errs
+
+
+# ---------------------------------------------------------------------------
+# the top view (view="top": tri_pass_ortho, topview_epilogue) and the
+# visibility query (visible_ents)
+
+
+def top_stage_check(label, env, state):
+    """The env's top view of ``state``, stage by stage, kernels against
+    plain versions on the same inputs: tri_pass_ortho (t bit for bit, the
+    winner's row equal), then topview_epilogue on the kernel's hits (u8
+    images and depth equal). Returns (the scan's inputs, its outputs, the
+    epilogue's arguments, the max abs difference over t, rows, images and
+    depth)."""
+    from miniworld_tpu_torch.render import cuda_build
+    from miniworld_tpu_torch.render import topview as tv
+
+    st, bank = env._top, env._bank
+    wall_open = state.wall_open if bank.tri_wall_onehot is not None else None
+    scan = (st, state.layout_id, wall_open)
+    before = dict(cuda_build.LAUNCHES)
+    t_k, r_k = tv.tri_pass_ortho(*scan)
+    t_p, r_p = tv.tri_pass_ortho_plain(*scan)
+    n_t = int((t_k.view(torch.int32) != t_p.view(torch.int32)).sum())
+    n_row = int((r_k != r_p).sum())
+    ents, lights, marker = tv.epilogue_inputs(bank, state, env.spec.agent_radius)
+    tex_map = state.tex_map if env.tex_mode == "nearest" else None
+    epi = (t_k, r_k, ents, bank.tri_attr, state.layout_id, st, env._atlas, lights, marker,
+           env.fourier_k, env._has_gain, tex_map)
+    rgb_k, d_k = tv.topview_epilogue(*epi, table=env._fourier_table)
+    rgb_p, d_p = tv.topview_epilogue_plain(*epi)
+    n_rgb = int((rgb_k != rgb_p).any(-1).sum())
+    n_depth = int((d_k.view(torch.int32) != d_p.view(torch.int32)).sum())
+    err = max(max_abs_diff(t_k, t_p), max_abs_diff(r_k.float(), r_p.float()),
+              max_abs_diff(rgb_k, rgb_p), max_abs_diff(d_k, d_p))
+    launched = {k: v - before[k] for k, v in cuda_build.LAUNCHES.items() if v > before[k]}
+    ent_px = int((torch.isfinite(tv.entity_pass_ortho_plain(
+        *tv._pixel_coords(st, state.layout_id.long()), *ents)[0])).sum())
+    marker_px = int(((rgb_k[..., 0] == 255) & (rgb_k[..., 1] == 0) & (rgb_k[..., 2] == 0)).sum())
+    case = (f"{label} B={env.num_envs} {W}x{H} tex={env.tex_mode} S={bank.tri_mask.shape[1]} "
+            f"staged={st.rows.shape[1]} tile_rows={st.tile_rows.numel()}"
+            f"{' gain' if env._has_gain else ''}{' maze' if wall_open is not None else ''}")
+    say("kernel-vs-plain", kernel="tri_pass_ortho, topview_epilogue", case=case,
+        t_differs_px=n_t, row_differs_px=n_row, rgb_differs_px=n_rgb, depth_differs_px=n_depth,
+        max_abs_err=f"{err:.3e}", px_prim=f"{float((r_k >= 0).float().mean()):.3f}",
+        entity_px=ent_px, marker_px=marker_px, launched=launched, exact=True)
+    if n_t or n_row or n_rgb or n_depth:
+        raise AssertionError(f"top view ({case}): kernels differ from plain on {n_t} t, "
+                             f"{n_row} row, {n_rgb} RGB and {n_depth} depth pixels")
+    want = {"tri_pass_ortho", "topview_epilogue"} | (
+        {"topview_epilogue_nearest"} if tex_map is not None else set())
+    if not want <= set(launched) or marker_px == 0 or float((r_k >= 0).float().mean()) < 0.05:
+        raise AssertionError(f"top view ({case}): launched {launched}, {marker_px} marker px")
+    return scan, (t_k, r_k), epi, err
+
+
+def top_work(env, scan, outs, epi):
+    """(bytes, operations) of the top view's two launches on these inputs,
+    each input read once, each output written once. tri_pass_ortho: the
+    statics (staged rows, ids, codes, tile lists, grid), layout ids and
+    mazes in, t and row (8 bytes) a pixel out; 30 operations per (row,
+    pixel) pair that passes the hit test (three 3-term dots 15, offsets
+    3, scalings 3, coverage 3, gates 6) and 1 a pixel; under
+    "tri_pass_ortho_full_scan" every (bank row, pixel) pair. The
+    epilogue: t and row a pixel, each bank row once, the entities,
+    lights, marker, grid and texture table (or u8 atlas and tex_map) once,
+    7 bytes out a pixel; 60 operations a pixel (uv, lighting, the pack),
+    15 for the marker, 10 per (pixel, active entity), and per textured
+    pixel 35 a Fourier term (no footprint) or 12 for the nearest texel."""
+    from miniworld_tpu_torch.render import topview as tv
+
+    st, layout_id, wall_open = scan
+    t_k, r_k = outs
+    b, hw = layout_id.shape[0], W * H
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    statics = nbytes(st)
+    hit_pairs = 0
+    for sl in [slice(i, i + 16) for i in range(0, b, 16)]:
+        hit_pairs += int(torch.isfinite(tv.ortho_row_t(
+            st, layout_id[sl], None if wall_open is None else wall_open[sl])).sum())
+    s_bank = env._bank.tri_mask.shape[1]
+    scan_bytes = statics + b * 4 + nbytes([wall_open]) + b * hw * 8
+    work = {"tri_pass_ortho": (scan_bytes, hit_pairs * 30 + b * hw),
+            "tri_pass_ortho_full_scan": (scan_bytes, b * hw * s_bank * 30)}
+    ents, atlas, tex_map = epi[2], epi[6], epi[11]
+    flags = ents[5]
+    n_active = int(((flags & tv.ORTHO_ACTIVE) != 0).sum())
+    textured = int(((r_k >= 0) & (env._bank.tri_attr[layout_id.long()[:, None],
+                                                       r_k.clamp(min=0).long()][..., 14]
+                                  >= 0)).sum())
+    tex_bytes = (nbytes([env._fourier_table]) if tex_map is None
+                 else nbytes([atlas, tex_map]))
+    per_texel = 12 if tex_map is not None else 35 * env.fourier_k
+    work["topview_epilogue"] = (
+        b * hw * 8 + nbytes([env._bank.tri_attr]) + nbytes(ents) + nbytes([epi[7], epi[8]])
+        + nbytes([st.xs, st.zs]) + tex_bytes + b * hw * 7,
+        b * hw * 75 + hw * n_active * 10 + textured * per_texel)
+    return work
+
+
+def phase_topview_stages(cases, maze_top, pick_top):
+    """[topview-stages]: top_stage_check on every case, [(label, env)] at
+    B_PLAIN (Hallway, PickupObjects' footprints, FourRooms nearest, Sign's
+    glyphs with no footprint, the 8x8 procgen Maze's killed rows), then
+    at the shapes of the PickupObjects top-view main path (B=4096, its
+    ball, box and mesh footprints through the fused entity loop) and of
+    the Maze 8x8 procgen one (B=8192, 80x60), the Maze's checked the same
+    way and timed, each kernel beside its plain version on the same
+    inputs. Returns (max abs difference, {name: (ms, plain ms)}, {name:
+    work}, labels checked)."""
+    from miniworld_tpu_torch.render import topview as tv
+
+    gen = torch.Generator().manual_seed(1010)
+    errs, checked = [], []
+    for label, env in cases + [("pickupobjects", pick_top)]:
+        errs.append(top_stage_check(label, env, view_states(env, gen))[3])
+        checked.append(label if env.num_envs == B_PLAIN else f"{label} B={env.num_envs}")
+    state = random_maze_states(maze_top, gen, seed=11)
+    scan, outs, epi, err = top_stage_check("maze8x8-procgen", maze_top, state)
+    errs.append(err)
+    checked.append(f"maze8x8-procgen B={B_MAZE}")
+    timings = {
+        "tri_pass_ortho": (cuda_ms(lambda: tv.tri_pass_ortho(*scan), 50),
+                           cuda_ms(lambda: tv.tri_pass_ortho_plain(*scan), 1, warmup_calls=0)),
+        "topview_epilogue": (
+            cuda_ms(lambda: tv.topview_epilogue(*epi, table=maze_top._fourier_table), 50),
+            cuda_ms(lambda: tv.topview_epilogue_plain(*epi), 1, warmup_calls=0)),
+    }
+    work = top_work(maze_top, scan, outs, epi)
+    shapes = (f"{MAZE_ID} procgen view=top B={B_MAZE} HW={W * H} S={scan[0].row_id.shape[1]} "
+              f"staged of {maze_top._bank.tri_mask.shape[1]}")
+    for name, (ms, plain) in timings.items():
+        extra = ({"bound_full_scan_ms": f"{bound(*work['tri_pass_ortho_full_scan'])[0]:.4f}"}
+                 if name == "tri_pass_ortho" else {})
+        say("kernel-time", kernel=name, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+            bound_ms=f"{bound(*work[name])[0]:.4f}", bound_by=bound(*work[name])[1], **extra,
+            shapes=shapes)
+    return max(errs), timings, work, checked
+
+
+def vis_work(env, args, n_live):
+    """(bytes, operations) of a visible_ents launch on ``args`` (its
+    plain version's arguments): the room rows and codes, each env's
+    camera, entities, maze and flags once; 25 operations per (live room
+    row, pixel) pair (three 3-term dots 15, the reciprocal and t 2,
+    coverage 3, gates 5) and 40 a staged live row, 30 per (alive entity,
+    pixel) pair (six subtractions, six divisions, the slab min / max and
+    the gates). ``n_live``: the live room rows summed over the envs."""
+    st, layout_id, wall_open, cam, ent_pos, ent_alive = args
+    b, hw = layout_id.shape[0], W * H
+    nbytes = sum(t.numel() * t.element_size() for t in (*st, layout_id, wall_open, ent_pos,
+                                                         ent_alive) if t is not None)
+    nbytes += b * 14 * 4 + (W + H) * 4 + ent_alive.numel()
+    return nbytes, n_live * (hw * 25 + 40) + int(ent_alive.sum()) * hw * 30
+
+
+def phase_visible_ents(cases, steps=5):
+    """[visible-ents]: MiniWorldVec.visible_ents on each (label, env,
+    state maker) case at its main path's shapes (PickupObjects B=4096
+    facing its entities, the 8x8 procgen Maze B=8192 in random cells):
+    the kernel against its plain version on the same inputs, the mask
+    equal on every (env, entity), both timed; then the query's own path,
+    ``steps`` random steps each followed by env.visible_ents, counts set to
+    0 before and read after. Returns (max abs difference, {label: (ms,
+    plain ms)}, {label: work}, {label: launches of the path})."""
+    from miniworld_tpu_torch.ops.rng import key_data
+    from miniworld_tpu_torch.render import cuda_build
+    from miniworld_tpu_torch.render import visibility as vis
+    from miniworld_tpu_torch.render.raycast import camera_grid
+    from miniworld_tpu_torch.render.topview import row_live
+
+    errs, timings, work, launches = [], {}, {}, {}
+    for label, env, make_state in cases:
+        state = make_state(env)
+        wall_open = state.wall_open if env._bank.tri_wall_onehot is not None else None
+        args = (env._vis, state.layout_id, wall_open, camera_grid(state, W, H), state.ent_pos,
+                state.ent_alive)
+        got = vis.visible_ents(*args)
+        want = vis.visible_ents_plain(*args)
+        n_diff = int((got != want).sum())
+        errs.append(float(n_diff))
+        live = row_live(env._vis.row_code[state.layout_id.long()], wall_open)
+        work[label] = vis_work(env, args, int(live.sum()))
+        timings[label] = (cuda_ms(lambda: vis.visible_ents(*args), 20),
+                          cuda_ms(lambda: vis.visible_ents_plain(*args), 1, warmup_calls=0))
+        say("kernel-vs-plain", kernel="visible_ents", case=f"{label} B={env.num_envs} {W}x{H} "
+            f"Sr={env._vis.rows.shape[1]} E={state.ent_alive.shape[1]}",
+            mask_differs=n_diff, visible=int(want.sum()), alive=int(state.ent_alive.sum()),
+            live_room_rows=int(live.sum()), exact=True)
+        say("kernel-time", kernel="visible_ents", ms=f"{timings[label][0]:.4f}",
+            plain_ms=f"{timings[label][1]:.4f}", bound_ms=f"{bound(*work[label])[0]:.4f}",
+            bound_by=bound(*work[label])[1], shapes=f"{label} B={env.num_envs} HW={W * H}")
+        if n_diff or not 0 < int(want.sum()) < int(state.ent_alive.sum()):
+            raise AssertionError(f"visible_ents {label}: {n_diff} (env, entity) differ, "
+                                 f"{int(want.sum())} visible")
+        # the query's path: a step, then the query, counts read after
+        state, _ = env.reset(seed=5)
+        acts = env.rollout_actions(key_data(12, env.device), steps)
+        torch.cuda.synchronize()
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        n_vis = 0
+        for a in acts:
+            state = env._step_batch(state, a)[0]
+            n_vis += int(env.visible_ents(state).sum())
+        secs = time.perf_counter() - t0
+        launches[label] = dict(cuda_build.LAUNCHES)
+        say("visible-ents-path", env=label, B=env.num_envs, steps=steps,
+            visible_per_step=f"{n_vis / steps:.1f}", ms_per_step=f"{secs * 1e3 / steps:.3f}",
+            launches={k: v for k, v in launches[label].items() if v})
+        if launches[label]["visible_ents"] < steps or n_vis == 0:
+            raise AssertionError(f"visible_ents path {label}: {launches[label]}, {n_vis} visible")
+    return max(errs), timings, work, launches
+
+
+def phase_topview_paths(maze_top, pick_top, make_env, rates):
+    """The top-view main paths: the Maze 8x8 procgen one at B=8192 and
+    PickupObjects at B=4096, each with its breakdown and profile, then
+    Hallway's top view at B_PLAIN against its plain path, exactly.
+    Returns {label: launches}."""
+    launches = {}
+    rate, outs, obs, launches["maze"], _ = rollouts(maze_top, "top", HORIZON, TRIALS)
+    check_rollout(maze_top, outs, obs, launches["maze"], HORIZON, TRIALS, path_kernels(maze_top))
+    rates["maze8x8_procgen_top_b8192"] = (rate, None)
+    phase_breakdown(maze_top, render_iters=5, plain_render_iters=1)
+    rate, outs, obs, launches["pick"], _ = rollouts(pick_top, "top", SHORT_HORIZON, TRIALS)
+    check_rollout(pick_top, outs, obs, launches["pick"], SHORT_HORIZON, TRIALS,
+                  path_kernels(pick_top))
+    rates["pickupobjects_top_b4096"] = (rate, None)
+    phase_breakdown(pick_top, render_iters=5, plain_render_iters=1)
+    env = make_env(ENV_ID, B_PLAIN, view="top")
+    rates[f"hallway_top_b{B_PLAIN}"] = kernel_and_plain(
+        env, PLAIN_HORIZON, TRIALS, path_kernels(env), exact=True)[:2]
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2279,6 +2540,26 @@ def main():
     room_launches, room_errs = phase_continuous(room, env, rates)
     errs = {k: max(v, room_errs.get(k, 0.0)) for k, v in errs.items()}
     lap("main: roomobjects, putnext")
+    # the top view: both kernels against their plain versions at B_PLAIN
+    # and at the Maze 8x8 procgen top-view main path's shapes, then its
+    # main paths; the visibility query at PickupObjects' and the Maze's
+    maze_top, pick_top = env(MAZE_ID, B_MAZE, view="top"), env(PICK_ID, B_PICK, view="top")
+    top_cases = [("hallway", env(ENV_ID, B_PLAIN, view="top")),
+                 ("pickupobjects", env(PICK_ID, B_PLAIN, view="top")),
+                 ("fourrooms nearest", env("MiniWorld-FourRooms-v0", B_PLAIN, view="top",
+                                           tex_mode="nearest")),
+                 ("sign", env(SIGN_ID, B_PLAIN, view="top")),
+                 ("maze8x8-procgen", env(MAZE_ID, B_PLAIN, view="top"))]
+    top_err, top_timings, top_work_, top_checked = phase_topview_stages(top_cases, maze_top,
+                                                                         pick_top)
+    lap("topview-stages")
+    vis_gen = torch.Generator().manual_seed(2020)
+    vis_err, vis_timings, vis_work_, vis_launches = phase_visible_ents([
+        ("pickupobjects", pick, lambda e: facing_states(e, vis_gen, (0.5, 0.5), (11.5, 11.5))),
+        ("maze8x8-procgen", maze, lambda e: random_maze_states(e, vis_gen, seed=13))])
+    lap("visible-ents")
+    top_launches = phase_topview_paths(maze_top, pick_top, env, rates)
+    lap("main: maze top, pickupobjects top, hallway top")
     kernels = []
     for k, (src, rep) in KERNELS.items():
         # the Maze path's kernels at its shapes; the mesh pass at
@@ -2397,6 +2678,36 @@ def main():
             "shapes": f"{MAZE_ID} procgen nearest B={B_MAZE} HW={W * H} T=528",
             "checked_on": [k for k, f32 in near_checked.items()
                            if f32 or name == "pixel_epilogue_nearest"]})
+    # the top view's kernels at the Maze 8x8 procgen top-view main path's
+    # shapes (launches: its rollouts), the visibility query at the Maze's
+    # B=8192 (launches: its path) beside PickupObjects' B=4096
+    for name in ("tri_pass_ortho", "topview_epilogue"):
+        ms, plain_ms = top_timings[name]
+        row = {
+            "name": name, "route": "cuda", "source": TOP_KERNELS[name][0],
+            "replaces": TOP_KERNELS[name][1], "launches": int(top_launches["maze"][name]),
+            "max_abs_err": top_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound(*top_work_[name])[0], "bound_by": bound(*top_work_[name])[1],
+            "library_ms": None,
+            "shapes": f"{MAZE_ID} procgen view=top B={B_MAZE} HW={W * H}",
+            "launches_pickupobjects_b4096": int(top_launches["pick"][name]),
+            "checked_on": top_checked}
+        if name == "tri_pass_ortho":
+            row["bound_full_scan_ms"] = bound(*top_work_["tri_pass_ortho_full_scan"])[0]
+        kernels.append(row)
+    ms, plain_ms = vis_timings["maze8x8-procgen"]
+    kernels.append({
+        "name": "visible_ents", "route": "cuda", "source": TOP_KERNELS["visible_ents"][0],
+        "replaces": TOP_KERNELS["visible_ents"][1],
+        "launches": int(vis_launches["maze8x8-procgen"]["visible_ents"]), "max_abs_err": vis_err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound(*vis_work_["maze8x8-procgen"])[0],
+        "bound_by": bound(*vis_work_["maze8x8-procgen"])[1], "library_ms": None,
+        "shapes": f"{MAZE_ID} procgen B={B_MAZE} HW={W * H}",
+        "ms_pickupobjects_b4096": vis_timings["pickupobjects"][0],
+        "plain_ms_pickupobjects_b4096": vis_timings["pickupobjects"][1],
+        "bound_ms_pickupobjects_b4096": bound(*vis_work_["pickupobjects"])[0],
+        "launches_pickupobjects_b4096": int(vis_launches["pickupobjects"]["visible_ents"]),
+        "checked_on": ["pickupobjects B=4096", f"maze8x8-procgen B={B_MAZE}"]})
     kernels[KERNEL_ORDER["place"]]["launches_roomobjects"] = int(room_launches["place"])
     for k in kernels:  # what each kernel was held against its plain version on
         if k["name"] == "tri_pass":

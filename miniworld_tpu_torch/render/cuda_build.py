@@ -8,7 +8,8 @@ linked into one shared library with a plain C interface, loaded with
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``launch`` raises when it is not 0, and counts
 the launch in ``LAUNCHES``. The wrappers (render/raycast.py,
-ops/place.py, ops/mazegen.py) launch through it.
+render/topview.py, render/visibility.py, ops/place.py, ops/mazegen.py)
+launch through it.
 
 The library lands in ``build/kernels/`` at the repository root (listed
 in .gitignore), or in ``$MINIWORLD_TORCH_BUILD_DIR``; its file name
@@ -33,8 +34,10 @@ import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
-SOURCES = ("tri_pass.cu", "entity_pass.cu", "pixel_epilogue.cu", "place.cu", "mazegen.cu")
-HEADERS = ("rng.cuh",)  # included by the sources; part of the build's hash
+SOURCES = ("tri_pass.cu", "entity_pass.cu", "pixel_epilogue.cu", "place.cu", "mazegen.cu",
+           "tri_pass_ortho.cu", "topview_epilogue.cu", "visible_ents.cu")
+# included by the sources; part of the build's hash
+HEADERS = ("rng.cuh", "texel.cuh", "maze_row.cuh")
 # -fmad=false: no multiply-add contraction, so every hit-test boundary
 # (u >= 0, cov <= det, the r gates, the slab ties) rounds exactly as
 # the plain PyTorch version does and winners agree pixel for pixel.
@@ -65,6 +68,16 @@ ENTRY_POINTS = {
     "mw_place": [_P] * 20 + [_I] * 7 + [_P] * 5,
     # seeds, nbr_cell, nbr_wall, B, N, W, walls, stream
     "mw_mazegen": [_P, _P, _P, _I, _I, _I, _P, _P],
+    # rows, row_id, row_code, tile_off, tile_rows, xs, zs, layout_id,
+    # wall_open, B, Sc, W, H, NW, t, row, stream
+    "mw_tri_pass_ortho": [_P] * 9 + [_I] * 5 + [_P] * 3,
+    # t_tri, row, bank_attr, layout_id, xs, zs, 6 entity tensors, table,
+    # atlas, tex_map, lights, marker, B, W, H, S, E, A, K, gain, nearest,
+    # T, R, rgb, depth, stream
+    "mw_topview_epilogue": [_P] * 17 + [_I] * 11 + [_P] * 3,
+    # rows, row_code, layout_id, wall_open, camera, ent_pos, ent_alive, B,
+    # Sr, E, W, H, NW, visible, stream
+    "mw_visible_ents": [_P] * 4 + _CAM + [_P] * 2 + [_I] * 6 + [_P] * 2,
 }
 
 _LIB = None
@@ -81,12 +94,17 @@ BUILD_INFO: dict = {}
 # a pixel_epilogue launch of its supersample=2 instance
 # ("pixel_epilogue_ss2"), of its glyph instance ("pixel_epilogue_gain"),
 # of its nearest-texture instance ("pixel_epilogue_nearest") or reading
-# the float32 carry ("pixel_epilogue_f32").
+# the float32 carry ("pixel_epilogue_f32"). The top view's kernels
+# (render/topview.py) count under "tri_pass_ortho" and "topview_epilogue"
+# (its nearest-texture instance also under "topview_epilogue_nearest"),
+# the visibility query (render/visibility.py) under "visible_ents".
 LAUNCHES = {"tri_pass": 0, "entity_pass": 0, "pixel_epilogue": 0,
             "entity_mesh_pass": 0, "place": 0, "mazegen": 0,
             "tri_pass_override": 0, "pixel_epilogue_ss2": 0,
             "tri_pass_paired_chunks": 0, "pixel_epilogue_gain": 0,
-            "tri_pass_f32": 0, "pixel_epilogue_nearest": 0, "pixel_epilogue_f32": 0}
+            "tri_pass_f32": 0, "pixel_epilogue_nearest": 0, "pixel_epilogue_f32": 0,
+            "tri_pass_ortho": 0, "topview_epilogue": 0, "topview_epilogue_nearest": 0,
+            "visible_ents": 0}
 
 
 def reset_launch_counts():

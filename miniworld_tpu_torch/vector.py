@@ -28,14 +28,17 @@ entities, procgen mazes — a fresh maze per reset on the device
 (``procgen``, the Maze family's default), rendered from the paired
 super bank — domain randomization (``domain_rand``: the
 per-episode and per-step parameter draws and each episode's texture
-variants), ``supersample=2``, and the raw 6-D actions of the specs
-without a discrete table (RoomObjects, PutNext). Other statics (the top
-view) and plans raise NotImplementedError.
+variants), ``supersample=2``, the raw 6-D actions of the specs
+without a discrete table (RoomObjects, PutNext), the orthographic top
+view as the observation (``view="top"``, render/topview.py) and the
+entity-visibility query (``visible_ents``, render/visibility.py). Other
+plans raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -44,9 +47,11 @@ from miniworld_tpu_torch.convert import atlas_from_numpy, layout_from_numpy
 from miniworld_tpu_torch.envs.base import Ctx, EnvSpec
 from miniworld_tpu_torch.ops import mazegen, physics, place as place_ops, rng as rng_ops
 from miniworld_tpu_torch.render.raycast import (
-    chunk_starts, fourier_table, render_rgbd, room_of_point,
+    camera_grid, chunk_starts, fourier_table, render_rgbd, room_of_point,
 )
 from miniworld_tpu_torch.render.textures import FOURIER_TERMS, TextureCatalog
+from miniworld_tpu_torch.render.topview import render_top_view, top_statics
+from miniworld_tpu_torch.render.visibility import vis_statics, visible_ents, visible_ents_plain
 from miniworld_tpu_torch.scene.compile import Layout, compile_world, stack_layouts
 from miniworld_tpu_torch.scene.entities import (
     SHAPE_BOX, SHAPE_MESH_BOX, SHAPE_MESH_TRIS, SHAPE_SPHERE,
@@ -425,7 +430,7 @@ def plan_chunks(bank_np: Layout, num_envs: int, hw: int):
 
 
 def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
-                    domain_rand: bool = False, tex_mode: str = "fourier"):
+                    domain_rand: bool = False, tex_mode: str = "fourier", view: str = "agent"):
     """The static decisions of the JAX package's ``_install_bank`` for
     a fresh bank, for a batch of ``num_envs`` envs rendering ``hw``
     pixels each (the supersampled count with supersample=2).
@@ -476,7 +481,27 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
     chunk cap of 496). It raises NotImplementedError, naming the plan,
     for every other plan: ``chunk_vis`` schedules, packed PVS of more
     than one chunk a render, and mesh entities over more than one chunk.
+    With ``view="top"`` the observation is the top view, which scans the
+    dense rows as built (``tri_verts``, with the super bank's
+    ``tri_active`` kill) and carries them in float32: the bank gets no
+    chunk plan and none of the perspective render's refusals applies;
+    fourier mode bakes each prim's atlas base into its slot column, and
+    ``plan``, ``tri_chunk``, ``all_quads``, ``shapes_present``,
+    ``pg_wall`` and ``slot_tex`` are None.
     """
+    fourier = tex_mode == "fourier"
+    bake = fourier and not domain_rand
+    has_gain = fourier and bool(((tex_np[:, -1] > 1.0) | (tex_np[:, -1] < 0.0)).any())
+
+    def bake_tri_slots(bank_np):  # each prim's atlas base in its slot column
+        ta = bank_np.tri_attr.copy()
+        ta[:, :, 14] = bank_np.tri_tex_base
+        return dataclasses.replace(bank_np, tri_attr=ta)
+
+    if view == "top":
+        return (bake_tri_slots(bank_np) if bake else bank_np,
+                dict(plan=None, tri_chunk=None, all_quads=None, pg_wall=None,
+                     shapes_present=None, has_gain=has_gain, slot_tex=None))
     bank_np, plan = plan_chunks(bank_np, num_envs, hw)
     tri_chunk, s_bank = plan["tri_chunk"], bank_np.tri_mask.shape[1]
     where = f"(B={num_envs}, {hw} px: chunk cap {plan['cap']})"
@@ -499,22 +524,18 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
     n_scan = s_bank if bank_np.pg_verts9 is None else bank_np.pg_verts9.shape[2]
     plan["chunk_starts"] = ([0] if plan["kind"] == "packed_pvs"
                             else chunk_starts(n_scan, min(tri_chunk, n_scan)))
-    fourier = tex_mode == "fourier"
     if fourier and tex_np.shape[0] > 256:
         raise ValueError(
             f"a Fourier atlas of {tex_np.shape[0]} rows needs the float32 attribute carry in "
             "fourier mode: the tri_pass kernel's F32 OVERRIDE instance and the epilogue's "
             "fourier F32 instance are not built")
-    bake = fourier and not domain_rand
 
     def slot_rows(ids, base, cnt):  # (..., n) each -> (..., n, 4) f32
         return np.ascontiguousarray(np.stack(
             [ids.astype(np.float32), base, cnt, np.zeros_like(base)], axis=-1), np.float32)
 
     if bake:
-        ta = bank_np.tri_attr.copy()
-        ta[:, :, 14] = bank_np.tri_tex_base
-        bank_np = dataclasses.replace(bank_np, tri_attr=ta)
+        bank_np = bake_tri_slots(bank_np)
     slot_tex = (slot_rows(bank_np.tri_tex, bank_np.tri_tex_base, bank_np.tri_tex_count), None)
     if plan["kind"] == "packed_pvs":
         # the chunk-row views of the JAX package's one-hot chunk read,
@@ -556,7 +577,7 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
         all_quads=all_quads,
         pg_wall=pg_wall,
         shapes_present=shapes_present,
-        has_gain=fourier and bool(((tex_np[:, -1] > 1.0) | (tex_np[:, -1] < 0.0)).any()),
+        has_gain=has_gain,
         slot_tex=slot_tex if fourier and domain_rand else None,
     )
     return bank_np, statics
@@ -605,11 +626,19 @@ class MiniWorldVec:
         tex_mode: str = "fourier",
         view: str = "agent",
     ):
-        # the top view (JAX vector.py:1133-1146) is ported by a later slice
-        if view != "agent":
-            raise NotImplementedError(f"view={view!r} is not ported to miniworld_tpu_torch yet")
+        if view not in ("agent", "top"):
+            raise ValueError(f"view must be 'agent' or 'top', got {view!r}")
         if tex_mode not in ("fourier", "nearest"):
             raise ValueError(f"tex_mode must be 'fourier' or 'nearest', got {tex_mode!r}")
+        if view == "top" and domain_rand and tex_mode == "fourier":
+            # the JAX package's top view reads the layout-local slot ids of
+            # a domain_rand bank as atlas rows (miniworld_tpu/render/
+            # topview.py:102-110), a fault of the reference not to adopt
+            raise ValueError(
+                "view='top' with domain_rand=True and tex_mode='fourier': the reference "
+                "(miniworld_tpu/render/topview.py:102-110) reads layout-local slot ids as "
+                "atlas rows there; use tex_mode='nearest', whose top view resolves the "
+                "variants through tex_map")
         if supersample not in (1, 2):
             raise ValueError(f"supersample must be 1 or 2, got {supersample!r}")
         device = torch.device(device)
@@ -647,6 +676,10 @@ class MiniWorldVec:
         self.tex_mode = tex_mode
         self.place_budget = spec.place_budget
         self.fourier_k = spec.fourier_k or FOURIER_TERMS
+        # "top": each observation is the orthographic top view with the
+        # agent marker (JAX vector.py:1132-1146); it ignores supersample,
+        # as the JAX package's does
+        self.view = view
         # True: each render stage and the reset's placement go through
         # their wrappers (CUDA kernels for CUDA tensors); False: the plain
         # PyTorch versions.
@@ -656,7 +689,8 @@ class MiniWorldVec:
         bank_np, tex_np = build(spec, tex_mode)
         bank_np, statics = install_statics(
             bank_np, tex_np, self.num_envs,
-            self.obs_width * self.obs_height * self.supersample ** 2, self.domain_rand, tex_mode)
+            self.obs_width * self.obs_height * self.supersample ** 2, self.domain_rand, tex_mode,
+            view)
         self._bank_np = bank_np
         # the JAX package's chunk plan (plan_chunks), which the render follows
         self.plan = statics["plan"]
@@ -666,6 +700,9 @@ class MiniWorldVec:
         # the atlas has glyph rows (Sign): the epilogue's glyph branch
         self._has_gain = statics["has_gain"]
         self._bank = layout_from_numpy(bank_np, device)
+        # the top view's per-layout grid, staged rows and tile lists
+        self._top = (top_statics(self._bank, self.obs_width, self.obs_height)
+                     if view == "top" else None)
         self._pg_wall = (None if statics["pg_wall"] is None
                          else torch.from_numpy(statics["pg_wall"]).to(device))
         # domain_rand: each scanned row's (slot id, atlas base, variant
@@ -898,7 +935,14 @@ class MiniWorldVec:
     # -- observation -------------------------------------------------------------
 
     def render(self, state: EnvState):
-        """(rgb (B, H, W, 3) u8, depth (B, H, W, 1) f32)."""
+        """(rgb (B, H, W, 3) u8, depth (B, H, W, 1) f32): the agent's
+        view, or with ``view="top"`` the top view (``render_top_view``)."""
+        if self.view == "top":
+            return render_top_view(
+                self._bank, state, self._atlas, width=self.obs_width, height=self.obs_height,
+                agent_radius=self.spec.agent_radius, statics=self._top, tex_mode=self.tex_mode,
+                k_terms=self.fourier_k, table=self._fourier_table, has_gain=self._has_gain,
+                use_kernels=self.use_kernels)
         return render_rgbd(
             self._bank, state, self._atlas,
             width=self.obs_width, height=self.obs_height, k_terms=self.fourier_k,
@@ -918,6 +962,21 @@ class MiniWorldVec:
             rgb = {"obs": rgb, "goal": torch.full((rgb.shape[0],), self.spec.goal,
                                                   dtype=torch.int32, device=rgb.device)}
         return (rgb, depth) if self.with_depth else rgb
+
+    @functools.cached_property
+    def _vis(self):
+        """visible_ents' room rows (``vis_statics``), built at its first call."""
+        return vis_statics(self._bank)
+
+    def visible_ents(self, state: EnvState) -> torch.Tensor:
+        """(B, E) bool: each entity visible from the agent's camera
+        (get_visible_ents, JAX vector.py:1195-1205): the reference's
+        occlusion queries per pixel at the observation's size
+        (render/visibility.py), on the env's device."""
+        cam = camera_grid(state, self.obs_width, self.obs_height)
+        wall_open = state.wall_open if self._bank.tri_wall_onehot is not None else None
+        f = visible_ents if self.use_kernels else visible_ents_plain
+        return f(self._vis, state.layout_id, wall_open, cam, state.ent_pos, state.ent_alive)
 
     # -- public API -------------------------------------------------------------
 

@@ -2,9 +2,10 @@
 at B=2, 16x12, 3 steps from a key. Rewards, dones and checksums are
 finite, the observations have their shapes (Sign's a dict with its
 image and goal), and two rollouts from one key agree (RoomObjects' and
-PutNext's with the raw 6-D actions). The parity tests
-hold each id against the JAX package; this one shows that every id's
-whole path starts."""
+PutNext's with the raw 6-D actions). Every id's top view too (``view="top"``
+at 64x48: a rollout, the agent marker, ``visible_ents``' mask). The
+parity tests hold each id against the JAX package; this one shows that
+every id's whole path starts."""
 
 import numpy as np
 import pytest
@@ -41,3 +42,24 @@ def test_rollout(env_id):
     assert rgb.shape == (B, H, W, 3) and rgb.dtype == torch.uint8
     assert depth.shape == (B, H, W, 1) and bool(torch.isfinite(depth).all())
     assert int(outs[0]["obs_sum"].min()) > 0
+
+
+@pytest.mark.parametrize("env_id", ENV_IDS)
+def test_top_view_rollout_and_visible_ents(env_id):
+    """view="top" on every id: a rollout's top-view observations (the
+    floorplan from above: depth below FAR somewhere, the red agent
+    marker where a pixel is narrower than the agent radius), and visible_ents'
+    (B, E) mask on the last state."""
+    env = MiniWorldVec(env_id, B, obs_width=4 * W, obs_height=4 * H, device="cpu", view="top")
+    state, obs = env.reset(seed=3)
+    state, (rgb, depth), out = env.rollout(state, obs, key_data(11), HORIZON)
+    if env.spec.dict_obs:
+        rgb = rgb["obs"]
+    assert rgb.shape == (B, 4 * H, 4 * W, 3) and bool((depth < 100.0).any())
+    red = (rgb[..., 0] == 255) & (rgb[..., 1] == 0) & (rgb[..., 2] == 0)
+    pitch = float(env._top.xs[0, 1] - env._top.xs[0, 0])  # world units a pixel
+    if pitch < env.spec.agent_radius:  # the marker covers pixel centres
+        assert bool(red.flatten(1).any(1).all())
+    vis = env.visible_ents(state)
+    assert vis.dtype == torch.bool and vis.shape == state.ent_alive.shape
+    assert not bool((vis & ~state.ent_alive).any())

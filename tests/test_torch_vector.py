@@ -266,17 +266,23 @@ def test_wrappers_take_plain_on_cpu(port_env):
     {"procgen": True}, {"tex_mode": "nearest"}, {"view": "top"},
 ])
 def test_unported_statics_raise(kwargs):
-    """Statics no slice has ported (the top view) raise
-    NotImplementedError; procgen=True on Hallway, which has no maze grid,
-    raises the JAX package's ValueError
+    """procgen=True on Hallway, which has no maze grid, raises the JAX
+    package's ValueError
     (tests/test_procgen.py::test_procgen_requires_maze_spec).
-    tex_mode="nearest", which raised until its slice, constructs and
-    renders the u8 atlas's texels (tests/test_torch_nearest.py holds it
-    against the JAX package)."""
+    tex_mode="nearest" and view="top", which raised until their slices,
+    construct and render: the u8 atlas's texels, and the top view
+    (tests/test_torch_nearest.py and tests/test_torch_topview*.py hold
+    them against the JAX package)."""
     if "tex_mode" in kwargs:
         env = MiniWorldVec(ENV_ID, 2, obs_width=16, obs_height=12, device="cpu", **kwargs)
         _, (rgb, _) = env.reset(0)
         assert env._atlas.dtype == torch.uint8 and rgb.shape == (2, 12, 16, 3)
+        return
+    if "view" in kwargs:
+        env = MiniWorldVec(ENV_ID, 2, obs_width=16, obs_height=12, device="cpu", **kwargs)
+        _, (rgb, depth) = env.reset(0)
+        assert env.view == "top" and rgb.shape == (2, 12, 16, 3)
+        assert bool((depth < 100.0).any())  # the floor, seen from above
         return
     if "procgen" in kwargs:
         expect, match = ValueError, "maze-grid"
