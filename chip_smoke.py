@@ -65,7 +65,20 @@ version on every (env, entity) at PickupObjects B=4096 and the Maze
 B=8192, timed, and its own path of steps and queries ([visible-ents]);
 the Maze 8x8 procgen top-view rollout at B=8192 with its breakdown and
 profile, the PickupObjects one at B=4096, and Hallway's top view at B=128
-against its plain path, exactly.
+against its plain path, exactly. Last, the scheduled tri_pass (the SCHED
+instances: each env scans its own list of chunks): held exactly against
+tri_pass_scheduled ([sched-stages]) at B=128 on FourRooms, FourRooms with
+domain randomisation, ThreeRooms (mesh rows) and the MazeS3 bank, all at
+tri_chunk=16 (packed PVS over 2 chunks), on the 8x8 Maze's layout bank
+at 160x120 with supersample=2 (packed PVS over 2 chunks of 96), also
+with domain randomisation, with the float32 carry where neither mesh
+rows nor the override run, on two tie banks (the schedule's position
+rule with repeated chunks; a mesh row and a static row at equal
+quantized depth), and at the Maze bank's B=1024 with envs in the rooms
+whose clamped slot repeats a chunk, timed; then the Maze bank's rollout
+at B=1024 with its breakdown and profile, with domain randomisation,
+ThreeRooms, FourRooms and the MazeS3 bank at tri_chunk=16 at B=1024, and
+at B=128 against their plain paths.
 One line per phase; the JSON summary of the
 kernels and the card's ``nvidia-smi`` name and power limit come before
 the last line,
@@ -77,6 +90,7 @@ package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -93,9 +107,12 @@ ENV_ID = "MiniWorld-Hallway-v0"
 PICK_ID = "MiniWorld-PickupObjects-v0"
 B, W, H = 1024, 80, 60  # Hallway, and the FourRooms / TMaze / parity rollouts
 B_PICK = 4096  # PickupObjects, the reference's BASELINE batch for it
-# The horizons are cut to keep the run near five minutes as paths are
-# added: 20 steps for the main paths, 10 for the short ones
+# The horizons are cut to keep the run near ten minutes as paths are
+# added: 20 steps for the main paths, 10 for the short ones and for the
+# profiles of the main paths (PROFILE_STEPS; 20 until the scheduled paths
+# came)
 HORIZON = 20
+PROFILE_STEPS = 10
 TRIALS = 2  # Hallway; PickupObjects runs PICK_TRIALS
 PICK_TRIALS = 3
 SHORT_HORIZON = 10  # FourRooms, TMaze, MazeS3 bank-mode and the PickupObjects parity rollouts
@@ -115,6 +132,10 @@ PLAIN_HORIZON = 6
 # GreenKey and ThreeRooms: the other discrete-table ids of the slice
 SIGN_ID, GREEN_ID, THREE_ID = ("MiniWorld-Sign-v0", "MiniWorld-GreenKey-v0",
                                "MiniWorld-ThreeRooms-v0")
+FOUR_ID = "MiniWorld-FourRooms-v0"
+# the ids whose plan at tri_chunk=16 is packed PVS over 2 chunks a render,
+# with their other constructor arguments
+SCHED_IDS = ((THREE_ID, {}), (FOUR_ID, {}), (MAZE_S3_ID, {"procgen": False}))
 # the continuous-action ids (raw 6-D actions): RoomObjects at B_ROOM, its
 # placement at budget 48 and agent radius 1.5, and PutNext
 ROOM_ID, PUTNEXT_ID = "MiniWorld-RoomObjects-v0", "MiniWorld-PutNext-v0"
@@ -424,37 +445,47 @@ def check_stage(name, case, n_differ, differ, abs_err, rel_err, exact=False):
 def plain_tri_pass(tri_args, mesh=None, paired=None, tri_chunk=None, override=None,
                    attr_dtype=torch.bfloat16):
     """tri_pass's plain version on these inputs: tri_pass_plain (seeded by
-    the mesh pass on ``mesh`` rows), or tri_pass_chunked over more than
-    one chunk of ``tri_chunk``; ``override``: every row's texture
-    variant in its slot column; ``attr_dtype``: the carry."""
+    the mesh pass on ``mesh`` rows), tri_pass_chunked over more than
+    one chunk of ``tri_chunk``, or tri_pass_scheduled for a (B, n)
+    schedule in place of layout_id (seeded likewise); ``override``: every
+    row's texture variant in its slot column; ``attr_dtype``: the carry."""
     from miniworld_tpu_torch.render import raycast as rc
 
     verts9, attr, layout_id, cam, all_quads = tri_args
-    if tri_chunk is not None and verts9.shape[2] > tri_chunk:
+    sched = layout_id.dim() == 2
+    if not sched and tri_chunk is not None and verts9.shape[2] > tri_chunk:
         return rc.tri_pass_chunked(verts9, attr, layout_id, cam, tri_chunk, all_quads,
                                    override, paired, attr_dtype)
     seed = None if mesh is None else rc.entity_mesh_pass_plain(*mesh, cam, attr_dtype)
+    if sched:
+        return rc.tri_pass_scheduled(verts9, attr, layout_id, cam, all_quads, seed, override,
+                                     attr_dtype)
     return rc.tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired, override,
                              attr_dtype)
 
 
-def check_tri_pass(tri_args, case, mesh=None, paired=None, tri_chunk=None, override=None):
+def check_tri_pass(tri_args, case, mesh=None, paired=None, tri_chunk=None, override=None,
+                   attr_dtype=torch.bfloat16):
     """The tri_pass kernel against its plain version on every pixel (t
     and attributes); with ``mesh`` rows the fused launch against the mesh
     pass seeding tri_pass_plain; over more than one chunk of
-    ``tri_chunk`` the multi-chunk launch against tri_pass_chunked; with
-    ``override`` the winner's texture variant against every row's.
-    Returns (t, attr, max abs t error)."""
+    ``tri_chunk`` the multi-chunk launch against tri_pass_chunked; over a
+    (B, n) schedule the SCHED launch against tri_pass_scheduled; with
+    ``override`` the winner's texture variant against every row's;
+    ``attr_dtype`` the carry. Returns (t, attr, max abs t error)."""
     from miniworld_tpu_torch.render import raycast as rc
 
     verts9, attr, layout_id, cam, all_quads = tri_args
     t_k, a_k = rc.tri_pass(verts9, attr, layout_id, cam, all_quads, mesh, paired, tri_chunk,
-                           override)
-    t_p, a_p = plain_tri_pass(tri_args, mesh, paired, tri_chunk, override)
+                           override, attr_dtype)
+    t_p, a_p = plain_tri_pass(tri_args, mesh, paired, tri_chunk, override, attr_dtype)
     n_differ, differ, abs_err, rel_err = compare_hits(t_k, t_p, (a_k == a_p).all(-1))
-    multi = tri_chunk is not None and verts9.shape[2] > tri_chunk
+    sched = layout_id.dim() == 2
+    multi = not sched and tri_chunk is not None and verts9.shape[2] > tri_chunk
     check_stage("tri_pass" + (" mesh" if mesh else "") + (" paired" if paired else "")
-                + (" multi-chunk" if multi else "") + (" override" if override else ""),
+                + (" multi-chunk" if multi else "") + (" sched" if sched else "")
+                + (" override" if override else "")
+                + (" f32" if attr_dtype == torch.float32 else ""),
                 case, n_differ, differ, abs_err, rel_err, exact=True)
     return t_k, a_k, abs_err
 
@@ -701,6 +732,21 @@ def tri_cull_stats(tri, paired=None, tile=None, block=32, mesh_rows9=None):
     verts9, attr, layout_id, cam, all_quads = tri
     b = layout_id.shape[0]
     out = dict(hit_pairs=0, image=0.0, tiles=0.0, scanned=0.0)
+    if layout_id.dim() == 2 and mesh_rows9 is None:  # a schedule: each chunk at its first
+        if tile is not None or paired is not None:  # position, hits only
+            raise ValueError("tri_cull_stats counts only the hits of a schedule")
+        first = torch.ones_like(layout_id, dtype=torch.bool)
+        for j in range(1, layout_id.shape[1]):
+            first[:, j] = (layout_id[:, :j] != layout_id[:, j:j + 1]).all(1)
+        for lo in range(0, b, block):
+            sl = slice(lo, lo + block)
+            c = cam_rows(cam, sl)
+            for j in range(layout_id.shape[1]):
+                rows = rc.stage_rows(verts9, attr, layout_id[sl, j], c)
+                hits = rc.row_hits_plain(rows, c, all_quads).sum((1, 2))
+                out["hit_pairs"] += int((hits * first[sl, j]).sum())
+        return dict(hit_pairs=out["hit_pairs"],
+                    hits_per_px=out["hit_pairs"] / (b * cam.width * cam.height))
     if tile is not None:
         tw, th = tile
         cols = torch.tensor([min(tw, W - x) for x in range(0, W, tw)], dtype=torch.float64)
@@ -1255,8 +1301,7 @@ def dr_route(env, state):
     from miniworld_tpu_torch.render import raycast as rc
 
     cam = rc.camera_grid(state, W, H)
-    rows, paired = rc.static_rows(env._bank, state, cam, env._pg_wall,
-                                  env.plan["kind"] == "packed_pvs")
+    rows, paired = rc.static_rows(env._bank, state, cam, env._pg_wall, env.plan)
     mesh = rc.entity_mesh_rows(env._bank, state)[:2] if env._shapes_present[2] else None
     override = (state.tri_slots, *env._slot_tex)
     return (*rows, cam, env._all_quads), mesh, paired, env.tri_chunk, override
@@ -1305,24 +1350,33 @@ def phase_dr_stages(routes):
     return err, timings, work
 
 
-def tri_work(tri, hit_pairs, paired=None, override=None, attr_bytes=32):
-    """(bytes, operations) of a tri_pass launch without mesh rows on these
-    inputs (at the camera's samples), as stage_work counts them, each row
-    tested once; ``override`` adds its table and
+def tri_work(tri, hit_pairs, paired=None, override=None, attr_bytes=32, mesh=None):
+    """(bytes, operations) of a tri_pass launch on these inputs (at the
+    camera's samples), as stage_work counts them, each row tested once
+    (of a (B, n) schedule, the distinct chunk rows it names, each read
+    once);
+    ``override`` adds its table and
     keys (each read once) and 20 operations per pixel (the hash, the
     floor, the clamp and the add); ``attr_bytes``: the winner's row as
-    stored, 32 in bf16, 64 with the float32 carry."""
+    stored, 32 in bf16, 64 with the float32 carry; ``mesh`` = (rows9,
+    mesh_hits) adds the mesh rows (read once) and 20 operations per
+    (mesh row, pixel) pair that passes the hit test."""
     verts9, _, layout_id, cam, _ = tri
     L, _, S = verts9.shape
+    if layout_id.dim() == 2:  # a schedule: the distinct chunk rows it reads
+        L = torch.unique(layout_id).numel()
     b, hw = layout_id.shape[0], cam.width * cam.height
-    nbytes = (L * S * (9 + 16) * 4 + b * 4 + b * 14 * 4 + (cam.width + cam.height) * 4
-              + b * hw * (4 + attr_bytes))
+    nbytes = (L * S * (9 + 16) * 4 + layout_id.numel() * 4 + b * 14 * 4
+              + (cam.width + cam.height) * 4 + b * hw * (4 + attr_bytes))
     if paired is not None:
         nbytes += sum(t.numel() * t.element_size() for t in paired)
     ops = hit_pairs * 22 + b * hw
     if override is not None:
         nbytes += b * 4 + sum(t.numel() * 4 for t in override[1:] if t is not None)
         ops += b * hw * 20
+    if mesh is not None:
+        nbytes += mesh[0].numel() // 9 * (9 + 16) * 4
+        ops += mesh[1] * 20
     return nbytes, ops
 
 
@@ -1332,8 +1386,7 @@ def ss_stage_inputs(env, state):
     from miniworld_tpu_torch.render import raycast as rc
 
     cam = rc.camera_grid(state, 2 * W, 2 * H)
-    rows, paired = rc.static_rows(env._bank, state, cam, env._pg_wall,
-                                  env.plan["kind"] == "packed_pvs")
+    rows, paired = rc.static_rows(env._bank, state, cam, env._pg_wall, env.plan)
     mesh = rc.entity_mesh_rows(env._bank, state)[:2] if env._shapes_present[2] else None
     t_tri, attr = rc.tri_pass(*rows, cam, env._all_quads, mesh, paired, env.tri_chunk)
     ent = (None,) * 3
@@ -1622,6 +1675,312 @@ def phase_paired_chunks(maze_ss):
     return err, timings, work
 
 
+# ---------------------------------------------------------------------------
+# scheduled tri_pass (packed PVS over more than one chunk, its mesh-seeded
+# form, chunk_vis): the SCHED instances
+
+
+def sched_route(env, state):
+    """(tri_args, mesh, override) of the env's render of ``state`` at its
+    own samples: static_rows' one-chunk rows and (B, n) schedule, the mesh
+    rows and the override from its slot table, as render_rgbd passes them
+    to tri_pass. Raises unless the plan is a schedule."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    ss = env.supersample
+    cam = rc.camera_grid(state, env.obs_width * ss, env.obs_height * ss)
+    rows, paired = rc.static_rows(env._bank, state, cam, env._pg_wall, env.plan)
+    if rows[2].dim() != 2 or paired is not None:
+        raise AssertionError(f"{env.spec.gym_id} B={env.num_envs} plans {env.plan['kind']} "
+                             f"sched_len {env.plan['sched_len']}: no schedule")
+    mesh = rc.entity_mesh_rows(env._bank, state)[:2] if env._shapes_present[2] else None
+    override = None if env._slot_tex is None else (state.tri_slots, *env._slot_tex)
+    return (*rows, cam, env._all_quads), mesh, override
+
+
+def sub_route(route, n):
+    """The first n envs of a sched_route."""
+    (v9, at, sched, cam, quads), mesh, override = route
+    sl = slice(0, n)
+    return ((v9, at, sched[sl], cam_rows(cam, sl), quads),
+            None if mesh is None else tuple(m[sl] for m in mesh),
+            None if override is None else (override[0][sl], *override[1:]))
+
+
+def sched_ties(dev, n=B_STAGE, seed=41):
+    """Two tie banks of one-chunk rows in front of n cameras (tie_cameras):
+    (a) the 4 chunks of 256 of tie_case (a group, the group again at the
+    same local indices, rolled, new prims) under random schedules of 4
+    positions, repeats included (a clamped or padded slot), where the
+    position decides ties; (b) 2 chunks of 1,024 whose local row 1,023 is
+    a copy of mesh triangle 0 (chunk 0) or 1 (chunk 1), the other rows far
+    quads, with 16 mesh triangles, so that a static row and the mesh seed
+    meet at equal quantized depth (the seed's key ends in 1,023 ones).
+    Returns ((tri_args, None), (tri_args, mesh))."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    v9, at, _, cam, quads = tie_case(dev, n)
+    g = v9.shape[2] // 4
+    rows9 = v9.view(9, 4, g).transpose(0, 1).contiguous()
+    rows_at = at.view(4, g, 16).contiguous()
+    sched = torch.from_numpy(rng.integers(0, 4, (n, 4)).astype(np.int32)).to(dev)
+    rep = (rows9, rows_at, sched, cam, quads)
+    cam = tie_cameras(dev, n, rng)
+    k, m = 1024, 16
+    v0 = np.stack([rng.uniform(4, 8, m), rng.uniform(0.0, 2.5, m), rng.uniform(-2, 2, m)])
+    tri = np.concatenate([v0, v0 + rng.uniform(-3, 3, (3, m)), v0 + rng.uniform(-3, 3, (3, m))])
+    # the two copied triangles: large, upright at x = 6 and 6.5, both windings
+    tri[:, 0] = [6.0, 0.2, -3.0, 6.0, 0.2, 3.0, 6.0, 3.0, 0.0]
+    tri[:, 1] = [6.5, 0.2, -3.0, 6.5, 3.0, 0.0, 6.5, 0.2, 3.0]
+    far = np.concatenate([np.stack([rng.uniform(12, 20, k), rng.uniform(0, 2.5, k),
+                                    rng.uniform(-4, 4, k)])] * 3)
+    far[3:6] += rng.uniform(-3, 3, (3, k))
+    far[6:9] += rng.uniform(-3, 3, (3, k))
+    chunks = np.stack([far, far[:, ::-1]]).astype(f32)  # (2, 9, k)
+    chunks[0, :, k - 1] = tri[:, 0]
+    chunks[1, :, k - 1] = tri[:, 1]
+    attrs = rng.uniform(-1, 1, (2, k, 16)).astype(f32)
+    attrs[:, :, 15] = (rng.uniform(size=(2, k)) < 0.5).astype(f32)
+    attrs[:, k - 1, 15] = 1.0  # the copies are triangles, as mesh rows are
+    mesh_at = rng.uniform(-1, 1, (n, m, 16)).astype(f32)
+    mesh_at[:, :, 15] = 1.0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    seeded = (t(chunks), t(attrs), torch.tensor([[0, 1]] * n, dtype=torch.int32, device=dev),
+              cam, False)
+    mesh = (t(np.broadcast_to(tri.astype(f32), (n, 9, m))), t(mesh_at))
+    return (rep, None), (seeded, mesh)
+
+
+def phase_sched_stages(cases, timed_cases):
+    """[sched-stages]: the SCHED instances of tri_pass against
+    tri_pass_scheduled on every pixel, t and the 16 attributes: each
+    case's route (``cases`` = [(label, env, state, n)], the first n envs;
+    the plain SCHED, SCHED x OVERRIDE with the bank's variants and with
+    synthetic ones, SCHED x MESH, SCHED x F32 with the float32 carry), the
+    tie banks of ``sched_ties`` (the position rule, repeated chunks, the
+    mesh seed against a static row at equal key), then ``timed_cases`` =
+    [(label, env, state)] checked whole and timed (the kernel over 50
+    launches, the plain version once). Returns (max abs t error, {label:
+    (ms, plain ms)}, {label: work}, checked labels)."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(1166)
+    err, checked = 0.0, []
+    for label, env, state, n in cases:
+        tri, mesh, override = sub_route(sched_route(env, state), n)
+        sched = tri[2]
+        repeats = int((sched[:, 1:] == sched[:, :-1]).any(1).sum())
+        case = (f"{label} B={sched.shape[0]} samples={tri[3].width}x{tri[3].height} "
+                f"rows {tri[0].shape[0]}x{tri[0].shape[2]} sched_len={sched.shape[1]} "
+                f"envs_with_a_repeat={repeats}{' mesh' if mesh else ''}")
+        t_k, _, e = check_tri_pass(tri, case, mesh, override=override)
+        err = max(err, e)
+        if float(torch.isfinite(t_k).float().mean()) < 0.3:
+            raise AssertionError(f"{case}: only {float(torch.isfinite(t_k).float().mean()):.3f} "
+                                 "of the samples hit a prim")
+        if override is not None:
+            synth = (override[0], spread_tex(override[1], gen), None)
+            e, changed = check_override(tri, synth, case + " synthetic variants", mesh)
+            err = max(err, e)
+            if changed < 0.2:
+                raise AssertionError(f"{case}: the synthetic variants change only {changed:.3f}")
+        if mesh is None and override is None:  # the float32 carry on the same rows
+            _, _, e = check_tri_pass(tri, case + " f32 carry", attr_dtype=torch.float32)
+            err = max(err, e)
+        checked.append(label)
+    (rep, _), (seeded, mesh) = sched_ties(dev)
+    t_k, a_k, e = check_tri_pass(rep, f"sched ties B={B_STAGE} 4 chunks of 256, random "
+                                 "schedules with repeats")
+    err = max(err, e)
+    _, a_rev = rc.tri_pass_scheduled(*rep[:2], rep[2].flip(1).contiguous(), *rep[3:])
+    decided = int((a_rev != a_k).any(-1).sum())
+    repeats = int(torch.stack([(rep[2][:, j:j + 1] == rep[2][:, :j]).any(1)
+                               for j in range(1, 4)], 1).any(1).sum())
+    say("tie-case", route="sched", chunks="4x256", envs_with_a_repeated_chunk=repeats,
+        px_decided_by_position=decided)
+    if decided < 100 or repeats < B_STAGE // 4:
+        raise AssertionError(f"the schedule tie case decides {decided} pixels, repeats in "
+                             f"{repeats} envs")
+    t_k, a_k, e = check_tri_pass(seeded, f"sched mesh ties B={B_STAGE} 2 chunks of 1024", mesh)
+    err = max(err, e)
+    t_s, _ = rc.tri_pass_scheduled(*seeded)  # the static rows alone
+    t_m, a_m = rc.entity_mesh_pass_plain(*mesh, seeded[3])
+    # equal quantized depth; the seed's key is its t's round trip, so at
+    # some of these pixels it falls one quantum below and the static row wins
+    tie = torch.isfinite(t_m) & (t_s == t_m)
+    kept = int((tie & (a_k == a_m).all(-1)).sum())
+    say("tie-case", route="sched mesh", chunks="2x1024", px_equal_depth=int(tie.sum()),
+        px_seed_kept_at_equal_depth=kept)
+    if kept < 100:
+        raise AssertionError(f"the mesh tie case keeps the seed on {kept} of "
+                             f"{int(tie.sum())} equal-depth pixels")
+    checked += ["ties: position, repeated chunks", "ties: mesh seed at equal key"]
+    timings, work = {}, {}
+    for label, env, state in timed_cases:
+        tri, mesh, override = sched_route(env, state)
+        case = (f"{label} B={env.num_envs} samples={tri[3].width}x{tri[3].height} "
+                f"rows {tri[0].shape[0]}x{tri[0].shape[2]} sched_len={tri[2].shape[1]}"
+                f"{' mesh' if mesh else ''}")
+        _, _, e = check_tri_pass(tri, case, mesh, override=override)
+        err = max(err, e)
+        checked.append(label + f" B={env.num_envs}")
+        timings[label] = (cuda_ms(lambda: rc.tri_pass(*tri, mesh, None, None, override), 50),
+                          cuda_ms(lambda: plain_tri_pass(tri, mesh, None, None, override), 1))
+        stats = tri_cull_stats(tri, block=16)
+        mesh_work = None
+        if mesh is not None:
+            mesh_work = (mesh[0], tri_cull_stats(tri, block=16, mesh_rows9=mesh[0])["hit_pairs"])
+        work[label] = tri_work(tri, stats["hit_pairs"], None, override, mesh=mesh_work)
+        clamped = int((tri[2][:, 1:] == tri[2][:, :-1]).any(1).sum())
+        say("kernel-time", kernel="tri_pass",
+            instance="sched" + (" mesh" if mesh else "") + (" override" if override else ""),
+            ms=f"{timings[label][0]:.4f}", plain_ms=f"{timings[label][1]:.4f}",
+            bound_ms=f"{bound(*work[label])[0]:.4f}", bound_by=bound(*work[label])[1],
+            hit_rows_per_sample=f"{stats['hits_per_px']:.4f}",
+            envs_with_a_clamped_slot=clamped, shapes=case)
+    return err, timings, work, checked
+
+
+def check_render_stages(env, state, label):
+    """The env's render of ``state`` at its main path's shapes, through the
+    kernels against the plain versions: entity_pass against
+    entity_pass_plain (check_stage's limits), the SS pixel_epilogue
+    against pixel_epilogue_plain on the kernels' hits (exact), then the
+    whole render, env.render with use_kernels False (RGB and depth equal).
+    Returns the max abs entity t error."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    ss = env.supersample
+    tri, mesh, override = sched_route(env, state)
+    cam = tri[3]
+    t_k, a_k = rc.tri_pass(*tri, mesh, None, None, override)
+    case = (f"{label} B={env.num_envs} out={env.obs_width}x{env.obs_height} "
+            f"samples={cam.width}x{cam.height}")
+    if not (env._shapes_present[0] or env._shapes_present[1]):
+        raise AssertionError(f"{case}: no analytic entities for entity_pass")
+    ent = (state.ent_pos, state.ent_size, state.ent_dir, state.ent_height, state.ent_color,
+           rc.entity_flags(env._bank, state), cam, *env._shapes_present[:2])
+    e_k, e_p = rc.entity_pass(*ent), rc.entity_pass_plain(*ent)
+    same = (e_k[1] == e_p[1]).all(-1) & (e_k[2] == e_p[2]).all(-1)
+    n_differ, differ, ent_err, rel_err = compare_hits(e_k[0], e_p[0], same)
+    check_stage("entity_pass", case, n_differ, differ, ent_err, rel_err)
+    lights = (state.light_pos, state.light_color, state.light_ambient, state.sky_color)
+    args = (t_k, a_k, *e_k, env._atlas, cam, *lights, env.fourier_k)
+    outs = {"stage": (rc.pixel_epilogue(*args, table=env._fourier_table, ss=ss),
+                      rc.pixel_epilogue_plain(*args, ss=ss))}
+    kernels = env.render(state)
+    env.use_kernels = False
+    try:
+        outs["render"] = (kernels, env.render(state))
+    finally:
+        env.use_kernels = True
+    for what, ((rgb_k, d_k), (rgb_p, d_p)) in outs.items():
+        n_rgb, n_depth = int((rgb_k != rgb_p).any(-1).sum()), int((d_k != d_p).sum())
+        say("kernel-vs-plain", kernel="pixel_epilogue" if what == "stage" else "render",
+            instance=f"SS={ss}", case=case, rgb_differs_px=n_rgb, depth_differs_px=n_depth,
+            exact=True)
+        if n_rgb or n_depth or rgb_k.shape != (env.num_envs, env.obs_height, env.obs_width, 3):
+            raise AssertionError(f"{case} {what}: kernels differ from plain on {n_rgb} RGB and "
+                                 f"{n_depth} depth pixels")
+    return ent_err
+
+
+def phase_sched_paths(maze_bank, maze_bank_dr, bank_states, big, small, rates):
+    """The scheduled main paths: the 8x8 Maze's layout bank at B=1024,
+    160x120 with supersample=2 (packed PVS, 2 chunks of 96), with its
+    breakdown and profile, and with domain randomisation (SCHED x
+    OVERRIDE), each first rendered from its state in ``bank_states``
+    through the kernels and the plain versions (check_render_stages);
+    ThreeRooms (mesh rows: SCHED x MESH), FourRooms and the MazeS3 bank
+    with tri_chunk=16 at B=1024, 80x60 (``big``: {id: env}), and at
+    B_PLAIN (``small``) against their plain paths. Returns ({label:
+    launches}, the max abs entity t error of the render checks)."""
+    launches = {}
+    ent_err = max(check_render_stages(env, st, label) for env, st, label in (
+        (maze_bank, bank_states[0], "maze8x8-bank ss=2"),
+        (maze_bank_dr, bank_states[1], "maze8x8-bank ss=2 domain_rand")))
+    for env, label, horizon in ((maze_bank, "maze_bank", HORIZON),
+                                (maze_bank_dr, "maze_bank_dr", SHORT_HORIZON)):
+        rate, outs, obs, launches[label], _ = rollouts(env, "sched", horizon, TRIALS)
+        check_rollout(env, outs, obs, launches[label], horizon, TRIALS, path_kernels(env))
+        rates[f"maze8x8_bank_ss2{'_dr' if env.domain_rand else ''}_b{env.num_envs}"] = (rate, None)
+    phase_breakdown(maze_bank, render_iters=5, plain_render_iters=1)
+    for env_id, _ in SCHED_IDS:
+        for env in (big[env_id], small[env_id]):
+            if "tri_pass_sched" not in path_kernels(env):
+                raise AssertionError(f"{env_id} tri_chunk=16 B={env.num_envs} plans {env.plan}")
+            name = env.spec.name.lower() + f"_tri_chunk16_b{env.num_envs}"
+            if env.num_envs == B:
+                rate, outs, obs, launches[name], _ = rollouts(env, "sched", SHORT_HORIZON,
+                                                              TRIALS)
+                check_rollout(env, outs, obs, launches[name], SHORT_HORIZON, TRIALS,
+                              path_kernels(env))
+                rates[name] = (rate, None)
+            else:
+                rates[name] = kernel_and_plain(env, PLAIN_HORIZON, TRIALS,
+                                               path_kernels(env))[:2]
+    return launches, ent_err
+
+
+def clamped_states(env, state, per_room=8):
+    """The states with their last envs moved to the centres of the first
+    two (layout, room) pairs whose packed schedule runs past the layout's
+    last chunk (base + sched_len > NC: JAX's one-hot read leaves the
+    layout there, the port's clamp repeats the last chunk), ``per_room``
+    yaws each. Returns (state, names of the pairs)."""
+    plan, bank = env.plan, env._bank_np
+    over = np.argwhere(bank.room_mask & (bank.pvs_room_base + plan["sched_len"] > plan["nc"]))
+    pairs = [tuple(int(v) for v in p) for p in over[:2]]
+    n = len(pairs) * per_room
+    lid, pos, yaw = state.layout_id.clone(), state.pos.clone(), state.dir.clone()
+    for i, (li, r) in enumerate(pairs):
+        a = bank.room_aabb[li, r]
+        sl = slice(env.num_envs - n + i * per_room, env.num_envs - n + (i + 1) * per_room)
+        lid[sl] = li
+        pos[sl] = torch.tensor([0.5 * (a[0] + a[1]), 0.0, 0.5 * (a[2] + a[3])])
+        yaw[sl] = torch.arange(per_room, dtype=torch.float32) * (2 * math.pi / per_room)
+    return state.replace(layout_id=lid, pos=pos, dir=yaw), pairs
+
+
+def chunk_vis_env(make):
+    """The env ``make()`` builds, planned with the packed planner switched
+    off: JAX's chunk_vis plan where culling pays (no id plans it at its
+    defaults; the 8x8 Maze's layout bank at 160x120 supersample=2, B=1024:
+    8 of its 16 chunks of 32)."""
+    from miniworld_tpu_torch import vector
+
+    planner = vector.plan_packed_pvs
+    vector.plan_packed_pvs = lambda bank, cap, over: (None, cap, None, math.inf)
+    try:
+        return make()
+    finally:
+        vector.plan_packed_pvs = planner
+
+
+@contextlib.contextmanager
+def shared_banks():
+    """Within the block, ``vector.build_bank`` builds each (id, layouts,
+    texture mode) once: the 8x8 Maze's 64 layouts take ~46 s on the card's
+    host, and the domain_rand path's env compiles the same bank (its
+    texture variants are drawn at reset and render time)."""
+    from miniworld_tpu_torch import vector
+
+    orig, built = vector.build_bank, {}
+
+    def build_bank(spec, tex_mode="fourier"):
+        key = (spec.gym_id, spec.num_layouts, tex_mode)
+        if key not in built:
+            built[key] = orig(spec, tex_mode)
+        return built[key]
+
+    vector.build_bank = build_bank
+    try:
+        yield
+    finally:
+        vector.build_bank = orig
+
+
 def phase_glyph_paths(sign, maze_ss, make_env, rates):
     """The new main paths: Sign at B=1024 (K=64, dict observations, the
     GAIN epilogue and mesh rows every step) and the Maze 8x8 procgen one
@@ -1669,6 +2028,9 @@ def path_kernels(env):
     names += ["pixel_epilogue_gain"] if env._has_gain else []
     names += ["pixel_epilogue_ss2"] if env.supersample == 2 else []
     names += ["tri_pass_paired_chunks"] if env.procgen and len(env.plan["chunk_starts"]) > 1 else []
+    plan = env.plan
+    names += ["tri_pass_sched"] if (env._bank.pvs_v9_rows is not None
+                                    and (plan["sched_len"] or plan["nc"]) > 1) else []
     names += ["tri_pass_override"] if env._slot_tex is not None else []
     if env.tex_mode == "nearest":
         names += ["pixel_epilogue_nearest"]
@@ -1725,8 +2087,7 @@ def check_nearest(label, env, state, tri_chunk=None):
     carry = rc.attr_carry_dtype(state.tex_map.shape[1])
     mesh = (rc.entity_mesh_rows(env._bank, state, fourier=False)[:2] if env._shapes_present[2]
             else None)
-    rows, paired = rc.static_rows(env._bank, state, cam, env._pg_wall,
-                                  env.plan["kind"] == "packed_pvs")
+    rows, paired = rc.static_rows(env._bank, state, cam, env._pg_wall, env.plan)
     tc = env.tri_chunk if tri_chunk is None else tri_chunk
     tri = (*rows, cam, env._all_quads)
     before = dict(cuda_build.LAUNCHES)
@@ -2180,7 +2541,8 @@ def rollouts(env, label, horizon, trials, warmup=True):
         outs.append(out)
     launches = dict(cuda_build.LAUNCHES)
     rate = env.num_envs * horizon * trials / sum(times)
-    say("main-path", path=label, env=env.spec.gym_id, B=env.num_envs, obs=f"{W}x{H}",
+    say("main-path", path=label, env=env.spec.gym_id, B=env.num_envs,
+        obs=f"{env.obs_width}x{env.obs_height}", ss=env.supersample,
         horizon=horizon, trials=trials, env_steps_per_s=f"{rate:.1f}",
         trial_s=",".join(f"{t:.4f}" for t in times), launches=launches)
     return rate, outs, obs, launches, state
@@ -2209,7 +2571,7 @@ def check_rollout(env, outs, obs, launches, horizon, trials, kernels):
                 bool((goal != env.spec.goal).any()):
             raise AssertionError(f"goal {tuple(goal.shape)} {goal.dtype}")
         rgb = rgb["obs"]
-    if rgb.shape != (env.num_envs, H, W, 3) or rgb.dtype != torch.uint8:
+    if rgb.shape != (env.num_envs, env.obs_height, env.obs_width, 3) or rgb.dtype != torch.uint8:
         raise AssertionError(f"rgb {tuple(rgb.shape)} {rgb.dtype}")
     d = depth.float()
     if not (bool(torch.isfinite(d).all()) and float(d.min()) > rc.NEAR
@@ -2271,7 +2633,7 @@ def phase_breakdown(env, render_iters=10, plain_render_iters=3):
     phase_profile(env, state)
 
 
-def phase_profile(env, state, steps=HORIZON):
+def phase_profile(env, state, steps=PROFILE_STEPS):
     """torch.profiler over a kernel-path rollout of the main path's
     horizon: device events and device-busy time per step (the rollout's
     action draw for the whole horizon included, as on the main path; the
@@ -2560,6 +2922,49 @@ def main():
     lap("visible-ents")
     top_launches = phase_topview_paths(maze_top, pick_top, env, rates)
     lap("main: maze top, pickupobjects top, hallway top")
+    # scheduled tri_pass: the 8x8 Maze's layout bank at 160x120,
+    # supersample=2, B=1024 (packed PVS over 2 chunks of 96), also with
+    # domain randomisation, and the tri_chunk=16 routes at B_PLAIN, every
+    # SCHED instance against tri_pass_scheduled; then their main paths
+    with shared_banks():
+        maze_bank, maze_bank_dr = (
+            MiniWorldVec(MAZE_ID, B, obs_width=2 * W, obs_height=2 * H, supersample=2,
+                         procgen=False, device=DEVICE, domain_rand=dr) for dr in (False, True))
+        maze_vis = chunk_vis_env(lambda: MiniWorldVec(
+            MAZE_ID, B, obs_width=2 * W, obs_height=2 * H, supersample=2, procgen=False,
+            device=DEVICE))
+    if (maze_bank.plan["kind"], maze_bank.tri_chunk, maze_bank.plan["sched_len"]) != (
+            "packed_pvs", 96, 2) or maze_vis.plan["kind"] != "chunk_vis":
+        raise AssertionError(f"{MAZE_ID} bank B={B} 160x120 ss=2 plans {maze_bank.plan}, "
+                             f"{maze_vis.plan['kind']} without the packed planner")
+    small = {env_id: env(env_id, B_PLAIN, tri_chunk=16, **kw) for env_id, kw in SCHED_IDS}
+    big = {env_id: env(env_id, B, tri_chunk=16, **kw) for env_id, kw in SCHED_IDS}
+    four_dr = env(FOUR_ID, B_PLAIN, tri_chunk=16, domain_rand=True)
+    sched_gen = torch.Generator().manual_seed(1172)
+    sched_cases = [(label, e, view_states(e, sched_gen), B_PLAIN) for label, e in (
+        ("fourrooms tri_chunk=16", small[FOUR_ID]),
+        ("fourrooms tri_chunk=16 domain_rand", four_dr),
+        ("threerooms tri_chunk=16", small[THREE_ID]),
+        ("mazes3-bank tri_chunk=16", small[MAZE_S3_ID]),
+        ("maze8x8-bank ss=2", maze_bank),
+        ("maze8x8-bank ss=2 domain_rand", maze_bank_dr),
+        ("maze8x8-bank ss=2 chunk_vis", maze_vis))]
+    timed_state, clamped_rooms = clamped_states(maze_bank, view_states(maze_bank, sched_gen))
+    timed_dr_state, _ = clamped_states(maze_bank_dr, view_states(maze_bank_dr, sched_gen))
+    say("clamped-slots", env=f"{MAZE_ID} bank", layout_room=clamped_rooms,
+        envs=8 * len(clamped_rooms))
+    lap("sched envs")
+    sched_err, sched_timings, sched_work, sched_checked = phase_sched_stages(
+        sched_cases, [("maze8x8-bank ss=2", maze_bank, timed_state),
+                      ("maze8x8-bank ss=2 domain_rand", maze_bank_dr, timed_dr_state),
+                      ("threerooms tri_chunk=16", big[THREE_ID],
+                       view_states(big[THREE_ID], sched_gen)),
+                      ("maze8x8-bank ss=2 chunk_vis", maze_vis, timed_state)])
+    lap("sched-stages")
+    sched_launches, bank_ent_err = phase_sched_paths(
+        maze_bank, maze_bank_dr, (timed_state, timed_dr_state), big, small, rates)
+    errs["entity_pass"] = max(errs["entity_pass"], bank_ent_err)
+    lap("main: maze bank ss=2, tri_chunk=16 routes")
     kernels = []
     for k, (src, rep) in KERNELS.items():
         # the Maze path's kernels at its shapes; the mesh pass at
@@ -2632,7 +3037,8 @@ def main():
         "ms_hallway": ss_timings["hallway"][0], "plain_ms_hallway": ss_timings["hallway"][1],
         "bound_ms_hallway": bound(*ss_work["hallway"])[0],
         "launches_hallway": int(new_launches[ENV_ID, "ss2"]["pixel_epilogue_ss2"]),
-        "checked_on": ["hallway", "pickupobjects"]})
+        "checked_on": ["hallway", "pickupobjects", f"maze8x8-bank B={B} 160x120",
+                       f"maze8x8-bank domain_rand B={B} 160x120"]})
     # Sign's glyph epilogue (an instance of pixel_epilogue) at its main
     # path's shapes, SS=1, and at SS=2 beside it; the paired tri_pass over
     # the clamped second chunk at the Maze 8x8 procgen supersample=2 path's
@@ -2708,6 +3114,38 @@ def main():
         "bound_ms_pickupobjects_b4096": bound(*vis_work_["pickupobjects"])[0],
         "launches_pickupobjects_b4096": int(vis_launches["pickupobjects"]["visible_ents"]),
         "checked_on": ["pickupobjects B=4096", f"maze8x8-procgen B={B_MAZE}"]})
+    # the scheduled tri_pass (SCHED) at the Maze bank ss=2 main path's shapes
+    # (its mesh-seeded instance at ThreeRooms tri_chunk=16 beside it)
+    ms, plain_ms = sched_timings["maze8x8-bank ss=2"]
+    mesh_ms, mesh_plain_ms = sched_timings["threerooms tri_chunk=16"]
+    mesh_work = sched_work["threerooms tri_chunk=16"]
+    kernels.append({
+        "name": "tri_pass_sched", "route": "cuda", "source": KERNELS["tri_pass"][0],
+        "replaces": "miniworld_tpu/render/raycast.py:1166",
+        "launches": int(sched_launches["maze_bank"]["tri_pass_sched"]), "max_abs_err": sched_err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound(*sched_work["maze8x8-bank ss=2"])[0],
+        "bound_by": bound(*sched_work["maze8x8-bank ss=2"])[1], "library_ms": None,
+        "instance_of": "tri_pass",
+        "shapes": f"{MAZE_ID} bank supersample=2 B={B} samples={4 * W}x{4 * H} "
+                  "packed PVS, 2 chunks of 96",
+        "launches_override_maze_bank_dr": int(
+            sched_launches["maze_bank_dr"]["tri_pass_override"]),
+        "ms_override_maze_bank_dr": sched_timings["maze8x8-bank ss=2 domain_rand"][0],
+        "plain_ms_override_maze_bank_dr": sched_timings["maze8x8-bank ss=2 domain_rand"][1],
+        "bound_ms_override_maze_bank_dr": bound(
+            *sched_work["maze8x8-bank ss=2 domain_rand"])[0],
+        "ms_mesh_threerooms": mesh_ms, "plain_ms_mesh_threerooms": mesh_plain_ms,
+        "bound_ms_mesh_threerooms": bound(*mesh_work)[0],
+        "bound_by_mesh_threerooms": bound(*mesh_work)[1],
+        "launches_mesh_threerooms": int(
+            sched_launches[f"threerooms_tri_chunk16_b{B}"]["entity_mesh_pass"]),
+        "ms_chunk_vis": sched_timings["maze8x8-bank ss=2 chunk_vis"][0],
+        "plain_ms_chunk_vis": sched_timings["maze8x8-bank ss=2 chunk_vis"][1],
+        "bound_ms_chunk_vis": bound(*sched_work["maze8x8-bank ss=2 chunk_vis"])[0],
+        "shapes_chunk_vis": f"{MAZE_ID} bank supersample=2 B={B}, the packed planner off: "
+                            f"chunk_vis, {maze_vis.plan['sched_len']} chunks of "
+                            f"{maze_vis.tri_chunk}",
+        "checked_on": sched_checked})
     kernels[KERNEL_ORDER["place"]]["launches_roomobjects"] = int(room_launches["place"])
     for k in kernels:  # what each kernel was held against its plain version on
         if k["name"] == "tri_pass":
@@ -2716,11 +3154,17 @@ def main():
                                "override: " + ", ".join(r[0] for r in routes),
                                "paired multi-chunk: maze8x8 ss=2, paired ties",
                                "nearest, local slots: " + ", ".join(
-                                   k for k, f32 in near_checked.items() if not f32)]
+                                   k for k, f32 in near_checked.items() if not f32),
+                               "sched: " + ", ".join(sched_checked)]
         elif k["name"] == "pixel_epilogue":
             k["checked_on"] = ["SS=1: hallway, wide, pickupobjects, maze, sidewalk, roomobjects",
-                               "SS=2: hallway, pickupobjects", "GAIN SS=1, SS=2: sign",
+                               "SS=2: hallway, pickupobjects, maze8x8-bank (+domain_rand) "
+                               f"B={B} 160x120", "GAIN SS=1, SS=2: sign",
                                "NEAREST: " + ", ".join(near_checked)]
+        elif k["name"] == "entity_pass":
+            k["checked_on"] = ["hallway", "wide", "pickupobjects", "wide-mesh",
+                               "maze8x8 procgen", "sidewalk", "roomobjects",
+                               f"maze8x8-bank (+domain_rand) ss=2 B={B} 320x240 samples"]
         elif k["name"] == "place":
             k["checked_on"] = ["pickupobjects", "fourrooms", "roomobjects (budget 48)",
                                "maze8x8 procgen", "radius scaled", "budgets 0, 30, 31, 40, 48"]

@@ -2,12 +2,13 @@
 // winner and winner attributes per pixel.
 //
 // Replaces: miniworld_tpu/render/raycast.py:_tri_pass (single-chunk
-// form, chunk_compete, the ``init`` seed of the carry, and the
-// multi-chunk scan with its carry) and _entity_mesh_pass, XLA-fused jnp
-// stages in the JAX package. The plain PyTorch versions are
-// tri_pass_plain in miniworld_tpu_torch/render/raycast.py (with mesh=,
-// entity_mesh_pass_plain seeding it) and, for more than one chunk,
-// tri_pass_chunked; they agree bit for bit (the library is built with
+// form, chunk_compete, the ``init`` seed of the carry, the multi-chunk
+// scan with its carry, and the scan over a per-env ``chunk_sched``) and
+// _entity_mesh_pass, XLA-fused jnp stages in the JAX package. The plain
+// PyTorch versions are tri_pass_plain in miniworld_tpu_torch/render/
+// raycast.py (with mesh=, entity_mesh_pass_plain seeding it), for more
+// than one chunk tri_pass_chunked, and for a schedule tri_pass_scheduled;
+// they agree bit for bit (the library is built with
 // -fmad=false and the per-(row, pixel) arithmetic below follows the
 // plain version operation by operation). The row culling has its own
 // plain version, tile_cull_plain.
@@ -21,7 +22,10 @@
 // tile) survivor of the image test) and the scan of each tile's
 // survivors (about 19 rows per 16x12 tile of a maze view). With mesh
 // rows (PickupObjects' E*M = 80 per env) the output is the same 36 bytes
-// a pixel; the mesh pass's seed no longer goes through device memory.
+// a pixel; the mesh pass's seed no longer goes through device memory. A
+// schedule (the 8x8 Maze's layout bank at B = 1024, 320x240 samples, 2
+// chunks of 96 an env) writes the same 36 bytes a sample: 2.83 GB, 0.85
+// ms at 3.35 TB/s.
 //
 // Design. A block owns one env and loops over screen tiles of TILE_W x
 // TILE_H pixels (the last ones cut at the image's edge); at small B an
@@ -117,7 +121,23 @@
 // attributes (the scan's zero init). On a paired bank the staged variant
 // of each row (below) holds in every chunk, and the winner's attributes
 // come from it. S <= 4096 and tri_chunk >= 16 keep the chunk under 256
-// and the rows in shared memory. Mesh rows are single-chunk only.
+// and the rows in shared memory. Mesh rows take the scheduled launch.
+
+// Scheduled launch (n_sched > 0, the SCHED instances; raycast.py:133-145,
+// 234-259, 1166-1172): the bank is one-chunk rows, (C, 9, S) and (C, S,
+// 16), and layout_id is each env's (B, n_sched) schedule, the chunk rows
+// it scans in order (render/raycast.chunk_schedule: packed PVS, chunk_vis,
+// or a dense scan seeded by mesh rows). The block stages all n_sched * S
+// rows of its schedule, each ranked by its position j in the schedule and
+// its index in the chunk, (254 - j) << 10 | local, so that the 64-bit
+// (key << 8) | (254 - j) of the MULTI scan gives the chunk loop's winner:
+// the larger key, then the earlier position. A chunk the schedule repeats
+// (a clamped or padded slot) has the same keys at a later position, so it
+// can never win: its rows are staged but not listed. With mesh rows the
+// seed ranks (seed key << 8) | 255, above every position at an equal key,
+// as JAX's carry keeps its init against a chunk's equal key. The winner's
+// row is chunk row sched[j] * S + local. n_sched <= 255 and n_sched * S
+// <= 4096.
 
 // Texture-variant override (slot_key != nullptr, the OVERRIDE instances;
 // domain randomization, raycast.py:277-310): the JAX package replaces
@@ -147,7 +167,7 @@
 // the multi-chunk launch. The bf16 instances compile as before.
 //
 // Shared memory: 48 bytes per row, two 2-byte row lists and (paired) the
-// variant byte, and 52 bytes per mesh row: 53,248 B at S = 1024, 106,496
+// variant byte (SCHED: 4 bytes per schedule slot), and 52 bytes per mesh row: 53,248 B at S = 1024, 106,496
 // B with N = 1024 mesh rows besides, 159,744 B at S = 3,072, above the
 // 48 KB default, so the launch raises the kernel's dynamic limit when it
 // needs more (up to 212,992 B at S = 4,096). Above about 113 KB one block
@@ -357,11 +377,11 @@ __device__ __forceinline__ void store_zero(void* attr_out, const size_t q) {
     for (int i = 0; i < (F32 ? 4 : 2); ++i) d4[i] = make_uint4(0u, 0u, 0u, 0u);
 }
 
-template <bool MESH, bool MULTI, bool OVERRIDE, bool F32>
+template <bool MESH, bool MULTI, bool SCHED, bool OVERRIDE, bool F32>
 __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
-    const float* __restrict__ verts9,   // (L, 9, S) component-major
-    const float* __restrict__ attr,     // (L, S, 16)
-    const int* __restrict__ layout_id,  // (B,)
+    const float* __restrict__ verts9,   // (L, 9, S) component-major; SCHED (C, 9, S)
+    const float* __restrict__ attr,     // (L, S, 16); SCHED (C, S, 16)
+    const int* __restrict__ layout_id,  // (B,); SCHED (B, n_sched) chunk rows
     const float* __restrict__ origin,   // (B, 3)
     const float* __restrict__ fwd,      // (B, 3)
     const float* __restrict__ right,    // (B, 3)
@@ -380,23 +400,27 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
     const float4* __restrict__ slot_tex_alt,  // (L, S), paired only
     int S, int N, int W, int H, int Wn, int all_quads,
     int tri_chunk,                      // MULTI only: rows per chunk
+    int n_sched,                        // SCHED only: chunks a schedule
     float* __restrict__ t_out,          // (B, HW)
     void* __restrict__ attr_out)        // (B, HW, 16) bf16, or f32 (F32)
 {
-    extern __shared__ float4 rows[];  // 3 x S float4, then (MESH) 3 x N
-    float4* mrows = rows + 3 * S;
+    constexpr bool RANKED = MULTI || SCHED;  // hits ranked by (key, -chunk)
+    const int n_rows = SCHED ? n_sched * S : S;  // rows staged
+    extern __shared__ float4 rows[];  // 3 x n_rows float4, then (MESH) 3 x N
+    float4* mrows = rows + 3 * n_rows;
     unsigned short* env_list = reinterpret_cast<unsigned short*>(mrows + (MESH ? 3 * N : 0));
-    unsigned short* tile_list = env_list + S;
-    unsigned short* menv_list = tile_list + S;
+    unsigned short* tile_list = env_list + n_rows;
+    unsigned short* menv_list = tile_list + n_rows;
     unsigned short* mtile_list = menv_list + (MESH ? N : 0);
     unsigned char* use_alt = reinterpret_cast<unsigned char*>(mtile_list + (MESH ? N : 0));
+    int* sched_s = reinterpret_cast<int*>(use_alt);  // SCHED (never paired): the schedule
     __shared__ Box box;
     __shared__ int n_env, n_tile, m_env, m_tile;
 
     const int b = blockIdx.y;
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31;
-    const int lid = layout_id[b];
+    const int lid = SCHED ? 0 : layout_id[b];  // SCHED: rows are indexed by chunk row
     const bool paired = pg_wall != nullptr;
     const bool quads = all_quads != 0;
     const float* v9p = verts9 + (size_t)lid * 9 * S;
@@ -429,6 +453,8 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
         n_env = 0;
         m_env = 0;
     }
+    if (SCHED)
+        for (int j = tid; j < n_sched; j += THREADS) sched_s[j] = layout_id[(size_t)b * n_sched + j];
     __syncthreads();
     const Box image = box;
 
@@ -438,28 +464,37 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
                           fwd[3 * b], fwd[3 * b + 1], fwd[3 * b + 2],
                           right[3 * b], right[3 * b + 1], right[3 * b + 2],
                           up[3 * b], up[3 * b + 1], up[3 * b + 2]};
-        for (int s0 = 0; s0 < S; s0 += THREADS) {
+        for (int s0 = 0; s0 < n_rows; s0 += THREADS) {
             const int s = s0 + tid;
             bool keep = false;
-            if (s < S) {
-                bool alt = false;
-                if (paired) {
-                    const int w = pg_wall[(size_t)lid * S + s];
-                    alt = w >= 0 && !(wall_open[(size_t)b * Wn + w] > 0.5f);
-                    use_alt[s] = alt;
-                }
+            if (s < n_rows) {
                 float4 q0, q1, q2;
-                stage_row(alt ? v9a : v9p, S, s, cb, (alt ? ata : atp)[s * ATTR_DIM + 15],
-                          q0, q1, q2);
-                if (MULTI) {  // the row's rank bits in the pad: its first chunk, its index there
-                    const int c = min(s / tri_chunk, (S - 1) / tri_chunk);
-                    q2.w = __int_as_float(((255 - c) << 10) | (s - min(c * tri_chunk,
-                                                                       S - tri_chunk)));
+                bool first = true;  // SCHED: the row's chunk not read at an earlier position
+                if (SCHED) {  // row `local` of the chunk at position j, ranked by both
+                    const int j = s / S, local = s - j * S, cid = sched_s[j];
+                    stage_row(verts9 + (size_t)cid * 9 * S, S, local, cb,
+                              attr[((size_t)cid * S + local) * ATTR_DIM + 15], q0, q1, q2);
+                    q2.w = __int_as_float(((254 - j) << 10) | local);
+                    for (int i = 0; i < j; ++i) first = first && sched_s[i] != cid;
+                } else {
+                    bool alt = false;
+                    if (paired) {
+                        const int w = pg_wall[(size_t)lid * S + s];
+                        alt = w >= 0 && !(wall_open[(size_t)b * Wn + w] > 0.5f);
+                        use_alt[s] = alt;
+                    }
+                    stage_row(alt ? v9a : v9p, S, s, cb, (alt ? ata : atp)[s * ATTR_DIM + 15],
+                              q0, q1, q2);
+                    if (MULTI) {  // the row's rank bits in the pad: its first chunk, its index there
+                        const int c = min(s / tri_chunk, (S - 1) / tri_chunk);
+                        q2.w = __int_as_float(((255 - c) << 10) | (s - min(c * tri_chunk,
+                                                                           S - tri_chunk)));
+                    }
                 }
                 rows[3 * s] = q0;
                 rows[3 * s + 1] = q1;
                 rows[3 * s + 2] = q2;
-                keep = !row_culled(q0, q1, q2, image, quads);
+                keep = first && !row_culled(q0, q1, q2, image, quads);
             }
             append(keep, s, env_list, &n_env);
         }
@@ -541,7 +576,7 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
         const float xv = xbase[min(x, W - 1)] * tan_x;
         float yv[PIX_PER_THREAD];
         int best[PIX_PER_THREAD], mbest[PIX_PER_THREAD];
-        unsigned long long cbest[PIX_PER_THREAD];  // MULTI: (key << 8) | (255 - chunk)
+        unsigned long long cbest[PIX_PER_THREAD];  // RANKED: (key << 8) | its chunk's rank
 #pragma unroll
         for (int k = 0; k < PIX_PER_THREAD; ++k) {
             const int y = y0 + row0 + k * ROWS_PER_THREAD_Y;
@@ -573,7 +608,7 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
         for (int i = 0; i < nt; ++i) {
             const int s = tile_list[i];
             const float4 q0 = rows[3 * s], q1 = rows[3 * s + 1], q2 = rows[3 * s + 2];
-            const int rank = __float_as_int(q2.w);  // MULTI: (255 - chunk) << 10 | local
+            const int rank = __float_as_int(q2.w);  // RANKED: chunk rank << 10 | local
             const float dx = q0.x + q0.y * xv;
             const float ux = q0.w + q1.x * xv;
             const float vx = q1.z + q1.w * xv;
@@ -587,7 +622,7 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
                 if (!quads) cov = cov + q2.z * fminf(un, vn);
                 const bool hit = det > 1e-12f && un >= 0.0f && vn >= 0.0f &&
                                  cov <= det && r < r_near && r > r_far;
-                if (MULTI) {
+                if (RANKED) {
                     const int key = (__float_as_int(r) & ~IDX_MASK) | (rank & IDX_MASK);
                     const unsigned long long v =
                         hit ? (((unsigned long long)key << 8) | (unsigned)(rank >> 10)) : 0ull;
@@ -610,7 +645,12 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
                 const float seed_r = 1.0f / t_of_key(mbest[k]);
                 const int seed_key =
                     seed_r > 0.0f ? ((__float_as_int(seed_r) & ~IDX_MASK) | IDX_MASK) : 0;
-                if (!(best[k] > seed_key)) {
+                // ranked: the seed above every chunk position at an equal key
+                const bool seed_wins =
+                    RANKED ? !(cbest[k] > (seed_key > 0 ? ((unsigned long long)seed_key << 8) | 255ull
+                                                         : 0ull))
+                           : !(best[k] > seed_key);
+                if (seed_wins) {
                     t_out[q] = t_of_key(seed_key);
                     if (mbest[k] > 0) {
                         store_attr<F32>(mesh_attr + ((size_t)b * N + (mbest[k] & IDX_MASK)) *
@@ -621,13 +661,15 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
                     continue;
                 }
             }
-            if (MULTI) {
+            if (RANKED) {
                 const int key = (int)(cbest[k] >> 8);
                 t_out[q] = t_of_key(key);
                 if (key > 0) {
-                    const int row = min((255 - (int)(cbest[k] & 0xFFu)) * tri_chunk, last_start) +
+                    const int r8 = (int)(cbest[k] & 0xFFu);
+                    const int row = (SCHED ? sched_s[254 - r8] * S
+                                           : min((255 - r8) * tri_chunk, last_start)) +
                                     (key & IDX_MASK);
-                    const bool alt = paired && use_alt[row];
+                    const bool alt = !SCHED && paired && use_alt[row];
                     store_attr<F32>((alt ? ata : atp) + (size_t)row * ATTR_DIM, attr_out, q,
                                     OVERRIDE ? (alt ? txa : txp) + row : nullptr, env_key);
                 } else {
@@ -658,7 +700,7 @@ extern "C" int mw_tri_pass_config(int* out) {
     return 0;
 }
 
-template <bool MESH, bool MULTI, bool OVERRIDE, bool F32>
+template <bool MESH, bool MULTI, bool SCHED, bool OVERRIDE, bool F32>
 static int launch_instance(const dim3 grid, const size_t smem, cudaStream_t stream,
                            const float* verts9, const float* attr, const int* layout_id,
                            const float* origin, const float* fwd, const float* right,
@@ -667,20 +709,20 @@ static int launch_instance(const dim3 grid, const size_t smem, cudaStream_t stre
                            const float* verts9_alt, const float* attr_alt, const int* pg_wall,
                            const float* wall_open, const unsigned* slot_key,
                            const float4* slot_tex, const float4* slot_tex_alt, int S, int N,
-                           int W, int H, int Wn, int all_quads, int tri_chunk, float* t_out,
-                           void* attr_out) {
+                           int W, int H, int Wn, int all_quads, int tri_chunk, int n_sched,
+                           float* t_out, void* attr_out) {
     static size_t smem_opted = 48 * 1024;  // the dynamic limit set so far
     if (smem > smem_opted) {
-        const cudaError_t err = cudaFuncSetAttribute(tri_pass_kernel<MESH, MULTI, OVERRIDE, F32>,
-                                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                     (int)smem);
+        const cudaError_t err = cudaFuncSetAttribute(
+            tri_pass_kernel<MESH, MULTI, SCHED, OVERRIDE, F32>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
         smem_opted = smem;
     }
-    tri_pass_kernel<MESH, MULTI, OVERRIDE, F32><<<grid, THREADS, smem, stream>>>(
+    tri_pass_kernel<MESH, MULTI, SCHED, OVERRIDE, F32><<<grid, THREADS, smem, stream>>>(
         verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase, ybase,
         mesh_v9, mesh_attr, verts9_alt, attr_alt, pg_wall, wall_open, slot_key, slot_tex,
-        slot_tex_alt, S, N, W, H, Wn, all_quads, tri_chunk, t_out, attr_out);
+        slot_tex_alt, S, N, W, H, Wn, all_quads, tri_chunk, n_sched, t_out, attr_out);
     return (int)cudaGetLastError();
 }
 
@@ -688,7 +730,7 @@ static int launch_instance(const dim3 grid, const size_t smem, cudaStream_t stre
 // launches without it compile to the code they had before it existed: as
 // a runtime branch it slowed the multi-chunk launch without the key from
 // 2.26 to 2.93 ms (Sidewalk, B = 1024, 80x60, on an H100).
-template <bool MESH, bool MULTI>
+template <bool MESH, bool MULTI, bool SCHED>
 static int launch_tri_pass(const dim3 grid, const size_t smem, cudaStream_t stream,
                            const float* verts9, const float* attr, const int* layout_id,
                            const float* origin, const float* fwd, const float* right,
@@ -697,17 +739,18 @@ static int launch_tri_pass(const dim3 grid, const size_t smem, cudaStream_t stre
                            const float* verts9_alt, const float* attr_alt, const int* pg_wall,
                            const float* wall_open, const unsigned* slot_key,
                            const float4* slot_tex, const float4* slot_tex_alt, int S, int N,
-                           int W, int H, int Wn, int all_quads, int tri_chunk, float* t_out,
-                           void* attr_out) {
+                           int W, int H, int Wn, int all_quads, int tri_chunk, int n_sched,
+                           float* t_out, void* attr_out) {
     return slot_key != nullptr
-        ? launch_instance<MESH, MULTI, true, false>(
+        ? launch_instance<MESH, MULTI, SCHED, true, false>(
               grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase,
               ybase, mesh_v9, mesh_attr, verts9_alt, attr_alt, pg_wall, wall_open, slot_key,
-              slot_tex, slot_tex_alt, S, N, W, H, Wn, all_quads, tri_chunk, t_out, attr_out)
-        : launch_instance<MESH, MULTI, false, false>(
+              slot_tex, slot_tex_alt, S, N, W, H, Wn, all_quads, tri_chunk, n_sched, t_out,
+              attr_out)
+        : launch_instance<MESH, MULTI, SCHED, false, false>(
               grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase,
               ybase, mesh_v9, mesh_attr, verts9_alt, attr_alt, pg_wall, wall_open, nullptr,
-              nullptr, nullptr, S, N, W, H, Wn, all_quads, tri_chunk, t_out, attr_out);
+              nullptr, nullptr, S, N, W, H, Wn, all_quads, tri_chunk, n_sched, t_out, attr_out);
 }
 
 extern "C" int mw_tri_pass(
@@ -718,12 +761,13 @@ extern "C" int mw_tri_pass(
     const float* verts9_alt, const float* attr_alt, const int* pg_wall,
     const float* wall_open, const unsigned* slot_key, const float* slot_tex,
     const float* slot_tex_alt,
-    int B, int S, int N, int W, int H, int Wn, int all_quads, int tri_chunk, int f32,
-    float* t_out, void* attr_out, cudaStream_t stream)
+    int B, int S, int N, int W, int H, int Wn, int all_quads, int tri_chunk, int n_sched,
+    int f32, float* t_out, void* attr_out, cudaStream_t stream)
 {
     const bool paired = pg_wall != nullptr;
     const bool mesh = mesh_v9 != nullptr;
-    const bool multi = S > tri_chunk;
+    const bool sched = n_sched > 0;
+    const bool multi = !sched && S > tri_chunk;
     if (paired && (verts9_alt == nullptr || attr_alt == nullptr || wall_open == nullptr))
         return (int)cudaErrorInvalidValue;
     if (mesh && mesh_attr == nullptr) return (int)cudaErrorInvalidValue;
@@ -735,39 +779,57 @@ extern "C" int mw_tri_pass(
     if (multi ? (mesh || tri_chunk < 16 || tri_chunk > IDX_MASK + 1 || S > 4096)
               : S > IDX_MASK + 1)
         return (int)cudaErrorInvalidValue;
+    if (sched && (paired || n_sched > 255 || n_sched * S > 4096)) return (int)cudaErrorInvalidValue;
     if (B == 0 || W == 0 || H == 0) return 0;
     const int n_tiles = ((W + TILE_W - 1) / TILE_W) * ((H + TILE_H - 1) / TILE_H);
     const int per_env = min(n_tiles, max(1, (BLOCK_TARGET + B - 1) / B));
     const dim3 grid(per_env, B);
     const size_t per_row = 3 * sizeof(float4) + 2 * sizeof(unsigned short);
-    const size_t smem = (size_t)S * per_row + (paired ? (size_t)S : 0) +
+    const size_t n_rows = (size_t)S * (sched ? n_sched : 1);
+    const size_t smem = n_rows * per_row + (paired ? n_rows : 0) +
+                        (sched ? (size_t)n_sched * sizeof(int) : 0) +
                         (mesh ? (size_t)N * per_row : 0);
     const float4* tex = reinterpret_cast<const float4*>(slot_tex);
     const float4* tex_alt = reinterpret_cast<const float4*>(slot_tex_alt);
     if (f32)
         return multi
-            ? launch_instance<false, true, false, true>(
+            ? launch_instance<false, true, false, false, true>(
                   grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy,
                   xbase, ybase, nullptr, nullptr, verts9_alt, attr_alt, pg_wall, wall_open,
-                  nullptr, nullptr, nullptr, S, 0, W, H, Wn, all_quads, tri_chunk, t_out,
+                  nullptr, nullptr, nullptr, S, 0, W, H, Wn, all_quads, tri_chunk, 0, t_out,
                   attr_out)
-            : launch_instance<false, false, false, true>(
+            : sched
+            ? launch_instance<false, false, true, false, true>(
+                  grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy,
+                  xbase, ybase, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                  nullptr, nullptr, nullptr, S, 0, W, H, 0, all_quads, S, n_sched, t_out,
+                  attr_out)
+            : launch_instance<false, false, false, false, true>(
                   grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy,
                   xbase, ybase, nullptr, nullptr, verts9_alt, attr_alt, pg_wall, wall_open,
-                  nullptr, nullptr, nullptr, S, 0, W, H, Wn, all_quads, S, t_out, attr_out);
+                  nullptr, nullptr, nullptr, S, 0, W, H, Wn, all_quads, S, 0, t_out, attr_out);
     if (multi)
-        return launch_tri_pass<false, true>(grid, smem, stream, verts9, attr, layout_id, origin,
-                                            fwd, right, up, tan_xy, xbase, ybase, nullptr,
-                                            nullptr, verts9_alt, attr_alt, pg_wall, wall_open,
-                                            slot_key, tex, tex_alt, S, 0, W, H, Wn, all_quads,
-                                            tri_chunk, t_out, attr_out);
+        return launch_tri_pass<false, true, false>(
+            grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase,
+            ybase, nullptr, nullptr, verts9_alt, attr_alt, pg_wall, wall_open, slot_key, tex,
+            tex_alt, S, 0, W, H, Wn, all_quads, tri_chunk, 0, t_out, attr_out);
+    if (sched)
+        return mesh
+            ? launch_tri_pass<true, false, true>(
+                  grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy,
+                  xbase, ybase, mesh_v9, mesh_attr, nullptr, nullptr, nullptr, nullptr, slot_key,
+                  tex, nullptr, S, N, W, H, 0, all_quads, S, n_sched, t_out, attr_out)
+            : launch_tri_pass<false, false, true>(
+                  grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy,
+                  xbase, ybase, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, slot_key,
+                  tex, nullptr, S, 0, W, H, 0, all_quads, S, n_sched, t_out, attr_out);
     return mesh
-        ? launch_tri_pass<true, false>(grid, smem, stream, verts9, attr, layout_id, origin, fwd,
-                                       right, up, tan_xy, xbase, ybase, mesh_v9, mesh_attr,
-                                       verts9_alt, attr_alt, pg_wall, wall_open, slot_key, tex,
-                                       tex_alt, S, N, W, H, Wn, all_quads, S, t_out, attr_out)
-        : launch_tri_pass<false, false>(grid, smem, stream, verts9, attr, layout_id, origin,
-                                        fwd, right, up, tan_xy, xbase, ybase, nullptr, nullptr,
-                                        verts9_alt, attr_alt, pg_wall, wall_open, slot_key, tex,
-                                        tex_alt, S, 0, W, H, Wn, all_quads, S, t_out, attr_out);
+        ? launch_tri_pass<true, false, false>(
+              grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase,
+              ybase, mesh_v9, mesh_attr, verts9_alt, attr_alt, pg_wall, wall_open, slot_key, tex,
+              tex_alt, S, N, W, H, Wn, all_quads, S, 0, t_out, attr_out)
+        : launch_tri_pass<false, false, false>(
+              grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase,
+              ybase, nullptr, nullptr, verts9_alt, attr_alt, pg_wall, wall_open, slot_key, tex,
+              tex_alt, S, 0, W, H, Wn, all_quads, S, 0, t_out, attr_out);
 }

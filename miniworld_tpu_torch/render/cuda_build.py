@@ -51,8 +51,9 @@ _CAM = [_P] * 7  # origin, fwd, right, up, tan_xy, xbase, ybase
 ENTRY_POINTS = {
     # verts9, attr, layout_id, camera, mesh_v9, mesh_attr, verts9_alt,
     # attr_alt, pg_wall, wall_open, slot_key, slot_tex, slot_tex_alt, B,
-    # S, N, W, H, n_walls, all_quads, tri_chunk, f32, t, attr_out, stream
-    "mw_tri_pass": [_P, _P, _P, *_CAM, _P] + [_P] * 8 + [_I] * 9 + [_P, _P, _P],
+    # S, N, W, H, n_walls, all_quads, tri_chunk, n_sched, f32, t, attr_out,
+    # stream
+    "mw_tri_pass": [_P, _P, _P, *_CAM, _P] + [_P] * 8 + [_I] * 10 + [_P, _P, _P],
     # out: TILE_W, TILE_H, PIX_PER_THREAD
     "mw_tri_pass_config": [_P],
     # ent_pos, ent_size, ent_dir, ent_height, ent_color, flags, camera,
@@ -90,6 +91,7 @@ BUILD_INFO: dict = {}
 # under both names; so does a tri_pass launch with the texture-variant
 # override ("tri_pass_override"), a tri_pass launch over a paired
 # procgen bank in more than one chunk ("tri_pass_paired_chunks"), a
+# tri_pass launch over each env's schedule of chunks ("tri_pass_sched"), a
 # tri_pass launch with the float32 attribute carry ("tri_pass_f32"), and
 # a pixel_epilogue launch of its supersample=2 instance
 # ("pixel_epilogue_ss2"), of its glyph instance ("pixel_epilogue_gain"),
@@ -101,7 +103,7 @@ BUILD_INFO: dict = {}
 LAUNCHES = {"tri_pass": 0, "entity_pass": 0, "pixel_epilogue": 0,
             "entity_mesh_pass": 0, "place": 0, "mazegen": 0,
             "tri_pass_override": 0, "pixel_epilogue_ss2": 0,
-            "tri_pass_paired_chunks": 0, "pixel_epilogue_gain": 0,
+            "tri_pass_paired_chunks": 0, "tri_pass_sched": 0, "pixel_epilogue_gain": 0,
             "tri_pass_f32": 0, "pixel_epilogue_nearest": 0, "pixel_epilogue_f32": 0,
             "tri_pass_ortho": 0, "topview_epilogue": 0, "topview_epilogue_nearest": 0,
             "visible_ents": 0}

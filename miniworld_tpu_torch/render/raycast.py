@@ -21,7 +21,9 @@ its plain PyTorch version beside it in this module:
      the winner's slot column is its texture variant under the env's
      key (``variant_slots``). Over more than one chunk it ranks rows by
      the JAX scan's chunk rule, the last chunk clamped
-     (``chunk_starts``);
+     (``chunk_starts``), or scans each env's own schedule of chunks
+     (``chunk_schedule``: packed PVS, ``chunk_vis``; seeded by the mesh
+     rows where there are any);
   2. ``entity_pass``: analytic boxes and spheres;
   3. ``pixel_epilogue``: affine uv, Fourier texture (with
      ``has_gain``, the SDF glyph branch of Sign's atlas) or, in nearest
@@ -401,6 +403,39 @@ def chunk_starts(n_rows: int, tri_chunk: int) -> list:
     return [min(c * tri_chunk, n_rows - tri_chunk) for c in range(-(-n_rows // tri_chunk))]
 
 
+def _scan_chunks(read, n_chunks: int, b: int, k: int, cam: Camera, all_quads: bool, seed,
+                 attr_dtype):
+    """The JAX package's scan over chunks (raycast._tri_pass scan body),
+    shared by ``tri_pass_chunked`` and ``tri_pass_scheduled``: for each
+    block of envs ``sl`` and chunk j < ``n_chunks``, ``read(sl, j)`` gives
+    the chunk's rows (v9 (n, 9, k), attrs (n, k, 16)); each chunk's keyed-z
+    winner is carried on a strictly greater key, from no hit (t = inf,
+    zero attributes) or from ``seed`` = (t (B, HW), attr (B, HW, 16))
+    through the seed key (``_seed_key``). Returns (t (B, HW) f32, attr
+    (B, HW, 16) in ``attr_dtype``)."""
+    xv, yv = cam.xv(), cam.yv()
+    hw = xv.shape[1]
+    ts, outs = [], []
+    for sl in _env_blocks(b, k * hw):
+        c = _cam_rows(cam, sl)
+        if seed is None:
+            n = c.origin.shape[0]
+            key_best = torch.zeros((n, hw), dtype=torch.int32, device=xv.device)
+            attr_best = torch.zeros((n, hw, ATTR_DIM), dtype=attr_dtype, device=xv.device)
+        else:
+            key_best, attr_best = _seed_key(seed[0][sl]), seed[1][sl].to(attr_dtype)
+        for j in range(n_chunks):
+            v9, attrs = read(sl, j)
+            key, row = _chunk_compete(v9, attrs, c, xv[sl], yv[sl], all_quads)
+            sel = _gather_rows(attrs, row).to(attr_dtype)
+            closer = key > key_best
+            key_best = torch.where(closer, key, key_best)
+            attr_best = torch.where(closer[:, :, None], sel, attr_best)
+        ts.append(_t_from_key(key_best))
+        outs.append(attr_best)
+    return torch.cat(ts), torch.cat(outs)
+
+
 def tri_pass_chunked(verts9, attr, layout_id, cam: Camera, tri_chunk: int,
                      all_quads: bool = False, override=None, paired=None,
                      attr_dtype=torch.bfloat16):
@@ -426,32 +461,50 @@ def tri_pass_chunked(verts9, attr, layout_id, cam: Camera, tri_chunk: int,
     if tri_chunk > min(S, 1 << _IDX_BITS):
         raise ValueError(f"tri_chunk={tri_chunk} must be at most {S} prims and "
                          f"{1 << _IDX_BITS}")
-    b = layout_id.shape[0]
-    xv, yv = cam.xv(), cam.yv()
-    hw = xv.shape[1]
-    ts, outs = [], []
-    for sl in _env_blocks(b, tri_chunk * hw):
-        lid = layout_id[sl].long()
-        c = _cam_rows(cam, sl)
-        n = lid.shape[0]
-        key_best = torch.zeros((n, hw), dtype=torch.int32, device=xv.device)
-        attr_best = torch.zeros((n, hw, ATTR_DIM), dtype=attr_dtype, device=xv.device)
-        for start in chunk_starts(S, tri_chunk):
-            part = slice(start, start + tri_chunk)
-            pp = None if paired is None else (paired[0][:, :, part], paired[1][:, part],
-                                              paired[2][:, part], paired[3][sl])
-            ov = None if override is None else (
-                override[0][sl], override[1][:, part],
-                None if override[2] is None else override[2][:, part])
-            v9, attrs = _env_rows(verts9[:, :, part], attr[:, part], lid, pp, ov)
-            key, row = _chunk_compete(v9, attrs, c, xv[sl], yv[sl], all_quads)
-            sel = _gather_rows(attrs, row).to(attr_dtype)
-            closer = key > key_best
-            key_best = torch.where(closer, key, key_best)
-            attr_best = torch.where(closer[:, :, None], sel, attr_best)
-        ts.append(_t_from_key(key_best))
-        outs.append(attr_best)
-    return torch.cat(ts), torch.cat(outs)
+    starts = chunk_starts(S, tri_chunk)
+
+    def read(sl, j):
+        part = slice(starts[j], starts[j] + tri_chunk)
+        pp = None if paired is None else (paired[0][:, :, part], paired[1][:, part],
+                                          paired[2][:, part], paired[3][sl])
+        ov = None if override is None else (
+            override[0][sl], override[1][:, part],
+            None if override[2] is None else override[2][:, part])
+        return _env_rows(verts9[:, :, part], attr[:, part], layout_id[sl].long(), pp, ov)
+
+    return _scan_chunks(read, len(starts), layout_id.shape[0], tri_chunk, cam, all_quads,
+                        None, attr_dtype)
+
+
+def tri_pass_scheduled(verts9, attr, sched, cam: Camera, all_quads: bool = False, seed=None,
+                       override=None, attr_dtype=torch.bfloat16):
+    """Plain version of the tri_pass kernel's scheduled scan
+    (raycast._tri_pass with ``chunk_sched``, or ``chunk_rows``, and
+    ``init``): each env scans the chunks of its schedule in order, each
+    chunk's keyed-z winner by its rows' indices within the chunk, carried
+    on a strictly greater key. So a tie at equal quantized depth goes to
+    the larger chunk-local index, then to the earlier position, and a
+    chunk the schedule repeats never replaces its first reading.
+
+    verts9 (C, 9, k) f32 and attr (C, k, 16) f32, a bank of one-chunk
+    rows (``static_rows``); sched (B, n) int, the chunk rows each env
+    scans (``chunk_schedule``) -> (t (B, HW) f32, attr (B, HW, 16) in
+    ``attr_dtype``). The carry starts at no hit (t = inf, zero
+    attributes) or at ``seed`` = (t (B, HW), attr (B, HW, 16)), the mesh
+    pass's result, through the JAX package's seed key (``_seed_key``:
+    the seed wins every tie). ``override`` = (key (B,), tex (C, k, 4),
+    None) gives each chunk's rows their texture variants, as
+    ``tri_pass_plain`` does. Runs over blocks of envs."""
+    k = verts9.shape[2]
+    if k > (1 << _IDX_BITS):
+        raise ValueError(f"chunks of {k} rows exceed the z-key's {1 << _IDX_BITS}-row budget")
+
+    def read(sl, j):
+        ov = None if override is None else (override[0][sl], override[1], None)
+        return _env_rows(verts9, attr, sched[sl, j].long(), None, ov)
+
+    return _scan_chunks(read, sched.shape[1], sched.shape[0], k, cam, all_quads, seed,
+                        attr_dtype)
 
 
 def stage_rows(verts9, attr, layout_id, cam: Camera, paired=None):
@@ -575,6 +628,12 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
     multi-chunk scan of ``tri_pass_chunked`` in one launch, S <=
     MAX_KERNEL_ROWS, without mesh rows (raises); over a paired bank it
     also counts in ``LAUNCHES["tri_pass_paired_chunks"]``.
+    ``layout_id`` (B, n), a schedule (``chunk_schedule``): verts9 (C, 9,
+    k) and attr (C, k, 16) are a bank of one-chunk rows and each env scans
+    its n chunk rows in order, the contract of ``tri_pass_scheduled``
+    (seeded by the mesh pass on ``mesh``), in one launch of the kernel's
+    SCHED instances (also counted in ``LAUNCHES["tri_pass_sched"]``), n
+    <= 255, n * k <= MAX_KERNEL_ROWS, no paired bank.
     ``override`` = (key (B,) int64 u32 values, tex (L, S, 4), tex_alt
     (L, S, 4) with a paired bank, else None): domain randomization's
     texture variants (``variant_slots``). The plain versions override
@@ -585,23 +644,27 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
     ``attr_dtype``: the carry dtype of the attribute rows
     (``attr_carry_dtype``); float32 launches the kernel's F32 instances
     (also counted in ``LAUNCHES["tri_pass_f32"]``), built for the
-    single-chunk and multi-chunk launches without mesh rows and without
-    the override, the ones a ported id reaches (nearest mode never
-    overrides, and no mesh id has more than 256 slots); the others
+    single-chunk, multi-chunk and scheduled launches without mesh rows
+    and without the override, the ones a ported id reaches (nearest mode
+    never overrides, and no mesh id has more than 256 slots); the others
     raise."""
     S = verts9.shape[2]
     if attr_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"attr_dtype {attr_dtype}: the carry is bf16 or float32")
     f32 = attr_dtype == torch.float32
-    tri_chunk = S if tri_chunk is None else int(tri_chunk)
+    sched = layout_id.dim() == 2
+    n_sched = layout_id.shape[1] if sched else 1
+    tri_chunk = S if tri_chunk is None or sched else int(tri_chunk)
     multi = S > tri_chunk
     n_mesh = 0 if mesh is None else mesh[0].shape[2]
     if n_mesh > (1 << _IDX_BITS):
         raise ValueError(f"{n_mesh} mesh rows exceed the z-key's "
                          f"{1 << _IDX_BITS}-row budget")
     if multi and mesh is not None:
-        raise NotImplementedError("tri_pass over more than one chunk with mesh rows is not "
-                                  "ported yet")
+        raise ValueError("mesh rows over more than one chunk take a schedule "
+                         "(static_rows, chunk_schedule)")
+    if sched and paired is not None:
+        raise ValueError("a schedule scans one-chunk rows, not a paired bank")
     ov_tensors = () if override is None else tuple(t for t in override if t is not None)
     if override is not None and (override[2] is None) != (paired is None):
         raise ValueError("override needs tex_alt exactly when the bank is paired")
@@ -611,6 +674,9 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
             return tri_pass_chunked(verts9, attr, layout_id, cam, tri_chunk, all_quads,
                                     override, paired, attr_dtype)
         seed = None if mesh is None else entity_mesh_pass_plain(*mesh, cam, attr_dtype)
+        if sched:
+            return tri_pass_scheduled(verts9, attr, layout_id, cam, all_quads, seed, override,
+                                      attr_dtype)
         return tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired, override,
                               attr_dtype)
     if f32 and (mesh is not None or override is not None):
@@ -629,6 +695,9 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
     elif S > (1 << _IDX_BITS):
         raise ValueError(f"tri_pass kernel takes at most {1 << _IDX_BITS} prims in one chunk, "
                          f"got {S}")
+    elif sched and (n_sched > 255 or n_sched * S > MAX_KERNEL_ROWS):
+        raise ValueError(f"tri_pass kernel scans at most 255 chunks of a schedule and "
+                         f"{MAX_KERNEL_ROWS} rows; got {n_sched} of {S}")
     t = torch.empty((b, hw), dtype=torch.float32, device=verts9.device)
     out = torch.empty((b, hw, ATTR_DIM), dtype=attr_dtype, device=verts9.device)
     if mesh is None:
@@ -660,19 +729,20 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
     counters = (("tri_pass",) + (() if mesh is None else ("entity_mesh_pass",))
                 + (() if override is None else ("tri_pass_override",))
                 + (("tri_pass_paired_chunks",) if multi and paired is not None else ())
+                + (("tri_pass_sched",) if sched else ())
                 + (("tri_pass_f32",) if f32 else ()))
     launch(
         "mw_tri_pass", counters,
         check(verts9, "verts9", torch.float32, (L, 9, S)),
         check(attr, "attr", torch.float32, (L, S, ATTR_DIM)),
-        check(layout_id, "layout_id", torch.int32, (b,)),
+        check(layout_id, "layout_id", torch.int32, (b, n_sched) if sched else (b,)),
         *cam_ptrs,
         *mesh_ptrs,
         *paired_ptrs,
         *ov_ptrs,
         ctypes.c_int(b), ctypes.c_int(S), ctypes.c_int(n_mesh), ctypes.c_int(cam.width),
         ctypes.c_int(cam.height), ctypes.c_int(n_walls), ctypes.c_int(int(all_quads)),
-        ctypes.c_int(tri_chunk), ctypes.c_int(int(f32)),
+        ctypes.c_int(tri_chunk), ctypes.c_int(n_sched if sched else 0), ctypes.c_int(int(f32)),
         check(t, "t", torch.float32, (b, hw)),
         check(out, "attr_out", attr_dtype, (b, hw, ATTR_DIM)),
         stream(),
@@ -1310,23 +1380,61 @@ def pixel_epilogue(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
 # the render
 
 
-def static_rows(bank, state, cam: Camera, pg_wall=None, packed_pvs: bool = False):
+def chunk_schedule(bank, layout_id, origin, plan):
+    """(B, n) i32: the chunk rows each env scans, in order, as rows
+    ``layout * NC + c`` of the chunk-row view (``static_rows``), chunk c
+    starting at row c * k of the layout's bank (raycast.py:133-145,
+    1166-1172). ``plan`` (vector.plan_chunks) picks them:
+
+    - "packed_pvs": chunks ``min(base + j, NC - 1)`` for j < sched_len,
+      ``base = pvs_room_base[layout, room]`` of the camera's room. The
+      clamp keeps the read inside the layout, as the JAX package's
+      ``dynamic_slice`` read does; its one-hot read (raycast.py:234-250,
+      without domain randomization) runs on into the next layout's first
+      chunk where base + j >= NC, a fault of the reference (ROADMAP).
+    - "chunk_vis": the sorted chunks visible from the camera's room,
+      ``sort(where(vis, arange(NC), NC))[:sched_len]``, the sentinel NC a
+      repeat of chunk NC - 1 (the clamped ``dynamic_slice``).
+    - "dense": every chunk in order (a dense scan seeded by mesh rows).
+
+    A repeated chunk never replaces its first reading (equal keys, a
+    later position)."""
+    kind, nc = plan["kind"], plan["nc"]
+    lid = layout_id.long()
+    b, dev = lid.shape[0], lid.device
+    if kind == "dense":
+        chunk = torch.arange(nc, device=dev).expand(b, nc)
+    else:
+        room = room_of_point(bank, layout_id, origin[:, [0, 2]])
+        n = plan["sched_len"]
+        if kind == "packed_pvs":
+            chunk = bank.pvs_room_base[lid, room].long()[:, None] + torch.arange(n, device=dev)
+        else:
+            vis = plan["chunk_vis"][lid, :, room]  # (B, NC)
+            keys = torch.where(vis, torch.arange(nc, device=dev), torch.full_like(lid[:, None], nc))
+            chunk = torch.sort(keys, dim=1).values[:, :n]
+    return (lid[:, None] * nc + torch.clamp(chunk, max=nc - 1)).to(torch.int32)
+
+
+def static_rows(bank, state, cam: Camera, pg_wall=None, plan=None):
     """What stage 1 scans for each env: ((verts9, attr, layout_id),
     paired), the arguments of ``tri_pass``. The layout bank's rows; a
     procgen maze's paired rows with ``paired`` = (verts9_alt, attr_alt,
-    pg_wall, wall_open); or, ``packed_pvs``, the packed visible set of
-    the room the camera stands in: chunk ``pvs_room_base[layout, room]``
-    of the layout, as rows of ``bank.pvs_v9_rows`` / ``pvs_attr_rows``
-    read as (L * NC, 9, k) and (L * NC, k, 16) banks of one chunk, with
-    layout_id = layout * NC + base (raycast.py:1173-1176, 1207-1214)."""
-    if packed_pvs:
+    pg_wall, wall_open); or, where ``plan`` (vector.plan_chunks) gives a
+    schedule, the bank's chunk rows ``bank.pvs_v9_rows`` /
+    ``pvs_attr_rows`` (vector.install_statics: the packed visible sets
+    for "packed_pvs", raycast.py:1166-1176, 1207-1214; the layout bank's
+    chunks for "chunk_vis" and for a dense plan of several chunks with
+    mesh entities) as (C, 9, k) and (C, k, 16), with the (B, n)
+    ``chunk_schedule`` in place of layout_id. A schedule of one chunk
+    (the 8x8 Maze's layout bank at 80x60) is passed as its (B,) column:
+    one chunk, scanned by the single-chunk launch."""
+    if plan is not None and bank.pvs_v9_rows is not None:
         n_rows = bank.pvs_v9_rows.shape[0]
-        nc = n_rows // bank.pvs_verts9.shape[0]
-        room = room_of_point(bank, state.layout_id, cam.origin[:, [0, 2]])
-        base = bank.pvs_room_base[state.layout_id.long(), room]
-        return (bank.pvs_v9_rows.view(n_rows, 9, -1),
-                bank.pvs_attr_rows.view(n_rows, -1, ATTR_DIM),
-                (state.layout_id * nc + base).to(torch.int32)), None
+        v9r = bank.pvs_v9_rows.view(n_rows, 9, -1)
+        atr = bank.pvs_attr_rows.view(n_rows, -1, ATTR_DIM)
+        sched = chunk_schedule(bank, state.layout_id, cam.origin, plan)
+        return (v9r, atr, sched if sched.shape[1] > 1 else sched[:, 0].contiguous()), None
     if pg_wall is None:
         return (bank.tri_verts9, bank.tri_attr, state.layout_id), None
     return ((bank.pg_verts9, bank.pg_attr, state.layout_id),
@@ -1336,22 +1444,21 @@ def static_rows(bank, state, cam: Camera, pg_wall=None, packed_pvs: bool = False
 def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
                 shapes_present=(True, True, False), all_quads: bool = False,
                 has_gain: bool = False, use_kernels: bool = True, pg_wall=None,
-                table=None, tri_chunk: int | None = None, packed_pvs: bool = False,
-                slot_tex=None, supersample: int = 1, tex_mode: str = "fourier"):
+                table=None, plan=None, slot_tex=None, supersample: int = 1,
+                tex_mode: str = "fourier"):
     """Render every env's observation: (rgb (B, H, W, 3) u8, depth
-    (B, H, W, 1) f32, FAR for sky). Counterpart of raycast.render_rgbd
-    for the plans the port renders: the static prims in
-    chunks of ``tri_chunk`` (None: one chunk of all of them; more than
-    one without mesh entities, the last clamped: ``chunk_starts``).
+    (B, H, W, 1) f32, FAR for sky). Counterpart of raycast.render_rgbd:
+    the static prims in the chunk plan ``plan`` (vector.plan_chunks; None:
+    one chunk of all of them): a dense plan in chunks of its
+    ``tri_chunk``, the last clamped (``chunk_starts``), and a schedule of
+    chunks per env (``static_rows``, ``chunk_schedule``) for packed PVS,
+    ``chunk_vis`` and a dense plan of several chunks with mesh entities.
     ``tex_mode``: "fourier" (``atlas`` the Fourier table, the slot
     columns atlas rows) or "nearest" (``atlas`` the (N, R, R, 3) u8
     atlas, the slot columns layout-local slot ids that the epilogue
     resolves through ``state.tex_map``: ``eval_nearest``). The hit
     passes carry the winner's attributes in ``attr_carry_dtype`` of the
     atlas's rows (fourier) or of the slot ids (nearest).
-    ``packed_pvs``: the bank's packed per-room visible sets, one chunk
-    of ``tri_chunk`` a render: each env scans its camera room's chunk
-    (``static_rows``).
     ``table``: the atlas's ``fourier_table``, which the epilogue kernel
     reads.
     ``slot_tex`` = (tex, tex_alt) (vector.install_statics with
@@ -1385,18 +1492,20 @@ def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
     carry = attr_carry_dtype(state.tex_map.shape[1] if nearest else atlas.shape[0])
     mesh = (entity_mesh_rows(bank, state, fourier=not nearest)[:2] if shapes_present[2]
             else None)
-    rows, paired = static_rows(bank, state, cam, pg_wall, packed_pvs)
+    rows, paired = static_rows(bank, state, cam, pg_wall, plan)
     override = None if slot_tex is None else (state.tri_slots, *slot_tex)
+    tri_chunk = None if plan is None else plan["tri_chunk"]
     if use_kernels:
         t_tri, attr = tri_pass(*rows, cam, all_quads, mesh, paired, tri_chunk, override, carry)
-    elif tri_chunk is not None and rows[0].shape[2] > tri_chunk:
-        if mesh is not None:
-            raise NotImplementedError("more than one chunk with mesh rows is not ported yet")
+    elif rows[2].dim() == 1 and tri_chunk is not None and rows[0].shape[2] > tri_chunk:
         t_tri, attr = tri_pass_chunked(*rows, cam, tri_chunk, all_quads, override, paired,
                                        carry)
     else:
         seed = None if mesh is None else entity_mesh_pass_plain(*mesh, cam, carry)
-        t_tri, attr = tri_pass_plain(*rows, cam, all_quads, seed, paired, override, carry)
+        if rows[2].dim() == 2:
+            t_tri, attr = tri_pass_scheduled(*rows, cam, all_quads, seed, override, carry)
+        else:
+            t_tri, attr = tri_pass_plain(*rows, cam, all_quads, seed, paired, override, carry)
     t_ent = col_ent = n_ent = None
     if shapes_present[0] or shapes_present[1]:
         t_ent, col_ent, n_ent = f_ent(

@@ -202,8 +202,10 @@ class Layout:
     pvs_tri_tex_count: np.ndarray | None = None  # (L,S2) f32
     pvs_room_base: np.ndarray | None = None  # (L,R) i32 chunk base per room
     pvs_room_nchunks: np.ndarray | None = None  # (L,R) i32 chunks per room's set
-    # Chunk-row views of the packed banks (vector._install_bank):
-    # row layout*NC + c holds chunk c of that layout, flattened.
+    # Chunk-row views that a schedule of chunks reads (vector.install_statics):
+    # row layout*NC + c holds chunk c of that layout, flattened; of the
+    # packed banks for packed PVS, of tri_verts9 / tri_attr for chunk_vis
+    # and a dense scan seeded by mesh rows; None for other plans.
     pvs_v9_rows: np.ndarray | None = None  # (L*NC, 9*k) f32
     pvs_attr_rows: np.ndarray | None = None  # (L*NC, k*ATTR_DIM) f32
     # Procgen super-bank fields (scene/supermaze.py; None unless the env

@@ -19,9 +19,10 @@ counter-based uniforms as the JAX package (ops/rng.py), so the two
 packages step the same envs through the same episodes.
 
 The port covers the statics of 24 of the 27 env ids (``envs.ENV_IDS``):
-one layout bank rendered in the JAX package's chunk plan (one chunk, a
-dense or paired multi-chunk scan, or the one-chunk packed-PVS plan of
-the Maze family's layout bank; ``install_statics``), Fourier textures
+one layout bank rendered in the JAX package's chunk plan for its
+``tri_chunk`` (one chunk, a dense or paired multi-chunk scan, or a
+schedule of chunks per env: packed PVS, ``chunk_vis``, or a dense scan
+seeded by mesh entities; ``install_statics``), Fourier textures
 with Sign's SDF glyphs and its dict observations, or the exact nearest
 texels of the u8 atlas (``tex_mode="nearest"``), analytic and mesh
 entities, procgen mazes — a fresh maze per reset on the device
@@ -31,8 +32,7 @@ per-episode and per-step parameter draws and each episode's texture
 variants), ``supersample=2``, the raw 6-D actions of the specs
 without a discrete table (RoomObjects, PutNext), the orthographic top
 view as the observation (``view="top"``, render/topview.py) and the
-entity-visibility query (``visible_ents``, render/visibility.py). Other
-plans raise NotImplementedError.
+entity-visibility query (``visible_ents``, render/visibility.py).
 """
 
 from __future__ import annotations
@@ -388,22 +388,28 @@ def chunk_cap(num_envs: int, hw: int) -> int:
     return min((auto // 16) * 16 or 16, MAX_CHUNK)
 
 
-def plan_chunks(bank_np: Layout, num_envs: int, hw: int):
+def plan_chunks(bank_np: Layout, num_envs: int, hw: int, tri_chunk: int | None = None):
     """The JAX package's chunk plan for a fresh bank (``_install_bank``
     with ``fresh=True``, miniworld_tpu/vector.py:573-625), from the port's
-    copies of its planners at its per-chunk overhead.
+    copies of its planners at its per-chunk overhead. ``tri_chunk`` is the
+    JAX constructor's argument (vector.py:488-490): the culling planner
+    gets ``max(16, min(tri_chunk or cap, cap))``; the packed planner and
+    the dense fallback still get the cap.
 
     Returns (bank repadded to a multiple of ``tri_chunk``, with the
     packed copies for "packed_pvs"; plan dict): ``kind`` "dense" (full
     scans of S / tri_chunk chunks), "packed_pvs" (per-room visible sets
     packed contiguously, ``sched_len`` chunks a render from the camera
     room's ``pvs_room_base``) or "chunk_vis" (the chunks visible from
-    the camera's room, ``sched_len`` at most); ``tri_chunk``;
-    ``sched_len`` (None for dense); ``cap``, the chunk cap.
+    the camera's room, ``sched_len`` at most, the (L, NC, R) bool
+    ``chunk_vis`` of ``_chunk_visibility``); ``tri_chunk``; ``sched_len``
+    (None for dense); ``nc``, the chunks of a layout (of its packed copies
+    for "packed_pvs"); ``cap``, the chunk cap.
     """
     cap = chunk_cap(num_envs, hw)
     s_nat = bank_np.tri_mask.shape[1]
-    _, chunks_k, chunks_bound = plan_culling(bank_np, cap, JAX_CHUNK_OVERHEAD_TRIS)
+    cull_cap = max(16, min(tri_chunk or cap, cap))
+    _, chunks_k, chunks_bound = plan_culling(bank_np, cull_cap, JAX_CHUNK_OVERHEAD_TRIS)
     if chunks_bound is not None:
         chunks_cost = chunks_bound * (chunks_k + JAX_CHUNK_OVERHEAD_TRIS)
     else:
@@ -412,7 +418,8 @@ def plan_chunks(bank_np: Layout, num_envs: int, hw: int):
         bank_np, cap, JAX_CHUNK_OVERHEAD_TRIS)
     plan = dict(kind="dense", tri_chunk=None, sched_len=None, cap=cap)
     if packed is not None and packed_cost < chunks_cost:
-        plan.update(kind="packed_pvs", tri_chunk=packed_k, sched_len=packed_sched)
+        plan.update(kind="packed_pvs", tri_chunk=packed_k, sched_len=packed_sched,
+                    nc=packed["pvs_verts9"].shape[2] // packed_k)
         return dataclasses.replace(_repad_for_chunks(bank_np, packed_k), **packed), plan
     tri_chunk = min(chunks_k, s_nat)
     trial = _repad_for_chunks(bank_np, tri_chunk)
@@ -423,17 +430,34 @@ def plan_chunks(bank_np: Layout, num_envs: int, hw: int):
         if counts.size:
             bound = max(bound, int(counts.max()))
     if bound < vis.shape[1]:
-        plan.update(kind="chunk_vis", tri_chunk=tri_chunk, sched_len=bound)
+        plan.update(kind="chunk_vis", tri_chunk=tri_chunk, sched_len=bound, nc=vis.shape[1],
+                    chunk_vis=vis)
         return trial, plan
     plan["tri_chunk"] = min(cap, s_nat)
-    return _repad_for_chunks(bank_np, plan["tri_chunk"]), plan
+    bank_np = _repad_for_chunks(bank_np, plan["tri_chunk"])
+    plan["nc"] = bank_np.tri_mask.shape[1] // plan["tri_chunk"]
+    return bank_np, plan
+
+
+def chunk_row_views(verts9: np.ndarray, attr: np.ndarray, k: int):
+    """A bank (L, 9, NC * k) f32, (L, NC * k, 16) f32 as rows of one chunk
+    each, (L * NC, 9 * k) and (L * NC, k * 16): row ``layout * NC + c``
+    holds chunk c of that layout, which a schedule reads as (L * NC, 9, k)
+    and (L * NC, k, 16) banks of one chunk (raycast.static_rows)."""
+    L, _, s = verts9.shape
+    nc = s // k
+    return (np.ascontiguousarray(verts9.reshape(L, 9, nc, k).transpose(0, 2, 1, 3)
+                                 .reshape(L * nc, 9 * k)),
+            np.ascontiguousarray(attr.reshape(L * nc, -1)))
 
 
 def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
-                    domain_rand: bool = False, tex_mode: str = "fourier", view: str = "agent"):
+                    domain_rand: bool = False, tex_mode: str = "fourier", view: str = "agent",
+                    tri_chunk: int | None = None):
     """The static decisions of the JAX package's ``_install_bank`` for
     a fresh bank, for a batch of ``num_envs`` envs rendering ``hw``
-    pixels each (the supersampled count with supersample=2).
+    pixels each (the supersampled count with supersample=2), the culling
+    planner's chunk capped by ``tri_chunk`` (``plan_chunks``).
 
     Returns (bank, statics dict): the bank repadded for its chunk plan
     (``plan_chunks``), and ``plan`` (with ``chunk_starts``, the first
@@ -450,7 +474,9 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
     draws the row's variant (raycast.py:277-310): (L, S, 4) from
     ``tri_tex*`` for a dense plan (one chunk or several, by the global
     row), the (L * NC, k, 4) chunk rows of ``pvs_tri_tex*`` for packed
-    PVS, in the view of ``pvs_v9_rows``, and both variants' rows of
+    PVS, in the view of ``pvs_v9_rows``, those of ``tri_tex*`` for
+    ``chunk_vis`` and for a dense plan of several chunks with mesh
+    entities (``raycast.static_rows``' chunk rows), and both variants' rows of
     ``pg_tex`` for a paired bank (``tex_alt``; None otherwise). In
     ``tex_mode="nearest"`` the slot columns keep their layout-local slot
     ids, which the render resolves through ``EnvState.tex_map`` (where
@@ -468,19 +494,21 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
     winner only on a strictly greater key (raycast.py:444-456): a tie at
     equal quantized depth goes to the larger chunk-local index, and
     between chunks to the earlier chunk. So the port renders a dense
-    plan in its chunks (one, or the multi-chunk scan), and the
-    packed-PVS plan of one chunk a render (the 8x8 Maze's layout bank)
-    as that one chunk: each env scans its camera room's packed visible
-    set, ``pvs_v9_rows`` / ``pvs_attr_rows`` row ``layout * NC +
-    pvs_room_base[layout, room]``, as the JAX package's one-hot chunk
-    read does. A super bank renders its paired rows (``pg_*``), which
+    plan in its chunks (one, or the multi-chunk scan), and a schedule
+    (``raycast.chunk_schedule``) chunk by chunk: packed PVS scans the
+    ``sched_len`` chunks from ``pvs_room_base[layout, room]`` of the
+    camera room, rows of ``pvs_v9_rows`` / ``pvs_attr_rows``, the last
+    clamped to the layout's own chunks (the 8x8 Maze's layout bank: one
+    chunk of 176 at 80x60, two of 96 at 160x120 with supersample=2);
+    ``chunk_vis`` the sorted chunks visible from the camera room, padded
+    with repeats of the last; a dense plan of several chunks with mesh
+    entities the chunks in order, seeded by the mesh pass. A super bank
+    renders its paired rows (``pg_*``), which
     the repad leaves as they are: Sp rows over more than one chunk are
     scanned as JAX scans them, the last chunk's start clamped to Sp -
     tri_chunk, so that chunk re-reads rows at shifted local indices
     (``chunk_starts``; the 8x8 Maze's Sp = 608 in 2 chunks of 496 at a
-    chunk cap of 496). It raises NotImplementedError, naming the plan,
-    for every other plan: ``chunk_vis`` schedules, packed PVS of more
-    than one chunk a render, and mesh entities over more than one chunk.
+    chunk cap of 496).
     With ``view="top"`` the observation is the top view, which scans the
     dense rows as built (``tri_verts``, with the super bank's
     ``tri_active`` kill) and carries them in float32: the bank gets no
@@ -502,23 +530,14 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
         return (bake_tri_slots(bank_np) if bake else bank_np,
                 dict(plan=None, tri_chunk=None, all_quads=None, pg_wall=None,
                      shapes_present=None, has_gain=has_gain, slot_tex=None))
-    bank_np, plan = plan_chunks(bank_np, num_envs, hw)
+    bank_np, plan = plan_chunks(bank_np, num_envs, hw, tri_chunk)
     tri_chunk, s_bank = plan["tri_chunk"], bank_np.tri_mask.shape[1]
-    where = f"(B={num_envs}, {hw} px: chunk cap {plan['cap']})"
-    if plan["kind"] == "chunk_vis" or (plan["kind"] == "packed_pvs" and plan["sched_len"] > 1):
-        raise NotImplementedError(
-            f"the JAX package's {plan['kind']} plan (tri_chunk {tri_chunk}, sched_len "
-            f"{plan['sched_len']}) {where} is not ported yet")
     shp = bank_np.proto_shape
     shapes_present = (
         bool((shp == SHAPE_SPHERE).any()),
         bool(((shp == SHAPE_BOX) | (shp == SHAPE_MESH_BOX)).any()),
         bool((shp == SHAPE_MESH_TRIS).any()),
     )
-    if plan["kind"] == "dense" and s_bank > tri_chunk and shapes_present[2]:
-        raise NotImplementedError(
-            f"mesh entities over {s_bank // tri_chunk} chunks of {tri_chunk} prims {where} "
-            "(a seeded multi-chunk scan) are not ported yet")
     # the first row of each chunk the render scans (of the paired rows on
     # a super bank; packed PVS scans one chunk of its own a render)
     n_scan = s_bank if bank_np.pg_verts9 is None else bank_np.pg_verts9.shape[2]
@@ -537,22 +556,23 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
     if bake:
         bank_np = bake_tri_slots(bank_np)
     slot_tex = (slot_rows(bank_np.tri_tex, bank_np.tri_tex_base, bank_np.tri_tex_count), None)
+    if plan["kind"] == "chunk_vis" or (plan["kind"] == "dense" and shapes_present[2]
+                                       and plan["nc"] > 1):
+        # scheduled over the layout bank's own chunks: their chunk-row views
+        # (raycast.static_rows), with the slot table in the same rows
+        v9r, atr = chunk_row_views(bank_np.tri_verts9, bank_np.tri_attr, tri_chunk)
+        bank_np = dataclasses.replace(bank_np, pvs_v9_rows=v9r, pvs_attr_rows=atr)
+        slot_tex = (slot_tex[0].reshape(-1, tri_chunk, 4), None)
     if plan["kind"] == "packed_pvs":
-        # the chunk-row views of the JAX package's one-hot chunk read,
-        # (L * NC, 9 * k) and (L * NC, k * 16), which the render reads as
-        # (L * NC, 9, k) and (L * NC, k, 16) banks of one chunk
+        # the chunk-row views of the JAX package's one-hot chunk read
         pa = bank_np.pvs_attr
         if bake:  # slot columns baked as in the bank
             pa = pa.copy()
             pa[:, :, 14] = bank_np.pvs_tri_tex_base
-        L, _, s2 = bank_np.pvs_verts9.shape
-        nc = s2 // tri_chunk
-        v9r = np.ascontiguousarray(bank_np.pvs_verts9.reshape(L, 9, nc, tri_chunk)
-                                   .transpose(0, 2, 1, 3).reshape(L * nc, 9 * tri_chunk))
-        atr = np.ascontiguousarray(pa.reshape(L * nc, -1))
+        v9r, atr = chunk_row_views(bank_np.pvs_verts9, pa, tri_chunk)
         bank_np = dataclasses.replace(bank_np, pvs_attr=pa, pvs_v9_rows=v9r, pvs_attr_rows=atr)
         slot_tex = (slot_rows(bank_np.pvs_tri_tex, bank_np.pvs_tri_tex_base,
-                              bank_np.pvs_tri_tex_count).reshape(L * nc, tri_chunk, 4), None)
+                              bank_np.pvs_tri_tex_count).reshape(-1, tri_chunk, 4), None)
     all_quads = bool((bank_np.tri_attr[:, :, 15][bank_np.tri_mask] == 0.0).all())
     pg_wall = None
     if bank_np.tri_wall is not None:
@@ -625,6 +645,7 @@ class MiniWorldVec:
         procgen: bool | None = None,
         tex_mode: str = "fourier",
         view: str = "agent",
+        tri_chunk: int | None = None,
     ):
         if view not in ("agent", "top"):
             raise ValueError(f"view must be 'agent' or 'top', got {view!r}")
@@ -690,10 +711,13 @@ class MiniWorldVec:
         bank_np, statics = install_statics(
             bank_np, tex_np, self.num_envs,
             self.obs_width * self.obs_height * self.supersample ** 2, self.domain_rand, tex_mode,
-            view)
+            view, tri_chunk)
         self._bank_np = bank_np
-        # the JAX package's chunk plan (plan_chunks), which the render follows
+        # the JAX package's chunk plan (plan_chunks), which the render
+        # follows; a chunk_vis plan's visibility on the device
         self.plan = statics["plan"]
+        if self.plan is not None and "chunk_vis" in self.plan:
+            self.plan = dict(self.plan, chunk_vis=torch.from_numpy(self.plan["chunk_vis"]).to(device))
         self.tri_chunk = statics["tri_chunk"]
         self._all_quads = statics["all_quads"]
         self._shapes_present = statics["shapes_present"]
@@ -948,8 +972,7 @@ class MiniWorldVec:
             width=self.obs_width, height=self.obs_height, k_terms=self.fourier_k,
             shapes_present=self._shapes_present, all_quads=self._all_quads,
             has_gain=self._has_gain, use_kernels=self.use_kernels, pg_wall=self._pg_wall,
-            table=self._fourier_table, tri_chunk=self.tri_chunk,
-            packed_pvs=self.plan["kind"] == "packed_pvs", slot_tex=self._slot_tex,
+            table=self._fourier_table, plan=self.plan, slot_tex=self._slot_tex,
             supersample=self.supersample, tex_mode=self.tex_mode,
         )
 

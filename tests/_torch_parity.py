@@ -135,7 +135,7 @@ def adopt_reset_ulps(jstate, tstate, done):
 
 
 def reset_and_steps(env_id, b, w, h, steps, seed, start=None, forced_action=2,
-                    frames=None, follow_jax=False, **env_kwargs):
+                    frames=None, follow_jax=False, envs=None, **env_kwargs):
     """Reset the JAX package's env and the port's at (b, w, h) from
     ``seed`` and step both ``steps`` times with the same actions, checking
     as tests/test_torch_vector.py::test_reset_and_ten_steps does: rewards,
@@ -153,15 +153,19 @@ def reset_and_steps(env_id, b, w, h, steps, seed, start=None, forced_action=2,
     state, and its image is the render of that state (the raw 6-D
     actions: XLA:CPU fuses some of their multiply-adds, moving states by
     ulps a step, ROADMAP C1; the states are still held within
-    FLOAT_ATOL). ``env_kwargs`` go to both constructors.
+    FLOAT_ATOL). ``env_kwargs`` go to both constructors; ``envs`` = (JAX
+    env, port env) built already at (b, w, h) takes their place.
     Returns (dones, total reward, the last infos of JAX and the port)."""
     from miniworld_tpu import MiniWorldVec as JaxVec
     from miniworld_tpu_torch import MiniWorldVec
 
     import jax.numpy as jnp
 
-    env = MiniWorldVec(env_id, b, obs_width=w, obs_height=h, device="cpu", **env_kwargs)
-    jenv = JaxVec(env_id, num_envs=b, obs_width=w, obs_height=h, **env_kwargs)
+    if envs is None:
+        env = MiniWorldVec(env_id, b, obs_width=w, obs_height=h, device="cpu", **env_kwargs)
+        jenv = JaxVec(env_id, num_envs=b, obs_width=w, obs_height=h, **env_kwargs)
+    else:
+        jenv, env = envs
     jstate, (j_rgb, j_depth) = jenv.reset(jax.random.key(seed))
     tstate, (t_rgb, t_depth) = env.reset(seed)
     assert_states_match(jstate, tstate)

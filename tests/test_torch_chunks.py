@@ -4,13 +4,16 @@ The split of a bank into chunks decides ties at equal quantized depth
 (the z-key carries a row's index within its chunk, and the carry across
 chunks keeps the earlier chunk's winner), so the port reproduces the
 JAX package's plan: for every ported id at three (B, W, H), the port's
-plan equals JAX's or the port raises NotImplementedError naming it.
+plan equals JAX's.
 The multi-chunk scan's plain version is held against JAX's ``_tri_pass``
 on a bank whose prims are copied across chunk boundaries (ties on many
 pixels), and the kernel's one-pass select, copied in torch, against the
 chunk loop; the Maze layout bank's packed-PVS plan renders its packed
-chunks as JAX's scan does.
+chunks as JAX's scan does, in one chunk a render or, as the scheduled
+plans (packed PVS over 2 chunks, chunk_vis) do, chunk by chunk.
 """
+
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -102,12 +105,18 @@ def maze2_bank():
 
 
 @pytest.mark.parametrize("kind", ["packed_pvs", "chunk_vis"])
-def test_unported_plans_raise(maze2_bank, kind, monkeypatch):
+def test_scheduled_plans_render(maze2_bank, maze_bank, kind, monkeypatch):
     """Packed PVS over more than one chunk a render, and a chunk_vis
-    schedule, raise NotImplementedError naming the plan: the 8x8 Maze's
-    layout bank at a chunk cap of 96 plans packed PVS of 2 chunks of 96
-    a render, in the port as in the JAX package; without the packed
-    planner it plans chunk_vis culling."""
+    schedule, install and render: the 8x8 Maze's layout bank at a chunk
+    cap of 96 plans packed PVS of 2 chunks of 96 a render, in the port as
+    in the JAX package; without the packed planner it plans chunk_vis
+    culling. tri_pass_scheduled on the port's schedule equals JAX's
+    ``_tri_pass`` on JAX's (``room_base + arange`` with the one-hot chunk
+    read; ``chunk_schedule`` with ``chunk_sched``), t and attributes, on
+    16 views spread over the maze's cells; the envs whose packed slot runs
+    past their layout (``base + j >= NC``, where JAX's one-hot read leaves
+    the layout) are held against JAX's clamped read. render_rgbd renders
+    the plan through its wrappers as through the plain versions."""
     hw = int(4e10 / 4 / 1024 / 96)
     assert tvector.chunk_cap(1024, hw) == 96
     if kind == "packed_pvs":
@@ -116,13 +125,79 @@ def test_unported_plans_raise(maze2_bank, kind, monkeypatch):
     else:
         monkeypatch.setattr(tvector, "plan_packed_pvs",
                             lambda bank, cap, over: (None, cap, None, np.inf))
-    _, plan = tvector.plan_chunks(maze2_bank, 1024, hw)
-    assert plan["kind"] == kind and plan["sched_len"] > 1
-    if kind == "packed_pvs":
-        assert (plan["tri_chunk"], plan["sched_len"]) == j_packed[1:3]
     tex = np.ones((2, 4 + 8 * 16), np.float32)
-    with pytest.raises(NotImplementedError, match=f"{kind} plan"):
-        tvector.install_statics(maze2_bank, tex, 1024, hw)
+    bank_np, statics = tvector.install_statics(maze2_bank, tex, 1024, hw)
+    plan = statics["plan"]
+    assert plan["kind"] == kind and plan["sched_len"] > 1
+    k, n, nc = plan["tri_chunk"], plan["sched_len"], plan["nc"]
+    if kind == "packed_pvs":
+        assert (k, n) == j_packed[1:3]
+    else:
+        vis = jvector._chunk_visibility(jvector._repad_for_chunks(maze2_bank, k), k)
+        np.testing.assert_array_equal(plan["chunk_vis"], vis)
+        plan = dict(plan, chunk_vis=torch.from_numpy(plan["chunk_vis"]))
+    jenv, _ = maze_bank
+    b = 16
+    jstate, _ = jenv.reset(jax.random.key(8))
+    rng = np.random.default_rng(16)
+    cells = rng.permutation(64)[:b]
+    pos = np.stack([(cells % 8) * 3.25 + rng.uniform(0.5, 2.5, b), np.zeros(b),
+                    (cells // 8) * 3.25 + rng.uniform(0.5, 2.5, b)], 1)
+    jstate = jstate.replace(pos=jnp.asarray(pos, jnp.float32),
+                            dir=jnp.asarray(rng.uniform(-np.pi, np.pi, b), jnp.float32),
+                            layout_id=jnp.asarray(rng.integers(0, 2, b), jnp.int32))
+    jbank = SimpleNamespace(**{f: jnp.asarray(getattr(bank_np, f)) for f in (
+        "room_outline", "room_norms", "room_vmask", "room_mask", "pvs_room_base")
+        if getattr(bank_np, f) is not None})
+    quads = statics["all_quads"]
+    if kind == "packed_pvs":
+        v9, at = jnp.asarray(bank_np.pvs_verts9), jnp.asarray(bank_np.pvs_attr)
+        rows = (jnp.asarray(bank_np.pvs_v9_rows), jnp.asarray(bank_np.pvs_attr_rows), nc)
+
+        def sched_of(s, o):
+            room = jrc.room_of_point(jbank, s.layout_id, o[jnp.array([0, 2])])
+            return jbank.pvs_room_base[s.layout_id, room] + jnp.arange(n, dtype=jnp.int32)
+    else:
+        v9, at = jnp.asarray(bank_np.tri_verts9), jnp.asarray(bank_np.tri_attr)
+        rows = None
+
+        def sched_of(s, o):
+            return jrc.chunk_schedule(jbank, jnp.asarray(vis), s.layout_id, o, n)
+
+    def scan(read):
+        def one(s, o, r):
+            return jrc._tri_pass(v9, at, s.layout_id, o, r, k, chunk_sched=sched_of(s, o),
+                                 chunk_rows=read, all_quads=quads)
+
+        origin, rays = _jax_cameras(jstate, TIE_W, TIE_H)
+        return jax.jit(jax.vmap(one))(jstate, origin, rays)
+
+    cam, _ = _port_camera(jstate, TIE_W, TIE_H)
+    state = to_port_state(jstate)
+    tbank = layout_from_numpy(bank_np)
+    trows, paired = trc.static_rows(tbank, state, cam, plan=plan)
+    assert paired is None and trows[2].shape == (b, n) and trows[0].shape[1:] == (9, k)
+    t_t, a_t = trc.tri_pass_scheduled(*trows, cam, quads)
+    every = torch.ones(b, dtype=torch.bool)
+    checks = [(None, every)]  # JAX's dynamic_slice read, clamped
+    if kind == "packed_pvs":
+        room = trc.room_of_point(tbank, state.layout_id, cam.origin[:, [0, 2]])
+        inside = tbank.pvs_room_base[state.layout_id.long(), room] + n <= nc
+        assert int(inside.sum()) >= b // 2
+        checks.append((rows, inside))  # its one-hot read, inside the layouts
+    for read, envs in checks:
+        t_j, a_j = scan(read)
+        np.testing.assert_array_equal(t_t[envs].numpy(), np.asarray(t_j)[envs.numpy()])
+        np.testing.assert_array_equal(a_t[envs].float().numpy(),
+                                      np.asarray(a_j.astype(jnp.float32))[envs.numpy()])
+    assert np.isfinite(t_t.numpy()).mean() > 0.3
+    env_args = dict(width=TIE_W, height=TIE_H, k_terms=16,
+                    shapes_present=statics["shapes_present"], all_quads=quads, plan=plan)
+    atlas = torch.from_numpy(tex)
+    rgb_k, depth_k = trc.render_rgbd(tbank, state, atlas, **env_args)
+    rgb_p, depth_p = trc.render_rgbd(tbank, state, atlas, use_kernels=False, **env_args)
+    assert torch.equal(rgb_k, rgb_p) and torch.equal(depth_k, depth_p)
+    assert float((depth_k < trc.FAR).float().mean()) > 0.3
 
 
 # ---------------------------------------------------------------------------
@@ -337,7 +412,7 @@ def test_packed_scan_matches_jax(maze_bank):
     t_j, a_j = jax.jit(jax.vmap(one))(jstate, origin, rays)
     cam, _ = _port_camera(jstate, TIE_W, TIE_H)
     bank = layout_from_numpy(tenv._bank_np)
-    rows, paired = trc.static_rows(bank, to_port_state(jstate), cam, packed_pvs=True)
+    rows, paired = trc.static_rows(bank, to_port_state(jstate), cam, plan=tenv.plan)
     assert paired is None and rows[0].shape == (4 * ncl, 9, 176)
     t_t, a_t = trc.tri_pass(*rows, cam, tenv._all_quads, tri_chunk=176)
     np.testing.assert_array_equal(t_t.numpy(), np.asarray(t_j))
