@@ -78,7 +78,15 @@ quantized depth), and at the Maze bank's B=1024 with envs in the rooms
 whose clamped slot repeats a chunk, timed; then the Maze bank's rollout
 at B=1024 with its breakdown and profile, with domain randomisation,
 ThreeRooms, FourRooms and the MazeS3 bank at tri_chunk=16 at B=1024, and
-at B=128 against their plain paths.
+at B=128 against their plain paths. The multi-chunk tri_pass (its own
+windowed kernel) is also held exactly at Sidewalk's B=1024 with the
+override and the float32 carry, on the paired Maze at B=1024 with the
+float32 carry, and on 4,096 rows all in view over several windows (chunks
+of 1,024 and 1,000; [tri-window] gives the views' image survivors against
+the window); entity_pass and the SS=2 epilogue are held and timed at
+the Maze supersample=2 path's B=8192 and 160x120 samples, the epilogue
+beside the issue rate's floor for its Fourier terms (issue_floor_ms,
+from cuobjdump -sass).
 One line per phase; the JSON summary of the
 kernels and the card's ``nvidia-smi`` name and power limit come before
 the last line,
@@ -94,6 +102,8 @@ import contextlib
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -771,6 +781,54 @@ def tri_cull_stats(tri, paired=None, tile=None, block=32, mesh_rows9=None):
                 scanned_per_px=out["scanned"] / (b * W * H))
 
 
+def image_survivors(tri, paired=None, block=64):
+    """(B,) rows of each env that survive tri_pass's cull against its
+    whole image (the rows the multi-chunk kernel streams through its
+    window), from the plain cull over blocks of envs."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    verts9, attr, layout_id, cam, all_quads = tri
+    out = []
+    for lo in range(0, layout_id.shape[0], block):
+        sl = slice(lo, lo + block)
+        c = cam_rows(cam, sl)
+        p = None if paired is None else (*paired[:3], paired[3][sl])
+        rows = rc.stage_rows(verts9, attr, layout_id[sl], c, p)
+        out.append(rc.tile_cull_plain(rows, c, c.width, c.height, all_quads)[:, 0].sum(1))
+    return torch.cat(out)
+
+
+def windows_all_in_view(n_rows):
+    """The windows the multi-chunk kernel scans an env in when all of its
+    ``n_rows`` rows survive the image cull: batches of its block's
+    threads, a batch that would overflow the window closing it first."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    tw, th, k = rc.tri_pass_tile()
+    gx, gy, rows = rc.tri_pass_window()
+    block = tw * th // k * gx * gy
+    n_win, windows = 0, 1
+    for s0 in range(0, n_rows, block):
+        total = min(block, n_rows - s0)
+        if n_win + total > rows:
+            windows, n_win = windows + 1, 0
+        n_win += total
+    return windows
+
+
+def say_window(label, tri, paired=None):
+    """[tri-window]: the multi-chunk kernel's window against these views'
+    image survivors: their mean and max, and the envs that need more than
+    one window."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    gx, gy, rows = rc.tri_pass_window()
+    n = image_survivors(tri, paired).double()
+    say("tri-window", env=label, B=n.numel(), group=f"{gx}x{gy}", window_rows=rows,
+        image_survivors_mean=f"{float(n.mean()):.1f}", image_survivors_max=int(n.max()),
+        envs_over_one_window=int((n > rows).sum()))
+
+
 def cull_fields(stats, tile, n_rows):
     return dict(tile=f"{tile[0]}x{tile[1]}", rows=n_rows,
                 rows_after_image_test=f"{stats['image_survivors']:.3f}",
@@ -827,11 +885,26 @@ def stage_work(env, state, tri, ent, outs, tri_hits, mesh=None, paired=None):
     work["entity_pass"] = (b * E * 45 + cam_b + b * hw * 28,
                            hw * (n_sph * 20 + n_box * 45))
     k = env.fourier_k
-    textured = int((torch.isfinite(t_k) & (a_k[..., 14].float() >= 0)).sum())
-    work["pixel_epilogue"] = (b * hw * 36 + ent_read_bytes(t_k, e_k[0])
+    read, textured = texel_reads(t_k, a_k, e_k[0], env._fourier_table.shape[0])
+    work["pixel_epilogue"] = (b * hw * 4 + read * 32 + ent_read_bytes(t_k, e_k[0])
                               + env._fourier_table.numel() * 4 + b * 48 + cam_b + b * hw * 7,
                               textured * k * 41 + b * hw * 60)
     return work
+
+
+def texel_reads(t_tri, attr, t_ent, n_rows=None):
+    """(samples whose attributes the epilogue's result reads: a finite
+    t_tri that no strictly closer entity beats; of them those with a
+    texel to evaluate: slot >= 0, and below ``n_rows`` table rows where
+    given)."""
+    read = torch.isfinite(t_tri)
+    if t_ent is not None:
+        read &= ~(t_ent < t_tri)
+    slot = torch.round(attr[..., 14].float())
+    tex = read & (slot >= 0)
+    if n_rows is not None:
+        tex &= slot < n_rows
+    return int(read.sum()), int(tex.sum())
 
 
 def random_maze_states(env, gen, seed=7):
@@ -873,7 +946,7 @@ def phase_maze_kernels(maze, n_mesh_envs=64):
     errs, outs = run_stage_checks(
         tri, ent, epi, f"maze8x8-procgen B={B_MAZE} HW={W * H} Sp={tri[0].shape[2]} "
         f"paired E=1", timings, paired=paired, plain_iters=1)
-    t_k, a_k, _ = outs
+    t_k, a_k, e_k = outs
     hit = torch.isfinite(t_k)
     say("maze-scene", px_hit=f"{float(hit.float().mean()):.3f}",
         walls_open=f"{float(state.wall_open.mean()):.3f}",
@@ -941,6 +1014,42 @@ def tie_case(dev, n=B_STAGE, g=256, seed=21):
             torch.zeros(n, dtype=torch.int32, device=dev), cam, False)
 
 
+def overflow_case(dev, n=256, S=4096, seed=23):
+    """A bank of S front-facing triangles 6-10 m ahead of n cameras
+    (numpy draws from ``seed``), every one of them inside every view, so
+    that all S rows survive the image cull and the multi-chunk kernel scans
+    them in several windows: rows 1024-2047 repeat rows 0-1023 with other
+    attributes (at tri_chunk 1,024 each pair ties at the same chunk-local
+    index in chunks 0 and 1, and lies in two windows), the other rows are
+    new. Returns the tri_pass arguments (verts9 (1, 9, S), attr, layout_id,
+    cam, all_quads)."""
+    from miniworld_tpu_torch.ops import geom
+    from miniworld_tpu_torch.render import raycast as rc
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    yaw = torch.from_numpy(rng.uniform(-0.05, 0.05, n).astype(f32))
+    pitch = torch.from_numpy(rng.uniform(-2.0, 2.0, n).astype(f32))
+    fwd, up, right = geom.cam_basis(yaw, pitch)
+    origin = np.stack([rng.uniform(-0.5, 0.5, n), np.full(n, 1.5), rng.uniform(-0.2, 0.2, n)], 1)
+    tan_y = torch.full((n,), math.tan(math.radians(30.0)))
+    xbase = 2.0 * (torch.arange(W, dtype=torch.float32) + 0.5) * (1.0 / W) - 1.0
+    ybase = 1.0 - 2.0 * (torch.arange(H, dtype=torch.float32) + 0.5) * (1.0 / H)
+    cam = rc.Camera(*(t.to(dev) for t in (torch.from_numpy(origin.astype(f32)), fwd, right, up,
+                                           tan_y * (W / H), tan_y, xbase, ybase)))
+    v0 = np.stack([rng.uniform(6, 10, S), rng.uniform(1.2, 1.8, S), rng.uniform(-0.6, 0.6, S)])
+    e1, e2 = rng.uniform(-1.5, 1.5, (3, S)), rng.uniform(-1.5, 1.5, (3, S))
+    e1[0] = e2[0] = 0.0  # upright, facing -x
+    back = np.cross(e2, e1, axis=0)[0] < 0  # det = (e2 x e1) . d must be > 0 for d ~ +x
+    e1[:, back], e2[:, back] = e2[:, back], e1[:, back].copy()
+    verts9 = np.concatenate([v0, v0 + e1, v0 + e2])
+    verts9[:, 1024:2048] = verts9[:, :1024]
+    attr = rng.uniform(-1, 1, (1, S, 16)).astype(f32)
+    attr[0, :, 15] = 1.0
+    return (torch.from_numpy(verts9[None].astype(f32)).to(dev), torch.from_numpy(attr).to(dev),
+            torch.zeros(n, dtype=torch.int32, device=dev), cam, False)
+
+
 def phase_chunks(side, side_stage, wall_stage, hall_run):
     """The multi-chunk tri_pass against tri_pass_chunked, exactly: Sidewalk
     views at B=64 in chunks of 1,024 (3), of 496 (6, the bank repadded as
@@ -948,7 +1057,11 @@ def phase_chunks(side, side_stage, wall_stage, hall_run):
     views at B=64 in chunks of 1,024 (2); the tie case in chunks of 256
     and 16, where the chunk rule decides hundreds of pixels (against the
     global row index of one chunk). Then every render stage at the
-    Sidewalk main path's shapes (B=1024, 3 chunks), timed, and a second
+    Sidewalk main path's shapes (B=1024, 3 chunks), timed, with tri_pass
+    also held exactly there with a synthetic texture-variant override and
+    with the float32 carry (the grid of one block an env that is timed);
+    the overflow case (overflow_case: every row of S = 4,096 in view, in
+    chunks of 1,024 and of 1,000, several windows an env); and a second
     timing of Hallway's single-chunk tri_pass (``hall_run``). Returns
     (errs, timings, work)."""
     from miniworld_tpu_torch import vector as tvector
@@ -994,6 +1107,24 @@ def phase_chunks(side, side_stage, wall_stage, hall_run):
     for label, args in ((SIDE_ID, tri), (WALL_ID, w_tri)):
         stats = tri_cull_stats(args, tile=tile, block=16)
         say("tri-cull", env=label, B=B_STAGE, **cull_fields(stats, tile, args[0].shape[2]))
+    # every row in every view: the multi-chunk kernel's windows, a row
+    # read by two chunks (tri_chunk 1,000: the last chunk from row 3,096),
+    # ties between windows
+    ovf = overflow_case(dev)
+    survivors = image_survivors(ovf)
+    if int(survivors.min()) != ovf[0].shape[2]:
+        raise AssertionError(f"the overflow case keeps {int(survivors.min())} rows in a view")
+    _, a_first = rc.tri_pass_plain(ovf[0][:, :, :1024], ovf[1][:, :1024], *ovf[2:])
+    for tc in (1024, 1000):
+        t_k, a_k, e = check_tri_pass(ovf, f"overflow B={ovf[2].shape[0]} S=4096 all in view "
+                                     f"chunks of {tc}", tri_chunk=tc)
+        err = max(err, e)
+        decided = int(((a_k == a_first).all(-1) & torch.isfinite(t_k)).sum())
+        say("tie-case", route="overflow", tri_chunk=tc, windows_per_env=windows_all_in_view(4096),
+            px_hit=f"{float(torch.isfinite(t_k).float().mean()):.3f}",
+            px_won_by_rows_0_1023=decided)
+        if tc == 1024 and decided < 100:  # ties at equal local indices, chunks 0 and 1
+            raise AssertionError(f"the overflow case decides only {decided} pixels")
 
     # every render stage at the Sidewalk main path's shapes, timed
     state = spread_states(side, gen, lo, hi)
@@ -1006,11 +1137,21 @@ def phase_chunks(side, side_stage, wall_stage, hall_run):
     stats = tri_cull_stats(s_tri, tile=tile, block=16)
     say("tri-cull", env=SIDE_ID, B=side.num_envs, **cull_fields(stats, tile, 3072))
     work = stage_work(side, state, s_tri, s_ent, outs, stats["hit_pairs"])
+    # the timed grid (one block an env at B >= 1024) with the override and
+    # the float32 carry
+    keys = torch.randint(0, 1 << 32, (side.num_envs,), generator=gen).to(dev)
+    override = (keys, spread_tex(torch.zeros((1, 3072, 4), device=dev), gen), None)
+    errs["tri_pass"] = max(errs["tri_pass"], check_override(
+        s_tri, override, f"{SIDE_ID} B={side.num_envs} S=3072 3 chunks synthetic variants",
+        tri_chunk=side.tri_chunk)[0])
+    errs["tri_pass"] = max(errs["tri_pass"], check_tri_pass(
+        s_tri, f"{SIDE_ID} B={side.num_envs} S=3072 3 chunks", tri_chunk=side.tri_chunk,
+        attr_dtype=torch.float32)[2])
+    say_window(f"{SIDE_ID} 3 chunks", s_tri)
     ms, plain_ms = timings["tri_pass"]
-    say("kernel-time", kernel="tri_pass", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        bound_ms=f"{bound(*work['tri_pass'])[0]:.4f}",
+    say("kernel-time", kernel="tri_pass", instance="multi", ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound(*work['tri_pass'])[0]:.4f}",
         bound_full_scan_ms=f"{bound(*work['tri_pass_full_scan'])[0]:.4f}",
-        parent_ms="not run: the parent's tri_pass refuses S > 1024",
         shapes=f"{SIDE_ID} B={side.num_envs} HW={W * H} S=3072 tri_chunk=1024")
     say("kernel-time", kernel="tri_pass", reading="second",
         ms=f"{cuda_ms(hall_run, 50):.4f}", shapes=f"{ENV_ID} B={B} HW={W * H}")
@@ -1082,6 +1223,63 @@ def phase_mazegen(maze, timings):
 def bound(nbytes, ops):
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+_SASS: dict = {}
+
+
+def sass_term_instructions(k_terms, gain):
+    """Instructions a Fourier term takes in the built library's SS=2
+    pixel_epilogue instance with the table in shared memory, K =
+    ``k_terms`` and GAIN = ``gain``, read from ``cuobjdump -sass``: a term
+    makes one paired bf16 conversion (F2FP.BF16...PACK_AB), so the span
+    from the instance's first such conversion to its last, over their
+    count less one, is the instructions of a term as scheduled. None where
+    cuobjdump or the instance is missing."""
+    from miniworld_tpu_torch.render import cuda_build
+
+    if "lines" not in _SASS:
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        try:
+            out = subprocess.run([tool, "-sass", cuda_build.BUILD_INFO["path"]],
+                                 capture_output=True, text=True, check=True).stdout
+        except (OSError, KeyError, subprocess.CalledProcessError):
+            out = ""
+        _SASS["lines"] = out.splitlines()
+    name = f"pixel_epilogue_ss2_kernelILb1ELi{k_terms}ELb{int(gain)}ELb0ELb0E"
+    packs, n, inside = [], 0, False
+    for ln in _SASS["lines"]:
+        if "Function :" in ln:
+            inside = name in ln
+            n = 0
+            continue
+        if inside and ln.strip().startswith("/*") and "*/" in ln and ";" in ln:
+            if "F2FP.BF16" in ln and "PACK_AB" in ln:
+                packs.append(n)
+            n += 1
+    if len(packs) < 2:
+        return None
+    return (packs[-1] - packs[0]) / (len(packs) - 1)
+
+
+def issue_floor_ms(n_terms, per_term):
+    """The least time the card's schedulers take to issue ``n_terms``
+    Fourier terms of ``per_term`` instructions each (every SM issues 4
+    warp instructions a clock, 128 lanes' worth, at the card's highest SM
+    clock from nvidia-smi); None without a SASS count."""
+    if per_term is None:
+        return None
+    if "clock_hz" not in _SASS:
+        mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                              "--format=csv,noheader,nounits"], capture_output=True,
+                             text=True, check=True).stdout.split()[0]
+        _SASS["clock_hz"] = float(mhz) * 1e6
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return n_terms * per_term / (n_sm * 128 * _SASS["clock_hz"]) * 1e3
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def ent_read_bytes(t_tri, t_ent):
@@ -1401,13 +1599,15 @@ def ss_stage_inputs(env, state):
 def phase_ss_epilogue(envs):
     """[ss-epilogue]: the SS=2 pixel_epilogue against pixel_epilogue_plain
     with ss=2 on each env's 2x2 samples (0 differing u8 values, equal
-    depth), timed with its plain version; ``envs`` = [(label, env)] at
-    their main paths' shapes. Returns ({label: (ms, plain ms)}, {label:
-    work}, the max abs u8 difference)."""
+    depth), timed with its plain version, beside its bound and the issue
+    rate's floor for its Fourier terms (issue_floor_ms); ``envs`` =
+    [(label, env)] at their main paths' shapes. Returns ({label: (ms,
+    plain ms)}, {label: work}, the max abs u8 difference, {label: floor
+    ms})."""
     from miniworld_tpu_torch.render import raycast as rc
 
     gen = torch.Generator().manual_seed(99)
-    timings, work, rgb_err = {}, {}, 0.0
+    timings, work, rgb_err, floors = {}, {}, 0.0, {}
     for label, env in envs:
         if env.spec.gym_id == PICK_ID:
             state = facing_states(env, gen, (0.5, 0.5), (11.5, 11.5))
@@ -1430,28 +1630,34 @@ def phase_ss_epilogue(envs):
         timings[label] = (cuda_ms(lambda: rc.pixel_epilogue(*args, table=table, ss=2), 50),
                           cuda_ms(lambda: rc.pixel_epilogue_plain(*args, ss=2), 1))
         work[label] = epi_work(args, table, env.fourier_k, 2)
+        terms = texel_reads(args[0], args[1], args[2], table.shape[0])[1] * env.fourier_k
+        floors[label] = issue_floor_ms(terms, sass_term_instructions(env.fourier_k, False))
         say("kernel-time", kernel="pixel_epilogue", instance="SS=2",
             ms=f"{timings[label][0]:.4f}", plain_ms=f"{timings[label][1]:.4f}",
             bound_ms=f"{bound(*work[label])[0]:.4f}", bound_by=bound(*work[label])[1],
+            issue_floor_ms=fmt_ms(floors[label]),
+            instructions_a_term=sass_term_instructions(env.fourier_k, False),
             shapes=f"{label} B={env.num_envs} out={W}x{H} samples={2 * W}x{2 * H}")
-    return timings, work, rgb_err
+    return timings, work, rgb_err, floors
 
 
 def epi_work(args, table, k_terms, ss, glyph_px=0):
     """(bytes, operations) of a pixel_epilogue launch on ``args`` (its
     plain version's positional arguments up to k_terms) with SS = ``ss``:
-    each sample's t and bf16 attributes read once (and of the entity
-    pass's results what ent_read_bytes counts), the table, lights and
-    camera once, 7 bytes out a pixel;
-    41 operations per Fourier term of each textured sample, 60 per
+    each sample's t read once, its bf16 attributes where the result reads
+    them (texel_reads), of the entity pass's results what ent_read_bytes
+    counts, the table, lights and camera once, 7 bytes out a pixel;
+    41 operations per Fourier term of each sample whose texel the result
+    reads (texel_reads: a finite t_tri, a slot in the table, no closer
+    entity), 60 per
     sample for uv, lighting and the pack, 4 per output pixel for the
     box filter, and 12 per glyph sample (``glyph_px``: the edge width,
     the threshold and the blend)."""
     t_tri, attr, t_ent, cam = args[0], args[1], args[2], args[6]
     b, hws = t_tri.shape
     n_out = hws // (ss * ss)
-    textured = int((torch.isfinite(t_tri) & (attr[..., 14].float() >= 0)).sum())
-    in_bytes = b * hws * 36 + ent_read_bytes(t_tri, t_ent)
+    read, textured = texel_reads(t_tri, attr, t_ent, table.shape[0])
+    in_bytes = b * hws * 4 + read * 32 + ent_read_bytes(t_tri, t_ent)
     return (in_bytes + table.numel() * 4 + b * 48 + b * 14 * 4
             + (cam.width + cam.height) * 4 + b * n_out * 7,
             textured * k_terms * 41 + b * hws * 60 + (b * n_out * 4 if ss > 1 else 0)
@@ -1574,9 +1780,16 @@ def phase_gain_epilogue(sign):
         timings[ss] = (cuda_ms(lambda: rc.pixel_epilogue(*args, True, table=table, ss=ss), 50),
                        cuda_ms(lambda: rc.pixel_epilogue_plain(*args, True, ss=ss), 1))
         work[ss] = epi_work(args, table, sign.fourier_k, ss, glyphs[ss])
+        extra = {}
+        if ss == 2:  # the SS=2 instance's unrolled K = 64 terms
+            per_term = sass_term_instructions(sign.fourier_k, True)
+            floor = issue_floor_ms(texel_reads(args[0], args[1], args[2], table.shape[0])[1]
+                                   * sign.fourier_k, per_term)
+            extra = {"issue_floor_ms": fmt_ms(floor), "instructions_a_term": per_term}
+            work["floor"] = floor
         say("kernel-time", kernel="pixel_epilogue", instance=f"GAIN SS={ss}",
             ms=f"{timings[ss][0]:.4f}", plain_ms=f"{timings[ss][1]:.4f}",
-            bound_ms=f"{bound(*work[ss])[0]:.4f}", bound_by=bound(*work[ss])[1],
+            bound_ms=f"{bound(*work[ss])[0]:.4f}", bound_by=bound(*work[ss])[1], **extra,
             table_bytes=table.numel() * 4, shapes=case)
     return timings, work, glyphs, rgb_err
 
@@ -1621,9 +1834,10 @@ def phase_paired_chunks(maze_ss):
     of the main path's views (160x120 samples, each env its own maze),
     without and with a synthetic texture-variant override (checked as in
     [dr-stages]), and on the paired tie bank, where the chunk rule
-    decides hundreds of pixels. Then timed at the main path's shapes
-    (B=8192, 160x120 samples). Returns (max abs t error, (ms, plain ms),
-    work)."""
+    decides hundreds of pixels, and with the float32 carry. Then timed at
+    the main path's shapes (B=8192, 160x120 samples), and the path's other
+    stages there (maze_ss_stages). Returns (max abs t error, (ms, plain
+    ms), work, maze_ss_stages' dict)."""
     from miniworld_tpu_torch.render import raycast as rc
 
     dev = torch.device(DEVICE)
@@ -1644,6 +1858,8 @@ def phase_paired_chunks(maze_ss):
     case = (f"{MAZE_ID} procgen ss=2 B={sub[2].shape[0]} samples={2 * W}x{2 * H} Sp={sp} "
             f"2 chunks of {tc}")
     _, _, err = check_tri_pass(sub, case, paired=sub_paired, tri_chunk=tc)
+    err = max(err, check_tri_pass(sub, case, paired=sub_paired, tri_chunk=tc,
+                                  attr_dtype=torch.float32)[2])
     keys = torch.randint(0, 1 << 32, sub[2].shape, generator=gen).to(dev)
     zeros = torch.zeros((1, sp, 4), device=dev)
     override = (keys, spread_tex(zeros, gen), spread_tex(zeros, gen))
@@ -1663,16 +1879,70 @@ def phase_paired_chunks(maze_ss):
         px_decided_by_chunk_rule=decided)
     if decided < 100:
         raise AssertionError(f"the paired tie case decides only {decided} pixels")
+    # the plain scan takes seconds at these shapes: one timed call, no warm-up
     timings = (cuda_ms(lambda: rc.tri_pass(*tri, None, paired, tc), 50),
-               cuda_ms(lambda: plain_tri_pass(tri, None, paired, tc), 1))
+               cuda_ms(lambda: plain_tri_pass(tri, None, paired, tc), 1, 0))
     stats = tri_cull_stats(tri, paired, block=16)
     work = tri_work(tri, stats["hit_pairs"], paired)
+    shapes = (f"{MAZE_ID} procgen ss=2 B={maze_ss.num_envs} samples={2 * W}x{2 * H} Sp={sp} "
+              f"tri_chunk={tc}")
     say("kernel-time", kernel="tri_pass", instance="paired 2 chunks", ms=f"{timings[0]:.4f}",
         plain_ms=f"{timings[1]:.4f}", bound_ms=f"{bound(*work)[0]:.4f}",
         bound_by=bound(*work)[1], hit_rows_per_sample=f"{stats['hits_per_px'] / 4:.4f}",
-        shapes=f"{MAZE_ID} procgen ss=2 B={maze_ss.num_envs} samples={2 * W}x{2 * H} "
-        f"Sp={sp} tri_chunk={tc}")
-    return err, timings, work
+        shapes=shapes)
+    say_window(f"{MAZE_ID} procgen ss=2 paired 2 chunks", tri, paired)
+    return err, timings, work, maze_ss_stages(maze_ss, state, tri, paired, shapes)
+
+
+def maze_ss_stages(maze_ss, state, tri, paired, shapes):
+    """entity_pass and the SS=2 pixel_epilogue at the Maze 8x8 procgen
+    supersample=2 path's shapes (B=8192, 160x120 samples, on the paired
+    tri_pass's hits): each against its plain version (the epilogue
+    exactly) and timed. Returns {"entity_pass" | "pixel_epilogue_ss2":
+    (ms, plain ms, work, max abs error)}."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    cam = tri[3]
+    t_k, a_k = rc.tri_pass(*tri, None, paired, maze_ss.tri_chunk)
+    ent = (state.ent_pos, state.ent_size, state.ent_dir, state.ent_height, state.ent_color,
+           rc.entity_flags(maze_ss._bank, state), cam, *maze_ss._shapes_present[:2])
+    e_k, e_p = rc.entity_pass(*ent), rc.entity_pass_plain(*ent)
+    same = (e_k[1] == e_p[1]).all(-1) & (e_k[2] == e_p[2]).all(-1)
+    n_differ, differ, ent_err, rel_err = compare_hits(e_k[0], e_p[0], same)
+    check_stage("entity_pass", shapes, n_differ, differ, ent_err, rel_err)
+    lights = (state.light_pos, state.light_color, state.light_ambient, state.sky_color)
+    args = (t_k, a_k, *e_k, maze_ss._atlas, cam, *lights, maze_ss.fourier_k)
+    table = maze_ss._fourier_table
+    rgb_k, d_k = rc.pixel_epilogue(*args, table=table, ss=2)
+    rgb_p, d_p = rc.pixel_epilogue_plain(*args, ss=2)
+    n_rgb, n_depth = int((rgb_k != rgb_p).any(-1).sum()), int((d_k != d_p).sum())
+    rgb_err = float((rgb_k.int() - rgb_p.int()).abs().max())
+    say("kernel-vs-plain", kernel="pixel_epilogue", instance="SS=2", case=shapes,
+        rgb_differs_px=n_rgb, depth_differs_px=n_depth, exact=True)
+    if n_rgb or n_depth:
+        raise AssertionError(f"pixel_epilogue SS=2 ({shapes}): kernel differs from plain on "
+                             f"{n_rgb} RGB and {n_depth} depth pixels")
+    b, hws = t_k.shape
+    cam_b = b * 14 * 4 + (cam.width + cam.height) * 4
+    flags = ent[5]
+    active = (flags & rc.ENT_ACTIVE) != 0
+    n_sph = int((active & ((flags & rc.ENT_SPHERE) != 0)).sum())
+    n_box = int((active & ((flags & rc.ENT_BOX) != 0)).sum())
+    out = {
+        "entity_pass": (cuda_ms(lambda: rc.entity_pass(*ent), 50),
+                        cuda_ms(lambda: rc.entity_pass_plain(*ent), 1, 1),
+                        (b * flags.shape[1] * 45 + cam_b + b * hws * 28,
+                         hws * (n_sph * 20 + n_box * 45)), ent_err),
+        "pixel_epilogue_ss2": (cuda_ms(lambda: rc.pixel_epilogue(*args, table=table, ss=2), 50),
+                               cuda_ms(lambda: rc.pixel_epilogue_plain(*args, ss=2), 1, 1),
+                               epi_work(args, table, maze_ss.fourier_k, 2), rgb_err)}
+    terms = texel_reads(t_k, a_k, e_k[0], table.shape[0])[1] * maze_ss.fourier_k
+    out["pixel_epilogue_ss2"] += (issue_floor_ms(terms, sass_term_instructions(16, False)),)
+    for k, (ms, plain_ms, wk, _, *floor) in out.items():
+        say("kernel-time", kernel=k, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{bound(*wk)[0]:.4f}", bound_by=bound(*wk)[1],
+            **({"issue_floor_ms": fmt_ms(floor[0])} if floor else {}), shapes=shapes)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2013,8 +2283,9 @@ def path_kernels(env):
     """The kernels every step of the env's rollout launches: tri_pass, the
     epilogue and place, entity_pass with analytic entities, the mesh rows
     in tri_pass with mesh entities, mazegen on a procgen maze, and the
-    instances its statics take (the glyph epilogue, SS=2, the paired scan
-    over more than one chunk, the nearest epilogue, the float32 carry);
+    instances its statics take (the glyph epilogue, SS=2, the multi-chunk
+    kernel, the paired scan over more than one chunk, the nearest
+    epilogue, the float32 carry);
     with view="top" the top view's kernels instead of the render's."""
     if env.view == "top":  # the top view's two kernels and the reset's
         return (("tri_pass_ortho", "topview_epilogue", "place")
@@ -2028,6 +2299,9 @@ def path_kernels(env):
     names += ["pixel_epilogue_gain"] if env._has_gain else []
     names += ["pixel_epilogue_ss2"] if env.supersample == 2 else []
     names += ["tri_pass_paired_chunks"] if env.procgen and len(env.plan["chunk_starts"]) > 1 else []
+    bank = env._bank
+    n_rows = (bank.pg_verts9 if env.procgen else bank.tri_verts9).shape[2]
+    names += ["tri_pass_multi"] if bank.pvs_v9_rows is None and n_rows > env.tri_chunk else []
     plan = env.plan
     names += ["tri_pass_sched"] if (env._bank.pvs_v9_rows is not None
                                     and (plan["sched_len"] or plan["nc"]) > 1) else []
@@ -2135,19 +2409,20 @@ def check_nearest(label, env, state, tri_chunk=None):
 def nearest_epi_work(epi, tex_map):
     """(bytes, operations) of a NEAREST pixel_epilogue launch on ``epi``
     (its plain version's positional arguments up to k_terms): each
-    sample's t and attribute row (2 or 4 bytes a float) read once, of
-    the entity pass's results what ent_read_bytes counts, tex_map, the u8
+    sample's t read once, its attribute row (2 or 4 bytes a float) where
+    the result reads it (texel_reads), of the entity pass's results what
+    ent_read_bytes counts, tex_map, the u8
     atlas, lights and camera once,
     7 bytes out a pixel; 60 operations per sample for uv, lighting and
-    the pack, 12 per textured sample for the texel (round, floor and
+    the pack, 12 per sample whose texel the result reads (round, floor and
     subtract twice, two scales and clamps, three conversions and scales),
     4 per output pixel for the SS=2 box filter."""
     t_tri, attr, t_ent, atlas, cam = epi[0], epi[1], epi[2], epi[5], epi[6]
     b, hws = t_tri.shape
     ss = 2 if cam.width == 2 * W else 1
     n_out = hws // (ss * ss)
-    textured = int((torch.isfinite(t_tri) & (attr[..., 14].float() >= 0)).sum())
-    in_bytes = b * hws * (4 + 16 * attr.element_size()) + ent_read_bytes(t_tri, t_ent)
+    read, textured = texel_reads(t_tri, attr, t_ent)
+    in_bytes = b * hws * 4 + read * 16 * attr.element_size() + ent_read_bytes(t_tri, t_ent)
     return (in_bytes + tex_map.numel() * 4 + atlas.numel() + b * 48 + b * 14 * 4
             + (cam.width + cam.height) * 4 + b * n_out * 7,
             b * hws * 60 + textured * 12 + (b * n_out * 4 if ss > 1 else 0))
@@ -2861,10 +3136,11 @@ def main():
     lap("dr, ss envs")
     sign, maze_ss = env(SIGN_ID, B), env(MAZE_ID, B_MAZE, supersample=2)
     gain_timings, gain_work, glyphs, gain_err = phase_gain_epilogue(sign)
-    pc_err, pc_timings, pc_work = phase_paired_chunks(maze_ss)
+    pc_err, pc_timings, pc_work, mss = phase_paired_chunks(maze_ss)
+    errs["entity_pass"] = max(errs["entity_pass"], mss["entity_pass"][3])
     lap("gain-epilogue, paired-chunks")
     dr_err, dr_timings, dr_work = phase_dr_stages(routes)
-    ss_timings, ss_work, ss_err = phase_ss_epilogue([("hallway", hall_ss),
+    ss_timings, ss_work, ss_err, ss_floors = phase_ss_epilogue([("hallway", hall_ss),
                                                     ("pickupobjects", pick_ss)])
     lap("dr-stages, ss-epilogue")
     pick_launches, rates = phase_main(hall, pick, pick_small, four, tmaze)
@@ -2996,15 +3272,31 @@ def main():
                 *pick_work["place_all_tries"])[0]
         if k == "tri_pass":  # every (row, pixel) pair counted, as before the culling
             kernels[-1]["bound_full_scan_ms"] = bound(*path_work["tri_pass_full_scan"])[0]
-            # the multi-chunk launch at the Sidewalk main path's shapes
+        if k == "entity_pass":  # at the Maze supersample=2 path's 160x120 samples
+            ms, plain_ms, wk, _ = mss["entity_pass"]
             kernels[-1].update({
-                "shapes_sidewalk": f"B={B} HW={W * H} S=3072 tri_chunk=1024",
-                "ms_sidewalk": side_timings["tri_pass"][0],
-                "plain_ms_sidewalk": side_timings["tri_pass"][1],
-                "bound_ms_sidewalk": bound(*side_work["tri_pass"])[0],
-                "bound_by_sidewalk": bound(*side_work["tri_pass"])[1],
-                "bound_full_scan_ms_sidewalk": bound(*side_work["tri_pass_full_scan"])[0],
-                "launches_sidewalk": int(side_launches["tri_pass"])})
+                "ms_maze_ss2": ms, "plain_ms_maze_ss2": plain_ms,
+                "bound_ms_maze_ss2": bound(*wk)[0], "bound_by_maze_ss2": bound(*wk)[1],
+                "shapes_maze_ss2": f"{MAZE_ID} procgen supersample=2 B={B_MAZE} "
+                                   f"samples={2 * W}x{2 * H}"})
+    # the multi-chunk kernel at the Sidewalk main path's shapes (3 chunks
+    # of 1,024); its paired launch is tri_pass_paired_chunks below
+    from miniworld_tpu_torch.render import raycast as rc
+
+    gx, gy, window_rows = rc.tri_pass_window()
+    kernels.append({
+        "name": "tri_pass_multi", "route": "cuda", "source": KERNELS["tri_pass"][0],
+        "replaces": "miniworld_tpu/render/raycast.py:444",
+        "launches": int(side_launches["tri_pass_multi"]), "max_abs_err": side_errs["tri_pass"],
+        "ms": side_timings["tri_pass"][0], "plain_ms": side_timings["tri_pass"][1],
+        "bound_ms": bound(*side_work["tri_pass"])[0],
+        "bound_by": bound(*side_work["tri_pass"])[1], "library_ms": None,
+        "instance_of": "tri_pass", "shapes": f"{SIDE_ID} B={B} HW={W * H} S=3072 tri_chunk=1024",
+        "bound_full_scan_ms": bound(*side_work["tri_pass_full_scan"])[0],
+        "group_of_tiles": f"{gx}x{gy}", "window_rows": window_rows,
+        "checked_on": ["sidewalk B=64 (1024, 496, 16) and B=1024 (+override, f32)",
+                       "wallgap", "ties", "overflow S=4096 (1024, 1000)", "paired (below)",
+                       "nearest sidewalk, maze ss=2 (f32)"]})
     # the texture-variant override (an instance of tri_pass) at the Maze
     # 8x8 procgen and FourRooms domain_rand main paths' shapes, beside the
     # same launch without the key; the SS=2 epilogue at PickupObjects' and
@@ -3028,17 +3320,28 @@ def main():
     kernels.append({
         "name": "pixel_epilogue_ss2", "route": "cuda", "source": KERNELS["pixel_epilogue"][0],
         "replaces": "miniworld_tpu/render/raycast.py:1294",
-        "launches": int(new_launches[PICK_ID, "ss2"]["pixel_epilogue_ss2"]), "max_abs_err": ss_err,
+        "launches": int(new_launches[PICK_ID, "ss2"]["pixel_epilogue_ss2"]),
+        "max_abs_err": max(ss_err, mss["pixel_epilogue_ss2"][3]),
         "ms": ss_timings["pickupobjects"][0], "plain_ms": ss_timings["pickupobjects"][1],
         "bound_ms": bound(*ss_work["pickupobjects"])[0],
         "bound_by": bound(*ss_work["pickupobjects"])[1], "library_ms": None,
         "instance_of": "pixel_epilogue",
         "shapes": f"{PICK_ID} supersample=2 B={B_PICK} out={W}x{H}",
+        "issue_floor_ms": ss_floors["pickupobjects"],
+        "instructions_a_term": sass_term_instructions(16, False),
+        "ms_maze_ss2": mss["pixel_epilogue_ss2"][0],
+        "plain_ms_maze_ss2": mss["pixel_epilogue_ss2"][1],
+        "bound_ms_maze_ss2": bound(*mss["pixel_epilogue_ss2"][2])[0],
+        "bound_by_maze_ss2": bound(*mss["pixel_epilogue_ss2"][2])[1],
+        "issue_floor_ms_maze_ss2": mss["pixel_epilogue_ss2"][4],
+        "launches_maze_ss2": int(
+            glyph_launches["maze8x8_procgen_ss2_b8192"]["pixel_epilogue_ss2"]),
+        "shapes_maze_ss2": f"{MAZE_ID} procgen supersample=2 B={B_MAZE} out={W}x{H}",
         "ms_hallway": ss_timings["hallway"][0], "plain_ms_hallway": ss_timings["hallway"][1],
         "bound_ms_hallway": bound(*ss_work["hallway"])[0],
         "launches_hallway": int(new_launches[ENV_ID, "ss2"]["pixel_epilogue_ss2"]),
-        "checked_on": ["hallway", "pickupobjects", f"maze8x8-bank B={B} 160x120",
-                       f"maze8x8-bank domain_rand B={B} 160x120"]})
+        "checked_on": ["hallway", "pickupobjects", f"maze8x8 procgen B={B_MAZE} 80x60",
+                       f"maze8x8-bank B={B} 160x120", f"maze8x8-bank domain_rand B={B} 160x120"]})
     # Sign's glyph epilogue (an instance of pixel_epilogue) at its main
     # path's shapes, SS=1, and at SS=2 beside it; the paired tri_pass over
     # the clamped second chunk at the Maze 8x8 procgen supersample=2 path's
@@ -3052,6 +3355,8 @@ def main():
         "shapes": f"{SIGN_ID} B={B} out={W}x{H} K=64", "glyph_samples": glyphs[1],
         "ms_ss2": gain_timings[2][0], "plain_ms_ss2": gain_timings[2][1],
         "bound_ms_ss2": bound(*gain_work[2])[0], "glyph_samples_ss2": glyphs[2],
+        "issue_floor_ms_ss2": gain_work["floor"],
+        "instructions_a_term_ss2": sass_term_instructions(64, True),
         "checked_on": ["sign SS=1", "sign SS=2"]})
     kernels.append({
         "name": "tri_pass_paired_chunks", "route": "cuda", "source": KERNELS["tri_pass"][0],

@@ -97,31 +97,76 @@
 // the choice as one byte per row, so the winner's attributes come from
 // its variant.
 //
-// Multi-chunk launch (S > tri_chunk, the MULTI instance; dense banks wider
-// than one chunk, e.g. Sidewalk's S = 3,072 in chunks of 1,024, and the
-// paired bank of an 8x8 procgen maze, Sp = 608 in chunks of 496): the JAX
-// package scans chunks of tri_chunk rows, keys each row by its index
+// Multi-chunk launch (S > tri_chunk, tri_pass_multi_kernel; dense banks
+// wider than one chunk, e.g. Sidewalk's S = 3,072 in chunks of 1,024, and
+// the paired bank of an 8x8 procgen maze, Sp = 608 in chunks of 496): the
+// JAX package scans chunks of tri_chunk rows, keys each row by its index
 // WITHIN its chunk, and carries a chunk's winner only on a strictly
 // greater key. So of two rows at the same key (equal quantized depth,
 // same chunk-local index) the earlier chunk wins. Chunk c starts at row
 // c * tri_chunk, the last one clamped to S - tri_chunk (dynamic_slice
 // clamps its start; raycast.py:252-269): with Sp = 608, chunk 1 reads
 // rows 112-607 at local indices 0-495, so rows 112-495 compete in both
-// chunks. The kernel keeps its one pass over all the survivors and ranks
-// each hit by the 64-bit (key << 8) | (255 - chunk), whose unsigned max is
-// the lexicographic max of (key, -chunk): the chunk loop's winner, in any
-// scan order; the staging loop writes each row's (255 - chunk, local
-// index) into its pad field, so the scan adds two integer operations a
-// (row, pixel) pair. A row read by two chunks takes the first one only: its
-// second occurrence has the same depth bits and a smaller local index (s
-// - (S - tri_chunk) < s - (n - 2) tri_chunk, as S > (n - 1) tri_chunk
-// for n chunks), so its key is below the first's and it can never be the
-// max. A no-hit is 0, below every hit. The winner's row is its chunk's
-// start plus its local index; a pixel no row hits gets t = inf and zero
-// attributes (the scan's zero init). On a paired bank the staged variant
-// of each row (below) holds in every chunk, and the winner's attributes
-// come from it. S <= 4096 and tri_chunk >= 16 keep the chunk under 256
-// and the rows in shared memory. Mesh rows take the scheduled launch.
+// chunks. A row read by two chunks takes the first one only: its second
+// occurrence has the same depth bits and a smaller local index (s - (S -
+// tri_chunk) < s - (n - 2) tri_chunk, as S > (n - 1) tri_chunk for n
+// chunks), so its key is below the first's and it never wins the chunk
+// loop. Each row s is staged once, keyed by its first chunk's local
+// index, with s itself beside it.
+//
+// What bounded the one-block-per-env design here: it staged all S rows
+// of its env in shared memory, 52 bytes a row (160 KB at Sidewalk's S =
+// 3,072: one 3-warp block an SM), and every 16x12 tile culled the whole
+// image list (~900 rows on a Sidewalk view, ~260 on a Maze view at
+// 160x120 samples, where a tile keeps ~5) with three barriers a tile. So
+// the launch waited on latency with a few warps an SM, and on the Maze
+// at 160x120 samples it spent as much on the per-tile culls as on the
+// scan.
+//
+// Design. A block of GROUP_X x GROUP_Y tiles in flight (3 warps a tile)
+// streams its env's rows through a fixed window of WINDOW_ROWS staged
+// rows (48 bytes each), so its shared memory does not depend on S:
+//   1. each thread stages one row in registers, culls it against the
+//      image's box and, if it survives, appends it to the window in row
+//      order (an ordered compaction: one ballot a warp, the warps' counts
+//      summed in warp order after one barrier; the count stays in a
+//      register of every thread). When a batch would overflow the window,
+//      the window is scanned first (2-4) and emptied, and the batch
+//      restaged into it.
+//   2. For each group of tiles the block owns: the window's rows culled
+//      against the group's box (the union of its tiles' boxes: any box is
+//      sound for the corner test below), again with an ordered compaction,
+//      into a list of window slots;
+//   3. each tile culls the group's list against its own box into a bit
+//      mask (one ballot a warp, no atomics), in the list's order;
+//   4. each pixel scans its tile's mask in order with a 32-bit z-key and a
+//      strict >: rows arrive in ascending s, so in ascending first chunk,
+//      and of equal keys the first, the earlier chunk's, stays; two rows
+//      of one chunk never share a key (the local index is in its low
+//      bits). This is the chunk loop's winner: the lexicographic max of
+//      (key, -chunk), without the 64-bit key of the one-block design.
+// Windows are scanned in row order too, so an env with more survivors
+// than WINDOW_ROWS gets the same winner: a pixel's (key, row) carry goes
+// from one window to the next through the first 8 bytes of its own
+// attribute row in attr_out (the block owns its tiles' pixels; nothing
+// else touches them until the last window stores the winner there), and
+// the next window starts its scan from it. A pixel no row hits gets t =
+// inf and zero attributes. On a paired bank the staging picks each row's
+// variant, and the store picks the winner's again from its wall (the
+// same expression). S <= 4096 and tri_chunk >= 16 (the wrapper).
+//
+// What bounds the windowed kernel (PERF.md): on a Sidewalk view each
+// pixel still scans the ~65 rows its 16x12 tile keeps (a Sidewalk view
+// keeps ~850 rows of 3,072, a fifth of the views more than one window),
+// far above the bytes (36 a pixel); at the 8x8 maze's 160x120 samples a
+// tile keeps ~5 rows and the time is twice the bytes' bound, with 71
+// registers leaving two 12-warp blocks an SM and five barriers a group.
+//
+// The single-chunk launches without mesh rows could run the same kernel
+// with tri_chunk = S (every key's local index is its row); measured, it
+// was slower than the one-block kernel at the 8x8 maze's B = 8192
+// (PERF.md), so the single-chunk, MESH and SCHED launches keep that
+// kernel.
 
 // Scheduled launch (n_sched > 0, the SCHED instances; raycast.py:133-145,
 // 234-259, 1166-1172): the bank is one-chunk rows, (C, 9, S) and (C, S,
@@ -129,9 +174,9 @@
 // it scans in order (render/raycast.chunk_schedule: packed PVS, chunk_vis,
 // or a dense scan seeded by mesh rows). The block stages all n_sched * S
 // rows of its schedule, each ranked by its position j in the schedule and
-// its index in the chunk, (254 - j) << 10 | local, so that the 64-bit
-// (key << 8) | (254 - j) of the MULTI scan gives the chunk loop's winner:
-// the larger key, then the earlier position. A chunk the schedule repeats
+// its index in the chunk, (254 - j) << 10 | local, so that the unsigned
+// max of the 64-bit (key << 8) | (254 - j) gives the chunk loop's winner
+// in any scan order: the larger key, then the earlier position. A chunk the schedule repeats
 // (a clamped or padded slot) has the same keys at a later position, so it
 // can never win: its rows are staged but not listed. With mesh rows the
 // seed ranks (seed key << 8) | 255, above every position at an equal key,
@@ -149,8 +194,8 @@
 // 16-byte load of the row's (id, base, count, 0) per pixel, not per
 // (row, pixel). slot_key[b] is the
 // env's u32 key (EnvState.tri_slots); slot_tex is indexed like attr, by
-// the global row (chunk * tri_chunk + local in the MULTI instance; the
-// packed-PVS plan's chunk rows arrive as a bank of one-chunk layouts);
+// the global row (the packed-PVS plan's chunk rows arrive as a bank of
+// one-chunk layouts);
 // on a paired bank slot_tex_alt holds the alternative variants' rows,
 // picked by use_alt as the attributes are. A mesh winner keeps its own
 // slot, as the JAX package's seed does.
@@ -163,15 +208,17 @@
 // are, 64 bytes in four 16-byte stores, in place of the 32 bytes of bf16,
 // at every store site; the competition is the same code. Nearest mode
 // never runs the override, and no mesh id has more than 256 slots, so the
-// F32 instances are built without MESH and OVERRIDE: the single-chunk and
-// the multi-chunk launch. The bf16 instances compile as before.
+// F32 instances are built without MESH and OVERRIDE: the single-chunk,
+// the scheduled and the multi-chunk launch.
 //
-// Shared memory: 48 bytes per row, two 2-byte row lists and (paired) the
-// variant byte (SCHED: 4 bytes per schedule slot), and 52 bytes per mesh row: 53,248 B at S = 1024, 106,496
-// B with N = 1024 mesh rows besides, 159,744 B at S = 3,072, above the
-// 48 KB default, so the launch raises the kernel's dynamic limit when it
-// needs more (up to 212,992 B at S = 4,096). Above about 113 KB one block
-// fits an SM.
+// Shared memory of the one-block-per-env kernel (single chunk, MESH,
+// SCHED): 48 bytes per row, two 2-byte row lists and (paired) the
+// variant byte (SCHED: 4 bytes per schedule slot), and 52 bytes per mesh
+// row: 53,248 B at S = 1024, 106,496 B with N = 1024 mesh rows besides,
+// above the 48 KB default, so the launch raises the kernel's dynamic
+// limit when it needs more (up to 212,992 B at n_sched * S = 4,096). The
+// multi-chunk kernel takes WINDOW_ROWS * 50 bytes and a bit per window
+// row a tile: 51,712 B at 1,024 rows and 2 x 2 tiles, whatever S is.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -267,8 +314,7 @@ struct CamBasis {
 
 // The staged fields of row s of v9 ((9, n) component-major) for the
 // camera: the basis dots of g_det, g_u and g_v, 1/t_num (0 where t_num
-// <= 0), the kind and a pad (0; the MULTI instance's row rank), as three
-// float4.
+// <= 0), the kind and a pad (0; the caller's row rank), as three float4.
 __device__ __forceinline__ void stage_row(const float* v9, const int n, const int s,
                                           const CamBasis& c, const float kind, float4& q0,
                                           float4& q1, float4& q2) {
@@ -377,7 +423,7 @@ __device__ __forceinline__ void store_zero(void* attr_out, const size_t q) {
     for (int i = 0; i < (F32 ? 4 : 2); ++i) d4[i] = make_uint4(0u, 0u, 0u, 0u);
 }
 
-template <bool MESH, bool MULTI, bool SCHED, bool OVERRIDE, bool F32>
+template <bool MESH, bool SCHED, bool OVERRIDE, bool F32>
 __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
     const float* __restrict__ verts9,   // (L, 9, S) component-major; SCHED (C, 9, S)
     const float* __restrict__ attr,     // (L, S, 16); SCHED (C, S, 16)
@@ -399,12 +445,11 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
     const float4* __restrict__ slot_tex,     // (L, S) (id, base, count, 0)
     const float4* __restrict__ slot_tex_alt,  // (L, S), paired only
     int S, int N, int W, int H, int Wn, int all_quads,
-    int tri_chunk,                      // MULTI only: rows per chunk
     int n_sched,                        // SCHED only: chunks a schedule
     float* __restrict__ t_out,          // (B, HW)
     void* __restrict__ attr_out)        // (B, HW, 16) bf16, or f32 (F32)
 {
-    constexpr bool RANKED = MULTI || SCHED;  // hits ranked by (key, -chunk)
+    constexpr bool RANKED = SCHED;  // hits ranked by (key, -position)
     const int n_rows = SCHED ? n_sched * S : S;  // rows staged
     extern __shared__ float4 rows[];  // 3 x n_rows float4, then (MESH) 3 x N
     float4* mrows = rows + 3 * n_rows;
@@ -485,11 +530,6 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
                     }
                     stage_row(alt ? v9a : v9p, S, s, cb, (alt ? ata : atp)[s * ATTR_DIM + 15],
                               q0, q1, q2);
-                    if (MULTI) {  // the row's rank bits in the pad: its first chunk, its index there
-                        const int c = min(s / tri_chunk, (S - 1) / tri_chunk);
-                        q2.w = __int_as_float(((255 - c) << 10) | (s - min(c * tri_chunk,
-                                                                           S - tri_chunk)));
-                    }
                 }
                 rows[3 * s] = q0;
                 rows[3 * s + 1] = q1;
@@ -576,7 +616,7 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
         const float xv = xbase[min(x, W - 1)] * tan_x;
         float yv[PIX_PER_THREAD];
         int best[PIX_PER_THREAD], mbest[PIX_PER_THREAD];
-        unsigned long long cbest[PIX_PER_THREAD];  // RANKED: (key << 8) | its chunk's rank
+        unsigned long long cbest[PIX_PER_THREAD];  // RANKED: (key << 8) | its position's rank
 #pragma unroll
         for (int k = 0; k < PIX_PER_THREAD; ++k) {
             const int y = y0 + row0 + k * ROWS_PER_THREAD_Y;
@@ -585,7 +625,6 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
             mbest[k] = 0;
             cbest[k] = 0ull;
         }
-        const int last_start = S - tri_chunk;  // MULTI: the last chunk's first row
         // the mesh competition first (triangles: coverage u + v)
         for (int i = 0; i < nmt; ++i) {
             const int s = mtile_list[i];
@@ -608,7 +647,7 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
         for (int i = 0; i < nt; ++i) {
             const int s = tile_list[i];
             const float4 q0 = rows[3 * s], q1 = rows[3 * s + 1], q2 = rows[3 * s + 2];
-            const int rank = __float_as_int(q2.w);  // RANKED: chunk rank << 10 | local
+            const int rank = __float_as_int(q2.w);  // RANKED: position rank << 10 | local
             const float dx = q0.x + q0.y * xv;
             const float ux = q0.w + q1.x * xv;
             const float vx = q1.z + q1.w * xv;
@@ -666,12 +705,9 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
                 t_out[q] = t_of_key(key);
                 if (key > 0) {
                     const int r8 = (int)(cbest[k] & 0xFFu);
-                    const int row = (SCHED ? sched_s[254 - r8] * S
-                                           : min((255 - r8) * tri_chunk, last_start)) +
-                                    (key & IDX_MASK);
-                    const bool alt = !SCHED && paired && use_alt[row];
-                    store_attr<F32>((alt ? ata : atp) + (size_t)row * ATTR_DIM, attr_out, q,
-                                    OVERRIDE ? (alt ? txa : txp) + row : nullptr, env_key);
+                    const int row = sched_s[254 - r8] * S + (key & IDX_MASK);
+                    store_attr<F32>(atp + (size_t)row * ATTR_DIM, attr_out, q,
+                                    OVERRIDE ? txp + row : nullptr, env_key);
                 } else {
                     store_zero<F32>(attr_out, q);
                 }
@@ -688,19 +724,329 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
     }
 }
 
+// ---------------------------------------------------------------------------
+// The multi-chunk kernel (header: "Multi-chunk launch")
+
+// 2 x 2 tiles of 96 threads and a window of 1,024 rows: measured against
+// other groups and windows at Sidewalk's B = 1024 and the 8x8 maze's ss=2
+// B = 8192 (PERF.md). Bounding the registers for three blocks an SM (56)
+// was faster at the maze but spilled 8 bytes, so the compiler keeps its
+// own choice (71 registers, two blocks).
+#define GROUP_X 2
+#define GROUP_Y 2
+#define WINDOW_ROWS 1024
+#define GROUP_TILES (GROUP_X * GROUP_Y)
+#define M_THREADS (GROUP_TILES * THREADS)
+#define M_WARPS (M_THREADS / 32)
+#define ROW_WORDS (WINDOW_ROWS / 32)
+static_assert(WINDOW_ROWS % 32 == 0 && WINDOW_ROWS >= M_THREADS, "a batch fits the window");
+static_assert(WINDOW_ROWS <= 65536, "2-byte window slots");
+static_assert(GROUP_X + GROUP_Y <= M_WARPS, "one warp a tile column or row");
+
+// Ordered compaction of a batch of the block's threads: the slot of this
+// thread among those with ``keep`` (in thread order), and their number in
+// ``total``. One ballot a warp and one barrier; ``cnt`` is one of two
+// alternating buffers of M_WARPS counts (a buffer is rewritten two calls
+// later, after every thread has passed the barrier between). Every thread
+// of the block calls it.
+__device__ __forceinline__ int ordered_slot(const bool keep, int* cnt, int& total) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const unsigned m = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) cnt[warp] = __popc(m);
+    __syncthreads();
+    int before = 0;
+    total = 0;
+#pragma unroll
+    for (int w = 0; w < M_WARPS; ++w) {
+        const int c = cnt[w];
+        before += w < warp ? c : 0;
+        total += c;
+    }
+    return before + __popc(m & ((1u << lane) - 1u));
+}
+
+// Bytes of dynamic shared memory of the multi-chunk kernel: the window's
+// rows (3 float4), its slot list (2 bytes) and a bit a row for each tile.
+#define MULTI_SMEM ((size_t)WINDOW_ROWS * (3 * sizeof(float4) + sizeof(unsigned short)) + \
+                    (size_t)GROUP_TILES * ROW_WORDS * sizeof(unsigned))
+
+template <bool OVERRIDE, bool F32>
+__global__ void __launch_bounds__(M_THREADS) tri_pass_multi_kernel(
+    const float* __restrict__ verts9,   // (L, 9, S) component-major
+    const float* __restrict__ attr,     // (L, S, 16)
+    const int* __restrict__ layout_id,  // (B,)
+    const float* __restrict__ origin, const float* __restrict__ fwd,
+    const float* __restrict__ right, const float* __restrict__ up,
+    const float* __restrict__ tan_xy, const float* __restrict__ xbase,
+    const float* __restrict__ ybase,
+    const float* __restrict__ verts9_alt,  // (L, 9, S) or null
+    const float* __restrict__ attr_alt,    // (L, S, 16) or null
+    const int* __restrict__ pg_wall,       // (L, S) or null; -1 = no wall
+    const float* __restrict__ wall_open,   // (B, Wn) or null; 1 = open
+    const unsigned* __restrict__ slot_key,    // (B,), OVERRIDE only
+    const float4* __restrict__ slot_tex,      // (L, S) (id, base, count, 0)
+    const float4* __restrict__ slot_tex_alt,  // (L, S), paired only
+    int S, int W, int H, int Wn, int all_quads,
+    int tri_chunk,                      // rows per chunk
+    float* __restrict__ t_out,          // (B, HW)
+    void* __restrict__ attr_out)        // (B, HW, 16) bf16, or f32 (F32)
+{
+    constexpr size_t ROW_BYTES = ATTR_DIM * (F32 ? 4 : 2);
+    extern __shared__ float4 wrows[];  // 3 x WINDOW_ROWS float4, then the lists
+    unsigned short* glist = reinterpret_cast<unsigned short*>(wrows + 3 * WINDOW_ROWS);
+    unsigned* tmask = reinterpret_cast<unsigned*>(glist + WINDOW_ROWS);  // [tile][word]
+    __shared__ int cnt[2][M_WARPS];
+    __shared__ float span_lo[GROUP_X + GROUP_Y], span_hi[GROUP_X + GROUP_Y];
+    __shared__ Box box;
+
+    const int b = blockIdx.y;
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int lid = layout_id[b];
+    const bool paired = pg_wall != nullptr;
+    const bool quads = all_quads != 0;
+    const float* v9p = verts9 + (size_t)lid * 9 * S;
+    const float* atp = attr + (size_t)lid * S * ATTR_DIM;
+    const float* v9a = paired ? verts9_alt + (size_t)lid * 9 * S : nullptr;
+    const float* ata = paired ? attr_alt + (size_t)lid * S * ATTR_DIM : nullptr;
+    const int* pgw = paired ? pg_wall + (size_t)lid * S : nullptr;
+    const float* wo = paired ? wall_open + (size_t)b * Wn : nullptr;
+    const float tan_x = tan_xy[2 * b], tan_y = tan_xy[2 * b + 1];
+
+    // the whole image's box: warp 0 over the columns, warp 1 over the rows
+    if (warp < 2) {
+        const int n = warp == 0 ? W : H;
+        const float* base = warp == 0 ? xbase : ybase;
+        const float tn = warp == 0 ? tan_x : tan_y;
+        float lo = INFINITY, hi = -INFINITY;
+        for (int i = lane; i < n; i += 32) {
+            const float v = base[i] * tn;
+            lo = fminf(lo, v);
+            hi = fmaxf(hi, v);
+        }
+        warp_span(lo, hi);
+        if (lane == 0) {
+            if (warp == 0) { box.xlo = lo; box.xhi = hi; }
+            else { box.ylo = lo; box.yhi = hi; }
+        }
+    }
+    __syncthreads();
+
+    const int hw = W * H;
+    const int n_tx = (W + TILE_W - 1) / TILE_W, n_ty = (H + TILE_H - 1) / TILE_H;
+    const int n_gx = (n_tx + GROUP_X - 1) / GROUP_X;
+    const int n_groups = n_gx * ((n_ty + GROUP_Y - 1) / GROUP_Y);
+    // this thread's tile of a group, and its place there
+    const int k = tid / THREADS, ktid = tid - k * THREADS;
+    const int kx = k % GROUP_X, ky = k / GROUP_X;
+    const int col = ktid % TILE_W, row0 = ktid / TILE_W;
+    const int kwarp = ktid >> 5;
+    const float r_near = (float)(1.0 / 0.04);  // 1 / NEAR
+    const float r_far = (float)(1.0 / 100.0);  // 1 / FAR
+    int par = 0;  // which cnt buffer the next ordered_slot takes
+
+    // the variant of row s (paired): the alternative where its wall is closed
+    auto use_alt = [&](const int s) {
+        if (!paired) return false;
+        const int w = pgw[s];
+        return w >= 0 && !(wo[w] > 0.5f);
+    };
+    // row s's staged fields; the pad holds s << 10 | its first chunk's local
+    // index (the camera is read again at every call rather than held in
+    // registers through the window scans)
+    auto stage = [&](const int s, float4& q0, float4& q1, float4& q2) {
+        const CamBasis cb{origin[3 * b], origin[3 * b + 1], origin[3 * b + 2],
+                          fwd[3 * b], fwd[3 * b + 1], fwd[3 * b + 2],
+                          right[3 * b], right[3 * b + 1], right[3 * b + 2],
+                          up[3 * b], up[3 * b + 1], up[3 * b + 2]};
+        const bool alt = use_alt(s);
+        stage_row(alt ? v9a : v9p, S, s, cb, (alt ? ata : atp)[(size_t)s * ATTR_DIM + 15], q0, q1,
+                  q2);
+        const int c = s / tri_chunk;
+        q2.w = __int_as_float((s << 10) | (s - min(c * tri_chunk, S - tri_chunk)));
+    };
+
+    // 2-4: the window's rows (n_win of them) against the block's groups of
+    // tiles; ``first``: no carry to read, ``last``: store the winners
+    auto scan_window = [&](const int n_win, const bool first, const bool last) {
+        for (int g = blockIdx.x; g < n_groups; g += gridDim.x) {
+            const int tx0 = (g % n_gx) * GROUP_X, ty0 = (g / n_gx) * GROUP_Y;
+            __syncthreads();  // the window is written; the last group's lists are read
+            if (warp < GROUP_X + GROUP_Y) {  // a tile column's or a tile row's span
+                const bool cw = warp < GROUP_X;
+                const int i = cw ? (tx0 + warp) * TILE_W + lane
+                                 : (ty0 + warp - GROUP_X) * TILE_H + lane;
+                const bool in = cw ? (lane < TILE_W && i < W) : (lane < TILE_H && i < H);
+                const float v = in ? (cw ? xbase[i] * tan_x : ybase[i] * tan_y) : 0.0f;
+                float lo = in ? v : INFINITY, hi = in ? v : -INFINITY;
+                warp_span(lo, hi);
+                if (lane == 0) {
+                    span_lo[warp] = lo;
+                    span_hi[warp] = hi;
+                }
+            }
+            __syncthreads();
+            Box gb{INFINITY, -INFINITY, INFINITY, -INFINITY};  // the group's: the union
+#pragma unroll
+            for (int i = 0; i < GROUP_X; ++i) {
+                gb.xlo = fminf(gb.xlo, span_lo[i]);
+                gb.xhi = fmaxf(gb.xhi, span_hi[i]);
+            }
+#pragma unroll
+            for (int i = 0; i < GROUP_Y; ++i) {
+                gb.ylo = fminf(gb.ylo, span_lo[GROUP_X + i]);
+                gb.yhi = fmaxf(gb.yhi, span_hi[GROUP_X + i]);
+            }
+            const Box tb{span_lo[kx], span_hi[kx], span_lo[GROUP_X + ky],
+                         span_hi[GROUP_X + ky]};
+            // 2. the window's rows that may hit the group, in row order
+            int ng = 0;
+            for (int i0 = 0; i0 < n_win; i0 += M_THREADS) {
+                const int i = i0 + tid;
+                const int j = i < n_win ? i : 0;
+                const bool keep =
+                    i < n_win && !row_culled(wrows[3 * j], wrows[3 * j + 1], wrows[3 * j + 2],
+                                             gb, quads);
+                int total;
+                const int at = ordered_slot(keep, cnt[par], total);
+                par ^= 1;
+                if (keep) glist[ng + at] = (unsigned short)i;
+                ng += total;
+            }
+            __syncthreads();
+            // 3. each tile's bits over the group's list
+            const int tx = tx0 + kx, ty = ty0 + ky;
+            const bool tile_in = tx < n_tx && ty < n_ty;
+            for (int i0 = kwarp * 32; i0 < ng; i0 += THREADS) {
+                const int i = i0 + lane;
+                const int j = i < ng ? glist[i] : 0;
+                const bool keep = tile_in && i < ng &&
+                                  !row_culled(wrows[3 * j], wrows[3 * j + 1], wrows[3 * j + 2],
+                                              tb, quads);
+                const unsigned m = __ballot_sync(0xffffffffu, keep);
+                if (lane == 0) tmask[k * ROW_WORDS + (i0 >> 5)] = m;
+            }
+            __syncthreads();
+            // 4. each pixel scans its tile's rows in row order, from the carry
+            const int x = tx * TILE_W + col;
+            const float xv = xbase[min(x, W - 1)] * tan_x;
+            float yv[PIX_PER_THREAD];
+            int best[PIX_PER_THREAD], bpad[PIX_PER_THREAD];
+#pragma unroll
+            for (int p = 0; p < PIX_PER_THREAD; ++p) {
+                const int y = ty * TILE_H + row0 + p * ROWS_PER_THREAD_Y;
+                yv[p] = ybase[min(y, H - 1)] * tan_y;
+                best[p] = 0;
+                bpad[p] = 0;
+                if (!first && tile_in && x < W && y < H) {
+                    const int2 c = *reinterpret_cast<const int2*>(
+                        static_cast<const char*>(attr_out) +
+                        ((size_t)b * hw + (size_t)y * W + x) * ROW_BYTES);
+                    best[p] = c.x;
+                    bpad[p] = c.y;
+                }
+            }
+            const int n_words = tile_in ? (ng + 31) >> 5 : 0;
+            for (int w = 0; w < n_words; ++w) {
+                unsigned m = tmask[k * ROW_WORDS + w];
+                while (m) {
+                    const int j = glist[(w << 5) + __ffs(m) - 1];
+                    m &= m - 1u;
+                    const float4 q0 = wrows[3 * j], q1 = wrows[3 * j + 1], q2 = wrows[3 * j + 2];
+                    const int pad = __float_as_int(q2.w);
+                    const float dx = q0.x + q0.y * xv;
+                    const float ux = q0.w + q1.x * xv;
+                    const float vx = q1.z + q1.w * xv;
+#pragma unroll
+                    for (int p = 0; p < PIX_PER_THREAD; ++p) {
+                        const float det = dx + q0.z * yv[p];
+                        const float un = ux + q1.y * yv[p];
+                        const float vn = vx + q2.x * yv[p];
+                        const float r = det * q2.y;
+                        float cov = fmaxf(un, vn);
+                        if (!quads) cov = cov + q2.z * fminf(un, vn);
+                        const int key = (__float_as_int(r) & ~IDX_MASK) | (pad & IDX_MASK);
+                        const bool win = det > 1e-12f && un >= 0.0f && vn >= 0.0f &&
+                                         cov <= det && r < r_near && r > r_far && key > best[p];
+                        best[p] = win ? key : best[p];
+                        bpad[p] = win ? pad : bpad[p];
+                    }
+                }
+            }
+#pragma unroll
+            for (int p = 0; p < PIX_PER_THREAD; ++p) {
+                const int y = ty * TILE_H + row0 + p * ROWS_PER_THREAD_Y;
+                if (!tile_in || x >= W || y >= H) continue;
+                const size_t q = (size_t)b * hw + (size_t)y * W + x;
+                if (!last) {  // the carry, in the pixel's own attribute row
+                    *reinterpret_cast<int2*>(static_cast<char*>(attr_out) + q * ROW_BYTES) =
+                        make_int2(best[p], bpad[p]);
+                    continue;
+                }
+                t_out[q] = t_of_key(best[p]);
+                if (best[p] > 0) {
+                    const int row = bpad[p] >> 10;
+                    const bool alt = use_alt(row);
+                    store_attr<F32>((alt ? ata : atp) + (size_t)row * ATTR_DIM, attr_out, q,
+                                    OVERRIDE ? (alt ? slot_tex_alt : slot_tex) + (size_t)lid * S + row
+                                             : nullptr,
+                                    OVERRIDE ? slot_key[b] : 0u);
+                } else {
+                    store_zero<F32>(attr_out, q);
+                }
+            }
+        }
+        __syncthreads();  // the window may be refilled
+    };
+
+    // 1. stream the rows through the window, in row order
+    int n_win = 0;
+    bool first = true;
+    for (int s0 = 0; s0 < S; s0 += M_THREADS) {
+        const int s = s0 + tid;
+        float4 q0, q1, q2;
+        bool keep = false;
+        if (s < S) {
+            stage(s, q0, q1, q2);
+            keep = !row_culled(q0, q1, q2, box, quads);  // the image's box
+        }
+        int total;
+        const int at = ordered_slot(keep, cnt[par], total);
+        par ^= 1;
+        if (n_win + total > WINDOW_ROWS) {  // block-uniform: scan the full window first
+            scan_window(n_win, first, false);
+            first = false;
+            n_win = 0;
+            if (keep) stage(s, q0, q1, q2);
+        }
+        if (keep) {
+            const int i = n_win + at;
+            wrows[3 * i] = q0;
+            wrows[3 * i + 1] = q1;
+            wrows[3 * i + 2] = q2;
+        }
+        n_win += total;
+    }
+    scan_window(n_win, first, true);
+}
+
 extern "C" const char* mw_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
 }
 
-// The kernel's tile and pixels per thread, for reports.
+// The kernel's tile and pixels per thread, then the multi-chunk kernel's
+// group of tiles and window rows, for reports.
 extern "C" int mw_tri_pass_config(int* out) {
     out[0] = TILE_W;
     out[1] = TILE_H;
     out[2] = PIX_PER_THREAD;
+    out[3] = GROUP_X;
+    out[4] = GROUP_Y;
+    out[5] = WINDOW_ROWS;
     return 0;
 }
 
-template <bool MESH, bool MULTI, bool SCHED, bool OVERRIDE, bool F32>
+template <bool MESH, bool SCHED, bool OVERRIDE, bool F32>
 static int launch_instance(const dim3 grid, const size_t smem, cudaStream_t stream,
                            const float* verts9, const float* attr, const int* layout_id,
                            const float* origin, const float* fwd, const float* right,
@@ -709,20 +1055,20 @@ static int launch_instance(const dim3 grid, const size_t smem, cudaStream_t stre
                            const float* verts9_alt, const float* attr_alt, const int* pg_wall,
                            const float* wall_open, const unsigned* slot_key,
                            const float4* slot_tex, const float4* slot_tex_alt, int S, int N,
-                           int W, int H, int Wn, int all_quads, int tri_chunk, int n_sched,
+                           int W, int H, int Wn, int all_quads, int n_sched,
                            float* t_out, void* attr_out) {
     static size_t smem_opted = 48 * 1024;  // the dynamic limit set so far
     if (smem > smem_opted) {
         const cudaError_t err = cudaFuncSetAttribute(
-            tri_pass_kernel<MESH, MULTI, SCHED, OVERRIDE, F32>,
+            tri_pass_kernel<MESH, SCHED, OVERRIDE, F32>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
         smem_opted = smem;
     }
-    tri_pass_kernel<MESH, MULTI, SCHED, OVERRIDE, F32><<<grid, THREADS, smem, stream>>>(
+    tri_pass_kernel<MESH, SCHED, OVERRIDE, F32><<<grid, THREADS, smem, stream>>>(
         verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase, ybase,
         mesh_v9, mesh_attr, verts9_alt, attr_alt, pg_wall, wall_open, slot_key, slot_tex,
-        slot_tex_alt, S, N, W, H, Wn, all_quads, tri_chunk, n_sched, t_out, attr_out);
+        slot_tex_alt, S, N, W, H, Wn, all_quads, n_sched, t_out, attr_out);
     return (int)cudaGetLastError();
 }
 
@@ -730,7 +1076,7 @@ static int launch_instance(const dim3 grid, const size_t smem, cudaStream_t stre
 // launches without it compile to the code they had before it existed: as
 // a runtime branch it slowed the multi-chunk launch without the key from
 // 2.26 to 2.93 ms (Sidewalk, B = 1024, 80x60, on an H100).
-template <bool MESH, bool MULTI, bool SCHED>
+template <bool MESH, bool SCHED>
 static int launch_tri_pass(const dim3 grid, const size_t smem, cudaStream_t stream,
                            const float* verts9, const float* attr, const int* layout_id,
                            const float* origin, const float* fwd, const float* right,
@@ -739,18 +1085,47 @@ static int launch_tri_pass(const dim3 grid, const size_t smem, cudaStream_t stre
                            const float* verts9_alt, const float* attr_alt, const int* pg_wall,
                            const float* wall_open, const unsigned* slot_key,
                            const float4* slot_tex, const float4* slot_tex_alt, int S, int N,
-                           int W, int H, int Wn, int all_quads, int tri_chunk, int n_sched,
+                           int W, int H, int Wn, int all_quads, int n_sched,
                            float* t_out, void* attr_out) {
     return slot_key != nullptr
-        ? launch_instance<MESH, MULTI, SCHED, true, false>(
+        ? launch_instance<MESH, SCHED, true, false>(
               grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase,
               ybase, mesh_v9, mesh_attr, verts9_alt, attr_alt, pg_wall, wall_open, slot_key,
-              slot_tex, slot_tex_alt, S, N, W, H, Wn, all_quads, tri_chunk, n_sched, t_out,
-              attr_out)
-        : launch_instance<MESH, MULTI, SCHED, false, false>(
+              slot_tex, slot_tex_alt, S, N, W, H, Wn, all_quads, n_sched, t_out, attr_out)
+        : launch_instance<MESH, SCHED, false, false>(
               grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase,
               ybase, mesh_v9, mesh_attr, verts9_alt, attr_alt, pg_wall, wall_open, nullptr,
-              nullptr, nullptr, S, N, W, H, Wn, all_quads, tri_chunk, n_sched, t_out, attr_out);
+              nullptr, nullptr, S, N, W, H, Wn, all_quads, n_sched, t_out, attr_out);
+}
+
+// The multi-chunk kernel's instance for the override and the carry dtype:
+// its dynamic shared memory (MULTI_SMEM, above the 48 KB default) is
+// opted into once per process and instance.
+template <bool OVERRIDE, bool F32>
+static int launch_multi(const int B, cudaStream_t stream, const float* verts9, const float* attr,
+                        const int* layout_id, const float* origin, const float* fwd,
+                        const float* right, const float* up, const float* tan_xy,
+                        const float* xbase, const float* ybase, const float* verts9_alt,
+                        const float* attr_alt, const int* pg_wall, const float* wall_open,
+                        const unsigned* slot_key, const float4* slot_tex,
+                        const float4* slot_tex_alt, int S, int W, int H, int Wn, int all_quads,
+                        int tri_chunk, float* t_out, void* attr_out) {
+    static bool opted = false;
+    if (!opted) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            tri_pass_multi_kernel<OVERRIDE, F32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)MULTI_SMEM);
+        if (err != cudaSuccess) return (int)err;
+        opted = true;
+    }
+    const int n_tx = (W + TILE_W - 1) / TILE_W, n_ty = (H + TILE_H - 1) / TILE_H;
+    const int n_groups = ((n_tx + GROUP_X - 1) / GROUP_X) * ((n_ty + GROUP_Y - 1) / GROUP_Y);
+    const dim3 grid(min(n_groups, max(1, (BLOCK_TARGET + B - 1) / B)), B);
+    tri_pass_multi_kernel<OVERRIDE, F32><<<grid, M_THREADS, MULTI_SMEM, stream>>>(
+        verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase, ybase, verts9_alt,
+        attr_alt, pg_wall, wall_open, slot_key, slot_tex, slot_tex_alt, S, W, H, Wn, all_quads,
+        tri_chunk, t_out, attr_out);
+    return (int)cudaGetLastError();
 }
 
 extern "C" int mw_tri_pass(
@@ -781,6 +1156,25 @@ extern "C" int mw_tri_pass(
         return (int)cudaErrorInvalidValue;
     if (sched && (paired || n_sched > 255 || n_sched * S > 4096)) return (int)cudaErrorInvalidValue;
     if (B == 0 || W == 0 || H == 0) return 0;
+    const float4* tex = reinterpret_cast<const float4*>(slot_tex);
+    const float4* tex_alt = reinterpret_cast<const float4*>(slot_tex_alt);
+    if (multi) {
+        if (f32)
+            return launch_multi<false, true>(B, stream, verts9, attr, layout_id, origin, fwd,
+                                             right, up, tan_xy, xbase, ybase, verts9_alt,
+                                             attr_alt, pg_wall, wall_open, nullptr, nullptr,
+                                             nullptr, S, W, H, Wn, all_quads, tri_chunk, t_out,
+                                             attr_out);
+        return slot_key != nullptr
+            ? launch_multi<true, false>(B, stream, verts9, attr, layout_id, origin, fwd, right,
+                                        up, tan_xy, xbase, ybase, verts9_alt, attr_alt, pg_wall,
+                                        wall_open, slot_key, tex, tex_alt, S, W, H, Wn,
+                                        all_quads, tri_chunk, t_out, attr_out)
+            : launch_multi<false, false>(B, stream, verts9, attr, layout_id, origin, fwd, right,
+                                         up, tan_xy, xbase, ybase, verts9_alt, attr_alt, pg_wall,
+                                         wall_open, nullptr, nullptr, nullptr, S, W, H, Wn,
+                                         all_quads, tri_chunk, t_out, attr_out);
+    }
     const int n_tiles = ((W + TILE_W - 1) / TILE_W) * ((H + TILE_H - 1) / TILE_H);
     const int per_env = min(n_tiles, max(1, (BLOCK_TARGET + B - 1) / B));
     const dim3 grid(per_env, B);
@@ -789,47 +1183,34 @@ extern "C" int mw_tri_pass(
     const size_t smem = n_rows * per_row + (paired ? n_rows : 0) +
                         (sched ? (size_t)n_sched * sizeof(int) : 0) +
                         (mesh ? (size_t)N * per_row : 0);
-    const float4* tex = reinterpret_cast<const float4*>(slot_tex);
-    const float4* tex_alt = reinterpret_cast<const float4*>(slot_tex_alt);
     if (f32)
-        return multi
-            ? launch_instance<false, true, false, false, true>(
-                  grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy,
-                  xbase, ybase, nullptr, nullptr, verts9_alt, attr_alt, pg_wall, wall_open,
-                  nullptr, nullptr, nullptr, S, 0, W, H, Wn, all_quads, tri_chunk, 0, t_out,
-                  attr_out)
-            : sched
-            ? launch_instance<false, false, true, false, true>(
+        return sched
+            ? launch_instance<false, true, false, true>(
                   grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy,
                   xbase, ybase, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                  nullptr, nullptr, nullptr, S, 0, W, H, 0, all_quads, S, n_sched, t_out,
+                  nullptr, nullptr, nullptr, S, 0, W, H, 0, all_quads, n_sched, t_out,
                   attr_out)
-            : launch_instance<false, false, false, false, true>(
+            : launch_instance<false, false, false, true>(
                   grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy,
                   xbase, ybase, nullptr, nullptr, verts9_alt, attr_alt, pg_wall, wall_open,
-                  nullptr, nullptr, nullptr, S, 0, W, H, Wn, all_quads, S, 0, t_out, attr_out);
-    if (multi)
-        return launch_tri_pass<false, true, false>(
-            grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase,
-            ybase, nullptr, nullptr, verts9_alt, attr_alt, pg_wall, wall_open, slot_key, tex,
-            tex_alt, S, 0, W, H, Wn, all_quads, tri_chunk, 0, t_out, attr_out);
+                  nullptr, nullptr, nullptr, S, 0, W, H, Wn, all_quads, 0, t_out, attr_out);
     if (sched)
         return mesh
-            ? launch_tri_pass<true, false, true>(
+            ? launch_tri_pass<true, true>(
                   grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy,
                   xbase, ybase, mesh_v9, mesh_attr, nullptr, nullptr, nullptr, nullptr, slot_key,
-                  tex, nullptr, S, N, W, H, 0, all_quads, S, n_sched, t_out, attr_out)
-            : launch_tri_pass<false, false, true>(
+                  tex, nullptr, S, N, W, H, 0, all_quads, n_sched, t_out, attr_out)
+            : launch_tri_pass<false, true>(
                   grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy,
                   xbase, ybase, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, slot_key,
-                  tex, nullptr, S, 0, W, H, 0, all_quads, S, n_sched, t_out, attr_out);
+                  tex, nullptr, S, 0, W, H, 0, all_quads, n_sched, t_out, attr_out);
     return mesh
-        ? launch_tri_pass<true, false, false>(
+        ? launch_tri_pass<true, false>(
               grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase,
               ybase, mesh_v9, mesh_attr, verts9_alt, attr_alt, pg_wall, wall_open, slot_key, tex,
-              tex_alt, S, N, W, H, Wn, all_quads, S, 0, t_out, attr_out)
-        : launch_tri_pass<false, false, false>(
+              tex_alt, S, N, W, H, Wn, all_quads, 0, t_out, attr_out)
+        : launch_tri_pass<false, false>(
               grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase,
               ybase, nullptr, nullptr, verts9_alt, attr_alt, pg_wall, wall_open, slot_key, tex,
-              tex_alt, S, 0, W, H, Wn, all_quads, S, 0, t_out, attr_out);
+              tex_alt, S, 0, W, H, Wn, all_quads, 0, t_out, attr_out);
 }

@@ -42,6 +42,18 @@ def _unary(name: str, x: torch.Tensor, torch_fn) -> torch.Tensor:
     return torch.from_numpy(np.asarray(out, np.float32).reshape(a.shape))
 
 
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """float32 square root rounded once (IEEE), as XLA:CPU and the
+    kernels' ``sqrtf`` compute it. On the CPU numpy's: torch's goes
+    through MKL's vector math there, which is within one ulp, and on a
+    process's first call has returned one thread's share of a large
+    tensor far less accurate, so that two renders of one state differed.
+    Elsewhere torch's."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    return torch.from_numpy(np.sqrt(x.detach().to(torch.float32).numpy()))
+
+
 def cos(x):
     return _unary("cos", x, torch.cos)
 

@@ -89,8 +89,9 @@ BUILD_INFO: dict = {}
 # run went through the kernels. Only ``launch`` increments. The mesh
 # pass runs inside the tri_pass launch: a launch with mesh rows counts
 # under both names; so does a tri_pass launch with the texture-variant
-# override ("tri_pass_override"), a tri_pass launch over a paired
-# procgen bank in more than one chunk ("tri_pass_paired_chunks"), a
+# override ("tri_pass_override"), a tri_pass launch over more than one
+# chunk, the multi-chunk kernel's ("tri_pass_multi"), over a paired
+# procgen bank also "tri_pass_paired_chunks", a
 # tri_pass launch over each env's schedule of chunks ("tri_pass_sched"), a
 # tri_pass launch with the float32 attribute carry ("tri_pass_f32"), and
 # a pixel_epilogue launch of its supersample=2 instance
@@ -106,7 +107,7 @@ LAUNCHES = {"tri_pass": 0, "entity_pass": 0, "pixel_epilogue": 0,
             "tri_pass_paired_chunks": 0, "tri_pass_sched": 0, "pixel_epilogue_gain": 0,
             "tri_pass_f32": 0, "pixel_epilogue_nearest": 0, "pixel_epilogue_f32": 0,
             "tri_pass_ortho": 0, "topview_epilogue": 0, "topview_epilogue_nearest": 0,
-            "visible_ents": 0}
+            "visible_ents": 0, "tri_pass_multi": 0}
 
 
 def reset_launch_counts():

@@ -601,16 +601,29 @@ def tile_cull_plain(rows, cam: Camera, tile_w: int, tile_h: int, all_quads: bool
     return torch.cat(out)
 
 
-def tri_pass_tile():
-    """(TILE_W, TILE_H, PIX_PER_THREAD) of the built tri_pass kernel (its
-    compile-time constants; builds the library if needed)."""
-    out = (ctypes.c_int * 3)()
+def _tri_pass_config():
+    out = (ctypes.c_int * 6)()
     load().mw_tri_pass_config(out)
     return tuple(out)
 
 
-# The most prims the tri_pass kernel stages in shared memory (52 bytes a
-# row: 213 KB of the 227 KB a block can opt into on an H100).
+def tri_pass_tile():
+    """(TILE_W, TILE_H, PIX_PER_THREAD) of the built tri_pass kernel (its
+    compile-time constants; builds the library if needed)."""
+    return _tri_pass_config()[:3]
+
+
+def tri_pass_window():
+    """(GROUP_X, GROUP_Y, WINDOW_ROWS) of the built multi-chunk tri_pass
+    kernel: the tiles a block has in flight and the rows it stages at
+    once (builds the library if needed)."""
+    return _tri_pass_config()[3:]
+
+
+# The most rows the tri_pass kernel takes over more than one chunk (its
+# row index in 12 bits of the staged rank), and in one schedule (52 bytes
+# a row in shared memory: 213 KB of the 227 KB a block can opt into on an
+# H100).
 MAX_KERNEL_ROWS = 4096
 
 
@@ -626,8 +639,9 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
     (a launch with mesh rows also counts in
     ``LAUNCHES["entity_mesh_pass"]``). With S > ``tri_chunk``, the
     multi-chunk scan of ``tri_pass_chunked`` in one launch, S <=
-    MAX_KERNEL_ROWS, without mesh rows (raises); over a paired bank it
-    also counts in ``LAUNCHES["tri_pass_paired_chunks"]``.
+    MAX_KERNEL_ROWS, without mesh rows (raises), through the multi-chunk
+    kernel (counted in ``LAUNCHES["tri_pass_multi"]``; over a paired bank
+    also in ``LAUNCHES["tri_pass_paired_chunks"]``).
     ``layout_id`` (B, n), a schedule (``chunk_schedule``): verts9 (C, 9,
     k) and attr (C, k, 16) are a bank of one-chunk rows and each env scans
     its n chunk rows in order, the contract of ``tri_pass_scheduled``
@@ -728,6 +742,7 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
     cam_ptrs, _cam_tensors = _cam_args(cam, b)
     counters = (("tri_pass",) + (() if mesh is None else ("entity_mesh_pass",))
                 + (() if override is None else ("tri_pass_override",))
+                + (("tri_pass_multi",) if multi else ())
                 + (("tri_pass_paired_chunks",) if multi and paired is not None else ())
                 + (("tri_pass_sched",) if sched else ())
                 + (("tri_pass_f32",) if f32 else ()))
@@ -917,7 +932,7 @@ def entity_pass_plain(ent_pos, ent_size, ent_dir, ent_height, ent_color, flags,
         cc = oc[..., 0] * oc[..., 0] + oc[..., 1] * oc[..., 1] + oc[..., 2] * oc[..., 2]
         cc = cc - r_vis * r_vis
         disc = bq * bq - (4.0 * cc)[:, :, None] * a_px
-        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        sq = geom.sqrt(torch.clamp(disc, min=0.0))
         t_sph = (-bq - sq) / (2.0 * a_px)
         sph_hit = (disc > 0.0) & (t_sph > NEAR) & (t_sph < FAR)
     else:
@@ -1188,7 +1203,7 @@ def shade(color, normal, hit_p, light_pos, light_color, light_ambient):
     (glLightfv setup at miniworld.py:1114-1133; GL_MODULATE). Per-pixel
     (N, 3) color/normal/hit point, per-pixel (N, 3) light terms."""
     l_vec = light_pos - hit_p
-    norm = torch.sqrt(l_vec[:, 0] * l_vec[:, 0] + l_vec[:, 1] * l_vec[:, 1]
+    norm = geom.sqrt(l_vec[:, 0] * l_vec[:, 0] + l_vec[:, 1] * l_vec[:, 1]
                       + l_vec[:, 2] * l_vec[:, 2])
     l_dir = l_vec / torch.clamp(norm, min=1e-9)[:, None]
     ndotl = torch.clamp(normal[:, 0] * l_dir[:, 0] + normal[:, 1] * l_dir[:, 1]
@@ -1269,7 +1284,7 @@ def _pixel_epilogue_block(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera
         sq = at[:, 0] * at[:, 0]
         for i in range(1, 6):
             sq = sq + at[:, i] * at[:, i]
-        footprint = t_uv * pix_angle * torch.sqrt(sq * 0.5)
+        footprint = t_uv * pix_angle * geom.sqrt(sq * 0.5)
         texel = eval_fourier(atlas, at[:, _SLOT], uv, k_terms, footprint, has_gain)
     else:
         texel = eval_nearest(atlas, tex_map, at[:, _SLOT].reshape(b, hw),

@@ -1,0 +1,190 @@
+"""Torch models of the redesigned tri_pass and pixel_epilogue kernels.
+
+``window_select`` copies the multi-chunk tri_pass kernel
+(csrc/tri_pass.cu, tri_pass_multi_kernel) step for step: the rows staged
+in row order and culled against the image's box, streamed through a
+window of ``window`` rows in batches of ``block`` (a batch whose
+survivors would overflow the window closes it first), each window's rows
+culled against each group of tiles' box and then each tile's, and each
+pixel's scan of its tile's rows in row order with a strict > on the
+32-bit z-key, carried from one window to the next. ``lane_quad_mean``
+copies the SS=2 pixel_epilogue's lanes: 16 samples of two sample rows a
+warp, the mean formed at the lane of s00 from three shuffles.
+``texel_read_mask`` is where the epilogue reads a sample's attributes and
+texel.
+"""
+
+import math
+
+import torch
+
+from miniworld_tpu_torch.render import raycast as trc
+
+
+def first_chunk_rank(n_rows, tri_chunk):
+    """(chunk, local index) of each row as the multi-chunk kernel stages
+    it: the row's first chunk and its index there, the last chunk
+    starting at n_rows - tri_chunk."""
+    s = torch.arange(n_rows)
+    chunk = torch.clamp(s // tri_chunk, max=(n_rows - 1) // tri_chunk)
+    return chunk, s - torch.clamp(chunk * tri_chunk, max=n_rows - tri_chunk)
+
+
+def _spans(vals, step):
+    """(lo, hi) of each run of ``step`` values along dim 1: (B, n) each."""
+    parts = [vals[:, i:i + step] for i in range(0, vals.shape[1], step)]
+    return (torch.stack([p.amin(1) for p in parts], 1),
+            torch.stack([p.amax(1) for p in parts], 1))
+
+
+def group_boxes(cam, tile, group):
+    """(B, G, 4) boxes (xlo, xhi, ylo, yhi) of the groups of group[0] x
+    group[1] tiles in row-major order, each the union of its in-image
+    tiles' boxes, as the kernel forms them; and the pixel size of a group."""
+    xv = cam.xbase[None, :] * cam.tan_x[:, None]
+    yv = cam.ybase[None, :] * cam.tan_y[:, None]
+    gw, gh = tile[0] * group[0], tile[1] * group[1]
+    (xlo, xhi), (ylo, yhi) = _spans(xv, gw), _spans(yv, gh)
+    b, n_gx, n_gy = xv.shape[0], xlo.shape[1], ylo.shape[1]
+    shape = (b, n_gy, n_gx)
+    box = torch.stack([xlo[:, None, :].expand(shape), xhi[:, None, :].expand(shape),
+                       ylo[:, :, None].expand(shape), yhi[:, :, None].expand(shape)], dim=-1)
+    return box.reshape(b, n_gy * n_gx, 4), (gw, gh)
+
+
+def window_select(verts9, attr, layout_id, cam, tri_chunk, all_quads=False, paired=None,
+                  window=1024, block=384, group=(2, 2), tile=(16, 12)):
+    """The multi-chunk tri_pass kernel's result, (t (B, HW), attr (B, HW,
+    16) bf16), computed as the kernel computes it (module docstring)."""
+    S = verts9.shape[2]
+    rows = trc.stage_rows(verts9, attr, layout_id, cam, paired)
+    _, attrs = trc._env_rows(verts9, attr, layout_id.long(), paired)
+    _, local = first_chunk_rank(S, tri_chunk)
+    b_n, w, h = rows.shape[0], cam.width, cam.height
+    tw, th = tile
+    xv = cam.xbase[None, :] * cam.tan_x[:, None]  # (B, W), as the kernel rounds it
+    yv = cam.ybase[None, :] * cam.tan_y[:, None]
+    (cxlo, cxhi), (cylo, cyhi) = _spans(xv, tw), _spans(yv, th)  # per tile column / row
+    n_tx, n_ty = cxlo.shape[1], cylo.shape[1]
+    key_best = torch.zeros((b_n, h, w), dtype=torch.int32)
+    row_best = torch.zeros((b_n, h, w), dtype=torch.long)
+
+    def may_hit(b, idx, box):
+        return trc._may_hit(rows[b:b + 1, idx], box.view(1, 1, 4), all_quads)[0, 0]
+
+    for b in range(b_n):
+        image = torch.stack([xv[b].amin(), xv[b].amax(), yv[b].amin(), yv[b].amax()])
+        keep = may_hit(b, torch.arange(S), image)
+        windows, cur = [], torch.zeros(0, dtype=torch.long)
+        for s0 in range(0, S, block):
+            batch = torch.arange(s0, min(s0 + block, S))[keep[s0:s0 + block]]
+            if cur.numel() + batch.numel() > window:
+                windows.append(cur)
+                cur = torch.zeros(0, dtype=torch.long)
+            cur = torch.cat([cur, batch])
+        windows.append(cur)
+        for win in windows:
+            for gy0 in range(0, n_ty, group[1]):
+                for gx0 in range(0, n_tx, group[0]):
+                    tiles = [(tx, ty) for ty in range(gy0, min(gy0 + group[1], n_ty))
+                             for tx in range(gx0, min(gx0 + group[0], n_tx))]
+                    txs = slice(gx0, min(gx0 + group[0], n_tx))
+                    tys = slice(gy0, min(gy0 + group[1], n_ty))
+                    gbox = torch.stack([cxlo[b, txs].amin(), cxhi[b, txs].amax(),
+                                        cylo[b, tys].amin(), cyhi[b, tys].amax()])
+                    glist = win[may_hit(b, win, gbox)]
+                    for tx, ty in tiles:
+                        tbox = torch.stack([cxlo[b, tx], cxhi[b, tx], cylo[b, ty], cyhi[b, ty]])
+                        tl = glist[may_hit(b, glist, tbox)]
+                        xs = slice(tx * tw, min(tx * tw + tw, w))
+                        ys = slice(ty * th, min(ty * th + th, h))
+                        pxv = xv[b, xs][None, :].expand(ys.stop - ys.start, -1).reshape(1, -1)
+                        pyv = yv[b, ys][:, None].expand(-1, xs.stop - xs.start).reshape(1, -1)
+                        k = trc._row_keys(rows[b:b + 1, tl], pxv, pyv, all_quads)[0]  # (n, P)
+                        key = torch.where(k > 0, (k & ~trc._IDX_MASK) | local[tl][:, None].int(),
+                                          torch.zeros_like(k))
+                        best = key_best[b, ys, xs].reshape(-1).clone()
+                        rb = row_best[b, ys, xs].reshape(-1).clone()
+                        for j in range(tl.numel()):  # in row order, strictly greater
+                            won = key[j] > best
+                            best = torch.where(won, key[j], best)
+                            rb = torch.where(won, tl[j], rb)
+                        key_best[b, ys, xs] = best.view(ys.stop - ys.start, -1)
+                        row_best[b, ys, xs] = rb.view(ys.stop - ys.start, -1)
+    key = key_best.reshape(b_n, -1)
+    sel = trc._gather_rows(attrs, row_best.reshape(b_n, -1)).to(torch.bfloat16)
+    return trc._t_from_key(key), torch.where((key > 0)[:, :, None], sel, torch.zeros_like(sel))
+
+
+def lane_quad_mean(rgb):
+    """The SS=2 epilogue's box filter as its lanes form it: rgb (B, 2H,
+    2W, 3) the samples' shaded float colours -> (B, H, W, 3) means. A
+    warp holds 16 consecutive samples of a sample row in lanes 0-15 and
+    the 16 below them in lanes 16-31; lane l adds lane l + 1's, then l +
+    16's, then l + 17's value (``__shfl_sync``, the lane index mod 32)
+    and scales by 0.25, and the even lanes below 16 (each pixel's s00)
+    keep their result."""
+    b, h2, w2, _ = rgb.shape
+    runs = math.ceil(w2 / 16)
+    padded = torch.zeros((b, h2, runs * 16, 3), dtype=rgb.dtype)
+    padded[:, :, :w2] = rgb
+    lanes = (padded.reshape(b, h2 // 2, 2, runs, 16, 3).permute(0, 1, 3, 2, 4, 5)
+             .reshape(b, h2 // 2, runs, 32, 3))
+
+    def shfl(d):  # every lane reads lane (l + d) & 31
+        return lanes.roll(-d, dims=3)
+
+    v = ((lanes + shfl(1)) + shfl(16)) + shfl(17)
+    v = v * 0.25
+    return v[:, :, :, 0:16:2].reshape(b, h2 // 2, runs * 8, 3)[:, :, :w2 // 2]
+
+
+def texel_read_mask(t_tri, t_ent):
+    """(B, HW) bool: the samples whose attributes and texel the epilogue
+    reads: a finite t_tri that no strictly closer entity beats."""
+    mask = torch.isfinite(t_tri)
+    if t_ent is not None:
+        mask &= ~(t_ent < t_tri)
+    return mask
+
+
+def epilogue_inputs(env, state, width, height):
+    """pixel_epilogue_plain's positional arguments (up to k_terms) for the
+    env's render of ``state`` on a width x height grid of samples: the
+    plain hit passes' results, the atlas, the camera and the lights."""
+    cam = trc.camera_grid(state, width, height)
+    rows, paired = trc.static_rows(env._bank, state, cam, env._pg_wall, env.plan)
+    mesh = trc.entity_mesh_rows(env._bank, state)[:2] if env._shapes_present[2] else None
+    t_tri, attr = trc.tri_pass(*rows, cam, env._all_quads, mesh, paired, env.tri_chunk)
+    ent = (None,) * 3
+    if env._shapes_present[0] or env._shapes_present[1]:
+        ent = trc.entity_pass(state.ent_pos, state.ent_size, state.ent_dir, state.ent_height,
+                              state.ent_color, trc.entity_flags(env._bank, state), cam,
+                              *env._shapes_present[:2])
+    return (t_tri, attr, *ent, env._atlas, cam, state.light_pos, state.light_color,
+            state.light_ambient, state.sky_color, env.fourier_k)
+
+
+def group_cull_misses(rows, cam, all_quads, tile, group):
+    """(the (row, pixel) hits that a group's box would drop, keep (B, G,
+    S)): the kernel's cull (``trc._may_hit``) against each group of
+    tiles' box, held against row_hits_plain on every pixel of the group."""
+    hits = trc.row_hits_plain(rows, cam, all_quads)  # (B, S, HW)
+    box, (gw, gh) = group_boxes(cam, tile, group)
+    keep = trc._may_hit(rows, box, all_quads)  # (B, G, S)
+    n_gx = -(-cam.width // gw)
+    group_of = ((torch.arange(cam.height)[:, None] // gh) * n_gx
+                + torch.arange(cam.width)[None, :] // gw).reshape(-1)
+    keep_px = keep[:, group_of, :].transpose(1, 2)
+    return int((hits & ~keep_px).sum()), keep
+
+
+def ss2_by_lanes(args, has_gain=False):
+    """The SS=2 epilogue's output formed as its lanes form it: each
+    sample shaded as pixel_epilogue_plain shades it, the means by
+    ``lane_quad_mean``, the truncating pack, the top-left sample's depth.
+    ``args``: pixel_epilogue_plain's positional arguments up to k_terms."""
+    rgb, depth = trc._pixel_epilogue_block(*args, has_gain)
+    mean = lane_quad_mean(rgb)
+    return (torch.clamp(mean * 255.0, 0.0, 255.0).to(torch.uint8),
+            depth[:, ::2, ::2].contiguous())

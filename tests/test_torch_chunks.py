@@ -7,12 +7,17 @@ JAX package's plan: for every ported id at three (B, W, H), the port's
 plan equals JAX's.
 The multi-chunk scan's plain version is held against JAX's ``_tri_pass``
 on a bank whose prims are copied across chunk boundaries (ties on many
-pixels), and the kernel's one-pass select, copied in torch, against the
-chunk loop; the Maze layout bank's packed-PVS plan renders its packed
+pixels), and the multi-chunk kernel's windowed scan, copied in torch
+(tests/_kernel_models.py), against the chunk loop on that bank and on
+Sidewalk's views, with windows small enough that tied rows and most
+views span several; the Sidewalk views also check the kernel's group-of-
+tiles cull and the epilogue's texel skip (the samples whose texel the
+result never reads, sky among them); the Maze layout bank's packed-PVS plan renders its packed
 chunks as JAX's scan does, in one chunk a render or, as the scheduled
 plans (packed PVS over 2 chunks, chunk_vis) do, chunk by chunk.
 """
 
+import math
 from types import SimpleNamespace
 
 import jax
@@ -31,6 +36,8 @@ from miniworld_tpu_torch.convert import layout_from_numpy
 from miniworld_tpu_torch.envs import ENV_IDS, make_spec
 from miniworld_tpu_torch.render import raycast as trc
 
+from _kernel_models import (epilogue_inputs, first_chunk_rank, group_cull_misses,
+                            texel_read_mask, window_select)
 from _torch_parity import to_port_state
 
 # (B, W, H, supersample): at ss=2 the plan sees W x H x 4 samples a frame
@@ -284,74 +291,115 @@ def test_tri_pass_chunked_matches_jax_on_ties(tie_case, tri_chunk):
     assert decided >= 100, decided
 
 
-def _kernel_rank(n_rows, tri_chunk):
-    """(chunk, local index) of each row as the tri_pass kernel's staging
-    loop packs them: the row's first chunk and its index there, the last
-    chunk starting at n_rows - tri_chunk."""
-    s = torch.arange(n_rows)
-    chunk = torch.clamp(s // tri_chunk, max=(n_rows - 1) // tri_chunk)
-    return chunk, s - torch.clamp(chunk * tri_chunk, max=n_rows - tri_chunk)
-
-
-def _one_pass_select(verts9, attr, layout_id, cam, tri_chunk):
-    """Torch copy of the tri_pass kernel's multi-chunk select: one max
-    over every row of the 64-bit (key << 8) | (255 - chunk), the key
-    built from the row's chunk-local index (``_kernel_rank``)."""
-    rows = trc.stage_rows(verts9, attr, layout_id, cam)
-    keys = trc._row_keys(rows, cam.xv(), cam.yv(), False).long()  # (B, S, HW)
-    chunk, local = _kernel_rank(rows.shape[1], tri_chunk)
-    key = (keys & ~trc._IDX_MASK) | local[None, :, None]
-    ranked = torch.where(keys > 0, (key << 8) | (255 - chunk)[None, :, None],
-                         torch.zeros_like(keys))
-    best = ranked.amax(dim=1)
-    key = (best >> 8).to(torch.int32)
-    row = (255 - (best & 0xFF)) * tri_chunk + (key & trc._IDX_MASK).long()
-    row = torch.where(key > 0, row, torch.zeros_like(row))
-    sel = trc._gather_rows(attr[layout_id.long()], row).to(torch.bfloat16)
-    return trc._t_from_key(key), torch.where((key > 0)[:, :, None], sel, torch.zeros_like(sel))
-
-
 @pytest.mark.parametrize("tri_chunk", [16, 4])
 def test_kernel_select_matches_chunk_loop(tie_case, tri_chunk):
+    """The multi-chunk kernel's windowed scan (a window of 8 rows, batches
+    of 4: the copies at rows 0-15 and 16-31, tied at equal chunk-local
+    indices, fall in different windows) gives the chunk loop's winners."""
     jstate, verts9, attr = tie_case
     cam, _ = _port_camera(jstate, TIE_W, TIE_H)
     lid = torch.zeros(TIE_B, dtype=torch.int32)
     v9, at = torch.from_numpy(verts9), torch.from_numpy(attr)
-    t_k, a_k = _one_pass_select(v9, at, lid, cam, tri_chunk)
+    t_k, a_k = window_select(v9, at, lid, cam, tri_chunk, window=8, block=4)
     t_p, a_p = trc.tri_pass_chunked(v9, at, lid, cam, tri_chunk)
     assert torch.equal(t_k, t_p) and torch.equal(a_k, a_p)
 
 
 @pytest.mark.parametrize("n_rows", [608, 3072, 4096])
 def test_kernel_chunk_index_formula(n_rows):
-    """The tri_pass kernel's row rank, (chunk, local index) packed as
-    (255 - chunk) << 10 | local: for every chunk 16 <= tri_chunk <= 1024
-    below n_rows each row's chunk is the first of JAX's clamped chunks
-    that reads it (``trc.chunk_starts``), at its index there, under
-    256 chunks and 1024 rows; the packing round-trips."""
+    """The multi-chunk kernel's row rank, s << 10 | local: for every chunk
+    16 <= tri_chunk <= 1024 below n_rows each row's local index is its
+    index in the first of JAX's clamped chunks that reads it
+    (``trc.chunk_starts``), under 1024, and the packing round-trips
+    within 31 bits (S <= 4096), so that ascending rows are ascending
+    first chunks."""
     s = torch.arange(n_rows)
     for tc in range(16, min(n_rows, 1024) + 1):
-        chunk, local = _kernel_rank(n_rows, tc)
+        chunk, local = first_chunk_rank(n_rows, tc)
         starts = torch.tensor(trc.chunk_starts(n_rows, tc))
-        assert int(chunk.max()) < 256 and int(local.min()) >= 0 and int(local.max()) < tc
+        assert int(local.min()) >= 0 and int(local.max()) < tc
         assert torch.equal(starts[chunk] + local, s), tc
         first = ((s[:, None] >= starts[None]) & (s[:, None] < starts[None] + tc)).long().argmax(1)
         assert torch.equal(chunk, first), tc
-        packed = ((255 - chunk) << 10) | local
-        assert torch.equal(255 - (packed >> 10), chunk) and torch.equal(packed & 1023, local)
+        assert bool((chunk[1:] >= chunk[:-1]).all())
+        pad = (s << 10) | local
+        assert int(pad.max()) < 2 ** 31
+        assert torch.equal(pad >> 10, s) and torch.equal(pad & 1023, local)
 
 
-def test_render_plain_multi_chunk():
+@pytest.fixture(scope="module")
+def sidewalk():
+    """Sidewalk at B=4, 40x30 (3 chunks of 1024) and its reset state."""
+    env = MiniWorldVec("MiniWorld-Sidewalk-v0", 4, obs_width=40, obs_height=30, device="cpu")
+    state, obs = env.reset(2)
+    return env, state, obs
+
+
+def test_render_plain_multi_chunk(sidewalk):
     """Sidewalk at B=4, 40x30, plans 3 chunks of 1024; its render with
     use_kernels=False scans them with tri_pass_chunked, as the wrapper
     does for CPU tensors."""
-    env = MiniWorldVec("MiniWorld-Sidewalk-v0", 4, obs_width=40, obs_height=30, device="cpu")
+    env, state, (rgb, depth) = sidewalk
     assert env.plan["kind"] == "dense" and env.tri_chunk == 1024
     assert env._bank.tri_verts9.shape[2] == 3072
-    state, (rgb, depth) = env.reset(2)
     env.use_kernels = False
-    rgb_p, depth_p = env.render(state)
+    try:
+        rgb_p, depth_p = env.render(state)
+    finally:
+        env.use_kernels = True
     assert torch.equal(rgb, rgb_p) and torch.equal(depth, depth_p)
+
+
+def _sidewalk_view(sidewalk):
+    env, state, _ = sidewalk
+    u = torch.rand((4, 2), generator=torch.Generator().manual_seed(6))
+    state = state.replace(dir=(u[:, 0] * 2.0 - 1.0) * math.pi, cam_pitch=(u[:, 1] - 0.5) * 20.0)
+    cam = trc.camera_grid(state, 40, 30)
+    bank = env._bank
+    return env, state, (bank.tri_verts9, bank.tri_attr, state.layout_id, cam, env._all_quads)
+
+
+def test_window_model_sidewalk(sidewalk):
+    """The multi-chunk kernel's scan, copied in torch, on Sidewalk views
+    at 3 chunks of 1024 with a window of 256 rows (batches of 96): each
+    view's image survivors fill several windows, and t and all 16
+    attributes equal tri_pass_chunked's on every pixel."""
+    env, _, (v9, at, lid, cam, quads) = _sidewalk_view(sidewalk)
+    rows = trc.stage_rows(v9, at, lid, cam)
+    survivors = trc.tile_cull_plain(rows, cam, 40, 30, quads)[:, 0].sum(1)
+    assert int(survivors.min()) > 256, survivors
+    t_k, a_k = window_select(v9, at, lid, cam, env.tri_chunk, quads, window=256, block=96)
+    t_p, a_p = trc.tri_pass_chunked(v9, at, lid, cam, env.tri_chunk, quads)
+    assert torch.equal(t_k, t_p) and torch.equal(a_k, a_p)
+    assert float(torch.isfinite(t_p).float().mean()) > 0.3
+
+
+@pytest.mark.parametrize("group", [(2, 2), (4, 2)], ids=["2x2", "4x2"])
+def test_group_box_keeps_hits_sidewalk(sidewalk, group):
+    """A group of 16x12 tiles' box keeps every Sidewalk row that hits a
+    pixel of the group (row_hits_plain), and drops most of them."""
+    env, _, (v9, at, lid, cam, quads) = _sidewalk_view(sidewalk)
+    rows = trc.stage_rows(v9, at, lid, cam)
+    missed, keep = group_cull_misses(rows, cam, quads, (16, 12), group)
+    assert missed == 0
+    assert float(keep.float().mean()) < 0.5
+
+
+def test_texel_skip_sidewalk(sidewalk):
+    """Sidewalk has no ceiling: a share of its samples is sky. The
+    epilogue reads a sample's attributes and texel only where
+    texel_read_mask holds; with every other sample's attributes replaced
+    by noise the plain epilogue's output is unchanged."""
+    env, state, _ = _sidewalk_view(sidewalk)
+    args = epilogue_inputs(env, state, 40, 30)
+    t_tri, attr, t_ent = args[0], args[1], args[2]
+    mask = texel_read_mask(t_tri, t_ent)
+    assert 0.05 < float(mask.float().mean()) < 0.95
+    noise = (torch.rand(attr.shape, generator=torch.Generator().manual_seed(3)) * 40 - 20)
+    attr_n = torch.where(mask[..., None], attr, noise.to(attr.dtype))
+    rgb, depth = trc.pixel_epilogue_plain(*args)
+    rgb_n, depth_n = trc.pixel_epilogue_plain(t_tri, attr_n, *args[2:])
+    assert torch.equal(rgb, rgb_n) and torch.equal(depth, depth_n)
 
 
 # ---------------------------------------------------------------------------

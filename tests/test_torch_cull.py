@@ -6,12 +6,15 @@ The cull must be exact: a (tile, row) it drops has z-key 0 on every
 pixel of the tile by the per-row hit test of ``tri_pass_plain``, so the
 kernel's max over the survivors is the full scan's. Checked on views of
 four ported scenes at B=4, 80x60, and on rows built to graze the cull's
-margins. The table must hold the atlas values the epilogue rounds to
+margins; so must the multi-chunk kernel's first level, the box of a
+group of tiles (the Maze's views and the grazing rows; Sidewalk's in
+tests/test_torch_chunks.py). The table must hold the atlas values the epilogue rounds to
 bf16 and pi^2 (fu^2 + fv^2) in the kernel's operation order; a texel
 evaluated from it the kernel's way equals ``eval_fourier``, which the
 render tests hold against the JAX package.
 """
 
+import functools
 import math
 
 import jax.numpy as jnp
@@ -20,6 +23,7 @@ import pytest
 import torch
 
 import chip_smoke
+from _kernel_models import group_cull_misses
 from miniworld_tpu_torch import MiniWorldVec
 from miniworld_tpu_torch.render import raycast as trc
 
@@ -90,6 +94,30 @@ def test_cull_grazing_rows(tile):
         hit_rows = hits.any(2)
         for k in range(4):  # each kind of grazing row does hit somewhere
             assert hit_rows[:, style == k].float().mean() > 0.1, (all_quads, k)
+
+
+@functools.lru_cache(maxsize=1)
+def _maze_scene():
+    return _scene("MiniWorld-Maze-v0", True)
+
+
+@pytest.mark.parametrize("group", [(2, 2), (4, 2)], ids=["2x2", "4x2"])
+def test_group_box_keeps_every_hit(group):
+    """The box of a group of 16x12 tiles, the union of its tiles' boxes,
+    keeps every row that hits a pixel of the group: on the 8x8 procgen
+    Maze's views (where a 2x2 group keeps a small share of the 608 rows)
+    and on rows grazing the margins at the groups' corners."""
+    env, rows, cam = _maze_scene()
+    missed, keep = group_cull_misses(rows, cam, env._all_quads, TILE, group)
+    assert missed == 0
+    assert float(keep.float().sum(2).mean()) < rows.shape[1] / 4
+    gw, gh = TILE[0] * group[0], TILE[1] * group[1]
+    verts9, attr, layout_id, cam = chip_smoke.grazing_case(B, (gw, gh), n_rows=256)
+    rows = trc.stage_rows(verts9, attr, layout_id, cam)
+    for all_quads in (False, True):
+        missed, _ = group_cull_misses(rows, cam, all_quads, TILE, group)
+        assert missed == 0
+        assert trc.row_hits_plain(rows, cam, all_quads).any(2).float().mean() > 0.1
 
 
 def _bf16(a):

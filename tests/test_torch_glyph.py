@@ -16,7 +16,10 @@ so the glyph branch is held to the JAX package exactly:
   within FLOAT_ATOL, images by ``assert_images_match``, and every pixel
   that shows a glyph (hundreds a frame, asserted) within 0 u8 levels
   where the winners agree; two agents end their episodes with action 3;
-- the same with ``domain_rand=True`` and with ``supersample=2``.
+- the same with ``domain_rand=True`` and with ``supersample=2``;
+- the SS=2 kernel's box filter as its lanes form it
+  (tests/_kernel_models.py) equals the plain epilogue's ss=2 output on
+  Sign's glyphs at 32x24.
 """
 
 import jax
@@ -30,6 +33,7 @@ from miniworld_tpu.envs import make_spec as jax_make_spec
 from miniworld_tpu.render import raycast as jrc
 from miniworld_tpu_torch.render import raycast as trc
 
+from _kernel_models import epilogue_inputs, ss2_by_lanes
 from _torch_parity import DEPTH_RTOL, reset_and_steps
 
 SIGN_ID = "MiniWorld-Sign-v0"
@@ -158,3 +162,23 @@ def test_sign_reset_and_steps():
                          ids=["domain_rand", "ss2"])
 def test_sign_options(kwargs):
     _run(3, **kwargs)
+
+
+def test_lane_quad_mean_sign():
+    """Sign at B=2, 32x24 (64x48 samples), both agents 1.5-2 m in front of
+    the sign and facing it: the SS=2 kernel's lanes, one sample each,
+    summed by shuffles at each pixel's s00 lane, give
+    pixel_epilogue_plain's ss=2 output (the glyph branch) exactly."""
+    from miniworld_tpu_torch import MiniWorldVec
+
+    env = MiniWorldVec(SIGN_ID, 2, obs_width=32, obs_height=24, device="cpu")
+    state, _ = env.reset(4)
+    pos = state.pos.clone()
+    pos[:, 0] = torch.tensor([8.0, 8.5])
+    pos[:, 2] = torch.tensor([10.0, 10.5])
+    state = state.replace(pos=pos, dir=torch.tensor([0.1, -0.1]))
+    args = epilogue_inputs(env, state, 64, 48)
+    assert int(_glyph_pixels(env, state).sum()) > 100
+    rgb, depth = trc.pixel_epilogue_plain(*args, True, ss=2)
+    rgb_l, depth_l = ss2_by_lanes(args, True)
+    assert torch.equal(rgb, rgb_l) and torch.equal(depth, depth_l)

@@ -11,9 +11,10 @@ scan (``tri_pass_chunked`` with ``paired``) is held against JAX's
 ``_tri_pass`` on the Maze's views, with and without the texture-variant
 override, and on a synthetic paired bank whose prims repeat across rows
 0-111, 112-495 and 496-607: t and all 16 attributes equal on every
-pixel. The kernel's select (each row ranked in its first chunk only) is
-copied in torch and held against the chunk loop; the plan of
-``install_statics`` is JAX's.
+pixel. The multi-chunk kernel's windowed scan (each row keyed in its
+first chunk only, rows in row order, a strict > carried across windows;
+tests/_kernel_models.py) is held against the chunk loop on the tie bank
+and on the Maze's views; the plan of ``install_statics`` is JAX's.
 """
 
 import jax
@@ -30,8 +31,9 @@ from miniworld_tpu_torch.envs import make_spec
 from miniworld_tpu_torch.ops import mazegen
 from miniworld_tpu_torch.render import raycast as trc
 
+from _kernel_models import window_select
 from _torch_parity import to_port_state
-from test_torch_chunks import _jax_cameras, _kernel_rank, _port_camera
+from test_torch_chunks import _jax_cameras, _port_camera
 
 MAZE_ID = "MiniWorld-Maze-v0"
 B, W, H = 4, 40, 30
@@ -167,39 +169,35 @@ def test_paired_ties_match_jax(paired_ties):
     assert decided >= 100, decided
 
 
-def _first_chunk_select(verts9, attr, layout_id, cam, tri_chunk, paired):
-    """Torch copy of the tri_pass kernel's multi-chunk select over a
-    paired bank: each row ranked once, by its first chunk c = min(s //
-    tri_chunk, last) and its index there, s - min(c * tri_chunk, S -
-    tri_chunk); one max of (key << 8) | (255 - c); the winner's
-    attributes from its live variant."""
-    S = verts9.shape[2]
-    rows = trc.stage_rows(verts9, attr, layout_id, cam, paired)
-    keys = trc._row_keys(rows, cam.xv(), cam.yv(), False).long()  # (B, S, HW)
-    chunk, local = _kernel_rank(S, tri_chunk)
-    key = (keys & ~trc._IDX_MASK) | local[None, :, None]
-    ranked = torch.where(keys > 0, (key << 8) | (255 - chunk)[None, :, None],
-                         torch.zeros_like(keys))
-    best = ranked.amax(dim=1)
-    key = (best >> 8).to(torch.int32)
-    c = 255 - (best & 0xFF)
-    row = torch.clamp(c * tri_chunk, max=S - tri_chunk) + (key & trc._IDX_MASK).long()
-    row = torch.where(key > 0, row, torch.zeros_like(row))
-    _, attrs, _ = trc._paired_rows(verts9, attr, layout_id.long(), paired)
-    sel = trc._gather_rows(attrs, row).to(torch.bfloat16)
-    return trc._t_from_key(key), torch.where((key > 0)[:, :, None], sel, torch.zeros_like(sel))
-
-
 @pytest.mark.parametrize("tri_chunk", [TC, 160])
 def test_first_chunk_select_matches_chunk_loop(paired_ties, tri_chunk):
     """A row read by two chunks has the same depth bits in both and a
-    smaller local index in the clamped last chunk, so ranking each row in
-    its first chunk only gives the chunk loop's winners: at 496 (2
-    chunks, 384 rows read twice) and 160 (4 chunks, the last from row
-    448)."""
+    smaller local index in the clamped last chunk, so keying each row in
+    its first chunk only, scanning the rows in order with a strict > (the
+    multi-chunk kernel, windows of 32 rows in batches of 16, so the copies
+    of a group lie in other windows) gives the chunk loop's winners: at
+    496 (2 chunks, 384 rows read twice) and 160 (4 chunks, the last from
+    row 448)."""
     v9, at, lid, cam, paired = _port_ties(paired_ties)
-    t_k, a_k = _first_chunk_select(v9, at, lid, cam, tri_chunk, paired)
+    t_k, a_k = window_select(v9, at, lid, cam, tri_chunk, paired=paired, window=32, block=16)
     t_p, a_p = trc.tri_pass_chunked(v9, at, lid, cam, tri_chunk, False, None, paired)
+    assert torch.equal(t_k, t_p) and torch.equal(a_k, a_p)
+
+
+def test_window_model_maze_paired(maze8):
+    """The multi-chunk kernel's scan, copied in torch, on the 8x8 procgen
+    Maze's paired bank in 2 chunks of 496 (its views, each env's maze),
+    with windows of 64 rows: t and all 16 attributes equal
+    tri_pass_chunked's on every pixel."""
+    _, jstate, tb, statics = maze8
+    cam, _ = _port_camera(jstate, W, H)
+    ts = to_port_state(jstate)
+    paired = (tb.pg_verts9_alt, tb.pg_attr_alt, torch.from_numpy(statics["pg_wall"]),
+              ts.wall_open)
+    t_k, a_k = window_select(tb.pg_verts9, tb.pg_attr, ts.layout_id, cam, TC, True, paired,
+                             window=64, block=32)
+    t_p, a_p = trc.tri_pass_chunked(tb.pg_verts9, tb.pg_attr, ts.layout_id, cam, TC, True,
+                                    None, paired)
     assert torch.equal(t_k, t_p) and torch.equal(a_k, a_p)
 
 

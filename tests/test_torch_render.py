@@ -279,3 +279,21 @@ def test_render_rgbd(hallway, case):
     d = t_depth.numpy()
     assert np.isfinite(d).all() and d.min() > trc.NEAR and d.max() <= trc.FAR
     assert (d < trc.FAR).mean() > 0.5 and math.isfinite(differ)
+
+
+def test_sqrt_rounds_once():
+    """The plain stages' square root (geom.sqrt, the footprint's, the
+    light distance's and the sphere hit's): on 40,000 float32 values over
+    twelve octaves, bit for bit jnp.sqrt's (XLA:CPU) and the float64 root
+    rounded to float32, the same bits on every call (torch.sqrt on the
+    CPU is within one ulp of it)."""
+    from miniworld_tpu_torch.ops import geom as tgeom
+
+    rng = np.random.default_rng(12)
+    x = (rng.uniform(1.0, 2.0, 40_000) * 2.0 ** rng.integers(-6, 6, 40_000)).astype(np.float32)
+    want = np.sqrt(x.astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(np.asarray(jnp.sqrt(jnp.asarray(x))), want)
+    for _ in range(3):
+        got = tgeom.sqrt(torch.from_numpy(x))
+        assert got.dtype == torch.float32 and got.shape == (40_000,)
+        np.testing.assert_array_equal(got.numpy(), want)

@@ -4,8 +4,11 @@ The render at 16x12 output (a 32x24 grid of samples) on Hallway,
 FourRooms and PickupObjects (its mesh rows at 2x2 too), from the JAX
 package's reset state, to ``assert_images_match``'s tolerances (winners
 equal on 99.9% of the pixels, depth rtol 1e-5, RGB within 2 u8 levels);
-the epilogue's box filter in XLA's order against a JAX mean, exactly;
-the refusals of the plans the port cannot render at ss=2. The chunk
+the epilogue's box filter in XLA's order against a JAX mean, exactly,
+and as the SS=2 kernel's lanes form it (tests/_kernel_models.py) against
+the plain epilogue on PickupObjects' samples, with the samples whose
+texel the result never reads holding noise; the refusals of the plans
+the port cannot render at ss=2. The chunk
 plans at ss=2 are held against JAX's in tests/test_torch_chunks.py.
 """
 
@@ -19,6 +22,7 @@ from miniworld_tpu import MiniWorldVec as JaxVec
 from miniworld_tpu_torch import MiniWorldVec, vector as tvector
 from miniworld_tpu_torch.render import cuda_build, raycast as trc
 
+from _kernel_models import epilogue_inputs, ss2_by_lanes, texel_read_mask
 from _torch_parity import assert_images_match, to_port_state
 
 W, H, B = 16, 12, 8
@@ -62,6 +66,32 @@ def test_box_filter_order_matches_jax_mean():
     np.testing.assert_array_equal(got.numpy(), want)
     other = ((q[:, :, 0, :, 0] + q[:, :, 1, :, 0]) + q[:, :, 0, :, 1]) + q[:, :, 1, :, 1]
     assert not np.array_equal((other * 0.25).numpy(), want)
+
+
+def test_lane_quad_mean_pickupobjects():
+    """PickupObjects at 32x24 (64x48 samples), agents facing the balls,
+    boxes and keys: the SS=2 kernel's lanes, one sample each, summed by
+    shuffles at each pixel's s00 lane, give pixel_epilogue_plain's ss=2
+    output exactly; so does the plain epilogue where the samples whose
+    texel the result never reads (entity-covered ones among them) hold
+    noise in place of their attributes."""
+    env = MiniWorldVec("MiniWorld-PickupObjects-v0", 2, obs_width=32, obs_height=24,
+                       device="cpu", supersample=2)
+    state, _ = env.reset(3)
+    target = state.ent_pos[:, 0]
+    yaw = torch.atan2(-(target[:, 2] - state.pos[:, 2]), target[:, 0] - state.pos[:, 0])
+    state = state.replace(dir=yaw)
+    args = epilogue_inputs(env, state, 64, 48)
+    rgb, depth = trc.pixel_epilogue_plain(*args, ss=2)
+    rgb_l, depth_l = ss2_by_lanes(args)
+    assert torch.equal(rgb, rgb_l) and torch.equal(depth, depth_l)
+    t_tri, attr, t_ent = args[:3]
+    mask = texel_read_mask(t_tri, t_ent)
+    assert bool((~mask & torch.isfinite(t_tri)).any()), "no sample is an entity's"
+    noise = torch.rand(attr.shape, generator=torch.Generator().manual_seed(1)) * 40 - 20
+    attr_n = torch.where(mask[..., None], attr, noise.to(attr.dtype))
+    rgb_n, depth_n = trc.pixel_epilogue_plain(t_tri, attr_n, *args[2:], ss=2)
+    assert torch.equal(rgb, rgb_n) and torch.equal(depth, depth_n)
 
 
 def test_plans_that_still_raise():
