@@ -59,8 +59,12 @@ against their plain versions, its rollout at B=4096 and a short PutNext
 one on (B, 6) action vectors, both at B=128 against their plain paths.
 Then the top view (view="top"): tri_pass_ortho and topview_epilogue held
 exactly against their plain versions at B=128 on Hallway, PickupObjects,
-FourRooms nearest, Sign and the 8x8 procgen Maze and at the Maze's
-B=8192, timed there ([topview-stages]); visible_ents against its plain
+FourRooms nearest, Sign, the 8x8 procgen Maze (also at 96x72, where each
+env's kill decides winners) and the MazeS3 bank (64 layouts mixed among
+a block's envs), tri_pass_ortho on a tie bank (equal prims in one tile:
+the first wins; tile lists of more than 32 rows), each line with the
+rows a pixel scans, and at the Maze's B=8192, timed there, the epilogue
+beside its term issue floor ([topview-stages]); visible_ents against its plain
 version on every (env, entity) at PickupObjects B=4096 and the Maze
 B=8192, timed, and its own path of steps and queries ([visible-ents]);
 the Maze 8x8 procgen top-view rollout at B=8192 with its breakdown and
@@ -1228,14 +1232,18 @@ def bound(nbytes, ops):
 _SASS: dict = {}
 
 
-def sass_term_instructions(k_terms, gain):
+def sass_term_instructions(k_terms, gain, kernel="pixel_epilogue_ss2"):
     """Instructions a Fourier term takes in the built library's SS=2
     pixel_epilogue instance with the table in shared memory, K =
     ``k_terms`` and GAIN = ``gain``, read from ``cuobjdump -sass``: a term
     makes one paired bf16 conversion (F2FP.BF16...PACK_AB), so the span
     from the instance's first such conversion to its last, over their
-    count less one, is the instructions of a term as scheduled. None where
-    cuobjdump or the instance is missing."""
+    count less one, is the instructions of a term as scheduled. With
+    ``kernel="topview_epilogue"``, the top view's instance (the table in
+    shared memory, terms without a footprint), whose K terms, unrolled,
+    make its first K such conversions (the texel's end rounds its sums
+    after them): the span over those. None where cuobjdump or the
+    instance is missing."""
     from miniworld_tpu_torch.render import cuda_build
 
     if "lines" not in _SASS:
@@ -1246,7 +1254,9 @@ def sass_term_instructions(k_terms, gain):
         except (OSError, KeyError, subprocess.CalledProcessError):
             out = ""
         _SASS["lines"] = out.splitlines()
-    name = f"pixel_epilogue_ss2_kernelILb1ELi{k_terms}ELb{int(gain)}ELb0ELb0E"
+    name = (f"pixel_epilogue_ss2_kernelILb1ELi{k_terms}ELb{int(gain)}ELb0ELb0E"
+            if kernel == "pixel_epilogue_ss2"
+            else f"topview_epilogue_kernelILb1ELi{k_terms}ELb{int(gain)}ELb0E")
     packs, n, inside = [], 0, False
     for ln in _SASS["lines"]:
         if "Function :" in ln:
@@ -1257,6 +1267,8 @@ def sass_term_instructions(k_terms, gain):
             if "F2FP.BF16" in ln and "PACK_AB" in ln:
                 packs.append(n)
             n += 1
+    if kernel == "topview_epilogue":
+        packs = packs[:k_terms]
     if len(packs) < 2:
         return None
     return (packs[-1] - packs[0]) / (len(packs) - 1)
@@ -2556,6 +2568,91 @@ def phase_continuous(room, make_env, rates):
 # visibility query (visible_ents)
 
 
+def ortho_scan_rows(st, layout_id, wall_open):
+    """(B, HW) i32: the rows the tri_pass_ortho kernel scans at each pixel,
+    the live rows (``row_live`` in the env) of its tile's list."""
+    from miniworld_tpu_torch.render import topview as tv
+
+    b, w, h = layout_id.shape[0], st.width, st.height
+    n_tx, n_t = -(-w // tv.TILE_W), st.tile_off.shape[1] - 1
+    lid = layout_id.long()
+    live = tv.row_live(st.row_code[lid], wall_open).int()  # (B, Sc)
+    off = st.tile_off.long()
+    per_tile = torch.zeros((b, n_t), dtype=torch.int32, device=live.device)
+    for l in torch.unique(lid).tolist():
+        envs = torch.nonzero(lid == l)[:, 0]
+        lst = st.tile_rows[off[l, 0]:off[l, n_t]].long()
+        tile_of = torch.repeat_interleave(torch.arange(n_t, device=lst.device),
+                                          off[l, 1:] - off[l, :-1])
+        per_tile[envs] = per_tile[envs].index_add_(1, tile_of, live[envs][:, lst])
+    y, x = torch.div(torch.arange(w * h, device=lid.device), w, rounding_mode="floor"), \
+        torch.arange(w * h, device=lid.device) % w
+    return per_tile[:, (y // tv.TILE_H) * n_tx + x // tv.TILE_W]
+
+
+def scan_fields(st, layout_id, wall_open):
+    """The [topview-stages] line's count of rows a pixel scans."""
+    n = ortho_scan_rows(st, layout_id, wall_open).float()
+    return {"rows_a_px_mean": f"{float(n.mean()):.3f}", "rows_a_px_max": int(n.max())}
+
+
+def top_tie_bank(dev, seed=5, S=300):
+    """A one-layout bank of S floor prims in [0, 10]^2 at heights 0-2
+    (random quads and triangles, some masked) with equal quads at rows 127
+    and 128, 180 and 290, 250 and 260 (each pair coplanar, facing up, at
+    the same t everywhere: the first must win), and its top_statics at
+    W x H: lists of 30-60 rows a tile, so the kernel stages them in more
+    than one batch of 32."""
+    import types
+
+    from miniworld_tpu_torch.render import topview as tv
+
+    rng = np.random.default_rng(seed)
+    verts = np.zeros((S, 3, 3), np.float32)
+    for i in range(S):
+        x0, z0 = rng.uniform(0, 9, 2)
+        sx, sz = rng.uniform(0.3, 3.0, 2)
+        y = rng.choice([0.0, 0.5, 1.25, 2.0])
+        verts[i] = [[x0, y, z0], [x0, y, z0 + sz], [x0 + sx, y, z0]]
+    for a, b, (x0, z0, sx, sz) in ((127, 128, (2, 2, 4, 4)), (180, 290, (6, 1, 3, 3)),
+                                   (250, 260, (1, 7, 2, 2))):
+        verts[a] = verts[b] = [[x0, 3.0, z0], [x0, 3.0, z0 + sz], [x0 + sx, 3.0, z0]]
+    attr = np.zeros((S, 16), np.float32)
+    attr[:, 15] = rng.choice([0.0, 1.0], S)
+    attr[[127, 128, 180, 290, 250, 260], 15] = 0.0
+    mask = rng.random(S) > 0.1
+    mask[[127, 128, 180, 290, 250, 260]] = True
+    bank = types.SimpleNamespace(
+        tri_verts=torch.from_numpy(verts[None]), tri_attr=torch.from_numpy(attr[None]),
+        tri_mask=torch.from_numpy(mask[None]), tri_wall_onehot=None,
+        extents=torch.tensor([[0.0, 12.0, 0.0, 12.0]]))
+    return tv.top_statics(bank, W, H, device=dev)
+
+
+def top_tie_check(n):
+    """tri_pass_ortho against its plain version on the tie bank
+    (top_tie_bank) at B = n: t bit for bit, rows equal, the first row of
+    every equal pair wins and the second never does."""
+    from miniworld_tpu_torch.render import topview as tv
+
+    st = top_tie_bank(DEVICE)
+    scan = (st, torch.zeros(n, dtype=torch.int32, device=DEVICE), None)
+    t_k, r_k = tv.tri_pass_ortho(*scan)
+    t_p, r_p = tv.tri_pass_ortho_plain(*scan)
+    n_t = int((t_k.view(torch.int32) != t_p.view(torch.int32)).sum())
+    n_row = int((r_k != r_p).sum())
+    won = set(torch.unique(r_k).tolist())
+    lens = st.tile_off[0, 1:] - st.tile_off[0, :-1]
+    say("kernel-vs-plain", kernel="tri_pass_ortho", case=f"tie bank B={n} {W}x{H} "
+        f"staged={st.rows.shape[1]} list_max={int(lens.max())}", t_differs_px=n_t,
+        row_differs_px=n_row, firsts_won=sorted(won & {127, 180, 250}),
+        seconds_won=sorted(won & {128, 290, 260}), **scan_fields(*scan), exact=True)
+    if n_t or n_row or not {127, 180, 250} <= won or won & {128, 290, 260} or lens.max() <= 32:
+        raise AssertionError(f"tri_pass_ortho tie bank: {n_t} t, {n_row} row pixels differ, "
+                             f"rows {sorted(won)} won, lists up to {int(lens.max())}")
+    return max(max_abs_diff(t_k, t_p), max_abs_diff(r_k.float(), r_p.float()))
+
+
 def top_stage_check(label, env, state):
     """The env's top view of ``state``, stage by stage, kernels against
     plain versions on the same inputs: tri_pass_ortho (t bit for bit, the
@@ -2588,13 +2685,16 @@ def top_stage_check(label, env, state):
     ent_px = int((torch.isfinite(tv.entity_pass_ortho_plain(
         *tv._pixel_coords(st, state.layout_id.long()), *ents)[0])).sum())
     marker_px = int(((rgb_k[..., 0] == 255) & (rgb_k[..., 1] == 0) & (rgb_k[..., 2] == 0)).sum())
-    case = (f"{label} B={env.num_envs} {W}x{H} tex={env.tex_mode} S={bank.tri_mask.shape[1]} "
+    case = (f"{label} B={env.num_envs} {env.obs_width}x{env.obs_height} tex={env.tex_mode} "
+            f"S={bank.tri_mask.shape[1]} "
             f"staged={st.rows.shape[1]} tile_rows={st.tile_rows.numel()}"
+            f" layouts={len(torch.unique(state.layout_id))}"
             f"{' gain' if env._has_gain else ''}{' maze' if wall_open is not None else ''}")
     say("kernel-vs-plain", kernel="tri_pass_ortho, topview_epilogue", case=case,
         t_differs_px=n_t, row_differs_px=n_row, rgb_differs_px=n_rgb, depth_differs_px=n_depth,
         max_abs_err=f"{err:.3e}", px_prim=f"{float((r_k >= 0).float().mean()):.3f}",
-        entity_px=ent_px, marker_px=marker_px, launched=launched, exact=True)
+        entity_px=ent_px, marker_px=marker_px, **scan_fields(*scan), launched=launched,
+        exact=True)
     if n_t or n_row or n_rgb or n_depth:
         raise AssertionError(f"top view ({case}): kernels differ from plain on {n_t} t, "
                              f"{n_row} row, {n_rgb} RGB and {n_depth} depth pixels")
@@ -2617,7 +2717,9 @@ def top_work(env, scan, outs, epi):
     lights, marker, grid and texture table (or u8 atlas and tex_map) once,
     7 bytes out a pixel; 60 operations a pixel (uv, lighting, the pack),
     15 for the marker, 10 per (pixel, active entity), and per textured
-    pixel 35 a Fourier term (no footprint) or 12 for the nearest texel."""
+    pixel 35 a Fourier term (no footprint) or 12 for the nearest texel.
+    "topview_epilogue_texels": the texels the kernel computes (a prim of
+    a valid slot, no strictly nearer entity), for its issue floor."""
     from miniworld_tpu_torch.render import topview as tv
 
     st, layout_id, wall_open = scan
@@ -2639,9 +2741,15 @@ def top_work(env, scan, outs, epi):
     ents, atlas, tex_map = epi[2], epi[6], epi[11]
     flags = ents[5]
     n_active = int(((flags & tv.ORTHO_ACTIVE) != 0).sum())
-    textured = int(((r_k >= 0) & (env._bank.tri_attr[layout_id.long()[:, None],
-                                                       r_k.clamp(min=0).long()][..., 14]
-                                  >= 0)).sum())
+    slot = torch.round(env._bank.tri_attr[layout_id.long()[:, None],
+                                          r_k.clamp(min=0).long()][..., 14])
+    textured = int(((r_k >= 0) & (slot >= 0)).sum())
+    # the texels the kernel computes: a valid slot and no strictly nearer entity
+    px, pz = tv._pixel_coords(st, layout_id.long())
+    t_ent = tv.entity_pass_ortho_plain(px, pz, *ents)[0]
+    n_rows = (env._fourier_table if tex_map is None else atlas).shape[0]
+    work["topview_epilogue_texels"] = int(((r_k >= 0) & (slot >= 0) & (slot < n_rows)
+                                           & ~(t_ent < t_k)).sum())
     tex_bytes = (nbytes([env._fourier_table]) if tex_map is None
                  else nbytes([atlas, tex_map]))
     per_texel = 12 if tex_map is not None else 35 * env.fourier_k
@@ -2655,13 +2763,15 @@ def top_work(env, scan, outs, epi):
 def phase_topview_stages(cases, maze_top, pick_top):
     """[topview-stages]: top_stage_check on every case, [(label, env)] at
     B_PLAIN (Hallway, PickupObjects' footprints, FourRooms nearest, Sign's
-    glyphs with no footprint, the 8x8 procgen Maze's killed rows), then
-    at the shapes of the PickupObjects top-view main path (B=4096, its
-    ball, box and mesh footprints through the fused entity loop) and of
-    the Maze 8x8 procgen one (B=8192, 80x60), the Maze's checked the same
-    way and timed, each kernel beside its plain version on the same
-    inputs. Returns (max abs difference, {name: (ms, plain ms)}, {name:
-    work}, labels checked)."""
+    glyphs with no footprint, the 8x8 procgen Maze's killed rows, the
+    MazeS3 bank's 64 layouts mixed among one block's envs), the tie bank
+    (top_tie_check), then at the shapes of the PickupObjects top-view
+    main path (B=4096, its ball, box and mesh footprints through the
+    fused entity loop) and of the Maze 8x8 procgen one (B=8192, 80x60),
+    the Maze's checked the same way and timed, each kernel beside its
+    plain version on the same inputs, the epilogue beside the issue
+    rate's floor for its Fourier terms. Returns (max abs difference,
+    {name: (ms, plain ms)}, {name: work}, labels checked)."""
     from miniworld_tpu_torch.render import topview as tv
 
     gen = torch.Generator().manual_seed(1010)
@@ -2669,6 +2779,8 @@ def phase_topview_stages(cases, maze_top, pick_top):
     for label, env in cases + [("pickupobjects", pick_top)]:
         errs.append(top_stage_check(label, env, view_states(env, gen))[3])
         checked.append(label if env.num_envs == B_PLAIN else f"{label} B={env.num_envs}")
+    errs.append(top_tie_check(B_PLAIN))
+    checked.append("tie bank (tri_pass_ortho)")
     state = random_maze_states(maze_top, gen, seed=11)
     scan, outs, epi, err = top_stage_check("maze8x8-procgen", maze_top, state)
     errs.append(err)
@@ -2683,9 +2795,15 @@ def phase_topview_stages(cases, maze_top, pick_top):
     work = top_work(maze_top, scan, outs, epi)
     shapes = (f"{MAZE_ID} procgen view=top B={B_MAZE} HW={W * H} S={scan[0].row_id.shape[1]} "
               f"staged of {maze_top._bank.tri_mask.shape[1]}")
+    per_term = sass_term_instructions(maze_top.fourier_k, False, "topview_epilogue")
+    work["topview_epilogue_floor"] = (
+        issue_floor_ms(work["topview_epilogue_texels"] * maze_top.fourier_k, per_term), per_term)
     for name, (ms, plain) in timings.items():
         extra = ({"bound_full_scan_ms": f"{bound(*work['tri_pass_ortho_full_scan'])[0]:.4f}"}
-                 if name == "tri_pass_ortho" else {})
+                 if name == "tri_pass_ortho" else
+                 {"issue_floor_ms": fmt_ms(work["topview_epilogue_floor"][0]),
+                  "instructions_a_term": per_term,
+                  "texels": work["topview_epilogue_texels"]})
         say("kernel-time", kernel=name, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
             bound_ms=f"{bound(*work[name])[0]:.4f}", bound_by=bound(*work[name])[1], **extra,
             shapes=shapes)
@@ -3187,7 +3305,12 @@ def main():
                  ("fourrooms nearest", env("MiniWorld-FourRooms-v0", B_PLAIN, view="top",
                                            tex_mode="nearest")),
                  ("sign", env(SIGN_ID, B_PLAIN, view="top")),
-                 ("maze8x8-procgen", env(MAZE_ID, B_PLAIN, view="top"))]
+                 ("maze8x8-procgen", env(MAZE_ID, B_PLAIN, view="top")),
+                 # at 96x72 pixel centres fall in the junction strips: the kill decides
+                 ("maze8x8-procgen 96x72", MiniWorldVec(MAZE_ID, B_PLAIN, obs_width=96,
+                                                        obs_height=72, device=DEVICE,
+                                                        view="top")),
+                 ("mazes3-bank", env(MAZE_S3_ID, B_PLAIN, view="top", procgen=False))]
     top_err, top_timings, top_work_, top_checked = phase_topview_stages(top_cases, maze_top,
                                                                          pick_top)
     lap("topview-stages")
@@ -3405,6 +3528,9 @@ def main():
             "checked_on": top_checked}
         if name == "tri_pass_ortho":
             row["bound_full_scan_ms"] = bound(*top_work_["tri_pass_ortho_full_scan"])[0]
+        else:
+            row["issue_floor_ms"], row["instructions_a_term"] = top_work_[
+                "topview_epilogue_floor"]
         kernels.append(row)
     ms, plain_ms = vis_timings["maze8x8-procgen"]
     kernels.append({

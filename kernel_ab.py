@@ -1,6 +1,6 @@
 """Kernel times of other libraries beside this tree's, on one card.
 
-    python3 kernel_ab.py OTHER_CSRC [OTHER_CSRC ...]
+    python3 kernel_ab.py [--unequal] OTHER_CSRC [OTHER_CSRC ...]
 
 Builds the render kernels (tri_pass.cu, entity_pass.cu,
 pixel_epilogue.cu, topview_epilogue.cu, tri_pass_ortho.cu) from each
@@ -11,9 +11,14 @@ tree, the others, the others reversed, this tree (CUDA events, 30
 launches after chip_smoke.py's warm-up), and holds every other
 library's result equal to this one's. The inputs come
 from this tree's package; the other sources' C entry points must take
-the same arguments. Prints one [ab] line a case and other library, and
-the card's nvidia-smi name and power limit; exits non-zero on a
-difference, or without a CUDA card.
+the same arguments (tri_pass_ortho's its tile lists at the other
+source's TILE_W x TILE_H, read from its #defines). Prints each build's
+spilling kernels and the registers of the kernels it redesigned, one
+[ab] line a case and other library, and the card's nvidia-smi name and
+power limit; exits non-zero on a difference, or without a CUDA card.
+With --unequal it times the other builds whatever they return and prints
+equal=False where they differ: an ablation (a copy with one stage taken
+out) says what that stage costs.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ SOURCES = ("tri_pass.cu", "entity_pass.cu", "pixel_epilogue.cu", "tri_pass_ortho
            "topview_epilogue.cu")
 
 
-def main(other_dirs):
+def main(other_dirs, unequal=False):
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     from miniworld_tpu_torch import MiniWorldVec
@@ -40,43 +45,43 @@ def main(other_dirs):
     smi = cs.phase_device()
     t0 = time.perf_counter()
     cuda_build.load()
-    here, others = cuda_build.CSRC_DIR, []
+    log = os.path.join(cuda_build.build_dir(), "kernel_build.log")  # chip_smoke's copy
+    if not cuda_build.BUILD_INFO.get("log") and os.path.exists(log):
+        with open(log) as f:
+            cuda_build.BUILD_INFO["log"] = f.read()
+    say_ptxas("this", cuda_build.BUILD_INFO.get("log", ""))
+    here, others, tiles = cuda_build.CSRC_DIR, [], []
     try:
         for d in other_dirs:
             cuda_build.CSRC_DIR = os.path.abspath(d)
             lib, info = cuda_build.build((), SOURCES)
             others.append(lib)
-            # ptxas: the kernels that spill, and the multi-chunk tri_pass's registers
-            fn, spills, regs = "", [], []
-            for ln in info["log"].splitlines():
-                fn = ln.split("'")[1] if "Compiling entry" in ln else fn
-                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-                if m and m.group(1, 2) != ("0", "0"):
-                    spills.append(f"{fn}: {ln.strip()}")
-                if "tri_pass_multi" in fn and "registers" in ln:
-                    regs.append(ln.strip())
-            cs.say("ab-build", other=d, spills=repr(" | ".join(spills)),
-                   multi_registers=repr(" | ".join(regs)))
+            tiles.append(ortho_tile(d))
+            say_ptxas(d, info["log"])
     finally:
         cuda_build.CSRC_DIR = here
     cs.say("ab-build", seconds=f"{time.perf_counter() - t0:.1f}", others=",".join(other_dirs))
 
-    def ab(label, run):
+    def ab(label, run, other_run=None):
+        """Times ``run`` through each library; ``other_run(i)`` is the
+        call for other library i where its inputs differ."""
         ref = run()
         order = [None, *range(len(others)), *reversed(range(len(others))), None]
-        times = {i: [] for i in order}
+        times, equal = {i: [] for i in order}, {}
         for i in order:
             if i is None:
                 times[i].append(cs.cuda_ms(run, 30))
                 continue
+            fn = run if other_run is None else (lambda i=i: other_run(i))
             with cuda_build.library(others[i]):
-                out = run()
-                if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+                out = fn()
+                equal[i] = all(torch.equal(a, b) for a, b in zip(out, ref))
+                if not (equal[i] or unequal):
                     raise AssertionError(f"{label}: {other_dirs[i]}'s result differs")
-                times[i].append(cs.cuda_ms(run, 30))
+                times[i].append(cs.cuda_ms(fn, 30))
         for i, d in enumerate(other_dirs):
             cs.say("ab", case=label, other=d, this_ms=",".join(f"{t:.4f}" for t in times[None]),
-                   other_ms=",".join(f"{t:.4f}" for t in times[i]), equal=True)
+                   other_ms=",".join(f"{t:.4f}" for t in times[i]), equal=equal[i])
 
     w, h = cs.W, cs.H
 
@@ -163,14 +168,49 @@ def main(other_dirs):
     ab(f"pixel_epilogue NEAREST F32 {cs.MAZE_ID} B={cs.B_MAZE}",
        lambda: rc.pixel_epilogue(*n_args, tex_map=n_state.tex_map))
     maze_top = env(cs.MAZE_ID, cs.B_MAZE, view="top")
-    _, _, top_epi, _ = cs.top_stage_check(f"{cs.MAZE_ID} top B={cs.B_MAZE}", maze_top,
-                                          cs.view_states(maze_top, gen))
+    scan, _, top_epi, _ = cs.top_stage_check(f"{cs.MAZE_ID} top B={cs.B_MAZE}", maze_top,
+                                             cs.view_states(maze_top, gen))
+    st_other = {t: tv.top_statics(maze_top._bank, w, h, device="cuda", tile=t)
+                for t in set(tiles)}
+    ab(f"tri_pass_ortho {cs.MAZE_ID} B={cs.B_MAZE}", lambda: tv.tri_pass_ortho(*scan),
+       lambda i: tv.tri_pass_ortho(st_other[tiles[i]], *scan[1:]))
     ab(f"topview_epilogue {cs.MAZE_ID} B={cs.B_MAZE}",
        lambda: tv.topview_epilogue(*top_epi, table=maze_top._fourier_table))
     print(smi)
 
 
+def ortho_tile(csrc):
+    """(TILE_W, TILE_H) of tri_pass_ortho.cu in the sources at ``csrc``."""
+    with open(os.path.join(csrc, "tri_pass_ortho.cu")) as f:
+        text = f.read()
+    return tuple(int(re.search(rf"#define {k} (\d+)", text).group(1))
+                 for k in ("TILE_W", "TILE_H"))
+
+
+def say_ptxas(build, log):
+    """One [ab-build] line: the build's spilling kernels and the registers
+    of the redesigned ones (the multi-chunk tri_pass, the top view's two,
+    the SS=2 epilogue), from its ptxas -v log."""
+    import chip_smoke as cs
+
+    fn, spills, regs = "", [], []
+    for ln in log.splitlines():
+        fn = ln.split("'")[1] if "Compiling entry" in ln else fn
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and m.group(1, 2) != ("0", "0"):
+            spills.append(f"{fn}: {ln.strip()}")
+        r = re.search(r"Used (\d+) registers", ln)
+        if r and any(k in fn for k in ("tri_pass_multi", "tri_pass_ortho", "topview_epilogue",
+                                        "pixel_epilogue_ss2")):
+            regs.append(f"{fn}: {r.group(1)}")
+    cs.say("ab-build", build=build, spills=repr(" | ".join(spills)),
+           registers=repr(" | ".join(regs)))
+
+
 if __name__ == "__main__":
-    if len(sys.argv) < 2:
+    args = sys.argv[1:]
+    flag = "--unequal" in args
+    dirs = [a for a in args if a != "--unequal"]
+    if not dirs:
         raise SystemExit(__doc__)
-    main(sys.argv[1:])
+    main(dirs, flag)

@@ -22,7 +22,7 @@ beside it in this module:
 The ortho camera is the same for every env of a layout, and vertical
 prims have det = 0 exactly under d = (0, -1, 0), so ``top_statics``
 stages once per layout, on the host, what the scan reads: the pixel
-grid, each upward-facing row's coefficients, and for each 16x16 pixel
+grid, each upward-facing row's coefficients, and for each 8x8 pixel
 tile the rows that may cover it (``tile_rows``: a conservative bounding
 box test, ascending row order). The kernel scans a tile's list; the
 plain version scans every staged row.
@@ -56,13 +56,15 @@ TOP_CAM_HEIGHT = 10.0  # above any wall; ortho, so the value only offsets t
 # d and its offset, n = e1 x e2 and its offset, 1/det, 1/(n . d), kind, 0
 ORTHO_FIELDS = 16
 # The kernel's pixel tile (csrc/tri_pass_ortho.cu TILE_W, TILE_H)
-TILE_W, TILE_H = 16, 16
+TILE_W, TILE_H = 8, 8
 # Margin of the tile lists' bounding boxes, per unit of the layout's
 # largest coordinate: far above float32 rounding of the hit test
 # (2^-24 relative), far below a pixel of any ported floorplan.
 _TILE_MARGIN_REL = 1e-3
 # ortho entity flags: alive, not static and shape != 0; a sphere
 ORTHO_ACTIVE, ORTHO_SPHERE = 1, 2
+# entity slots the epilogue kernel stages (csrc/topview_epilogue.cu MAX_ENTS)
+MAX_ENTS = 64
 
 
 class TopStatics(NamedTuple):
@@ -172,14 +174,17 @@ def row_live(code: torch.Tensor, wall_open) -> torch.Tensor:
     return torch.where(code >= 0, live, code == -1)
 
 
-def top_statics(bank, width: int, height: int, device=None) -> TopStatics:
+def top_statics(bank, width: int, height: int, device=None,
+                tile: tuple = (TILE_W, TILE_H)) -> TopStatics:
     """The top view's per-layout statics of ``bank`` (the port's Layout)
     at width x height, on ``device`` (the bank's by default). Built on
     the CPU: the staged rows of every masked row with det > 1e-12 (the
-    others never hit), and per 16x16 pixel tile the staged rows whose
+    others never hit), and per pixel tile (the kernel's TILE_W x TILE_H,
+    or ``tile`` for a build with other ones) the staged rows whose
     bounding box in x-z, grown by ``_TILE_MARGIN_REL`` of the layout's
     largest coordinate, meets the tile's pixel centres."""
     device = bank.tri_mask.device if device is None else device
+    tile_w, tile_h = tile
     verts = bank.tri_verts.cpu().to(torch.float32)  # (L, S, 3, 3)
     kind = bank.tri_attr[..., 15].cpu().to(torch.float32)
     rows, det = ortho_rows(verts, kind)
@@ -191,11 +196,12 @@ def top_statics(bank, width: int, height: int, device=None) -> TopStatics:
     st_rows = torch.zeros((L, sc, ORTHO_FIELDS), dtype=torch.float32)
     st_id = torch.full((L, sc), -1, dtype=torch.int32)
     st_code = torch.full((L, sc), -2, dtype=torch.int32)
-    n_tx, n_ty = -(-width // TILE_W), -(-height // TILE_H)
+    n_tx, n_ty = -(-width // tile_w), -(-height // tile_h)
     tile_off = torch.zeros((L, n_tx * n_ty + 1), dtype=torch.int32)
     lists = []
     pos = 0
     for li in range(L):
+        tile_off[li, 0] = pos
         ids = torch.nonzero(keep[li])[:, 0]
         n = ids.shape[0]
         st_rows[li, :n], st_id[li, :n], st_code[li, :n] = rows[li, ids], ids.int(), code[li, ids]
@@ -211,9 +217,9 @@ def top_statics(bank, width: int, height: int, device=None) -> TopStatics:
         lo_z, hi_z = cz.amin(1) - m, cz.amax(1) + m
         gx, gz = xs[li].double(), zs[li].double()
         for ty in range(n_ty):
-            z0, z1 = gz[ty * TILE_H], gz[min(height, (ty + 1) * TILE_H) - 1]
+            z0, z1 = gz[ty * tile_h], gz[min(height, (ty + 1) * tile_h) - 1]
             for tx in range(n_tx):
-                x0, x1 = gx[tx * TILE_W], gx[min(width, (tx + 1) * TILE_W) - 1]
+                x0, x1 = gx[tx * tile_w], gx[min(width, (tx + 1) * tile_w) - 1]
                 sel = torch.nonzero((lo_x <= x1) & (hi_x >= x0) & (lo_z <= z1)
                                     & (hi_z >= z0))[:, 0]
                 lists.append(sel.int())
@@ -288,7 +294,7 @@ def tri_pass_ortho_plain(st: TopStatics, layout_id, wall_open=None):
 def tri_pass_ortho(st: TopStatics, layout_id, wall_open=None):
     """Stage 1 wrapper: the tri_pass_ortho kernel for CUDA tensors, the
     plain version for CPU tensors. Same contract as
-    ``tri_pass_ortho_plain``; the kernel scans each 16x16 tile's list
+    ``tri_pass_ortho_plain``; the kernel scans each 8x8 tile's list
     (``st.tile_rows``), which holds every row that can hit the tile."""
     if not is_cuda(layout_id, st.rows, *(() if wall_open is None else (wall_open,))):
         return tri_pass_ortho_plain(st, layout_id, wall_open)
@@ -477,6 +483,8 @@ def topview_epilogue(t_tri, row, ents, bank_attr, layout_id, st: TopStatics, atl
     w, h = st.width, st.height
     L, S = bank_attr.shape[:2]
     E = flags.shape[1]
+    if E > MAX_ENTS:
+        raise ValueError(f"{E} entity slots: the kernel stages at most {MAX_ENTS}")
     if nearest:
         if has_gain:
             raise ValueError("the glyph branch is fourier-only")

@@ -11,7 +11,12 @@ pixel's scan of its tile's rows in row order with a strict > on the
 copies the SS=2 pixel_epilogue's lanes: 16 samples of two sample rows a
 warp, the mean formed at the lane of s00 from three shuffles.
 ``texel_read_mask`` is where the epilogue reads a sample's attributes and
-texel.
+texel. ``ortho_scan`` copies the top view's tri_pass_ortho kernel
+(csrc/tri_pass_ortho.cu): each env's TILE_W x TILE_H tile lists staged in
+batches of 32, the live rows compacted in list order, the scan with the
+rows' y terms premultiplied and a strict <. ``texel_nofp`` is the
+topview_epilogue kernel's Fourier texel without a footprint
+(csrc/texel.cuh fourier_texel_nofp).
 """
 
 import math
@@ -19,6 +24,7 @@ import math
 import torch
 
 from miniworld_tpu_torch.render import raycast as trc
+from miniworld_tpu_torch.render import topview as ttop
 
 
 def first_chunk_rank(n_rows, tri_chunk):
@@ -188,3 +194,85 @@ def ss2_by_lanes(args, has_gain=False):
     mean = lane_quad_mean(rgb)
     return (torch.clamp(mean * 255.0, 0.0, 255.0).to(torch.uint8),
             depth[:, ::2, ::2].contiguous())
+
+
+def ortho_scan(st, layout_id, wall_open=None, batch=32):
+    """The tri_pass_ortho kernel's (t (B, HW), row (B, HW)), computed as
+    it computes them: per env and tile, the tile's list (``st.tile_off``,
+    ``st.tile_rows``) in batches of ``batch`` rows, each batch's live rows
+    (``row_live`` in the env) in list order, each row's y terms as the
+    staging premultiplies them (TOP_CAM_HEIGHT * y, the plain version's
+    product), and per pixel a strict < on t, so the first listed row at
+    the smallest t wins."""
+    w, h = st.width, st.height
+    tw, th = ttop.TILE_W, ttop.TILE_H
+    n_tx, n_t = -(-w // tw), st.tile_off.shape[1] - 1
+    b = layout_id.shape[0]
+    live = ttop.row_live(st.row_code[layout_id.long()], wall_open)  # (B, Sc)
+    t_out = torch.full((b, h, w), math.inf)
+    row_out = torch.full((b, h, w), -1, dtype=torch.int32)
+    for e in range(b):
+        lay = int(layout_id[e])
+        for tile in range(n_t):
+            y0, x0 = tile // n_tx * th, tile % n_tx * tw
+            px = st.xs[lay, x0:x0 + tw][None, :]
+            pz = st.zs[lay, y0:y0 + th][:, None]
+            best = torch.full((pz.shape[0], px.shape[1]), math.inf)
+            win = torch.full(best.shape, -1, dtype=torch.int32)
+            k0, k1 = int(st.tile_off[lay, tile]), int(st.tile_off[lay, tile + 1])
+            for c0 in range(k0, k1, batch):
+                entries = st.tile_rows[c0:min(c0 + batch, k1)].long()
+                for q in entries[live[e, entries]].tolist():  # the ballot's order
+                    r = st.rows[lay, q]
+                    au = px * r[0] + ttop.TOP_CAM_HEIGHT * r[1]
+                    av = px * r[4] + ttop.TOP_CAM_HEIGHT * r[5]
+                    at = px * r[8] + ttop.TOP_CAM_HEIGHT * r[9]
+                    u = ((au + pz * r[2]) - r[3]) * r[12]
+                    v = ((av + pz * r[6]) - r[7]) * r[12]
+                    t = (r[11] - (at + pz * r[10])) * r[13]
+                    cov = torch.maximum(u, v) + r[14] * torch.minimum(u, v)
+                    better = ((u >= 0.0) & (v >= 0.0) & (cov <= 1.0) & (t > 0.0)
+                              & (t < trc.FAR) & (t < best))
+                    best = torch.where(better, t, best)
+                    win = torch.where(better, st.row_id[lay, q], win)
+            t_out[e, y0:y0 + th, x0:x0 + tw] = best
+            row_out[e, y0:y0 + th, x0:x0 + tw] = win
+    return t_out.reshape(b, h * w), row_out.reshape(b, h * w)
+
+
+def texel_nofp(table, slot, uv, k_terms, has_gain=False):
+    """(N, 3) texels as the topview_epilogue kernel computes them from the
+    per-slot ``fourier_table``: per term the phase, the turn-wrapped cos
+    and sin, both to bf16 as they are (no attenuation), the six amplitude
+    products, sums in order k = 0..K-1; the end of fourier_finish at a
+    footprint of 0 (the glyph width max(w0, 0)); white for slot < 0, black
+    for a slot past the table."""
+    bf = trc._bf16
+    k = k_terms
+    n_rows = table.shape[0]
+    slot_i = torch.round(slot).long()
+    row = table[slot_i.clamp(0, n_rows - 1)]
+    p = row[:, 4:4 + 4 * k].reshape(-1, k, 4)
+    q = row[:, 4 + 4 * k:4 + 8 * k].reshape(-1, k, 4)
+    r = row[:, 4 + 8 * k:]
+    acc_a = acc_b = None
+    for j in range(k):
+        c, s = trc._cos_sin_turns(p[:, j, 0] * uv[:, 0] + p[:, j, 1] * uv[:, 1])
+        c, s = bf(c), bf(s)
+        pa = torch.stack([c * p[:, j, 3], c * q[:, j, 0], c * q[:, j, 1]], 1)
+        pb = torch.stack([s * q[:, j, 2], s * q[:, j, 3], s * r[:, j]], 1)
+        acc_a = pa if j == 0 else acc_a + pa
+        acc_b = pb if j == 0 else acc_b + pb
+    dc = row[:, :3]
+    v = dc + bf(bf(acc_a) + bf(acc_b))
+    if has_gain:
+        gain = row[:, 3:4]
+        w0 = -1.0 / (2.0 * torch.clamp(gain, max=-1e-9))
+        w_eff = torch.maximum(w0, torch.zeros_like(w0))
+        sd = torch.clamp(0.5 + v[:, 0:1] / (2.0 * w_eff), 0.0, 1.0)
+        glyph = trc._fma(v[:, 2:3] - v[:, 1:2], sd, v[:, 1:2]).expand(-1, 3)
+        v = torch.where(gain < 0.0, glyph,
+                        torch.where(gain > 1.0, trc._fma(v - dc, gain, dc), v))
+    tex = torch.clamp(v, 0.0, 1.0)
+    tex = torch.where((slot_i < n_rows)[:, None], tex, torch.zeros_like(tex))
+    return torch.where((slot_i >= 0)[:, None], tex, torch.ones_like(tex))
