@@ -90,7 +90,12 @@ of 1,024 and 1,000; [tri-window] gives the views' image survivors against
 the window); entity_pass and the SS=2 epilogue are held and timed at
 the Maze supersample=2 path's B=8192 and 160x120 samples, the epilogue
 beside the issue rate's floor for its Fourier terms (issue_floor_ms,
-from cuobjdump -sass).
+from cuobjdump -sass). entity_pass is held exactly under its contract
+(t at every sample, colour and normal where t is finite), and every
+epilogue instance (SS=1, SS=2, GAIN, NEAREST) gives the same pixels with
+NaN at the entity's misses as with zeros there ([ent-undefined]).
+mazegen is held bit for bit on 2x2, 3x3, 8x8 and 16x16 grids and timed
+at one env an SM (chain_ms).
 One line per phase; the JSON summary of the
 kernels and the card's ``nvidia-smi`` name and power limit come before
 the last line,
@@ -163,12 +168,8 @@ PEAK_F32_OPS_PER_S = 67e12
 
 # kernel vs plain on the card: both sides compute the same float32
 # operations in the same order (the library is built with -fmad=false),
-# so winners, depths and u8 colors are expected to agree exactly. tri_pass
-# and pixel_epilogue are held to that: 0 pixels may differ. The entity
-# passes' limits leave room for a differently rounded math-library call
-# (sqrt, division).
-MAX_WINNER_DIFF_FRAC = 1e-4  # pixels whose winning prim / entity differs
-MAX_T_REL_ERR = 1e-6  # hit distance, where the winners agree
+# so winners, depths and u8 colors are expected to agree exactly. tri_pass,
+# entity_pass and pixel_epilogue are held to that: 0 pixels may differ.
 # tri_pass builds timed beside the default one at the Maze's, Hallway's
 # and PickupObjects' shapes: (TILE_W, TILE_H, PIX_PER_THREAD), each also
 # held equal to the default
@@ -221,9 +222,12 @@ def lap(phase: str):
 
 # Before the first timing of the process, the timed function runs this
 # long (wall clock), so that the card's clocks have ramped up under load;
-# before every timing, WARMUP_CALLS times.
+# before every timing, WARMUP_CALLS times; a plain version timed over one
+# call (hundreds of ms to seconds at the main paths' shapes) PLAIN_WARMUP
+# times.
 WARMUP_S = 1.0
 WARMUP_CALLS = 3
+PLAIN_WARMUP = 1
 _CLOCKS_WARM = False
 
 
@@ -298,6 +302,32 @@ def phase_build():
     say("build", seconds=f"{secs:.2f}", arch="sm_90a",
         sources=",".join(cuda_build.SOURCES), ptxas=repr(" | ".join(regs)),
         ptxas_spills=repr(" | ".join(spills)))
+    # the redesigned entity_pass and mazegen: no spills, and mazegen's
+    # instances keep nothing in local memory (a 0-byte stack frame)
+    props = ptxas_props(log)
+    for fn, (frame, spill, regs_) in props.items():
+        if "entity_pass" in fn or "mazegen" in fn:
+            say("build-kernel", kernel=fn, registers=regs_, stack_frame_bytes=frame,
+                spill_bytes=spill)
+            if spill or ("mazegen" in fn and frame):
+                raise AssertionError(f"{fn}: {frame} bytes stack frame, {spill} bytes spilled")
+
+
+def ptxas_props(log):
+    """{entry function: (stack frame bytes, spill store + load bytes,
+    registers)} from a ptxas -v log."""
+    props, fn = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", ln)
+        if m and fn is not None:
+            props[fn] = (int(m.group(1)), int(m.group(2)) + int(m.group(3)), None)
+        r = re.search(r"Used (\d+) registers", ln)
+        if r and fn in props:
+            props[fn] = props[fn][:2] + (int(r.group(1)),)
+    return props
 
 
 # ---------------------------------------------------------------------------
@@ -442,18 +472,52 @@ def compare_hits(t_k, t_p, same):
     return int((~same).sum()), 1.0 - float(same.float().mean()), abs_err, rel_err
 
 
-def check_stage(name, case, n_differ, differ, abs_err, rel_err, exact=False):
-    """Raises where the kernel's hits disagree with the plain version's
-    beyond the limits; ``exact``: where any pixel's winner or t differs."""
+def check_stage(name, case, n_differ, differ, abs_err, rel_err):
+    """Raises where any pixel's winner or t differs between the kernel's
+    hits and the plain version's (compare_hits' counts)."""
     say("kernel-vs-plain", kernel=name, case=case, winner_differs_px=n_differ,
         winner_differs=f"{differ:.3e}", t_max_abs_err=f"{abs_err:.3e}",
-        t_max_rel_err=f"{rel_err:.3e}", exact=exact)
-    if exact and (n_differ or abs_err):
+        t_max_rel_err=f"{rel_err:.3e}", exact=True)
+    if n_differ or abs_err:
         raise AssertionError(f"{name} ({case}): kernel differs from plain on {n_differ} "
                              f"pixels, t by up to {abs_err:.3e}")
-    if differ > MAX_WINNER_DIFF_FRAC or rel_err > MAX_T_REL_ERR:
-        raise AssertionError(f"{name} ({case}): kernel disagrees with plain "
-                             f"(winner differs {differ:.3e}, rel err {rel_err:.3e})")
+
+
+def check_entity_pass(e_k, e_p, case):
+    """The entity_pass kernel's (t, colour, normal) against its plain
+    version's, exactly under its contract: t at every sample (bits),
+    colour and normal wherever the plain t is finite (the kernel leaves
+    them unwritten elsewhere). Returns the max abs t error."""
+    t_k, t_p = e_k[0], e_p[0]
+    attrs = (e_k[1] == e_p[1]).all(-1) & (e_k[2] == e_p[2]).all(-1)
+    same = (t_k.view(torch.int32) == t_p.view(torch.int32)) & (~torch.isfinite(t_p) | attrs)
+    n_differ, differ, abs_err, rel_err = compare_hits(t_k, t_p, same)
+    check_stage("entity_pass", case, n_differ, differ, abs_err, rel_err)
+    return abs_err
+
+
+def ent_work(flags, t_ent, width, height):
+    """((bytes, operations), (bytes, full-scan operations)) of an
+    entity_pass launch whose plain version returns t ``t_ent`` (B, HW) on
+    a width x height grid of samples: the per-entity inputs (45 bytes a
+    slot) and the camera read once, t written at every sample (4 bytes)
+    and colour and normal (24) at each sample the plain version hits.
+    Operations: one test of the winning slot at each hit sample (20 for a
+    sphere, 45 for a box slab test; an env with an active sphere counted
+    at 20), and for the full scan every (sample, active slot) pair, as the
+    kernel before the cull tested them."""
+    from miniworld_tpu_torch.render.raycast import ENT_ACTIVE, ENT_BOX, ENT_SPHERE
+
+    b, hws = t_ent.shape
+    active = (flags & ENT_ACTIVE) != 0
+    sph = active & ((flags & ENT_SPHERE) != 0)
+    box = active & ((flags & ENT_BOX) != 0) & ~sph
+    hits = torch.isfinite(t_ent).sum(1)
+    per_hit = torch.where(sph.any(1), 20, 45)
+    nbytes = (b * flags.shape[1] * 45 + b * 14 * 4 + (width + height) * 4 + b * hws * 4
+              + int(hits.sum()) * 24)
+    return ((nbytes, int((hits * per_hit).sum())),
+            (nbytes, hws * (int(sph.sum()) * 20 + int(box.sum()) * 45)))
 
 
 def plain_tri_pass(tri_args, mesh=None, paired=None, tri_chunk=None, override=None,
@@ -500,7 +564,7 @@ def check_tri_pass(tri_args, case, mesh=None, paired=None, tri_chunk=None, overr
                 + (" multi-chunk" if multi else "") + (" sched" if sched else "")
                 + (" override" if override else "")
                 + (" f32" if attr_dtype == torch.float32 else ""),
-                case, n_differ, differ, abs_err, rel_err, exact=True)
+                case, n_differ, differ, abs_err, rel_err)
     return t_k, a_k, abs_err
 
 
@@ -525,10 +589,7 @@ def run_stage_checks(tri_args, ent_args, epi_rest, case, timings=None, mesh=None
     ent, has_sphere, has_box = ent_args
     e_k = rc.entity_pass(*ent, cam, has_sphere, has_box)
     e_p = rc.entity_pass_plain(*ent, cam, has_sphere, has_box)
-    same = (e_k[1] == e_p[1]).all(-1) & (e_k[2] == e_p[2]).all(-1)
-    n_differ, differ, abs_err, rel_err = compare_hits(e_k[0], e_p[0], same)
-    check_stage("entity_pass", case, n_differ, differ, abs_err, rel_err)
-    out["entity_pass"] = abs_err
+    out["entity_pass"] = check_entity_pass(e_k, e_p, case)
 
     atlas, lights, k_terms, table = epi_rest
     # both epilogue versions read the kernels' hit results; the kernel
@@ -553,7 +614,8 @@ def run_stage_checks(tri_args, ent_args, epi_rest, case, timings=None, mesh=None
         timings["tri_pass"] = (
             cuda_ms(lambda: rc.tri_pass(verts9, attr, layout_id, cam, all_quads, mesh,
                                         paired, tri_chunk), 50),
-            cuda_ms(lambda: plain_tri_pass(tri_args, mesh, paired, tri_chunk), plain_iters))
+            cuda_ms(lambda: plain_tri_pass(tri_args, mesh, paired, tri_chunk), plain_iters,
+                    PLAIN_WARMUP))
         if mesh is not None:
             DEVICE_MS[("tri_pass", "mesh")] = kernel_ms(
                 lambda: rc.tri_pass(verts9, attr, layout_id, cam, all_quads, mesh, paired), 50,
@@ -562,16 +624,18 @@ def run_stage_checks(tri_args, ent_args, epi_rest, case, timings=None, mesh=None
                 cuda_ms(lambda: rc.tri_pass(verts9, attr, layout_id, cam, all_quads, None,
                                             paired), 50),
                 cuda_ms(lambda: rc.tri_pass_plain(verts9, attr, layout_id, cam, all_quads,
-                                                  paired=paired), plain_iters))
+                                                  paired=paired), plain_iters, PLAIN_WARMUP))
         timings["entity_pass"] = (
             cuda_ms(lambda: rc.entity_pass(*ent, cam, has_sphere, has_box), 50),
             cuda_ms(lambda: rc.entity_pass_plain(*ent, cam, has_sphere, has_box),
-                    plain_iters))
+                    plain_iters, PLAIN_WARMUP),
+            kernel_ms(lambda: rc.entity_pass(*ent, cam, has_sphere, has_box), 50,
+                      "entity_pass_kernel"))
         timings["pixel_epilogue"] = (
             cuda_ms(lambda: rc.pixel_epilogue(t_k, a_k, *e_k, atlas, cam, *lights,
                                               k_terms, table=table), 50),
             cuda_ms(lambda: rc.pixel_epilogue_plain(t_k, a_k, *e_k, atlas, cam,
-                                                    *lights, k_terms), plain_iters))
+                                                    *lights, k_terms), plain_iters, PLAIN_WARMUP))
     return out, (t_k, a_k, e_k)
 
 
@@ -717,7 +781,7 @@ def phase_grazing(dev, tile, n=64, n_rows=1024):
         n_differ, differ, abs_err, rel_err = compare_hits(t_k, t_p, (a_k == a_p).all(-1))
         check_stage("tri_pass", f"grazing B={n} S={n_rows} tile={tile[0]}x{tile[1]} "
                     f"all_quads={all_quads} px_hit={float(torch.isfinite(t_p).float().mean()):.3f}",
-                    n_differ, differ, abs_err, rel_err, exact=True)
+                    n_differ, differ, abs_err, rel_err)
         err = max(err, abs_err)
         # each env's rows (layout_id = arange(n)) are its mesh rows too
         err = max(err, check_tri_pass(
@@ -850,7 +914,7 @@ def stage_work(env, state, tri, ent, outs, tri_hits, mesh=None, paired=None):
     "tri_pass_full_scan" every (row, pixel) pair, as a full scan tests them).
     Per-pair counts:
     separable hit test 22 (three 2-term contractions 12, 1/t 1, coverage
-    3, gates 6), triangle-only 20, analytic sphere 20, box slab 45,
+    3, gates 6), triangle-only 20, the entity pass as ent_work counts it,
     Fourier texel 41 per term (phase 3, cos/sin 20, anti-aliasing 6,
     amplitudes 12) plus 60 per pixel for uv, lighting and the pack.
     ``mesh`` = (rows9, mesh_hits) adds the mesh rows to the tri_pass
@@ -858,8 +922,6 @@ def stage_work(env, state, tri, ent, outs, tri_hits, mesh=None, paired=None):
     passes the hit test), also as "entity_mesh_pass"; ``paired`` =
     tri_pass's paired inputs (both variants' rows, the row walls and the
     envs' mazes)."""
-    from miniworld_tpu_torch.render.raycast import ENT_ACTIVE, ENT_BOX, ENT_SPHERE
-
     b, hw = state.pos.shape[0], W * H
     cam_b = b * 14 * 4 + (W + H) * 4
     verts9, attr, _, _, _ = tri
@@ -881,13 +943,7 @@ def stage_work(env, state, tri, ent, outs, tri_hits, mesh=None, paired=None):
     work["tri_pass_full_scan"] = (tri_bytes, full_scan_ops)
     if mesh is not None:
         work["entity_mesh_pass"] = work["tri_pass"]
-    flags = ent[0][5]
-    E = flags.shape[1]
-    active = (flags & ENT_ACTIVE) != 0
-    n_sph = int((active & ((flags & ENT_SPHERE) != 0)).sum())
-    n_box = int((active & ((flags & ENT_BOX) != 0)).sum())
-    work["entity_pass"] = (b * E * 45 + cam_b + b * hw * 28,
-                           hw * (n_sph * 20 + n_box * 45))
+    work["entity_pass"], work["entity_pass_full_scan"] = ent_work(ent[0][5], e_k[0], W, H)
     k = env.fourier_k
     read, textured = texel_reads(t_k, a_k, e_k[0], env._fourier_table.shape[0])
     work["pixel_epilogue"] = (b * hw * 4 + read * 32 + ent_read_bytes(t_k, e_k[0])
@@ -1194,34 +1250,52 @@ def phase_tile_sweep(cases):
 
 
 def phase_mazegen(maze, timings):
-    """mazegen kernel vs gen_walls_plain at the main path's shapes (B=8192
-    subseeds of the reset's purpose 17, 8x8 grid): walls equal, and 512
-    of the mazes checked as spanning trees on the host."""
+    """mazegen kernel vs gen_walls_plain, bit for bit, at B=8192 subseeds of
+    the reset's purpose 17 on the main path's 8x8 grid and on 2x2, 3x3
+    and 16x16 grids (the kernel's visited-mask instances of 1, 2 and 8
+    words), 512 of each grid's mazes checked as spanning trees on the
+    host; timed at the main path's shapes (CUDA events, and the kernel
+    alone under torch.profiler), and at B=132, one env an SM: the kernel's
+    time there is the dependent chain of 2N - 1 steps (chain_ms, profiler).
+    Returns (max abs error, work, chain_ms)."""
     from miniworld_tpu_torch.ops import mazegen, rng as rng_ops
 
     spec = maze.spec
     rows, cols = spec.num_rows, spec.num_cols
     keys = rng_ops.split(rng_ops.key_data(13, maze.device), maze.num_envs)
     seed = rng_ops.sub(rng_ops.cheap_seed(keys), 17)
-    k_out = mazegen.gen_walls(seed, rows, cols)
-    p_out = mazegen.gen_walls_plain(seed, rows, cols)
-    n_differ = int((k_out != p_out).any(dim=1).sum())
-    sample = k_out[:512].cpu().numpy() > 0.5
-    trees = sum(mazegen.maze_is_spanning_tree(w, rows, cols) for w in sample)
-    distinct = len({w.tobytes() for w in sample})
-    say("kernel-vs-plain", kernel="mazegen", case=f"{maze.spec.gym_id} B={maze.num_envs} "
-        f"grid={rows}x{cols} W={k_out.shape[1]}", envs_differ=n_differ,
-        spanning_trees=f"{trees}/{len(sample)}", distinct=f"{distinct}/{len(sample)}")
-    if n_differ or trees != len(sample) or distinct < len(sample) // 2:
-        raise AssertionError(f"mazegen: {n_differ} envs differ from plain, "
-                             f"{len(sample) - trees} of {len(sample)} not spanning trees")
+    err = 0.0
+    for g_rows, g_cols in ((2, 2), (3, 3), (rows, cols), (16, 16)):
+        k_out = mazegen.gen_walls(seed, g_rows, g_cols)
+        p_out = mazegen.gen_walls_plain(seed, g_rows, g_cols)
+        n_differ = int((k_out.view(torch.int32) != p_out.view(torch.int32)).any(dim=1).sum())
+        sample = k_out[:512].cpu().numpy() > 0.5
+        trees = sum(mazegen.maze_is_spanning_tree(w, g_rows, g_cols) for w in sample)
+        distinct = len({w.tobytes() for w in sample})
+        say("kernel-vs-plain", kernel="mazegen", case=f"B={maze.num_envs} "
+            f"grid={g_rows}x{g_cols} W={k_out.shape[1]}", envs_differ=n_differ,
+            spanning_trees=f"{trees}/{len(sample)}", distinct=f"{distinct}/{len(sample)}",
+            exact=True)
+        # the backtracker makes 2 distinct mazes on a 2x2 grid (the paths
+        # around the 4-cycle): the main grid's half of the sample, 2 on others
+        least = len(sample) // 2 if (g_rows, g_cols) == (rows, cols) else 2
+        if n_differ or trees != len(sample) or distinct < least:
+            raise AssertionError(f"mazegen {g_rows}x{g_cols}: {n_differ} envs differ from "
+                                 f"plain, {len(sample) - trees} of {len(sample)} not spanning "
+                                 f"trees, {distinct} distinct")
+        err = max(err, float((k_out - p_out).abs().max()))
     timings["mazegen"] = (cuda_ms(lambda: mazegen.gen_walls(seed, rows, cols), 50),
-                          cuda_ms(lambda: mazegen.gen_walls_plain(seed, rows, cols), 3))
-    n, n_cells, n_walls = maze.num_envs, rows * cols, k_out.shape[1]
+                          cuda_ms(lambda: mazegen.gen_walls_plain(seed, rows, cols), 3),
+                          kernel_ms(lambda: mazegen.gen_walls(seed, rows, cols), 50,
+                                    "mazegen_kernel"))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    chain_seed = seed[:n_sm].contiguous()
+    chain_ms = kernel_ms(lambda: mazegen.gen_walls(chain_seed, rows, cols), 50, "mazegen_kernel")
+    n, n_cells, n_walls = maze.num_envs, rows * cols, mazegen.num_walls(rows, cols)
     # per step: 4 neighbour reads and visited tests, the pick, the push
     # or pop, about 25 operations; 2N - 1 steps per env
     work = (n * 4 + n_cells * 4 * 4 * 2 + n * n_walls * 4, n * (2 * n_cells - 1) * 25)
-    return float((k_out - p_out).abs().max()), work
+    return err, work, chain_ms
 
 
 def bound(nbytes, ops):
@@ -1544,7 +1618,8 @@ def phase_dr_stages(routes):
         if timed:
             timings[label] = {
                 "override": (cuda_ms(lambda: rc.tri_pass(*tri, mesh, paired, tc, override), 50),
-                             cuda_ms(lambda: plain_tri_pass(tri, mesh, paired, tc, override), 1)),
+                             cuda_ms(lambda: plain_tri_pass(tri, mesh, paired, tc, override), 1,
+                                     PLAIN_WARMUP)),
                 "unkeyed": (cuda_ms(lambda: rc.tri_pass(*tri, mesh, paired, tc), 50), None),
             }
             stats = tri_cull_stats(tri, paired, block=64)
@@ -1640,7 +1715,7 @@ def phase_ss_epilogue(envs):
             raise AssertionError(f"pixel_epilogue SS=2 ({label}): kernel differs from plain on "
                                  f"{n_rgb} RGB and {n_depth} depth pixels")
         timings[label] = (cuda_ms(lambda: rc.pixel_epilogue(*args, table=table, ss=2), 50),
-                          cuda_ms(lambda: rc.pixel_epilogue_plain(*args, ss=2), 1))
+                          cuda_ms(lambda: rc.pixel_epilogue_plain(*args, ss=2), 1, PLAIN_WARMUP))
         work[label] = epi_work(args, table, env.fourier_k, 2)
         terms = texel_reads(args[0], args[1], args[2], table.shape[0])[1] * env.fourier_k
         floors[label] = issue_floor_ms(terms, sass_term_instructions(env.fourier_k, False))
@@ -1651,6 +1726,51 @@ def phase_ss_epilogue(envs):
             instructions_a_term=sass_term_instructions(env.fourier_k, False),
             shapes=f"{label} B={env.num_envs} out={W}x{H} samples={2 * W}x{2 * H}")
     return timings, work, rgb_err, floors
+
+
+def phase_ent_undefined(cases):
+    """[ent-undefined]: every pixel_epilogue instance run on the kernels'
+    hits twice, with entity_pass's colour and normal NaN wherever its t is
+    inf and with zeros there (the plain version's), and once as the kernel
+    left them: the three results equal on every pixel, so no consumer
+    reads the part the kernel leaves undefined. ``cases`` = [(label, env,
+    state, has_gain)], each at its env's supersample and texture mode."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    for label, env, state, gain in cases:
+        ss, nearest = env.supersample, env.tex_mode == "nearest"
+        cam = rc.camera_grid(state, W * ss, H * ss)
+        rows, paired = rc.static_rows(env._bank, state, cam, env._pg_wall, env.plan)
+        mesh = (rc.entity_mesh_rows(env._bank, state, fourier=not nearest)[:2]
+                if env._shapes_present[2] else None)
+        carry = rc.attr_carry_dtype(state.tex_map.shape[1]) if nearest else torch.bfloat16
+        t_tri, attr = rc.tri_pass(*rows, cam, env._all_quads, mesh, paired, env.tri_chunk,
+                                  None, carry)
+        t_ent, col, nrm = rc.entity_pass(
+            state.ent_pos, state.ent_size, state.ent_dir, state.ent_height, state.ent_color,
+            rc.entity_flags(env._bank, state), cam, *env._shapes_present[:2])
+        miss = torch.isinf(t_ent)[..., None]
+        kw = {"tex_map": state.tex_map} if nearest else {"table": env._fourier_table}
+        rest = (env._atlas, cam, state.light_pos, state.light_color, state.light_ambient,
+                state.sky_color, env.fourier_k, gain)
+        outs = [rc.pixel_epilogue(t_tri, attr, t_ent, c, n, *rest, ss=ss, **kw)
+                for c, n in ((col, nrm),
+                             *((torch.where(miss, fill, col), torch.where(miss, fill, nrm))
+                               for fill in (torch.tensor(math.nan, device=col.device),
+                                            torch.zeros((), device=col.device))))]
+        (rgb_k, d_k), (rgb_n, d_n), (rgb_z, d_z) = outs
+        differ = [int(((a != b).any(-1) if a.dtype == torch.uint8 else (a != b)).sum())
+                  for a, b in ((rgb_n, rgb_z), (d_n.view(torch.int32), d_z.view(torch.int32)),
+                               (rgb_k, rgb_z), (d_k.view(torch.int32), d_z.view(torch.int32)))]
+        ent_wins = int((t_ent < t_tri).sum())
+        instance = (f"{'NEAREST' if nearest else 'GAIN' if gain else 'fourier'} SS={ss}")
+        say("ent-undefined", instance=instance, case=f"{label} B={env.num_envs} "
+            f"samples={W * ss}x{H * ss}", entity_misses=int(miss.sum()),
+            entity_wins=ent_wins, rgb_differs_px=differ[0], depth_differs_px=differ[1],
+            as_left_rgb_differs_px=differ[2], as_left_depth_differs_px=differ[3])
+        if any(differ) or not ent_wins or not bool(miss.any()):
+            raise AssertionError(f"pixel_epilogue {instance} ({label}): {differ} pixels differ "
+                                 f"with NaN at the entity's misses ({ent_wins} entity wins)")
 
 
 def epi_work(args, table, k_terms, ss, glyph_px=0):
@@ -1790,7 +1910,8 @@ def phase_gain_epilogue(sign):
         if glyphs[ss] < 0.01 * t_tri.numel():
             raise AssertionError(f"only {glyphs[ss]} glyph samples on Sign's frames")
         timings[ss] = (cuda_ms(lambda: rc.pixel_epilogue(*args, True, table=table, ss=ss), 50),
-                       cuda_ms(lambda: rc.pixel_epilogue_plain(*args, True, ss=ss), 1))
+                       cuda_ms(lambda: rc.pixel_epilogue_plain(*args, True, ss=ss), 1,
+                               PLAIN_WARMUP))
         work[ss] = epi_work(args, table, sign.fourier_k, ss, glyphs[ss])
         extra = {}
         if ss == 2:  # the SS=2 instance's unrolled K = 64 terms
@@ -1919,9 +2040,7 @@ def maze_ss_stages(maze_ss, state, tri, paired, shapes):
     ent = (state.ent_pos, state.ent_size, state.ent_dir, state.ent_height, state.ent_color,
            rc.entity_flags(maze_ss._bank, state), cam, *maze_ss._shapes_present[:2])
     e_k, e_p = rc.entity_pass(*ent), rc.entity_pass_plain(*ent)
-    same = (e_k[1] == e_p[1]).all(-1) & (e_k[2] == e_p[2]).all(-1)
-    n_differ, differ, ent_err, rel_err = compare_hits(e_k[0], e_p[0], same)
-    check_stage("entity_pass", shapes, n_differ, differ, ent_err, rel_err)
+    ent_err = check_entity_pass(e_k, e_p, shapes)
     lights = (state.light_pos, state.light_color, state.light_ambient, state.sky_color)
     args = (t_k, a_k, *e_k, maze_ss._atlas, cam, *lights, maze_ss.fourier_k)
     table = maze_ss._fourier_table
@@ -1934,26 +2053,25 @@ def maze_ss_stages(maze_ss, state, tri, paired, shapes):
     if n_rgb or n_depth:
         raise AssertionError(f"pixel_epilogue SS=2 ({shapes}): kernel differs from plain on "
                              f"{n_rgb} RGB and {n_depth} depth pixels")
-    b, hws = t_k.shape
-    cam_b = b * 14 * 4 + (cam.width + cam.height) * 4
-    flags = ent[5]
-    active = (flags & rc.ENT_ACTIVE) != 0
-    n_sph = int((active & ((flags & rc.ENT_SPHERE) != 0)).sum())
-    n_box = int((active & ((flags & rc.ENT_BOX) != 0)).sum())
+    ent_wk, ent_full = ent_work(ent[5], e_p[0], cam.width, cam.height)
+    ent_dev = kernel_ms(lambda: rc.entity_pass(*ent), 50, "entity_pass_kernel")
     out = {
         "entity_pass": (cuda_ms(lambda: rc.entity_pass(*ent), 50),
-                        cuda_ms(lambda: rc.entity_pass_plain(*ent), 1, 1),
-                        (b * flags.shape[1] * 45 + cam_b + b * hws * 28,
-                         hws * (n_sph * 20 + n_box * 45)), ent_err),
+                        cuda_ms(lambda: rc.entity_pass_plain(*ent), 1, PLAIN_WARMUP), ent_wk,
+                        ent_err),
         "pixel_epilogue_ss2": (cuda_ms(lambda: rc.pixel_epilogue(*args, table=table, ss=2), 50),
-                               cuda_ms(lambda: rc.pixel_epilogue_plain(*args, ss=2), 1, 1),
+                               cuda_ms(lambda: rc.pixel_epilogue_plain(*args, ss=2), 1,
+                                       PLAIN_WARMUP),
                                epi_work(args, table, maze_ss.fourier_k, 2), rgb_err)}
     terms = texel_reads(t_k, a_k, e_k[0], table.shape[0])[1] * maze_ss.fourier_k
     out["pixel_epilogue_ss2"] += (issue_floor_ms(terms, sass_term_instructions(16, False)),)
     for k, (ms, plain_ms, wk, _, *floor) in out.items():
+        extra = ({"issue_floor_ms": fmt_ms(floor[0])} if k == "pixel_epilogue_ss2" else
+                 {"bound_full_scan_ms": f"{bound(*ent_full)[0]:.4f}",
+                  "device_ms": fmt_ms(ent_dev)})
         say("kernel-time", kernel=k, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-            bound_ms=f"{bound(*wk)[0]:.4f}", bound_by=bound(*wk)[1],
-            **({"issue_floor_ms": fmt_ms(floor[0])} if floor else {}), shapes=shapes)
+            bound_ms=f"{bound(*wk)[0]:.4f}", bound_by=bound(*wk)[1], **extra, shapes=shapes)
+    out["entity_pass"] += (ent_full, ent_dev)
     return out
 
 
@@ -2108,7 +2226,8 @@ def phase_sched_stages(cases, timed_cases):
         err = max(err, e)
         checked.append(label + f" B={env.num_envs}")
         timings[label] = (cuda_ms(lambda: rc.tri_pass(*tri, mesh, None, None, override), 50),
-                          cuda_ms(lambda: plain_tri_pass(tri, mesh, None, None, override), 1))
+                          cuda_ms(lambda: plain_tri_pass(tri, mesh, None, None, override), 1,
+                                  PLAIN_WARMUP))
         stats = tri_cull_stats(tri, block=16)
         mesh_work = None
         if mesh is not None:
@@ -2127,7 +2246,7 @@ def phase_sched_stages(cases, timed_cases):
 def check_render_stages(env, state, label):
     """The env's render of ``state`` at its main path's shapes, through the
     kernels against the plain versions: entity_pass against
-    entity_pass_plain (check_stage's limits), the SS pixel_epilogue
+    entity_pass_plain (exactly, check_entity_pass), the SS pixel_epilogue
     against pixel_epilogue_plain on the kernels' hits (exact), then the
     whole render, env.render with use_kernels False (RGB and depth equal).
     Returns the max abs entity t error."""
@@ -2144,9 +2263,7 @@ def check_render_stages(env, state, label):
     ent = (state.ent_pos, state.ent_size, state.ent_dir, state.ent_height, state.ent_color,
            rc.entity_flags(env._bank, state), cam, *env._shapes_present[:2])
     e_k, e_p = rc.entity_pass(*ent), rc.entity_pass_plain(*ent)
-    same = (e_k[1] == e_p[1]).all(-1) & (e_k[2] == e_p[2]).all(-1)
-    n_differ, differ, ent_err, rel_err = compare_hits(e_k[0], e_p[0], same)
-    check_stage("entity_pass", case, n_differ, differ, ent_err, rel_err)
+    ent_err = check_entity_pass(e_k, e_p, case)
     lights = (state.light_pos, state.light_color, state.light_ambient, state.sky_color)
     args = (t_k, a_k, *e_k, env._atlas, cam, *lights, env.fourier_k)
     outs = {"stage": (rc.pixel_epilogue(*args, table=env._fourier_table, ss=ss),
@@ -2469,11 +2586,11 @@ def phase_nearest_stages(cases, maze_n):
     timings = {
         "tri_pass_f32": (cuda_ms(lambda: rc.tri_pass(*tri, None, paired, tc, None, carry), 50),
                          cuda_ms(lambda: plain_tri_pass(tri, None, paired, tc,
-                                                        attr_dtype=carry), 1)),
+                                                        attr_dtype=carry), 1, PLAIN_WARMUP)),
         "tri_pass_bf16": (cuda_ms(lambda: rc.tri_pass(*tri, None, paired, tc), 50), None),
         "pixel_epilogue_nearest": (
             cuda_ms(lambda: rc.pixel_epilogue(*epi, tex_map=tex_map), 50),
-            cuda_ms(lambda: rc.pixel_epilogue_plain(*epi, tex_map=tex_map), 1)),
+            cuda_ms(lambda: rc.pixel_epilogue_plain(*epi, tex_map=tex_map), 1, PLAIN_WARMUP)),
     }
     stats = tri_cull_stats(tri, paired, block=64)
     work = {"tri_pass_f32": tri_work(tri, stats["hit_pairs"], paired, attr_bytes=64),
@@ -2991,10 +3108,12 @@ def compare_paths(outs, plain_outs, label, obs_sum_rtol=1e-4):
         obs_sum_max_rel_diff=f"{worst:.3e}")
 
 
-def host_ms(fn, iters: int) -> float:
+def host_ms(fn, iters: int, warmup: bool = True) -> float:
     """Mean host-clock time of fn() over ``iters`` runs, fenced by
-    torch.cuda.synchronize() (includes launch overhead)."""
-    fn()
+    torch.cuda.synchronize() (includes launch overhead), after one call
+    unless ``warmup`` is False."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
@@ -3017,7 +3136,10 @@ def phase_breakdown(env, render_iters=10, plain_render_iters=3):
     env.use_kernels = False
     try:
         step_plain_ms = host_ms(lambda: env._step_batch(state, acts), 5)
-        plain_ms = host_ms(lambda: env.render(state), plain_render_iters)
+        # the plain render of one step takes seconds at the Maze's shapes:
+        # timed over one call, without a warm-up call
+        plain_ms = host_ms(lambda: env.render(state), plain_render_iters,
+                           warmup=plain_render_iters > 1)
     finally:
         env.use_kernels = True
     say("breakdown", env=env.spec.gym_id, B=env.num_envs,
@@ -3222,16 +3344,20 @@ def main():
     phase_tile_sweep(maze_sweep + sweep)
     lap("tile-sweep")
     errs = {k: max(v, maze_errs.get(k, 0.0), side_errs.get(k, 0.0)) for k, v in errs.items()}
-    errs["mazegen"], work["mazegen"] = phase_mazegen(maze, timings)
+    errs["mazegen"], work["mazegen"], mazegen_chain_ms = phase_mazegen(maze, timings)
     errs["place"] = phase_place(pick, four, maze, room, timings, pick_timings, work, pick_work)
     lap("mazegen, place")
     for shapes, tms, wk in ((f"{PICK_ID} B={B_PICK} HW={W * H}", pick_timings, pick_work),
                             (f"{MAZE_ID} procgen B={B_MAZE} HW={W * H}", timings, work)):
         # at PickupObjects tri_pass is the launch with mesh rows, "_unmeshed"
         # the same without them
-        for k, (ms, plain) in tms.items():
+        for k, (ms, plain, *dev) in tms.items():
             extra = ({"bound_all_tries_ms": f"{bound(*wk['place_all_tries'])[0]:.4f}"}
-                     if k == "place" else {})
+                     if k == "place" else
+                     {"bound_full_scan_ms": f"{bound(*wk['entity_pass_full_scan'])[0]:.4f}"}
+                     if k == "entity_pass" else
+                     {"chain_ms": fmt_ms(mazegen_chain_ms)} if k == "mazegen" else {})
+            extra.update({"device_ms": fmt_ms(dev[0])} if dev else {})
             say("kernel-time", kernel=k, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
                 bound_ms=f"{bound(*wk[k])[0]:.4f}", **extra, shapes=shapes)
     # domain randomisation and supersample=2: the override on every route,
@@ -3291,6 +3417,21 @@ def main():
         raise AssertionError(f"Sidewalk nearest plans {near_cases[2][1].plan}")
     near_err, near_timings, near_work, near_checked = phase_nearest_stages(near_cases, maze_n)
     lap("nearest-stages")
+    # every epilogue instance reads entity_pass's colour and normal only
+    # where its t is finite: NaN there changes no pixel
+    ent_gen = torch.Generator().manual_seed(1414)
+    pick_state = facing_states(pick, ent_gen, (0.5, 0.5), (11.5, 11.5))
+    pick_ss_state = facing_states(pick_ss, ent_gen, (0.5, 0.5), (11.5, 11.5))
+    pick_n = near_cases[1][1]
+    phase_ent_undefined([
+        ("pickupobjects", pick, pick_state, False), ("pickupobjects", pick, pick_state, True),
+        ("pickupobjects", pick_ss, pick_ss_state, False),
+        ("pickupobjects", pick_ss, pick_ss_state, True),
+        ("pickupobjects", pick_n, facing_states(pick_n, ent_gen, (0.5, 0.5), (11.5, 11.5)),
+         False),
+        ("maze8x8-procgen", near_cases[5][1], random_maze_states(near_cases[5][1], ent_gen),
+         False)])
+    lap("ent-undefined")
     near_launches = phase_nearest_paths(maze_n, hall_n, env, rates)
     lap("main: maze nearest, hallway nearest")
     room_launches, room_errs = phase_continuous(room, env, rates)
@@ -3372,7 +3513,7 @@ def main():
         path_timings, path_work, launches = (
             (pick_timings, pick_work, pick_launches) if mesh else (timings, work, maze_launches))
         bound_ms, bound_by = bound(*path_work[k])
-        ms, plain_ms = path_timings["tri_pass" if mesh else k]
+        ms, plain_ms = path_timings["tri_pass" if mesh else k][:2]
         kernels.append({
             "name": k, "route": "cuda", "source": src, "replaces": rep,
             "launches": int(launches[k]), "max_abs_err": errs[k],
@@ -3395,13 +3536,28 @@ def main():
                 *pick_work["place_all_tries"])[0]
         if k == "tri_pass":  # every (row, pixel) pair counted, as before the culling
             kernels[-1]["bound_full_scan_ms"] = bound(*path_work["tri_pass_full_scan"])[0]
-        if k == "entity_pass":  # at the Maze supersample=2 path's 160x120 samples
-            ms, plain_ms, wk, _ = mss["entity_pass"]
+        if k == "entity_pass":  # every (sample, active slot) pair counted, as
+            # before the cull; at PickupObjects' shapes and at the Maze
+            # supersample=2 path's 160x120 samples
+            ms, plain_ms, wk, _, full, dev = mss["entity_pass"]
             kernels[-1].update({
-                "ms_maze_ss2": ms, "plain_ms_maze_ss2": plain_ms,
+                "bound_full_scan_ms": bound(*work["entity_pass_full_scan"])[0],
+                "device_ms": timings["entity_pass"][2],
+                "ms_pickupobjects": pick_timings["entity_pass"][0],
+                "plain_ms_pickupobjects": pick_timings["entity_pass"][1],
+                "device_ms_pickupobjects": pick_timings["entity_pass"][2],
+                "bound_ms_pickupobjects": bound(*pick_work["entity_pass"])[0],
+                "bound_full_scan_ms_pickupobjects": bound(
+                    *pick_work["entity_pass_full_scan"])[0],
+                "launches_pickupobjects": int(pick_launches["entity_pass"]),
+                "ms_maze_ss2": ms, "plain_ms_maze_ss2": plain_ms, "device_ms_maze_ss2": dev,
                 "bound_ms_maze_ss2": bound(*wk)[0], "bound_by_maze_ss2": bound(*wk)[1],
+                "bound_full_scan_ms_maze_ss2": bound(*full)[0],
                 "shapes_maze_ss2": f"{MAZE_ID} procgen supersample=2 B={B_MAZE} "
                                    f"samples={2 * W}x{2 * H}"})
+        if k == "mazegen":  # the kernel alone; at one env an SM, the chain's floor
+            kernels[-1]["device_ms"] = timings["mazegen"][2]
+            kernels[-1]["chain_ms"] = mazegen_chain_ms
     # the multi-chunk kernel at the Sidewalk main path's shapes (3 chunks
     # of 1,024); its paired launch is tri_pass_paired_chunks below
     from miniworld_tpu_torch.render import raycast as rc
@@ -3594,7 +3750,8 @@ def main():
                                "NEAREST: " + ", ".join(near_checked)]
         elif k["name"] == "entity_pass":
             k["checked_on"] = ["hallway", "wide", "pickupobjects", "wide-mesh",
-                               "maze8x8 procgen", "sidewalk", "roomobjects",
+                               "maze8x8 procgen", f"maze8x8 procgen ss=2 B={B_MAZE} 160x120 "
+                               "samples", "sidewalk", "roomobjects",
                                f"maze8x8-bank (+domain_rand) ss=2 B={B} 320x240 samples"]
         elif k["name"] == "place":
             k["checked_on"] = ["pickupobjects", "fourrooms", "roomobjects (budget 48)",

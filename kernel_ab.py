@@ -2,20 +2,26 @@
 
     python3 kernel_ab.py [--unequal] OTHER_CSRC [OTHER_CSRC ...]
 
-Builds the render kernels (tri_pass.cu, entity_pass.cu,
-pixel_epilogue.cu, topview_epilogue.cu, tri_pass_ortho.cu) from each
-other directory of sources (another commit's miniworld_tpu_torch/csrc,
-or a copy of this one with a constant changed), then times each kernel
-at the main paths' shapes chip_smoke.py times them at, in the order this
-tree, the others, the others reversed, this tree (CUDA events, 30
-launches after chip_smoke.py's warm-up), and holds every other
-library's result equal to this one's. The inputs come
-from this tree's package; the other sources' C entry points must take
-the same arguments (tri_pass_ortho's its tile lists at the other
-source's TILE_W x TILE_H, read from its #defines). Prints each build's
-spilling kernels and the registers of the kernels it redesigned, one
-[ab] line a case and other library, and the card's nvidia-smi name and
-power limit; exits non-zero on a difference, or without a CUDA card.
+Builds the kernel library from each other directory of sources
+(another commit's miniworld_tpu_torch/csrc, or a copy of this one with a
+constant changed), then times the render kernels, entity_pass and
+mazegen at the main paths' shapes chip_smoke.py times them at, in the order this tree, the others, the others reversed,
+this tree (CUDA events, 30 launches after chip_smoke.py's warm-up; for
+entity_pass and mazegen, whose wrappers' host work can outlast the
+kernel, also the kernel alone under torch.profiler, device_ms), and
+holds every other library's result equal to this one's (entity_pass's
+colour and normal where its t is finite: the only part its contract
+defines). The inputs come from this tree's package; the other sources'
+C entry points must take the same arguments (tri_pass_ortho's its tile
+lists at the other source's TILE_W x TILE_H, read from its #defines).
+Prints each build's spilling kernels, the registers of the kernels it
+redesigned and the stack frames of mazegen's instances, one [ab] line a
+case and other library, and the card's nvidia-smi name and power limit;
+exits non-zero on a difference, or without a CUDA card. Last, the Maze
+8x8 procgen main paths at B=8192 (80x60, and supersample=2) run through
+each library in the same order: chip_smoke.py's rollouts ([main-path]
+env-steps/s) and profile (device busy a step), the same Python driving
+each library's kernels.
 With --unequal it times the other builds whatever they return and prints
 equal=False where they differ: an ablation (a copy with one stage taken
 out) says what that stage costs.
@@ -23,6 +29,7 @@ out) says what that stage costs.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import re
 import sys
@@ -31,8 +38,6 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("tri_pass.cu", "entity_pass.cu", "pixel_epilogue.cu", "tri_pass_ortho.cu",
-           "topview_epilogue.cu")
 
 
 def main(other_dirs, unequal=False):
@@ -54,7 +59,7 @@ def main(other_dirs, unequal=False):
     try:
         for d in other_dirs:
             cuda_build.CSRC_DIR = os.path.abspath(d)
-            lib, info = cuda_build.build((), SOURCES)
+            lib, info = cuda_build.build()
             others.append(lib)
             tiles.append(ortho_tile(d))
             say_ptxas(d, info["log"])
@@ -62,26 +67,51 @@ def main(other_dirs, unequal=False):
         cuda_build.CSRC_DIR = here
     cs.say("ab-build", seconds=f"{time.perf_counter() - t0:.1f}", others=",".join(other_dirs))
 
-    def ab(label, run, other_run=None):
+    def all_equal(out, ref):
+        return all(torch.equal(a, b) for a, b in zip(out, ref))
+
+    def ent_equal(out, ref):  # t everywhere, colour and normal where t is finite
+        hit = torch.isfinite(ref[0])
+        return torch.equal(out[0], ref[0]) and all(
+            torch.equal(a[hit], b[hit]) for a, b in zip(out[1:], ref[1:]))
+
+    def ab(label, run, other_run=None, same=all_equal, kernel=None):
         """Times ``run`` through each library; ``other_run(i)`` is the
-        call for other library i where its inputs differ."""
+        call for other library i where its inputs differ; ``same(out,
+        ref)`` says whether another library's result equals this one's.
+        With ``kernel`` (a kernel's name) also the device time of that
+        kernel alone (torch.profiler; the events' time includes the
+        wrapper's host work where the host is the slower side)."""
         ref = run()
         order = [None, *range(len(others)), *reversed(range(len(others))), None]
-        times, equal = {i: [] for i in order}, {}
+        times, dev, equal = {i: [] for i in order}, {i: [] for i in order}, {}
+
+        def timed(i, fn):
+            times[i].append(cs.cuda_ms(fn, 30))
+            if kernel is not None:
+                dev[i].append(cs.kernel_ms(fn, 30, kernel))
+
         for i in order:
             if i is None:
-                times[i].append(cs.cuda_ms(run, 30))
+                timed(i, run)
                 continue
             fn = run if other_run is None else (lambda i=i: other_run(i))
             with cuda_build.library(others[i]):
                 out = fn()
-                equal[i] = all(torch.equal(a, b) for a, b in zip(out, ref))
+                equal[i] = same(out if isinstance(out, tuple) else (out,),
+                                ref if isinstance(ref, tuple) else (ref,))
                 if not (equal[i] or unequal):
                     raise AssertionError(f"{label}: {other_dirs[i]}'s result differs")
-                times[i].append(cs.cuda_ms(fn, 30))
+                timed(i, fn)
+
+        def fmt(ts):
+            return ",".join(cs.fmt_ms(t) for t in ts)
+
         for i, d in enumerate(other_dirs):
-            cs.say("ab", case=label, other=d, this_ms=",".join(f"{t:.4f}" for t in times[None]),
-                   other_ms=",".join(f"{t:.4f}" for t in times[i]), equal=equal[i])
+            extra = ({"this_device_ms": fmt(dev[None]), "other_device_ms": fmt(dev[i])}
+                     if kernel is not None else {})
+            cs.say("ab", case=label, other=d, this_ms=fmt(times[None]),
+                   other_ms=fmt(times[i]), **extra, equal=equal[i])
 
     w, h = cs.W, cs.H
 
@@ -128,13 +158,35 @@ def main(other_dirs, unequal=False):
                m_state.wall_open)
     ab(f"tri_pass single paired {cs.MAZE_ID} B={cs.B_MAZE}",
        lambda: rc.tri_pass(*tri1, None, paired1))
-    # entity_pass and the epilogue's instances
+    # entity_pass (the Maze at 160x120 and 80x60 samples, PickupObjects'
+    # spheres) and the epilogue's instances
+    def ent_run(e, state, cam):
+        return lambda: rc.entity_pass(state.ent_pos, state.ent_size, state.ent_dir,
+                                      state.ent_height, state.ent_color,
+                                      rc.entity_flags(e._bank, state), cam,
+                                      *e._shapes_present[:2])
+
     args = epi_args(maze_ss, ms_state, 2)
-    ab(f"entity_pass {cs.MAZE_ID} ss=2 B={cs.B_MAZE}",
-       lambda: rc.entity_pass(ms_state.ent_pos, ms_state.ent_size, ms_state.ent_dir,
-                              ms_state.ent_height, ms_state.ent_color,
-                              rc.entity_flags(bank, ms_state), cam2,
-                              *maze_ss._shapes_present[:2]))
+    ab(f"entity_pass {cs.MAZE_ID} ss=2 B={cs.B_MAZE}", ent_run(maze_ss, ms_state, cam2),
+       same=ent_equal, kernel="entity_pass_kernel")
+    ab(f"entity_pass {cs.MAZE_ID} B={cs.B_MAZE}", ent_run(maze, m_state, cam1), same=ent_equal,
+       kernel="entity_pass_kernel")
+    pick = env(cs.PICK_ID, cs.B_PICK)
+    pk_state = cs.facing_states(pick, gen, (0.5, 0.5), (11.5, 11.5))
+    ab(f"entity_pass {cs.PICK_ID} B={cs.B_PICK}",
+       ent_run(pick, pk_state, rc.camera_grid(pk_state, w, h)), same=ent_equal,
+       kernel="entity_pass_kernel")
+    # mazegen at the Maze procgen path's resets, and at one env an SM
+    from miniworld_tpu_torch.ops import mazegen, rng as rng_ops
+
+    seed = rng_ops.sub(rng_ops.cheap_seed(rng_ops.split(rng_ops.key_data(13, "cuda"),
+                                                          cs.B_MAZE)), 17)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    chain_seed = seed[:n_sm].contiguous()
+    ab(f"mazegen {cs.MAZE_ID} B={cs.B_MAZE}", lambda: mazegen.gen_walls(seed, 8, 8),
+       kernel="mazegen_kernel")
+    ab(f"mazegen {cs.MAZE_ID} B={n_sm} (chain)", lambda: mazegen.gen_walls(chain_seed, 8, 8),
+       kernel="mazegen_kernel")
     ab(f"pixel_epilogue SS=2 {cs.MAZE_ID} B={cs.B_MAZE}",
        lambda: rc.pixel_epilogue(*args, table=maze_ss._fourier_table, ss=2))
     pick_ss = env(cs.PICK_ID, cs.B_PICK, supersample=2)
@@ -158,7 +210,6 @@ def main(other_dirs, unequal=False):
     sw_args = epi_args(side, st, 1)
     ab(f"pixel_epilogue SS=1 {cs.SIDE_ID} B={cs.B}",
        lambda: rc.pixel_epilogue(*sw_args, table=side._fourier_table))
-    pick = env(cs.PICK_ID, cs.B_PICK)
     pk_args = epi_args(pick, cs.facing_states(pick, gen, (0.5, 0.5), (11.5, 11.5)), 1)
     ab(f"pixel_epilogue SS=1 {cs.PICK_ID} B={cs.B_PICK}",
        lambda: rc.pixel_epilogue(*pk_args, table=pick._fourier_table))
@@ -176,6 +227,14 @@ def main(other_dirs, unequal=False):
        lambda i: tv.tri_pass_ortho(st_other[tiles[i]], *scan[1:]))
     ab(f"topview_epilogue {cs.MAZE_ID} B={cs.B_MAZE}",
        lambda: tv.topview_epilogue(*top_epi, table=maze_top._fourier_table))
+    # the Maze paths end to end through each library
+    for e, label in ((maze, f"{cs.MAZE_ID} B={cs.B_MAZE}"),
+                     (maze_ss, f"{cs.MAZE_ID} ss=2 B={cs.B_MAZE}")):
+        for i in [None, *range(len(others)), *reversed(range(len(others))), None]:
+            with contextlib.nullcontext() if i is None else cuda_build.library(others[i]):
+                name = "this" if i is None else other_dirs[i]
+                state = cs.rollouts(e, f"ab {label} {name}", cs.HORIZON, cs.TRIALS)[4]
+                cs.phase_profile(e, state)
     print(smi)
 
 
@@ -188,23 +247,20 @@ def ortho_tile(csrc):
 
 
 def say_ptxas(build, log):
-    """One [ab-build] line: the build's spilling kernels and the registers
-    of the redesigned ones (the multi-chunk tri_pass, the top view's two,
-    the SS=2 epilogue), from its ptxas -v log."""
+    """One [ab-build] line: the build's spilling kernels, the registers of
+    the redesigned ones (the multi-chunk tri_pass, the top view's two, the
+    SS=2 epilogue, entity_pass, mazegen) and mazegen's stack frames, from
+    its ptxas -v log."""
     import chip_smoke as cs
 
-    fn, spills, regs = "", [], []
-    for ln in log.splitlines():
-        fn = ln.split("'")[1] if "Compiling entry" in ln else fn
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-        if m and m.group(1, 2) != ("0", "0"):
-            spills.append(f"{fn}: {ln.strip()}")
-        r = re.search(r"Used (\d+) registers", ln)
-        if r and any(k in fn for k in ("tri_pass_multi", "tri_pass_ortho", "topview_epilogue",
-                                        "pixel_epilogue_ss2")):
-            regs.append(f"{fn}: {r.group(1)}")
+    props = cs.ptxas_props(log)
+    spills = [f"{fn}: {spill} bytes" for fn, (_, spill, _) in props.items() if spill]
+    regs = [f"{fn}: {r}" for fn, (_, _, r) in props.items()
+            if any(k in fn for k in ("tri_pass_multi", "tri_pass_ortho", "topview_epilogue",
+                                     "pixel_epilogue_ss2", "entity_pass", "mazegen"))]
+    frames = [f"{fn}: {frame}" for fn, (frame, _, _) in props.items() if "mazegen" in fn]
     cs.say("ab-build", build=build, spills=repr(" | ".join(spills)),
-           registers=repr(" | ".join(regs)))
+           registers=repr(" | ".join(regs)), mazegen_stack_frames=repr(" | ".join(frames)))
 
 
 if __name__ == "__main__":

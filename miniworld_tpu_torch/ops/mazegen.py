@@ -29,8 +29,9 @@ import torch
 from miniworld_tpu_torch.ops import rng as rng_ops
 from miniworld_tpu_torch.render.cuda_build import check, is_cuda, launch, stream
 
-# The kernel keeps the visited set as a bitmask and the DFS stack as
-# bytes (csrc/mazegen.cu): grids up to this many cells.
+# The kernel keeps the visited set as a register bitmask of up to 8 words
+# and the DFS stack in shared memory (csrc/mazegen.cu): grids up to this
+# many cells.
 MAX_CELLS = 256
 
 

@@ -874,6 +874,9 @@ def entity_mesh_pass_plain(verts9, attrs, cam: Camera, attr_dtype=torch.bfloat16
 # stage 2: analytic entities
 
 ENT_ACTIVE, ENT_SPHERE, ENT_BOX = 1, 2, 4
+# the entity_pass kernel's screen tile (csrc/entity_pass.cu TILE_W, TILE_H)
+# and the slots it stages (MAX_ENTS)
+ENT_TILE_W, ENT_TILE_H, ENT_MAX_SLOTS = 16, 8, 256
 
 
 def entity_flags(bank, state) -> torch.Tensor:
@@ -905,7 +908,11 @@ def entity_pass_plain(ent_pos, ent_size, ent_dir, ent_height, ent_color, flags,
 
     Per-entity (B, E[, 3]) inputs; flags (B, E) uint8 (entity_flags).
     Returns (t (B, HW) f32, inf on a miss; color (B, HW, 3); normal
-    (B, HW, 3)), zeros where no entity is hit.
+    (B, HW, 3)). Colour and normal are defined only where t is finite:
+    the kernel leaves the rest of its buffers unwritten, and the pixel
+    epilogue reads them only where the entity is strictly closer than
+    the static hit. This version fills the rest with zeros, one instance
+    of "undefined".
     """
     xv, yv = cam.xv(), cam.yv()
     b, hw = xv.shape
@@ -1014,11 +1021,15 @@ def entity_pass_plain(ent_pos, ent_size, ent_dir, ent_height, ent_color, flags,
 def entity_pass(ent_pos, ent_size, ent_dir, ent_height, ent_color, flags,
                 cam: Camera, has_sphere: bool = True, has_box: bool = True):
     """Stage 2 wrapper: the entity_pass kernel for CUDA tensors, the
-    plain version for CPU tensors. Same contract as ``entity_pass_plain``."""
+    plain version for CPU tensors. Same contract as ``entity_pass_plain``:
+    the kernel writes t at every sample and colour and normal only where
+    t is finite (its buffers come from ``torch.empty``). E <= 256 slots."""
     args = (ent_pos, ent_size, ent_dir, ent_height, ent_color, flags)
     if not is_cuda(*args, cam.origin):
         return entity_pass_plain(*args, cam, has_sphere, has_box)
     b, E = flags.shape
+    if E > ENT_MAX_SLOTS:
+        raise ValueError(f"entity_pass kernel takes at most {ENT_MAX_SLOTS} slots, got {E}")
     hw = cam.width * cam.height
     dev = ent_pos.device
     t = torch.empty((b, hw), dtype=torch.float32, device=dev)

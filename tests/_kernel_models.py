@@ -1,4 +1,4 @@
-"""Torch models of the redesigned tri_pass and pixel_epilogue kernels.
+"""Torch models of the redesigned kernels.
 
 ``window_select`` copies the multi-chunk tri_pass kernel
 (csrc/tri_pass.cu, tri_pass_multi_kernel) step for step: the rows staged
@@ -16,13 +16,22 @@ texel. ``ortho_scan`` copies the top view's tri_pass_ortho kernel
 batches of 32, the live rows compacted in list order, the scan with the
 rows' y terms premultiplied and a strict <. ``texel_nofp`` is the
 topview_epilogue kernel's Fourier texel without a footprint
-(csrc/texel.cuh fourier_texel_nofp).
+(csrc/texel.cuh fourier_texel_nofp). ``entity_tile_keep`` copies the
+entity_pass kernel's per-tile cull (csrc/entity_pass.cu): each slot's
+bounding sphere, grown by its margin, against the four side planes of a
+tile's rays and the plane NEAR / 2 in front of the eye. ``mazegen_walk``
+copies the mazegen kernel's step (csrc/mazegen.cu): packed neighbour
+entries, a visited bitmask, a 4-bit candidate mask whose pick-th set bit
+is found by clearing the lowest set bit pick times, the top cell kept
+apart from the stack.
 """
 
 import math
 
+import numpy as np
 import torch
 
+from miniworld_tpu_torch.ops import geom, mazegen
 from miniworld_tpu_torch.render import raycast as trc
 from miniworld_tpu_torch.render import topview as ttop
 
@@ -276,3 +285,99 @@ def texel_nofp(table, slot, uv, k_terms, has_gain=False):
     tex = torch.clamp(v, 0.0, 1.0)
     tex = torch.where((slot_i < n_rows)[:, None], tex, torch.zeros_like(tex))
     return torch.where((slot_i >= 0)[:, None], tex, torch.ones_like(tex))
+
+
+ENT_CULL_MARGIN = 2.0 ** -6  # csrc/entity_pass.cu CULL_MARGIN
+
+
+def entity_tile_of_pixel(width, height, tile=(trc.ENT_TILE_W, trc.ENT_TILE_H)):
+    """(HW,) the entity_pass kernel's tile (row-major) of each sample."""
+    n_tx = -(-width // tile[0])
+    return ((torch.arange(height)[:, None] // tile[1]) * n_tx
+            + torch.arange(width)[None, :] // tile[0]).reshape(-1)
+
+
+def entity_tile_keep(ent_pos, ent_size, ent_height, flags, cam, has_sphere=True,
+                     has_box=True, tile=(trc.ENT_TILE_W, trc.ENT_TILE_H)):
+    """(B, n_tiles, E) bool: the slots the entity_pass kernel keeps for
+    each of its tiles, computed as it computes them: a live slot's
+    bounding sphere (the sphere, or the box's half-diagonal around pos +
+    (0, sy / 2, 0)) grown to rho = R + 2^-6 (|C - o| + R) is dropped when
+    it lies beyond one of the tile's four side planes or nearer the eye than
+    the plane NEAR / 2 in front of it."""
+    o = cam.origin[:, None, :]
+    px, py, pz = ent_pos.unbind(-1)
+    sx, sy, sz = ent_size.unbind(-1)
+    sphere = (flags & trc.ENT_SPHERE) != 0
+    box = ((flags & trc.ENT_BOX) != 0) & has_box
+    live = ((flags & trc.ENT_ACTIVE) != 0) & torch.where(sphere, has_sphere, box)
+    r_vis = 0.5 * ent_height
+    cy = torch.where(sphere, 0.5 * ent_height, 0.5 * sy)
+    rad = torch.where(sphere, r_vis.abs(), 0.5 * geom.sqrt(sx * sx + sy * sy + sz * sz))
+    c0, c1, c2 = px - o[..., 0], (py + cy) - o[..., 1], pz - o[..., 2]
+
+    def dot(v):  # (B, E)
+        return c0 * v[:, 0:1] + c1 * v[:, 1:2] + c2 * v[:, 2:3]
+
+    cf, cr, cu = dot(cam.fwd), dot(cam.right), dot(cam.up)
+    dist = geom.sqrt(c0 * c0 + c1 * c1 + c2 * c2)
+    rho = torch.where(live, rad + ENT_CULL_MARGIN * (dist + rad), torch.full_like(rad, -1.0))
+    xv = cam.xbase[None, :] * cam.tan_x[:, None]  # (B, W), as the kernel rounds it
+    yv = cam.ybase[None, :] * cam.tan_y[:, None]
+    (xlo, xhi), (ylo, yhi) = _spans(xv, tile[0]), _spans(yv, tile[1])
+    b, n_tx, n_ty = xv.shape[0], xlo.shape[1], ylo.shape[1]
+
+    def per_tile(v, along_x):  # (B, n) -> (B, n_tiles, 1), tiles row-major
+        v = v[:, None, :].expand(b, n_ty, n_tx) if along_x else \
+            v[:, :, None].expand(b, n_ty, n_tx)
+        return v.reshape(b, -1, 1)
+
+    xlo, xhi = per_tile(xlo, True), per_tile(xhi, True)
+    ylo, yhi = per_tile(ylo, False), per_tile(yhi, False)
+
+    def norm(v):
+        return geom.sqrt(1.0 + v * v)
+
+    cf, cr, cu, rho = cf[:, None], cr[:, None], cu[:, None], rho[:, None]
+    out = ((cr - xhi * cf > rho * norm(xhi)) | (xlo * cf - cr > rho * norm(xlo))
+           | (cu - yhi * cf > rho * norm(yhi)) | (ylo * cf - cu > rho * norm(ylo))
+           | (cf + rho < 0.5 * trc.NEAR))
+    return ~(rho < 0.0) & ~out
+
+
+def mazegen_walk(us, rows, cols):
+    """(B, W) f32 walls (1 = open) as the mazegen kernel makes them from
+    each env's 2N - 1 uniforms ``us`` (B, 2N - 1): per step the top
+    cell's packed entries (cell | wall << 16, -1 off the grid), the
+    candidates as bits [+x, -x, +z, -z] of the unvisited ones, pick =
+    min(floor(u * k), k - 1) in float32, the pick-th set bit by clearing
+    the lowest one pick times; a pop reads the stack below the top."""
+    nbr_cell, nbr_wall = mazegen.neighbor_tables(rows, cols)
+    packed = np.where(nbr_cell >= 0, nbr_cell | (nbr_wall << 16), -1)
+    n, n_walls = rows * cols, mazegen.num_walls(rows, cols)
+    us = us.numpy().astype(np.float32)
+    walls = np.zeros((us.shape[0], n_walls), np.float32)
+    for b in range(us.shape[0]):
+        visited, opened, stack, cur, sp = 1, 0, [0] * n, 0, 1
+        for i in range(2 * n - 1):
+            if sp == 0:
+                break
+            nb = packed[cur]
+            cand = sum(1 << d for d in range(4)
+                       if nb[d] >= 0 and not (visited >> int(nb[d] & 0xFFFF)) & 1)
+            k = bin(cand).count("1")
+            if k:
+                pick = min(int(np.floor(us[b, i] * np.float32(k))), k - 1)
+                for _ in range(pick):
+                    cand &= cand - 1
+                v = int(nb[(cand & -cand).bit_length() - 1])
+                cur = v & 0xFFFF
+                visited |= 1 << cur
+                opened |= 1 << (v >> 16)
+                stack[sp] = cur
+                sp += 1
+            else:
+                sp -= 1
+                cur = stack[sp - 1] if sp else cur
+        walls[b] = [(opened >> w) & 1 for w in range(n_walls)]
+    return torch.from_numpy(walls)
