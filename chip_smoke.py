@@ -66,7 +66,10 @@ the first wins; tile lists of more than 32 rows), each line with the
 rows a pixel scans, and at the Maze's B=8192, timed there, the epilogue
 beside its term issue floor ([topview-stages]); visible_ents against its plain
 version on every (env, entity) at PickupObjects B=4096 and the Maze
-B=8192, timed, and its own path of steps and queries ([visible-ents]);
+B=8192, timed, and its own path of steps and queries, then at B=1024
+boxes close to the eye, behind closed walls, astride the near plane and
+at the agent's own position, and ThreeRooms, each with the visible count
+it expects and the kernel's counts on a [vis-cull] line ([visible-ents]);
 the Maze 8x8 procgen top-view rollout at B=8192 with its breakdown and
 profile, the PickupObjects one at B=4096, and Hallway's top view at B=128
 against its plain path, exactly. Last, the scheduled tri_pass (the SCHED
@@ -302,11 +305,11 @@ def phase_build():
     say("build", seconds=f"{secs:.2f}", arch="sm_90a",
         sources=",".join(cuda_build.SOURCES), ptxas=repr(" | ".join(regs)),
         ptxas_spills=repr(" | ".join(spills)))
-    # the redesigned entity_pass and mazegen: no spills, and mazegen's
-    # instances keep nothing in local memory (a 0-byte stack frame)
+    # the redesigned entity_pass, mazegen and visible_ents: no spills, and
+    # mazegen's instances keep nothing in local memory (a 0-byte stack frame)
     props = ptxas_props(log)
     for fn, (frame, spill, regs_) in props.items():
-        if "entity_pass" in fn or "mazegen" in fn:
+        if any(k in fn for k in ("entity_pass", "mazegen", "visible_ents")):
             say("build-kernel", kernel=fn, registers=regs_, stack_frame_bytes=frame,
                 spill_bytes=spill)
             if spill or ("mazegen" in fn and frame):
@@ -2927,61 +2930,196 @@ def phase_topview_stages(cases, maze_top, pick_top):
     return max(errs), timings, work, checked
 
 
-def vis_work(env, args, n_live):
-    """(bytes, operations) of a visible_ents launch on ``args`` (its
-    plain version's arguments): the room rows and codes, each env's
-    camera, entities, maze and flags once; 25 operations per (live room
-    row, pixel) pair (three 3-term dots 15, the reciprocal and t 2,
-    coverage 3, gates 5) and 40 a staged live row, 30 per (alive entity,
-    pixel) pair (six subtractions, six divisions, the slab min / max and
-    the gates). ``n_live``: the live room rows summed over the envs."""
+def vis_work(args, n_live):
+    """((bytes, 0), full-scan (bytes, operations)) of a visible_ents launch
+    on ``args`` (its plain version's arguments). The bound: the bytes the
+    result needs, the layouts' room rows and codes once, each env's
+    camera, layout id, walls and entities, and the (B, E) flags. Beside
+    it the full scan's operations: 25 per (live room row, pixel) pair
+    (three 3-term dots 15, the reciprocal and t 2, coverage 3, gates 5)
+    and 40 a staged live row, 30 per (alive entity, pixel) pair (six
+    subtractions, six divisions, the slab min / max and the gates).
+    ``n_live``: the live room rows summed over the envs."""
     st, layout_id, wall_open, cam, ent_pos, ent_alive = args
-    b, hw = layout_id.shape[0], W * H
+    b, hw = layout_id.shape[0], cam.width * cam.height
     nbytes = sum(t.numel() * t.element_size() for t in (*st, layout_id, wall_open, ent_pos,
                                                          ent_alive) if t is not None)
-    nbytes += b * 14 * 4 + (W + H) * 4 + ent_alive.numel()
-    return nbytes, n_live * (hw * 25 + 40) + int(ent_alive.sum()) * hw * 30
+    nbytes += b * 14 * 4 + (cam.width + cam.height) * 4 + ent_alive.numel()
+    return (nbytes, 0), (nbytes, n_live * (hw * 25 + 40) + int(ent_alive.sum()) * hw * 30)
+
+
+def head_args(args, n):
+    """visible_ents' arguments for the first ``n`` envs of ``args``."""
+    from miniworld_tpu_torch.render.raycast import Camera
+
+    st, layout_id, wall_open, cam, ent_pos, ent_alive = args
+    cam = Camera(*(x[:n] for x in cam[:6]), cam.xbase, cam.ybase)
+    return (st, layout_id[:n], None if wall_open is None else wall_open[:n], cam, ent_pos[:n],
+            ent_alive[:n])
+
+
+def vis_args(env, state):
+    """visible_ents' arguments for ``state``, as env.visible_ents makes them."""
+    from miniworld_tpu_torch.render.raycast import camera_grid
+
+    wall_open = state.wall_open if env._bank.tri_wall_onehot is not None else None
+    return (env._vis, state.layout_id, wall_open, camera_grid(state, W, H), state.ent_pos,
+            state.ent_alive)
+
+
+def behind_wall_states(env, gen, near, behind, seed=7):
+    """States of the procgen maze with each agent facing a closed wall of a
+    random cell (its maze's, or the border), its eye ``near`` (lo, hi)
+    metres in front of the wall's face, pitch within 20 degrees, and its
+    entity slot 0, the query box's centre at eye height, ``behind`` (lo,
+    hi) metres behind the face and 0.6 or more from the wall's ends: every
+    ray to the box crosses the wall, so no box is visible, and close to
+    the wall the box covers much of the view."""
+    from miniworld_tpu_torch.ops import mazegen
+
+    spec = env.spec
+    state, _ = env.reset(seed=seed)
+    n, dev = env.num_envs, env.device
+    nbr_cell, nbr_wall = (torch.from_numpy(t).long() for t in mazegen.neighbor_tables(
+        spec.num_rows, spec.num_cols))
+    wall_open = state.wall_open.cpu()
+    shut = (nbr_wall[None] < 0) | (torch.gather(
+        wall_open, 1, nbr_wall.clamp(min=0).reshape(1, -1).expand(n, -1)).reshape(
+        n, *nbr_wall.shape) < 0.5)  # (B, N, 4): [+x, -x, +z, -z]
+    pick = torch.multinomial(shut.reshape(n, -1).float(), 1, generator=gen)[:, 0]
+    cell, k = pick // 4, pick % 4
+    ci, cj = cell // spec.num_cols, cell % spec.num_cols
+    pitch, size = spec.room_size + spec.gap_size, spec.room_size
+    axis_x = k < 2  # the wall's normal along x
+    sign = torch.where(k % 2 == 0, 1.0, -1.0)  # +x / +z: the face at the cell's high end
+    lo_axis = torch.where(axis_x, cj, ci).float() * pitch
+    lo_other = torch.where(axis_x, ci, cj).float() * pitch
+    face = lo_axis + torch.where(sign > 0, size, 0.0)
+    u = torch.rand((n, 5), generator=gen)
+    lateral = lo_other + 0.6 + (size - 1.2) * u[:, 0]
+    disp = state.cam_fwd_disp.cpu()
+    a = near[0] + (near[1] - near[0]) * u[:, 1]
+    along = face - sign * (a + disp)
+    box_along = face + sign * (behind[0] + (behind[1] - behind[0]) * u[:, 2] + 0.1)
+    box_lateral = lateral + 0.6 * (u[:, 3] - 0.5)
+    zero = torch.zeros(n)
+    pos = torch.where(axis_x[:, None], torch.stack([along, zero, lateral], 1),
+                      torch.stack([lateral, zero, along], 1))
+    ent = state.ent_pos.cpu().clone()
+    box_y = state.cam_height.cpu() - 0.1
+    ent[:, 0] = torch.where(axis_x[:, None], torch.stack([box_along, box_y, box_lateral], 1),
+                            torch.stack([box_lateral, box_y, box_along], 1))
+    yaw = torch.tensor([0.0, math.pi, -math.pi / 2, math.pi / 2])[k]
+    return state.replace(pos=pos.to(dev), dir=yaw.to(dev), ent_pos=ent.to(dev),
+                         cam_pitch=(40.0 * (u[:, 4] - 0.5)).to(dev))
+
+
+def close_states(env, gen, dist, seed=7):
+    """PickupObjects states with agent i ``dist`` (lo, hi) metres from its
+    entity slot i mod E (eye to the box's centre, raised to eye height),
+    on the room's centre side of it (within 45 degrees) and facing it:
+    the box covers much of the view and nothing hides it."""
+    state, _ = env.reset(seed=seed)
+    n, dev = env.num_envs, env.device
+    e_n = state.ent_pos.shape[1]
+    idx = torch.arange(n) % e_n
+    ent = state.ent_pos.cpu().clone()
+    target = ent[torch.arange(n), idx]
+    u = torch.rand((n, 2), generator=gen)
+    outward = torch.atan2(-(target[:, 2] - 6.0), target[:, 0] - 6.0)  # centre -> entity
+    bearing = outward + (u[:, 0] - 0.5) * (math.pi / 2)
+    r = dist[0] + (dist[1] - dist[0]) * u[:, 1]
+    fwd = torch.stack([torch.cos(bearing), torch.zeros(n), -torch.sin(bearing)], 1)
+    pos = target - (r + state.cam_fwd_disp.cpu())[:, None] * fwd
+    pos[:, 1] = 0.0
+    ent[torch.arange(n), idx, 1] = state.cam_height.cpu() - 0.1
+    return state.replace(pos=pos.to(dev), dir=bearing.to(dev), ent_pos=ent.to(dev),
+                         cam_pitch=torch.zeros(n, device=dev))
+
+
+def eye_states(env, gen, seed=7):
+    """PickupObjects states from a reset at random yaw and pitch (+-60
+    degrees) with entity slot 0 at the agent's own position, slot 1's box
+    astride the near plane (its centre 0.02-0.16 ahead of the eye, 0.05
+    aside at most) and slot 2's box around the eye (the eye inside it,
+    never visible)."""
+    from miniworld_tpu_torch.ops import geom
+
+    state, _ = env.reset(seed=seed)
+    n, dev = env.num_envs, env.device
+    u = torch.rand((n, 7), generator=gen).to(dev)
+    state = state.replace(dir=(2.0 * u[:, 0] - 1.0) * math.pi, cam_pitch=120.0 * (u[:, 1] - 0.5))
+    eye = geom.cam_position(state.pos, state.dir, state.cam_height, state.cam_fwd_disp)
+    fwd, _, right = geom.cam_basis(state.dir, state.cam_pitch)
+    down = torch.tensor([0.0, 0.1, 0.0], device=dev)
+    ent = state.ent_pos.clone()
+    ent[:, 0] = state.pos
+    ent[:, 1] = eye + (0.02 + 0.14 * u[:, 2:3]) * fwd + 0.1 * (u[:, 3:4] - 0.5) * right - down
+    ent[:, 2] = eye - down + 0.1 * (u[:, 4:7] - 0.5)
+    return state.replace(ent_pos=ent)
+
+
+def vis_stats(args):
+    """The visible_ents kernel's counts on ``args``: envs that staged their
+    rows, (tile, entity) pairs the cull kept, slab tests, occlusion scans,
+    rows those scans tested, rows staged."""
+    from miniworld_tpu_torch.render import visibility as vis
+
+    stats = torch.zeros(vis.N_STATS, dtype=torch.int64, device=args[1].device)
+    vis.visible_ents(*args, stats=stats)
+    return dict(zip(("envs_staged", "pairs_kept", "slab_tests", "rows_scans", "rows_scanned",
+                     "rows_staged"), (int(x) for x in stats.cpu())))
 
 
 def phase_visible_ents(cases, steps=5):
-    """[visible-ents]: MiniWorldVec.visible_ents on each (label, env,
-    state maker) case at its main path's shapes (PickupObjects B=4096
-    facing its entities, the 8x8 procgen Maze B=8192 in random cells):
-    the kernel against its plain version on the same inputs, the mask
-    equal on every (env, entity), both timed; then the query's own path,
-    ``steps`` random steps each followed by env.visible_ents, counts set to
-    0 before and read after. Returns (max abs difference, {label: (ms,
-    plain ms)}, {label: work}, {label: launches of the path})."""
+    """[visible-ents]: MiniWorldVec.visible_ents on each (label, env, args,
+    check, path) case: the kernel against its plain version on the same
+    arguments, the mask equal on every (env, entity), ``check(mask,
+    alive)`` the visible count the case expects, both timed (the kernel
+    also alone under torch.profiler), and a [vis-cull] line of the
+    kernel's counts. The cases: PickupObjects B=4096 facing its entities
+    and the 8x8 procgen Maze B=8192 in random cells (the main paths'
+    shapes), then at B=1024 boxes close to the eye, behind closed walls,
+    astride the near plane and at the agent's own position, and a
+    multi-room bank without walls to kill. Where ``path``, the query's
+    own path: ``steps`` random steps each followed by env.visible_ents,
+    counts set to 0 before and read after. Returns (max abs difference,
+    {label: (ms, plain ms, device ms)}, {label: (work, full-scan work)},
+    {label: launches of the path})."""
     from miniworld_tpu_torch.ops.rng import key_data
     from miniworld_tpu_torch.render import cuda_build
     from miniworld_tpu_torch.render import visibility as vis
-    from miniworld_tpu_torch.render.raycast import camera_grid
     from miniworld_tpu_torch.render.topview import row_live
 
     errs, timings, work, launches = [], {}, {}, {}
-    for label, env, make_state in cases:
-        state = make_state(env)
-        wall_open = state.wall_open if env._bank.tri_wall_onehot is not None else None
-        args = (env._vis, state.layout_id, wall_open, camera_grid(state, W, H), state.ent_pos,
-                state.ent_alive)
+    for label, env, args, check, path in cases:
+        b = args[1].shape[0]
         got = vis.visible_ents(*args)
         want = vis.visible_ents_plain(*args)
         n_diff = int((got != want).sum())
         errs.append(float(n_diff))
-        live = row_live(env._vis.row_code[state.layout_id.long()], wall_open)
-        work[label] = vis_work(env, args, int(live.sum()))
+        live = row_live(args[0].row_code[args[1].long()], args[2])
+        work[label] = vis_work(args, int(live.sum()))
         timings[label] = (cuda_ms(lambda: vis.visible_ents(*args), 20),
-                          cuda_ms(lambda: vis.visible_ents_plain(*args), 1, warmup_calls=0))
-        say("kernel-vs-plain", kernel="visible_ents", case=f"{label} B={env.num_envs} {W}x{H} "
-            f"Sr={env._vis.rows.shape[1]} E={state.ent_alive.shape[1]}",
-            mask_differs=n_diff, visible=int(want.sum()), alive=int(state.ent_alive.sum()),
+                          cuda_ms(lambda: vis.visible_ents_plain(*args), 1, warmup_calls=0),
+                          kernel_ms(lambda: vis.visible_ents(*args), 20, "visible_ents_kernel"))
+        n_vis, n_alive = int(want.sum()), int(args[5].sum())
+        say("kernel-vs-plain", kernel="visible_ents", case=f"{label} B={b} {W}x{H} "
+            f"Sr={args[0].rows.shape[1]} E={args[5].shape[1]}",
+            mask_differs=n_diff, visible=n_vis, alive=n_alive,
             live_room_rows=int(live.sum()), exact=True)
+        counts = vis_stats(args)
+        say("vis-cull", case=f"{label} B={b}", **counts)
         say("kernel-time", kernel="visible_ents", ms=f"{timings[label][0]:.4f}",
-            plain_ms=f"{timings[label][1]:.4f}", bound_ms=f"{bound(*work[label])[0]:.4f}",
-            bound_by=bound(*work[label])[1], shapes=f"{label} B={env.num_envs} HW={W * H}")
-        if n_diff or not 0 < int(want.sum()) < int(state.ent_alive.sum()):
+            device_ms=fmt_ms(timings[label][2]), plain_ms=f"{timings[label][1]:.4f}",
+            bound_ms=f"{bound(*work[label][0])[0]:.4f}", bound_by=bound(*work[label][0])[1],
+            bound_full_scan_ms=f"{bound(*work[label][1])[0]:.4f}",
+            shapes=f"{label} B={b} HW={W * H}")
+        if n_diff or not check(want, args[5]) or not counts["rows_scans"]:
             raise AssertionError(f"visible_ents {label}: {n_diff} (env, entity) differ, "
-                                 f"{int(want.sum())} visible")
+                                 f"{n_vis} of {n_alive} visible, {counts}")
+        if not path:
+            continue
         # the query's path: a step, then the query, counts read after
         state, _ = env.reset(seed=5)
         acts = env.rollout_actions(key_data(12, env.device), steps)
@@ -3000,6 +3138,35 @@ def phase_visible_ents(cases, steps=5):
         if launches[label]["visible_ents"] < steps or n_vis == 0:
             raise AssertionError(f"visible_ents path {label}: {launches[label]}, {n_vis} visible")
     return max(errs), timings, work, launches
+
+
+def vis_cases(pick, maze, three, gen):
+    """phase_visible_ents' cases (label, env, args, check, path); the
+    B=1024 ones are the first B envs of the B_PICK and B_MAZE states."""
+
+    def some(mask, alive):  # some visible, some not
+        return 0 < int(mask.sum()) < int(alive.sum())
+
+    def target_seen(mask, alive):  # every env sees its slot i mod E
+        idx = torch.arange(mask.shape[0], device=mask.device) % mask.shape[1]
+        return bool(mask[torch.arange(mask.shape[0], device=mask.device), idx].all())
+
+    def eye_checks(mask, alive):  # the eye inside slot 2's box: never visible
+        return some(mask, alive) and not bool(mask[:, 2].any())
+
+    return [
+        ("pickupobjects", pick,
+         vis_args(pick, facing_states(pick, gen, (0.5, 0.5), (11.5, 11.5))), some, True),
+        ("maze8x8-procgen", maze, vis_args(maze, random_maze_states(maze, gen, seed=13)), some,
+         True),
+        ("pickupobjects-close", pick,
+         head_args(vis_args(pick, close_states(pick, gen, (0.15, 0.6))), B), target_seen, False),
+        ("maze8x8-procgen-behind-wall", maze, head_args(vis_args(
+            maze, behind_wall_states(maze, gen, (0.1, 0.6), (0.2, 0.6))), B),
+         lambda mask, alive: not bool(mask.any()), False),
+        ("pickupobjects-near-eye", pick, head_args(vis_args(pick, eye_states(pick, gen)), B),
+         eye_checks, False),
+        ("threerooms", three, vis_args(three, view_states(three, gen)), some, False)]
 
 
 def phase_topview_paths(maze_top, pick_top, make_env, rates):
@@ -3456,9 +3623,8 @@ def main():
                                                                          pick_top)
     lap("topview-stages")
     vis_gen = torch.Generator().manual_seed(2020)
-    vis_err, vis_timings, vis_work_, vis_launches = phase_visible_ents([
-        ("pickupobjects", pick, lambda e: facing_states(e, vis_gen, (0.5, 0.5), (11.5, 11.5))),
-        ("maze8x8-procgen", maze, lambda e: random_maze_states(e, vis_gen, seed=13))])
+    vis_err, vis_timings, vis_work_, vis_launches = phase_visible_ents(
+        vis_cases(pick, maze, env(THREE_ID, B), vis_gen))
     lap("visible-ents")
     top_launches = phase_topview_paths(maze_top, pick_top, env, rates)
     lap("main: maze top, pickupobjects top, hallway top")
@@ -3688,19 +3854,23 @@ def main():
             row["issue_floor_ms"], row["instructions_a_term"] = top_work_[
                 "topview_epilogue_floor"]
         kernels.append(row)
-    ms, plain_ms = vis_timings["maze8x8-procgen"]
+    ms, plain_ms, dev_ms = vis_timings["maze8x8-procgen"]
     kernels.append({
         "name": "visible_ents", "route": "cuda", "source": TOP_KERNELS["visible_ents"][0],
         "replaces": TOP_KERNELS["visible_ents"][1],
         "launches": int(vis_launches["maze8x8-procgen"]["visible_ents"]), "max_abs_err": vis_err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound(*vis_work_["maze8x8-procgen"])[0],
-        "bound_by": bound(*vis_work_["maze8x8-procgen"])[1], "library_ms": None,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound(*vis_work_["maze8x8-procgen"][0])[0],
+        "bound_by": bound(*vis_work_["maze8x8-procgen"][0])[1], "library_ms": None,
+        "device_ms": dev_ms,
+        "bound_full_scan_ms": bound(*vis_work_["maze8x8-procgen"][1])[0],
         "shapes": f"{MAZE_ID} procgen B={B_MAZE} HW={W * H}",
         "ms_pickupobjects_b4096": vis_timings["pickupobjects"][0],
+        "device_ms_pickupobjects_b4096": vis_timings["pickupobjects"][2],
         "plain_ms_pickupobjects_b4096": vis_timings["pickupobjects"][1],
-        "bound_ms_pickupobjects_b4096": bound(*vis_work_["pickupobjects"])[0],
+        "bound_ms_pickupobjects_b4096": bound(*vis_work_["pickupobjects"][0])[0],
+        "bound_full_scan_ms_pickupobjects_b4096": bound(*vis_work_["pickupobjects"][1])[0],
         "launches_pickupobjects_b4096": int(vis_launches["pickupobjects"]["visible_ents"]),
-        "checked_on": ["pickupobjects B=4096", f"maze8x8-procgen B={B_MAZE}"]})
+        "checked_on": list(vis_timings)})
     # the scheduled tri_pass (SCHED) at the Maze bank ss=2 main path's shapes
     # (its mesh-seeded instance at ThreeRooms tri_chunk=16 beside it)
     ms, plain_ms = sched_timings["maze8x8-bank ss=2"]

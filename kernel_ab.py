@@ -1,14 +1,19 @@
 """Kernel times of other libraries beside this tree's, on one card.
 
-    python3 kernel_ab.py [--unequal] OTHER_CSRC [OTHER_CSRC ...]
+    python3 kernel_ab.py [--unequal] [--visible-ents] OTHER_CSRC [OTHER_CSRC ...]
 
 Builds the kernel library from each other directory of sources
 (another commit's miniworld_tpu_torch/csrc, or a copy of this one with a
-constant changed), then times the render kernels, entity_pass and
-mazegen at the main paths' shapes chip_smoke.py times them at, in the order this tree, the others, the others reversed,
+constant changed), then times visible_ents (PickupObjects B=4096 and the
+8x8 procgen Maze B=8192 at chip_smoke.py's [visible-ents] states, and its
+worst case: each Maze box just behind a closed wall, close enough to
+fill much of the view; with --visible-ents nothing else), the render
+kernels, entity_pass and mazegen at the main paths' shapes chip_smoke.py
+times them at, in the order this tree, the others, the others reversed,
 this tree (CUDA events, 30 launches after chip_smoke.py's warm-up; for
-entity_pass and mazegen, whose wrappers' host work can outlast the
-kernel, also the kernel alone under torch.profiler, device_ms), and
+visible_ents, entity_pass and mazegen, whose wrappers' host work can
+outlast the kernel, also the kernel alone under torch.profiler,
+device_ms), and
 holds every other library's result equal to this one's (entity_pass's
 colour and normal where its t is finite: the only part its contract
 defines). The inputs come from this tree's package; the other sources'
@@ -40,7 +45,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
-def main(other_dirs, unequal=False):
+def main(other_dirs, unequal=False, vis_only=False):
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     from miniworld_tpu_torch import MiniWorldVec
@@ -118,6 +123,27 @@ def main(other_dirs, unequal=False):
     def env(env_id, n, **kw):
         return MiniWorldVec(env_id, n, obs_width=w, obs_height=h, device="cuda", **kw)
 
+    # visible_ents at [visible-ents]' main-path states, and its worst case:
+    # each box just behind a closed wall, close enough to fill much of the
+    # view (nearly every pixel's ray reaches the occlusion scan)
+    from miniworld_tpu_torch.render import visibility as vis
+
+    vis_gen = torch.Generator().manual_seed(2020)
+    pick = env(cs.PICK_ID, cs.B_PICK)
+    maze = env(cs.MAZE_ID, cs.B_MAZE)
+    for label, args in (
+            (f"visible_ents {cs.PICK_ID} B={cs.B_PICK}",
+             cs.vis_args(pick, cs.facing_states(pick, vis_gen, (0.5, 0.5), (11.5, 11.5)))),
+            (f"visible_ents {cs.MAZE_ID} B={cs.B_MAZE}",
+             cs.vis_args(maze, cs.random_maze_states(maze, vis_gen, seed=13))),
+            (f"visible_ents {cs.MAZE_ID} B={cs.B_MAZE} behind a wall, close",
+             cs.vis_args(maze, cs.behind_wall_states(maze, vis_gen, (0.05, 0.1), (0.0, 0.05))))):
+        ab(label, lambda args=args: vis.visible_ents(*args), kernel="visible_ents_kernel")
+        cs.say("vis-cull", case=label, **cs.vis_stats(args))
+    if vis_only:
+        print(smi)
+        return
+
     def epi_args(e, state, ss, nearest=False):
         cam = rc.camera_grid(state, w * ss, h * ss)
         rows, paired = rc.static_rows(e._bank, state, cam, e._pg_wall, e.plan)
@@ -150,7 +176,6 @@ def main(other_dirs, unequal=False):
     paired = (bank.pg_verts9_alt, bank.pg_attr_alt, maze_ss._pg_wall, ms_state.wall_open)
     ab(f"tri_pass multi paired {cs.MAZE_ID} ss=2 B={cs.B_MAZE}",
        lambda: rc.tri_pass(*tri2, None, paired, maze_ss.tri_chunk))
-    maze = env(cs.MAZE_ID, cs.B_MAZE)
     m_state = cs.random_maze_states(maze, gen)
     cam1 = rc.camera_grid(m_state, w, h)
     tri1 = (maze._bank.pg_verts9, maze._bank.pg_attr, m_state.layout_id, cam1, maze._all_quads)
@@ -171,7 +196,6 @@ def main(other_dirs, unequal=False):
        same=ent_equal, kernel="entity_pass_kernel")
     ab(f"entity_pass {cs.MAZE_ID} B={cs.B_MAZE}", ent_run(maze, m_state, cam1), same=ent_equal,
        kernel="entity_pass_kernel")
-    pick = env(cs.PICK_ID, cs.B_PICK)
     pk_state = cs.facing_states(pick, gen, (0.5, 0.5), (11.5, 11.5))
     ab(f"entity_pass {cs.PICK_ID} B={cs.B_PICK}",
        ent_run(pick, pk_state, rc.camera_grid(pk_state, w, h)), same=ent_equal,
@@ -257,7 +281,8 @@ def say_ptxas(build, log):
     spills = [f"{fn}: {spill} bytes" for fn, (_, spill, _) in props.items() if spill]
     regs = [f"{fn}: {r}" for fn, (_, _, r) in props.items()
             if any(k in fn for k in ("tri_pass_multi", "tri_pass_ortho", "topview_epilogue",
-                                     "pixel_epilogue_ss2", "entity_pass", "mazegen"))]
+                                     "pixel_epilogue_ss2", "entity_pass", "mazegen",
+                                     "visible_ents"))]
     frames = [f"{fn}: {frame}" for fn, (frame, _, _) in props.items() if "mazegen" in fn]
     cs.say("ab-build", build=build, spills=repr(" | ".join(spills)),
            registers=repr(" | ".join(regs)), mazegen_stack_frames=repr(" | ".join(frames)))
@@ -265,8 +290,8 @@ def say_ptxas(build, log):
 
 if __name__ == "__main__":
     args = sys.argv[1:]
-    flag = "--unequal" in args
-    dirs = [a for a in args if a != "--unequal"]
+    flags = ("--unequal", "--visible-ents")
+    dirs = [a for a in args if a not in flags]
     if not dirs:
         raise SystemExit(__doc__)
-    main(dirs, flag)
+    main(dirs, "--unequal" in args, "--visible-ents" in args)

@@ -79,6 +79,9 @@ ENTRY_POINTS = {
     # rows, row_code, layout_id, wall_open, camera, ent_pos, ent_alive, B,
     # Sr, E, W, H, NW, visible, stream
     "mw_visible_ents": [_P] * 4 + _CAM + [_P] * 2 + [_I] * 6 + [_P] * 2,
+    # the same, then stats (6 u64: envs staged, pairs kept, slab tests,
+    # occlusion scans, rows scanned, rows staged), stream
+    "mw_visible_ents_stats": [_P] * 4 + _CAM + [_P] * 2 + [_I] * 6 + [_P] * 3,
 }
 
 _LIB = None

@@ -38,6 +38,9 @@ BOX_H = 0.2
 VIS_FIELDS = 12
 # The most entity slots the kernel flags (csrc/visible_ents.cu MAX_E)
 MAX_KERNEL_ENTS = 64
+# The kernel's counts (csrc/visible_ents.cu N_STATS) and its tiles
+N_STATS = 6
+VIS_TILE = (16, 8)
 
 
 class VisStatics(NamedTuple):
@@ -114,37 +117,49 @@ def room_depth_plain(st: VisStatics, layout_id, wall_open, cam: Camera):
     return torch.cat(out)
 
 
-def visible_ents_plain(st: VisStatics, layout_id, wall_open, cam: Camera, ent_pos, ent_alive):
-    """Plain version of the visible_ents kernel (visibility.visible_ents):
-    (B, E) bool, alive and some pixel whose ray enters the entity's query
-    box (pos + (-0.1, 0, -0.1) to pos + (0.1, 0.2, 0.1); slabs by true
-    division with |d| < 1e-12 taken as 1e-12) at t_in <= t_out, NEAR <
-    t_in < FAR, in front of ``room_depth_plain``. cam: the agent camera
-    at the observation's size. Runs over blocks of envs."""
-    d_static = room_depth_plain(st, layout_id, wall_open, cam)  # (B, HW)
-    b, E = ent_alive.shape
+def box_entry(cam: Camera, ent_pos):
+    """(t_in, hit) (B, HW, E): where each pixel's ray enters each entity's
+    query box (pos + (-0.1, 0, -0.1) to pos + (0.1, 0.2, 0.1); slabs by
+    true division of ((pos + lo) - o) with |d| < 1e-12 taken as 1e-12),
+    hit where t_in <= t_out and NEAR < t_in < FAR; no depth, no liveness."""
     dev = ent_pos.device
     lo_off = torch.tensor([-BOX_R, 0.0, -BOX_R], dtype=torch.float32, device=dev)
     hi_off = torch.tensor([BOX_R, BOX_H, BOX_R], dtype=torch.float32, device=dev)
+    d = _rays(cam)  # (n, HW, 3)
+    safe_d = torch.where(d.abs() < 1e-12, torch.full_like(d, 1e-12), d)[:, :, None, :]
+    o = cam.origin[:, None, None, :]
+    pos = ent_pos[:, None, :, :]  # (n, 1, E, 3)
+    t1 = ((pos + lo_off) - o) / safe_d  # (n, HW, E, 3)
+    t2 = ((pos + hi_off) - o) / safe_d
+    t_in = torch.minimum(t1, t2).amax(dim=3)
+    t_out = torch.maximum(t1, t2).amin(dim=3)
+    return t_in, (t_in <= t_out) & (t_in > NEAR) & (t_in < FAR)
+
+
+def visible_ents_plain(st: VisStatics, layout_id, wall_open, cam: Camera, ent_pos, ent_alive):
+    """Plain version of the visible_ents kernel (visibility.visible_ents):
+    (B, E) bool, alive and some pixel whose ray enters the entity's query
+    box (``box_entry``) in front of ``room_depth_plain``. cam: the agent
+    camera at the observation's size. Runs over blocks of envs."""
+    d_static = room_depth_plain(st, layout_id, wall_open, cam)  # (B, HW)
+    b, E = ent_alive.shape
     out = []
     for sl in _env_blocks(b, E * cam.width * cam.height * 3):
-        d = _rays(Camera(*(x[sl] for x in cam[:6]), cam.xbase, cam.ybase))  # (n, HW, 3)
-        safe_d = torch.where(d.abs() < 1e-12, torch.full_like(d, 1e-12), d)[:, :, None, :]
-        o = cam.origin[sl][:, None, None, :]
-        pos = ent_pos[sl][:, None, :, :]  # (n, 1, E, 3)
-        t1 = ((pos + lo_off) - o) / safe_d  # (n, HW, E, 3)
-        t2 = ((pos + hi_off) - o) / safe_d
-        t_in = torch.minimum(t1, t2).amax(dim=3)
-        t_out = torch.maximum(t1, t2).amin(dim=3)
-        hit = ((t_in <= t_out) & (t_in > NEAR) & (t_in < FAR)
-               & (t_in < d_static[sl][:, :, None]))
+        t_in, hit = box_entry(Camera(*(x[sl] for x in cam[:6]), cam.xbase, cam.ybase),
+                              ent_pos[sl])
+        hit = hit & (t_in < d_static[sl][:, :, None])
         out.append(ent_alive[sl] & hit.any(dim=1))
     return torch.cat(out)
 
 
-def visible_ents(st: VisStatics, layout_id, wall_open, cam: Camera, ent_pos, ent_alive):
+def visible_ents(st: VisStatics, layout_id, wall_open, cam: Camera, ent_pos, ent_alive,
+                 stats=None):
     """The visible_ents kernel for CUDA tensors, the plain version for CPU
-    tensors. Same contract as ``visible_ents_plain``."""
+    tensors. Same contract as ``visible_ents_plain``. ``stats``: a (6,)
+    int64 CUDA tensor of zeros to which the kernel adds its counts (envs
+    that staged rows, (tile, entity) pairs the cull kept, slab tests,
+    occlusion scans, rows those scans tested, rows staged); not read on
+    the CPU."""
     wo = () if wall_open is None else (wall_open,)
     if not is_cuda(layout_id, st.rows, cam.origin, ent_pos, ent_alive, *wo):
         return visible_ents_plain(st, layout_id, wall_open, cam, ent_pos, ent_alive)
@@ -157,8 +172,9 @@ def visible_ents(st: VisStatics, layout_id, wall_open, cam: Camera, ent_pos, ent
     alive = ent_alive.to(torch.uint8).contiguous()
     out = torch.zeros((b, E), dtype=torch.uint8, device=ent_pos.device)
     cam_ptrs, _cam_tensors = _cam_args(cam, b)
+    extra = () if stats is None else (check(stats, "stats", torch.int64, (N_STATS,)),)
     launch(
-        "mw_visible_ents", "visible_ents",
+        "mw_visible_ents" if stats is None else "mw_visible_ents_stats", "visible_ents",
         check(st.rows, "rows", torch.float32, (L, sr, VIS_FIELDS)),
         check(st.row_code, "row_code", torch.int32, (L, sr)),
         check(layout_id, "layout_id", torch.int32, (b,)),
@@ -170,6 +186,7 @@ def visible_ents(st: VisStatics, layout_id, wall_open, cam: Camera, ent_pos, ent
         ctypes.c_int(b), ctypes.c_int(sr), ctypes.c_int(E), ctypes.c_int(cam.width),
         ctypes.c_int(cam.height), ctypes.c_int(nw),
         check(out, "visible", torch.uint8, (b, E)),
+        *extra,
         stream(),
     )
     return out.bool()

@@ -23,7 +23,10 @@ tile's rays and the plane NEAR / 2 in front of the eye. ``mazegen_walk``
 copies the mazegen kernel's step (csrc/mazegen.cu): packed neighbour
 entries, a visited bitmask, a 4-bit candidate mask whose pick-th set bit
 is found by clearing the lowest set bit pick times, the top cell kept
-apart from the stack.
+apart from the stack. ``vis_tile_keep`` and ``vis_occluded`` copy the
+visible_ents kernel's cull (csrc/visible_ents.cu: the query box's sphere
+taken from its slab numerators, against the same planes) and its
+occlusion scan with early exit; ``vis_visible`` puts them together.
 """
 
 import math
@@ -34,6 +37,7 @@ import torch
 from miniworld_tpu_torch.ops import geom, mazegen
 from miniworld_tpu_torch.render import raycast as trc
 from miniworld_tpu_torch.render import topview as ttop
+from miniworld_tpu_torch.render import visibility as tvis
 
 
 def first_chunk_rank(n_rows, tri_chunk):
@@ -322,6 +326,15 @@ def entity_tile_keep(ent_pos, ent_size, ent_height, flags, cam, has_sphere=True,
     cf, cr, cu = dot(cam.fwd), dot(cam.right), dot(cam.up)
     dist = geom.sqrt(c0 * c0 + c1 * c1 + c2 * c2)
     rho = torch.where(live, rad + ENT_CULL_MARGIN * (dist + rad), torch.full_like(rad, -1.0))
+    return _tile_keep(cf, cr, cu, rho, cam, tile)
+
+
+def _tile_keep(cf, cr, cu, rho, cam, tile):
+    """(B, n_tiles, E) bool: the spheres (camera coordinates cf, cr, cu of
+    their centres about the eye, grown radius rho; rho < 0 marks a slot
+    never kept) that the tiles' four side planes and the plane NEAR / 2
+    keep, tiles row-major, as entity_pass.cu and visible_ents.cu test
+    them."""
     xv = cam.xbase[None, :] * cam.tan_x[:, None]  # (B, W), as the kernel rounds it
     yv = cam.ybase[None, :] * cam.tan_y[:, None]
     (xlo, xhi), (ylo, yhi) = _spans(xv, tile[0]), _spans(yv, tile[1])
@@ -343,6 +356,74 @@ def entity_tile_keep(ent_pos, ent_size, ent_height, flags, cam, has_sphere=True,
            | (cu - yhi * cf > rho * norm(yhi)) | (ylo * cf - cu > rho * norm(ylo))
            | (cf + rho < 0.5 * trc.NEAR))
     return ~(rho < 0.0) & ~out
+
+
+VIS_CULL_MARGIN = 2.0 ** -6  # csrc/visible_ents.cu CULL_MARGIN
+
+
+def vis_tile_keep(cam, ent_pos, ent_alive, tile=tvis.VIS_TILE):
+    """(B, n_tiles, E) bool: the entities the visible_ents kernel keeps for
+    each of its tiles, computed as it computes them: the sphere of each
+    alive entity's query box taken from the slab numerators n_lo = (pos +
+    lo) - o and n_hi = (pos + hi) - o (centre (n_lo + n_hi) / 2, radius
+    |n_hi - n_lo| / 2, both about the eye), grown to rho = R + 2^-6 (|c| +
+    R), against the tile's four side planes and the plane NEAR / 2."""
+    lo_off = torch.tensor([-tvis.BOX_R, 0.0, -tvis.BOX_R], dtype=torch.float32)
+    hi_off = torch.tensor([tvis.BOX_R, tvis.BOX_H, tvis.BOX_R], dtype=torch.float32)
+    o = cam.origin[:, None, :]
+    n_lo, n_hi = (ent_pos + lo_off) - o, (ent_pos + hi_off) - o  # (B, E, 3)
+    c0, c1, c2 = (0.5 * (n_lo + n_hi)).unbind(-1)
+    h0, h1, h2 = (0.5 * (n_hi - n_lo)).unbind(-1)
+    rad = geom.sqrt(h0 * h0 + h1 * h1 + h2 * h2)
+    dist = geom.sqrt(c0 * c0 + c1 * c1 + c2 * c2)
+
+    def dot(v):  # (B, E)
+        return c0 * v[:, 0:1] + c1 * v[:, 1:2] + c2 * v[:, 2:3]
+
+    rho = torch.where(ent_alive, rad + VIS_CULL_MARGIN * (dist + rad),
+                      torch.full_like(rad, -1.0))
+    return _tile_keep(dot(cam.fwd), dot(cam.right), dot(cam.up), rho, cam, tile)
+
+
+def vis_occluded(st, layout_id, wall_open, cam, t_in):
+    """(B, HW, E) bool: the visible_ents kernel's occlusion scan at each
+    pixel and entity, computed as it computes it: each live room row's
+    det, u, v, cov and t = t_num * (1 / det) by the plain version's
+    operations and its gates (det > 1e-12, u >= 0, v >= 0, cov <= det,
+    NEAR < t < FAR); the scan stops at a gated row with t <= t_in, and the
+    pixel is occluded where such a row exists, in whatever order the rows
+    are scanned."""
+    lid = layout_id.long()
+    r = st.rows[lid]  # (B, Sr, 12)
+    v0, e1, e2 = r[..., 0:3], r[..., 3:6], r[..., 6:9]
+    s = cam.origin[:, None, :] - v0
+    g_det, g_u, g_v = geom.cross(e2, e1), geom.cross(e2, s), geom.cross(s, e1)
+    t_num = (e2[..., 0] * g_v[..., 0] + e2[..., 1] * g_v[..., 1]) + e2[..., 2] * g_v[..., 2]
+    d = tvis._rays(cam)[:, :, None, :]  # (B, HW, 1, 3)
+
+    def dot(g):  # (B, HW, Sr)
+        g = g[:, None, :, :]
+        return (d[..., 0] * g[..., 0] + d[..., 1] * g[..., 1]) + d[..., 2] * g[..., 2]
+
+    det, u, v = dot(g_det), dot(g_u), dot(g_v)
+    cov = torch.maximum(u, v) + r[:, None, :, 9] * torch.minimum(u, v)
+    gate = (det > 1e-12) & (u >= 0.0) & (v >= 0.0) & (cov <= det)
+    t = t_num[:, None, :] * (1.0 / torch.where(gate, det, torch.ones_like(det)))
+    live = ttop.row_live(st.row_code[lid], wall_open)  # (B, Sr)
+    hit = gate & (t > trc.NEAR) & (t < trc.FAR) & live[:, None, :]
+    return (hit[..., None] & (t[..., None] <= t_in[:, :, None, :])).any(dim=2)
+
+
+def vis_visible(st, layout_id, wall_open, cam, ent_pos, ent_alive):
+    """(B, E) bool: the visible_ents kernel's result, computed as it
+    computes it: the tile cull (``vis_tile_keep``), the slab test at the
+    pixels of the tiles that keep the entity, and the occlusion scan
+    (``vis_occluded``) where it hits."""
+    keep = vis_tile_keep(cam, ent_pos, ent_alive)  # (B, T, E)
+    keep_px = keep[:, entity_tile_of_pixel(cam.width, cam.height, tvis.VIS_TILE), :]
+    t_in, hit = tvis.box_entry(cam, ent_pos)
+    occluded = vis_occluded(st, layout_id, wall_open, cam, t_in)
+    return (keep_px & hit & ~occluded).any(dim=1)
 
 
 def mazegen_walk(us, rows, cols):
