@@ -57,6 +57,20 @@ B=1024, and Hallway nearest at B=128 against its plain path, exactly.
 The continuous-action ids follow: RoomObjects' render stages at B=4096
 against their plain versions, its rollout at B=4096 and a short PutNext
 one on (B, 6) action vectors, both at B=128 against their plain paths.
+CollectHealth at B=1024: its render stages against their plain versions
+(tri_pass with the 18 kits' 864 mesh rows in its launch, on every
+pixel), timed, the torch gather of the mesh rows beside them; the kit
+respawn's place_one kernel against _place_one env for env (a step's
+inputs, radii scaled until most envs exhaust the budget, budgets 0, 31
+and 40, and the 8x8 procgen Maze's agent row, gated walls, equal to
+place_all's agent), a pickup step through the kernels and the plain
+versions (states equal, kits respawned), then its rollout against the
+plain path, exactly, with breakdown and profile. CameraControl and
+CameraControlClick at B=1024 against their plain paths, exactly, the
+crosshair red on every frame and the overlay timed; tri_pass (mesh rows
+included), entity_pass and the SS=1 and SS=2 epilogues held on every
+pixel at CameraControl's extremes (B=256: fov 20 and 90, pitch +-89,
+cameras 0.1 m from a wall, facing it).
 Then the top view (view="top"): tri_pass_ortho and topview_epilogue held
 exactly against their plain versions at B=128 on Hallway, PickupObjects,
 FourRooms nearest, Sign, the 8x8 procgen Maze (also at 96x72, where each
@@ -130,18 +144,18 @@ PICK_ID = "MiniWorld-PickupObjects-v0"
 B, W, H = 1024, 80, 60  # Hallway, and the FourRooms / TMaze / parity rollouts
 B_PICK = 4096  # PickupObjects, the reference's BASELINE batch for it
 # The horizons are cut to keep the run near ten minutes as paths are
-# added: 20 steps for the main paths, 10 for the short ones and for the
-# profiles of the main paths (PROFILE_STEPS; 20 until the scheduled paths
-# came)
+# added: 20 steps for the main paths, 8 for the short ones, 6 for the
+# profiles of the main paths (PROFILE_STEPS), 4 for the kernel-vs-plain
+# rollouts (PLAIN_HORIZON: a plain step takes up to a second)
 HORIZON = 20
-PROFILE_STEPS = 10
+PROFILE_STEPS = 6
 TRIALS = 2  # Hallway; PickupObjects runs PICK_TRIALS
 PICK_TRIALS = 3
-SHORT_HORIZON = 10  # FourRooms, TMaze, MazeS3 bank-mode and the PickupObjects parity rollouts
+SHORT_HORIZON = 8  # FourRooms, TMaze, MazeS3 bank-mode and the PickupObjects parity rollouts
 MAZE_ID = "MiniWorld-Maze-v0"  # 8x8, procgen: BASELINE config 4
 MAZE_S3_ID = "MiniWorld-MazeS3-v0"
 B_MAZE = 8192
-MAZE_S3_STEPS = 10  # episode length of the MazeS3 parity rollout: every env resets
+MAZE_S3_STEPS = 6  # episode length of the MazeS3 parity rollout: every env resets
 MAZE_S3_HORIZON = 2 * MAZE_S3_STEPS  # its trials: two episodes each
 # the widest static banks: Sidewalk (S = 3,072 in 3 chunks of 1,024) and
 # WallGap / NavigateWallGap (S = 2,048, 2 chunks), main paths at B
@@ -149,7 +163,7 @@ SIDE_ID, WALL_ID, NAV_ID = ("MiniWorld-Sidewalk-v0", "MiniWorld-WallGap-v0",
                             "MiniWorld-NavigateWallGap-v0")
 B_STAGE = 64  # the multi-chunk stage checks
 B_PLAIN = 128  # the multi-chunk ids' and YMaze's kernel-vs-plain rollouts
-PLAIN_HORIZON = 6
+PLAIN_HORIZON = 4
 # Sign: the SDF glyph branch of the epilogue at K = 64, dict observations;
 # GreenKey and ThreeRooms: the other discrete-table ids of the slice
 SIGN_ID, GREEN_ID, THREE_ID = ("MiniWorld-Sign-v0", "MiniWorld-GreenKey-v0",
@@ -162,6 +176,12 @@ SCHED_IDS = ((THREE_ID, {}), (FOUR_ID, {}), (MAZE_S3_ID, {"procgen": False}))
 # placement at budget 48 and agent radius 1.5, and PutNext
 ROOM_ID, PUTNEXT_ID = "MiniWorld-RoomObjects-v0", "MiniWorld-PutNext-v0"
 B_ROOM = 4096
+# the last three ids: CollectHealth (18 medkit meshes, 864 mesh rows a
+# render, the kit respawn's place_one every step) at B, and the camera ids
+# (their own physics, reset and crosshair) at B, their extremes at B_EXT
+HEALTH_ID, CAM_ID, CLICK_ID = ("MiniWorld-CollectHealth-v0", "MiniWorld-CameraControl-v0",
+                               "MiniWorld-CameraControlClick-v0")
+B_EXT = 256
 SHORT_IDS = ("MiniWorld-OneRoom-v0", "MiniWorld-OneRoomS6-v0", "MiniWorld-OneRoomS6Fast-v0",
              "MiniWorld-YMaze-v0", "MiniWorld-YMazeLeft-v0", "MiniWorld-YMazeRight-v0")
 
@@ -193,6 +213,9 @@ KERNELS = {
               "miniworld_tpu/ops/place.py:65"),
     "mazegen": ("miniworld_tpu_torch/csrc/mazegen.cu",
                 "miniworld_tpu/ops/mazegen.py:92"),
+    # the in-step placement: CollectHealth's respawn calling place_one
+    "place_one": ("miniworld_tpu_torch/csrc/place.cu",
+                  "miniworld_tpu/envs/interact.py:200"),
 }
 MAZE_KERNELS = ("tri_pass", "entity_pass", "pixel_epilogue", "place", "mazegen")
 # the top view's kernels (view="top") and the visibility query's
@@ -580,7 +603,8 @@ def run_stage_checks(tri_args, ent_args, epi_rest, case, timings=None, mesh=None
     also timed by CUDA events, the kernel over 50 runs and the plain
     version over ``plain_iters``; with mesh rows also tri_pass without
     them ("tri_pass_unmeshed"). ``tri_chunk``: tri_pass scans the rows in
-    chunks of it (the multi-chunk launch above one chunk)."""
+    chunks of it (the multi-chunk launch above one chunk). ``ent_args``
+    None: no analytic entity (CollectHealth), no entity_pass."""
     from miniworld_tpu_torch.render import raycast as rc
 
     verts9, attr, layout_id, cam, all_quads = tri_args
@@ -589,10 +613,13 @@ def run_stage_checks(tri_args, ent_args, epi_rest, case, timings=None, mesh=None
     if mesh is not None:
         out["entity_mesh_pass"] = out["tri_pass"]
 
-    ent, has_sphere, has_box = ent_args
-    e_k = rc.entity_pass(*ent, cam, has_sphere, has_box)
-    e_p = rc.entity_pass_plain(*ent, cam, has_sphere, has_box)
-    out["entity_pass"] = check_entity_pass(e_k, e_p, case)
+    if ent_args is None:  # no analytic entity: the render runs no entity_pass
+        e_k = (None, None, None)
+    else:
+        ent, has_sphere, has_box = ent_args
+        e_k = rc.entity_pass(*ent, cam, has_sphere, has_box)
+        e_p = rc.entity_pass_plain(*ent, cam, has_sphere, has_box)
+        out["entity_pass"] = check_entity_pass(e_k, e_p, case)
 
     atlas, lights, k_terms, table = epi_rest
     # both epilogue versions read the kernels' hit results; the kernel
@@ -628,12 +655,13 @@ def run_stage_checks(tri_args, ent_args, epi_rest, case, timings=None, mesh=None
                                             paired), 50),
                 cuda_ms(lambda: rc.tri_pass_plain(verts9, attr, layout_id, cam, all_quads,
                                                   paired=paired), plain_iters, PLAIN_WARMUP))
-        timings["entity_pass"] = (
-            cuda_ms(lambda: rc.entity_pass(*ent, cam, has_sphere, has_box), 50),
-            cuda_ms(lambda: rc.entity_pass_plain(*ent, cam, has_sphere, has_box),
-                    plain_iters, PLAIN_WARMUP),
-            kernel_ms(lambda: rc.entity_pass(*ent, cam, has_sphere, has_box), 50,
-                      "entity_pass_kernel"))
+        if ent_args is not None:
+            timings["entity_pass"] = (
+                cuda_ms(lambda: rc.entity_pass(*ent, cam, has_sphere, has_box), 50),
+                cuda_ms(lambda: rc.entity_pass_plain(*ent, cam, has_sphere, has_box),
+                        plain_iters, PLAIN_WARMUP),
+                kernel_ms(lambda: rc.entity_pass(*ent, cam, has_sphere, has_box), 50,
+                          "entity_pass_kernel"))
         timings["pixel_epilogue"] = (
             cuda_ms(lambda: rc.pixel_epilogue(t_k, a_k, *e_k, atlas, cam, *lights,
                                               k_terms, table=table), 50),
@@ -946,7 +974,8 @@ def stage_work(env, state, tri, ent, outs, tri_hits, mesh=None, paired=None):
     work["tri_pass_full_scan"] = (tri_bytes, full_scan_ops)
     if mesh is not None:
         work["entity_mesh_pass"] = work["tri_pass"]
-    work["entity_pass"], work["entity_pass_full_scan"] = ent_work(ent[0][5], e_k[0], W, H)
+    if ent is not None:
+        work["entity_pass"], work["entity_pass_full_scan"] = ent_work(ent[0][5], e_k[0], W, H)
     k = env.fourier_k
     read, textured = texel_reads(t_k, a_k, e_k[0], env._fourier_table.shape[0])
     work["pixel_epilogue"] = (b * hw * 4 + read * 32 + ent_read_bytes(t_k, e_k[0])
@@ -1384,23 +1413,29 @@ def ent_read_bytes(t_tri, t_ent):
 # the placement kernel
 
 
-def capture_place_args(env, seed):
-    """The inputs a reset gives ``place_all`` (captured from env.reset)."""
+def capture_place(name, run):
+    """(args, kwargs) of the call of ``ops.place.<name>`` that ``run()``
+    makes: ``place_all`` in a reset, ``place_one`` in CollectHealth's step."""
     from miniworld_tpu_torch.ops import place as place_ops
 
     captured = {}
-    orig = place_ops.place_all
+    orig = getattr(place_ops, name)
 
     def capture(*args, **kwargs):
         captured["args"], captured["kwargs"] = args, kwargs
         return orig(*args, **kwargs)
 
-    place_ops.place_all = capture
+    setattr(place_ops, name, capture)
     try:
-        env.reset(seed=seed)
+        run()
     finally:
-        place_ops.place_all = orig
+        setattr(place_ops, name, orig)
     return captured["args"], captured["kwargs"]
+
+
+def capture_place_args(env, seed):
+    """The inputs a reset gives ``place_all``."""
+    return capture_place("place_all", lambda: env.reset(seed=seed))
 
 
 def place_work(args, kwargs, first):
@@ -2246,17 +2281,18 @@ def phase_sched_stages(cases, timed_cases):
     return err, timings, work, checked
 
 
-def check_render_stages(env, state, label):
+def check_render_stages(env, state, label, route=None):
     """The env's render of ``state`` at its main path's shapes, through the
     kernels against the plain versions: entity_pass against
     entity_pass_plain (exactly, check_entity_pass), the SS pixel_epilogue
     against pixel_epilogue_plain on the kernels' hits (exact), then the
     whole render, env.render with use_kernels False (RGB and depth equal).
-    Returns the max abs entity t error."""
+    ``route`` (sched_route by default) gives tri_pass's inputs. Returns the
+    max abs entity t error."""
     from miniworld_tpu_torch.render import raycast as rc
 
     ss = env.supersample
-    tri, mesh, override = sched_route(env, state)
+    tri, mesh, override = (route or sched_route)(env, state)
     cam = tri[3]
     t_k, a_k = rc.tri_pass(*tri, mesh, None, None, override)
     case = (f"{label} B={env.num_envs} out={env.obs_width}x{env.obs_height} "
@@ -2418,13 +2454,16 @@ def path_kernels(env):
     instances its statics take (the glyph epilogue, SS=2, the multi-chunk
     kernel, the paired scan over more than one chunk, the nearest
     epilogue, the float32 carry);
-    with view="top" the top view's kernels instead of the render's."""
+    with view="top" the top view's kernels instead of the render's; the
+    in-step placement on CollectHealth."""
     if env.view == "top":  # the top view's two kernels and the reset's
         return (("tri_pass_ortho", "topview_epilogue", "place")
+                + (("place_one",) if env.spec.name == "CollectHealth" else ())
                 + (("mazegen",) if env.procgen else ())
                 + (("topview_epilogue_nearest",) if env.tex_mode == "nearest" else ()))
     present = env._shapes_present
     names = ["tri_pass", "pixel_epilogue", "place"]
+    names += ["place_one"] if env.spec.name == "CollectHealth" else []
     names += ["entity_pass"] if present[0] or present[1] else []
     names += ["entity_mesh_pass"] if present[2] else []
     names += ["mazegen"] if env.procgen else []
@@ -2681,6 +2720,289 @@ def phase_continuous(room, make_env, rates):
         rates[env.spec.name.lower() + f"_b{B_PLAIN}"] = kernel_and_plain(
             env, PLAIN_HORIZON, TRIALS, path_kernels(env))[:2]
     return launches, stage_errs
+
+
+# ---------------------------------------------------------------------------
+# the last three ids: CollectHealth (the in-step placement, place_one; 864
+# mesh rows a render) and the camera ids (their own physics and reset, the
+# crosshair overlay; the camera at its extremes)
+
+
+def reach_states(env, gen, dist=0.8, seed=7):
+    """States from a reset with agent i ``dist`` from its kit i mod E, at
+    a uniform yaw facing it (pickup's probe reaches it where no wall is in
+    the way)."""
+    state, _ = env.reset(seed=seed)
+    n = env.num_envs
+    yaw = (torch.rand(n, generator=gen).to(env.device) * 2.0 - 1.0) * math.pi
+    slot = torch.arange(n, device=env.device) % state.ent_pos.shape[1]
+    kit = state.ent_pos[torch.arange(n, device=env.device), slot]
+    # forward is (cos d, 0, -sin d)
+    pos = torch.stack([kit[:, 0] - dist * torch.cos(yaw), torch.zeros_like(yaw),
+                       kit[:, 2] + dist * torch.sin(yaw)], dim=1)
+    return state.replace(pos=pos, dir=yaw)
+
+
+def check_place_one(label, args, kwargs):
+    """place_one kernel vs _place_one: positions and directions equal, env
+    for env; returns (max abs difference (0), each env's first passing
+    try in the plain version, ``budget`` where all failed)."""
+    from miniworld_tpu_torch.ops import place as place_ops
+
+    k_out = place_ops.place_one(*args, **kwargs)
+    *p_out, first = place_ops._place_one(*args, **kwargs)
+    n = args[0].shape[0]
+    budget = kwargs.get("budget", 16)
+    differ = torch.zeros(n, dtype=torch.bool, device=args[0].device)
+    err = 0.0
+    for a, b in zip(k_out, p_out):
+        differ |= (a != b).reshape(n, -1).any(dim=1)
+        err = max(err, float((a - b).abs().max()))
+    say("kernel-vs-plain", kernel="place_one", case=f"{label} B={n} O={args[12].shape[1]} "
+        f"budget={budget}", envs_differ=int(differ.sum()), max_abs_err=f"{err:.3e}",
+        envs_exhausted=f"{float((first == budget).float().mean()):.3f}",
+        tries_per_env=f"{float(torch.clamp(first + 1, max=budget).float().mean()):.3f}")
+    if bool(differ.any()):
+        raise AssertionError(f"place_one ({label}): {int(differ.sum())} envs differ")
+    return err, first
+
+
+def place_one_work(args, kwargs, first):
+    """(bytes, float operations) of one place_one launch on these inputs,
+    counting what its outputs depend on: the env's room CDF (R
+    multiply-adds), then each try up to the first pass (all ``budget``
+    and the fallback where none passes): a room draw by bisection where
+    the rule does not fix the room (2 ceil(log2(R + 1))), bbox and
+    position 10, outline 4V, walls 22 per segment, 8 per live obstacle;
+    the direction 3. Bytes: the per-env inputs (seed, layout, rule row,
+    radius, obstacles) and the bank's room tensors read once, position
+    and direction written once."""
+    seed, bank, _, rule_room = args[:4]
+    xz, r_obs, mask = args[10:13]
+    n, n_obs = mask.shape
+    budget = kwargs.get("budget", 16)
+    R = bank.room_mask.shape[1]
+    V, ns = bank.room_outline.shape[2], bank.room_segs.shape[3]
+    room_bytes = sum(t.numel() * t.element_size() for t in [
+        bank.room_mask, bank.room_area, bank.room_aabb, bank.room_outline,
+        bank.room_norms, bank.room_vmask, bank.room_segs])
+    nbytes = n * (4 + 4 + 44 + 4 + n_obs * 13) + room_bytes + n * 16
+    draw = (rule_room < 0).long() * 2 * math.ceil(math.log2(R + 1))
+    per_try = draw + 10 + 4 * V + 22 * ns + 8 * mask.long().sum(1)
+    found = first < budget
+    tries = torch.where(found, first + 1, torch.full_like(first, budget))
+    fallback = torch.where(found, torch.zeros_like(first), 2 * draw + 18)
+    return nbytes, int((tries * per_try + fallback + 3).sum()) + 2 * R * n
+
+
+def phase_collecthealth(health, maze, rates):
+    """CollectHealth at B=1024, 80x60: its render stages against their
+    plain versions with every env facing a kit (tri_pass with the 18
+    kits' 864 mesh rows in its launch, on every pixel), timed, the torch
+    gather of the mesh rows timed beside them; place_one against
+    _place_one env for env on a step's inputs (carrying varied), with the
+    kits' radii scaled until most envs exhaust the budget, with budgets
+    0, 31 and 40, and on the 8x8 procgen Maze's agent row (its gated
+    walls) against place_all's agent; a pickup step of envs facing their
+    kits through the kernels and through the plain versions, states
+    equal, kits respawned; then the main path, a rollout through the
+    kernels (place_one every step) against the plain path, exactly, with
+    its breakdown and profile. Returns ({kernel: max abs error}, timings,
+    work, the main path's launches)."""
+    from miniworld_tpu_torch.ops import place as place_ops
+    from miniworld_tpu_torch.ops.rng import key_data
+    from miniworld_tpu_torch.render import raycast as rc
+
+    gen = torch.Generator().manual_seed(1818)
+    size = health.spec.size
+    state = facing_states(health, gen, (0.5, 0.5), (size - 0.5, size - 0.5))
+    cam, tri, _, epi = stage_inputs(health, state)
+    ent = None  # 18 medkit meshes, no analytic entity
+    rows9, row_attrs, valid = rc.entity_mesh_rows(health._bank, state)
+    n_rows = rows9.shape[2]
+    if n_rows != 864 or health._shapes_present[0] or health._shapes_present[1]:
+        raise AssertionError(f"CollectHealth: {n_rows} mesh rows, shapes "
+                             f"{health._shapes_present}")
+    timings = {}
+    pick_device_ms = DEVICE_MS.get(("tri_pass", "mesh"))  # PickupObjects', kept
+    errs, outs = run_stage_checks(
+        tri, ent, epi, f"collecthealth B={health.num_envs} HW={W * H} S={tri[0].shape[2]} "
+        f"E*M={n_rows}", timings, mesh=(rows9, row_attrs))
+    timings["tri_pass_device"] = DEVICE_MS[("tri_pass", "mesh")]
+    DEVICE_MS[("tri_pass", "mesh")] = pick_device_ms
+    tile = rc.tri_pass_tile()[:2]
+    stats = tri_cull_stats(tri, tile=tile)
+    m_stats = tri_cull_stats(tri, tile=tile, mesh_rows9=rows9)
+    say("tri-cull", env=HEALTH_ID, B=health.num_envs, mesh_rows="yes",
+        **cull_fields(m_stats, tile, n_rows))
+    work = stage_work(health, state, tri, ent, outs, stats["hit_pairs"],
+                      mesh=(rows9, m_stats["hit_pairs"]))
+    mesh_t = rc.entity_mesh_pass_plain(rows9, row_attrs, cam)[0]
+    rows_ms = cuda_ms(lambda: rc.entity_mesh_rows(health._bank, state), 20)
+    rows_bytes = rows9.numel() * 4 + row_attrs.numel() * 4
+    say("health-scene", px_hit=f"{float(torch.isfinite(outs[0]).float().mean()):.3f}",
+        px_mesh_hit=f"{float(torch.isfinite(mesh_t).float().mean()):.4f}",
+        live_mesh_rows=int(valid.sum()), tri_pass_smem_bytes=(tri[0].shape[2] + n_rows) * 52,
+        mesh_rows_ms=f"{rows_ms:.4f}", mesh_rows_bytes_written=rows_bytes,
+        mesh_rows_bound_ms=f"{bound(2 * rows_bytes, 0)[0]:.4f}")
+    timings["entity_mesh_rows"] = rows_ms
+
+    # place_one: a step's inputs, with carrying varied so that the rule
+    # rows and the carried kit's mask vary
+    n = health.num_envs
+    carrying = torch.randint(-1, health.num_ent_slots, (n,), generator=gen).to(torch.int32)
+    pstate = state.replace(carrying=carrying.to(health.device))
+    acts = health.sample_actions(key_data(12, health.device))
+    args, kwargs = capture_place("place_one", lambda: health._step_batch(pstate, acts))
+    err, first = check_place_one(HEALTH_ID, args, kwargs)
+    timings["place_one"] = (
+        cuda_ms(lambda: place_ops.place_one(*args, **kwargs), 50),
+        cuda_ms(lambda: place_ops.place_one_plain(*args, **kwargs), 5, PLAIN_WARMUP),
+        kernel_ms(lambda: place_ops.place_one(*args, **kwargs), 50, "place_one_kernel"))
+    work["place_one"] = place_one_work(args, kwargs, first)
+    for scale in (2.0, 4.0, 6.0, 8.0, 12.0, 16.0, 24.0):
+        big = args[:9] + (args[9] * scale,) + args[10:]
+        first = place_ops._place_one(*big, **kwargs)[2]
+        exhausted = float((first == kwargs.get("budget", 16)).float().mean())
+        if exhausted >= 0.5:
+            break
+    if exhausted < 0.5:
+        raise AssertionError(f"place_one: only {exhausted:.3f} of the envs exhaust the budget")
+    err = max(err, check_place_one(f"{HEALTH_ID} radius x{scale}", big, kwargs)[0])
+    for budget in (0, 31, 40):
+        for label, a in (("", args), (f" radius x{scale}", big)):
+            err = max(err, check_place_one(f"{HEALTH_ID}{label} lane rounds", a,
+                                           {**kwargs, "budget": budget})[0])
+    # the Maze's agent row against the kits place_all put there: place_one
+    # with the maze's room weights and gated walls gives place_all's agent
+    m_args, m_kwargs = capture_place_args(maze, 13)
+    seeds, bank, layout_id, rules, radius, slot_mask = m_args
+    e = slot_mask.shape[1]
+    ent_pos, _, agent_pos, agent_dir = place_ops.place_all(*m_args, **m_kwargs)
+    one_args = (seeds[:, e], bank, layout_id,
+                *(rules[name][:, e] for name in place_ops.RULE_FIELDS), radius[:, e],
+                ent_pos[:, :, [0, 2]].contiguous(), radius[:, :e].contiguous(), slot_mask)
+    err = max(err, check_place_one(f"{MAZE_ID} procgen agent row", one_args, m_kwargs)[0])
+    pos, d = place_ops.place_one(*one_args, **m_kwargs)
+    if not (torch.equal(pos, agent_pos) and torch.equal(d, agent_dir)):
+        raise AssertionError("place_one on the maze's agent row differs from place_all's agent")
+    errs["place_one"] = err
+
+    # a pickup step of envs facing their kits: kernels vs plain, states
+    # equal, the kits respawned
+    rstate = reach_states(health, gen)
+    pick = torch.zeros((n, 6), device=health.device)
+    pick[:, 4] = 1.0
+    k_state, k_rew, k_done, _ = health._step_batch(rstate, pick)
+    health.use_kernels = False
+    try:
+        p_state, p_rew, p_done, _ = health._step_batch(rstate, pick)
+    finally:
+        health.use_kernels = True
+    differ = [name for name, v in k_state.tensors().items()
+              if not torch.equal(v, p_state.tensors()[name])]
+    respawned = int((k_state.task["health"] == 100).sum())
+    moved = int((k_state.ent_pos != rstate.ent_pos).any(-1).any(-1).sum())
+    say("health-respawn", B=n, envs_respawned=respawned, envs_with_a_kit_moved=moved,
+        kernel_vs_plain_fields_differ=differ or "none")
+    if differ or not (torch.equal(k_rew, p_rew) and torch.equal(k_done, p_done)):
+        raise AssertionError(f"CollectHealth pickup step: kernels and plain differ on {differ}")
+    if respawned < n // 4 or moved != respawned:
+        raise AssertionError(f"CollectHealth: {respawned} respawns, {moved} kits moved")
+
+    # the main path through the kernels, then (its plain path taking ~1 s
+    # a step) a shorter rollout through the kernels against the plain path
+    rate, outs, obs, launches, _ = rollouts(health, "kernels", SHORT_HORIZON, TRIALS)
+    check_rollout(health, outs, obs, launches, SHORT_HORIZON, TRIALS, path_kernels(health))
+    rates[f"collecthealth_b{n}"] = (rate, None)
+    rates[f"collecthealth_b{n}_h{PLAIN_HORIZON}"] = kernel_and_plain(
+        health, PLAIN_HORIZON, TRIALS, path_kernels(health), exact=True)[:2]
+    phase_breakdown(health, render_iters=5, plain_render_iters=1)
+    return errs, timings, work, launches
+
+
+def overlay_time(env):
+    """(ms, bound ms) of the crosshair overlay on the env's (B, H, W, 3)
+    frame: CUDA events over 50 calls; the bound reads the frame and the
+    (H, W) mask and writes the frame."""
+    from miniworld_tpu_torch.envs.cameracontrol import draw_crosshair
+
+    rgb = env.render(env.reset(seed=1)[0])[0]
+    ms = cuda_ms(lambda: draw_crosshair(rgb), 50)
+    return ms, bound(2 * rgb.numel() + rgb.shape[1] * rgb.shape[2], 0)[0]
+
+
+def phase_camera(cam, click, rates):
+    """The camera ids at B=1024, 80x60: each rollout through the kernels,
+    the crosshair red on every observation, then a PLAIN_HORIZON-step
+    rollout against the plain path (rewards and dones equal, checksums
+    exactly); the overlay timed. Returns ({label: launches}, overlay (ms,
+    bound ms))."""
+    from miniworld_tpu_torch.envs.cameracontrol import crosshair_mask
+
+    launches = {}
+    for env in (cam, click):
+        rate, outs, obs, launches[env.spec.name], _ = rollouts(env, "kernels", SHORT_HORIZON,
+                                                               TRIALS)
+        check_rollout(env, outs, obs, launches[env.spec.name], SHORT_HORIZON, TRIALS,
+                      path_kernels(env))
+        mask = crosshair_mask(H, W, torch.device(env.device))[:, :, 0]
+        red = torch.tensor([255, 0, 0], dtype=torch.uint8, device=env.device)
+        if not bool((obs[0][:, mask] == red).all()):
+            raise AssertionError(f"{env.spec.gym_id}: the crosshair is not red on every frame")
+        rates[env.spec.name.lower() + f"_b{env.num_envs}"] = (rate, None)
+        rates[env.spec.name.lower() + f"_b{env.num_envs}_h{PLAIN_HORIZON}"] = kernel_and_plain(
+            env, PLAIN_HORIZON, TRIALS, path_kernels(env), exact=True)[:2]
+    ms, bound_ms = overlay_time(cam)
+    say("overlay", name="crosshair", env=CAM_ID, B=cam.num_envs, ms=f"{ms:.4f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by="bytes", route="torch.where, no kernel")
+    return launches, (ms, bound_ms)
+
+
+def extreme_states(env, seed=5):
+    """States from a reset of CameraControl (each camera 0.1 m from a wall)
+    at its extremes: fov 20 or 90 and pitch +-89 in turn over the envs,
+    each combination facing its own wall (yaw + pi), the room (as reset),
+    and 45 degrees either side."""
+    state, _ = env.reset(seed=seed)
+    n = env.num_envs
+    i = torch.arange(n, device=env.device)
+    fov = torch.where(i % 2 == 0, 20.0, 90.0)
+    pitch = torch.where((i // 2) % 2 == 0, 89.0, -89.0)
+    turn = torch.tensor([math.pi, 0.0, math.pi / 4, -math.pi / 4], device=env.device)[(i // 4) % 4]
+    return state.replace(dir=state.dir + turn, cam_fov_y=fov, cam_pitch=pitch)
+
+
+def one_chunk_route(env, state):
+    """(tri_args, mesh, override) of a one-chunk render of ``state`` at the
+    env's samples, its mesh rows in the launch (no schedule, no
+    override)."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    ss = env.supersample
+    cam = rc.camera_grid(state, env.obs_width * ss, env.obs_height * ss)
+    bank = env._bank
+    mesh = rc.entity_mesh_rows(bank, state)[:2] if env._shapes_present[2] else None
+    return (bank.tri_verts9, bank.tri_attr, state.layout_id, cam, env._all_quads), mesh, None
+
+
+def phase_camera_extremes(make_env):
+    """tri_pass, entity_pass and the epilogue (SS=1 and SS=2) against their
+    plain versions on every pixel at CameraControl's extremes, B_EXT envs
+    (extreme_states). Returns {kernel: max abs error}."""
+    errs = {"tri_pass": 0.0, "entity_pass": 0.0}
+    for ss in (1, 2):
+        env = make_env(CAM_ID, B_EXT, supersample=ss)
+        if env.plan["nc"] != 1:
+            raise AssertionError(f"CameraControl plans {env.plan}")
+        state = extreme_states(env)
+        label = f"cameracontrol extremes ss={ss}"
+        tri, mesh, _ = one_chunk_route(env, state)
+        errs["tri_pass"] = max(errs["tri_pass"], check_tri_pass(
+            tri, f"{label} B={B_EXT} samples={tri[3].width}x{tri[3].height}", mesh=mesh)[2])
+        errs["entity_pass"] = max(errs["entity_pass"],
+                                  check_render_stages(env, state, label, route=one_chunk_route))
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -3391,7 +3713,12 @@ def phase_main(hall, pick, pick_small, four, tmaze):
     hall_kernels = ("tri_pass", "entity_pass", "pixel_epilogue", "place")
     pick_kernels = hall_kernels + ("entity_mesh_pass",)
     rates = {}
-    rates["hallway"] = kernel_and_plain(hall, HORIZON, TRIALS, hall_kernels)[:2]
+    # the line of record through the kernels, then against the plain path
+    rate, outs, obs, launches, _ = rollouts(hall, "kernels", HORIZON, TRIALS)
+    check_rollout(hall, outs, obs, launches, HORIZON, TRIALS, hall_kernels)
+    rates["hallway"] = (rate, None)
+    rates[f"hallway_h{PLAIN_HORIZON}"] = kernel_and_plain(hall, PLAIN_HORIZON, TRIALS,
+                                                         hall_kernels)[:2]
     phase_rollout_keys(hall)
     phase_breakdown(hall)
 
@@ -3403,7 +3730,7 @@ def phase_main(hall, pick, pick_small, four, tmaze):
         raise AssertionError("no pickup rewarded in the PickupObjects rollouts")
     rates["pickupobjects"] = (rate, None)
     pick_launches = launches
-    rates["pickupobjects_b1024"] = kernel_and_plain(pick_small, SHORT_HORIZON, TRIALS,
+    rates["pickupobjects_b1024"] = kernel_and_plain(pick_small, PLAIN_HORIZON, TRIALS,
                                                     pick_kernels)[:2]
     for env in (four, tmaze):
         r, outs, obs, launches, _ = rollouts(env, "kernels", SHORT_HORIZON, TRIALS)
@@ -3604,6 +3931,17 @@ def main():
     room_launches, room_errs = phase_continuous(room, env, rates)
     errs = {k: max(v, room_errs.get(k, 0.0)) for k, v in errs.items()}
     lap("main: roomobjects, putnext")
+    # the last three ids: CollectHealth's stages, place_one and main path;
+    # the camera ids' paths and their extremes
+    health = env(HEALTH_ID, B)
+    health_errs, health_timings, health_work, health_launches = phase_collecthealth(
+        health, maze, rates)
+    lap("main: collecthealth")
+    cam_launches, overlay = phase_camera(env(CAM_ID, B), env(CLICK_ID, B), rates)
+    ext_errs = phase_camera_extremes(env)
+    for k, v in list(health_errs.items()) + list(ext_errs.items()):
+        errs[k] = max(errs.get(k, 0.0), v)
+    lap("main: cameracontrol, cameracontrolclick, camera extremes")
     # the top view: both kernels against their plain versions at B_PLAIN
     # and at the Maze 8x8 procgen top-view main path's shapes, then its
     # main paths; the visibility query at PickupObjects' and the Maze's
@@ -3677,7 +4015,9 @@ def main():
         # PickupObjects': the tri_pass launch with mesh rows there
         mesh = k == "entity_mesh_pass"
         path_timings, path_work, launches = (
-            (pick_timings, pick_work, pick_launches) if mesh else (timings, work, maze_launches))
+            (pick_timings, pick_work, pick_launches) if mesh else
+            (health_timings, health_work, health_launches) if k == "place_one" else
+            (timings, work, maze_launches))
         bound_ms, bound_by = bound(*path_work[k])
         ms, plain_ms = path_timings["tri_pass" if mesh else k][:2]
         kernels.append({
@@ -3724,6 +4064,22 @@ def main():
         if k == "mazegen":  # the kernel alone; at one env an SM, the chain's floor
             kernels[-1]["device_ms"] = timings["mazegen"][2]
             kernels[-1]["chain_ms"] = mazegen_chain_ms
+        if k == "place_one":  # the kernel alone; at the CollectHealth path's shapes
+            kernels[-1]["device_ms"] = health_timings["place_one"][2]
+            kernels[-1]["shapes"] = f"{HEALTH_ID} B={health.num_envs} O=19 budget=16"
+            kernels[-1]["checked_on"] = [
+                "collecthealth step inputs (carrying varied)", "radius scaled to exhaust",
+                "budgets 0, 31, 40", f"maze8x8 procgen agent row B={B_MAZE} (= place_all)",
+                "pickup step kernels vs plain"]
+        if k == "tri_pass":  # with CollectHealth's 864 mesh rows in the launch
+            kernels[-1].update({
+                "ms_collecthealth_mesh864": health_timings["tri_pass"][0],
+                "plain_ms_collecthealth_mesh864": health_timings["tri_pass"][1],
+                "device_ms_collecthealth_mesh864": health_timings["tri_pass_device"],
+                "bound_ms_collecthealth_mesh864": bound(*health_work["tri_pass"])[0],
+                "bound_by_collecthealth_mesh864": bound(*health_work["tri_pass"])[1],
+                "launches_collecthealth": int(health_launches["tri_pass"]),
+                "entity_mesh_rows_ms_collecthealth": health_timings["entity_mesh_rows"]})
     # the multi-chunk kernel at the Sidewalk main path's shapes (3 chunks
     # of 1,024); its paired launch is tri_pass_paired_chunks below
     from miniworld_tpu_torch.render import raycast as rc
@@ -3912,22 +4268,35 @@ def main():
                                "paired multi-chunk: maze8x8 ss=2, paired ties",
                                "nearest, local slots: " + ", ".join(
                                    k for k, f32 in near_checked.items() if not f32),
-                               "sched: " + ", ".join(sched_checked)]
+                               "sched: " + ", ".join(sched_checked),
+                               f"mesh rows: collecthealth B={B} (864 a render)",
+                               f"cameracontrol extremes B={B_EXT} SS=1, SS=2"]
         elif k["name"] == "pixel_epilogue":
             k["checked_on"] = ["SS=1: hallway, wide, pickupobjects, maze, sidewalk, roomobjects",
                                "SS=2: hallway, pickupobjects, maze8x8-bank (+domain_rand) "
                                f"B={B} 160x120", "GAIN SS=1, SS=2: sign",
-                               "NEAREST: " + ", ".join(near_checked)]
+                               "NEAREST: " + ", ".join(near_checked),
+                               f"SS=1: collecthealth B={B}",
+                               f"SS=1, SS=2: cameracontrol extremes B={B_EXT}"]
         elif k["name"] == "entity_pass":
             k["checked_on"] = ["hallway", "wide", "pickupobjects", "wide-mesh",
                                "maze8x8 procgen", f"maze8x8 procgen ss=2 B={B_MAZE} 160x120 "
                                "samples", "sidewalk", "roomobjects",
-                               f"maze8x8-bank (+domain_rand) ss=2 B={B} 320x240 samples"]
+                               f"maze8x8-bank (+domain_rand) ss=2 B={B} 320x240 samples",
+                               f"cameracontrol extremes B={B_EXT} 80x60, 160x120 samples"]
         elif k["name"] == "place":
             k["checked_on"] = ["pickupobjects", "fourrooms", "roomobjects (budget 48)",
                                "maze8x8 procgen", "radius scaled", "budgets 0, 30, 31, 40, 48"]
     print(json.dumps({
         "kernels": kernels,
+        # no kernel: one torch.where over the frame (CameraControl's crosshair)
+        "overlays": [{"name": "crosshair", "route": "torch.where",
+                      "source": "miniworld_tpu_torch/envs/cameracontrol.py",
+                      "replaces": "miniworld_tpu/envs/cameracontrol.py:57",
+                      "ms": overlay[0], "bound_ms": overlay[1], "bound_by": "bytes",
+                      "shapes": f"{CAM_ID} B={B} {W}x{H}",
+                      "applied": "once an observation (reset, step, rollout)",
+                      "paths": sorted(cam_launches)}],
         "env_steps_per_s": {k: {"kernels": v[0], "plain": v[1]} for k, v in rates.items()},
     }))
     print(smi)

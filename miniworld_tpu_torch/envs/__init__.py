@@ -1,24 +1,21 @@
-"""Env registry of the port: the ids ported so far.
-
-The JAX package registers all 27 reference ids (miniworld_tpu/envs);
-the port adds them slice by slice (ROADMAP.md), and ``make_spec``
-names the ported set when asked for any other.
-"""
+"""Env registry of the port: the 27 reference ids of the JAX package
+(miniworld_tpu/envs/__init__.py)."""
 
 from __future__ import annotations
 
 from miniworld_tpu_torch.envs.base import EnvSpec
-from miniworld_tpu_torch.envs.interact import PickupObjects, PutNext, Sign
+from miniworld_tpu_torch.envs.cameracontrol import CameraControl, CameraControlClick
+from miniworld_tpu_torch.envs.interact import CollectHealth, PickupObjects, PutNext, Sign
 from miniworld_tpu_torch.envs.nav import (
     FourRooms, GreenKey, Hallway, Maze, MazeS2, MazeS3, MazeS3Fast, NavigateWallGap, OneRoom,
     OneRoomS6, OneRoomS6Fast, RoomObjects, Sidewalk, ThreeRooms, TMaze, TMazeLeft, TMazeRight,
     WallGap, YMaze, YMazeLeft, YMazeRight,
 )
 
-SPEC_CLASSES = [Hallway, OneRoom, OneRoomS6, OneRoomS6Fast, FourRooms, TMaze, TMazeLeft,
-                TMazeRight, YMaze, YMazeLeft, YMazeRight, Maze, MazeS2, MazeS3, MazeS3Fast,
-                WallGap, NavigateWallGap, Sidewalk, GreenKey, ThreeRooms, RoomObjects,
-                PickupObjects, PutNext, Sign]
+SPEC_CLASSES = [CameraControl, CameraControlClick, CollectHealth, FourRooms, GreenKey, Hallway,
+                Maze, MazeS2, MazeS3, MazeS3Fast, NavigateWallGap, OneRoom, OneRoomS6,
+                OneRoomS6Fast, PickupObjects, PutNext, RoomObjects, Sidewalk, Sign, ThreeRooms,
+                TMaze, TMazeLeft, TMazeRight, WallGap, YMaze, YMazeLeft, YMazeRight]
 
 _REGISTRY = {}
 for cls in SPEC_CLASSES:
@@ -32,15 +29,8 @@ ENV_IDS = sorted({cls().gym_id for cls in SPEC_CLASSES})
 def make_spec(name: str, **kwargs) -> EnvSpec:
     """Instantiate a spec by gym id or short name."""
     if name not in _REGISTRY:
-        raise NotImplementedError(
-            f"env {name!r} is not ported to miniworld_tpu_torch yet; "
-            f"ported: {ENV_IDS} (the JAX package miniworld_tpu has all 27)"
-        )
+        raise KeyError(f"unknown env {name!r}; known: {ENV_IDS}")
     return _REGISTRY[name](**kwargs)
 
 
-__all__ = ["ENV_IDS", "make_spec", "EnvSpec", "FourRooms", "GreenKey", "Hallway", "Maze",
-           "MazeS2", "MazeS3", "MazeS3Fast", "NavigateWallGap", "OneRoom", "OneRoomS6",
-           "OneRoomS6Fast", "PickupObjects", "PutNext", "RoomObjects", "Sidewalk", "Sign",
-           "TMaze", "TMazeLeft", "TMazeRight", "ThreeRooms", "WallGap", "YMaze", "YMazeLeft",
-           "YMazeRight"]
+__all__ = ["ENV_IDS", "make_spec", "EnvSpec"] + [c.__name__ for c in SPEC_CLASSES]

@@ -3,11 +3,8 @@
 Counterpart of ``miniworld_tpu/envs/base.py``. An ``EnvSpec`` declares
 the world builder (host-side numpy, shared logic with the JAX package)
 and the per-step task logic as functions over a batched ``EnvState``.
-The port carries the go-to-goal family (Hallway, OneRoom, FourRooms,
-TMaze, YMaze, the Maze family, WallGap, Sidewalk, GreenKey),
-NavigateWallGap, ThreeRooms, RoomObjects, PickupObjects, PutNext and Sign
-so far; the
-host-side gymnasium hooks of the JAX package have no counterpart here.
+The port carries all 27 ids of the JAX package; the host-side
+gymnasium hooks of the JAX package have no counterpart here.
 """
 
 from __future__ import annotations
@@ -34,6 +31,9 @@ class Ctx(NamedTuple):
     action_idx: torch.Tensor  # (B,) i32 discrete action index, or -1
     truncated: torch.Tensor  # (B,) bool — step limit reached this step
     bank: Any = None  # the layout bank (scene/compile.Layout of tensors)
+    # False: the task's own kernels (CollectHealth's placement) take their
+    # plain versions, as the env's render and reset do
+    use_kernels: bool = True
 
 
 def default_discrete_actions() -> np.ndarray:
@@ -69,6 +69,8 @@ class EnvSpec:
     obs_height: int = 60
     # Sign wraps observations in {"obs": image, "goal": int}
     dict_obs: bool = False
+    # CameraControl: ``apply_action`` replaces the agent's physics
+    override_physics: bool = False
     agent_radius: float = 0.4  # Agent bounding radius (entity.py:470)
     place_budget: int = 16  # on-device placement retry budget (ops/place.py)
     fourier_k: int = 0  # 0 = the global default (textures.FOURIER_TERMS)
@@ -86,6 +88,15 @@ class EnvSpec:
         """Populate the world (record mode: ``rng`` is None)."""
         raise NotImplementedError
 
+    def post_reset(self, bank, state: EnvState, key: torch.Tensor) -> EnvState:
+        """Adjust a freshly reset batch (CameraControl's wall); ``key``
+        (B, 2) is each env's second split of its reset key."""
+        return state
+
+    def post_render(self, rgb: torch.Tensor, state: EnvState) -> torch.Tensor:
+        """Overlay on the observation's image (CameraControl's crosshair)."""
+        return rgb
+
     def init_task(self) -> dict:
         """Initial per-episode task state (concrete values)."""
         return {}
@@ -96,6 +107,10 @@ class EnvSpec:
         dev = ctx.state.pos.device
         return (torch.zeros(b, dtype=torch.float32, device=dev),
                 torch.zeros(b, dtype=torch.bool, device=dev), ctx.state)
+
+    def apply_action(self, bank, state: EnvState, action: torch.Tensor) -> EnvState:
+        """The step's own physics for an ``override_physics`` spec."""
+        raise NotImplementedError
 
     def info(self, ctx: Ctx) -> dict:
         """Extra per-step info entries ((B, ...) tensors)."""

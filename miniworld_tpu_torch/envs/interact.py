@@ -1,8 +1,7 @@
-"""Interactive specs ported so far: PickupObjects, PutNext and Sign.
+"""Interactive specs: PickupObjects, PutNext, CollectHealth and Sign.
 
 Counterpart of ``miniworld_tpu/envs/interact.py`` (reference
-envs/pickupobjects.py, putnext.py, sign.py); CollectHealth joins with
-its slice (ROADMAP.md).
+envs/pickupobjects.py, putnext.py, collecthealth.py, sign.py).
 """
 
 from __future__ import annotations
@@ -14,6 +13,7 @@ import numpy as np
 import torch
 
 from miniworld_tpu_torch.envs.base import Ctx, EnvSpec, action_from_components
+from miniworld_tpu_torch.ops import place as place_ops, rng as rng_ops
 from miniworld_tpu_torch.params import DEFAULT_PARAMS
 from miniworld_tpu_torch.scene.entities import COLOR_NAMES
 
@@ -117,6 +117,80 @@ class PutNext(EnvSpec):
         done = (s.carrying < 0) & self.near(s, self.red_slot, self.yellow_slot)
         reward = torch.where(done, self.reward(s), torch.zeros_like(s.dir))
         return reward, done, s
+
+
+@dataclass
+class CollectHealth(EnvSpec):
+    """Slime room; health drains 2 a step, medkits restore it
+    (envs/collecthealth.py:49-102): 18 medkit meshes, the raw 6-D
+    actions.
+
+    Deviation note (the JAX package's): the reference's respawn trigger
+    compares the raw action to ``Actions.pickup`` (collecthealth.py:83),
+    which a 6-D action vector never equals; the JAX package implements
+    the intent, and so does the port: pickup pressed while holding a kit
+    re-places the kit and restores health.
+    """
+
+    name: str = "CollectHealth"
+    gym_id: str = "MiniWorld-CollectHealth-v0"
+    max_episode_steps: int = 1000
+    size: float = 16
+    num_kits: int = 18
+
+    def build(self, world, rng, layout_rng=None, layout_idx=0):
+        world.add_rect_room(
+            min_x=0, max_x=self.size, min_z=0, max_z=self.size,
+            wall_tex="cinder_blocks", floor_tex="slime",
+        )
+        kit = world.proto_id("mesh", "medkit", 0.40, False)
+        for _ in range(self.num_kits):
+            world.place(kit)
+        world.place_agent()
+
+    def init_task(self):
+        return {"health": np.int32(100)}
+
+    def transition(self, ctx: Ctx):
+        """Health -2; pickup (action[4] > 0.5) while carrying a kit puts
+        the kit back at a fresh position (``place_one`` against the other
+        live kits and the agent, every env each step, the kernel on the
+        card) and health back to 100; reward 2 alive, -100 at death."""
+        s, bank = ctx.state, ctx.bank
+        n, num_ents = s.ent_radius.shape
+        dev = s.pos.device
+        rows = torch.arange(n, device=dev)
+        respawn = (ctx.action[:, 4] > 0.5) & (s.carrying >= 0)
+        c = torch.clamp(s.carrying, min=0).long()
+
+        key, sub = rng_ops.split(s.rng, 2).unbind(1)
+        ent_xz = torch.cat([s.ent_pos[:, :, [0, 2]], s.pos[:, None, [0, 2]]], dim=1)
+        ent_r = torch.cat([s.ent_radius, torch.full((n, 1), self.agent_radius, device=dev)], 1)
+        others = s.ent_alive & (torch.arange(num_ents, device=dev)[None, :] != c[:, None])
+        mask = torch.cat([others, torch.ones((n, 1), dtype=torch.bool, device=dev)], dim=1)
+        lid = s.layout_id.long()
+        row = torch.clamp(c, max=bank.rule_room.shape[1] - 2)  # min(c, E - 1)
+        rule = [getattr(bank, name)[lid, row, 0] for name in place_ops.RULE_FIELDS]
+        place = place_ops.place_one if ctx.use_kernels else place_ops.place_one_plain
+        new_pos, new_dir = place(rng_ops.cheap_seed(sub), bank, s.layout_id, *rule,
+                                 s.ent_radius[rows, c], ent_xz, ent_r, mask)
+        moved = respawn[:, None] & (torch.arange(num_ents, device=dev)[None, :] == c[:, None])
+        ent_pos = torch.where(moved[:, :, None], new_pos[:, None, :], s.ent_pos)
+        ent_dir = torch.where(moved, new_dir[:, None], s.ent_dir)
+
+        health = torch.where(respawn, torch.full_like(s.task["health"], 100),
+                             s.task["health"] - 2)
+        alive = health > 0
+        reward = torch.where(alive, torch.full_like(s.dir, 2.0), torch.full_like(s.dir, -100.0))
+        new_state = s.replace(
+            rng=key, ent_pos=ent_pos, ent_dir=ent_dir,
+            carrying=torch.where(respawn, torch.full_like(s.carrying, -1), s.carrying),
+            task={"health": health},
+        )
+        return reward, ~alive, new_state
+
+    def info(self, ctx: Ctx):
+        return {"health": ctx.state.task["health"]}
 
 
 @dataclass

@@ -42,6 +42,25 @@ def _unary(name: str, x: torch.Tensor, torch_fn) -> torch.Tensor:
     return torch.from_numpy(np.asarray(out, np.float32).reshape(a.shape))
 
 
+@functools.lru_cache(maxsize=None)
+def _libm_atan2f():
+    lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    lib.atan2f.restype = ctypes.c_float
+    lib.atan2f.argtypes = [ctypes.c_float, ctypes.c_float]
+    return np.frompyfunc(lib.atan2f, 2, 1)
+
+
+def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """float32 atan2: on the CPU the C library's ``atan2f``, which XLA:CPU
+    calls (numpy's float32 arctan2 may take a vector library's, an ulp
+    away); elsewhere torch's."""
+    if x.device.type != "cpu":
+        return torch.atan2(y, x)
+    a, b = y.detach().to(torch.float32).numpy(), x.detach().to(torch.float32).numpy()
+    out = _libm_atan2f()(a, b).astype(np.float32) if a.size else a.copy()
+    return torch.from_numpy(np.asarray(out, np.float32).reshape(a.shape))
+
+
 def sqrt(x: torch.Tensor) -> torch.Tensor:
     """float32 square root rounded once (IEEE), as XLA:CPU and the
     kernels' ``sqrtf`` compute it. On the CPU numpy's: torch's goes

@@ -1,4 +1,4 @@
-"""Batched reset-time entity placement (rejection sampling).
+"""Batched entity placement (rejection sampling).
 
 Counterpart of ``miniworld_tpu/ops/place.py`` (reference:
 MiniWorldEnv.place_entity, miniworld/miniworld.py:922-992): a fixed
@@ -10,10 +10,16 @@ ops/rng.py, so each env sees the JAX package's numbers.
 agent (the JAX package's ``_reset_one`` placement loop, vector.py:
 935-984): for CUDA tensors in one launch of the ``place`` kernel
 (``csrc/place.cu``, one warp per env, a slot's tries in parallel lanes),
-for CPU tensors through ``place_all_plain``, which runs ``place_one``
+for CPU tensors through ``place_all_plain``, which runs ``_place_one``
 per slot with every env advanced together. On a procgen maze every
 placement also takes the episode's maze: per-env room weights and
 wall-gated segments.
+
+``place_one`` places one entity per env against an obstacle list the
+caller gives (CollectHealth's kit respawn inside the step, the JAX
+package's envs/interact.py:200-214): for CUDA tensors one launch of the
+place kernel's second entry (the same tries), for CPU tensors
+``place_one_plain``.
 """
 
 from __future__ import annotations
@@ -63,9 +69,9 @@ def gate_segs4(segs4, codes, wall_open):
     return segs4 + shift[:, None, :]
 
 
-def place_one(*args, **kwargs):
-    """Sample one entity pose per env. Returns (pos (B,3), dir (B,));
-    the arguments are ``_place_one``'s."""
+def place_one_plain(*args, **kwargs):
+    """Plain version of the place_one kernel: one entity pose per env.
+    Returns (pos (B,3), dir (B,)); the arguments are ``_place_one``'s."""
     return _place_one(*args, **kwargs)[:2]
 
 
@@ -201,23 +207,15 @@ def _place_all_plain(seeds, bank, layout_id, rules, radius, slot_mask,
     return ent_pos, ent_dir, agent_pos, agent_dir, torch.stack(first, dim=1)
 
 
-def place_all(seeds, bank, layout_id, rules, radius, slot_mask, budget: int = 16,
-              room_weight=None, seg_gate=None):
-    """The place kernel for CUDA tensors, ``place_all_plain`` for CPU
-    tensors. Same contract as ``place_all_plain``. Launches count in
-    ``cuda_build.LAUNCHES["place"]`` with the render's kernels."""
-    procgen = tuple(t for t in (room_weight, *(seg_gate or ())) if t is not None)
-    if not is_cuda(seeds, layout_id, radius, slot_mask, bank.room_segs, *procgen):
-        return place_all_plain(seeds, bank, layout_id, rules, radius, slot_mask, budget,
-                               room_weight, seg_gate)
+def _bank_args(bank, n, room_weight, seg_gate):
+    """(pointers, dims, tensors) of the kernels' room tensors and procgen
+    gate (null pointers without a maze), dims (R, V, NS, Wn), for ``n``
+    envs; the caller holds ``tensors`` (converted copies among them)
+    until its launch."""
     if (room_weight is None) != (seg_gate is None):
-        raise ValueError("the place kernel takes room_weight and seg_gate together")
-    n, e_slots = slot_mask.shape
-    if e_slots > _MAX_SLOTS:
-        raise ValueError(f"place kernel takes at most {_MAX_SLOTS} entity slots, got {e_slots}")
+        raise ValueError("the place kernels take room_weight and seg_gate together")
     L, R, V, _ = bank.room_outline.shape
     ns = bank.room_segs.shape[3]
-    dev = radius.device
     if seg_gate is None:
         n_walls = 0
         gate_ptrs = (ctypes.c_void_p(0),) * 3
@@ -227,22 +225,7 @@ def place_all(seeds, bank, layout_id, rules, radius, slot_mask, budget: int = 16
         gate_ptrs = (check(room_weight, "room_weight", torch.float32, (n, R)),
                      check(room_seg_wall, "room_seg_wall", torch.int32, (L, R, ns)),
                      check(wall_open, "wall_open", torch.float32, (n, n_walls)))
-    ent_pos = torch.empty((n, e_slots, 3), dtype=torch.float32, device=dev)
-    ent_dir = torch.empty((n, e_slots), dtype=torch.float32, device=dev)
-    agent_pos = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    agent_dir = torch.empty((n,), dtype=torch.float32, device=dev)
-    a = e_slots + 1
-    ins = dict(
-        seeds=(seeds.to(torch.int32).contiguous(), torch.int32, (n, a)),
-        layout_id=(layout_id, torch.int32, (n,)),
-        rule_room=(rules["rule_room"].to(torch.int32).contiguous(), torch.int32, (n, a)),
-        rule_bbox=(rules["rule_bbox"].contiguous(), torch.float32, (n, a, 4)),
-        rule_pos=(rules["rule_pos"].contiguous(), torch.float32, (n, a, 3)),
-        rule_dir=(rules["rule_dir"].contiguous(), torch.float32, (n, a)),
-        rule_dir_lo=(rules["rule_dir_lo"].contiguous(), torch.float32, (n, a)),
-        rule_dir_hi=(rules["rule_dir_hi"].contiguous(), torch.float32, (n, a)),
-        radius=(radius.contiguous(), torch.float32, (n, a)),
-        slot_mask=(slot_mask.to(torch.uint8).contiguous(), torch.uint8, (n, e_slots)),
+    rooms = dict(
         room_mask=(bank.room_mask.to(torch.uint8).contiguous(), torch.uint8, (L, R)),
         room_area=(bank.room_area, torch.float32, (L, R)),
         room_aabb=(bank.room_aabb, torch.float32, (L, R, 4)),
@@ -251,10 +234,101 @@ def place_all(seeds, bank, layout_id, rules, radius, slot_mask, budget: int = 16
         room_vmask=(bank.room_vmask.to(torch.uint8).contiguous(), torch.uint8, (L, R, V)),
         room_segs=(bank.room_segs, torch.float32, (L, R, 4, ns)),
     )
+    ptrs = tuple(check(t, name, dt, shape) for name, (t, dt, shape) in rooms.items())
+    return ptrs + gate_ptrs, (R, V, ns, n_walls), rooms
+
+
+def _rule_args(rules, lead):
+    """Pointers to the rule rows (RULE_FIELDS order), each (*lead, ...);
+    ``rules`` gets the converted tensors, which the caller holds until its
+    launch."""
+    tails = {"rule_bbox": (4,), "rule_pos": (3,)}
+    out = []
+    for name in RULE_FIELDS:
+        t = rules[name]
+        dt = torch.int32 if name == "rule_room" else torch.float32
+        t = t.to(dt).contiguous()
+        rules[name] = t
+        out.append(check(t, name, dt, tuple(lead) + tails.get(name, ())))
+    return out
+
+
+def place_one(seed, bank, layout_id, rule_room, rule_bbox, rule_pos, rule_dir, rule_dir_lo,
+              rule_dir_hi, radius, ent_pos_xz, ent_radius, ent_mask, budget: int = 16,
+              room_weight=None, seg_gate=None):
+    """One entity pose per env against an obstacle list: the place_one
+    kernel for CUDA tensors (``csrc/place.cu``, one warp an env, the
+    tries in lanes as in ``place_all``), ``place_one_plain`` for CPU
+    tensors. Arguments as ``_place_one``'s, the obstacles (B, O, ...)
+    with O <= 32. Returns (pos (B,3), dir (B,)). Launches count in
+    ``cuda_build.LAUNCHES["place_one"]``."""
+    procgen = tuple(t for t in (room_weight, *(seg_gate or ())) if t is not None)
+    if not is_cuda(seed, layout_id, radius, ent_pos_xz, bank.room_segs, *procgen):
+        return place_one_plain(seed, bank, layout_id, rule_room, rule_bbox, rule_pos,
+                               rule_dir, rule_dir_lo, rule_dir_hi, radius, ent_pos_xz,
+                               ent_radius, ent_mask, budget, room_weight, seg_gate)
+    n, n_obs = ent_mask.shape
+    if n_obs > _MAX_SLOTS:
+        raise ValueError(f"place_one kernel takes at most {_MAX_SLOTS} obstacles, got {n_obs}")
+    bank_ptrs, (R, V, ns, n_walls), _rooms = _bank_args(bank, n, room_weight, seg_gate)
+    rules = dict(zip(RULE_FIELDS, (rule_room, rule_bbox, rule_pos, rule_dir, rule_dir_lo,
+                                   rule_dir_hi)))
+    seeds = seed.to(torch.int32).contiguous()
+    xz = ent_pos_xz.to(torch.float32).contiguous()
+    r_obs = ent_radius.to(torch.float32).contiguous()
+    mask = ent_mask.to(torch.uint8).contiguous()
+    radius = radius.to(torch.float32).contiguous()
+    pos = torch.empty((n, 3), dtype=torch.float32, device=radius.device)
+    d = torch.empty((n,), dtype=torch.float32, device=radius.device)
+    launch(
+        "mw_place_one", "place_one",
+        check(seeds, "seed", torch.int32, (n,)),
+        check(layout_id, "layout_id", torch.int32, (n,)),
+        *_rule_args(rules, (n,)),
+        check(radius, "radius", torch.float32, (n,)),
+        check(xz, "ent_pos_xz", torch.float32, (n, n_obs, 2)),
+        check(r_obs, "ent_radius", torch.float32, (n, n_obs)),
+        check(mask, "ent_mask", torch.uint8, (n, n_obs)),
+        *bank_ptrs,
+        ctypes.c_int(n), ctypes.c_int(n_obs), ctypes.c_int(R), ctypes.c_int(V),
+        ctypes.c_int(ns), ctypes.c_int(n_walls), ctypes.c_int(budget),
+        check(pos, "pos", torch.float32, (n, 3)), check(d, "dir", torch.float32, (n,)),
+        stream(),
+    )
+    return pos, d
+
+
+def place_all(seeds, bank, layout_id, rules, radius, slot_mask, budget: int = 16,
+              room_weight=None, seg_gate=None):
+    """The place kernel for CUDA tensors, ``place_all_plain`` for CPU
+    tensors. Same contract as ``place_all_plain``. Launches count in
+    ``cuda_build.LAUNCHES["place"]`` with the render's kernels."""
+    procgen = tuple(t for t in (room_weight, *(seg_gate or ())) if t is not None)
+    if not is_cuda(seeds, layout_id, radius, slot_mask, bank.room_segs, *procgen):
+        return place_all_plain(seeds, bank, layout_id, rules, radius, slot_mask, budget,
+                               room_weight, seg_gate)
+    n, e_slots = slot_mask.shape
+    if e_slots > _MAX_SLOTS:
+        raise ValueError(f"place kernel takes at most {_MAX_SLOTS} entity slots, got {e_slots}")
+    bank_ptrs, (R, V, ns, n_walls), _rooms = _bank_args(bank, n, room_weight, seg_gate)
+    rules = dict(rules)
+    dev = radius.device
+    ent_pos = torch.empty((n, e_slots, 3), dtype=torch.float32, device=dev)
+    ent_dir = torch.empty((n, e_slots), dtype=torch.float32, device=dev)
+    agent_pos = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    agent_dir = torch.empty((n,), dtype=torch.float32, device=dev)
+    a = e_slots + 1
+    seeds = seeds.to(torch.int32).contiguous()
+    radius = radius.contiguous()
+    slot_mask = slot_mask.to(torch.uint8).contiguous()
     launch(
         "mw_place", "place",
-        *(check(t, name, dt, shape) for name, (t, dt, shape) in ins.items()),
-        *gate_ptrs,
+        check(seeds, "seeds", torch.int32, (n, a)),
+        check(layout_id, "layout_id", torch.int32, (n,)),
+        *_rule_args(rules, (n, a)),
+        check(radius, "radius", torch.float32, (n, a)),
+        check(slot_mask, "slot_mask", torch.uint8, (n, e_slots)),
+        *bank_ptrs,
         ctypes.c_int(n), ctypes.c_int(e_slots), ctypes.c_int(R), ctypes.c_int(V),
         ctypes.c_int(ns), ctypes.c_int(n_walls), ctypes.c_int(budget),
         check(ent_pos, "ent_pos", torch.float32, (n, e_slots, 3)),

@@ -67,6 +67,10 @@ ENTRY_POINTS = {
     # room_weight, room_seg_wall, wall_open, B, E, R, V, NS, W, budget,
     # ent_pos, ent_dir, agent_pos, agent_dir, stream
     "mw_place": [_P] * 20 + [_I] * 7 + [_P] * 5,
+    # seeds, layout_id, 6 rule rows, radius, obstacle xz, radius and mask,
+    # 7 room tensors, room_weight, room_seg_wall, wall_open, B, O, R, V,
+    # NS, W, budget, pos, dir, stream
+    "mw_place_one": [_P] * 22 + [_I] * 7 + [_P] * 3,
     # seeds, nbr_cell, nbr_wall, B, N, W, walls, stream
     "mw_mazegen": [_P, _P, _P, _I, _I, _I, _P, _P],
     # rows, row_id, row_code, tile_off, tile_rows, xs, zs, layout_id,
@@ -103,14 +107,16 @@ BUILD_INFO: dict = {}
 # the float32 carry ("pixel_epilogue_f32"). The top view's kernels
 # (render/topview.py) count under "tri_pass_ortho" and "topview_epilogue"
 # (its nearest-texture instance also under "topview_epilogue_nearest"),
-# the visibility query (render/visibility.py) under "visible_ents".
+# the visibility query (render/visibility.py) under "visible_ents", the
+# in-step placement (CollectHealth's respawn, ops/place.place_one) under
+# "place_one".
 LAUNCHES = {"tri_pass": 0, "entity_pass": 0, "pixel_epilogue": 0,
             "entity_mesh_pass": 0, "place": 0, "mazegen": 0,
             "tri_pass_override": 0, "pixel_epilogue_ss2": 0,
             "tri_pass_paired_chunks": 0, "tri_pass_sched": 0, "pixel_epilogue_gain": 0,
             "tri_pass_f32": 0, "pixel_epilogue_nearest": 0, "pixel_epilogue_f32": 0,
             "tri_pass_ortho": 0, "topview_epilogue": 0, "topview_epilogue_nearest": 0,
-            "visible_ents": 0, "tri_pass_multi": 0}
+            "visible_ents": 0, "tri_pass_multi": 0, "place_one": 0}
 
 
 def reset_launch_counts():

@@ -18,7 +18,7 @@ the new episode. Resets draw from the same threefry keys and
 counter-based uniforms as the JAX package (ops/rng.py), so the two
 packages step the same envs through the same episodes.
 
-The port covers the statics of 24 of the 27 env ids (``envs.ENV_IDS``):
+The port covers all 27 env ids of the JAX package (``envs.ENV_IDS``):
 one layout bank rendered in the JAX package's chunk plan for its
 ``tri_chunk`` (one chunk, a dense or paired multi-chunk scan, or a
 schedule of chunks per env: packed PVS, ``chunk_vis``, or a dense scan
@@ -30,7 +30,10 @@ entities, procgen mazes — a fresh maze per reset on the device
 super bank — domain randomization (``domain_rand``: the
 per-episode and per-step parameter draws and each episode's texture
 variants), ``supersample=2``, the raw 6-D actions of the specs
-without a discrete table (RoomObjects, PutNext), the orthographic top
+without a discrete table (RoomObjects, PutNext, CollectHealth, whose
+step re-places a kit through ``place_one``), the camera ids' own
+physics, reset and overlay (CameraControl, CameraControlClick: the spec's
+``apply_action``, ``post_reset`` and ``post_render``), the orthographic top
 view as the observation (``view="top"``, render/topview.py) and the
 entity-visibility query (``visible_ents``, render/visibility.py).
 """
@@ -57,7 +60,7 @@ from miniworld_tpu_torch.scene.entities import (
     SHAPE_BOX, SHAPE_MESH_BOX, SHAPE_MESH_TRIS, SHAPE_SPHERE,
 )
 from miniworld_tpu_torch.scene.world import World
-from miniworld_tpu_torch.state import EnvState, tree_select
+from miniworld_tpu_torch.state import EnvState, StepResult, tree_select
 
 # The JAX package's per-chunk scan overhead in prim equivalents
 # (miniworld_tpu/vector.py _CHUNK_OVERHEAD_TRIS), fitted on its TPU. It
@@ -804,7 +807,7 @@ class MiniWorldVec:
         spec, bank = self.spec, self._bank
         n = keys.shape[0]
         dev = self.device
-        k_rng = rng_ops.split(keys, 2)[:, 0]
+        k_rng, k_post = rng_ops.split(keys, 2).unbind(1)
         seed = rng_ops.cheap_seed(keys)
 
         def u(purpose, shape=()):
@@ -888,7 +891,7 @@ class MiniWorldVec:
             offs = torch.minimum(torch.floor(u_var * count.to(torch.float32)).to(torch.int32),
                                  count - 1)
             tex_map = tex_map + offs
-        return EnvState(
+        state = EnvState(
             pos=agent_pos, dir=agent_dir,
             cam_pitch=par["cam_pitch"], cam_height=par["cam_height"],
             cam_fov_y=par["cam_fov_y"], cam_fwd_disp=par["cam_fwd_disp"],
@@ -906,6 +909,7 @@ class MiniWorldVec:
             task={k: torch.as_tensor(v, device=dev).expand(n).clone()
                   for k, v in spec.init_task().items()},
         )
+        return spec.post_reset(bank, state, k_post)
 
     # -- step ------------------------------------------------------------------
 
@@ -922,25 +926,43 @@ class MiniWorldVec:
         if self.procgen:  # open walls' closed-quad segments stop colliding
             segs4 = place_ops.gate_segs4(segs4, bank.room_seg_wall[lid, room], state.wall_open)
 
-        if action.dim() == 1:
-            if self._action_table is None:
-                raise ValueError(f"{spec.name} takes (B, 6) action vectors: it has no "
-                                 "discrete action table")
-            action_idx = action.to(torch.int32)
-            action_vec = self._action_table[action_idx.long()]
+        n = action.shape[0]
+        no_idx = torch.full((n,), -1, dtype=torch.int32, device=self.device)
+        if spec.override_physics:
+            # the camera ids move the camera, not the body (JAX vector.py:
+            # 1069-1083): (B,) Discrete ids or (B, 2) clicks, the click in
+            # the first two columns of the task's action vector
+            click = getattr(spec, "click_action", False)
+            if action.dim() != (2 if click else 1):
+                raise ValueError(f"{spec.name} takes " + (
+                    "(B, 2) clicks" if click else f"(B,) action ids in [0, {spec.num_actions})"))
+            action_idx = no_idx if click else action.to(torch.int32)
+            action_vec = torch.zeros((n, 6), dtype=torch.float32, device=self.device)
+            if click:
+                action_vec[:, :2] = action
+            state = spec.apply_action(bank, state, action)
+            res = StepResult(moved=torch.zeros(n, dtype=torch.bool, device=self.device),
+                             picked_up=no_idx, dropped=no_idx)
         else:
-            action_idx = torch.full(action.shape[:1], -1, dtype=torch.int32,
-                                    device=self.device)
-            action_vec = physics.clip_action(action.to(torch.float32))
-        state, res = physics.physics_step(
-            bank.proto_pickable[lid], state, action_vec, segs4=segs4,
-            max_forward_step=spec.max_forward_step,
-            fwd_step=fwd_step, fwd_drift=fwd_drift, turn_step=turn_step,
-            agent_radius=spec.agent_radius,
-        )
+            if action.dim() == 1:
+                if self._action_table is None:
+                    raise ValueError(f"{spec.name} takes (B, 6) action vectors: it has no "
+                                     "discrete action table")
+                action_idx = action.to(torch.int32)
+                action_vec = self._action_table[action_idx.long()]
+            else:
+                action_idx = no_idx
+                action_vec = physics.clip_action(action.to(torch.float32))
+            state, res = physics.physics_step(
+                bank.proto_pickable[lid], state, action_vec, segs4=segs4,
+                max_forward_step=spec.max_forward_step,
+                fwd_step=fwd_step, fwd_drift=fwd_drift, turn_step=turn_step,
+                agent_radius=spec.agent_radius,
+            )
         truncated = state.step_count >= spec.max_episode_steps
         ctx = Ctx(prev=prev, state=state, res=res, action=action_vec,
-                  action_idx=action_idx, truncated=truncated, bank=bank)
+                  action_idx=action_idx, truncated=truncated, bank=bank,
+                  use_kernels=self.use_kernels)
         reward, term, state = spec.transition(ctx)
         done = term | truncated
         info = {
@@ -976,15 +998,18 @@ class MiniWorldVec:
             supersample=self.supersample, tex_mode=self.tex_mode,
         )
 
-    def _obs(self, rgb, depth):
-        """The observation of a render: the image, as {"obs": image,
-        "goal": (B,) int32} for a ``dict_obs`` spec (Sign; the JAX
-        package's ``_wrap_obs_one``), with the depth beside it when
+    def _obs(self, state: EnvState):
+        """(observation, image) of ``state``: the render with the spec's
+        overlay (``post_render``: CameraControl's crosshair), the image as
+        {"obs": image, "goal": (B,) int32} for a ``dict_obs`` spec (Sign;
+        the JAX package's ``_wrap_obs_one``), with the depth beside it when
         ``with_depth``."""
+        rgb, depth = self.render(state)
+        img = rgb = self.spec.post_render(rgb, state)
         if self.spec.dict_obs:
             rgb = {"obs": rgb, "goal": torch.full((rgb.shape[0],), self.spec.goal,
                                                   dtype=torch.int32, device=rgb.device)}
-        return (rgb, depth) if self.with_depth else rgb
+        return ((rgb, depth) if self.with_depth else rgb), img
 
     @functools.cached_property
     def _vis(self):
@@ -1008,13 +1033,14 @@ class MiniWorldVec:
         ``jax.random.split(jax.random.key(seed), B)``."""
         keys = rng_ops.split(rng_ops.key_data(seed, self.device), self.num_envs)
         state = self._reset_batch(keys)
-        return state, self._obs(*self.render(state))
+        return state, self._obs(state)[0]
 
     def step(self, state: EnvState, actions: torch.Tensor):
         """Returns (state, obs, reward, done, info). ``actions``: (B,)
-        discrete indices or (B, 6) action vectors."""
+        discrete indices or (B, 6) action vectors; CameraControl's (B,)
+        ids, CameraControlClick's (B, 2) clicks."""
         state, reward, done, info = self._step_batch(state, actions)
-        return state, self._obs(*self.render(state)), reward, done, info
+        return state, self._obs(state)[0], reward, done, info
 
     def sample_actions(self, key: torch.Tensor) -> torch.Tensor:
         """Uniform random actions from key data (..., 2), the JAX
@@ -1022,15 +1048,22 @@ class MiniWorldVec:
         indices, ``jax.random.randint(key, (B,), 0, A)``, for a
         table-action spec; (..., B, 6) vectors, ``jax.random.uniform(key,
         (B, 6), minval=[-1, -1, -1, -1, 0, 0], maxval=1)``, for one
-        without a table (JAX vector.py:1254-1257)."""
+        without a table (JAX vector.py:1248-1257); CameraControl's ids
+        ``randint(key, (B,), 0, 6)`` and CameraControlClick's clicks
+        ``uniform(key, (B, 2))``."""
         key = key.to(self.device)
-        if self._action_table is None:
-            return rng_ops.uniform(key, (self.num_envs, 6), [-1.0, -1.0, -1.0, -1.0, 0.0, 0.0],
-                                   [1.0] * 6)
-        return rng_ops.randint(key, self.num_envs, self._action_table.shape[0])
+        spec = self.spec
+        if self._action_table is not None:
+            return rng_ops.randint(key, self.num_envs, self._action_table.shape[0])
+        if getattr(spec, "num_actions", 0):
+            return rng_ops.randint(key, self.num_envs, spec.num_actions)
+        if getattr(spec, "click_action", False):
+            return rng_ops.uniform(key, (self.num_envs, 2), 0.0, 1.0)
+        return rng_ops.uniform(key, (self.num_envs, 6), [-1.0, -1.0, -1.0, -1.0, 0.0, 0.0],
+                               [1.0] * 6)
 
     def rollout_actions(self, key: torch.Tensor, horizon: int) -> torch.Tensor:
-        """(horizon, B[, 6]) actions of ``rollout`` from key data (2,): step t
+        """(horizon, B[, 6 or 2]) actions of ``rollout`` from key data (2,): step t
         acts on the first split of ``split(key, horizon)[t]``, as the JAX
         package's ``rollout_fn`` does, in four batched threefry calls."""
         step_keys = rng_ops.split(key.to(self.device), horizon)  # (horizon, 2)
@@ -1046,8 +1079,8 @@ class MiniWorldVec:
         the JAX package's ``rollout_fn``: "reward" (horizon,) f32,
         "dones" (horizon,) and "obs_sum" (horizon,) int64, the latter a
         checksum of every 8th pixel row and column of the image (a dict
-        observation's "obs", the JAX package's image leaf) that keeps
-        each render's result live. The actions are ``rollout_fn``'s
+        observation's "obs", the JAX package's image leaf, after the
+        spec's overlay) that keeps each render's result live. The actions are ``rollout_fn``'s
         (``rollout_actions``); they depend only on the key and the step,
         so the whole horizon's are drawn before the loop, once, not per
         step. No host sync happens inside.
@@ -1055,11 +1088,10 @@ class MiniWorldVec:
         rewards, dones, sums = [], [], []
         for actions in self.rollout_actions(key, horizon):
             state, reward, done, _ = self._step_batch(state, actions)
-            rgb, depth = self.render(state)
+            obs, img = self._obs(state)
             rewards.append(reward.sum())
             dones.append(done.sum())
-            sums.append(rgb[:, ::8, ::8].to(torch.int64).sum())
-            obs = self._obs(rgb, depth)
+            sums.append(img[:, ::8, ::8].to(torch.int64).sum())
         outs = {"reward": torch.stack(rewards), "dones": torch.stack(dones),
                 "obs_sum": torch.stack(sums)}
         return state, obs, outs

@@ -204,7 +204,7 @@ def reset_and_steps(env_id, b, w, h, steps, seed, start=None, forced_action=2,
         assert_states_match(jstate, tstate)
         if follow_jax:
             tstate = to_port_state(jstate)
-            t_rgb, t_depth = env._obs(*env.render(tstate))
+            t_rgb, t_depth = env._obs(tstate)[0]
         j_img, t_img = split_obs(j_rgb, t_rgb)
         assert_images_match(j_img, j_depth, t_img, t_depth)
         if frames is not None:

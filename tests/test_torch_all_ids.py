@@ -13,13 +13,14 @@ import torch
 
 from miniworld_tpu_torch import MiniWorldVec
 from miniworld_tpu_torch.envs import ENV_IDS
+from miniworld_tpu_torch.envs.cameracontrol import CameraControl, crosshair_mask
 from miniworld_tpu_torch.ops.rng import key_data
 
 B, W, H, HORIZON = 2, 16, 12, 3
 
 
 def test_every_id_counted():
-    assert len(ENV_IDS) == 24 and len(set(ENV_IDS)) == 24
+    assert len(ENV_IDS) == 27 and len(set(ENV_IDS)) == 27
 
 
 @pytest.mark.parametrize("env_id", ENV_IDS)
@@ -48,14 +49,23 @@ def test_rollout(env_id):
 def test_top_view_rollout_and_visible_ents(env_id):
     """view="top" on every id: a rollout's top-view observations (the
     floorplan from above: depth below FAR somewhere, the red agent
-    marker where a pixel is narrower than the agent radius), and visible_ents'
-    (B, E) mask on the last state."""
+    marker where a pixel is narrower than the agent radius; the camera ids'
+    crosshair over it), and visible_ents' (B, E) mask on the last state."""
     env = MiniWorldVec(env_id, B, obs_width=4 * W, obs_height=4 * H, device="cpu", view="top")
     state, obs = env.reset(seed=3)
     state, (rgb, depth), out = env.rollout(state, obs, key_data(11), HORIZON)
     if env.spec.dict_obs:
         rgb = rgb["obs"]
     assert rgb.shape == (B, 4 * H, 4 * W, 3) and bool((depth < 100.0).any())
+    if isinstance(env.spec, CameraControl):
+        # the camera ids' crosshair over the top view too, as the JAX package
+        # draws it; it lies over the marker at a wall's centre, so the
+        # marker is looked for in the render under it
+        cross = crosshair_mask(4 * H, 4 * W)
+        raw = env.render(state)[0]
+        red_px = torch.tensor([255, 0, 0], dtype=torch.uint8)
+        assert torch.equal(rgb, torch.where(cross, red_px, raw))
+        rgb = raw
     red = (rgb[..., 0] == 255) & (rgb[..., 1] == 0) & (rgb[..., 2] == 0)
     pitch = float(env._top.xs[0, 1] - env._top.xs[0, 0])  # world units a pixel
     if pitch < env.spec.agent_radius:  # the marker covers pixel centres

@@ -5,7 +5,8 @@ kernel's per-slot Fourier table (``fourier_table``).
 The cull must be exact: a (tile, row) it drops has z-key 0 on every
 pixel of the tile by the per-row hit test of ``tri_pass_plain``, so the
 kernel's max over the survivors is the full scan's. Checked on views of
-four ported scenes at B=4, 80x60, and on rows built to graze the cull's
+four ported scenes at B=4, 80x60, at CameraControl's extremes (fov 20 and
+90, pitch +-89, 0.1 m from a wall), and on rows built to graze the cull's
 margins; so must the multi-chunk kernel's first level, the box of a
 group of tiles (the Maze's views and the grazing rows; Sidewalk's in
 tests/test_torch_chunks.py). The table must hold the atlas values the epilogue rounds to
@@ -94,6 +95,26 @@ def test_cull_grazing_rows(tile):
         hit_rows = hits.any(2)
         for k in range(4):  # each kind of grazing row does hit somewhere
             assert hit_rows[:, style == k].float().mean() > 0.1, (all_quads, k)
+
+
+@pytest.mark.parametrize("fov,pitch", [(20.0, 89.0), (20.0, -89.0), (90.0, 89.0),
+                                       (90.0, -89.0)])
+def test_cull_at_camera_extremes(fov, pitch):
+    """CameraControl's extremes, beside the +-15 degree pitch draw above:
+    fov 20 or 90 and pitch +-89, each camera 0.1 m from its wall, env 0
+    panned to face that wall, env 1 facing the room, envs 2 and 3 at 45
+    degrees to it. The tile cull and the group box of 2x2 tiles keep
+    every row with a hit."""
+    env = MiniWorldVec("MiniWorld-CameraControl-v0", B, obs_width=W, obs_height=H, device="cpu")
+    state, _ = env.reset(seed=5)
+    turn = torch.tensor([math.pi, 0.0, math.pi / 4, -math.pi / 4])
+    state = state.replace(dir=state.dir + turn, cam_fov_y=torch.full((B,), fov),
+                          cam_pitch=torch.full((B,), pitch))
+    cam = trc.camera_grid(state, W, H)
+    rows = trc.stage_rows(env._bank.tri_verts9, env._bank.tri_attr, state.layout_id, cam)
+    hits, _ = _check_cull(rows, cam, env._all_quads, TILE)
+    assert bool(hits.any(2).any(1).all()), "a view hits nothing"
+    assert group_cull_misses(rows, cam, env._all_quads, TILE, (2, 2))[0] == 0
 
 
 @functools.lru_cache(maxsize=1)

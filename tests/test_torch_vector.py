@@ -175,16 +175,22 @@ def test_device_is_required():
         MiniWorldVec(ENV_ID, 2)
 
 
-def test_unported_env_raises():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_spec("MiniWorld-CollectHealth-v0")
+def test_env_ids_match_jax():
+    """The port registers the JAX package's 27 ids, each by gym id and
+    short name."""
+    from miniworld_tpu.envs import ENV_IDS as JAX_IDS
+    from miniworld_tpu_torch.envs import ENV_IDS
+
+    assert ENV_IDS == JAX_IDS and len(ENV_IDS) == 27
+    for env_id in ENV_IDS:
+        spec = make_spec(env_id)
+        assert spec.gym_id == env_id and type(make_spec(spec.name)) is type(spec)
 
 
-@pytest.mark.parametrize("env_id", ["MiniWorld-CameraControl-v0",
-                                    "MiniWorld-CameraControlClick-v0"])
-def test_unported_camera_ids_raise(env_id):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_spec(env_id)
+def test_unknown_env_raises():
+    """An unknown name raises the JAX package's KeyError."""
+    with pytest.raises(KeyError, match="unknown env"):
+        make_spec("MiniWorld-NoSuchEnv-v0")
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
