@@ -112,7 +112,17 @@ from cuobjdump -sass). entity_pass is held exactly under its contract
 epilogue instance (SS=1, SS=2, GAIN, NEAREST) gives the same pixels with
 NaN at the entity's misses as with zeros there ([ent-undefined]).
 mazegen is held bit for bit on 2x2, 3x3, 8x8 and 16x16 grids and timed
-at one env an SM (chain_ms).
+at one env an SM (chain_ms). Then the trainers ([train]): A2C and PPO
+(horizon 16, 2 epochs of 4 minibatches) on OneRoomS6Fast at B=1024 through
+``make_train_step`` / ``make_ppo_step``, two warm-up iterations and three
+timed, each step's ms split into rollout and update, the metrics finite,
+the parameters moved and every render kernel launched 16 times a step;
+the learner's forward, forward + backward and Adam timed at the step's
+16,384 frames ([train-learner]) and one A2C step profiled
+([train-profile]); one A2C step of the Gaussian head and one on Sign's
+dict observations at B=256; and the policy's rollout at B=128 with the
+kernels against the plain path, equal in actions, rewards, dones and
+checksums ([train-parity]).
 One line per phase; the JSON summary of the
 kernels and the card's ``nvidia-smi`` name and power limit come before
 the last line,
@@ -184,6 +194,14 @@ HEALTH_ID, CAM_ID, CLICK_ID = ("MiniWorld-CollectHealth-v0", "MiniWorld-CameraCo
 B_EXT = 256
 SHORT_IDS = ("MiniWorld-OneRoom-v0", "MiniWorld-OneRoomS6-v0", "MiniWorld-OneRoomS6Fast-v0",
              "MiniWorld-YMaze-v0", "MiniWorld-YMazeLeft-v0", "MiniWorld-YMazeRight-v0")
+# the trainers (parallel/train.py): A2C and PPO on their default env at
+# B_TRAIN, TRAIN_WARMUP iterations then TRAIN_ITERS timed; the Gaussian
+# head and Sign's dict observations at B_TRAIN_SIDE; the policy's rollout
+# kernels vs plain at B_PLAIN
+TRAIN_ID = "MiniWorld-OneRoomS6Fast-v0"
+B_TRAIN, B_TRAIN_SIDE = 1024, 256
+TRAIN_HORIZON, TRAIN_EPOCHS, TRAIN_MINIBATCHES = 16, 2, 4
+TRAIN_WARMUP, TRAIN_ITERS = 2, 3
 
 # the card's published peaks (H100 SXM data sheet) for the bound column
 PEAK_BYTES_PER_S = 3.35e12
@@ -3803,6 +3821,210 @@ def phase_new_ids(make_env, rates):
         rates[env.spec.name.lower()] = (rate, None)
 
 
+# ---------------------------------------------------------------------------
+# the trainers: rollouts that a policy drives, the learner's update
+
+
+def train_run(env, make, label, iters, warmup, smi):
+    """``warmup`` then ``iters`` timed iterations of the train step that
+    ``make(env)`` builds, from ``init(key_data(0))``; each iteration's
+    metrics fetched to the host (the fence), its rollout timed apart
+    (synced before and after). Checks: every metric finite, the
+    parameters moved, each of the path's kernels launched ``horizon``
+    times an iteration. Returns (env-steps/s, the timed iterations'
+    launches, the last metrics, a summary for the JSON line)."""
+    from miniworld_tpu_torch.ops.rng import key_data, split
+    from miniworld_tpu_torch.render import cuda_build
+
+    step, init = make(env)
+    ts, state, obs, depth = init(key_data(0, env.device))
+    before = {n: p.detach().clone() for n, p in ts["params"].named_parameters()}
+    rollout_s, orig = [], env.rollout
+
+    def timed_rollout(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        torch.cuda.synchronize()
+        rollout_s.append(time.perf_counter() - t0)
+        return out
+
+    env.rollout = timed_rollout
+    try:
+        key = key_data(1, env.device)
+        for _ in range(warmup):
+            key, k = split(key, 2)
+            ts, state, obs, depth, _ = step(ts, state, obs, depth, k)
+        torch.cuda.synchronize()
+        rollout_s.clear()
+        cuda_build.reset_launch_counts()
+        times = []
+        for _ in range(iters):
+            key, k = split(key, 2)
+            t0 = time.perf_counter()
+            ts, state, obs, depth, m = step(ts, state, obs, depth, k)
+            m = {name: float(v) for name, v in m.items()}  # host fetch fence
+            times.append(time.perf_counter() - t0)
+        launches = dict(cuda_build.LAUNCHES)
+    finally:
+        del env.rollout  # the instance's wrapper: the method again
+    horizon = TRAIN_HORIZON
+    if not all(math.isfinite(v) for v in m.values()):
+        raise AssertionError(f"{label}: metrics not finite: {m}")
+    moved = max(float((before[n] - p.detach()).abs().max())
+                for n, p in ts["params"].named_parameters())
+    if not moved > 0.0:
+        raise AssertionError(f"{label}: the parameters did not move")
+    if ts["params"].continuous and not float(
+            (before["log_std"] - ts["params"].log_std.detach()).abs().max()) > 0.0:
+        raise AssertionError(f"{label}: log_std did not move")
+    for kname in path_kernels(env):
+        if launches[kname] != horizon * iters:
+            raise AssertionError(f"{label}: {kname} launched {launches[kname]} times in "
+                                 f"{iters} iterations of {horizon} steps")
+    rate = env.num_envs * horizon * iters / sum(times)
+    step_ms = [t * 1e3 for t in times]
+    roll_ms = [t * 1e3 for t in rollout_s]
+    upd_ms = [a - b for a, b in zip(step_ms, roll_ms)]
+    say("train", path=label, env=env.spec.gym_id, B=env.num_envs,
+        obs=f"{env.obs_width}x{env.obs_height}", horizon=horizon, warmup=warmup, iters=iters,
+        env_steps_per_s=f"{rate:.1f}", step_ms=",".join(f"{t:.2f}" for t in step_ms),
+        rollout_ms=",".join(f"{t:.2f}" for t in roll_ms),
+        update_ms=",".join(f"{t:.2f}" for t in upd_ms),
+        metrics=",".join(f"{k}:{v:.5g}" for k, v in m.items()), params_moved=f"{moved:.3e}",
+        launches={k: launches[k] for k in path_kernels(env)}, card=repr(smi))
+    summary = {"env": env.spec.gym_id, "B": env.num_envs, "horizon": horizon, "iters": iters,
+               "env_steps_per_s": rate, "step_ms": step_ms, "rollout_ms": roll_ms,
+               "update_ms": upd_ms, "card": smi}
+    return rate, launches, m, summary
+
+
+def train_learner_times(env, smi):
+    """The learner's layers at the A2C path's batch (TRAIN_HORIZON x B
+    frames of the env's observations, actions and returns): forward under
+    no_grad, the A2C loss's forward + backward, one Adam update; CUDA
+    events (cuda_ms). Then one A2C step under torch.profiler: device busy
+    ms, events and the idle share (1 - busy / wall), the five device
+    kernels that take the most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from miniworld_tpu_torch.ops.rng import key_data
+    from miniworld_tpu_torch.parallel import learner as L, make_train_step
+
+    step, init = make_train_step(env, horizon=TRAIN_HORIZON)
+    ts, state, obs, depth = init(key_data(0, env.device))
+    net, n = ts["params"], TRAIN_HORIZON * env.num_envs
+    rgb = obs.repeat(TRAIN_HORIZON, 1, 1, 1)
+    dep = depth.repeat(TRAIN_HORIZON, 1, 1, 1)
+    acts = torch.randint(0, env._action_table.shape[0], (n,), device=env.device)
+    rets = torch.rand(n, device=env.device)
+
+    def fwd():
+        with torch.no_grad():
+            L.forward(net, rgb, dep)
+
+    def fwd_bwd():
+        L.loss_grads(net, L.a2c_loss(net, rgb, dep, acts, rets))
+
+    grads = L.loss_grads(net, L.a2c_loss(net, rgb, dep, acts, rets))
+    opt = ts["opt"]
+
+    def adam():
+        L.adam_update(net, grads, opt)
+
+    times = {k: cuda_ms(f, 5) for k, f in (("forward", fwd), ("forward_backward", fwd_bwd),
+                                             ("adam", adam))}
+    key = key_data(3, env.device)
+    ts, state, obs, depth, _ = step(ts, state, obs, depth, key)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ts, state, obs, depth, m = step(ts, state, obs, depth, key)
+        float(m["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    say("train-learner", env=env.spec.gym_id, frames=n, obs=f"{env.obs_width}x{env.obs_height}",
+        **{f"{k}_ms": f"{v:.3f}" for k, v in times.items()}, card=repr(smi))
+    say("train-profile", path="a2c", B=env.num_envs, horizon=TRAIN_HORIZON,
+        device_busy_ms=f"{busy_ms:.3f}" if events else "not measured",
+        device_events=len(events) if events else "not measured", wall_ms=f"{wall_ms:.3f}",
+        idle_share=f"{1.0 - busy_ms / wall_ms:.3f}" if events else "not measured",
+        top_device_ms=repr([(name[:60], round(ms, 3)) for name, ms in top]))
+    return {**times, "device_busy_ms": busy_ms if events else None, "wall_ms_profiled": wall_ms}
+
+
+def train_rollout_parity(env):
+    """At B_PLAIN, one iteration's rollout under the learner's policy
+    (init parameters, one key) with the kernels and with every stage
+    plain: actions, rewards, dones and the per-step checksums equal; the
+    plain one launches nothing."""
+    from miniworld_tpu_torch.ops.rng import key_data
+    from miniworld_tpu_torch.parallel import make_train_step, train
+    from miniworld_tpu_torch.render import cuda_build
+
+    _, init = make_train_step(env, horizon=TRAIN_HORIZON)
+    ts, state, obs, depth = init(key_data(0, env.device))
+    policy = train._policy_factory(ts["params"], False)
+    outs, launches = [], []
+    for use in (True, False):
+        env.use_kernels = use
+        cuda_build.reset_launch_counts()
+        try:
+            _, _, o = env.rollout(state, (obs, depth), key_data(5, env.device), TRAIN_HORIZON,
+                                  policy=policy, return_actions=True)
+        finally:
+            env.use_kernels = True
+        outs.append({k: v.cpu() for k, v in o.items()})
+        launches.append(dict(cuda_build.LAUNCHES))
+    if any(launches[1].values()):
+        raise AssertionError(f"plain policy rollout launched kernels: {launches[1]}")
+    for k in ("actions", "rewards", "done_mask", "reward", "dones", "obs_sum"):
+        if not torch.equal(outs[0][k], outs[1][k]):
+            raise AssertionError(f"policy rollout: kernels and plain differ in {k}")
+    say("train-parity", env=env.spec.gym_id, B=env.num_envs, horizon=TRAIN_HORIZON,
+        paths="kernels vs plain", actions_rewards_dones_checksums="equal",
+        actions_taken=int(outs[0]["actions"].unique().numel()),
+        kernel_launches={k: v for k, v in launches[0].items() if v})
+
+
+def phase_train(make_env, smi):
+    """The trainers' main paths: A2C and PPO on OneRoomS6Fast at B_TRAIN,
+    80x60, through ``make_train_step`` / ``make_ppo_step``, the learner's
+    layers timed and one A2C step profiled; one A2C step
+    of the Gaussian head (``set_discrete_actions(None)``) and one on
+    Sign's dict observations at B_TRAIN_SIDE; the policy's rollout kernels
+    vs plain at B_PLAIN. Returns (per-path launches, the JSON summary)."""
+    from miniworld_tpu_torch.parallel import make_ppo_step, make_train_step
+
+    def a2c(env):
+        return make_train_step(env, horizon=TRAIN_HORIZON)
+
+    def ppo(env):
+        return make_ppo_step(env, horizon=TRAIN_HORIZON, epochs=TRAIN_EPOCHS,
+                             minibatches=TRAIN_MINIBATCHES)
+
+    env = make_env(TRAIN_ID, B_TRAIN)
+    launches, summary = {}, {}
+    for label, make in (("a2c", a2c), ("ppo", ppo)):
+        _, launches[label], _, summary[f"{label}_b{B_TRAIN}"] = train_run(
+            env, make, label, TRAIN_ITERS, TRAIN_WARMUP, smi)
+    summary["learner"] = train_learner_times(env, smi)
+    gauss = make_env(TRAIN_ID, B_TRAIN_SIDE)
+    gauss.set_discrete_actions(None)
+    _, _, _, summary[f"a2c_gaussian_b{B_TRAIN_SIDE}"] = train_run(
+        gauss, a2c, "a2c gaussian head", 1, 0, smi)
+    _, _, _, summary[f"a2c_sign_b{B_TRAIN_SIDE}"] = train_run(
+        make_env(SIGN_ID, B_TRAIN_SIDE), a2c, "a2c sign (dict obs)", 1, 0, smi)
+    train_rollout_parity(make_env(TRAIN_ID, B_PLAIN))
+    return launches, summary
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, ROOT)
@@ -4009,6 +4231,8 @@ def main():
         maze_bank, maze_bank_dr, (timed_state, timed_dr_state), big, small, rates)
     errs["entity_pass"] = max(errs["entity_pass"], bank_ent_err)
     lap("main: maze bank ss=2, tri_chunk=16 routes")
+    train_launches, train_summary = phase_train(env, smi)
+    lap("train: a2c, ppo, gaussian head, sign")
     kernels = []
     for k, (src, rep) in KERNELS.items():
         # the Maze path's kernels at its shapes; the mesh pass at
@@ -4260,6 +4484,10 @@ def main():
                             f"{maze_vis.tri_chunk}",
         "checked_on": sched_checked})
     kernels[KERNEL_ORDER["place"]]["launches_roomobjects"] = int(room_launches["place"])
+    for k in kernels:  # each train step's rollout launches the render's kernels
+        for label, ln in train_launches.items():
+            if ln.get(k["name"]):
+                k[f"launches_train_{label}"] = int(ln[k["name"]])
     for k in kernels:  # what each kernel was held against its plain version on
         if k["name"] == "tri_pass":
             k["checked_on"] = ["single chunk", "mesh rows: pickupobjects, roomobjects", "paired",
@@ -4298,6 +4526,7 @@ def main():
                       "applied": "once an observation (reset, step, rollout)",
                       "paths": sorted(cam_launches)}],
         "env_steps_per_s": {k: {"kernels": v[0], "plain": v[1]} for k, v in rates.items()},
+        "train": train_summary,
     }))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -70,7 +70,7 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     Elsewhere torch's."""
     if x.device.type != "cpu":
         return torch.sqrt(x)
-    return torch.from_numpy(np.sqrt(x.detach().to(torch.float32).numpy()))
+    return torch.from_numpy(np.asarray(np.sqrt(x.detach().to(torch.float32).numpy())))
 
 
 def cos(x):
@@ -83,6 +83,14 @@ def sin(x):
 
 def tan(x):
     return _unary("tan", x, torch.tan)
+
+
+def log(x):
+    return _unary("log", x, torch.log)
+
+
+def log1p(x):
+    return _unary("log1p", x, torch.log1p)
 
 
 def yaw_dir_vec(d: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,10 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from miniworld_tpu_torch.ops import geom
 
 M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -75,14 +78,17 @@ def random_bits(key: torch.Tensor, num: int) -> torch.Tensor:
     return b0 ^ b1
 
 
-def randint(key: torch.Tensor, num: int, maxval: int) -> torch.Tensor:
+def randint(key: torch.Tensor, num, maxval: int) -> torch.Tensor:
     """``jax.random.randint(key, (num,), 0, maxval)`` (int32) on key data:
     (..., 2) -> (..., num) int64 in [0, maxval), 0 < maxval < 2**31
     (jax/_src/random.py _randint): two words of bits from the key's two
     splits, folded with the multiplier (2**16 mod maxval)**2 mod
-    maxval."""
+    maxval. ``num=()`` draws ``randint(key, (), 0, maxval)``: (...,),
+    the first word of each split."""
     if not 0 < int(maxval) < (1 << 31):
         raise ValueError(f"randint needs 0 < maxval < 2**31, got {maxval}")
+    if num == ():
+        return randint(key, 1, maxval)[..., 0]
     span = int(maxval)
     bits = random_bits(split(key, 2), num)  # both splits' words in one threefry call
     hi, lo = bits[..., 0, :], bits[..., 1, :]
@@ -142,3 +148,64 @@ def uniforms(seed: torch.Tensor, purpose: int, shape) -> torch.Tensor:
     ids = torch.arange(n, dtype=torch.int64, device=seed.device)
     u = hash01(sub(seed, purpose)[:, None], ids[None, :])
     return u.reshape((seed.shape[0],) + tuple(shape))
+
+
+# -- the trainer's draws (jax/_src/random.py) --------------------------------
+
+_TINY = float(np.finfo(np.float32).tiny)
+# jax.random.normal's open interval: nextafter(-1, 0) to 1
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2 = float(np.float32(np.sqrt(2.0)))
+# XLA's single-precision erf_inv (Giles 2010), w < 5 and w >= 5 branches
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` on key data (..., 2): threefry of
+    the count words (0, data) (jax/_src/prng.py threefry_fold_in), which
+    is also ``split(key, n)[data]`` for any n > data."""
+    d = int(data) & M32
+    b0, b1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(key[..., 0]),
+                          torch.full_like(key[..., 0], d))
+    return torch.stack([b0, b1], dim=-1)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """float32 inverse error function in XLA's arithmetic (ErfInv32 of
+    XLA's math library, Giles' single-precision polynomials):
+    ``w = -log1p(-x * x)``, a degree-8 polynomial in ``w - 2.5`` (w < 5)
+    or ``sqrt(w) - 3``, times x; +-1 map to +-inf. XLA:CPU's log1p is its
+    own expansion, so the C library's ``log1pf`` in its place leaves the
+    result within 2 ulps of the JAX package's (tests/test_torch_rng.py)."""
+    w = -geom.log1p(-(x * x))
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, geom.sqrt(w) - 3.0)
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
+    for c_lt, c_ge in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = torch.where(lt, c_lt, c_ge) + p * w
+    inf = torch.full_like(x, math.inf)
+    return torch.where(x.abs() == 1.0, torch.copysign(inf, x), p * x)
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape, jnp.float32)`` on key data (2,):
+    ``sqrt(2) * erf_inv(uniform(key, shape, nextafter(-1, 0), 1))``
+    (jax/_src/random.py _normal_real)."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0)
+    return _SQRT2 * erf_inv(u)
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis, on key
+    data (2,): the Gumbel-max trick in JAX's default "low" mode, argmax of
+    ``logits - log(-log(uniform(key, logits.shape, tiny, 1)))``, the first
+    index on a tie (jax/_src/random.py _gumbel). Returns int64 indices of
+    shape ``logits.shape[:-1]``. The double log turns one ulp of a log
+    into many, so a draw where two candidates nearly tie can differ from
+    the JAX package's (the tests count the share that agrees)."""
+    u = uniform(key, tuple(logits.shape), _TINY, 1.0)
+    gumbel = -geom.log(-geom.log(u))
+    return torch.argmax(gumbel + logits.to(torch.float32), dim=-1)

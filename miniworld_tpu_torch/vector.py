@@ -1042,25 +1042,47 @@ class MiniWorldVec:
         state, reward, done, info = self._step_batch(state, actions)
         return state, self._obs(state)[0], reward, done, info
 
-    def sample_actions(self, key: torch.Tensor) -> torch.Tensor:
+    def reset_keys(self, keys: torch.Tensor):
+        """Returns (state, obs) of one env reset per key in ``keys`` (n, 2):
+        the JAX package's ``_reset_jit`` on ``keys`` and its render, for a
+        caller that draws the keys itself (the trainers' share of a global
+        ``split(key, B)``, parallel/dist.py)."""
+        state = self._reset_batch(keys.to(self.device))
+        return state, self._obs(state)[0]
+
+    def set_discrete_actions(self, discrete_actions):
+        """Install (or remove, with None) the discrete-action table, like
+        the reference's MiniWorldEnv.set_discrete_actions
+        (miniworld/miniworld.py:654-664; JAX vector.py:1223-1242): each row
+        is a 6-D action vector that a (B,) action indexes. Without one,
+        ``step`` takes (B, 6) action vectors."""
+        if discrete_actions is None:
+            self._action_table = None
+            return
+        table = torch.as_tensor(np.asarray(discrete_actions, np.float32), device=self.device)
+        if table.dim() != 2 or table.shape[1] != 6:
+            raise ValueError(f"a discrete action table is (n, 6), got {tuple(table.shape)}")
+        self._action_table = table
+
+    def sample_actions(self, key: torch.Tensor, num: int | None = None) -> torch.Tensor:
         """Uniform random actions from key data (..., 2), the JAX
-        package's ``sample_actions`` value for value: (..., B) discrete
-        indices, ``jax.random.randint(key, (B,), 0, A)``, for a
-        table-action spec; (..., B, 6) vectors, ``jax.random.uniform(key,
-        (B, 6), minval=[-1, -1, -1, -1, 0, 0], maxval=1)``, for one
-        without a table (JAX vector.py:1248-1257); CameraControl's ids
-        ``randint(key, (B,), 0, 6)`` and CameraControlClick's clicks
-        ``uniform(key, (B, 2))``."""
+        package's ``sample_actions`` value for value (JAX vector.py:
+        1244-1257), for ``num`` envs (default ``num_envs``): (..., n)
+        discrete indices, ``jax.random.randint(key, (n,), 0, A)``, for a
+        table-action spec; (..., n, 6) vectors, ``jax.random.uniform(key,
+        (n, 6), minval=[-1, -1, -1, -1, 0, 0], maxval=1)``, for one
+        without a table; CameraControl's ids ``randint(key, (n,), 0, 6)``
+        and CameraControlClick's clicks ``uniform(key, (n, 2))``."""
         key = key.to(self.device)
         spec = self.spec
+        n = self.num_envs if num is None else int(num)
         if self._action_table is not None:
-            return rng_ops.randint(key, self.num_envs, self._action_table.shape[0])
+            return rng_ops.randint(key, n, self._action_table.shape[0])
         if getattr(spec, "num_actions", 0):
-            return rng_ops.randint(key, self.num_envs, spec.num_actions)
+            return rng_ops.randint(key, n, spec.num_actions)
         if getattr(spec, "click_action", False):
-            return rng_ops.uniform(key, (self.num_envs, 2), 0.0, 1.0)
-        return rng_ops.uniform(key, (self.num_envs, 6), [-1.0, -1.0, -1.0, -1.0, 0.0, 0.0],
-                               [1.0] * 6)
+            return rng_ops.uniform(key, (n, 2), 0.0, 1.0)
+        return rng_ops.uniform(key, (n, 6), [-1.0, -1.0, -1.0, -1.0, 0.0, 0.0], [1.0] * 6)
 
     def rollout_actions(self, key: torch.Tensor, horizon: int) -> torch.Tensor:
         """(horizon, B[, 6 or 2]) actions of ``rollout`` from key data (2,): step t
@@ -1071,27 +1093,65 @@ class MiniWorldVec:
         # threefry(k, (0, i)) whatever their number
         return self.sample_actions(rng_ops.split(step_keys, 1)[:, 0])
 
-    def rollout(self, state: EnvState, obs, key: torch.Tensor, horizon: int):
-        """``horizon`` random-policy steps (step + render each) from the
-        (2,) key data ``key`` (``ops.rng.key_data(seed)``).
+    def rollout(self, state: EnvState, obs, key: torch.Tensor, horizon: int, *, policy=None,
+                return_obs: bool = False, return_actions: bool = False):
+        """``horizon`` steps (step + render each) from the (2,) key data
+        ``key`` (``ops.rng.key_data(seed)``), the JAX package's
+        ``rollout_fn`` (JAX vector.py:1262-1337).
 
         Returns (state, obs, outs) with ``outs`` the per-step sums of
-        the JAX package's ``rollout_fn``: "reward" (horizon,) f32,
-        "dones" (horizon,) and "obs_sum" (horizon,) int64, the latter a
-        checksum of every 8th pixel row and column of the image (a dict
-        observation's "obs", the JAX package's image leaf, after the
-        spec's overlay) that keeps each render's result live. The actions are ``rollout_fn``'s
-        (``rollout_actions``); they depend only on the key and the step,
-        so the whole horizon's are drawn before the loop, once, not per
-        step. No host sync happens inside.
+        ``rollout_fn``: "reward" (horizon,) f32, "dones" (horizon,) and
+        "obs_sum" (horizon,) int64, the latter a checksum of every 8th
+        pixel row and column of the image (a dict observation's "obs", the
+        JAX package's image leaf, after the spec's overlay) that keeps each
+        render's result live. No host sync happens inside.
+
+        ``policy``: ``(obs, depth, key) -> actions`` for the batch, where
+        ``obs`` is the observation's image (Sign's dict of image and goal),
+        ``depth`` its (B, H, W, 1) depth (None without ``with_depth``) and
+        ``key`` step t's ``k_act``, the first of two splits of
+        ``split(key, horizon)[t]``. Without one the actions are
+        ``rollout_fn``'s random ones (``rollout_actions``); they depend only
+        on the key and the step, so the whole horizon's are drawn before
+        the loop, once, not per step.
+
+        ``return_obs``: ``outs["obs"]`` (and ``outs["depth"]`` with
+        ``with_depth``) stack the observations the actions were taken
+        from, (horizon, B, ...); ``return_actions``: ``outs["actions"]``,
+        ``outs["rewards"]`` and ``outs["done_mask"]`` stack each step's
+        (B, ...) actions, rewards and dones.
         """
+        if policy is None:
+            actions_all = self.rollout_actions(key, horizon)
+        else:
+            # k_act of step t: split(split(key, horizon)[t], 2)[0], which is
+            # split(k, 1)[0] (split i of k is threefry(k, (0, i)))
+            act_keys = rng_ops.split(rng_ops.split(key.to(self.device), horizon), 1)[:, 0]
         rewards, dones, sums = [], [], []
-        for actions in self.rollout_actions(key, horizon):
+        stacked = {k: [] for k in ("obs", "depth", "actions", "rewards", "done_mask")}
+        for t in range(horizon):
+            o, d = obs if self.with_depth else (obs, None)
+            actions = actions_all[t] if policy is None else policy(o, d, act_keys[t])
+            if return_obs:
+                stacked["obs"].append(o)
+                if self.with_depth:
+                    stacked["depth"].append(d)
             state, reward, done, _ = self._step_batch(state, actions)
             obs, img = self._obs(state)
             rewards.append(reward.sum())
             dones.append(done.sum())
             sums.append(img[:, ::8, ::8].to(torch.int64).sum())
+            if return_actions:
+                stacked["actions"].append(actions)
+                stacked["rewards"].append(reward)
+                stacked["done_mask"].append(done)
         outs = {"reward": torch.stack(rewards), "dones": torch.stack(dones),
                 "obs_sum": torch.stack(sums)}
+        for k, v in stacked.items():
+            if not v:
+                continue
+            if isinstance(v[0], dict):  # Sign's {"obs", "goal"}
+                outs[k] = {kk: torch.stack([x[kk] for x in v]) for kk in v[0]}
+            else:
+                outs[k] = torch.stack(v)
         return state, obs, outs
