@@ -59,13 +59,21 @@ against their plain versions, its rollout at B=4096 and a short PutNext
 one on (B, 6) action vectors, both at B=128 against their plain paths.
 CollectHealth at B=1024: its render stages against their plain versions
 (tri_pass with the 18 kits' 864 mesh rows in its launch, on every
-pixel), timed, the torch gather of the mesh rows beside them; the kit
+pixel), timed, the mesh rows' kernel and plain version beside them; the kit
 respawn's place_one kernel against _place_one env for env (a step's
 inputs, radii scaled until most envs exhaust the budget, budgets 0, 31
 and 40, and the 8x8 procgen Maze's agent row, gated walls, equal to
 place_all's agent), a pickup step through the kernels and the plain
 versions (states equal, kits respawned), then its rollout against the
-plain path, exactly, with breakdown and profile. CameraControl and
+plain path, exactly, with breakdown and profile (and the profile again
+with the mesh rows' plain version in place of their kernel, as at
+PickupObjects B=4096: device events and busy ms a step without and with
+it). The mesh_rows kernel is held bit for bit against
+entity_mesh_rows_plain ([kernel-vs-plain] kernel=entity_mesh_rows) at
+CollectHealth B=1024, PickupObjects B=4096, Sign B=1024 and PickupObjects
+in nearest mode, a fifth of the entities dead, yaws over four turns, the
+layout ids also as int64, each timed beside its plain version and bound.
+CameraControl and
 CameraControlClick at B=1024 against their plain paths, exactly, the
 crosshair red on every frame and the overlay timed; tri_pass (mesh rows
 included), entity_pass and the SS=1 and SS=2 epilogues held on every
@@ -234,6 +242,9 @@ KERNELS = {
     # the in-step placement: CollectHealth's respawn calling place_one
     "place_one": ("miniworld_tpu_torch/csrc/place.cu",
                   "miniworld_tpu/envs/interact.py:200"),
+    # the mesh entities' world-space rows, which the tri_pass launch reads
+    "entity_mesh_rows": ("miniworld_tpu_torch/csrc/mesh_rows.cu",
+                         "miniworld_tpu/render/raycast.py:747"),
 }
 MAZE_KERNELS = ("tri_pass", "entity_pass", "pixel_epilogue", "place", "mazegen")
 # the top view's kernels (view="top") and the visibility query's
@@ -304,18 +315,23 @@ def kernel_ms(fn, iters: int, name: str):
     ``name``, from torch.profiler over ``iters`` runs: the kernel alone,
     without the wrapper's host work and small torch ops, which the CUDA
     events of ``cuda_ms`` include where the host is the slower side.
-    None where the profiler saw no such kernel."""
+    A window in which the profiler saw no such kernel (it has missed a
+    whole window's device events after another profile) is profiled
+    once more; None where it saw none twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA and name in e.name]
-    return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / iters if evs else None
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA and name in e.name]
+        if evs:
+            return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / iters
+    return None
 
 
 def phase_device():
@@ -2471,9 +2487,9 @@ def path_kernels(env):
     in tri_pass with mesh entities, mazegen on a procgen maze, and the
     instances its statics take (the glyph epilogue, SS=2, the multi-chunk
     kernel, the paired scan over more than one chunk, the nearest
-    epilogue, the float32 carry);
-    with view="top" the top view's kernels instead of the render's; the
-    in-step placement on CollectHealth."""
+    epilogue, the float32 carry), and the mesh rows' own kernel with mesh
+    entities; with view="top" the top view's kernels instead of the
+    render's; the in-step placement on CollectHealth."""
     if env.view == "top":  # the top view's two kernels and the reset's
         return (("tri_pass_ortho", "topview_epilogue", "place")
                 + (("place_one",) if env.spec.name == "CollectHealth" else ())
@@ -2483,7 +2499,7 @@ def path_kernels(env):
     names = ["tri_pass", "pixel_epilogue", "place"]
     names += ["place_one"] if env.spec.name == "CollectHealth" else []
     names += ["entity_pass"] if present[0] or present[1] else []
-    names += ["entity_mesh_pass"] if present[2] else []
+    names += ["entity_mesh_pass", "entity_mesh_rows"] if present[2] else []
     names += ["mazegen"] if env.procgen else []
     names += ["pixel_epilogue_gain"] if env._has_gain else []
     names += ["pixel_epilogue_ss2"] if env.supersample == 2 else []
@@ -2813,6 +2829,112 @@ def place_one_work(args, kwargs, first):
     return nbytes, int((tries * per_try + fallback + 3).sum()) + 2 * R * n
 
 
+# ---------------------------------------------------------------------------
+# the mesh entities' world-space rows (csrc/mesh_rows.cu)
+
+# float operations a mesh row takes in the kernel: su (divide, max),
+# cos, sin, -sin; the vertices' 3 rotations (5 a component) scaled and
+# moved (63); a1, a2 rotated, scaled, dotted with pos and subtracted
+# (48), 1 / su (2); the normal's rotation (15); the tint (3); the slot's
+# rint and test (2)
+MESH_ROW_OPS = 138
+
+
+def mesh_rows_work(bank, state, n_rows):
+    """(bytes, operations) of the mesh rows of ``state``: the outputs
+    written once (verts9 36, attrs 64 and valid 1 byte a row), the inputs
+    read once (the prototype rows of the (layout, prototype) pairs in
+    use, 100 bytes and a mask byte each; each entity's 37 bytes of state;
+    the layout ids) and MESH_ROW_OPS a row."""
+    b, e = state.ent_proto.shape
+    n_proto, m = bank.proto_mesh.shape[1:3]
+    pairs = torch.unique(state.layout_id.long()[:, None] * n_proto
+                         + state.ent_proto.long()).numel()
+    nbytes = (b * n_rows * (36 + 64 + 1) + pairs * m * 101 + b * e * 37
+              + state.layout_id.numel() * state.layout_id.element_size())
+    return nbytes, b * n_rows * MESH_ROW_OPS
+
+
+@contextlib.contextmanager
+def plain_mesh_rows():
+    """Inside the block the render builds the mesh rows with their plain
+    version (the torch chain that the mesh_rows kernel replaced); every
+    other stage still launches its kernel."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    kernel = rc.entity_mesh_rows
+    rc.entity_mesh_rows = lambda bank, state, fourier=True, use_kernels=True: (
+        rc.entity_mesh_rows_plain(bank, state, fourier))
+    try:
+        yield
+    finally:
+        rc.entity_mesh_rows = kernel
+
+
+def phase_profile_plain_rows(env):
+    """[profile] of the env's rollout with the mesh rows' plain version in
+    place of their kernel, beside the breakdown's own profile: device
+    events and busy ms a step without and with the kernel."""
+    state, _ = env.reset(seed=0)
+    with plain_mesh_rows():
+        phase_profile(env, state, path="mesh_rows=plain")
+
+
+def mesh_states(env, gen, seed=7):
+    """A reset's states with about a fifth of the entities dead and every
+    entity's yaw drawn from [-4 pi, 4 pi] (the trig's range reduction
+    beyond one turn)."""
+    state, _ = env.reset(seed=seed)
+    shape = state.ent_alive.shape
+    alive = state.ent_alive & (torch.rand(shape, generator=gen) > 0.2).to(env.device)
+    yaw = ((torch.rand(shape, generator=gen) * 2.0 - 1.0) * (4.0 * math.pi)).to(env.device)
+    return state.replace(ent_alive=alive, ent_dir=yaw)
+
+
+def phase_mesh_rows(cases):
+    """[kernel-vs-plain] kernel=entity_mesh_rows: the mesh_rows kernel
+    against entity_mesh_rows_plain on the card, verts9, attrs and valid
+    bit for bit, for each (label, env, fourier) at the env's batch (its
+    mesh_states), and with the layout ids as int64; each case timed with
+    its plain version (CUDA events), the kernel alone (torch.profiler)
+    and its bound. Returns (max abs error, {label: (ms, plain ms, device
+    ms)}, {label: work})."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    gen = torch.Generator().manual_seed(747)
+    err, timings, work = 0.0, {}, {}
+    for label, env, fourier in cases:
+        bank, state = env._bank, mesh_states(env, gen)
+        got = rc.entity_mesh_rows(bank, state, fourier)
+        want = rc.entity_mesh_rows_plain(bank, state, fourier)
+        got64 = rc.entity_mesh_rows(bank, state.replace(layout_id=state.layout_id.long()),
+                                    fourier)
+        differ = [int((a != b).reshape(a.shape[0], -1).any(1).sum()) for a, b in zip(got, want)]
+        same64 = all(torch.equal(a, b) for a, b in zip(got64, got))
+        err = max(err, *(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)))
+        n_rows, live = got[0].shape[2], int(want[2].sum())
+        case = (f"{env.spec.gym_id} B={env.num_envs} E*M={n_rows} "
+                f"{'fourier' if fourier else 'nearest'}")
+        say("kernel-vs-plain", kernel="entity_mesh_rows", case=case, live_rows=live,
+            dead_or_pad_rows=want[2].numel() - live, envs_differ_verts=differ[0],
+            envs_differ_attrs=differ[1], envs_differ_valid=differ[2],
+            int64_layout_equal=same64, exact=not any(differ))
+        if any(differ) or not same64 or not 0 < live < want[2].numel():
+            raise AssertionError(f"entity_mesh_rows {case}: kernel differs from plain in "
+                                 f"{differ} envs (int64 layout ids equal: {same64}), "
+                                 f"{live} live rows")
+        timings[label] = (
+            cuda_ms(lambda: rc.entity_mesh_rows(bank, state, fourier), 50),
+            cuda_ms(lambda: rc.entity_mesh_rows_plain(bank, state, fourier), 20),
+            kernel_ms(lambda: rc.entity_mesh_rows(bank, state, fourier), 20, "mesh_rows_kernel"))
+        work[label] = mesh_rows_work(bank, state, n_rows)
+        ms, plain_ms, dev_ms = timings[label]
+        say("kernel-time", kernel="entity_mesh_rows", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            device_ms=fmt_ms(dev_ms), bound_ms=f"{bound(*work[label])[0]:.4f}",
+            bound_by=bound(*work[label])[1], library_ms="none", shapes=case)
+    return err, timings, work
+
+
 def phase_collecthealth(health, maze, rates):
     """CollectHealth at B=1024, 80x60: its render stages against their
     plain versions with every env facing a kit (tri_pass with the 18
@@ -2856,13 +2978,17 @@ def phase_collecthealth(health, maze, rates):
     work = stage_work(health, state, tri, ent, outs, stats["hit_pairs"],
                       mesh=(rows9, m_stats["hit_pairs"]))
     mesh_t = rc.entity_mesh_pass_plain(rows9, row_attrs, cam)[0]
+    # the mesh rows: their kernel, and beside it the plain version (the
+    # torch chain of some 150 launches that the kernel replaced)
     rows_ms = cuda_ms(lambda: rc.entity_mesh_rows(health._bank, state), 20)
-    rows_bytes = rows9.numel() * 4 + row_attrs.numel() * 4
+    rows_plain_ms = cuda_ms(lambda: rc.entity_mesh_rows_plain(health._bank, state), 20)
+    rows_bytes = rows9.numel() * 4 + row_attrs.numel() * 4 + valid.numel()
     say("health-scene", px_hit=f"{float(torch.isfinite(outs[0]).float().mean()):.3f}",
         px_mesh_hit=f"{float(torch.isfinite(mesh_t).float().mean()):.4f}",
         live_mesh_rows=int(valid.sum()), tri_pass_smem_bytes=(tri[0].shape[2] + n_rows) * 52,
-        mesh_rows_ms=f"{rows_ms:.4f}", mesh_rows_bytes_written=rows_bytes,
-        mesh_rows_bound_ms=f"{bound(2 * rows_bytes, 0)[0]:.4f}")
+        mesh_rows_ms=f"{rows_ms:.4f}", mesh_rows_plain_ms=f"{rows_plain_ms:.4f}",
+        mesh_rows_bytes_written=rows_bytes,
+        mesh_rows_bound_ms=f"{bound(*mesh_rows_work(health._bank, state, n_rows))[0]:.4f}")
     timings["entity_mesh_rows"] = rows_ms
 
     # place_one: a step's inputs, with carrying varied so that the rule
@@ -2936,6 +3062,7 @@ def phase_collecthealth(health, maze, rates):
     rates[f"collecthealth_b{n}_h{PLAIN_HORIZON}"] = kernel_and_plain(
         health, PLAIN_HORIZON, TRIALS, path_kernels(health), exact=True)[:2]
     phase_breakdown(health, render_iters=5, plain_render_iters=1)
+    phase_profile_plain_rows(health)
     return errs, timings, work, launches
 
 
@@ -3655,12 +3782,13 @@ def phase_breakdown(env, render_iters=10, plain_render_iters=3):
     phase_profile(env, state)
 
 
-def phase_profile(env, state, steps=PROFILE_STEPS):
+def phase_profile(env, state, steps=PROFILE_STEPS, path="kernels"):
     """torch.profiler over a kernel-path rollout of the main path's
     horizon: device events and device-busy time per step (the rollout's
     action draw for the whole horizon included, as on the main path; the
     draw's own device events beside them), and the wall time under the
-    profiler (the idle share is 1 - busy / wall)."""
+    profiler (the idle share is 1 - busy / wall). ``path`` labels the
+    line (e.g. "mesh_rows=plain" under ``plain_mesh_rows``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3680,7 +3808,7 @@ def phase_profile(env, state, steps=PROFILE_STEPS):
         env.rollout_actions(key_data(10, env.device), steps)
         torch.cuda.synchronize()
     n_draw = sum(e.device_type == DeviceType.CUDA for e in draw.events())
-    say("profile", env=env.spec.gym_id, B=env.num_envs, steps=steps,
+    say("profile", env=env.spec.gym_id, B=env.num_envs, path=path, steps=steps,
         device_events_per_step=len(events) // steps if events else "not measured",
         action_draw_device_events=n_draw if events else "not measured",
         device_busy_ms_per_step=f"{busy_ms:.3f}" if busy_ms is not None else "not measured",
@@ -3755,6 +3883,7 @@ def phase_main(hall, pick, pick_small, four, tmaze):
         check_rollout(env, outs, obs, launches, SHORT_HORIZON, TRIALS, hall_kernels)
         rates[env.spec.name.lower()] = (r, None)
     phase_breakdown(pick, render_iters=5)
+    phase_profile_plain_rows(pick)
     return pick_launches, rates
 
 
@@ -4159,6 +4288,12 @@ def main():
     health_errs, health_timings, health_work, health_launches = phase_collecthealth(
         health, maze, rates)
     lap("main: collecthealth")
+    # the mesh rows' kernel against its plain version at the mesh paths'
+    # batches, one state in nearest mode
+    rows_err, rows_timings, rows_work = phase_mesh_rows([
+        ("collecthealth", health, True), ("pickupobjects", pick, True), ("sign", sign, True),
+        ("pickupobjects nearest", near_cases[1][1], False)])
+    lap("mesh-rows")
     cam_launches, overlay = phase_camera(env(CAM_ID, B), env(CLICK_ID, B), rates)
     ext_errs = phase_camera_extremes(env)
     for k, v in list(health_errs.items()) + list(ext_errs.items()):
@@ -4235,6 +4370,8 @@ def main():
     lap("train: a2c, ppo, gaussian head, sign")
     kernels = []
     for k, (src, rep) in KERNELS.items():
+        if k == "entity_mesh_rows":  # its own row below
+            continue
         # the Maze path's kernels at its shapes; the mesh pass at
         # PickupObjects': the tri_pass launch with mesh rows there
         mesh = k == "entity_mesh_pass"
@@ -4304,6 +4441,28 @@ def main():
                 "bound_by_collecthealth_mesh864": bound(*health_work["tri_pass"])[1],
                 "launches_collecthealth": int(health_launches["tri_pass"]),
                 "entity_mesh_rows_ms_collecthealth": health_timings["entity_mesh_rows"]})
+    # the mesh rows at the CollectHealth main path's shapes (launches: its
+    # rollouts), PickupObjects' B=4096 and Sign's B=1024 beside them; each
+    # path's launches a step (one a render)
+    ms, plain_ms, dev_ms = rows_timings["collecthealth"]
+    row = {
+        "name": "entity_mesh_rows", "route": "cuda", "source": KERNELS["entity_mesh_rows"][0],
+        "replaces": KERNELS["entity_mesh_rows"][1],
+        "launches": int(health_launches["entity_mesh_rows"]), "max_abs_err": rows_err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound(*rows_work["collecthealth"])[0],
+        "bound_by": bound(*rows_work["collecthealth"])[1], "library_ms": None,
+        "device_ms": dev_ms, "shapes": f"{HEALTH_ID} B={B} E*M=864",
+        "launches_per_step": health_launches["entity_mesh_rows"] / (SHORT_HORIZON * TRIALS),
+        "checked_on": list(rows_timings) + ["int64 layout ids"]}
+    for label, lc, steps in (("pickupobjects", pick_launches, HORIZON * PICK_TRIALS),
+                             ("sign", glyph_launches["sign_b1024"], HORIZON * TRIALS)):
+        row.update({f"ms_{label}": rows_timings[label][0],
+                    f"plain_ms_{label}": rows_timings[label][1],
+                    f"device_ms_{label}": rows_timings[label][2],
+                    f"bound_ms_{label}": bound(*rows_work[label])[0],
+                    f"launches_{label}": int(lc["entity_mesh_rows"]),
+                    f"launches_per_step_{label}": lc["entity_mesh_rows"] / steps})
+    kernels.append(row)
     # the multi-chunk kernel at the Sidewalk main path's shapes (3 chunks
     # of 1,024); its paired launch is tri_pass_paired_chunks below
     from miniworld_tpu_torch.render import raycast as rc

@@ -8,12 +8,12 @@ constant changed), then times visible_ents (PickupObjects B=4096 and the
 8x8 procgen Maze B=8192 at chip_smoke.py's [visible-ents] states, and its
 worst case: each Maze box just behind a closed wall, close enough to
 fill much of the view; with --visible-ents nothing else), the render
-kernels, entity_pass and mazegen at the main paths' shapes chip_smoke.py
-times them at, in the order this tree, the others, the others reversed,
-this tree (CUDA events, 30 launches after chip_smoke.py's warm-up; for
-visible_ents, entity_pass and mazegen, whose wrappers' host work can
-outlast the kernel, also the kernel alone under torch.profiler,
-device_ms), and
+kernels, entity_pass, the mesh rows (CollectHealth B=1024) and mazegen
+at the main paths' shapes chip_smoke.py times them at, in the order this
+tree, the others, the others reversed, this tree (CUDA events, 30
+launches after chip_smoke.py's warm-up; for visible_ents, entity_pass,
+the mesh rows and mazegen, whose wrappers' host work can outlast the
+kernel, also the kernel alone under torch.profiler, device_ms), and
 holds every other library's result equal to this one's (entity_pass's
 colour and normal where its t is finite: the only part its contract
 defines). The inputs come from this tree's package; the other sources'
@@ -200,6 +200,11 @@ def main(other_dirs, unequal=False, vis_only=False):
     ab(f"entity_pass {cs.PICK_ID} B={cs.B_PICK}",
        ent_run(pick, pk_state, rc.camera_grid(pk_state, w, h)), same=ent_equal,
        kernel="entity_pass_kernel")
+    # the mesh rows at the CollectHealth path's batch
+    health = env(cs.HEALTH_ID, cs.B)
+    h_state = cs.mesh_states(health, gen)
+    ab(f"entity_mesh_rows {cs.HEALTH_ID} B={cs.B}",
+       lambda: rc.entity_mesh_rows(health._bank, h_state), kernel="mesh_rows_kernel")
     # mazegen at the Maze procgen path's resets, and at one env an SM
     from miniworld_tpu_torch.ops import mazegen, rng as rng_ops
 

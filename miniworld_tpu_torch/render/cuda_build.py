@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (``miniworld_tpu_torch/csrc``).
 
-The kernels (the render's stages and the reset's maze generation and
-placement) are compiled at first use with ``nvcc`` for Hopper
-(``sm_90a``), one nvcc process per source, all started together, and
-linked into one shared library with a plain C interface, loaded with
-``ctypes``: a build of seconds, with no PyTorch headers.
+The kernels (the render's stages, the mesh entities' rows, and the
+reset's maze generation and placement) are compiled at first use with
+``nvcc`` for Hopper (``sm_90a``), one nvcc process per source, all
+started together, and linked into one shared library with a plain C
+interface, loaded with ``ctypes``: a build of seconds, with no PyTorch
+headers.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``launch`` raises when it is not 0, and counts
 the launch in ``LAUNCHES``. The wrappers (render/raycast.py,
@@ -35,7 +36,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 SOURCES = ("tri_pass.cu", "entity_pass.cu", "pixel_epilogue.cu", "place.cu", "mazegen.cu",
-           "tri_pass_ortho.cu", "topview_epilogue.cu", "visible_ents.cu")
+           "tri_pass_ortho.cu", "topview_epilogue.cu", "visible_ents.cu", "mesh_rows.cu")
 # included by the sources; part of the build's hash
 HEADERS = ("rng.cuh", "texel.cuh", "maze_row.cuh")
 # -fmad=false: no multiply-add contraction, so every hit-test boundary
@@ -86,6 +87,11 @@ ENTRY_POINTS = {
     # the same, then stats (6 u64: envs staged, pairs kept, slab tests,
     # occlusion scans, rows scanned, rows staged), stream
     "mw_visible_ents_stats": [_P] * 4 + _CAM + [_P] * 2 + [_I] * 6 + [_P] * 3,
+    # proto_mesh, proto_mesh_mask, proto_shape, proto_static, proto_height,
+    # proto_colorable, tex_slot_base, layout_id, ent_proto, ent_alive,
+    # ent_height, ent_dir, ent_pos, ent_color, B, E, L, P, M, T, lid64,
+    # fourier, verts9, attrs, valid, stream
+    "mw_entity_mesh_rows": [_P] * 14 + [_I] * 8 + [_P] * 4,
 }
 
 _LIB = None
@@ -109,14 +115,15 @@ BUILD_INFO: dict = {}
 # (its nearest-texture instance also under "topview_epilogue_nearest"),
 # the visibility query (render/visibility.py) under "visible_ents", the
 # in-step placement (CollectHealth's respawn, ops/place.place_one) under
-# "place_one".
+# "place_one", the mesh entities' world-space rows (render/raycast.
+# entity_mesh_rows) under "entity_mesh_rows".
 LAUNCHES = {"tri_pass": 0, "entity_pass": 0, "pixel_epilogue": 0,
             "entity_mesh_pass": 0, "place": 0, "mazegen": 0,
             "tri_pass_override": 0, "pixel_epilogue_ss2": 0,
             "tri_pass_paired_chunks": 0, "tri_pass_sched": 0, "pixel_epilogue_gain": 0,
             "tri_pass_f32": 0, "pixel_epilogue_nearest": 0, "pixel_epilogue_f32": 0,
             "tri_pass_ortho": 0, "topview_epilogue": 0, "topview_epilogue_nearest": 0,
-            "visible_ents": 0, "tri_pass_multi": 0, "place_one": 0}
+            "visible_ents": 0, "tri_pass_multi": 0, "place_one": 0, "entity_mesh_rows": 0}
 
 
 def reset_launch_counts():

@@ -12,10 +12,11 @@ its plain PyTorch version beside it in this module:
      ids exceed 256); on a procgen maze each row's live
      variant (junction or closed wall) picked per env. In scenes with
      dynamic mesh entities the same launch first hit-tests the
-     entities' triangle rows, moved to world space per frame by
-     ``entity_mesh_rows`` (plain torch), and seeds the static rows'
-     z-competition with that result (``entity_mesh_pass_plain`` is the
-     mesh pass's plain version). The kernel culls rows per screen tile
+     entities' triangle rows, moved to world space per frame by the
+     ``entity_mesh_rows`` kernel (``entity_mesh_rows_plain`` its plain
+     version), and seeds the static rows' z-competition with that
+     result (``entity_mesh_pass_plain`` is the mesh pass's plain
+     version). The kernel culls rows per screen tile
      before the hit test (``tile_cull_plain`` is that cull's plain
      version) with the full scan's result. With domain randomization
      the winner's slot column is its texture variant under the env's
@@ -769,9 +770,10 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
 # dynamic mesh entities: their rows, and the plain version of their pass
 
 
-def entity_mesh_rows(bank, state, fourier: bool = True):
-    """World-space triangle rows of every dynamic mesh entity
-    (raycast.entity_mesh_rows), for the whole batch at once.
+def entity_mesh_rows_plain(bank, state, fourier: bool = True):
+    """Plain version of the mesh_rows kernel: the world-space triangle
+    rows of every dynamic mesh entity (raycast.entity_mesh_rows), for the
+    whole batch at once.
 
     Each SHAPE_MESH_TRIS prototype carries its decimated local-space
     rows (``bank.proto_mesh``, (L, P, M, 25)); per frame every entity's
@@ -842,6 +844,53 @@ def entity_mesh_rows(bank, state, fourier: bool = True):
     b, e, m = valid.shape
     verts9 = verts.reshape(b, e * m, 9).transpose(1, 2).contiguous()
     return verts9, attrs.reshape(b, e * m, ATTR_DIM).contiguous(), valid.reshape(b, e * m)
+
+
+def entity_mesh_rows(bank, state, fourier: bool = True, use_kernels: bool = True):
+    """The mesh_rows kernel (``csrc/mesh_rows.cu``, one launch for the
+    batch) for CUDA tensors, ``entity_mesh_rows_plain`` for CPU tensors or
+    with ``use_kernels=False``. Same contract and outputs as the plain
+    version, bit for bit; counts under ``LAUNCHES["entity_mesh_rows"]``.
+    ``state.layout_id`` may be int32 or int64; the bank's tensors are
+    taken in the dtypes ``layout_from_numpy`` gives them."""
+    if not use_kernels or not is_cuda(state.ent_pos, bank.proto_mesh):
+        return entity_mesh_rows_plain(bank, state, fourier)
+    L, P, M = bank.proto_mesh.shape[:3]
+    T = bank.tex_slot_base.shape[1]
+    b, E = state.ent_proto.shape
+    n = E * M
+    lid = state.layout_id
+    if lid.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"layout_id: dtype {lid.dtype}, expected int32 or int64")
+    dev = state.ent_pos.device
+    verts9 = torch.empty((b, 9, n), dtype=torch.float32, device=dev)
+    attrs = torch.empty((b, n, ATTR_DIM), dtype=torch.float32, device=dev)
+    valid = torch.empty((b, n), dtype=torch.bool, device=dev)
+    launch(
+        "mw_entity_mesh_rows", "entity_mesh_rows",
+        check(bank.proto_mesh, "proto_mesh", torch.float32, (L, P, M, 25)),
+        check(bank.proto_mesh_mask, "proto_mesh_mask", torch.bool, (L, P, M)),
+        check(bank.proto_shape, "proto_shape", torch.int32, (L, P)),
+        check(bank.proto_static, "proto_static", torch.bool, (L, P)),
+        check(bank.proto_height, "proto_height", torch.float32, (L, P)),
+        check(bank.proto_colorable, "proto_colorable", torch.bool, (L, P)),
+        check(bank.tex_slot_base, "tex_slot_base", torch.int32, (L, T)),
+        check(lid, "layout_id", lid.dtype, (b,)),
+        check(state.ent_proto, "ent_proto", torch.int32, (b, E)),
+        check(state.ent_alive, "ent_alive", torch.bool, (b, E)),
+        check(state.ent_height, "ent_height", torch.float32, (b, E)),
+        check(state.ent_dir, "ent_dir", torch.float32, (b, E)),
+        check(state.ent_pos, "ent_pos", torch.float32, (b, E, 3)),
+        check(state.ent_color, "ent_color", torch.float32, (b, E, 3)),
+        ctypes.c_int(b), ctypes.c_int(E), ctypes.c_int(L), ctypes.c_int(P), ctypes.c_int(M),
+        ctypes.c_int(T), ctypes.c_int(int(lid.dtype == torch.int64)),
+        ctypes.c_int(int(fourier)),
+        check(verts9, "verts9", torch.float32, (b, 9, n)),
+        check(attrs, "attrs", torch.float32, (b, n, ATTR_DIM)),
+        check(valid, "valid", torch.bool, (b, n)),
+        stream(),
+    )
+    return verts9, attrs, valid
 
 
 def entity_mesh_pass_plain(verts9, attrs, cam: Camera, attr_dtype=torch.bfloat16):
@@ -1516,7 +1565,7 @@ def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
     cam = camera_grid(state, width * ss, height * ss)
     f_ent = entity_pass if use_kernels else entity_pass_plain
     carry = attr_carry_dtype(state.tex_map.shape[1] if nearest else atlas.shape[0])
-    mesh = (entity_mesh_rows(bank, state, fourier=not nearest)[:2] if shapes_present[2]
+    mesh = (entity_mesh_rows(bank, state, not nearest, use_kernels)[:2] if shapes_present[2]
             else None)
     rows, paired = static_rows(bank, state, cam, pg_wall, plan)
     override = None if slot_tex is None else (state.tri_slots, *slot_tex)

@@ -10,6 +10,7 @@ import dataclasses
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from miniworld_tpu_torch.convert import state_from_numpy, state_to_numpy
@@ -17,6 +18,19 @@ from miniworld_tpu_torch.state import tree_select
 
 ENV_ID = "MiniWorld-Hallway-v0"
 W, H = 80, 60
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for the module that imports this fixture (every
+    tests/test_torch_*.py does). The parity tests' CPU ops are small, and
+    a thread per core in each of the suite's six worker processes
+    oversubscribes the machine: six concurrent processes of one such
+    test take about twice as long with torch's default threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 # Tolerances of the parity contract (ROADMAP queue A):
 FLOAT_ATOL = 1e-5  # state floats

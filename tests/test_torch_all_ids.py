@@ -16,6 +16,8 @@ from miniworld_tpu_torch.envs import ENV_IDS
 from miniworld_tpu_torch.envs.cameracontrol import CameraControl, crosshair_mask
 from miniworld_tpu_torch.ops.rng import key_data
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
+
 B, W, H, HORIZON = 2, 16, 12, 3
 
 

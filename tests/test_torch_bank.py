@@ -19,6 +19,8 @@ from miniworld_tpu_torch.envs import make_spec
 from miniworld_tpu_torch.scene.compile import Layout
 from miniworld_tpu_torch.utils import image
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
+
 TEXTURES = sorted(glob.glob(os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "miniworld_tpu", "assets", "textures", "*.png")))

@@ -29,23 +29,13 @@ from miniworld_tpu_torch.ops import rng as trng
 from miniworld_tpu_torch.state import tree_select
 
 from _torch_parity import assert_images_match, assert_states_match, to_port_state
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 B, W, H = 4, 32, 24
 CAM, CLICK = "MiniWorld-CameraControl-v0", "MiniWorld-CameraControlClick-v0"
 INFO = ("camera_yaw", "camera_pitch", "camera_fov", "camera_wall", "key_centered",
         "distance_from_center")
 
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread for this module: at B=4, 32x24 the port's CPU ops
-    gain nothing from more, and a thread per core in each of the suite's
-    worker processes oversubscribes the machine."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -39,6 +39,7 @@ from miniworld_tpu_torch.render import raycast as trc
 from _kernel_models import (epilogue_inputs, first_chunk_rank, group_cull_misses,
                             texel_read_mask, window_select)
 from _torch_parity import to_port_state
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 # (B, W, H, supersample): at ss=2 the plan sees W x H x 4 samples a frame
 SIZES = [(8, 80, 60, 1), (1024, 80, 60, 1), (1024, 160, 120, 1), (8, 80, 60, 2),

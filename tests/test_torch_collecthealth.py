@@ -30,21 +30,11 @@ from _torch_parity import (
     FLOAT_ATOL, assert_images_match, assert_states_match, facing, reset_and_steps,
     to_port_state,
 )
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 B, W, H = 4, 32, 24
 ENV_ID = "MiniWorld-CollectHealth-v0"
 
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread for this module: at B=4, 32x24 the port's CPU ops
-    gain nothing from more, and a thread per core in each of the suite's
-    worker processes oversubscribes the machine."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -26,6 +26,7 @@ from miniworld_tpu_torch.ops import rng as trng
 from _torch_parity import (
     assert_images_match, assert_states_match, facing, reset_and_steps, to_port_state,
 )
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 B, W, H = 8, 40, 30
 ROOM, PUT = "MiniWorld-RoomObjects-v0", "MiniWorld-PutNext-v0"
@@ -35,6 +36,12 @@ ROOM, PUT = "MiniWorld-RoomObjects-v0", "MiniWorld-PutNext-v0"
 def room():
     return (JaxVec(ROOM, num_envs=B, obs_width=W, obs_height=H),
             MiniWorldVec(ROOM, B, obs_width=W, obs_height=H, device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def put():
+    return (JaxVec(PUT, num_envs=B, obs_width=W, obs_height=H),
+            MiniWorldVec(PUT, B, obs_width=W, obs_height=H, device="cpu"))
 
 
 def test_sample_actions_match_jax(room):
@@ -60,18 +67,18 @@ def test_rollout_actions_match_jax(room):
 
 
 @pytest.mark.parametrize("env_id", [ROOM, PUT])
-def test_reset_and_steps(env_id):
-    reset_and_steps(env_id, B, W, H, 8, seed=21, follow_jax=True)
+def test_reset_and_steps(room, put, env_id):
+    reset_and_steps(env_id, B, W, H, 8, seed=21, follow_jax=True,
+                    envs=room if env_id == ROOM else put)
 
 
-def test_pickup_carry_drop_match_jax():
+def test_pickup_carry_drop_match_jax(put):
     """PutNext: every agent 1 m from the red box and facing it, then
     pickup, forward, turn, drop and forward vectors: the box is carried
     (``carrying`` = 4) and put down again, the states within FLOAT_ATOL
     after every step (the port then goes on from the JAX state, C1) and
     the images of the same state equal JAX's."""
-    jenv = JaxVec(PUT, num_envs=B, obs_width=W, obs_height=H)
-    tenv = MiniWorldVec(PUT, B, obs_width=W, obs_height=H, device="cpu")
+    jenv, tenv = put
     jstate, _ = jenv.reset(jax.random.key(8))
     pos, yaw = facing(jenv, jstate, 4, 1.0)
     jstate = jstate.replace(pos=jnp.asarray(pos, jnp.float32), dir=jnp.asarray(yaw, jnp.float32))

@@ -28,6 +28,8 @@ from _kernel_models import group_cull_misses
 from miniworld_tpu_torch import MiniWorldVec
 from miniworld_tpu_torch.render import raycast as trc
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
+
 W, H = 80, 60
 B = 4
 TILE = (16, 12)  # csrc/tri_pass.cu TILE_W x TILE_H

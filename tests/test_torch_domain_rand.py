@@ -30,6 +30,7 @@ from miniworld_tpu_torch.ops import rng as trng
 from miniworld_tpu_torch.render import raycast as trc
 
 from _torch_parity import assert_images_match, assert_states_match, to_port_state
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 W, H = 40, 30
 

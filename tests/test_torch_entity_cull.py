@@ -29,6 +29,8 @@ from _kernel_models import ENT_CULL_MARGIN, entity_tile_keep, entity_tile_of_pix
 from miniworld_tpu_torch import MiniWorldVec
 from miniworld_tpu_torch.render import cuda_build, raycast as trc
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
+
 ACT, SPH, BOX = trc.ENT_ACTIVE, trc.ENT_SPHERE, trc.ENT_BOX
 
 

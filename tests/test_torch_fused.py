@@ -30,6 +30,7 @@ from miniworld_tpu_torch import MiniWorldVec
 from miniworld_tpu_torch.ops import place as tplace
 from miniworld_tpu_torch.render import raycast as trc
 from test_torch_cull import B, H, TILE, W, _check_cull
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 PICK_ID = "MiniWorld-PickupObjects-v0"
 

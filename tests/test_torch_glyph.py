@@ -35,6 +35,7 @@ from miniworld_tpu_torch.render import raycast as trc
 
 from _kernel_models import epilogue_inputs, ss2_by_lanes
 from _torch_parity import DEPTH_RTOL, reset_and_steps
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 SIGN_ID = "MiniWorld-Sign-v0"
 K = 64
@@ -132,13 +133,15 @@ def _glyph_pixels(env, state, ss=1):
 
 
 def _run(steps, **env_kwargs):
+    from miniworld_tpu import MiniWorldVec as JaxVec
     from miniworld_tpu_torch import MiniWorldVec
 
     env = MiniWorldVec(SIGN_ID, B, obs_width=W, obs_height=H, device="cpu", **env_kwargs)
+    jenv = JaxVec(SIGN_ID, num_envs=B, obs_width=W, obs_height=H, **env_kwargs)
     frames = []
     dones, rewards, _, _ = reset_and_steps(SIGN_ID, B, W, H, steps, seed=5, start=_start,
                                            forced_action=FORCED_ACTIONS, frames=frames,
-                                           **env_kwargs)
+                                           envs=(jenv, env))
     worst = 0
     for tstate, j_rgb, j_depth, t_rgb, t_depth in frames:
         glyph = _glyph_pixels(env, tstate, env.supersample).numpy()

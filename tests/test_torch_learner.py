@@ -37,6 +37,8 @@ from miniworld_tpu_torch.convert import (
 from miniworld_tpu_torch.ops import rng as trng
 from miniworld_tpu_torch.parallel import learner as TL
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
+
 SHAPES = [(60, 80), (24, 32)]
 HEADS = [False, True]  # continuous
 N = 12
@@ -44,14 +46,6 @@ FWD_BF16_ULPS = 2
 NORMAL_ULPS = 3
 GRAD_RTOL = 2e-2
 CONV_BIAS_GRAD_RTOL = 0.5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _num_actions(cont):

@@ -33,6 +33,7 @@ from miniworld_tpu_torch.scene.compile import Layout
 from _torch_parity import H, W, assert_images_match, assert_states_match, to_port_state
 from test_torch_render import _port_camera, _winner_stats
 from test_torch_vector import adopt_reset_ulps
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 MAZE_IDS = ["MiniWorld-Maze-v0", "MiniWorld-MazeS3-v0", "MiniWorld-MazeS2-v0"]
 B = 8

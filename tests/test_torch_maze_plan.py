@@ -16,6 +16,8 @@ from miniworld_tpu.scene.compile import Layout as JaxLayout
 from miniworld_tpu_torch import vector as tvector
 from miniworld_tpu_torch.envs import make_spec
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
+
 SIZES = [(8, 80, 60), (1024, 80, 60), (1024, 160, 120)]
 PACKED = ("pvs_verts9", "pvs_attr", "pvs_tri_tex", "pvs_tri_tex_base", "pvs_tri_tex_count",
           "pvs_room_base", "pvs_room_nchunks", "pvs_v9_rows", "pvs_attr_rows", "tri_attr",

@@ -17,6 +17,8 @@ from _kernel_models import mazegen_walk
 from miniworld_tpu.ops import mazegen as jmazegen
 from miniworld_tpu_torch.ops import mazegen, rng as trng
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
+
 
 def _seeds(n, salt):
     return np.random.default_rng(100 + salt).integers(0, 2**32, n, dtype=np.uint64)

@@ -23,6 +23,7 @@ from miniworld_tpu_torch.render import cuda_build, raycast as trc
 from miniworld_tpu_torch.scene import entities as tent, mesh as tmesh
 
 from _torch_parity import DEPTH_RTOL, MAX_WINNER_DIFF, H, W, assert_images_match, to_port_state
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 PICK_ID = "MiniWorld-PickupObjects-v0"
 B = 6

@@ -31,6 +31,7 @@ from miniworld_tpu_torch.ops import rng as trng
 from miniworld_tpu_torch.render import raycast as trc
 
 from _torch_parity import reset_and_steps
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 W, H = 32, 24
 

@@ -14,6 +14,7 @@ the port is kept under."""
 import pytest
 
 from _torch_parity import reset_and_steps
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 
 @pytest.mark.parametrize("env_id", ["MiniWorld-Hallway-v0", "MiniWorld-PickupObjects-v0",

@@ -8,6 +8,7 @@ of their own so that the suite's file-by-file distribution over workers
 import pytest
 
 from _torch_parity import reset_and_steps
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 
 @pytest.mark.parametrize("env_id", ["MiniWorld-Sidewalk-v0", "MiniWorld-Sign-v0"])

@@ -34,6 +34,7 @@ from miniworld_tpu_torch.render import raycast as trc
 from _kernel_models import window_select
 from _torch_parity import to_port_state
 from test_torch_chunks import _jax_cameras, _port_camera
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 MAZE_ID = "MiniWorld-Maze-v0"
 B, W, H = 4, 40, 30

@@ -39,18 +39,11 @@ from _torch_parity import assert_states_match, to_port_state
 from _torch_train import (
     MAX_PARAM_DIFF, assert_metrics, assert_rollout_outs, jax_policy_rollout, max_param_diff,
 )
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 ENV_ID = "MiniWorld-OneRoomS6Fast-v0"
 W, H, HORIZON = 32, 24, 3
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_multihost_init_fail_fast(monkeypatch):

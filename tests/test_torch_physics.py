@@ -17,6 +17,7 @@ from miniworld_tpu_torch.ops import physics as tphys, place as tplace, rng as tr
 from miniworld_tpu_torch.render.raycast import room_of_point as t_room_of_point
 
 from _torch_parity import ENV_ID, assert_states_match, to_port_state
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 B = 8
 

@@ -26,6 +26,7 @@ from miniworld_tpu_torch.render import cuda_build, raycast as trc
 from _torch_parity import (
     DEPTH_RTOL, ENV_ID, MAX_WINNER_DIFF, H, W, assert_images_match, to_port_state,
 )
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 B = 4
 K = 16

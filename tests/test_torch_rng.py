@@ -10,6 +10,8 @@ import torch
 from miniworld_tpu.ops import rng as jrng
 from miniworld_tpu_torch.ops import rng as trng
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
+
 SEEDS = [0, 1, 12345, 2**32 - 1]
 
 

@@ -46,6 +46,7 @@ from miniworld_tpu_torch.render import raycast as trc
 
 from _torch_parity import assert_images_match, reset_and_steps, to_port_state
 from test_torch_chunks import _jax_cameras, _port_camera
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 W, H = 32, 24
 ROUTES = {  # id -> constructor arguments of a scheduled plan

@@ -13,6 +13,7 @@ from miniworld_tpu.envs import make_spec as jax_make_spec
 from miniworld_tpu_torch.envs import make_spec
 
 from _torch_parity import facing, reset_and_steps
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 B, W, H, STEPS = 8, 40, 30, 8
 IDS = ["MiniWorld-OneRoom-v0", "MiniWorld-OneRoomS6-v0", "MiniWorld-OneRoomS6Fast-v0",

@@ -24,6 +24,7 @@ from miniworld_tpu_torch.render import cuda_build, raycast as trc
 
 from _kernel_models import epilogue_inputs, ss2_by_lanes, texel_read_mask
 from _torch_parity import assert_images_match, to_port_state
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 W, H, B = 16, 12, 8
 

@@ -38,6 +38,7 @@ from miniworld_tpu_torch.render import topview as ttop
 
 from _torch_parity import to_port_state
 from test_torch_topview_ids import top_view_steps
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 B, W, H = 3, 48, 36
 DOWN = np.array([0.0, -1.0, 0.0], np.float32)

@@ -22,6 +22,7 @@ from miniworld_tpu_torch import MiniWorldVec
 from miniworld_tpu_torch.render import topview as ttop
 
 from _torch_parity import reset_and_steps, to_port_state
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 B, W, H = 2, 48, 36
 

@@ -24,6 +24,7 @@ from miniworld_tpu_torch import MiniWorldVec
 from miniworld_tpu_torch.render import raycast as trc
 from miniworld_tpu_torch.render import topview as ttop
 from test_torch_topview import _tie_bank
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 K = 16
 

@@ -24,16 +24,9 @@ from miniworld_tpu_torch.state import EnvState
 from miniworld_tpu_torch.utils import checkpoint
 
 from _torch_train import check_rollout_policy
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 B, W, H, HORIZON = 8, 32, 24, 4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _returns_inputs(seed, T=6, b=5):

@@ -4,18 +4,8 @@ against the JAX package's ``rollout_fn``, B=8 at 32x24 (the checks of
 tests/_torch_train.check_rollout_policy). Its own file: the glyph bank
 and Sign's JAX programs take most of a minute to build."""
 
-import pytest
-import torch
-
 from _torch_train import check_rollout_policy
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 
 def test_rollout_policy_sign():

@@ -25,19 +25,12 @@ from _torch_train import (
     MAX_PARAM_DIFF, assert_metrics, assert_rollout_outs, capture_rollouts, follow,
     jax_policy_rollout, max_param_diff, port_tstate,
 )
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 ENV_ID = "MiniWorld-OneRoomS6Fast-v0"
 B, W, H, HORIZON = 8, 32, 24, 4
 # a draw whose two best candidates nearly tie may differ (tests/test_torch_rng.py)
 MAX_DIFFERING_DRAWS = 2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -21,6 +21,7 @@ from _torch_parity import (
     ENV_ID, FLOAT_ATOL, H, W, adopt_reset_ulps, assert_images_match, assert_states_match,
     facing, to_port_state,
 )
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 B = 8
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -31,19 +32,26 @@ def port_env():
     return MiniWorldVec(ENV_ID, B, obs_width=W, obs_height=H, device="cpu")
 
 
+@pytest.fixture(scope="module")
+def jax_env():
+    """JAX's Hallway at (B, W, H), its programs compiled once for the
+    module's tests."""
+    return JaxVec(ENV_ID, num_envs=B, obs_width=W, obs_height=H)
+
+
 PICK_ID = "MiniWorld-PickupObjects-v0"
 RESET_ENVS = ["MiniWorld-Hallway-v0", "MiniWorld-FourRooms-v0", "MiniWorld-TMaze-v0", PICK_ID]
 
 
 @pytest.mark.parametrize("env_id", RESET_ENVS)
-def test_reset_and_ten_steps(port_env, env_id):
+def test_reset_and_ten_steps(port_env, jax_env, env_id):
     """Half the envs start in front of entity 0 — 1.5 m before the goal
     of the go-to envs, walking forward (their episodes end and
     auto-reset); just within PickupObjects' pickup probe, picking up
     (rewards, num_picked_up and ent_alive change)."""
     env = port_env if env_id == ENV_ID else MiniWorldVec(env_id, B, obs_width=W, obs_height=H,
                                                          device="cpu")
-    jenv = JaxVec(env_id, num_envs=B, obs_width=W, obs_height=H)
+    jenv = jax_env if env_id == ENV_ID else JaxVec(env_id, num_envs=B, obs_width=W, obs_height=H)
     jstate, (j_rgb, j_depth) = jenv.reset(jax.random.key(21))
     tstate, (t_rgb, t_depth) = env.reset(21)
     assert_states_match(jstate, tstate)
@@ -112,11 +120,11 @@ def test_rollout(port_env):
     assert torch.equal(again["obs_sum"], outs[0])
 
 
-def test_rollout_matches_jax(port_env):
+def test_rollout_matches_jax(port_env, jax_env):
     """The port's rollout from a key steps the JAX package's
     ``rollout(state, obs, key, horizon)``: Hallway at B=8, horizon 4,
     from the same reset; per-step reward, dones and obs_sum equal."""
-    jenv = JaxVec(ENV_ID, num_envs=B, obs_width=W, obs_height=H)
+    jenv = jax_env
     jstate, jobs = jenv.reset(jax.random.key(3))
     tstate, tobs = port_env.reset(3)
     for seed in (7, 8):

@@ -33,6 +33,8 @@ from miniworld_tpu_torch.ops import mazegen
 from miniworld_tpu_torch.render import cuda_build, raycast as trc
 from miniworld_tpu_torch.render import visibility as tvis
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
+
 BOX = np.array([[-tvis.BOX_R, 0.0, -tvis.BOX_R], [tvis.BOX_R, tvis.BOX_H, tvis.BOX_R]])
 
 

@@ -26,6 +26,7 @@ from miniworld_tpu_torch.render import visibility as tvis
 from miniworld_tpu_torch.render.raycast import camera_grid
 
 from _torch_parity import facing, to_port_state
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 B, W, H = 8, 48, 36
 IDS = ["MiniWorld-OneRoom-v0", "MiniWorld-PutNext-v0", "MiniWorld-PickupObjects-v0",

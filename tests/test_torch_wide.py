@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 from _torch_parity import facing, reset_and_steps
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 B, W, H, STEPS = 4, 40, 30, 6
 
