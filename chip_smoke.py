@@ -130,7 +130,19 @@ the learner's forward, forward + backward and Adam timed at the step's
 ([train-profile]); one A2C step of the Gaussian head and one on Sign's
 dict observations at B=256; and the policy's rollout at B=128 with the
 kernels against the plain path, equal in actions, rewards, dones and
-checksums ([train-parity]).
+checksums ([train-parity]). Then the gymnasium adapter ([gym];
+gym_env.SingleEnv, the adapter without gymnasium, which the card's image
+lacks): every id reset and stepped 10 times at 80x60, each frame and its
+RGB-D render equal to the plain render of the same state exactly, the
+top view and get_visible_ents likewise on Hallway, PickupObjects, MazeS2
+and CollectHealth, every kernel its plans name launched (launches_gym on
+the kernels line); the goldens of tests/golden and tests/golden_ref
+replayed bit for bit ([gym-goldens]); frames a second on Hallway,
+PickupObjects, the 8x8 Maze and CollectHealth ([gym-fps]). Last, the
+layout-bank refresh ([refresh]): MazeS3 with 4 layouts and the 4x4 Maze
+with 4 at B=1024, refreshed in their installed plans and rolled out with
+the kernels and plain, exactly; and the A2C twin refreshing the MazeS3
+bank every 2 iterations ([refresh-train]).
 One line per phase; the JSON summary of the
 kernels and the card's ``nvidia-smi`` name and power limit come before
 the last line,
@@ -210,6 +222,20 @@ TRAIN_ID = "MiniWorld-OneRoomS6Fast-v0"
 B_TRAIN, B_TRAIN_SIDE = 1024, 256
 TRAIN_HORIZON, TRAIN_EPOCHS, TRAIN_MINIBATCHES = 16, 2, 4
 TRAIN_WARMUP, TRAIN_ITERS = 2, 3
+
+# the gymnasium adapter: every id reset and GYM_STEPS steps at W x H; the
+# top view and the visibility query on GYM_TOP_IDS; frames a second on
+# GYM_FPS_IDS over GYM_FPS_STEPS steps; the kernels its path must launch
+GYM_STEPS, GYM_SEED, GYM_FPS_STEPS = 10, 5, 100
+GYM_TOP_IDS = ("Hallway", "PickupObjects", "MazeS2", "CollectHealth")
+GYM_FPS_IDS = ("Hallway", "PickupObjects", "Maze", "CollectHealth")
+GYM_KERNELS = ("tri_pass", "entity_mesh_pass", "entity_mesh_rows", "tri_pass_multi",
+               "tri_pass_f32", "entity_pass", "pixel_epilogue", "pixel_epilogue_nearest",
+               "pixel_epilogue_f32", "tri_pass_ortho", "topview_epilogue",
+               "topview_epilogue_nearest", "visible_ents")
+# the layout-bank refresh: two small banks at B_REFRESH, rolled out
+# REFRESH_HORIZON steps after a refresh from REFRESH_SEED
+B_REFRESH, REFRESH_HORIZON, REFRESH_SEED = 1024, 8, 101
 
 # the card's published peaks (H100 SXM data sheet) for the bound column
 PEAK_BYTES_PER_S = 3.35e12
@@ -1888,7 +1914,7 @@ def phase_dr_ss_paths(maze_dr, four_dr, hall_ss, pick_ss, make_env, rates):
         check_rollout(env, outs, obs, lc, HORIZON, TRIALS, kernels)
         rates[label] = (rate, None)
         launches[env.spec.gym_id, tag] = lc
-        phase_breakdown(env, render_iters=5, plain_render_iters=1)
+        phase_breakdown(env, render_iters=5, plain_render_iters=0)
     from miniworld_tpu_torch import MiniWorldVec, make_spec
 
     maze_s3 = MiniWorldVec(make_spec(MAZE_S3_ID, max_episode_steps=MAZE_S3_STEPS), B_PLAIN,
@@ -2377,7 +2403,7 @@ def phase_sched_paths(maze_bank, maze_bank_dr, bank_states, big, small, rates):
         rate, outs, obs, launches[label], _ = rollouts(env, "sched", horizon, TRIALS)
         check_rollout(env, outs, obs, launches[label], horizon, TRIALS, path_kernels(env))
         rates[f"maze8x8_bank_ss2{'_dr' if env.domain_rand else ''}_b{env.num_envs}"] = (rate, None)
-    phase_breakdown(maze_bank, render_iters=5, plain_render_iters=1)
+    phase_breakdown(maze_bank, render_iters=5, plain_render_iters=0)
     for env_id, _ in SCHED_IDS:
         for env in (big[env_id], small[env_id]):
             if "tri_pass_sched" not in path_kernels(env):
@@ -2440,10 +2466,10 @@ def shared_banks():
 
     orig, built = vector.build_bank, {}
 
-    def build_bank(spec, tex_mode="fourier"):
-        key = (spec.gym_id, spec.num_layouts, tex_mode)
+    def build_bank(spec, tex_mode="fourier", **kw):
+        key = (spec.gym_id, spec.num_layouts, tex_mode, repr(sorted(kw.items())))
         if key not in built:
-            built[key] = orig(spec, tex_mode)
+            built[key] = orig(spec, tex_mode, **kw)
         return built[key]
 
     vector.build_bank = build_bank
@@ -2467,7 +2493,7 @@ def phase_glyph_paths(sign, maze_ss, make_env, rates):
         check_rollout(env, outs, obs, lc, HORIZON, TRIALS, path_kernels(env))
         rates[label] = (rate, None)
         launches[label] = lc
-        phase_breakdown(env, render_iters=5, plain_render_iters=1)
+        phase_breakdown(env, render_iters=5, plain_render_iters=0)
     for env_id in (GREEN_ID, THREE_ID):
         env = make_env(env_id, B)
         rate, outs, obs, lc, _ = rollouts(env, "kernels", SHORT_HORIZON, TRIALS)
@@ -2691,7 +2717,7 @@ def phase_nearest_paths(maze_n, hall_n, make_env, rates):
     rate, outs, obs, launches, _ = rollouts(maze_n, "nearest", HORIZON, TRIALS)
     check_rollout(maze_n, outs, obs, launches, HORIZON, TRIALS, path_kernels(maze_n))
     rates["maze8x8_procgen_nearest_b8192"] = (rate, None)
-    phase_breakdown(maze_n, render_iters=5, plain_render_iters=1)
+    phase_breakdown(maze_n, render_iters=5, plain_render_iters=0)
     rate, outs, obs, lc, _ = rollouts(hall_n, "nearest", SHORT_HORIZON, TRIALS)
     check_rollout(hall_n, outs, obs, lc, SHORT_HORIZON, TRIALS, path_kernels(hall_n))
     rates["hallway_nearest"] = (rate, None)
@@ -2744,7 +2770,7 @@ def phase_continuous(room, make_env, rates):
     rate, outs, obs, launches, _ = rollouts(room, "continuous", HORIZON, TRIALS)
     check_rollout(room, outs, obs, launches, HORIZON, TRIALS, path_kernels(room))
     rates["roomobjects_b4096"] = (rate, None)
-    phase_breakdown(room, render_iters=5, plain_render_iters=1)
+    phase_breakdown(room, render_iters=5, plain_render_iters=0)
     put = make_env(PUTNEXT_ID, B)
     rate, outs, obs, lc, _ = rollouts(put, "continuous", SHORT_HORIZON, TRIALS)
     check_rollout(put, outs, obs, lc, SHORT_HORIZON, TRIALS, path_kernels(put))
@@ -3061,7 +3087,7 @@ def phase_collecthealth(health, maze, rates):
     rates[f"collecthealth_b{n}"] = (rate, None)
     rates[f"collecthealth_b{n}_h{PLAIN_HORIZON}"] = kernel_and_plain(
         health, PLAIN_HORIZON, TRIALS, path_kernels(health), exact=True)[:2]
-    phase_breakdown(health, render_iters=5, plain_render_iters=1)
+    phase_breakdown(health, render_iters=5, plain_render_iters=0)
     phase_profile_plain_rows(health)
     return errs, timings, work, launches
 
@@ -3645,12 +3671,12 @@ def phase_topview_paths(maze_top, pick_top, make_env, rates):
     rate, outs, obs, launches["maze"], _ = rollouts(maze_top, "top", HORIZON, TRIALS)
     check_rollout(maze_top, outs, obs, launches["maze"], HORIZON, TRIALS, path_kernels(maze_top))
     rates["maze8x8_procgen_top_b8192"] = (rate, None)
-    phase_breakdown(maze_top, render_iters=5, plain_render_iters=1)
+    phase_breakdown(maze_top, render_iters=5, plain_render_iters=0)
     rate, outs, obs, launches["pick"], _ = rollouts(pick_top, "top", SHORT_HORIZON, TRIALS)
     check_rollout(pick_top, outs, obs, launches["pick"], SHORT_HORIZON, TRIALS,
                   path_kernels(pick_top))
     rates["pickupobjects_top_b4096"] = (rate, None)
-    phase_breakdown(pick_top, render_iters=5, plain_render_iters=1)
+    phase_breakdown(pick_top, render_iters=5, plain_render_iters=0)
     env = make_env(ENV_ID, B_PLAIN, view="top")
     rates[f"hallway_top_b{B_PLAIN}"] = kernel_and_plain(
         env, PLAIN_HORIZON, TRIALS, path_kernels(env), exact=True)[:2]
@@ -3760,7 +3786,9 @@ def phase_breakdown(env, render_iters=10, plain_render_iters=3):
     """Where a rollout step's time goes: the step with its auto-reset
     (maze generation and placement by the kernels, then by their plain
     versions), and the render with the kernels and with the plain
-    versions."""
+    versions (``plain_render_iters=0``: the plain render not timed, on the
+    paths beyond the first four, which keeps the script's time in bounds:
+    at B=8192 one plain render takes seconds)."""
     from miniworld_tpu_torch.ops.rng import key_data
 
     state, _ = env.reset(seed=0)
@@ -3772,13 +3800,16 @@ def phase_breakdown(env, render_iters=10, plain_render_iters=3):
         step_plain_ms = host_ms(lambda: env._step_batch(state, acts), 5)
         # the plain render of one step takes seconds at the Maze's shapes:
         # timed over one call, without a warm-up call
-        plain_ms = host_ms(lambda: env.render(state), plain_render_iters,
-                           warmup=plain_render_iters > 1)
+        plain_ms = "not measured"
+        if plain_render_iters:
+            plain_ms = host_ms(lambda: env.render(state), plain_render_iters,
+                               warmup=plain_render_iters > 1)
+            plain_ms = f"{plain_ms:.3f}"
     finally:
         env.use_kernels = True
     say("breakdown", env=env.spec.gym_id, B=env.num_envs,
         step_and_reset_ms=f"{step_ms:.3f}", step_and_reset_plain_reset_ms=f"{step_plain_ms:.3f}",
-        render_kernels_ms=f"{render_ms:.3f}", render_plain_ms=f"{plain_ms:.3f}")
+        render_kernels_ms=f"{render_ms:.3f}", render_plain_ms=plain_ms)
     phase_profile(env, state)
 
 
@@ -4154,6 +4185,243 @@ def phase_train(make_env, smi):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# the gymnasium adapter (gym_env.py: one env, host physics, renders on the
+# card at a batch of one) and the layout-bank refresh
+
+
+def gym_actions(env, n, seed):
+    """``n`` seeded actions for a ``SingleEnv``: table indices, the
+    camera's ids or clicks, or 6-D vectors in the action box."""
+    rng = np.random.default_rng(seed)
+    spec = env.spec_def
+    if env._discrete_actions is not None:
+        return [int(a) for a in rng.integers(0, len(env._discrete_actions), n)]
+    if getattr(spec, "num_actions", 0):
+        return [int(a) for a in rng.integers(0, spec.num_actions, n)]
+    if getattr(spec, "click_action", False):
+        return list(rng.uniform(0.0, 1.0, (n, 2)).astype(np.float32))
+    return list(rng.uniform([-1, -1, -1, -1, 0, 0], 1.0, (n, 6)).astype(np.float32))
+
+
+def gym_same(label, k, p):
+    """Raise unless the kernel frame ``k`` equals the plain one ``p``
+    ((rgb, depth) numpy pairs) exactly; returns the largest difference."""
+    err = max(float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max())
+              for a, b in zip(k, p))
+    if not all(np.array_equal(a, b) for a, b in zip(k, p)):
+        raise AssertionError(f"[gym] {label}: kernel frame differs from plain by {err}")
+    return err
+
+
+def gym_plain(env, fn):
+    """``fn()`` with the env's plain renders (no launches)."""
+    env.use_kernels = False
+    try:
+        return fn()
+    finally:
+        env.use_kernels = True
+
+
+def phase_gym(smi):
+    """The gymnasium adapter's main path on the card, every id: reset and
+    GYM_STEPS steps at 80x60 with the kernels, each step's observation
+    and an RGB-D render (render_depth) equal to the plain render of the
+    same state exactly; on GYM_TOP_IDS the view="top" observation and
+    get_visible_ents too. Launch counts from that run (the comparisons'
+    plain renders launch nothing); the goldens (tests/golden,
+    tests/golden_ref) replayed bit for bit; frames a second on
+    GYM_FPS_IDS (reset and steps, the render included). Returns (the
+    path's launches, the largest kernel-vs-plain difference, the JSON
+    summary)."""
+    import glob
+
+    from miniworld_tpu_torch.envs import ENV_IDS
+    from miniworld_tpu_torch.gym_env import SingleEnv
+    from miniworld_tpu_torch.render import cuda_build
+
+    names = [i.split("-")[1] for i in ENV_IDS]
+    envs = {n: SingleEnv(n, obs_width=W, obs_height=H, device=DEVICE) for n in names}
+    tops = {n: SingleEnv(n, obs_width=W, obs_height=H, device=DEVICE, view="top")
+            for n in GYM_TOP_IDS}
+    torch.cuda.synchronize()
+    err, frames, seen = 0.0, 0, 0
+    plans = {}
+    cuda_build.reset_launch_counts()
+    for n in names:
+        env = envs[n]
+        obs, _ = env.reset(seed=GYM_SEED)
+        st = env.render_statics()
+        plans[n] = "1" if st.plan is None else f"{st.plan['nc']}x{st.plan['tri_chunk']}"
+        for t, a in enumerate([None] + gym_actions(env, GYM_STEPS, GYM_SEED)):
+            if a is not None:
+                obs = env.step(a)[0]  # an episode that ends goes on, as the reference's
+            kern = env.render_depth()
+            plain = gym_plain(env, env.render_depth)
+            img = obs["obs"] if isinstance(obs, dict) else obs
+            err = max(err, gym_same(f"{n} step {t}", kern, plain), gym_same(
+                f"{n} step {t} obs", (img,), (kern[0],)))
+            frames += 1
+            if n in tops:
+                vis_k = sorted(e.slot_idx for e in env.get_visible_ents())
+                vis_p = sorted(e.slot_idx for e in gym_plain(env, env.get_visible_ents))
+                if vis_k != vis_p:
+                    raise AssertionError(f"[gym] {n} step {t}: visible {vis_k} vs {vis_p}")
+                seen += len(vis_k)
+        if n in tops:
+            top = tops[n]
+            t_obs, _ = top.reset(seed=GYM_SEED)
+            for t, a in enumerate([None] + gym_actions(top, GYM_STEPS, GYM_SEED)):
+                if a is not None:
+                    t_obs = top.step(a)[0]
+                kern = top.render_depth()
+                err = max(err, gym_same(f"{n} top step {t}", kern,
+                                        gym_plain(top, top.render_depth)),
+                          gym_same(f"{n} top obs {t}", (t_obs,), (kern[0],)))
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    missing = [k for k in GYM_KERNELS if not launches.get(k)]
+    say("gym", ids=len(names), frames=frames, top_ids=",".join(GYM_TOP_IDS),
+        visible_entities=seen, max_abs_err=err, chunks=plans, launches=launches)
+    if missing:
+        raise AssertionError(f"[gym] kernels never launched on the adapter's path: {missing}")
+    # the goldens: the float64 host physics, no render needed
+    n_gold = 0
+    for path in sorted(glob.glob(os.path.join(ROOT, "tests", "golden", "*.npz"))):
+        name, seed = os.path.basename(path)[:-4].rsplit("_s", 1)
+        g = np.load(path)
+        env = SingleEnv(name, obs_width=W, obs_height=H, device=DEVICE, skip_obs=True)
+        env.reset(seed=int(seed))
+        ok = np.array_equal(env.agent_pos, g["spawn"])
+        for t, a in enumerate(g["actions"]):
+            _, r, term, trunc, _ = env.step(int(a) if np.ndim(a) == 0 else a)
+            ok &= (np.array_equal(env.agent_pos, g["poses"][t]) and env.agent_dir == g["dirs"][t]
+                   and r == g["rewards"][t] and bool(term) == bool(g["terms"][t]))
+            if term or trunc:
+                break
+        if not ok:
+            raise AssertionError(f"[gym] golden {path} does not replay")
+        n_gold += 1
+    for path in sorted(glob.glob(os.path.join(ROOT, "tests", "golden_ref", "*.npz"))):
+        base = os.path.basename(path)[:-4]
+        dr = base.endswith("_dr")
+        name, seed = (base[:-3] if dr else base).rsplit("_s", 1)
+        ref = np.load(path)
+        env = SingleEnv(name, obs_width=W, obs_height=H, device=DEVICE, skip_obs=True,
+                        domain_rand=dr)
+        env.reset(seed=int(seed))
+        ok = np.array_equal(env.agent_pos, ref["spawn_pos"]) and env.agent_dir == ref["spawn_dir"]
+        steps = 0
+        for t, a in enumerate(ref["actions"]):
+            a = np.asarray(a)
+            _, r, term, trunc, _ = env.step(int(a) if a.ndim == 0 else a)
+            ok &= (np.array_equal(env.agent_pos, ref["pos"][t]) and env.agent_dir == ref["dir"][t]
+                   and env.cam_pitch == ref["pitch"][t] and float(r) == ref["reward"][t]
+                   and bool(term) == bool(ref["term"][t])
+                   and bool(trunc) == bool(ref["trunc"][t]))
+            steps += 1
+            if term or trunc:
+                break
+        if not ok or steps != len(ref["pos"]):
+            raise AssertionError(f"[gym] reference golden {path} does not replay")
+        n_gold += 1
+    say("gym-goldens", replayed=n_gold, bit_exact=True)
+    # frames a second: reset, then steps (each one renders and fetches its
+    # observation to the host), episodes reset as they end
+    fps = {}
+    for n in GYM_FPS_IDS:
+        env = envs.get(n) or SingleEnv(n, obs_width=W, obs_height=H, device=DEVICE)
+        acts = gym_actions(env, GYM_FPS_STEPS, 1)
+        env.reset(seed=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        env.reset(seed=2)
+        for a in acts:
+            _, _, term, trunc, _ = env.step(a)
+            if term or trunc:
+                env.reset()
+        torch.cuda.synchronize()
+        fps[n] = (GYM_FPS_STEPS + 1) / (time.perf_counter() - t0)
+        say("gym-fps", env=n, obs=f"{W}x{H}", frames=GYM_FPS_STEPS + 1,
+            frames_per_s=f"{fps[n]:.1f}", card=smi)
+    return launches, err, {"frames_checked": frames, "goldens_replayed": n_gold,
+                           "frames_per_s": fps, "obs": f"{W}x{H}", "chunks": plans}
+
+
+def phase_refresh():
+    """Layout-bank refresh at B_REFRESH: MazeS3 with 4 layouts (a full
+    scan) and the 4x4 Maze with 4 (packed PVS), each refreshed, the plan
+    unchanged, then reset and rolled out with the kernels and with the
+    plain versions, exactly equal; then the A2C twin with
+    --refresh-layouts-every 2. Returns the kernel rollouts' launches."""
+    from miniworld_tpu_torch import MiniWorldVec, make_spec
+    from miniworld_tpu_torch.examples import train_a2c
+    from miniworld_tpu_torch.ops.rng import key_data
+    from miniworld_tpu_torch.parallel import make_train_step
+    from miniworld_tpu_torch.render import cuda_build
+
+    launches = {}
+    for label, env_id, kw, kind in (
+            ("mazes3x4", MAZE_S3_ID, dict(num_layouts=4), "dense"),
+            ("maze4x4x4", MAZE_ID, dict(num_rows=4, num_cols=4, num_layouts=4), "packed_pvs")):
+        pair = [MiniWorldVec(make_spec(env_id, **kw), B_REFRESH, obs_width=W, obs_height=H,
+                             device=DEVICE, procgen=False, use_kernels=uk) for uk in (True, False)]
+        plan0 = {k: v for k, v in pair[0].plan.items() if k != "chunk_vis"}
+        if plan0["kind"] != kind:
+            raise AssertionError(f"[refresh] {label} plans {plan0}")
+        prepared = pair[0].prepare_bank(REFRESH_SEED)
+        outs = []
+        for env in pair:
+            env.install_bank(prepared)
+            plan = {k: v for k, v in env.plan.items() if k != "chunk_vis"}
+            if plan != plan0:
+                raise AssertionError(f"[refresh] {label}: the plan changed, {plan0} -> {plan}")
+            state, obs = env.reset(seed=3)
+            torch.cuda.synchronize()
+            cuda_build.reset_launch_counts()
+            state, obs, out = env.rollout(state, obs, key_data(4, env.device), REFRESH_HORIZON)
+            torch.cuda.synchronize()
+            if env.use_kernels:
+                launches[label] = dict(cuda_build.LAUNCHES)
+            outs.append((state, obs, out))
+        (sk, ok_, outk), (sp, op, outp) = outs
+        same = all(torch.equal(outk[k], outp[k]) for k in outk)
+        same &= torch.equal(ok_[0], op[0]) and torch.equal(ok_[1], op[1])
+        same &= all(torch.equal(v, sp.tensors()[k]) for k, v in sk.tensors().items())
+        if not same:
+            raise AssertionError(f"[refresh] {label}: the kernel rollout differs from plain")
+        for k in ("tri_pass", "pixel_epilogue", "entity_pass", "place"):
+            if launches[label][k] < REFRESH_HORIZON:
+                raise AssertionError(f"[refresh] {label}: {k} launched {launches[label][k]}")
+        say("refresh", env=label, B=B_REFRESH, plan=plan0, horizon=REFRESH_HORIZON,
+            kernels_equal_plain=True, launches=launches[label],
+            dones=int(outk["dones"].sum()))
+    # the A2C twin, refreshing the MazeS3 bank every 2 iterations
+    installs, orig = [], MiniWorldVec.install_bank
+
+    def counted(self, prepared):
+        installs.append(1)
+        return orig(self, prepared)
+
+    args = train_a2c.parser("").parse_args(
+        ["--env", MAZE_S3_ID, "--num-envs", str(B_REFRESH), "--obs", f"{W}x{H}", "--iters", "4",
+         "--horizon", "8", "--refresh-layouts-every", "2", "--log-every", "2",
+         "--device", DEVICE])
+    MiniWorldVec.install_bank = counted
+    try:
+        t0 = time.perf_counter()
+        train_a2c.run(args, lambda env: make_train_step(env, horizon=args.horizon),
+                      env_kwargs={"procgen": False})
+    finally:
+        MiniWorldVec.install_bank = orig
+    if len(installs) != 2:
+        raise AssertionError(f"[refresh] the A2C twin installed {len(installs)} banks in 4 "
+                             "iterations, refreshing every 2")
+    say("refresh-train", env=MAZE_S3_ID, procgen=False, iters=4, refresh_every=2,
+        banks_installed=len(installs), seconds=f"{time.perf_counter() - t0:.1f}")
+    return launches
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, ROOT)
@@ -4368,6 +4636,12 @@ def main():
     lap("main: maze bank ss=2, tri_chunk=16 routes")
     train_launches, train_summary = phase_train(env, smi)
     lap("train: a2c, ppo, gaussian head, sign")
+    # the gymnasium adapter on every id, its goldens and frames a second;
+    # the layout-bank refresh and the A2C twin refreshing
+    gym_launches, gym_err, gym_summary = phase_gym(smi)
+    lap("gym: adapter, goldens, fps")
+    refresh_launches = phase_refresh()
+    lap("refresh: two banks, a2c --refresh-layouts-every 2")
     kernels = []
     for k, (src, rep) in KERNELS.items():
         if k == "entity_mesh_rows":  # its own row below
@@ -4643,6 +4917,12 @@ def main():
                             f"{maze_vis.tri_chunk}",
         "checked_on": sched_checked})
     kernels[KERNEL_ORDER["place"]]["launches_roomobjects"] = int(room_launches["place"])
+    for k in kernels:  # the adapter's path (every id, B=1) and the refreshed banks' rollouts
+        k["launches_gym"] = int(gym_launches.get(k["name"], 0))
+        if k["launches_gym"]:
+            k["max_abs_err"] = max(k["max_abs_err"], gym_err)
+        k["launches_refresh"] = {label: int(ln[k["name"]])
+                                 for label, ln in refresh_launches.items() if ln.get(k["name"])}
     for k in kernels:  # each train step's rollout launches the render's kernels
         for label, ln in train_launches.items():
             if ln.get(k["name"]):
@@ -4686,6 +4966,7 @@ def main():
                       "paths": sorted(cam_launches)}],
         "env_steps_per_s": {k: {"kernels": v[0], "plain": v[1]} for k, v in rates.items()},
         "train": train_summary,
+        "gym": dict(gym_summary, card=smi),
     }))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,12 @@
 
 Counterpart of ``miniworld_tpu/envs/base.py``. An ``EnvSpec`` declares
 the world builder (host-side numpy, shared logic with the JAX package)
-and the per-step task logic as functions over a batched ``EnvState``.
-The port carries all 27 ids of the JAX package; the host-side
-gymnasium hooks of the JAX package have no counterpart here.
+and the per-step task logic twice: as functions over a batched
+``EnvState`` for the vectorized engine (vector.py), and as float64
+numpy hooks (``host_*``) for the single-env gymnasium adapter
+(gym_env.py), which follow the reference env's ``step`` overrides
+operation by operation. The port carries all 27 ids of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -116,6 +119,28 @@ class EnvSpec:
         """Extra per-step info entries ((B, ...) tensors)."""
         return {}
 
+    # ---- host-side hooks of the gymnasium adapter (gym_env.py) ---------
+    # float64 numpy, the reference env ``step`` overrides line for line
+
+    def host_reset(self, env, rng) -> dict:
+        """Per-episode host task state; runs at the end of reset."""
+        return {}
+
+    def host_transition(self, env, action, reward, termination):
+        """The reference env's ``step`` override (after base physics)."""
+        return reward, termination
+
+    def host_info(self, env) -> dict:
+        return {}
+
+    def host_apply_action(self, env, action):
+        """The step's own physics for an ``override_physics`` spec."""
+        raise NotImplementedError
+
+    def host_post_render(self, rgb: np.ndarray, env) -> np.ndarray:
+        """Overlay on one (H, W, 3) u8 observation image."""
+        return rgb
+
     def reward(self, state: EnvState) -> torch.Tensor:
         """Sparse reward shape (miniworld.py:1095-1100),
         1 - 0.2 * step_count / max_episode_steps.
@@ -153,6 +178,12 @@ class GoToEnvSpec(EnvSpec):
         reward = torch.where(reached, self.reward(ctx.state),
                              torch.zeros_like(ctx.state.dir))
         return reward, reached, ctx.state
+
+    def host_transition(self, env, action, reward, termination):
+        if env.near(env.entities[self.goal_slot]):
+            reward += env._reward()
+            termination = True
+        return reward, termination
 
 
 DIR_QUARTER = (-math.pi / 4, math.pi / 4)

@@ -33,6 +33,21 @@ CAMERA_HEIGHT = 1.5
 _F32 = np.float32
 
 
+def _wall_pose_host(wall: int, size: float):
+    """Float64 camera position and yaw on wall 0..3 for the gymnasium
+    adapter, which keeps the mount's exact float64 position
+    (cameracontrol.py:152-179)."""
+    center = size / 2
+    poses = [
+        [size - WALL_OFFSET, CAMERA_HEIGHT, center],
+        [center, CAMERA_HEIGHT, WALL_OFFSET],
+        [WALL_OFFSET, CAMERA_HEIGHT, center],
+        [center, CAMERA_HEIGHT, size - WALL_OFFSET],
+    ]
+    yaws = [math.pi, -math.pi / 2, 0.0, math.pi / 2]
+    return np.array(poses[wall], dtype=np.float64), yaws[wall]
+
+
 def _wall_pose(wall: torch.Tensor, size: float):
     """(B, 3) camera positions and (B,) yaws for walls 0..3
     (cameracontrol.py:152-179): east looking west, north looking south,
@@ -97,6 +112,11 @@ class CameraControl(EnvSpec):
     override_physics: bool = True
     num_actions: int = 6  # pan left, pan right, tilt up, tilt down, zoom in, zoom out
     key_slot: int = 0
+    # HUD buttons -> discrete actions (cameracontrol.py:125-132)
+    control_action_map = {
+        "pan_left": 0, "pan_right": 1, "tilt_up": 2, "tilt_down": 3,
+        "zoom_in": 4, "zoom_out": 5,
+    }
 
     def build(self, world, rng, layout_rng=None, layout_idx=0):
         world.add_rect_room(min_x=0, max_x=self.size, min_z=0, max_z=self.size)
@@ -104,6 +124,8 @@ class CameraControl(EnvSpec):
         world.place(world.proto_id("ball", "red"))
         world.place(world.proto_id("box", "blue"))
         world.place_agent_at(pos=np.array([0.5, 0, 0.5]), direction=0.0)
+        if rng is not None:
+            self._eager_wall = int(rng.integers(0, 4))  # cameracontrol.py:155
 
     def init_task(self):
         return {"camera_wall": np.int32(0)}
@@ -181,6 +203,78 @@ class CameraControl(EnvSpec):
             "distance_from_center": nd,
         }
 
+    # ---- host side (the gymnasium adapter), float64 ---------------------
+
+    def host_reset(self, env, rng):
+        wall = self._eager_wall
+        pos, yaw = _wall_pose_host(wall, self.size)
+        env.agent_pos = pos * np.array([1.0, 0.0, 1.0])
+        env.agent_dir = float(yaw)
+        env.cam_pitch = 0.0
+        env.cam_fov_y = 60.0
+        env.cam_height = CAMERA_HEIGHT
+        env.cam_fwd_disp = 0.0
+        return {"camera_wall": wall}
+
+    def host_apply_action(self, env, action):
+        """cameracontrol.py:199-211."""
+        a = int(action)
+        if a == 0:
+            env.agent_dir += self.pan_speed * math.pi / 180.0
+        elif a == 1:
+            env.agent_dir -= self.pan_speed * math.pi / 180.0
+        elif a == 2:
+            env.cam_pitch = min(89.0, env.cam_pitch + self.tilt_speed)
+        elif a == 3:
+            env.cam_pitch = max(-89.0, env.cam_pitch - self.tilt_speed)
+        elif a == 4:
+            env.cam_fov_y = max(self.min_fov, env.cam_fov_y - self.zoom_speed)
+        elif a == 5:
+            env.cam_fov_y = min(self.max_fov, env.cam_fov_y + self.zoom_speed)
+
+    def _host_key_centered(self, env):
+        key = env.entities[self.key_slot]
+        key_pos = key.pos.copy()
+        key_pos[1] = key.height / 2
+        cam_pos = env.agent_pos.copy()
+        cam_pos[1] = env.cam_height
+        to_key = key_pos - cam_pos
+        dist = np.linalg.norm(to_key)
+        if dist < 0.01:
+            return True, 0.0
+        to_key_n = to_key / dist
+        pitch_rad = math.radians(env.cam_pitch)
+        cam_dir = np.array([
+            math.cos(pitch_rad) * math.cos(env.agent_dir),
+            math.sin(pitch_rad),
+            -math.cos(pitch_rad) * math.sin(env.agent_dir),
+        ])
+        angle = math.acos(float(np.clip(np.dot(cam_dir, to_key_n), -1, 1)))
+        nd = angle / math.radians(env.cam_fov_y / 2)
+        return nd <= self.center_threshold, min(nd, 1.0)
+
+    def host_transition(self, env, action, reward, termination):
+        centered, _ = self._host_key_centered(env)
+        if centered:
+            reward += env._reward()
+            termination = True
+        return reward, termination
+
+    def host_info(self, env):
+        centered, nd = self._host_key_centered(env)
+        return {
+            "camera_yaw": env.agent_dir,
+            "camera_pitch": env.cam_pitch,
+            "camera_fov": env.cam_fov_y,
+            "camera_wall": env.task["camera_wall"],
+            "key_centered": centered,
+            "distance_from_center": nd,
+        }
+
+    def host_post_render(self, rgb, env):
+        """The crosshair over one (H, W, 3) u8 image."""
+        return draw_crosshair(torch.from_numpy(np.ascontiguousarray(rgb))[None])[0].numpy()
+
 
 @dataclass
 class CameraControlClick(CameraControl):
@@ -212,3 +306,17 @@ class CameraControlClick(CameraControl):
         yaw = state.dir + torch.where(move, pan * rad, zero)
         pitch = torch.clamp(state.cam_pitch + torch.where(move, tilt, zero), -89.0, 89.0)
         return state.replace(dir=yaw, cam_pitch=pitch)
+
+    def host_apply_action(self, env, action):
+        """cameracontrolclick.py:157-217."""
+        dx = float(action[0]) - 0.5
+        dy = float(action[1]) - 0.5
+        distance = math.sqrt(dx * dx + dy * dy)
+        if distance <= 0.01:
+            return
+        dir_x, dir_y = dx / distance, dy / distance
+        fov_scale = env.cam_fov_y / 60.0
+        pan = -dir_x * self.pan_speed * self.movement_scale * fov_scale
+        tilt = -dir_y * self.tilt_speed * self.movement_scale * fov_scale
+        env.agent_dir += pan * math.pi / 180.0
+        env.cam_pitch = float(np.clip(env.cam_pitch + tilt, -89.0, 89.0))

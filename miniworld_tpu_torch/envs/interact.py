@@ -88,6 +88,20 @@ class PickupObjects(EnvSpec):
         term = n >= self.num_objs
         return reward, term, new_state
 
+    def host_reset(self, env, rng):
+        return {"num_picked_up": 0}
+
+    def host_transition(self, env, action, reward, termination):
+        # pickupobjects.py:94-101
+        if env.carrying is not None:
+            env.carrying.alive = False
+            env.carrying = None
+            env.task["num_picked_up"] += 1
+            reward += 1.0
+            if env.task["num_picked_up"] == self.num_objs:
+                termination = True
+        return reward, termination
+
 
 @dataclass
 class PutNext(EnvSpec):
@@ -117,6 +131,15 @@ class PutNext(EnvSpec):
         done = (s.carrying < 0) & self.near(s, self.red_slot, self.yellow_slot)
         reward = torch.where(done, self.reward(s), torch.zeros_like(s.dir))
         return reward, done, s
+
+    def host_transition(self, env, action, reward, termination):
+        # putnext.py:72-80
+        red = env.entities[self.red_slot]
+        yellow = env.entities[self.yellow_slot]
+        if env.carrying is None and env.near(red, yellow):
+            reward += env._reward()
+            termination = True
+        return reward, termination
 
 
 @dataclass
@@ -192,6 +215,48 @@ class CollectHealth(EnvSpec):
     def info(self, ctx: Ctx):
         return {"health": ctx.state.task["health"]}
 
+    def host_reset(self, env, rng):
+        return {"health": 100}
+
+    def host_transition(self, env, action, reward, termination):
+        # collecthealth.py:77-102, with the JAX package's deviation: the
+        # kit is taken by the pickup component of the 6-D action
+        env.task["health"] -= 2
+        pickup_pressed = (
+            np.asarray(action).ndim > 0 and float(np.asarray(action)[4]) > 0.5
+        )
+        if pickup_pressed and env.carrying is not None:
+            kit = env.carrying
+            env.carrying = None
+            # re-placed like the reference's place_entity (consumes
+            # np_random; collision with the entities and the agent)
+            rng = env.np_random
+            rooms = env.world.rooms
+            probs = env.world._room_probs
+            while True:
+                r = rooms[int(rng.choice(len(rooms), p=probs))]
+                pos = rng.uniform(
+                    low=[r.min_x - kit.radius, 0, r.min_z - kit.radius],
+                    high=[r.max_x + kit.radius, 0, r.max_z + kit.radius],
+                )
+                if not r.point_inside(pos):
+                    continue
+                if env.intersect(kit, pos, kit.radius):
+                    continue
+                kit.pos = pos
+                kit.dir = float(rng.uniform(-math.pi, math.pi))
+                break
+            env.task["health"] = 100
+        if env.task["health"] > 0:
+            reward += 2.0
+        else:
+            reward -= 100.0
+            termination = True
+        return reward, termination
+
+    def host_info(self, env):
+        return {"health": env.task["health"]}
+
 
 @dataclass
 class Sign(EnvSpec):
@@ -232,7 +297,11 @@ class Sign(EnvSpec):
         self.params = p
 
     def build(self, world, rng, layout_rng=None, layout_idx=0):
-        color_index = int(rng.integers(0, 3)) if rng is not None else layout_idx  # sign.py:117
+        if rng is not None:
+            color_index = int(rng.integers(0, 3))  # sign.py:117
+            self._eager_color_index = color_index  # the adapter's episode colour
+        else:
+            color_index = layout_idx
         gap_size = 0.25
         sz = self.size
         top_room = world.add_rect_room(min_x=0, max_x=sz, min_z=0, max_z=sz * 0.65)
@@ -270,3 +339,20 @@ class Sign(EnvSpec):
         term = (ctx.action_idx == self.end_action_index) | touched
         reward = touched.to(torch.float32)
         return reward, term, s
+
+    def host_reset(self, env, rng):
+        # build() kept the episode's sign colour (sign.py:117)
+        return {"color_index": self._eager_color_index}
+
+    def host_transition(self, env, action, reward, termination):
+        # sign.py:170-182
+        end_requested = np.isscalar(action) and int(action) == self.end_action_index
+        if end_requested:
+            termination = True
+        color_index = env.task["color_index"]
+        for obj_index in range(2):
+            for ci in range(3):
+                if env.near(env.entities[obj_index * 3 + ci]) and ci == color_index:
+                    termination = True
+                    reward = 1.0
+        return reward, termination

@@ -161,6 +161,9 @@ class TMaze(GoToEnvSpec):
         # info["goal_pos"] every step (tmaze.py:89)
         return {"goal_pos": ctx.state.ent_pos[:, self.goal_slot]}
 
+    def host_info(self, env):
+        return {"goal_pos": env.entities[self.goal_slot].pos.copy()}
+
 
 @dataclass
 class TMazeLeft(TMaze):
@@ -248,6 +251,9 @@ class YMaze(GoToEnvSpec):
     def info(self, ctx: Ctx):
         # info["goal_pos"] every step (ymaze.py:125)
         return {"goal_pos": ctx.state.ent_pos[:, self.goal_slot]}
+
+    def host_info(self, env):
+        return {"goal_pos": env.entities[self.goal_slot].pos.copy()}
 
 
 @dataclass
@@ -423,6 +429,19 @@ class NavigateWallGap(WallGap):
         new_task = {"passed_gap": ctx.state.task["passed_gap"] | fire}
         return reward, fire, ctx.state.replace(task=new_task)
 
+    def host_reset(self, env, rng):
+        return {"passed_gap": False}
+
+    def host_transition(self, env, action, reward, termination):
+        x, z = env.agent_pos[0], env.agent_pos[2]
+        bx0, bx1, bz0, bz1 = self.bottom_room_bbox
+        in_bottom = bx0 <= x <= bx1 and bz0 <= z <= bz1
+        if in_bottom and not env.task["passed_gap"]:
+            env.task["passed_gap"] = True
+            reward += 1.0
+            termination = True
+        return reward, termination
+
 
 @dataclass
 class Sidewalk(GoToEnvSpec):
@@ -465,6 +484,14 @@ class Sidewalk(GoToEnvSpec):
         # (sidewalk.py:95-106).
         reward = torch.where(reached, self.reward(ctx.state), torch.zeros_like(ctx.state.dir))
         return reward, in_street | reached, ctx.state
+
+    def host_transition(self, env, action, reward, termination):
+        if env.world.rooms[self.street_room_idx].point_inside(env.agent_pos):
+            termination = True
+        if env.near(env.entities[self.goal_slot]):
+            reward += env._reward()
+            termination = True
+        return reward, termination
 
 
 @dataclass

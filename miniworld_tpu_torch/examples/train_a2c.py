@@ -12,9 +12,9 @@ ranks; gradients all-reduce over NCCL):
 
     torchrun --nproc-per-node 4 -m miniworld_tpu_torch.examples.train_a2c
 
-Not here yet: ``--refresh-layouts-every`` (a fresh layout bank every N
-iterations) waits for the port's ``prepare_bank`` / ``install_bank``;
-``--procgen`` mazes cover the maze-grid envs meanwhile.
+``--refresh-layouts-every N`` swaps in a fresh layout bank every N
+iterations (``MiniWorldVec.prepare_bank`` in a background thread, then
+``install_bank``); ``--procgen`` mazes make a fresh maze every reset.
 """
 
 from __future__ import annotations
@@ -43,6 +43,11 @@ def parser(doc: str) -> argparse.ArgumentParser:
     p.add_argument("--metrics", default=None, help="path for per-iteration JSONL metrics")
     p.add_argument("--log-every", type=int, default=50,
                    help="iterations between metric fetches (each fetch waits for the card)")
+    p.add_argument("--refresh-layouts-every", type=int, default=0,
+                   help="swap in a freshly generated layout bank every N iterations "
+                        "(procedural envs: the training distribution grows without bound, "
+                        "like the reference's per-reset generation); each bank is prepared "
+                        "in a background thread while the previous iterations run")
     return p
 
 
@@ -120,12 +125,27 @@ def run(args, make_step, extra=(), env_kwargs=None):
         pending.clear()
         last_t, last_steps = now, steps_done
 
+    # procgen envs make a fresh maze every reset: nothing to refresh
+    every = 0 if env.procgen else args.refresh_layouts_every
+    if lead and args.refresh_layouts_every and env.procgen:
+        print("--refresh-layouts-every ignored: the env generates a fresh maze every reset")
+    pool = refresh = None
+    if every:
+        from concurrent.futures import ThreadPoolExecutor
+
+        pool = ThreadPoolExecutor(1)
+        refresh = pool.submit(env.prepare_bank, args.seed + 1000)
     try:
         for it in range(args.iters):
             key, k = split(key, 2)
             tstate, state, obs, depth, metrics = step(tstate, state, obs, depth, k)
             steps_done += args.horizon * num_envs
             pending.append((it, metrics))
+            if every and it % every == every - 1:
+                # the bank was compiled off-thread; auto-resets move the
+                # episodes onto the new layouts as they end
+                env.install_bank(refresh.result())
+                refresh = pool.submit(env.prepare_bank, args.seed + 1000 + it + 1)
             if it % args.log_every == args.log_every - 1 or it == args.iters - 1:
                 drain(time.perf_counter())
             if args.checkpoint and it and it % 50 == 0:
@@ -134,6 +154,8 @@ def run(args, make_step, extra=(), env_kwargs=None):
                 if lead:
                     print(f"checkpointed at iter {it}")
     finally:
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
         if metrics_f:
             metrics_f.close()
         if torch.distributed.is_initialized():

@@ -109,6 +109,31 @@ def ortho_grid(extents: torch.Tensor, width: int, height: int):
     return xs.contiguous(), zs.contiguous()
 
 
+def ortho_grid_single(extents: torch.Tensor, width: int, height: int):
+    """``ortho_grid`` as XLA compiles the JAX package's single-env top
+    view (its gymnasium adapter's jitted ``render_top_view``), where the
+    image's divisions fold into the scalar factors first: xs = cx + (i +
+    0.5) * (fit_x * f32(1 / width)) - fit_x * 0.5, and with r =
+    f32(1 / aspect), zs = cz + (j + 0.5) * (fit_x * f32(r * f32(1 /
+    height))) - fit_x * f32(r * 0.5). Same arguments and results as
+    ``ortho_grid``; a pixel centre on a prim's edge can round to the
+    other side of it in the other grid."""
+    e = extents.to(torch.float32)
+    min_x, max_x = e[:, 0] - 1.0, e[:, 1] + 1.0
+    min_z, max_z = e[:, 2] - 1.0, e[:, 3] + 1.0
+    width_x, width_z = max_x - min_x, max_z - min_z
+    aspect = np.float32(width / height)
+    r = np.float32(np.float32(1.0) / aspect)
+    fit_x = torch.maximum(width_x, width_z * float(aspect))[:, None]
+    cx, cz = (min_x + max_x) * 0.5, (min_z + max_z) * 0.5
+    ax = torch.arange(width, dtype=torch.float32, device=e.device) + 0.5
+    az = torch.arange(height, dtype=torch.float32, device=e.device) + 0.5
+    xs = cx[:, None] + ax[None, :] * (fit_x * float(np.float32(1.0 / width))) - fit_x * 0.5
+    zs = (cz[:, None] + az[None, :] * (fit_x * float(np.float32(r * np.float32(1.0 / height))))
+          - fit_x * float(np.float32(r * np.float32(0.5))))
+    return xs.contiguous(), zs.contiguous()
+
+
 def ortho_rows(tri_verts: torch.Tensor, kind: torch.Tensor):
     """The per-row constants of ``_tri_pass_ortho`` (topview.py:188-204)
     under d = (0, -1, 0): tri_verts (..., 3, 3) f32, kind (...) ->
@@ -175,14 +200,16 @@ def row_live(code: torch.Tensor, wall_open) -> torch.Tensor:
 
 
 def top_statics(bank, width: int, height: int, device=None,
-                tile: tuple = (TILE_W, TILE_H)) -> TopStatics:
+                tile: tuple = (TILE_W, TILE_H), grid=None) -> TopStatics:
     """The top view's per-layout statics of ``bank`` (the port's Layout)
     at width x height, on ``device`` (the bank's by default). Built on
     the CPU: the staged rows of every masked row with det > 1e-12 (the
     others never hit), and per pixel tile (the kernel's TILE_W x TILE_H,
     or ``tile`` for a build with other ones) the staged rows whose
     bounding box in x-z, grown by ``_TILE_MARGIN_REL`` of the layout's
-    largest coordinate, meets the tile's pixel centres."""
+    largest coordinate, meets the tile's pixel centres. ``grid`` = (xs
+    (L, W), zs (L, H)) f32: the pixel centres, ``ortho_grid`` of the
+    bank's extents when None."""
     device = bank.tri_mask.device if device is None else device
     tile_w, tile_h = tile
     verts = bank.tri_verts.cpu().to(torch.float32)  # (L, S, 3, 3)
@@ -190,7 +217,8 @@ def top_statics(bank, width: int, height: int, device=None,
     rows, det = ortho_rows(verts, kind)
     code = wall_codes(bank)
     keep = bank.tri_mask.cpu() & (det > 1e-12) & (code != -2)
-    xs, zs = ortho_grid(bank.extents.cpu(), width, height)
+    xs, zs = (ortho_grid(bank.extents.cpu(), width, height) if grid is None
+              else (grid[0].cpu().to(torch.float32), grid[1].cpu().to(torch.float32)))
     L = verts.shape[0]
     sc = max(int(keep.sum(dim=1).max()), 1)
     st_rows = torch.zeros((L, sc, ORTHO_FIELDS), dtype=torch.float32)

@@ -34,8 +34,11 @@ without a discrete table (RoomObjects, PutNext, CollectHealth, whose
 step re-places a kit through ``place_one``), the camera ids' own
 physics, reset and overlay (CameraControl, CameraControlClick: the spec's
 ``apply_action``, ``post_reset`` and ``post_render``), the orthographic top
-view as the observation (``view="top"``, render/topview.py) and the
-entity-visibility query (``visible_ents``, render/visibility.py).
+view as the observation (``view="top"``, render/topview.py), the
+entity-visibility query (``visible_ents``, render/visibility.py) and the
+layout-bank refresh (``prepare_bank``, ``install_bank``,
+``refresh_layouts``: fresh layouts from another ``bank_seed`` in the
+installed chunk plan).
 """
 
 from __future__ import annotations
@@ -78,34 +81,59 @@ RESET_PARAMS = ("sky_color", "light_pos", "light_color", "light_ambient",
 STEP_PARAMS = ("forward_step", "forward_drift", "turn_step")
 
 
-def _tex_table(catalog: TextureCatalog, spec: EnvSpec, tex_mode: str) -> np.ndarray:
-    """The mode's texture table: the Fourier coefficients, or the (N, R,
-    R, 3) u8 atlas in nearest mode (JAX vector.py:85-88, 116-119)."""
+def _tex_table(catalog: TextureCatalog, fourier_k: int, tex_mode: str) -> np.ndarray:
+    """The mode's texture table: the Fourier coefficients at ``fourier_k``
+    terms, or the (N, R, R, 3) u8 atlas in nearest mode (JAX vector.py:
+    85-88, 116-119)."""
     if tex_mode == "nearest":
         return catalog.build_atlas()
-    return catalog.build_fourier(spec.fourier_k or FOURIER_TERMS)
+    return catalog.build_fourier(fourier_k)
 
 
-def build_bank(spec: EnvSpec, tex_mode: str = "fourier"):
-    """Compile the spec's layout bank + texture table (host side).
+def _fourier_k(spec: EnvSpec, fourier_k: int | None) -> int:
+    """``fourier_k``, or the spec's own (Sign's 64), or FOURIER_TERMS."""
+    return fourier_k or spec.fourier_k or FOURIER_TERMS
 
-    Same construction as the JAX package's ``build_bank`` with its
-    default bank seed 0. Returns (bank, tex table): the Fourier table,
-    or the u8 atlas in nearest mode.
+
+def bank_sizes(bank_np: Layout) -> dict:
+    """The padded axis sizes of a stacked bank, before any repad for a
+    chunk plan (``Layout.sizes`` without the layout axis): the
+    ``min_sizes`` a refreshed bank is padded to (JAX vector.py:111-114)."""
+    return dict(S=bank_np.tri_verts.shape[1], W=bank_np.segs.shape[1],
+                NS=bank_np.room_segs.shape[3], R=bank_np.room_outline.shape[1],
+                V=bank_np.room_outline.shape[2], P=bank_np.proto_shape.shape[1],
+                M=bank_np.proto_mesh.shape[2], E=bank_np.slot_protos.shape[1],
+                C=bank_np.slot_protos.shape[2], T=bank_np.tex_slot_base.shape[1])
+
+
+def build_bank(spec: EnvSpec, tex_mode: str = "fourier", *, bank_seed: int = 0,
+               fourier_k: int | None = None, min_sizes: dict | None = None):
+    """Compile the spec's layout bank + texture table (host side), the
+    JAX package's ``build_bank`` (vector.py:58-98; there ``bank_seed``
+    is the second positional argument): ``spec.num_layouts`` layouts,
+    layout i built from ``SeedSequence(bank_seed).spawn(n)[i]``, padded
+    to at least ``min_sizes`` (a refresh passes the installed bank's
+    ``bank_sizes``). ``fourier_k`` None: the spec's own or FOURIER_TERMS.
+    Returns (bank, tex table): the Fourier table, or the u8 atlas in
+    nearest mode (the JAX function also returns the sizes: ``bank_sizes``
+    of the bank).
     """
+    if tex_mode not in ("fourier", "nearest"):
+        raise ValueError(f"tex_mode must be 'fourier' or 'nearest', got {tex_mode!r}")
     catalog = TextureCatalog()
     layouts = []
-    seeds = np.random.SeedSequence(0).spawn(spec.num_layouts)
+    seeds = np.random.SeedSequence(bank_seed).spawn(spec.num_layouts)
     for li in range(spec.num_layouts):
         world = World(catalog)
         world.agent_radius = spec.agent_radius
         spec.build(world, None, layout_rng=np.random.default_rng(seeds[li]),
                    layout_idx=li)
         layouts.append(compile_world(world, with_pvs=True))
-    return stack_layouts(layouts), _tex_table(catalog, spec, tex_mode)
+    return (stack_layouts(layouts, min_sizes=min_sizes),
+            _tex_table(catalog, _fourier_k(spec, fourier_k), tex_mode))
 
 
-def build_super_bank(spec: EnvSpec, tex_mode: str = "fourier"):
+def build_super_bank(spec: EnvSpec, tex_mode: str = "fourier", fourier_k: int | None = None):
     """Compile the spec's maze grid into a procgen super bank (host
     side): one layout holding every wall variant (scene/supermaze.py);
     each env's maze is a wall-open bitmask generated at reset
@@ -116,7 +144,7 @@ def build_super_bank(spec: EnvSpec, tex_mode: str = "fourier"):
     lay = compile_super_maze(spec, catalog)
     bank_np = finalize_super_bank(stack_layouts([lay]), lay,
                                   mazegen.num_walls(spec.num_rows, spec.num_cols))
-    return bank_np, _tex_table(catalog, spec, tex_mode)
+    return bank_np, _tex_table(catalog, _fourier_k(spec, fourier_k), tex_mode)
 
 
 def _round_up16(n: int) -> int:
@@ -427,11 +455,7 @@ def plan_chunks(bank_np: Layout, num_envs: int, hw: int, tri_chunk: int | None =
     tri_chunk = min(chunks_k, s_nat)
     trial = _repad_for_chunks(bank_np, tri_chunk)
     vis = _chunk_visibility(trial, tri_chunk)
-    bound = 1
-    for li in range(vis.shape[0]):
-        counts = vis[li].sum(axis=0)[trial.room_mask[li]]
-        if counts.size:
-            bound = max(bound, int(counts.max()))
+    bound = _worst_schedule(vis, trial.room_mask)
     if bound < vis.shape[1]:
         plan.update(kind="chunk_vis", tri_chunk=tri_chunk, sched_len=bound, nc=vis.shape[1],
                     chunk_vis=vis)
@@ -439,6 +463,55 @@ def plan_chunks(bank_np: Layout, num_envs: int, hw: int, tri_chunk: int | None =
     plan["tri_chunk"] = min(cap, s_nat)
     bank_np = _repad_for_chunks(bank_np, plan["tri_chunk"])
     plan["nc"] = bank_np.tri_mask.shape[1] // plan["tri_chunk"]
+    return bank_np, plan
+
+
+def _worst_schedule(vis: np.ndarray, room_mask: np.ndarray) -> int:
+    """The most chunks ``_chunk_visibility``'s ``vis`` lets one valid
+    room of a layout see (at least 1)."""
+    bound = 1
+    for li in range(vis.shape[0]):
+        counts = vis[li].sum(axis=0)[room_mask[li]]
+        if counts.size:
+            bound = max(bound, int(counts.max()))
+    return bound
+
+
+def replan_chunks(bank_np: Layout, plan: dict, installed: Layout):
+    """A refreshed bank in the installed ``plan`` (the JAX package's
+    ``_install_bank`` with ``fresh=False``, vector.py:627-687): the same
+    kind and chunk size, nothing re-planned. Packed PVS packs the new
+    visible sets at the installed chunk (``force_k``) and pads the packed
+    copies to the ``installed`` bank's length when they come out shorter,
+    so the chunk count NC stays (a longer packing grows it, as in the JAX
+    package); ``chunk_vis`` takes the new bank's visibility; a schedule
+    keeps its length unless the new worst case is longer. Returns (bank
+    repadded to the chunk, the updated plan: ``nc``, ``sched_len``,
+    ``chunk_vis``; ``chunk_starts`` is made by the caller)."""
+    plan = {k: v for k, v in plan.items() if k != "chunk_starts"}
+    k = plan["tri_chunk"]
+    if plan["kind"] == "packed_pvs":
+        packed, _, sched_len, _ = plan_packed_pvs(bank_np, k, JAX_CHUNK_OVERHEAD_TRIS, force_k=k)
+        if packed is None:
+            raise ValueError("the refreshed bank has no packed-PVS plan at the installed chunk")
+        pad = installed.pvs_attr.shape[1] - packed["pvs_attr"].shape[1]
+        if pad > 0:
+            fills = dict(pvs_verts9=(2, 0.0), pvs_attr=(1, 0.0), pvs_tri_tex=(1, -1),
+                         pvs_tri_tex_base=(1, -1.0), pvs_tri_tex_count=(1, 1.0))
+            for name, (axis, fill) in fills.items():
+                widths = [(0, 0)] * packed[name].ndim
+                widths[axis] = (0, pad)
+                packed[name] = np.pad(packed[name], widths, constant_values=fill)
+        plan.update(sched_len=max(plan["sched_len"], sched_len),
+                    nc=packed["pvs_verts9"].shape[2] // k)
+        return dataclasses.replace(_repad_for_chunks(bank_np, k), **packed), plan
+    bank_np = _repad_for_chunks(bank_np, k)
+    if plan["kind"] == "chunk_vis":
+        vis = _chunk_visibility(bank_np, k)
+        plan.update(sched_len=max(plan["sched_len"], _worst_schedule(vis, bank_np.room_mask)),
+                    nc=vis.shape[1], chunk_vis=vis)
+    else:
+        plan["nc"] = bank_np.tri_mask.shape[1] // k
     return bank_np, plan
 
 
@@ -456,11 +529,13 @@ def chunk_row_views(verts9: np.ndarray, attr: np.ndarray, k: int):
 
 def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
                     domain_rand: bool = False, tex_mode: str = "fourier", view: str = "agent",
-                    tri_chunk: int | None = None):
+                    tri_chunk: int | None = None, replan=None):
     """The static decisions of the JAX package's ``_install_bank`` for
     a fresh bank, for a batch of ``num_envs`` envs rendering ``hw``
     pixels each (the supersampled count with supersample=2), the culling
-    planner's chunk capped by ``tri_chunk`` (``plan_chunks``).
+    planner's chunk capped by ``tri_chunk`` (``plan_chunks``); for a
+    refreshed bank with ``replan`` = (the installed plan, the installed
+    bank), the installed plan (``replan_chunks``).
 
     Returns (bank, statics dict): the bank repadded for its chunk plan
     (``plan_chunks``), and ``plan`` (with ``chunk_starts``, the first
@@ -533,7 +608,8 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
         return (bake_tri_slots(bank_np) if bake else bank_np,
                 dict(plan=None, tri_chunk=None, all_quads=None, pg_wall=None,
                      shapes_present=None, has_gain=has_gain, slot_tex=None))
-    bank_np, plan = plan_chunks(bank_np, num_envs, hw, tri_chunk)
+    bank_np, plan = (plan_chunks(bank_np, num_envs, hw, tri_chunk) if replan is None
+                     else replan_chunks(bank_np, *replan))
     tri_chunk, s_bank = plan["tri_chunk"], bank_np.tri_mask.shape[1]
     shp = bank_np.proto_shape
     shapes_present = (
@@ -649,6 +725,9 @@ class MiniWorldVec:
         tex_mode: str = "fourier",
         view: str = "agent",
         tri_chunk: int | None = None,
+        bank_seed: int = 0,
+        place_budget: int | None = None,
+        fourier_k: int | None = None,
     ):
         if view not in ("agent", "top"):
             raise ValueError(f"view must be 'agent' or 'top', got {view!r}")
@@ -698,8 +777,11 @@ class MiniWorldVec:
         # "nearest": exact texels of the u8 atlas, the JAX package's
         # bit-accurate texture path; "fourier": its Fourier texture model
         self.tex_mode = tex_mode
-        self.place_budget = spec.place_budget
-        self.fourier_k = spec.fourier_k or FOURIER_TERMS
+        # the reset's placement tries (None: the spec's), the Fourier
+        # terms (None: the spec's, else FOURIER_TERMS) and the seed of the
+        # layout bank's layouts (JAX vector.py:416-433)
+        self.place_budget = spec.place_budget if place_budget is None else int(place_budget)
+        self.fourier_k = _fourier_k(spec, fourier_k)
         # "top": each observation is the orthographic top view with the
         # agent marker (JAX vector.py:1132-1146); it ignores supersample,
         # as the JAX package's does
@@ -709,12 +791,35 @@ class MiniWorldVec:
         # PyTorch versions.
         self.use_kernels = use_kernels
 
-        build = build_super_bank if self.procgen else build_bank
-        bank_np, tex_np = build(spec, tex_mode)
+        self._tri_chunk_cap = tri_chunk
+        if self.procgen:
+            bank_np, tex_np = build_super_bank(spec, tex_mode, self.fourier_k)
+        else:
+            bank_np, tex_np = build_bank(spec, tex_mode, bank_seed=bank_seed,
+                                         fourier_k=self.fourier_k)
+        # a refreshed bank is padded to at least these sizes
+        self._bank_sizes = bank_sizes(bank_np)
+        self.plan = None
+        self._install(bank_np, tex_np)
+        # the discrete table, or None: the raw 6-D actions (RoomObjects,
+        # PutNext; the reference's Box space)
+        self._action_table = (None if spec.discrete_actions is None else torch.as_tensor(
+            np.asarray(spec.discrete_actions, np.float32), device=device))
+        # domain randomization's (lo, hi) per parameter, on the device once
+        self._param_bounds = {name: tuple(t[0] for t in self._bounds([name]))
+                              for name in RESET_PARAMS + ("obj_color_bias",)}
+        self._param_bounds["step"] = self._bounds(STEP_PARAMS)
+
+    def _install(self, bank_np: Layout, tex_np: np.ndarray):
+        """Plan a fresh bank (or, once a plan is installed, keep it:
+        ``replan_chunks``) and put the bank, its statics and the texture
+        table on the device."""
+        device = self.device
+        replan = None if self.plan is None else (self.plan, self._bank_np)
         bank_np, statics = install_statics(
             bank_np, tex_np, self.num_envs,
-            self.obs_width * self.obs_height * self.supersample ** 2, self.domain_rand, tex_mode,
-            view, tri_chunk)
+            self.obs_width * self.obs_height * self.supersample ** 2, self.domain_rand,
+            self.tex_mode, self.view, self._tri_chunk_cap, replan)
         self._bank_np = bank_np
         # the JAX package's chunk plan (plan_chunks), which the render
         # follows; a chunk_vis plan's visibility on the device
@@ -729,7 +834,8 @@ class MiniWorldVec:
         self._bank = layout_from_numpy(bank_np, device)
         # the top view's per-layout grid, staged rows and tile lists
         self._top = (top_statics(self._bank, self.obs_width, self.obs_height)
-                     if view == "top" else None)
+                     if self.view == "top" else None)
+        self.__dict__.pop("_vis", None)  # visible_ents' statics, made again at first use
         self._pg_wall = (None if statics["pg_wall"] is None
                          else torch.from_numpy(statics["pg_wall"]).to(device))
         # domain_rand: each scanned row's (slot id, atlas base, variant
@@ -738,7 +844,7 @@ class MiniWorldVec:
                           tuple(None if t is None else torch.from_numpy(t).to(device)
                                 for t in statics["slot_tex"]))
         self._fourier_table = None
-        if tex_mode == "nearest":  # the (N, R, R, 3) u8 atlas
+        if self.tex_mode == "nearest":  # the (N, R, R, 3) u8 atlas
             self._atlas = torch.from_numpy(np.ascontiguousarray(tex_np, np.uint8)).to(device)
         else:
             self._atlas = atlas_from_numpy(tex_np, device)
@@ -747,14 +853,45 @@ class MiniWorldVec:
                                                 self.fourier_k).to(device)
         self.num_layouts = bank_np.tri_verts.shape[0]
         self.num_ent_slots = bank_np.slot_protos.shape[1]
-        # the discrete table, or None: the raw 6-D actions (RoomObjects,
-        # PutNext; the reference's Box space)
-        self._action_table = (None if spec.discrete_actions is None else torch.as_tensor(
-            np.asarray(spec.discrete_actions, np.float32), device=device))
-        # domain randomization's (lo, hi) per parameter, on the device once
-        self._param_bounds = {name: tuple(t[0] for t in self._bounds([name]))
-                              for name in RESET_PARAMS + ("obj_color_bias",)}
-        self._param_bounds["step"] = self._bounds(STEP_PARAMS)
+
+    # -- layout-bank refresh (JAX vector.py:769-815) ---------------------------
+
+    def prepare_bank(self, bank_seed: int):
+        """Compile a fresh layout bank on the host from ``bank_seed``,
+        padded to the installed bank's sizes: no device work and no
+        state of this env touched, so it may run in a background thread
+        while the env steps; ``install_bank`` swaps it in."""
+        return build_bank(self.spec, self.tex_mode, bank_seed=bank_seed,
+                          fourier_k=self.fourier_k, min_sizes=self._bank_sizes)
+
+    def install_bank(self, prepared):
+        """Swap in a bank from ``prepare_bank`` (on the thread that steps
+        the env), in the installed chunk plan: the same kind and chunk,
+        a packed-PVS bank's packed copies padded to the installed length
+        (``replan_chunks``). Its texture table must have the installed
+        one's shape. Raises under procgen."""
+        if self.procgen:
+            raise ValueError("a procgen env has no layout bank to swap: each reset generates "
+                             "a fresh maze")
+        bank_np, tex_np = prepared
+        if tuple(tex_np.shape) != tuple(self._atlas.shape):
+            raise ValueError(
+                f"the refreshed texture table is {tuple(tex_np.shape)}, the installed one "
+                f"{tuple(self._atlas.shape)}: a refresh needs the spec's texture set to be the "
+                "same for every layout")
+        self._install(bank_np, tex_np)
+
+    def refresh_layouts(self, bank_seed: int):
+        """Swap in ``num_layouts`` new layouts built from
+        ``SeedSequence(bank_seed)`` (``prepare_bank``, then
+        ``install_bank``), as the reference builds a fresh world every
+        reset (miniworld/miniworld.py:558-618). A no-op under procgen,
+        whose resets already generate a fresh maze each. Envs in an
+        episode keep their layout index and see the new layout's
+        geometry, so refresh between rollouts."""
+        if self.procgen:
+            return
+        self.install_bank(self.prepare_bank(bank_seed))
 
     # -- reset ---------------------------------------------------------------
 
