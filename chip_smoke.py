@@ -142,7 +142,24 @@ PickupObjects, the 8x8 Maze and CollectHealth ([gym-fps]). Last, the
 layout-bank refresh ([refresh]): MazeS3 with 4 layouts and the 4x4 Maze
 with 4 at B=1024, refreshed in their installed plans and rolled out with
 the kernels and plain, exactly; and the A2C twin refreshing the MazeS3
-bank every 2 iterations ([refresh-train]).
+bank every 2 iterations ([refresh-train]). Then the float32 carry above
+256 ids and the dense super-bank kill ([f32-dense]): banks whose Fourier
+atlas is tiled past 256 rows (vector.widen_atlas), whose layout-local
+slot ids are moved above 256 (vector.raise_slot_ids) and procgen super
+banks without their paired rows, each render held stage by stage against
+the plain versions, exactly: the 8x8 procgen Maze at B=8192 with domain
+randomisation widened (paired F32 x OVERRIDE, the Fourier F32 epilogue),
+dense and dense with domain randomisation (ACTIVE, beside the paired
+launch on the same states), timed; Sidewalk widened (MULTI F32 x
+OVERRIDE), the Maze bank widened at 160x120 supersample=2 (SCHED x
+OVERRIDE x F32, the SS=2 F32 epilogue), Sign widened (GAIN and MESH F32),
+PickupObjects and ThreeRooms tri_chunk=16 nearest with raised ids (MESH
+F32, SCHED x MESH F32) and the dense Maze at 160x120 supersample=2 (ACTIVE
+over 2 chunks of 496) at B=1024, timed; the other new instances at B=128
+(with mesh rows and the override in F32, ACTIVE in F32, Sign SS=2 F32, a
+K=6 table in both carries and its top view); every path's rollout, and
+the three Maze paths at B=128 against their plain paths exactly. Last,
+the manual-control command line headless on the card ([cli]).
 One line per phase; the JSON summary of the
 kernels and the card's ``nvidia-smi`` name and power limit come before
 the last line,
@@ -174,11 +191,11 @@ PICK_ID = "MiniWorld-PickupObjects-v0"
 B, W, H = 1024, 80, 60  # Hallway, and the FourRooms / TMaze / parity rollouts
 B_PICK = 4096  # PickupObjects, the reference's BASELINE batch for it
 # The horizons are cut to keep the run near ten minutes as paths are
-# added: 20 steps for the main paths, 8 for the short ones, 6 for the
+# added: 12 steps for the main paths, 8 for the short ones, 4 for the
 # profiles of the main paths (PROFILE_STEPS), 4 for the kernel-vs-plain
 # rollouts (PLAIN_HORIZON: a plain step takes up to a second)
-HORIZON = 20
-PROFILE_STEPS = 6
+HORIZON = 12
+PROFILE_STEPS = 4
 TRIALS = 2  # Hallway; PickupObjects runs PICK_TRIALS
 PICK_TRIALS = 3
 SHORT_HORIZON = 8  # FourRooms, TMaze, MazeS3 bank-mode and the PickupObjects parity rollouts
@@ -221,12 +238,12 @@ SHORT_IDS = ("MiniWorld-OneRoom-v0", "MiniWorld-OneRoomS6-v0", "MiniWorld-OneRoo
 TRAIN_ID = "MiniWorld-OneRoomS6Fast-v0"
 B_TRAIN, B_TRAIN_SIDE = 1024, 256
 TRAIN_HORIZON, TRAIN_EPOCHS, TRAIN_MINIBATCHES = 16, 2, 4
-TRAIN_WARMUP, TRAIN_ITERS = 2, 3
+TRAIN_WARMUP, TRAIN_ITERS = 2, 2
 
 # the gymnasium adapter: every id reset and GYM_STEPS steps at W x H; the
 # top view and the visibility query on GYM_TOP_IDS; frames a second on
 # GYM_FPS_IDS over GYM_FPS_STEPS steps; the kernels its path must launch
-GYM_STEPS, GYM_SEED, GYM_FPS_STEPS = 10, 5, 100
+GYM_STEPS, GYM_SEED, GYM_FPS_STEPS = 6, 5, 50
 GYM_TOP_IDS = ("Hallway", "PickupObjects", "MazeS2", "CollectHealth")
 GYM_FPS_IDS = ("Hallway", "PickupObjects", "Maze", "CollectHealth")
 GYM_KERNELS = ("tri_pass", "entity_mesh_pass", "entity_mesh_rows", "tri_pass_multi",
@@ -305,10 +322,11 @@ def lap(phase: str):
 # long (wall clock), so that the card's clocks have ramped up under load;
 # before every timing, WARMUP_CALLS times; a plain version timed over one
 # call (hundreds of ms to seconds at the main paths' shapes) PLAIN_WARMUP
-# times.
+# times (none: the plain times are a comparison, not a measured path,
+# and the seconds go to the later phases).
 WARMUP_S = 1.0
 WARMUP_CALLS = 3
-PLAIN_WARMUP = 1
+PLAIN_WARMUP = 0
 _CLOCKS_WARM = False
 
 
@@ -341,21 +359,23 @@ def kernel_ms(fn, iters: int, name: str):
     ``name``, from torch.profiler over ``iters`` runs: the kernel alone,
     without the wrapper's host work and small torch ops, which the CUDA
     events of ``cuda_ms`` include where the host is the slower side.
-    A window in which the profiler saw no such kernel (it has missed a
-    whole window's device events after another profile) is profiled
-    once more; None where it saw none twice."""
+    Every caller's fn() launches one such kernel: a window in which the
+    profiler saw fewer than ``iters`` of them (it has missed all or some
+    of a window's device events after another profile: one such window
+    read 0.36 ms for a 1.8 ms launch) is profiled again, up to three
+    windows; None where none was whole."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA and name in e.name]
-        if evs:
+        if len(evs) >= iters:
             return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / iters
     return None
 
@@ -607,49 +627,52 @@ def ent_work(flags, t_ent, width, height):
 
 
 def plain_tri_pass(tri_args, mesh=None, paired=None, tri_chunk=None, override=None,
-                   attr_dtype=torch.bfloat16):
+                   attr_dtype=torch.bfloat16, active=None):
     """tri_pass's plain version on these inputs: tri_pass_plain (seeded by
     the mesh pass on ``mesh`` rows), tri_pass_chunked over more than
     one chunk of ``tri_chunk``, or tri_pass_scheduled for a (B, n)
     schedule in place of layout_id (seeded likewise); ``override``: every
-    row's texture variant in its slot column; ``attr_dtype``: the carry."""
+    row's texture variant in its slot column; ``attr_dtype``: the carry;
+    ``active``: the dense super bank's kill."""
     from miniworld_tpu_torch.render import raycast as rc
 
     verts9, attr, layout_id, cam, all_quads = tri_args
     sched = layout_id.dim() == 2
     if not sched and tri_chunk is not None and verts9.shape[2] > tri_chunk:
         return rc.tri_pass_chunked(verts9, attr, layout_id, cam, tri_chunk, all_quads,
-                                   override, paired, attr_dtype)
+                                   override, paired, attr_dtype, active)
     seed = None if mesh is None else rc.entity_mesh_pass_plain(*mesh, cam, attr_dtype)
     if sched:
         return rc.tri_pass_scheduled(verts9, attr, layout_id, cam, all_quads, seed, override,
                                      attr_dtype)
     return rc.tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired, override,
-                             attr_dtype)
+                             attr_dtype, active)
 
 
 def check_tri_pass(tri_args, case, mesh=None, paired=None, tri_chunk=None, override=None,
-                   attr_dtype=torch.bfloat16):
+                   attr_dtype=torch.bfloat16, active=None):
     """The tri_pass kernel against its plain version on every pixel (t
     and attributes); with ``mesh`` rows the fused launch against the mesh
     pass seeding tri_pass_plain; over more than one chunk of
     ``tri_chunk`` the multi-chunk launch against tri_pass_chunked; over a
     (B, n) schedule the SCHED launch against tri_pass_scheduled; with
     ``override`` the winner's texture variant against every row's;
-    ``attr_dtype`` the carry. Returns (t, attr, max abs t error)."""
+    ``attr_dtype`` the carry; ``active`` the dense super bank's kill.
+    Returns (t, attr, max abs t error)."""
     from miniworld_tpu_torch.render import raycast as rc
 
     verts9, attr, layout_id, cam, all_quads = tri_args
     t_k, a_k = rc.tri_pass(verts9, attr, layout_id, cam, all_quads, mesh, paired, tri_chunk,
-                           override, attr_dtype)
-    t_p, a_p = plain_tri_pass(tri_args, mesh, paired, tri_chunk, override, attr_dtype)
+                           override, attr_dtype, active)
+    t_p, a_p = plain_tri_pass(tri_args, mesh, paired, tri_chunk, override, attr_dtype, active)
     n_differ, differ, abs_err, rel_err = compare_hits(t_k, t_p, (a_k == a_p).all(-1))
     sched = layout_id.dim() == 2
     multi = not sched and tri_chunk is not None and verts9.shape[2] > tri_chunk
     check_stage("tri_pass" + (" mesh" if mesh else "") + (" paired" if paired else "")
                 + (" multi-chunk" if multi else "") + (" sched" if sched else "")
                 + (" override" if override else "")
-                + (" f32" if attr_dtype == torch.float32 else ""),
+                + (" f32" if attr_dtype == torch.float32 else "")
+                + (" active" if active is not None else ""),
                 case, n_differ, differ, abs_err, rel_err)
     return t_k, a_k, abs_err
 
@@ -1310,21 +1333,32 @@ def phase_chunks(side, side_stage, wall_stage, hall_run):
     return errs, timings, work
 
 
-def phase_tile_sweep(cases):
-    """tri_pass built with each TILE_SWEEP tile and pixels per thread (one
-    nvcc each, all started together) on each case = (label, run, ref):
-    timed over 20 launches of ``run`` after the default build, and held
-    equal to the default build's result ``ref``."""
+def start_tile_sweep_builds():
+    """tri_pass built with each TILE_SWEEP tile and pixels per thread, one
+    nvcc each, all started together in the background (they overlap the
+    phases before the sweep): (pool, futures, start time)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from miniworld_tpu_torch.render import cuda_build, raycast as rc
+    from miniworld_tpu_torch.render import cuda_build
 
     defines = [(f"-DTILE_W={w}", f"-DTILE_H={h}", f"-DPIX_PER_THREAD={k}")
                for w, h, k in TILE_SWEEP]
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(defines)) as pool:
-        libs = list(pool.map(lambda d: cuda_build.build(d, ("tri_pass.cu",))[0], defines))
-    say("tile-sweep-build", variants=len(libs), seconds=f"{time.perf_counter() - t0:.2f}")
+    pool = ThreadPoolExecutor(len(defines))
+    return pool, [pool.submit(lambda d=d: cuda_build.build(d, ("tri_pass.cu",))[0])
+                  for d in defines], time.perf_counter()
+
+
+def phase_tile_sweep(cases, builds):
+    """The ``start_tile_sweep_builds`` builds on each case = (label, run,
+    ref): timed over 20 launches of ``run`` after the default build, and
+    held equal to the default build's result ``ref``."""
+    from miniworld_tpu_torch.render import cuda_build, raycast as rc
+
+    pool, futures, t0 = builds
+    libs = [f.result() for f in futures]
+    pool.shutdown()
+    say("tile-sweep-build", variants=len(libs), seconds_since_start=
+        f"{time.perf_counter() - t0:.2f}")
 
     for label, run, ref in cases:
         default_ms = cuda_ms(run, 20)
@@ -1655,16 +1689,19 @@ def spread_tex(tex, gen, n_atlas=64):
     return torch.stack([ids, base, cnt, torch.zeros_like(ids)], dim=-1).to(tex.device)
 
 
-def check_override(tri_args, override, case, mesh=None, paired=None, tri_chunk=None):
+def check_override(tri_args, override, case, mesh=None, paired=None, tri_chunk=None,
+                   attr_dtype=torch.bfloat16, active=None):
     """tri_pass with the override against its plain version (0 differing
     pixels in t and all 16 attributes), and against the same launch
     without it: t and every attribute but the slot column equal (the
-    override never moves a winner). Returns (max abs t error, share of
-    the hit pixels whose slot the override changed)."""
+    override never moves a winner); ``attr_dtype`` and ``active`` as
+    check_tri_pass's. Returns (max abs t error, share of the hit pixels
+    whose slot the override changed)."""
     from miniworld_tpu_torch.render import raycast as rc
 
-    t_k, a_k, err = check_tri_pass(tri_args, case, mesh, paired, tri_chunk, override)
-    t_n, a_n = rc.tri_pass(*tri_args, mesh, paired, tri_chunk)
+    t_k, a_k, err = check_tri_pass(tri_args, case, mesh, paired, tri_chunk, override,
+                                   attr_dtype, active)
+    t_n, a_n = rc.tri_pass(*tri_args, mesh, paired, tri_chunk, None, attr_dtype, active)
     if not (torch.equal(t_k, t_n) and torch.equal(a_k[..., :14], a_n[..., :14])
             and torch.equal(a_k[..., 15], a_n[..., 15])):
         raise AssertionError(f"tri_pass override ({case}): winners or t differ from the "
@@ -1871,7 +1908,7 @@ def phase_ent_undefined(cases):
                                  f"with NaN at the entity's misses ({ent_wins} entity wins)")
 
 
-def epi_work(args, table, k_terms, ss, glyph_px=0):
+def epi_work(args, table, k_terms, ss, glyph_px=0, attr_bytes=32):
     """(bytes, operations) of a pixel_epilogue launch on ``args`` (its
     plain version's positional arguments up to k_terms) with SS = ``ss``:
     each sample's t read once, its bf16 attributes where the result reads
@@ -1882,12 +1919,13 @@ def epi_work(args, table, k_terms, ss, glyph_px=0):
     entity), 60 per
     sample for uv, lighting and the pack, 4 per output pixel for the
     box filter, and 12 per glyph sample (``glyph_px``: the edge width,
-    the threshold and the blend)."""
+    the threshold and the blend). ``attr_bytes``: an attribute row as
+    read, 32 in bf16, 64 with the float32 carry."""
     t_tri, attr, t_ent, cam = args[0], args[1], args[2], args[6]
     b, hws = t_tri.shape
     n_out = hws // (ss * ss)
     read, textured = texel_reads(t_tri, attr, t_ent, table.shape[0])
-    in_bytes = b * hws * 4 + read * 32 + ent_read_bytes(t_tri, t_ent)
+    in_bytes = b * hws * 4 + read * attr_bytes + ent_read_bytes(t_tri, t_ent)
     return (in_bytes + table.numel() * 4 + b * 48 + b * 14 * 4
             + (cam.width + cam.height) * 4 + b * n_out * 7,
             textured * k_terms * 41 + b * hws * 60 + (b * n_out * 4 if ss > 1 else 0)
@@ -2461,10 +2499,11 @@ def shared_banks():
     """Within the block, ``vector.build_bank`` builds each (id, layouts,
     texture mode) once: the 8x8 Maze's 64 layouts take ~46 s on the card's
     host, and the domain_rand path's env compiles the same bank (its
-    texture variants are drawn at reset and render time)."""
+    texture variants are drawn at reset and render time);
+    ``vector.build_super_bank`` each (id, texture mode, K) once."""
     from miniworld_tpu_torch import vector
 
-    orig, built = vector.build_bank, {}
+    orig, orig_super, built = vector.build_bank, vector.build_super_bank, {}
 
     def build_bank(spec, tex_mode="fourier", **kw):
         key = (spec.gym_id, spec.num_layouts, tex_mode, repr(sorted(kw.items())))
@@ -2472,11 +2511,17 @@ def shared_banks():
             built[key] = orig(spec, tex_mode, **kw)
         return built[key]
 
-    vector.build_bank = build_bank
+    def build_super_bank(spec, tex_mode="fourier", fourier_k=None):
+        key = ("super", spec.gym_id, tex_mode, fourier_k)
+        if key not in built:
+            built[key] = orig_super(spec, tex_mode, fourier_k)
+        return built[key]
+
+    vector.build_bank, vector.build_super_bank = build_bank, build_super_bank
     try:
         yield
     finally:
-        vector.build_bank = orig
+        vector.build_bank, vector.build_super_bank = orig, orig_super
 
 
 def phase_glyph_paths(sign, maze_ss, make_env, rates):
@@ -2529,9 +2574,11 @@ def path_kernels(env):
     names += ["mazegen"] if env.procgen else []
     names += ["pixel_epilogue_gain"] if env._has_gain else []
     names += ["pixel_epilogue_ss2"] if env.supersample == 2 else []
-    names += ["tri_pass_paired_chunks"] if env.procgen and len(env.plan["chunk_starts"]) > 1 else []
+    names += (["tri_pass_paired_chunks"] if env._pg_wall is not None
+              and len(env.plan["chunk_starts"]) > 1 else [])
+    names += ["tri_pass_active"] if env._row_code is not None else []
     bank = env._bank
-    n_rows = (bank.pg_verts9 if env.procgen else bank.tri_verts9).shape[2]
+    n_rows = (bank.pg_verts9 if env._pg_wall is not None else bank.tri_verts9).shape[2]
     names += ["tri_pass_multi"] if bank.pvs_v9_rows is None and n_rows > env.tri_chunk else []
     plan = env.plan
     names += ["tri_pass_sched"] if (env._bank.pvs_v9_rows is not None
@@ -2539,8 +2586,9 @@ def path_kernels(env):
     names += ["tri_pass_override"] if env._slot_tex is not None else []
     if env.tex_mode == "nearest":
         names += ["pixel_epilogue_nearest"]
-        if env._bank.tex_slot_base.shape[1] > 256:  # the float32 carry
-            names += ["tri_pass_f32", "pixel_epilogue_f32"]
+    n_ids = env._bank.tex_slot_base.shape[1] if env.tex_mode == "nearest" else env._atlas.shape[0]
+    if n_ids > 256:  # the float32 carry
+        names += ["tri_pass_f32", "pixel_epilogue_f32"]
     return tuple(names)
 
 
@@ -3782,7 +3830,7 @@ def host_ms(fn, iters: int, warmup: bool = True) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def phase_breakdown(env, render_iters=10, plain_render_iters=3):
+def phase_breakdown(env, render_iters=5, plain_render_iters=3):
     """Where a rollout step's time goes: the step with its auto-reset
     (maze generation and placement by the kernels, then by their plain
     versions), and the render with the kernels and with the plain
@@ -3793,11 +3841,11 @@ def phase_breakdown(env, render_iters=10, plain_render_iters=3):
 
     state, _ = env.reset(seed=0)
     acts = env.sample_actions(key_data(5, env.device))
-    step_ms = host_ms(lambda: env._step_batch(state, acts), 10)
+    step_ms = host_ms(lambda: env._step_batch(state, acts), 5)
     render_ms = host_ms(lambda: env.render(state), render_iters)
     env.use_kernels = False
     try:
-        step_plain_ms = host_ms(lambda: env._step_batch(state, acts), 5)
+        step_plain_ms = host_ms(lambda: env._step_batch(state, acts), 3)
         # the plain render of one step takes seconds at the Maze's shapes:
         # timed over one call, without a warm-up call
         plain_ms = "not measured"
@@ -4422,10 +4470,441 @@ def phase_refresh():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the float32 carry above 256 ids and the dense super-bank kill
+
+
+@contextlib.contextmanager
+def transformed_banks(transform):
+    """Within the block, the banks a MiniWorldVec constructor builds
+    (``vector.build_bank``, ``vector.build_super_bank``) come out through
+    ``transform(bank, tex) -> (bank, tex)``: ``widened`` (a Fourier atlas
+    of more than 256 rows, ``vector.widen_atlas``), ``raised``
+    (layout-local slot ids above 256, ``vector.raise_slot_ids``),
+    ``dense`` (a super bank without its paired rows) or ``dense_widened``."""
+    from miniworld_tpu_torch import vector
+
+    orig = vector.build_bank, vector.build_super_bank
+    vector.build_bank = lambda *a, **k: transform(*orig[0](*a, **k))
+    vector.build_super_bank = lambda *a, **k: transform(*orig[1](*a, **k))
+    try:
+        yield
+    finally:
+        vector.build_bank, vector.build_super_bank = orig
+
+
+def widened(bank, tex):
+    from miniworld_tpu_torch import vector
+
+    return vector.widen_atlas(bank, tex)
+
+
+def raised(bank, tex):
+    from miniworld_tpu_torch import vector
+
+    return vector.raise_slot_ids(bank), tex
+
+
+def dense(bank, tex):
+    from miniworld_tpu_torch import vector
+
+    return vector.drop_paired_rows(bank), tex
+
+
+def dense_widened(bank, tex):
+    return widened(*dense(bank, tex))
+
+
+def f32_route(env, state):
+    """(tri_args, mesh, paired, tri_chunk, override, carry, active) of the
+    env's render of ``state`` at its samples, as render_rgbd passes them to
+    tri_pass: its static rows (a schedule's chunk rows), mesh rows, paired
+    rows, chunk (None for a schedule), texture-variant override, carry
+    dtype and dense super-bank kill."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    ss = env.supersample
+    cam = rc.camera_grid(state, env.obs_width * ss, env.obs_height * ss)
+    nearest = env.tex_mode == "nearest"
+    carry = rc.attr_carry_dtype(state.tex_map.shape[1] if nearest else env._atlas.shape[0])
+    mesh = (rc.entity_mesh_rows(env._bank, state, not nearest)[:2] if env._shapes_present[2]
+            else None)
+    rows, paired = rc.static_rows(env._bank, state, cam, env._pg_wall, env.plan)
+    override = None if env._slot_tex is None else (state.tri_slots, *env._slot_tex)
+    active = None if env._row_code is None else (env._row_code, state.wall_open)
+    tc = env.tri_chunk if rows[2].dim() == 1 else None
+    return (*rows, cam, env._all_quads), mesh, paired, tc, override, carry, active
+
+
+def check_f32_dense(label, env, state, want, whole=True):
+    """The env's render of ``state`` stage by stage, kernels against plain
+    versions on the same inputs, exactly: tri_pass in its carry (t and the
+    16 attributes bit for bit; with the override also against the launch
+    without it), entity_pass, the epilogue on the kernel's hits (RGB and
+    depth), then with ``whole`` the whole render (env.render, kernels
+    against plain). Every name of ``want`` must launch. Returns (route,
+    the epilogue's positional arguments and tex_map, max abs error)."""
+    from miniworld_tpu_torch.render import cuda_build
+    from miniworld_tpu_torch.render import raycast as rc
+
+    route = f32_route(env, state)
+    tri, mesh, paired, tc, override, carry, active = route
+    cam = tri[3]
+    case = (f"{label} B={env.num_envs} samples={cam.width}x{cam.height} K={env.fourier_k} "
+            f"S={tri[0].shape[2]} tri_chunk={tc} carry={str(carry)[6:]}")
+    before = dict(cuda_build.LAUNCHES)
+    if override is None:
+        t_k, a_k, err = check_tri_pass(tri, case, mesh, paired, tc, None, carry, active)
+    else:
+        err, _ = check_override(tri, override, case, mesh, paired, tc, carry, active)
+        t_k, a_k = rc.tri_pass(*tri, mesh, paired, tc, override, carry, active)
+    e_k = (None,) * 3
+    if env._shapes_present[0] or env._shapes_present[1]:
+        ent = (state.ent_pos, state.ent_size, state.ent_dir, state.ent_height, state.ent_color,
+               rc.entity_flags(env._bank, state), cam, *env._shapes_present[:2])
+        e_k = rc.entity_pass(*ent)
+        err = max(err, check_entity_pass(e_k, rc.entity_pass_plain(*ent), case))
+    tex_map = state.tex_map if env.tex_mode == "nearest" else None
+    epi = (t_k, a_k, *e_k, env._atlas, cam, state.light_pos, state.light_color,
+           state.light_ambient, state.sky_color, env.fourier_k, env._has_gain)
+    ss = env.supersample
+    outs = {"stage": (rc.pixel_epilogue(*epi, table=env._fourier_table, ss=ss, tex_map=tex_map),
+                      rc.pixel_epilogue_plain(*epi, ss=ss, tex_map=tex_map))}
+    if whole:
+        kernels = env.render(state)
+        env.use_kernels = False
+        try:
+            outs["render"] = (kernels, env.render(state))
+        finally:
+            env.use_kernels = True
+    launched = {k: v - before[k] for k, v in cuda_build.LAUNCHES.items() if v > before[k]}
+    for what, ((rgb_k, d_k), (rgb_p, d_p)) in outs.items():
+        n_rgb = int((rgb_k != rgb_p).any(-1).sum())
+        n_depth = int((d_k.view(torch.int32) != d_p.view(torch.int32)).sum())
+        err = max(err, max_abs_diff(rgb_k, rgb_p), max_abs_diff(d_k, d_p))
+        say("kernel-vs-plain", kernel="pixel_epilogue" if what == "stage" else "render",
+            instance=f"SS={ss} {'NEAREST' if tex_map is not None else 'fourier'} "
+            f"{str(carry)[6:]}{' GAIN' if env._has_gain else ''}", case=case,
+            rgb_differs_px=n_rgb, depth_differs_px=n_depth,
+            px_hit=f"{float(torch.isfinite(t_k).float().mean()):.3f}", exact=True)
+        if n_rgb or n_depth or rgb_k.shape != (env.num_envs, env.obs_height, env.obs_width, 3):
+            raise AssertionError(f"{case} {what}: kernels differ from plain on {n_rgb} RGB and "
+                                 f"{n_depth} depth pixels")
+    say("f32-dense-launched", case=case, launched=launched)
+    if not set(want) <= set(launched):
+        raise AssertionError(f"{case}: launched {launched}, expected {sorted(want)}")
+    return route, (epi, tex_map), err
+
+
+def active_hit_pairs(tri, active, block=32):
+    """The (live row, pixel) pairs of a dense super bank that pass the hit
+    test: tri_cull_stats' hit pairs without each env's killed rows."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    verts9, attr, layout_id, cam, all_quads = tri
+    n = 0
+    for lo in range(0, layout_id.shape[0], block):
+        sl = slice(lo, lo + block)
+        c = cam_rows(cam, sl)
+        hits = rc.row_hits_plain(rc.stage_rows(verts9, attr, layout_id[sl], c), c, all_quads)
+        live = rc.row_live(active[0][layout_id[sl].long()], active[1][sl])
+        n += int((hits.sum(2) * live).sum())
+    return n
+
+
+def time_f32(name, route, epi_in, env, epi_name=None):
+    """[kernel-time] of the route's tri_pass launch (``name``) and, with
+    ``epi_name``, of its epilogue: CUDA events over 50 launches, the kernel
+    alone under torch.profiler (``device_ms``), the plain version over one
+    call, the bound (tri_work, epi_work or nearest_epi_work, with 64-byte
+    rows in the float32 carry), and the same launches in the bf16 carry on
+    the same inputs beside them (ids above 256 rounded: a time, not a
+    render). Returns {name: (ms, plain_ms, device_ms, bound_ms, bound_by,
+    bf16_ms, shapes)}."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    tri, mesh, paired, tc, override, carry, active = route
+    epi, tex_map = epi_in
+    ss = env.supersample
+    f32 = carry == torch.float32
+    shapes = (f"{env.spec.gym_id} B={env.num_envs} samples={tri[3].width}x{tri[3].height} "
+              f"S={tri[0].shape[2]} K={env.fourier_k} carry={str(carry)[6:]}")
+
+    def run(dt=carry):
+        return rc.tri_pass(*tri, mesh, paired, tc, override, dt, active)
+
+    hits = (active_hit_pairs(tri, active) if active is not None
+            else tri_cull_stats(tri, paired, block=64)["hit_pairs"])
+    mesh_w = None if mesh is None else (
+        mesh[0], tri_cull_stats(tri, None, block=64, mesh_rows9=mesh[0])["hit_pairs"])
+    out = {name: (cuda_ms(run, 50),
+                  cuda_ms(lambda: plain_tri_pass(tri, mesh, paired, tc, override, carry, active),
+                          1, PLAIN_WARMUP),
+                  kernel_ms(run, 20, "tri_pass"),
+                  *bound(*tri_work(tri, hits, paired, override, 64 if f32 else 32, mesh_w)),
+                  cuda_ms(lambda: run(torch.bfloat16), 50) if f32 else None, shapes)}
+    if epi_name is not None:
+        kw = dict(table=env._fourier_table, ss=ss, tex_map=tex_map)
+        ework = (epi_work(epi, env._fourier_table, env.fourier_k, ss, attr_bytes=64)
+                 if tex_map is None else nearest_epi_work(epi, tex_map))
+        t16, a16 = run(torch.bfloat16)
+        out[epi_name] = (
+            cuda_ms(lambda: rc.pixel_epilogue(*epi, **kw), 50),
+            cuda_ms(lambda: rc.pixel_epilogue_plain(*epi, ss=ss, tex_map=tex_map), 1,
+                    PLAIN_WARMUP),
+            kernel_ms(lambda: rc.pixel_epilogue(*epi, **kw), 20, "pixel_epilogue"),
+            *bound(*ework), cuda_ms(lambda: rc.pixel_epilogue(t16, a16, *epi[2:], **kw), 50),
+            shapes)
+    for k, (ms, plain, dev, b_ms, b_by, ms16, _) in out.items():
+        say("kernel-time", kernel=k, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+            device_ms=fmt_ms(dev), bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+            bf16_same_inputs_ms=fmt_ms(ms16), shapes=shapes)
+    return out
+
+
+def phase_f32_dense(maze, maze_bank_w, make_env, rates):
+    """[f32-dense]: the float32 carry above 256 ids (a Fourier atlas of more
+    than 256 rows, ``widened``; nearest mode with its slot ids above 256,
+    ``raised``) and the dense super-bank kill (the 8x8 procgen Maze without
+    its paired rows, ``dense``). Each case's render against its plain
+    versions, exactly (check_f32_dense), the new instances timed at their
+    paths' shapes (time_f32): the Maze 8x8 procgen paths at B_MAZE, 80x60
+    (domain_rand widened: paired F32 x OVERRIDE and the Fourier F32
+    epilogue; dense and dense domain_rand: ACTIVE, beside the paired
+    launch on the same states), then Sidewalk domain_rand widened (MULTI
+    F32 x OVERRIDE), the 8x8 Maze bank ``maze_bank_w`` at 160x120
+    supersample=2 domain_rand widened (SCHED x OVERRIDE x F32, the SS=2
+    F32 epilogue at K=16), Sign widened (GAIN and MESH F32 at K=64),
+    PickupObjects and ThreeRooms tri_chunk=16 nearest raised (MESH F32,
+    SCHED x MESH F32) at B, and the dense Maze at 160x120 supersample=2
+    B (ACTIVE over 2 chunks of 496); at B_PLAIN the remaining instances
+    (MESH and SCHED x MESH with OVERRIDE F32, ACTIVE F32, Sign SS=2 F32,
+    K=6 with and without F32, SS=1 and SS=2, and its top view). Then the
+    Maze paths' rollouts at B_MAZE and the others' at their B (launches a
+    step), and the three Maze paths at B_PLAIN kernels against plain,
+    exactly. Returns (max abs error, {name: timing}, {path: launches},
+    checked cases)."""
+    with shared_banks():  # one build a bank and texture mode
+        return _f32_dense(maze, maze_bank_w, make_env, rates)
+
+
+def _f32_dense(maze, maze_bank_w, make_env, rates):
+    """phase_f32_dense's body."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    gen = torch.Generator().manual_seed(2121)
+    f32 = {"tri_pass_f32", "pixel_epilogue_f32"}
+    ov = {"tri_pass_override"}
+    act = {"tri_pass_active"}
+    with transformed_banks(widened):
+        maze_w = make_env(MAZE_ID, B_MAZE, domain_rand=True)
+        side_w = make_env(SIDE_ID, B, domain_rand=True)
+        sign_w = make_env(SIGN_ID, B)
+        small_w = [("maze8x8-procgen widened dr", make_env(MAZE_ID, B_PLAIN, domain_rand=True),
+                    f32 | ov),
+                   ("pickupobjects widened dr", make_env(PICK_ID, B_PLAIN, domain_rand=True),
+                    f32 | ov | {"entity_mesh_pass"}),
+                   ("threerooms tri_chunk=16 widened dr",
+                    make_env(THREE_ID, B_PLAIN, domain_rand=True, tri_chunk=16),
+                    f32 | ov | {"tri_pass_sched", "entity_mesh_pass"}),
+                   ("sign widened ss=2", make_env(SIGN_ID, B_PLAIN, supersample=2),
+                    f32 | {"pixel_epilogue_gain", "pixel_epilogue_ss2"}),
+                   ("hallway K=6 widened", make_env(ENV_ID, B_PLAIN, fourier_k=6), f32),
+                   ("hallway K=6 widened ss=2", make_env(ENV_ID, B_PLAIN, fourier_k=6,
+                                                         supersample=2),
+                    f32 | {"pixel_epilogue_ss2"})]
+    with transformed_banks(dense):
+        maze_d = make_env(MAZE_ID, B_MAZE)
+        maze_d_dr = make_env(MAZE_ID, B_MAZE, domain_rand=True)
+        ss_d = [("maze8x8-procgen dense ss=2", make_env(MAZE_ID, B, supersample=2),
+                 act | {"tri_pass_multi"}),
+                ("maze8x8-procgen dense dr ss=2", make_env(MAZE_ID, B, supersample=2,
+                                                          domain_rand=True),
+                 act | ov | {"tri_pass_multi"}),
+                ("maze8x8-procgen dense nearest ss=2", make_env(MAZE_ID, B, supersample=2,
+                                                               tex_mode="nearest"),
+                 act | f32 | {"tri_pass_multi"})]
+        small_d = [("maze8x8-procgen dense", make_env(MAZE_ID, B_PLAIN), act),
+                   ("maze8x8-procgen dense dr", make_env(MAZE_ID, B_PLAIN, domain_rand=True),
+                    act | ov),
+                   ("maze8x8-procgen dense nearest", make_env(MAZE_ID, B_PLAIN,
+                                                              tex_mode="nearest"), act | f32)]
+    with transformed_banks(dense_widened):
+        ss_d.append(("maze8x8-procgen dense widened dr ss=2",
+                     make_env(MAZE_ID, B, supersample=2, domain_rand=True),
+                     act | ov | f32 | {"tri_pass_multi"}))
+        small_d.append(("maze8x8-procgen dense widened dr",
+                        make_env(MAZE_ID, B_PLAIN, domain_rand=True), act | ov | f32))
+    with transformed_banks(raised):
+        pick_r = make_env(PICK_ID, B, tex_mode="nearest")
+        three_r = make_env(THREE_ID, B, tex_mode="nearest", tri_chunk=16)
+    small_w.append(("hallway K=6", make_env(ENV_ID, B_PLAIN, fourier_k=6), set()))
+    top_k6 = make_env(ENV_ID, B_PLAIN, fourier_k=6, view="top")
+    plans = {"maze_w": (maze_w._pg_wall is not None, len(maze_w.plan["chunk_starts"]),
+                        maze_w._atlas.shape[0] > 256),
+             "maze_d": (maze_d._row_code is not None, maze_d._pg_wall, maze_d.plan["nc"],
+                        maze_d.tri_chunk),
+             "side_w": (side_w.plan["nc"], side_w.tri_chunk),
+             "maze_bank_w": (maze_bank_w.plan["kind"], maze_bank_w.tri_chunk,
+                             maze_bank_w.plan["sched_len"], maze_bank_w._atlas.shape[0] > 256),
+             "three_r": (three_r.plan["kind"], three_r.plan["sched_len"],
+                         three_r._bank.tex_slot_base.shape[1] > 256),
+             "ss_d": [(e.plan["nc"], e.tri_chunk) for _, e, _ in ss_d]}
+    say("f32-dense-plans", **{k: repr(v) for k, v in plans.items()})
+    if plans["maze_w"] != (True, 1, True) or plans["maze_d"] != (True, None, 1, 832) \
+            or plans["side_w"] != (3, 1024) or plans["maze_bank_w"] != ("packed_pvs", 96, 2, True) \
+            or plans["three_r"][::2] != ("packed_pvs", True) \
+            or any(p != (2, 496) for p in plans["ss_d"]):
+        raise AssertionError(f"f32-dense plans {plans}")
+    lap("f32-dense envs")
+
+    errs, timings, checked = [], {}, []
+    timed = [("maze8x8-procgen widened dr", maze_w, f32 | ov, "tri_pass_f32_override",
+              "pixel_epilogue_fourier_f32"),
+             ("maze8x8-procgen dense", maze_d, act, "tri_pass_active", None),
+             ("maze8x8-procgen dense dr", maze_d_dr, act | ov, "tri_pass_active_override", None),
+             ("sidewalk widened dr", side_w, f32 | ov | {"tri_pass_multi"},
+              "tri_pass_multi_f32_override", None),
+             ("maze8x8-bank widened dr ss=2", maze_bank_w,
+              f32 | ov | {"tri_pass_sched", "pixel_epilogue_ss2"}, "tri_pass_sched_f32_override",
+              "pixel_epilogue_ss2_f32"),
+             ("sign widened", sign_w, f32 | {"pixel_epilogue_gain", "entity_mesh_pass"},
+              "tri_pass_mesh_f32_sign", "pixel_epilogue_gain_f32"),
+             ("pickupobjects nearest raised", pick_r,
+              f32 | {"entity_mesh_pass", "pixel_epilogue_nearest"}, "tri_pass_mesh_f32", None),
+             ("threerooms tri_chunk=16 nearest raised", three_r,
+              f32 | {"entity_mesh_pass", "tri_pass_sched"}, "tri_pass_sched_mesh_f32", None),
+             (*ss_d[0], "tri_pass_active_multi", None)]
+    for label, env, want, name, epi_name in timed:
+        state = view_states(env, gen)
+        route, epi, err = check_f32_dense(label, env, state, want, whole=env.num_envs < B)
+        errs.append(err)
+        checked.append(label)
+        timings.update(time_f32(name, route, epi, env, epi_name))
+        if name == "tri_pass_active":  # the paired launch on the same states
+            cam = route[0][3]
+            rows, paired = rc.static_rows(maze._bank, state, cam, maze._pg_wall, maze.plan)
+            timings["tri_pass_paired_same_states"] = (
+                cuda_ms(lambda: rc.tri_pass(*rows, cam, maze._all_quads, None, paired,
+                                            maze.tri_chunk), 50),)
+            say("kernel-time", kernel="tri_pass (paired, the same states)",
+                ms=f"{timings['tri_pass_paired_same_states'][0]:.4f}",
+                shapes=f"{MAZE_ID} procgen B={B_MAZE} HW={W * H} Sp=608")
+    for label, env, want in ss_d[1:] + small_w + small_d:
+        _, _, err = check_f32_dense(label, env, view_states(env, gen), want,
+                                    whole=env.num_envs < B)
+        errs.append(err)
+        checked.append(label)
+    # the K=6 table's top view (the padded rows in topview_epilogue)
+    state = view_states(top_k6, gen)
+    rgb_k, d_k = top_k6.render(state)
+    top_k6.use_kernels = False
+    try:
+        rgb_p, d_p = top_k6.render(state)
+    finally:
+        top_k6.use_kernels = True
+    n_top = int((rgb_k != rgb_p).any(-1).sum()) + int((d_k != d_p).sum())
+    say("kernel-vs-plain", kernel="render", instance="view=top K=6", case=f"{ENV_ID} B={B_PLAIN}",
+        differs_px=n_top, exact=True)
+    if n_top:
+        raise AssertionError(f"the K=6 top view: kernels differ from plain on {n_top} pixels")
+    checked.append("hallway K=6 top view")
+    lap("f32-dense stages")
+
+    # the paths: the Maze ones at B_MAZE, the others at B; launches a step
+    launches = {}
+    for key, env, horizon in (("maze_w", maze_w, SHORT_HORIZON), ("maze_d", maze_d, SHORT_HORIZON),
+                              ("maze_d_dr", maze_d_dr, SHORT_HORIZON),
+                              ("side_w", side_w, SHORT_HORIZON),
+                              ("maze_bank_w", maze_bank_w, SHORT_HORIZON),
+                              ("sign_w", sign_w, SHORT_HORIZON), ("pick_r", pick_r, SHORT_HORIZON),
+                              ("three_r", three_r, SHORT_HORIZON),
+                              ("maze_d_ss2", ss_d[0][1], SHORT_HORIZON)):
+        rate, outs, obs, lc, _ = rollouts(env, f"f32-dense {key}", horizon, TRIALS)
+        check_rollout(env, outs, obs, lc, horizon, TRIALS, path_kernels(env))
+        launches[key] = {k: v / (horizon * TRIALS) for k, v in lc.items() if v}
+        launches[key]["steps"] = horizon * TRIALS
+        rates[f"f32_dense_{key}_b{env.num_envs}"] = (rate, None)
+    # kernels against plain on the Maze paths' small twins, exactly
+    for label, env, _ in small_w[:1] + small_d[:2]:
+        rates[f"f32_dense_{label.replace(' ', '_')}_b{B_PLAIN}"] = kernel_and_plain(
+            env, PLAIN_HORIZON, TRIALS, path_kernels(env), exact=True)[:2]
+    lap("f32-dense paths")
+    say("f32-dense", cases_checked=len(checked), exact=True, max_abs_err=max(errs),
+        paths=",".join(launches), instances_timed=",".join(k for k in timings))
+    return max(errs), timings, launches, checked
+
+
+# the [f32-dense] rows of the kernels line: (name, timing key, path of
+# its launches and the counter, the TPU stage, instance of)
+F32_ROWS = (
+    ("tri_pass_f32_override", "maze_w", "tri_pass_f32", "miniworld_tpu/render/raycast.py:697",
+     "tri_pass"),
+    ("pixel_epilogue_fourier_f32", "maze_w", "pixel_epilogue_f32",
+     "miniworld_tpu/render/raycast.py:1405", "pixel_epilogue"),
+    ("tri_pass_active", "maze_d", "tri_pass_active", "miniworld_tpu/render/raycast.py:1220",
+     "tri_pass"),
+    ("tri_pass_active_override", "maze_d_dr", "tri_pass_active",
+     "miniworld_tpu/render/raycast.py:1220", "tri_pass"),
+    ("tri_pass_active_multi", "maze_d_ss2", "tri_pass_active",
+     "miniworld_tpu/render/raycast.py:483", "tri_pass"),
+    ("tri_pass_multi_f32_override", "side_w", "tri_pass_f32",
+     "miniworld_tpu/render/raycast.py:444", "tri_pass"),
+    ("tri_pass_sched_f32_override", "maze_bank_w", "tri_pass_f32",
+     "miniworld_tpu/render/raycast.py:1166", "tri_pass"),
+    ("pixel_epilogue_ss2_f32", "maze_bank_w", "pixel_epilogue_f32",
+     "miniworld_tpu/render/raycast.py:1294", "pixel_epilogue"),
+    ("tri_pass_mesh_f32_sign", "sign_w", "tri_pass_f32", "miniworld_tpu/render/raycast.py:838",
+     "tri_pass"),
+    ("pixel_epilogue_gain_f32", "sign_w", "pixel_epilogue_f32",
+     "miniworld_tpu/render/raycast.py:656", "pixel_epilogue"),
+    ("tri_pass_mesh_f32", "pick_r", "tri_pass_f32", "miniworld_tpu/render/raycast.py:838",
+     "tri_pass"),
+    ("tri_pass_sched_mesh_f32", "three_r", "tri_pass_f32", "miniworld_tpu/render/raycast.py:459",
+     "tri_pass"),
+)
+
+
+def f32_kernel_rows(err, timings, launches, checked):
+    """The kernels line's rows of the [f32-dense] instances: each timed at
+    its path's shapes, with its launches in that path's rollouts and a
+    step, and the bf16 launch on the same inputs beside it."""
+    rows = []
+    for name, path, counter, replaces, inst in F32_ROWS:
+        ms, plain, dev, b_ms, b_by, ms16, shapes = timings[name]
+        lc = launches[path]
+        rows.append({
+            "name": name, "route": "cuda", "source": KERNELS[inst][0], "replaces": replaces,
+            "launches": int(round(lc.get(counter, 0) * lc["steps"])), "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "instance_of": inst, "device_ms": dev, "bf16_same_inputs_ms": ms16,
+            "launches_per_step": lc.get(counter, 0), "shapes": shapes, "checked_on": checked})
+    rows[2]["paired_same_states_ms"] = timings["tri_pass_paired_same_states"][0]
+    return rows
+
+
+def phase_cli(smi):
+    """[cli]: ``python -m miniworld_tpu_torch.manual_control`` headless,
+    25 steps at 48x36 on the card (its default device), in a process of
+    its own."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "miniworld_tpu_torch.manual_control",
+         "MiniWorld-OneRoomS6Fast-v0", "--headless", "--steps", "25", "--obs-width", "48",
+         "--obs-height", "36"], cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    secs = time.perf_counter() - t0
+    say("cli", rc=proc.returncode, seconds=f"{secs:.1f}", stdout=repr(proc.stdout.strip()[-200:]),
+        stderr=repr(proc.stderr.strip()[-400:]), card=repr(smi))
+    if proc.returncode or "ran 25 steps on cuda" not in proc.stdout:
+        raise AssertionError("the manual-control CLI's headless run failed on the card")
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, ROOT)
     phase_build()
+    sweep_builds = start_tile_sweep_builds()
     lap("build")
     from miniworld_tpu_torch import MiniWorldVec, make_spec
 
@@ -4454,7 +4933,7 @@ def main():
     side_errs, side_timings, side_work = phase_chunks(side, env(SIDE_ID, B_STAGE),
                                                       env(WALL_ID, B_STAGE), sweep[0][1])
     lap("chunks")
-    phase_tile_sweep(maze_sweep + sweep)
+    phase_tile_sweep(maze_sweep + sweep, sweep_builds)
     lap("tile-sweep")
     errs = {k: max(v, maze_errs.get(k, 0.0), side_errs.get(k, 0.0)) for k, v in errs.items()}
     errs["mazegen"], work["mazegen"], mazegen_chain_ms = phase_mazegen(maze, timings)
@@ -4602,6 +5081,10 @@ def main():
         maze_vis = chunk_vis_env(lambda: MiniWorldVec(
             MAZE_ID, B, obs_width=2 * W, obs_height=2 * H, supersample=2, procgen=False,
             device=DEVICE))
+        with transformed_banks(widened):  # its atlas past 256 rows ([f32-dense])
+            maze_bank_w = MiniWorldVec(MAZE_ID, B, obs_width=2 * W, obs_height=2 * H,
+                                       supersample=2, procgen=False, device=DEVICE,
+                                       domain_rand=True)
     if (maze_bank.plan["kind"], maze_bank.tri_chunk, maze_bank.plan["sched_len"]) != (
             "packed_pvs", 96, 2) or maze_vis.plan["kind"] != "chunk_vis":
         raise AssertionError(f"{MAZE_ID} bank B={B} 160x120 ss=2 plans {maze_bank.plan}, "
@@ -4642,6 +5125,12 @@ def main():
     lap("gym: adapter, goldens, fps")
     refresh_launches = phase_refresh()
     lap("refresh: two banks, a2c --refresh-layouts-every 2")
+    # the float32 carry above 256 ids and the dense super-bank kill; the
+    # manual-control command line on the card
+    f32_err, f32_timings, f32_launches, f32_checked = phase_f32_dense(maze, maze_bank_w, env,
+                                                                      rates)
+    phase_cli(smi)
+    lap("cli")
     kernels = []
     for k, (src, rep) in KERNELS.items():
         if k == "entity_mesh_rows":  # its own row below
@@ -4916,6 +5405,7 @@ def main():
                             f"chunk_vis, {maze_vis.plan['sched_len']} chunks of "
                             f"{maze_vis.tri_chunk}",
         "checked_on": sched_checked})
+    kernels += f32_kernel_rows(f32_err, f32_timings, f32_launches, f32_checked)
     kernels[KERNEL_ORDER["place"]]["launches_roomobjects"] = int(room_launches["place"])
     for k in kernels:  # the adapter's path (every id, B=1) and the refreshed banks' rollouts
         k["launches_gym"] = int(gym_launches.get(k["name"], 0))

@@ -96,8 +96,9 @@
 // hits the 50 MB L2. NEAREST excludes GAIN: the glyph branch is
 // fourier-only. The F32 instances load the float32 attribute carry (the
 // 8x8 procgen maze's 528 slot ids, raycast.py:512-528) with four 16-byte
-// loads in place of the two of the bf16 row; they are built for nearest
-// mode only, the one a ported id reaches. A nearest pixel reads 4 + 64
+// loads in place of the two of the bf16 row; fourier mode has them too
+// (an atlas of more than 256 rows), at SS = 1 and 2, K = 16, 64 and a
+// runtime K, with and without GAIN. A nearest pixel reads 4 + 64
 // (F32) or 4 + 32 bytes of hit results and writes 7: with the F32 carry 75
 // bytes, 2.95 GB at the 8x8 maze's B = 8192, 80x60, 0.88 ms at 3.35 TB/s.
 
@@ -181,9 +182,9 @@ __device__ __forceinline__ float sample_rgb(
             for (int i = 1; i < 6; ++i) sq = sq + at[i] * at[i];
             const float pix_angle = tan_y * pix_scale;
             const float fp = t_uv * pix_angle * sqrtf(sq * 0.5f);
-            if (KT > 0) fourier_texel_k<GAIN, KT>(tab + (size_t)slot * (4 + 9 * KT), uu, vv, fp,
-                                                  tex);
-            else fourier_texel<GAIN>(tab + (size_t)slot * (4 + 9 * K), K, uu, vv, fp, tex);
+            if (KT > 0) fourier_texel_k<GAIN, KT>(tab + (size_t)slot * fourier_row(KT), uu, vv,
+                                                  fp, tex);
+            else fourier_texel<GAIN>(tab + (size_t)slot * fourier_row(K), K, uu, vv, fp, tex);
         }
 #pragma unroll
         for (int i = 0; i < 3; ++i) {
@@ -233,7 +234,7 @@ __device__ __forceinline__ const float* stage_table(const float* table, const in
     const float* __restrict__ t_ent,           /* (B, HW) or null */                         \
     const float* __restrict__ col_ent,         /* (B, HW, 3) or null */                      \
     const float* __restrict__ n_ent,           /* (B, HW, 3) or null */                      \
-    const float* __restrict__ table,           /* (A, 4 + 9K); null (NEAREST) */             \
+    const float* __restrict__ table,           /* (A, fourier_row(K)); null (NEAREST) */     \
     const uint8_t* __restrict__ atlas,         /* (A, R, R, 3) u8, NEAREST only */           \
     const int* __restrict__ tex_map,           /* (B, T), NEAREST only */                    \
     const float* __restrict__ lights,          /* (B, 4, 3): pos, color, ambient, sky */     \
@@ -254,7 +255,7 @@ __device__ __forceinline__ const float* stage_table(const float* table, const in
 template <bool kSmemTable, bool GAIN, bool NEAREST, bool F32>
 __global__ void __launch_bounds__(THREADS) pixel_epilogue_kernel(EPI_ARGS)
 {
-    const float* tab = stage_table<kSmemTable>(table, A * (4 + 9 * K));
+    const float* tab = stage_table<kSmemTable>(table, A * fourier_row(K));
     const int hw = W * H;
     const int chunks = (hw + THREADS - 1) / THREADS;
     for (int item = blockIdx.x; item < B * chunks; item += gridDim.x) {
@@ -278,7 +279,7 @@ __global__ void __launch_bounds__(THREADS) pixel_epilogue_kernel(EPI_ARGS)
 template <bool kSmemTable, int KT, bool GAIN, bool NEAREST, bool F32>
 __global__ void __launch_bounds__(THREADS) pixel_epilogue_ss2_kernel(EPI_ARGS)
 {
-    const float* tab = stage_table<kSmemTable>(table, A * (4 + 9 * K));
+    const float* tab = stage_table<kSmemTable>(table, A * fourier_row(K));
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int wo = W / 2, hwo = wo * (H / 2);
     const int runs_x = (W + 15) / 16;        // 16-sample runs of a sample row
@@ -331,21 +332,33 @@ static int launch_one(const int grid, const size_t smem, cudaStream_t stream, EP
 }
 
 // Fourier mode: the table in shared memory up to TABLE_SMEM_MAX, read
-// through L1 above; SS = 2 with K = 16 or 64 unrolled
-template <int SS, bool GAIN>
+// through L1 above; SS = 2 with K = 16 or 64 unrolled; F32: the float32
+// attribute carry (an atlas of more than 256 rows, raycast.py:512-528),
+// four 16-byte loads a sample in place of two, the texel the same code
+template <int SS, bool GAIN, bool F32>
 static int launch_fourier(const int grid, const size_t smem, cudaStream_t stream, EPI_ARGS) {
     const bool in_smem = smem <= (size_t)TABLE_SMEM_MAX;
     if constexpr (SS == 1)
-        return in_smem ? launch_one<true, 1, 0, GAIN, false, false>(grid, smem, stream, LAUNCH_ARGS)
-                       : launch_one<false, 1, 0, GAIN, false, false>(grid, 0, stream, LAUNCH_ARGS);
+        return in_smem ? launch_one<true, 1, 0, GAIN, false, F32>(grid, smem, stream, LAUNCH_ARGS)
+                       : launch_one<false, 1, 0, GAIN, false, F32>(grid, 0, stream, LAUNCH_ARGS);
     if (K == 16)
-        return in_smem ? launch_one<true, 2, 16, GAIN, false, false>(grid, smem, stream, LAUNCH_ARGS)
-                       : launch_one<false, 2, 16, GAIN, false, false>(grid, 0, stream, LAUNCH_ARGS);
+        return in_smem ? launch_one<true, 2, 16, GAIN, false, F32>(grid, smem, stream, LAUNCH_ARGS)
+                       : launch_one<false, 2, 16, GAIN, false, F32>(grid, 0, stream, LAUNCH_ARGS);
     if (K == 64)
-        return in_smem ? launch_one<true, 2, 64, GAIN, false, false>(grid, smem, stream, LAUNCH_ARGS)
-                       : launch_one<false, 2, 64, GAIN, false, false>(grid, 0, stream, LAUNCH_ARGS);
-    return in_smem ? launch_one<true, 2, 0, GAIN, false, false>(grid, smem, stream, LAUNCH_ARGS)
-                   : launch_one<false, 2, 0, GAIN, false, false>(grid, 0, stream, LAUNCH_ARGS);
+        return in_smem ? launch_one<true, 2, 64, GAIN, false, F32>(grid, smem, stream, LAUNCH_ARGS)
+                       : launch_one<false, 2, 64, GAIN, false, F32>(grid, 0, stream, LAUNCH_ARGS);
+    return in_smem ? launch_one<true, 2, 0, GAIN, false, F32>(grid, smem, stream, LAUNCH_ARGS)
+                   : launch_one<false, 2, 0, GAIN, false, F32>(grid, 0, stream, LAUNCH_ARGS);
+}
+
+template <int SS>
+static int launch_fourier_any(const bool gain, const bool f32, const int grid, const size_t smem,
+                              cudaStream_t stream, EPI_ARGS) {
+    if (gain)
+        return f32 ? launch_fourier<SS, true, true>(grid, smem, stream, LAUNCH_ARGS)
+                   : launch_fourier<SS, true, false>(grid, smem, stream, LAUNCH_ARGS);
+    return f32 ? launch_fourier<SS, false, true>(grid, smem, stream, LAUNCH_ARGS)
+               : launch_fourier<SS, false, false>(grid, smem, stream, LAUNCH_ARGS);
 }
 
 extern "C" int mw_pixel_epilogue(
@@ -362,7 +375,7 @@ extern "C" int mw_pixel_epilogue(
     if (nearest) {  // the u8 atlas and tex_map; no glyph branch
         if (gain || atlas == nullptr || tex_map == nullptr || T <= 0 || R <= 0 || A <= 0)
             return (int)cudaErrorInvalidValue;
-    } else if (f32 || table == nullptr || K <= 0 || K % 4) {  // float4 table rows
+    } else if (table == nullptr || K <= 0) {
         return (int)cudaErrorInvalidValue;
     }
     if ((ss != 1 && ss != 2) || W % ss || H % ss) return (int)cudaErrorInvalidValue;
@@ -387,9 +400,7 @@ extern "C" int mw_pixel_epilogue(
             : (f32 ? launch_one<false, 1, 0, false, true, true>(grid, 0, stream, LAUNCH_ARGS)
                    : launch_one<false, 1, 0, false, true, false>(grid, 0, stream, LAUNCH_ARGS));
     }
-    const size_t smem = (size_t)A * (4 + 9 * K) * sizeof(float);
-    return ss == 2 ? (gain ? launch_fourier<2, true>(grid, smem, stream, LAUNCH_ARGS)
-                           : launch_fourier<2, false>(grid, smem, stream, LAUNCH_ARGS))
-                   : (gain ? launch_fourier<1, true>(grid, smem, stream, LAUNCH_ARGS)
-                           : launch_fourier<1, false>(grid, smem, stream, LAUNCH_ARGS));
+    const size_t smem = (size_t)A * fourier_row(K) * sizeof(float);
+    return ss == 2 ? launch_fourier_any<2>(gain, f32, grid, smem, stream, LAUNCH_ARGS)
+                   : launch_fourier_any<1>(gain, f32, grid, smem, stream, LAUNCH_ARGS);
 }

@@ -90,7 +90,7 @@ __global__ void __launch_bounds__(THREADS) topview_epilogue_kernel(
     const float* __restrict__ ent_color,   // (B, E, 3)
     const float* __restrict__ ent_cs,      // (B, E, 2) cos, sin of ent_dir
     const unsigned char* __restrict__ flags,  // (B, E)
-    const float* __restrict__ table,       // (A, 4 + 9K) fourier_table; null (NEAREST)
+    const float* __restrict__ table,       // (A, fourier_row(K)) fourier_table; null (NEAREST)
     const uint8_t* __restrict__ atlas,     // (A, R, R, 3) u8, NEAREST only
     const int* __restrict__ tex_map,       // (B, T), NEAREST only
     const float* __restrict__ lights,      // (B, 4, 3): pos, color, ambient, sky
@@ -112,7 +112,7 @@ __global__ void __launch_bounds__(THREADS) topview_epilogue_kernel(
     const float* tab = table;
     if (SMEM_TABLE) {
         const float4* src = reinterpret_cast<const float4*>(table);
-        for (int i = tid; i < A * (4 + 9 * kt) / 4; i += THREADS) s_table[i] = src[i];
+        for (int i = tid; i < A * fourier_row(kt) / 4; i += THREADS) s_table[i] = src[i];
         tab = reinterpret_cast<const float*>(s_table);
     }
     if (tid < 2) s_qn[tid] = 0;
@@ -237,7 +237,7 @@ __global__ void __launch_bounds__(THREADS) topview_epilogue_kernel(
                     const float2 uv = s_quv[tid];
                     const int key = s_qkey[tid];
                     float tq[3];
-                    fourier_texel_nofp<GAIN, KT>(tab + (size_t)(key >> 8) * (4 + 9 * kt), kt,
+                    fourier_texel_nofp<GAIN, KT>(tab + (size_t)(key >> 8) * fourier_row(kt), kt,
                                                  uv.x, uv.y, tq);
                     const int px_tid = key & 0xFF;
 #pragma unroll
@@ -367,15 +367,15 @@ extern "C" int mw_topview_epilogue(
     if (nearest) {
         if (gain || atlas == nullptr || tex_map == nullptr || T <= 0 || R <= 0 || A <= 0)
             return (int)cudaErrorInvalidValue;
-    } else if (table == nullptr || K <= 0 || K % 4 || A <= 0 || A >= (1 << 23)) {
-        return (int)cudaErrorInvalidValue;  // float4 table rows; the queue's slot << 8
+    } else if (table == nullptr || K <= 0 || A <= 0 || A >= (1 << 23)) {
+        return (int)cudaErrorInvalidValue;  // the queue's slot << 8
     }
     if (B < 0 || W <= 0 || H <= 0 || S <= 0 || E < 0 || E > MAX_ENTS)
         return (int)cudaErrorInvalidValue;
     if (B == 0) return 0;
     const float4* attr4 = reinterpret_cast<const float4*>(bank_attr);
     if (nearest) return launch_top<false, 0, false, true>(0, stream, TOP_ARGS);
-    const size_t smem = (size_t)A * (4 + 9 * K) * sizeof(float);
+    const size_t smem = (size_t)A * fourier_row(K) * sizeof(float);
     if (gain)
         return K == 64 ? launch_fourier<true, 64>(smem, stream, TOP_ARGS)
                        : launch_fourier<true, 0>(smem, stream, TOP_ARGS);

@@ -200,16 +200,30 @@
 // picked by use_alt as the attributes are. A mesh winner keeps its own
 // slot, as the JAX package's seed does.
 //
-// Float32 carry (f32 != 0, the F32 instances; nearest-mode textures with
-// more than 256 layout-local slot ids, raycast.py:512-528): the JAX
-// package carries the winner's attribute row in float32 where its slot
-// column can hold ids above 256, which bf16 would round (the 8x8 procgen
-// maze's 528 slots). The F32 instances store the row's 16 floats as they
-// are, 64 bytes in four 16-byte stores, in place of the 32 bytes of bf16,
-// at every store site; the competition is the same code. Nearest mode
-// never runs the override, and no mesh id has more than 256 slots, so the
-// F32 instances are built without MESH and OVERRIDE: the single-chunk,
-// the scheduled and the multi-chunk launch.
+// Float32 carry (f32 != 0, the F32 instances; raycast.py:512-528): the
+// JAX package carries the winner's attribute row in float32 where its
+// slot column can hold ids above 256, which bf16 would round: in nearest
+// mode more than 256 layout-local slot ids (the 8x8 procgen maze's 528),
+// in fourier mode an atlas of more than 256 rows. The F32 instances store
+// the row's 16 floats as they are, 64 bytes in four 16-byte stores, in
+// place of the 32 bytes of bf16, at every store site (the mesh winner's
+// and the override's included); the competition is the same code. Every
+// launch has them: with and without MESH, SCHED and OVERRIDE, and the
+// multi-chunk kernel with and without OVERRIDE.
+//
+// Dense super-bank kill (row_code != nullptr, the ACTIVE instances; a
+// procgen maze rendered from its dense rows, without the paired ones,
+// raycast.py:321-356, 483-485, 1220-1227): the JAX package multiplies each
+// row's 1/t_num by the env's tri_active = tri_active_base + wall_open @
+// tri_wall_onehot, exact 0/1, so that a killed row's r is 0 and fails the
+// r > 1/FAR gate on every pixel: its key is 0 everywhere. The kernels read
+// the row's code (render/raycast.wall_codes) and the env's wall_open and
+// drop a killed row at staging, before the cull (maze_row.cuh row_live,
+// the test the top view's and visible_ents' scans make): a row that never
+// hits changes no pixel's max, in one chunk or over several. Built
+// without MESH and SCHED (JAX asserts a dense scan; no procgen id has mesh
+// entities): the single-chunk and the multi-chunk kernel, each with and
+// without OVERRIDE and F32.
 //
 // Shared memory of the one-block-per-env kernel (single chunk, MESH,
 // SCHED): 48 bytes per row, two 2-byte row lists and (paired) the
@@ -224,6 +238,7 @@
 #include <cuda_bf16.h>
 #include <math.h>
 
+#include "maze_row.cuh"
 #include "rng.cuh"
 
 #ifndef TILE_W
@@ -423,7 +438,7 @@ __device__ __forceinline__ void store_zero(void* attr_out, const size_t q) {
     for (int i = 0; i < (F32 ? 4 : 2); ++i) d4[i] = make_uint4(0u, 0u, 0u, 0u);
 }
 
-template <bool MESH, bool SCHED, bool OVERRIDE, bool F32>
+template <bool MESH, bool SCHED, bool OVERRIDE, bool F32, bool ACTIVE>
 __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
     const float* __restrict__ verts9,   // (L, 9, S) component-major; SCHED (C, 9, S)
     const float* __restrict__ attr,     // (L, S, 16); SCHED (C, S, 16)
@@ -444,6 +459,7 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
     const unsigned* __restrict__ slot_key,   // (B,) or null: no override
     const float4* __restrict__ slot_tex,     // (L, S) (id, base, count, 0)
     const float4* __restrict__ slot_tex_alt,  // (L, S), paired only
+    const int* __restrict__ row_code,     // (L, S), ACTIVE only (wall_codes)
     int S, int N, int W, int H, int Wn, int all_quads,
     int n_sched,                        // SCHED only: chunks a schedule
     float* __restrict__ t_out,          // (B, HW)
@@ -514,7 +530,8 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
             bool keep = false;
             if (s < n_rows) {
                 float4 q0, q1, q2;
-                bool first = true;  // SCHED: the row's chunk not read at an earlier position
+                bool first = true;  // SCHED: the row's chunk not read at an earlier position;
+                                    // ACTIVE: the row live in the env
                 if (SCHED) {  // row `local` of the chunk at position j, ranked by both
                     const int j = s / S, local = s - j * S, cid = sched_s[j];
                     stage_row(verts9 + (size_t)cid * 9 * S, S, local, cb,
@@ -528,6 +545,7 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
                         alt = w >= 0 && !(wall_open[(size_t)b * Wn + w] > 0.5f);
                         use_alt[s] = alt;
                     }
+                    if (ACTIVE) first = row_live(row_code[(size_t)lid * S + s], wall_open, b, Wn);
                     stage_row(alt ? v9a : v9p, S, s, cb, (alt ? ata : atp)[s * ATTR_DIM + 15],
                               q0, q1, q2);
                 }
@@ -770,7 +788,7 @@ __device__ __forceinline__ int ordered_slot(const bool keep, int* cnt, int& tota
 #define MULTI_SMEM ((size_t)WINDOW_ROWS * (3 * sizeof(float4) + sizeof(unsigned short)) + \
                     (size_t)GROUP_TILES * ROW_WORDS * sizeof(unsigned))
 
-template <bool OVERRIDE, bool F32>
+template <bool OVERRIDE, bool F32, bool ACTIVE>
 __global__ void __launch_bounds__(M_THREADS) tri_pass_multi_kernel(
     const float* __restrict__ verts9,   // (L, 9, S) component-major
     const float* __restrict__ attr,     // (L, S, 16)
@@ -786,6 +804,7 @@ __global__ void __launch_bounds__(M_THREADS) tri_pass_multi_kernel(
     const unsigned* __restrict__ slot_key,    // (B,), OVERRIDE only
     const float4* __restrict__ slot_tex,      // (L, S) (id, base, count, 0)
     const float4* __restrict__ slot_tex_alt,  // (L, S), paired only
+    const int* __restrict__ row_code,         // (L, S), ACTIVE only (wall_codes)
     int S, int W, int H, int Wn, int all_quads,
     int tri_chunk,                      // rows per chunk
     float* __restrict__ t_out,          // (B, HW)
@@ -1008,7 +1027,9 @@ __global__ void __launch_bounds__(M_THREADS) tri_pass_multi_kernel(
         bool keep = false;
         if (s < S) {
             stage(s, q0, q1, q2);
-            keep = !row_culled(q0, q1, q2, box, quads);  // the image's box
+            // ACTIVE: a row the env's maze kills is never staged
+            keep = (!ACTIVE || row_live(row_code[(size_t)lid * S + s], wall_open, b, Wn)) &&
+                   !row_culled(q0, q1, q2, box, quads);  // the image's box
         }
         int total;
         const int at = ordered_slot(keep, cnt[par], total);
@@ -1046,86 +1067,80 @@ extern "C" int mw_tri_pass_config(int* out) {
     return 0;
 }
 
-template <bool MESH, bool SCHED, bool OVERRIDE, bool F32>
-static int launch_instance(const dim3 grid, const size_t smem, cudaStream_t stream,
-                           const float* verts9, const float* attr, const int* layout_id,
-                           const float* origin, const float* fwd, const float* right,
-                           const float* up, const float* tan_xy, const float* xbase,
-                           const float* ybase, const float* mesh_v9, const float* mesh_attr,
-                           const float* verts9_alt, const float* attr_alt, const int* pg_wall,
-                           const float* wall_open, const unsigned* slot_key,
-                           const float4* slot_tex, const float4* slot_tex_alt, int S, int N,
-                           int W, int H, int Wn, int all_quads, int n_sched,
-                           float* t_out, void* attr_out) {
+// The launch's arguments, as the kernels take them
+#define TRI_PARAMS                                                                           \
+    const float *verts9, const float *attr, const int *layout_id, const float *origin,      \
+        const float *fwd, const float *right, const float *up, const float *tan_xy,         \
+        const float *xbase, const float *ybase, const float *mesh_v9,                       \
+        const float *mesh_attr, const float *verts9_alt, const float *attr_alt,             \
+        const int *pg_wall, const float *wall_open, const unsigned *slot_key,               \
+        const float4 *slot_tex, const float4 *slot_tex_alt, const int *row_code, int S,     \
+        int N, int W, int H, int Wn, int all_quads, int n_sched, float *t_out, void *attr_out
+#define TRI_ARGS                                                                             \
+    verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase, ybase, mesh_v9,         \
+        mesh_attr, verts9_alt, attr_alt, pg_wall, wall_open, slot_key, slot_tex,            \
+        slot_tex_alt, row_code, S, N, W, H, Wn, all_quads, n_sched, t_out, attr_out
+
+template <bool MESH, bool SCHED, bool OVERRIDE, bool F32, bool ACTIVE>
+static int launch_instance(const dim3 grid, const size_t smem, cudaStream_t stream, TRI_PARAMS) {
     static size_t smem_opted = 48 * 1024;  // the dynamic limit set so far
     if (smem > smem_opted) {
         const cudaError_t err = cudaFuncSetAttribute(
-            tri_pass_kernel<MESH, SCHED, OVERRIDE, F32>,
+            tri_pass_kernel<MESH, SCHED, OVERRIDE, F32, ACTIVE>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
         smem_opted = smem;
     }
-    tri_pass_kernel<MESH, SCHED, OVERRIDE, F32><<<grid, THREADS, smem, stream>>>(
-        verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase, ybase,
-        mesh_v9, mesh_attr, verts9_alt, attr_alt, pg_wall, wall_open, slot_key, slot_tex,
-        slot_tex_alt, S, N, W, H, Wn, all_quads, n_sched, t_out, attr_out);
+    tri_pass_kernel<MESH, SCHED, OVERRIDE, F32, ACTIVE><<<grid, THREADS, smem, stream>>>(TRI_ARGS);
     return (int)cudaGetLastError();
 }
 
-// The override is an instance of its own (OVERRIDE), so that the
-// launches without it compile to the code they had before it existed: as
-// a runtime branch it slowed the multi-chunk launch without the key from
-// 2.26 to 2.93 ms (Sidewalk, B = 1024, 80x60, on an H100).
-template <bool MESH, bool SCHED>
-static int launch_tri_pass(const dim3 grid, const size_t smem, cudaStream_t stream,
-                           const float* verts9, const float* attr, const int* layout_id,
-                           const float* origin, const float* fwd, const float* right,
-                           const float* up, const float* tan_xy, const float* xbase,
-                           const float* ybase, const float* mesh_v9, const float* mesh_attr,
-                           const float* verts9_alt, const float* attr_alt, const int* pg_wall,
-                           const float* wall_open, const unsigned* slot_key,
-                           const float4* slot_tex, const float4* slot_tex_alt, int S, int N,
-                           int W, int H, int Wn, int all_quads, int n_sched,
-                           float* t_out, void* attr_out) {
-    return slot_key != nullptr
-        ? launch_instance<MESH, SCHED, true, false>(
-              grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase,
-              ybase, mesh_v9, mesh_attr, verts9_alt, attr_alt, pg_wall, wall_open, slot_key,
-              slot_tex, slot_tex_alt, S, N, W, H, Wn, all_quads, n_sched, t_out, attr_out)
-        : launch_instance<MESH, SCHED, false, false>(
-              grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase,
-              ybase, mesh_v9, mesh_attr, verts9_alt, attr_alt, pg_wall, wall_open, nullptr,
-              nullptr, nullptr, S, N, W, H, Wn, all_quads, n_sched, t_out, attr_out);
+// The override and the float32 carry are instances of their own
+// (OVERRIDE, F32), so that the launches without them compile to the code
+// they had before they existed: as a runtime branch the override slowed
+// the multi-chunk launch without the key from 2.26 to 2.93 ms (Sidewalk,
+// B = 1024, 80x60, on an H100).
+template <bool MESH, bool SCHED, bool ACTIVE>
+static int launch_tri_pass(const bool f32, const dim3 grid, const size_t smem,
+                           cudaStream_t stream, TRI_PARAMS) {
+    if (slot_key != nullptr)
+        return f32 ? launch_instance<MESH, SCHED, true, true, ACTIVE>(grid, smem, stream, TRI_ARGS)
+                   : launch_instance<MESH, SCHED, true, false, ACTIVE>(grid, smem, stream, TRI_ARGS);
+    return f32 ? launch_instance<MESH, SCHED, false, true, ACTIVE>(grid, smem, stream, TRI_ARGS)
+               : launch_instance<MESH, SCHED, false, false, ACTIVE>(grid, smem, stream, TRI_ARGS);
 }
 
-// The multi-chunk kernel's instance for the override and the carry dtype:
-// its dynamic shared memory (MULTI_SMEM, above the 48 KB default) is
-// opted into once per process and instance.
-template <bool OVERRIDE, bool F32>
-static int launch_multi(const int B, cudaStream_t stream, const float* verts9, const float* attr,
-                        const int* layout_id, const float* origin, const float* fwd,
-                        const float* right, const float* up, const float* tan_xy,
-                        const float* xbase, const float* ybase, const float* verts9_alt,
-                        const float* attr_alt, const int* pg_wall, const float* wall_open,
-                        const unsigned* slot_key, const float4* slot_tex,
-                        const float4* slot_tex_alt, int S, int W, int H, int Wn, int all_quads,
-                        int tri_chunk, float* t_out, void* attr_out) {
+// The multi-chunk kernel's instance for the override, the carry dtype and
+// the kill: its dynamic shared memory (MULTI_SMEM, above the 48 KB
+// default) is opted into once per process and instance.
+template <bool OVERRIDE, bool F32, bool ACTIVE>
+static int launch_multi(const int B, cudaStream_t stream, TRI_PARAMS, int tri_chunk) {
     static bool opted = false;
     if (!opted) {
         const cudaError_t err = cudaFuncSetAttribute(
-            tri_pass_multi_kernel<OVERRIDE, F32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)MULTI_SMEM);
+            tri_pass_multi_kernel<OVERRIDE, F32, ACTIVE>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MULTI_SMEM);
         if (err != cudaSuccess) return (int)err;
         opted = true;
     }
     const int n_tx = (W + TILE_W - 1) / TILE_W, n_ty = (H + TILE_H - 1) / TILE_H;
     const int n_groups = ((n_tx + GROUP_X - 1) / GROUP_X) * ((n_ty + GROUP_Y - 1) / GROUP_Y);
     const dim3 grid(min(n_groups, max(1, (BLOCK_TARGET + B - 1) / B)), B);
-    tri_pass_multi_kernel<OVERRIDE, F32><<<grid, M_THREADS, MULTI_SMEM, stream>>>(
+    tri_pass_multi_kernel<OVERRIDE, F32, ACTIVE><<<grid, M_THREADS, MULTI_SMEM, stream>>>(
         verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase, ybase, verts9_alt,
-        attr_alt, pg_wall, wall_open, slot_key, slot_tex, slot_tex_alt, S, W, H, Wn, all_quads,
-        tri_chunk, t_out, attr_out);
+        attr_alt, pg_wall, wall_open, slot_key, slot_tex, slot_tex_alt, row_code, S, W, H, Wn,
+        all_quads, tri_chunk, t_out, attr_out);
     return (int)cudaGetLastError();
+}
+
+template <bool ACTIVE>
+static int launch_multi_any(const bool f32, const int B, cudaStream_t stream, TRI_PARAMS,
+                            int tri_chunk) {
+    if (slot_key != nullptr)
+        return f32 ? launch_multi<true, true, ACTIVE>(B, stream, TRI_ARGS, tri_chunk)
+                   : launch_multi<true, false, ACTIVE>(B, stream, TRI_ARGS, tri_chunk);
+    return f32 ? launch_multi<false, true, ACTIVE>(B, stream, TRI_ARGS, tri_chunk)
+               : launch_multi<false, false, ACTIVE>(B, stream, TRI_ARGS, tri_chunk);
 }
 
 extern "C" int mw_tri_pass(
@@ -1134,47 +1149,34 @@ extern "C" int mw_tri_pass(
     const float* tan_xy, const float* xbase, const float* ybase,
     const float* mesh_v9, const float* mesh_attr,
     const float* verts9_alt, const float* attr_alt, const int* pg_wall,
-    const float* wall_open, const unsigned* slot_key, const float* slot_tex,
-    const float* slot_tex_alt,
+    const float* wall_open, const unsigned* slot_key, const float* slot_tex_f,
+    const float* slot_tex_alt_f, const int* row_code,
     int B, int S, int N, int W, int H, int Wn, int all_quads, int tri_chunk, int n_sched,
     int f32, float* t_out, void* attr_out, cudaStream_t stream)
 {
     const bool paired = pg_wall != nullptr;
     const bool mesh = mesh_v9 != nullptr;
     const bool sched = n_sched > 0;
+    const bool active = row_code != nullptr;
     const bool multi = !sched && S > tri_chunk;
     if (paired && (verts9_alt == nullptr || attr_alt == nullptr || wall_open == nullptr))
         return (int)cudaErrorInvalidValue;
     if (mesh && mesh_attr == nullptr) return (int)cudaErrorInvalidValue;
-    if (slot_key != nullptr && (slot_tex == nullptr || (paired && slot_tex_alt == nullptr)))
+    if (slot_key != nullptr && (slot_tex_f == nullptr || (paired && slot_tex_alt_f == nullptr)))
         return (int)cudaErrorInvalidValue;
     if (N > IDX_MASK + 1) return (int)cudaErrorInvalidValue;
-    // the F32 instances: without mesh rows and without the override
-    if (f32 && (mesh || slot_key != nullptr)) return (int)cudaErrorInvalidValue;
+    // the kill: a dense scan of the super bank's own rows (ACTIVE instances)
+    if (active && (wall_open == nullptr || paired || mesh || sched)) return (int)cudaErrorInvalidValue;
     if (multi ? (mesh || tri_chunk < 16 || tri_chunk > IDX_MASK + 1 || S > 4096)
               : S > IDX_MASK + 1)
         return (int)cudaErrorInvalidValue;
     if (sched && (paired || n_sched > 255 || n_sched * S > 4096)) return (int)cudaErrorInvalidValue;
     if (B == 0 || W == 0 || H == 0) return 0;
-    const float4* tex = reinterpret_cast<const float4*>(slot_tex);
-    const float4* tex_alt = reinterpret_cast<const float4*>(slot_tex_alt);
-    if (multi) {
-        if (f32)
-            return launch_multi<false, true>(B, stream, verts9, attr, layout_id, origin, fwd,
-                                             right, up, tan_xy, xbase, ybase, verts9_alt,
-                                             attr_alt, pg_wall, wall_open, nullptr, nullptr,
-                                             nullptr, S, W, H, Wn, all_quads, tri_chunk, t_out,
-                                             attr_out);
-        return slot_key != nullptr
-            ? launch_multi<true, false>(B, stream, verts9, attr, layout_id, origin, fwd, right,
-                                        up, tan_xy, xbase, ybase, verts9_alt, attr_alt, pg_wall,
-                                        wall_open, slot_key, tex, tex_alt, S, W, H, Wn,
-                                        all_quads, tri_chunk, t_out, attr_out)
-            : launch_multi<false, false>(B, stream, verts9, attr, layout_id, origin, fwd, right,
-                                         up, tan_xy, xbase, ybase, verts9_alt, attr_alt, pg_wall,
-                                         wall_open, nullptr, nullptr, nullptr, S, W, H, Wn,
-                                         all_quads, tri_chunk, t_out, attr_out);
-    }
+    const float4* slot_tex = reinterpret_cast<const float4*>(slot_tex_f);
+    const float4* slot_tex_alt = reinterpret_cast<const float4*>(slot_tex_alt_f);
+    if (multi)
+        return active ? launch_multi_any<true>(f32, B, stream, TRI_ARGS, tri_chunk)
+                      : launch_multi_any<false>(f32, B, stream, TRI_ARGS, tri_chunk);
     const int n_tiles = ((W + TILE_W - 1) / TILE_W) * ((H + TILE_H - 1) / TILE_H);
     const int per_env = min(n_tiles, max(1, (BLOCK_TARGET + B - 1) / B));
     const dim3 grid(per_env, B);
@@ -1183,34 +1185,10 @@ extern "C" int mw_tri_pass(
     const size_t smem = n_rows * per_row + (paired ? n_rows : 0) +
                         (sched ? (size_t)n_sched * sizeof(int) : 0) +
                         (mesh ? (size_t)N * per_row : 0);
-    if (f32)
-        return sched
-            ? launch_instance<false, true, false, true>(
-                  grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy,
-                  xbase, ybase, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                  nullptr, nullptr, nullptr, S, 0, W, H, 0, all_quads, n_sched, t_out,
-                  attr_out)
-            : launch_instance<false, false, false, true>(
-                  grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy,
-                  xbase, ybase, nullptr, nullptr, verts9_alt, attr_alt, pg_wall, wall_open,
-                  nullptr, nullptr, nullptr, S, 0, W, H, Wn, all_quads, 0, t_out, attr_out);
     if (sched)
-        return mesh
-            ? launch_tri_pass<true, true>(
-                  grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy,
-                  xbase, ybase, mesh_v9, mesh_attr, nullptr, nullptr, nullptr, nullptr, slot_key,
-                  tex, nullptr, S, N, W, H, 0, all_quads, n_sched, t_out, attr_out)
-            : launch_tri_pass<false, true>(
-                  grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy,
-                  xbase, ybase, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, slot_key,
-                  tex, nullptr, S, 0, W, H, 0, all_quads, n_sched, t_out, attr_out);
-    return mesh
-        ? launch_tri_pass<true, false>(
-              grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase,
-              ybase, mesh_v9, mesh_attr, verts9_alt, attr_alt, pg_wall, wall_open, slot_key, tex,
-              tex_alt, S, N, W, H, Wn, all_quads, 0, t_out, attr_out)
-        : launch_tri_pass<false, false>(
-              grid, smem, stream, verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase,
-              ybase, nullptr, nullptr, verts9_alt, attr_alt, pg_wall, wall_open, slot_key, tex,
-              tex_alt, S, 0, W, H, Wn, all_quads, 0, t_out, attr_out);
+        return mesh ? launch_tri_pass<true, true, false>(f32, grid, smem, stream, TRI_ARGS)
+                    : launch_tri_pass<false, true, false>(f32, grid, smem, stream, TRI_ARGS);
+    if (active) return launch_tri_pass<false, false, true>(f32, grid, smem, stream, TRI_ARGS);
+    return mesh ? launch_tri_pass<true, false, false>(f32, grid, smem, stream, TRI_ARGS)
+                : launch_tri_pass<false, false, false>(f32, grid, smem, stream, TRI_ARGS);
 }

@@ -12,11 +12,19 @@ policy) so recording works without a display — the piece of the
 reference workflow that actually matters for dataset generation.
 
 The PyTorch port's copy of ``miniworld_tpu/manual_control.py``, over the
-port's gymnasium adapter (gym_env.py), hud and LeRobot writer.
+port's gymnasium adapter (gym_env.py), hud and LeRobot writer, and the
+command line of ``scripts/manual_control.py`` (``main``)::
+
+    python -m miniworld_tpu_torch.manual_control MiniWorld-Hallway-v0
+    python -m miniworld_tpu_torch.manual_control MiniWorld-OneRoom-v0 --headless \
+        --steps 500 --record-dir /tmp/ds    # no display needed
+
+Frames render on the CUDA card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
+import argparse
 import math
 import time
 from typing import Callable, Optional
@@ -305,3 +313,99 @@ class ManualControl:
         if self.recorder and self.recorder.enabled:
             self.recorder.stop()
         pygame.quit()
+
+
+def random_policy(env, seed: int = 0) -> Callable:
+    """A uniform random policy over the env's actions, for an env without
+    ``action_space`` (``gym_env.SingleEnv`` where gymnasium is absent):
+    an index of its discrete table, a click in [0, 1]^2, or a 6-D vector
+    in the action box (miniworld.py:483-487)."""
+    u = env.unwrapped if hasattr(env, "unwrapped") else env
+    spec = u.spec_def
+    rng = np.random.default_rng(seed)
+    if u._discrete_actions is not None or getattr(spec, "num_actions", 0):
+        n = len(u._discrete_actions) if u._discrete_actions is not None else spec.num_actions
+        return lambda obs: int(rng.integers(n))
+    if getattr(spec, "click_action", False):
+        return lambda obs: rng.uniform(0.0, 1.0, 2).astype(np.float32)
+    low = np.array([-1, -1, -1, -1, 0, 0], np.float32)
+    return lambda obs: rng.uniform(low, 1.0).astype(np.float32)
+
+
+def main(argv=None):
+    """The command line of the JAX package's ``scripts/manual_control.py``
+    (reference: scripts/manual_control.py:16-160), every flag of it, over
+    the port: ``MiniWorldGym`` (``SingleEnv`` where gymnasium is absent)
+    on ``--device`` (the CUDA card by default), ``ScriptedControl`` with
+    ``--headless``, else the pygame ``ManualControl``."""
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    # both the positional form and the reference's --env-name flag
+    p.add_argument("env_name", nargs="?", default=None)
+    p.add_argument("--env-name", dest="env_name_flag", default=None)
+    p.add_argument("--domain-rand", action="store_true", help="enable domain randomization")
+    p.add_argument("--no-time-limit", action="store_true", help="ignore time step limits")
+    p.add_argument("--top-view", "--top_view", action="store_true", dest="top_view",
+                   help="show the top view instead of the agent view")
+    p.add_argument("--mouse-sensitivity", type=float, default=0.15,
+                   help="mouse sensitivity for yaw/pitch, degrees per pixel")
+    p.add_argument("--fullscreen", action="store_true", help="start the viewer in fullscreen")
+    p.add_argument("--window-size", type=str, default=None,
+                   help="initial window size as WIDTHxHEIGHT; ignored with --fullscreen")
+    p.add_argument("--hide-hud", action="store_true", help="run the viewer without the HUD")
+    p.add_argument("--show-controls", dest="show_controls", default=None, action="store_true",
+                   help="enable the on-screen movement/look buttons")
+    p.add_argument("--no-show-controls", dest="show_controls", action="store_false",
+                   help="disable the on-screen movement/look buttons")
+    p.add_argument("--task", type=str, default="Center and zoom on the target.",
+                   help="task description recorded in tasks.parquet")
+    p.add_argument("--append", action="store_true",
+                   help="append recorded episodes to an existing dataset")
+    p.add_argument("--automatic-recording", action="store_true",
+                   help="start recording immediately, auto-split episodes")
+    p.add_argument("--no-mouse-recenter", action="store_true",
+                   help="disable mouse cursor grab/re-centering")
+    p.add_argument("--obs-width", type=int, default=512)
+    p.add_argument("--obs-height", type=int, default=512)
+    p.add_argument("--window-scale", type=int, default=1)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--record-dir", type=str, default=None)
+    p.add_argument("--record-fps", type=int, default=30)
+    p.add_argument("--headless", action="store_true", help="scripted random policy, no display")
+    p.add_argument("--steps", type=int, default=1000, help="steps for --headless mode")
+    p.add_argument("--device", default="cuda",
+                   help="torch device the frames render on (cuda, or cpu)")
+    args = p.parse_args(argv)
+    env_name = args.env_name_flag or args.env_name or "MiniWorld-Hallway-v0"
+
+    from miniworld_tpu_torch import gym_env
+
+    cls = gym_env.MiniWorldGym if gym_env.gym is not None else gym_env.SingleEnv
+    env = cls(env_name.replace("MiniWorld-", "").replace("-v0", ""),
+              obs_width=args.obs_width, obs_height=args.obs_height,
+              domain_rand=args.domain_rand,
+              max_episode_steps=10**9 if args.no_time_limit else None, device=args.device)
+
+    if args.headless:
+        policy = "random" if hasattr(env, "action_space") else random_policy(env, args.seed)
+        ScriptedControl(env, policy, args.record_dir,
+                        fps=args.record_fps).run(args.steps, seed=args.seed)
+        print(f"ran {args.steps} steps on {env.device}"
+              + (f"; dataset at {args.record_dir}" if args.record_dir else ""))
+        return
+
+    window_size = None
+    if args.window_size:
+        ww, wh = args.window_size.lower().split("x")
+        window_size = (int(ww), int(wh))
+    ManualControl(env, record_dir=args.record_dir, fps=args.record_fps,
+                  top_view=args.top_view, window_scale=args.window_scale,
+                  show_hud=not args.hide_hud, show_controls=args.show_controls,
+                  mouse_sensitivity=args.mouse_sensitivity, fullscreen=args.fullscreen,
+                  window_size=window_size, mouse_recenter=not args.no_mouse_recenter,
+                  automatic_recording=args.automatic_recording, task=args.task,
+                  append=args.append).run(seed=args.seed)
+
+
+if __name__ == "__main__":
+    main()

@@ -51,10 +51,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _CAM = [_P] * 7  # origin, fwd, right, up, tan_xy, xbase, ybase
 ENTRY_POINTS = {
     # verts9, attr, layout_id, camera, mesh_v9, mesh_attr, verts9_alt,
-    # attr_alt, pg_wall, wall_open, slot_key, slot_tex, slot_tex_alt, B,
-    # S, N, W, H, n_walls, all_quads, tri_chunk, n_sched, f32, t, attr_out,
-    # stream
-    "mw_tri_pass": [_P, _P, _P, *_CAM, _P] + [_P] * 8 + [_I] * 10 + [_P, _P, _P],
+    # attr_alt, pg_wall, wall_open, slot_key, slot_tex, slot_tex_alt,
+    # row_code, B, S, N, W, H, n_walls, all_quads, tri_chunk, n_sched, f32,
+    # t, attr_out, stream
+    "mw_tri_pass": [_P, _P, _P, *_CAM, _P] + [_P] * 9 + [_I] * 10 + [_P, _P, _P],
     # out: TILE_W, TILE_H, PIX_PER_THREAD
     "mw_tri_pass_config": [_P],
     # ent_pos, ent_size, ent_dir, ent_height, ent_color, flags, camera,
@@ -106,8 +106,9 @@ BUILD_INFO: dict = {}
 # chunk, the multi-chunk kernel's ("tri_pass_multi"), over a paired
 # procgen bank also "tri_pass_paired_chunks", a
 # tri_pass launch over each env's schedule of chunks ("tri_pass_sched"), a
-# tri_pass launch with the float32 attribute carry ("tri_pass_f32"), and
-# a pixel_epilogue launch of its supersample=2 instance
+# tri_pass launch with the float32 attribute carry ("tri_pass_f32"), a
+# tri_pass launch over a procgen super bank's dense rows, each env's
+# killed by its maze ("tri_pass_active"), and a pixel_epilogue launch of its supersample=2 instance
 # ("pixel_epilogue_ss2"), of its glyph instance ("pixel_epilogue_gain"),
 # of its nearest-texture instance ("pixel_epilogue_nearest") or reading
 # the float32 carry ("pixel_epilogue_f32"). The top view's kernels
@@ -123,7 +124,8 @@ LAUNCHES = {"tri_pass": 0, "entity_pass": 0, "pixel_epilogue": 0,
             "tri_pass_paired_chunks": 0, "tri_pass_sched": 0, "pixel_epilogue_gain": 0,
             "tri_pass_f32": 0, "pixel_epilogue_nearest": 0, "pixel_epilogue_f32": 0,
             "tri_pass_ortho": 0, "topview_epilogue": 0, "topview_epilogue_nearest": 0,
-            "visible_ents": 0, "tri_pass_multi": 0, "place_one": 0, "entity_mesh_rows": 0}
+            "visible_ents": 0, "tri_pass_multi": 0, "place_one": 0, "entity_mesh_rows": 0,
+            "tri_pass_active": 0}
 
 
 def reset_launch_counts():

@@ -239,10 +239,15 @@ def _row_keys(rows, xv, yv, all_quads: bool, all_tris: bool = False):
 
 
 def _chunk_compete(v9, attrs, cam: Camera, xv, yv, all_quads: bool,
-                   all_tris: bool = False):
+                   all_tris: bool = False, act=None):
     """Keyed-z competition of one chunk of prims, v9 (B, 9, TC), attrs
-    (B, TC, 16): returns (key_max (B, HW) i32, row (B, HW) i64)."""
+    (B, TC, 16): returns (key_max (B, HW) i32, row (B, HW) i64). ``act``
+    (B, TC) f32 0/1, the dense super bank's row liveness, multiplies into
+    each row's 1/t_num as the JAX package's ``inv_tnum * act`` does
+    (raycast.py:351): a killed row's r is 0 (or NaN) and never hits."""
     rows = _stage(v9, attrs[:, :, _KIND], cam)
+    if act is not None:
+        rows[:, :, _R_INV] = rows[:, :, _R_INV] * act
     key_max = _row_keys(rows, xv, yv, all_quads, all_tris).amax(dim=1)  # (B, HW)
     return key_max, (key_max & _IDX_MASK).long()
 
@@ -303,6 +308,54 @@ def _paired_rows(verts9, attr, lid, paired):
     return v9, attrs, keep
 
 
+def wall_codes(bank) -> torch.Tensor:
+    """(L, S) i32 maze kill of each bank row: -1 for a row every env has,
+    2w for one live iff wall w is open (a junction's content), 2w + 1 for
+    one live iff wall w is closed (its closed quads), -2 for a row no env
+    has. The dense ``tri_active = tri_active_base + wall_open @
+    tri_wall_onehot`` (raycast.py:1220-1227, topview.py:77-84) is
+    ``base + sign * wall_open[w]`` with (base, sign) = (0, 1) or (1, -1)
+    (``row_live``). Raises unless every column of the one-hot holds at
+    most one nonzero, of that form."""
+    if bank.tri_wall_onehot is None:
+        return torch.full(bank.tri_mask.shape, -1, dtype=torch.int32)
+    onehot = bank.tri_wall_onehot.cpu().to(torch.float32)  # (L, NW, S)
+    base = bank.tri_active_base.cpu().to(torch.float32)  # (L, S)
+    nz = (onehot != 0).sum(dim=1)
+    w = onehot.abs().argmax(dim=1)
+    sign = torch.gather(onehot, 1, w[:, None, :])[:, 0]
+    ok = ((nz == 0) & ((base == 0) | (base == 1))) | (
+        (nz == 1) & (((base == 0) & (sign == 1)) | ((base == 1) & (sign == -1))))
+    if not bool(ok.all()):
+        raise ValueError("tri_wall_onehot / tri_active_base are not a one-wall-per-row kill")
+    code = torch.where(nz == 0, torch.where(base == 1, -1, -2), 2 * w + (sign < 0).long())
+    return code.to(torch.int32)
+
+
+def row_live(code: torch.Tensor, wall_open) -> torch.Tensor:
+    """(B, S) bool: row live in each env, code (B, S) from ``wall_codes``,
+    wall_open (B, NW) f32 or None: ``base + sign * wall_open[w] > 0.5``."""
+    if wall_open is None:
+        return code == -1
+    w = torch.clamp(code >> 1, min=0).long()
+    closed_kind = (code & 1) == 1
+    base = closed_kind.to(torch.float32)
+    sign = 1.0 - 2.0 * base
+    live = (base + sign * torch.gather(wall_open, 1, w)) > 0.5
+    return torch.where(code >= 0, live, code == -1)
+
+
+def _active_rows(active, lid):
+    """The dense super bank's per-env row liveness, (B, S) f32 0/1: the
+    JAX package's ``tri_active = tri_active_base + wall_open @
+    tri_wall_onehot`` (raycast.py:1220-1227), exact 0/1 for a 0/1
+    ``wall_open``, as ``row_live`` of each row's code. ``active`` =
+    (row_code (L, S) i32 from ``wall_codes``, wall_open (B, NW) f32) of
+    the envs ``lid`` (B,)."""
+    code, wall_open = active
+    return row_live(code[lid], wall_open).to(torch.float32)
+
+
 def variant_slots(key, tex):
     """Atlas row of each prim's texture variant this episode
     (raycast.py:285-288, 301-310): key (B,) u32 values (EnvState.tri_slots),
@@ -350,7 +403,8 @@ def _env_rows(verts9, attr, lid, paired=None, override=None):
 
 
 def tri_pass_plain(verts9, attr, layout_id, cam: Camera, all_quads: bool = False,
-                   seed=None, paired=None, override=None, attr_dtype=torch.bfloat16):
+                   seed=None, paired=None, override=None, attr_dtype=torch.bfloat16,
+                   active=None):
     """Plain version of the tri_pass kernel (raycast._tri_pass,
     single-chunk form): every prim of each env's layout in one pass.
 
@@ -368,8 +422,10 @@ def tri_pass_plain(verts9, attr, layout_id, cam: Camera, all_quads: bool = False
     from its row's live variant. ``override`` = (key (B,), tex, tex_alt)
     replaces every row's slot column by its texture variant
     (``_env_rows``) before the competition, which reads only the
-    vertices and the kind column. Runs over blocks of envs to bound its
-    intermediates.
+    vertices and the kind column. ``active`` = (row_code (L, S) i32,
+    wall_open (B, NW) f32) renders a procgen super bank without paired
+    rows, the JAX package's dense ``tri_active`` kill (``_active_rows``).
+    Runs over blocks of envs to bound its intermediates.
     """
     S = verts9.shape[2]
     if S > (1 << _IDX_BITS):
@@ -383,7 +439,9 @@ def tri_pass_plain(verts9, attr, layout_id, cam: Camera, all_quads: bool = False
         v9, attrs = _env_rows(verts9, attr, lid,
                               None if paired is None else (*paired[:3], paired[3][sl]),
                               None if override is None else (override[0][sl], *override[1:]))
-        key, row = _chunk_compete(v9, attrs, _cam_rows(cam, sl), xv[sl], yv[sl], all_quads)
+        act = None if active is None else _active_rows((active[0], active[1][sl]), lid)
+        key, row = _chunk_compete(v9, attrs, _cam_rows(cam, sl), xv[sl], yv[sl], all_quads,
+                                  act=act)
         sel = _gather_rows(attrs, row).to(attr_dtype)
         if seed is not None:
             seed_key = _seed_key(seed[0][sl])
@@ -409,7 +467,8 @@ def _scan_chunks(read, n_chunks: int, b: int, k: int, cam: Camera, all_quads: bo
     """The JAX package's scan over chunks (raycast._tri_pass scan body),
     shared by ``tri_pass_chunked`` and ``tri_pass_scheduled``: for each
     block of envs ``sl`` and chunk j < ``n_chunks``, ``read(sl, j)`` gives
-    the chunk's rows (v9 (n, 9, k), attrs (n, k, 16)); each chunk's keyed-z
+    the chunk's rows (v9 (n, 9, k), attrs (n, k, 16), and their liveness
+    (n, k) f32 or None: ``_chunk_compete``'s act); each chunk's keyed-z
     winner is carried on a strictly greater key, from no hit (t = inf,
     zero attributes) or from ``seed`` = (t (B, HW), attr (B, HW, 16))
     through the seed key (``_seed_key``). Returns (t (B, HW) f32, attr
@@ -426,8 +485,8 @@ def _scan_chunks(read, n_chunks: int, b: int, k: int, cam: Camera, all_quads: bo
         else:
             key_best, attr_best = _seed_key(seed[0][sl]), seed[1][sl].to(attr_dtype)
         for j in range(n_chunks):
-            v9, attrs = read(sl, j)
-            key, row = _chunk_compete(v9, attrs, c, xv[sl], yv[sl], all_quads)
+            v9, attrs, act = read(sl, j)
+            key, row = _chunk_compete(v9, attrs, c, xv[sl], yv[sl], all_quads, act=act)
             sel = _gather_rows(attrs, row).to(attr_dtype)
             closer = key > key_best
             key_best = torch.where(closer, key, key_best)
@@ -439,7 +498,7 @@ def _scan_chunks(read, n_chunks: int, b: int, k: int, cam: Camera, all_quads: bo
 
 def tri_pass_chunked(verts9, attr, layout_id, cam: Camera, tri_chunk: int,
                      all_quads: bool = False, override=None, paired=None,
-                     attr_dtype=torch.bfloat16):
+                     attr_dtype=torch.bfloat16, active=None):
     """Plain version of the tri_pass kernel's multi-chunk scan
     (raycast._tri_pass scan body, zero init, no seed): the prims in
     chunks of ``tri_chunk`` from ``chunk_starts``, each chunk's keyed-z
@@ -455,8 +514,10 @@ def tri_pass_chunked(verts9, attr, layout_id, cam: Camera, tri_chunk: int,
     each chunk's rows are the env's live variants (``_paired_rows``).
     ``override`` = (key (B,), tex (L, S, 4), tex_alt (L, S, 4) with a
     paired bank, else None) gives each chunk's rows their texture
-    variants, as ``tri_pass_plain`` does. Runs over blocks of envs to
-    bound its intermediates.
+    variants, as ``tri_pass_plain`` does. ``active`` = (row_code,
+    wall_open): the dense super bank's kill, each chunk's slice of it
+    (``tri_pass_plain``). Runs over blocks of envs to bound its
+    intermediates.
     """
     S = verts9.shape[2]
     if tri_chunk > min(S, 1 << _IDX_BITS):
@@ -471,7 +532,9 @@ def tri_pass_chunked(verts9, attr, layout_id, cam: Camera, tri_chunk: int,
         ov = None if override is None else (
             override[0][sl], override[1][:, part],
             None if override[2] is None else override[2][:, part])
-        return _env_rows(verts9[:, :, part], attr[:, part], layout_id[sl].long(), pp, ov)
+        lid = layout_id[sl].long()
+        act = None if active is None else _active_rows((active[0][:, part], active[1][sl]), lid)
+        return (*_env_rows(verts9[:, :, part], attr[:, part], lid, pp, ov), act)
 
     return _scan_chunks(read, len(starts), layout_id.shape[0], tri_chunk, cam, all_quads,
                         None, attr_dtype)
@@ -502,7 +565,7 @@ def tri_pass_scheduled(verts9, attr, sched, cam: Camera, all_quads: bool = False
 
     def read(sl, j):
         ov = None if override is None else (override[0][sl], override[1], None)
-        return _env_rows(verts9, attr, sched[sl, j].long(), None, ov)
+        return (*_env_rows(verts9, attr, sched[sl, j].long(), None, ov), None)
 
     return _scan_chunks(read, sched.shape[1], sched.shape[0], k, cam, all_quads, seed,
                         attr_dtype)
@@ -630,7 +693,7 @@ MAX_KERNEL_ROWS = 4096
 
 def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh=None,
              paired=None, tri_chunk: int | None = None, override=None,
-             attr_dtype=torch.bfloat16):
+             attr_dtype=torch.bfloat16, active=None):
     """Stage 1 wrapper: the tri_pass kernel for CUDA tensors, the plain
     version for CPU tensors. With S <= ``tri_chunk`` (None: S), one
     chunk: the contract of ``tri_pass_plain`` seeded by
@@ -658,11 +721,14 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
     attributes. The key is converted to the kernel's u32 once here.
     ``attr_dtype``: the carry dtype of the attribute rows
     (``attr_carry_dtype``); float32 launches the kernel's F32 instances
-    (also counted in ``LAUNCHES["tri_pass_f32"]``), built for the
-    single-chunk, multi-chunk and scheduled launches without mesh rows
-    and without the override, the ones a ported id reaches (nearest mode
-    never overrides, and no mesh id has more than 256 slots); the others
-    raise."""
+    (also counted in ``LAUNCHES["tri_pass_f32"]``): every launch above has
+    one, with mesh rows and with the override too (a Fourier atlas of more
+    than 256 rows, or more than 256 layout-local slots in nearest mode).
+    ``active`` = (row_code (L, S) i32 from ``wall_codes``, wall_open (B,
+    NW) f32): a procgen super bank without paired rows, each env's rows
+    killed by its maze (``tri_pass_plain``), in one chunk or over several,
+    without mesh rows or a schedule (the ACTIVE instances, also counted in
+    ``LAUNCHES["tri_pass_active"]``)."""
     S = verts9.shape[2]
     if attr_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"attr_dtype {attr_dtype}: the carry is bf16 or float32")
@@ -680,26 +746,23 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
                          "(static_rows, chunk_schedule)")
     if sched and paired is not None:
         raise ValueError("a schedule scans one-chunk rows, not a paired bank")
+    if active is not None and (sched or mesh is not None or paired is not None):
+        raise ValueError("the dense tri_active kill scans a super bank's own rows: no "
+                         "schedule, mesh rows or paired rows (raycast.py:483-485)")
     ov_tensors = () if override is None else tuple(t for t in override if t is not None)
     if override is not None and (override[2] is None) != (paired is None):
         raise ValueError("override needs tex_alt exactly when the bank is paired")
     if not is_cuda(verts9, attr, layout_id, cam.origin, *(mesh or ()), *(paired or ()),
-                   *ov_tensors):
+                   *ov_tensors, *(active or ())):
         if multi:
             return tri_pass_chunked(verts9, attr, layout_id, cam, tri_chunk, all_quads,
-                                    override, paired, attr_dtype)
+                                    override, paired, attr_dtype, active)
         seed = None if mesh is None else entity_mesh_pass_plain(*mesh, cam, attr_dtype)
         if sched:
             return tri_pass_scheduled(verts9, attr, layout_id, cam, all_quads, seed, override,
                                       attr_dtype)
         return tri_pass_plain(verts9, attr, layout_id, cam, all_quads, seed, paired, override,
-                              attr_dtype)
-    if f32 and (mesh is not None or override is not None):
-        raise NotImplementedError(
-            "the tri_pass kernel's F32 " + ("MESH" if mesh is not None else "OVERRIDE")
-            + " instance (a float32 attribute carry with "
-            + ("mesh rows" if mesh is not None else "the texture-variant override")
-            + ") is not built")
+                              attr_dtype, active)
     L = verts9.shape[0]
     b = layout_id.shape[0]
     hw = cam.width * cam.height
@@ -722,16 +785,22 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
             raise ValueError("tri_pass kernel takes mesh rows with N >= 1")
         mesh_ptrs = (check(mesh[0], "mesh rows9", torch.float32, (b, 9, n_mesh)),
                      check(mesh[1], "mesh row_attrs", torch.float32, (b, n_mesh, ATTR_DIM)))
-    if paired is None:
-        n_walls = 0
-        paired_ptrs = (ctypes.c_void_p(0),) * 4
-    else:
+    n_walls = 0
+    paired_ptrs = (ctypes.c_void_p(0),) * 4
+    code_ptr = ctypes.c_void_p(0)
+    if paired is not None:
         v9_alt, attr_alt, pg_wall, wall_open = paired
         n_walls = wall_open.shape[1]
         paired_ptrs = (check(v9_alt, "verts9_alt", torch.float32, (L, 9, S)),
                        check(attr_alt, "attr_alt", torch.float32, (L, S, ATTR_DIM)),
                        check(pg_wall, "pg_wall", torch.int32, (L, S)),
                        check(wall_open, "wall_open", torch.float32, (b, n_walls)))
+    elif active is not None:  # the kill reads the env's maze in the wall_open slot
+        row_code, wall_open = active
+        n_walls = wall_open.shape[1]
+        code_ptr = check(row_code, "row_code", torch.int32, (L, S))
+        paired_ptrs = paired_ptrs[:3] + (check(wall_open, "wall_open", torch.float32,
+                                               (b, n_walls)),)
     if override is None:
         ov_ptrs = (ctypes.c_void_p(0),) * 3
     else:
@@ -746,7 +815,8 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
                 + (("tri_pass_multi",) if multi else ())
                 + (("tri_pass_paired_chunks",) if multi and paired is not None else ())
                 + (("tri_pass_sched",) if sched else ())
-                + (("tri_pass_f32",) if f32 else ()))
+                + (("tri_pass_f32",) if f32 else ())
+                + (() if active is None else ("tri_pass_active",)))
     launch(
         "mw_tri_pass", counters,
         check(verts9, "verts9", torch.float32, (L, 9, S)),
@@ -756,6 +826,7 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
         *mesh_ptrs,
         *paired_ptrs,
         *ov_ptrs,
+        code_ptr,
         ctypes.c_int(b), ctypes.c_int(S), ctypes.c_int(n_mesh), ctypes.c_int(cam.width),
         ctypes.c_int(cam.height), ctypes.c_int(n_walls), ctypes.c_int(int(all_quads)),
         ctypes.c_int(tri_chunk), ctypes.c_int(n_sched if sched else 0), ctypes.c_int(int(f32)),
@@ -1202,18 +1273,23 @@ def eval_fourier(coeffs, slot, uv, k_terms: int, footprint=None,
                        torch.ones_like(texel))
 
 
+def fourier_row_floats(k_terms: int) -> int:
+    """Floats in a ``fourier_table`` row: 4 + 9K, padded to a multiple of
+    4 so that every row starts on a 16-byte boundary (K not a multiple of
+    4 leaves 2 or 3 zeros at the row's end, which no term reads)."""
+    return (4 + 9 * k_terms + 3) // 4 * 4
+
+
 def fourier_table(atlas, k_terms: int):
     """Per-slot table the pixel_epilogue kernel reads in place of the
     atlas (A, 4+8K): the atlas values that ``eval_fourier`` rounds to
     bf16, rounded once, and pi^2 (fu^2 + fv^2) of each term, in the
-    kernel's operation order. Row layout, (A, 4 + 9K) f32: dc(3), the
-    bf16 gain (``eval_fourier``'s glyph marker, 1 for the plain rows),
-    then (fu, fv, pi^2 f2, A_0) per term, (A_1, A_2, B_0, B_1) per term,
-    B_2 per term. Made once per atlas (MiniWorldVec makes it on the
-    CPU when it installs its atlas)."""
+    kernel's operation order. Row layout, (A, ``fourier_row_floats(K)``)
+    f32: dc(3), the bf16 gain (``eval_fourier``'s glyph marker, 1 for the
+    plain rows), then (fu, fv, pi^2 f2, A_0) per term, (A_1, A_2, B_0,
+    B_1) per term, B_2 per term, zeros to the row's end. Made once per
+    atlas (MiniWorldVec makes it on the CPU when it installs its atlas)."""
     k = k_terms
-    if k % 4:
-        raise ValueError(f"the Fourier table needs K a multiple of 4, got {k}")
     n = atlas.shape[0]
     fu = _bf16(atlas[:, 3:3 + k])
     fv = _bf16(atlas[:, 3 + k:3 + 2 * k])
@@ -1223,7 +1299,9 @@ def fourier_table(atlas, k_terms: int):
     w_b = _bf16(atlas[:, a0 + 3 * k:a0 + 6 * k]).reshape(n, 3, k)
     p = torch.stack([fu, fv, pf2, w_a[:, 0]], dim=2).reshape(n, 4 * k)
     q = torch.stack([w_a[:, 1], w_a[:, 2], w_b[:, 0], w_b[:, 1]], dim=2).reshape(n, 4 * k)
-    return torch.cat([_bf16(atlas[:, 0:3]), _bf16(atlas[:, -1:]), p, q, w_b[:, 2]],
+    pad = torch.zeros((n, fourier_row_floats(k) - (4 + 9 * k)), dtype=torch.float32,
+                      device=atlas.device)
+    return torch.cat([_bf16(atlas[:, 0:3]), _bf16(atlas[:, -1:]), p, q, w_b[:, 2], pad],
                      dim=1).contiguous()
 
 
@@ -1377,9 +1455,8 @@ def pixel_epilogue(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
     ``eval_fourier``, counted in ``LAUNCHES["pixel_epilogue_gain"]``
     too; ``tex_map``: nearest mode, its NEAREST instances, counted in
     ``LAUNCHES["pixel_epilogue_nearest"]``, which read the u8 atlas and
-    ``tex_map``, with a float32 attribute carry
-    ``LAUNCHES["pixel_epilogue_f32"]`` too; the float32 carry is built
-    for nearest mode only, the one that reaches it).
+    ``tex_map``; a float32 attribute carry, in either mode, launches the
+    F32 instances, counted in ``LAUNCHES["pixel_epilogue_f32"]`` too).
     In fourier mode the kernel reads ``table``, the atlas's
     ``fourier_table`` (made here when not given: a caller that renders
     often makes it once)."""
@@ -1402,15 +1479,12 @@ def pixel_epilogue(t_tri, attr, t_ent, col_ent, n_ent, atlas, cam: Camera,
         tex_ptr = check(tex_map, "tex_map", torch.int32, (b, n_ids))
         table_ptr = ctypes.c_void_p(0)
     else:
-        if f32:
-            raise NotImplementedError("the pixel_epilogue kernel's fourier F32 instance (a "
-                                      "float32 attribute carry in fourier mode) is not built")
         n_rows, width = atlas.shape
         if width != 4 + 8 * k_terms:
             raise ValueError(f"atlas rows hold {width} floats, expected 4+8K with K={k_terms}")
         if table is None:
             table = fourier_table(atlas, k_terms)
-        table_ptr = check(table, "table", torch.float32, (n_rows, 4 + 9 * k_terms))
+        table_ptr = check(table, "table", torch.float32, (n_rows, fourier_row_floats(k_terms)))
         atlas_ptr = tex_ptr = ctypes.c_void_p(0)
         res = n_ids = 0
     dev = t_tri.device
@@ -1520,7 +1594,7 @@ def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
                 shapes_present=(True, True, False), all_quads: bool = False,
                 has_gain: bool = False, use_kernels: bool = True, pg_wall=None,
                 table=None, plan=None, slot_tex=None, supersample: int = 1,
-                tex_mode: str = "fourier"):
+                tex_mode: str = "fourier", row_code=None):
     """Render every env's observation: (rgb (B, H, W, 3) u8, depth
     (B, H, W, 1) f32, FAR for sky). Counterpart of raycast.render_rgbd:
     the static prims in the chunk plan ``plan`` (vector.plan_chunks; None:
@@ -1551,7 +1625,9 @@ def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
     ``pg_wall`` ((L, Sp) i32, vector.install_statics) marks a procgen
     maze (raycast.py:1206-1219): the static prims are the paired super
     bank's rows (``bank.pg_*``), each env seeing its own maze through
-    ``state.wall_open``.
+    ``state.wall_open``. ``row_code`` ((L, S) i32, ``wall_codes``) marks
+    a procgen super bank without paired rows: its dense rows, each env's
+    killed by its maze (tri_pass's ``active``; raycast.py:1220-1227).
     ``use_kernels=False`` runs the plain PyTorch versions of the stages
     on whatever device the tensors are on (for comparisons on the card);
     otherwise each stage goes through its wrapper.
@@ -1570,17 +1646,20 @@ def render_rgbd(bank, state, atlas, *, width: int, height: int, k_terms: int,
     rows, paired = static_rows(bank, state, cam, pg_wall, plan)
     override = None if slot_tex is None else (state.tri_slots, *slot_tex)
     tri_chunk = None if plan is None else plan["tri_chunk"]
+    active = None if row_code is None else (row_code, state.wall_open)
     if use_kernels:
-        t_tri, attr = tri_pass(*rows, cam, all_quads, mesh, paired, tri_chunk, override, carry)
+        t_tri, attr = tri_pass(*rows, cam, all_quads, mesh, paired, tri_chunk, override, carry,
+                               active)
     elif rows[2].dim() == 1 and tri_chunk is not None and rows[0].shape[2] > tri_chunk:
         t_tri, attr = tri_pass_chunked(*rows, cam, tri_chunk, all_quads, override, paired,
-                                       carry)
+                                       carry, active)
     else:
         seed = None if mesh is None else entity_mesh_pass_plain(*mesh, cam, carry)
         if rows[2].dim() == 2:
             t_tri, attr = tri_pass_scheduled(*rows, cam, all_quads, seed, override, carry)
         else:
-            t_tri, attr = tri_pass_plain(*rows, cam, all_quads, seed, paired, override, carry)
+            t_tri, attr = tri_pass_plain(*rows, cam, all_quads, seed, paired, override, carry,
+                                         active)
     t_ent = col_ent = n_ent = None
     if shapes_present[0] or shapes_present[1]:
         t_ent, col_ent, n_ent = f_ent(

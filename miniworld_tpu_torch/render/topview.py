@@ -47,7 +47,7 @@ from miniworld_tpu_torch.ops import geom
 from miniworld_tpu_torch.render.cuda_build import check, is_cuda, launch, stream
 from miniworld_tpu_torch.render.raycast import (
     _COL, _NRM, _SLOT, ATTR_DIM, FAR, _env_blocks, eval_fourier, eval_nearest, fourier_table,
-    shade,
+    fourier_row_floats, row_live, shade, wall_codes,
 )
 from miniworld_tpu_torch.scene.entities import SHAPE_SPHERE
 
@@ -160,43 +160,6 @@ def ortho_rows(tri_verts: torch.Tensor, kind: torch.Tensor):
                       n_tri, dot(v0, n_tri)[..., None], inv_det[..., None], inv_den[..., None],
                       kind[..., None], torch.zeros_like(kind)[..., None]], dim=-1)
     return rows, det
-
-
-def wall_codes(bank) -> torch.Tensor:
-    """(L, S) i32 maze kill of each bank row: -1 for a row every env has,
-    2w for one live iff wall w is open (a junction's content), 2w + 1 for
-    one live iff wall w is closed (its closed quads), -2 for a row no env
-    has. The dense ``tri_active = tri_active_base + wall_open @
-    tri_wall_onehot`` > 0.5 (topview.py:77-84) is ``base + sign *
-    wall_open[w] > 0.5`` with (base, sign) = (0, 1) or (1, -1)
-    (``row_live``). Raises unless every column of the one-hot holds at
-    most one nonzero, of that form."""
-    if bank.tri_wall_onehot is None:
-        return torch.full(bank.tri_mask.shape, -1, dtype=torch.int32)
-    onehot = bank.tri_wall_onehot.cpu().to(torch.float32)  # (L, NW, S)
-    base = bank.tri_active_base.cpu().to(torch.float32)  # (L, S)
-    nz = (onehot != 0).sum(dim=1)
-    w = onehot.abs().argmax(dim=1)
-    sign = torch.gather(onehot, 1, w[:, None, :])[:, 0]
-    ok = ((nz == 0) & ((base == 0) | (base == 1))) | (
-        (nz == 1) & (((base == 0) & (sign == 1)) | ((base == 1) & (sign == -1))))
-    if not bool(ok.all()):
-        raise ValueError("tri_wall_onehot / tri_active_base are not a one-wall-per-row kill")
-    code = torch.where(nz == 0, torch.where(base == 1, -1, -2), 2 * w + (sign < 0).long())
-    return code.to(torch.int32)
-
-
-def row_live(code: torch.Tensor, wall_open) -> torch.Tensor:
-    """(B, S) bool: row live in each env, code (B, S) from ``wall_codes``,
-    wall_open (B, NW) f32 or None: ``base + sign * wall_open[w] > 0.5``."""
-    if wall_open is None:
-        return code == -1
-    w = torch.clamp(code >> 1, min=0).long()
-    closed_kind = (code & 1) == 1
-    base = closed_kind.to(torch.float32)
-    sign = 1.0 - 2.0 * base
-    live = (base + sign * torch.gather(wall_open, 1, w)) > 0.5
-    return torch.where(code >= 0, live, code == -1)
 
 
 def top_statics(bank, width: int, height: int, device=None,
@@ -526,7 +489,7 @@ def topview_epilogue(t_tri, row, ents, bank_attr, layout_id, st: TopStatics, atl
             raise ValueError(f"atlas rows hold {width} floats, expected 4+8K with K={k_terms}")
         if table is None:
             table = fourier_table(atlas, k_terms)
-        tex_ptrs = (check(table, "table", torch.float32, (n_rows, 4 + 9 * k_terms)),
+        tex_ptrs = (check(table, "table", torch.float32, (n_rows, fourier_row_floats(k_terms))),
                     ctypes.c_void_p(0), ctypes.c_void_p(0))
         res = n_ids = 0
     rgb = torch.empty((b, h, w, 3), dtype=torch.uint8, device=t_tri.device)

@@ -53,7 +53,7 @@ from miniworld_tpu_torch.convert import atlas_from_numpy, layout_from_numpy
 from miniworld_tpu_torch.envs.base import Ctx, EnvSpec
 from miniworld_tpu_torch.ops import mazegen, physics, place as place_ops, rng as rng_ops
 from miniworld_tpu_torch.render.raycast import (
-    camera_grid, chunk_starts, fourier_table, render_rgbd, room_of_point,
+    camera_grid, chunk_starts, fourier_table, render_rgbd, room_of_point, wall_codes,
 )
 from miniworld_tpu_torch.render.textures import FOURIER_TERMS, TextureCatalog
 from miniworld_tpu_torch.render.topview import render_top_view, top_statics
@@ -131,6 +131,84 @@ def build_bank(spec: EnvSpec, tex_mode: str = "fourier", *, bank_seed: int = 0,
         layouts.append(compile_world(world, with_pvs=True))
     return (stack_layouts(layouts, min_sizes=min_sizes),
             _tex_table(catalog, _fourier_k(spec, fourier_k), tex_mode))
+
+
+def widen_atlas(bank_np: Layout, tex_np: np.ndarray, min_rows: int = 257):
+    """The bank and Fourier table of a texture catalog of more than 256
+    rows, for any bank (the JAX package's too: a dataclass of the same
+    fields): ``tex_np`` tiled until its rows reach ``min_rows`` plus one
+    more copy, and every slot's atlas base (``tri_tex_base``,
+    ``tex_slot_base``, a paired bank's ``pg_tex`` bases, packed copies'
+    ``pvs_tri_tex_base``) moved into the last copy, at least
+    ``min_rows`` rows up. The world and its texels are unchanged; every
+    atlas row the render carries is above 256, so the attribute carry is
+    float32 (``raycast.attr_carry_dtype``)."""
+    n = tex_np.shape[0]
+    copies = -(-min_rows // n) + 1
+    shift = (copies - 1) * n
+
+    def up(a):
+        return None if a is None else np.where(a >= 0, a + shift, a).astype(a.dtype)
+
+    repl = dict(tri_tex_base=up(bank_np.tri_tex_base), tex_slot_base=up(bank_np.tex_slot_base),
+                pvs_tri_tex_base=up(bank_np.pvs_tri_tex_base))
+    if bank_np.pg_tex is not None:  # (L, 2, 3, Sp): [variant][ids | base | count]
+        pg_tex = bank_np.pg_tex.copy()
+        pg_tex[:, :, 1] = up(pg_tex[:, :, 1])
+        repl["pg_tex"] = pg_tex
+    return (dataclasses.replace(bank_np, **repl),
+            np.ascontiguousarray(np.concatenate([tex_np] * copies), tex_np.dtype))
+
+
+def raise_slot_ids(bank_np: Layout, shift: int = 257):
+    """The bank with every layout-local texture slot id moved ``shift`` up
+    (slots 0 to shift - 1 unused, atlas row 0, one variant), for any bank
+    as ``widen_atlas``: the slot columns of the prim rows (``tri_attr``,
+    a paired bank's ``pg_attr`` / ``pg_attr_alt``, packed copies'
+    ``pvs_attr``), ``tri_tex`` (and ``pvs_tri_tex``, the paired
+    ``pg_tex`` ids), the mesh prototypes' slot column and the
+    ``tex_slot_base`` / ``tex_slot_count`` tables. In nearest mode the
+    world renders the same texels with more than 256 slot ids, so the
+    attribute carry is float32 (``raycast.attr_carry_dtype``)."""
+    def up(a):
+        return None if a is None else np.where(a >= 0, a + shift, a).astype(a.dtype)
+
+    def slot_col(a, col):
+        if a is None:
+            return None
+        a = a.copy()
+        a[..., col] = up(a[..., col])
+        return a
+
+    L = bank_np.tex_slot_base.shape[0]
+    repl = dict(
+        tri_attr=slot_col(bank_np.tri_attr, 14), tri_tex=up(bank_np.tri_tex),
+        pvs_attr=slot_col(bank_np.pvs_attr, 14), pvs_tri_tex=up(bank_np.pvs_tri_tex),
+        pg_attr=slot_col(bank_np.pg_attr, 14), pg_attr_alt=slot_col(bank_np.pg_attr_alt, 14),
+        tex_slot_base=np.concatenate([np.zeros((L, shift), bank_np.tex_slot_base.dtype),
+                                      bank_np.tex_slot_base], axis=1),
+        tex_slot_count=np.concatenate([np.ones((L, shift), bank_np.tex_slot_count.dtype),
+                                       bank_np.tex_slot_count], axis=1))
+    mesh = bank_np.proto_mesh.copy()  # (L, P, M, 25), slot id in column 23
+    mesh[..., 23] = np.where(bank_np.proto_mesh_mask, up(mesh[..., 23]), mesh[..., 23])
+    repl["proto_mesh"] = mesh
+    if bank_np.pg_tex is not None:
+        pg_tex = bank_np.pg_tex.copy()
+        pg_tex[:, :, 0] = up(pg_tex[:, :, 0])
+        repl["pg_tex"] = pg_tex
+    return dataclasses.replace(bank_np, **repl)
+
+
+# the paired rows of a procgen super bank (Layout.pg_*, scene/supermaze.py)
+PAIRED_FIELDS = ("pg_verts9", "pg_attr", "pg_verts9_alt", "pg_attr_alt", "pg_sel_base",
+                 "pg_sel_onehot", "pg_tex")
+
+
+def drop_paired_rows(bank_np: Layout):
+    """A procgen super bank without its paired rows, for any bank as
+    ``widen_atlas``: its render scans the dense rows, each env's killed by
+    its maze (the JAX package's ``tri_active``, raycast.py:1220-1227)."""
+    return dataclasses.replace(bank_np, **{f: None for f in PAIRED_FIELDS})
 
 
 def build_super_bank(spec: EnvSpec, tex_mode: str = "fourier", fourier_k: int | None = None):
@@ -561,10 +639,8 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
     domain_rand draws the variants), and ``slot_tex`` is None.
     The render carries the slot column in bf16 while the ids are at
     most 256 and in float32 above (``raycast.attr_carry_dtype``: the 8x8
-    procgen maze's 528 local slots in nearest mode); a Fourier atlas
-    above 256 rows raises ValueError: its float32 carry needs the
-    tri_pass kernel's F32 OVERRIDE instance and the epilogue's fourier
-    F32 instance, which are not built (no id has such an atlas).
+    procgen maze's 528 local slots in nearest mode, a Fourier atlas of
+    more than 256 rows, e.g. ``widen_atlas``'s).
 
     The port renders the JAX package's split, because the split decides
     ties. Each row's z-key carries its index WITHIN its chunk
@@ -586,11 +662,14 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
     scanned as JAX scans them, the last chunk's start clamped to Sp -
     tri_chunk, so that chunk re-reads rows at shifted local indices
     (``chunk_starts``; the 8x8 Maze's Sp = 608 in 2 chunks of 496 at a
-    chunk cap of 496).
+    chunk cap of 496). A super bank without paired rows renders its
+    dense rows in their chunk plan, each env's killed by its maze (the
+    JAX package's ``tri_active``, raycast.py:1220-1227; ``MiniWorldVec``
+    passes the render each row's ``raycast.wall_codes``).
     With ``view="top"`` the observation is the top view, which scans the
     dense rows as built (``tri_verts``, with the super bank's
     ``tri_active`` kill) and carries them in float32: the bank gets no
-    chunk plan and none of the perspective render's refusals applies;
+    chunk plan;
     fourier mode bakes each prim's atlas base into its slot column, and
     ``plan``, ``tri_chunk``, ``all_quads``, ``shapes_present``,
     ``pg_wall`` and ``slot_tex`` are None.
@@ -622,11 +701,6 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
     n_scan = s_bank if bank_np.pg_verts9 is None else bank_np.pg_verts9.shape[2]
     plan["chunk_starts"] = ([0] if plan["kind"] == "packed_pvs"
                             else chunk_starts(n_scan, min(tri_chunk, n_scan)))
-    if fourier and tex_np.shape[0] > 256:
-        raise ValueError(
-            f"a Fourier atlas of {tex_np.shape[0]} rows needs the float32 attribute carry in "
-            "fourier mode: the tri_pass kernel's F32 OVERRIDE instance and the epilogue's "
-            "fourier F32 instance are not built")
 
     def slot_rows(ids, base, cnt):  # (..., n) each -> (..., n, 4) f32
         return np.ascontiguousarray(np.stack(
@@ -654,11 +728,7 @@ def install_statics(bank_np: Layout, tex_np: np.ndarray, num_envs: int, hw: int,
                               bank_np.pvs_tri_tex_count).reshape(-1, tri_chunk, 4), None)
     all_quads = bool((bank_np.tri_attr[:, :, 15][bank_np.tri_mask] == 0.0).all())
     pg_wall = None
-    if bank_np.tri_wall is not None:
-        if bank_np.pg_verts9 is None:
-            raise NotImplementedError(
-                "procgen super banks render through their paired rows (pg_*); the "
-                "dense tri_active render is not ported yet")
+    if bank_np.pg_verts9 is not None:
         pga, pgaa = bank_np.pg_attr, bank_np.pg_attr_alt
         if bake:
             pga, pgaa = pga.copy(), pgaa.copy()
@@ -838,6 +908,11 @@ class MiniWorldVec:
         self.__dict__.pop("_vis", None)  # visible_ents' statics, made again at first use
         self._pg_wall = (None if statics["pg_wall"] is None
                          else torch.from_numpy(statics["pg_wall"]).to(device))
+        # a super bank without paired rows: each dense row's maze kill
+        # (raycast.wall_codes), which the agent view's render reads
+        self._row_code = (wall_codes(self._bank).to(device)
+                          if self.view == "agent" and bank_np.tri_wall is not None
+                          and bank_np.pg_verts9 is None else None)
         # domain_rand: each scanned row's (slot id, atlas base, variant
         # count), in the rows' view (a paired bank's two variants)
         self._slot_tex = (None if statics["slot_tex"] is None else
@@ -863,6 +938,17 @@ class MiniWorldVec:
         while the env steps; ``install_bank`` swaps it in."""
         return build_bank(self.spec, self.tex_mode, bank_seed=bank_seed,
                           fourier_k=self.fourier_k, min_sizes=self._bank_sizes)
+
+    def install_fresh(self, bank_np: Layout, tex_np: np.ndarray):
+        """Install another compiled bank and texture table, planned afresh
+        (the JAX package's ``_install_bank(..., fresh=True)``): e.g. a bank
+        and atlas from ``widen_atlas`` or ``raise_slot_ids``, or a procgen
+        super bank without its paired rows (``drop_paired_rows``), which
+        renders its dense rows with each env's maze kill. Envs in an
+        episode keep their state: reset after it."""
+        self.plan = None
+        self._bank_sizes = bank_sizes(bank_np)
+        self._install(bank_np, tex_np)
 
     def install_bank(self, prepared):
         """Swap in a bank from ``prepare_bank`` (on the thread that steps
@@ -1132,7 +1218,7 @@ class MiniWorldVec:
             shapes_present=self._shapes_present, all_quads=self._all_quads,
             has_gain=self._has_gain, use_kernels=self.use_kernels, pg_wall=self._pg_wall,
             table=self._fourier_table, plan=self.plan, slot_tex=self._slot_tex,
-            supersample=self.supersample, tex_mode=self.tex_mode,
+            supersample=self.supersample, tex_mode=self.tex_mode, row_code=self._row_code,
         )
 
     def _obs(self, state: EnvState):

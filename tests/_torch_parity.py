@@ -234,3 +234,40 @@ def reset_and_steps(env_id, b, w, h, steps, seed, start=None, forced_action=2,
             tstate = tree_select(torch.from_numpy(np.array(j_d)), to_port_state(jstate), tstate)
     assert t_img.shape == (b, h, w, 3) and t_depth.shape == (b, h, w, 1)
     return dones, rewards, j_info, t_info
+
+
+def drop_paired(bank_np, tex_np):
+    """The super bank without its paired rows (``vector.drop_paired_rows``,
+    any package's bank), and its texture table."""
+    from miniworld_tpu_torch.vector import drop_paired_rows
+
+    return drop_paired_rows(bank_np), tex_np
+
+
+def installed_pair(env_id, b, w, h, transform, tri_chunk=None, **env_kwargs):
+    """(JAX env, port env) at (b, w, h), each package's own bank and
+    texture table passed through ``transform(bank, tex) -> (bank, tex)``
+    and installed afresh: the JAX env's ``_install_bank(..., fresh=True)``
+    with its constructor's chunk cap, the port's ``install_fresh``."""
+    from miniworld_tpu import MiniWorldVec as JaxVec
+    from miniworld_tpu import vector as jvector
+    from miniworld_tpu_torch import MiniWorldVec
+    from miniworld_tpu_torch import vector as tvector
+
+    jenv = JaxVec(env_id, num_envs=b, obs_width=w, obs_height=h, tri_chunk=tri_chunk,
+                  **env_kwargs)
+    env = MiniWorldVec(env_id, b, obs_width=w, obs_height=h, device="cpu", tri_chunk=tri_chunk,
+                       **env_kwargs)
+    if jenv.procgen:
+        jbank, jtex, _ = jvector.build_super_bank(jenv.spec, jenv.tex_mode, jenv.fourier_k)
+        bank, tex = tvector.build_super_bank(env.spec, env.tex_mode, env.fourier_k)
+    else:
+        jbank, jtex, _ = jvector.build_bank(jenv.spec, 0, jenv.tex_mode, jenv.fourier_k)
+        bank, tex = tvector.build_bank(env.spec, env.tex_mode, fourier_k=env.fourier_k)
+    jenv.tri_chunk = max(16, min(tri_chunk or jenv._chunk_cap, jenv._chunk_cap))
+    jenv._chunk_vis = jenv._sched_len = None
+    jenv._install_bank(*transform(jbank, jtex), fresh=True)
+    jenv._make_jits()
+    env.install_fresh(*transform(bank, tex))
+    assert env.tri_chunk == jenv.tri_chunk
+    return jenv, env

@@ -25,6 +25,7 @@ import torch
 
 from miniworld_tpu import MiniWorldVec as JaxVec
 from miniworld_tpu.envs import make_spec as jax_make_spec
+from miniworld_tpu.render import raycast as jrc
 from miniworld_tpu_torch import MiniWorldVec, make_spec, vector as tvector
 from miniworld_tpu_torch.ops import rng as trng
 from miniworld_tpu_torch.render import raycast as trc
@@ -172,11 +173,17 @@ def test_rollout_matches_jax():
 
 
 def test_atlas_over_256_rows_raises():
-    """Slot ids above 256 are not exact in the bf16 attribute carry, and a
-    Fourier atlas's float32 carry needs kernel instances that are not
-    built: install_statics refuses such an atlas."""
+    """Slot ids above 256 are not exact in the bf16 attribute carry: a
+    Fourier atlas of 257 rows no longer raises, it installs (with and
+    without domain_rand) and renders with the float32 carry, as the JAX
+    package's attr_carry_dtype picks it; 256 rows keep bf16."""
     bank_np, tex_np = tvector.build_bank(make_spec("MiniWorld-Hallway-v0"))
     big = np.concatenate([tex_np] * (257 // tex_np.shape[0] + 1))[:257]
-    with pytest.raises(ValueError, match="257 rows"):
-        tvector.install_statics(bank_np, big, 8, 80 * 60)
+    for dr in (False, True):
+        got, statics = tvector.install_statics(bank_np, big, 8, 80 * 60, domain_rand=dr)
+        assert statics["plan"]["kind"] == "dense" and (statics["slot_tex"] is None) != dr
+    assert trc.attr_carry_dtype(big.shape[0]) == torch.float32
+    assert trc.attr_carry_dtype(256) == torch.bfloat16
+    assert jrc.attr_carry_dtype({"mode": "fourier", "coeffs": big}, None) == jnp.float32
+    assert jrc.attr_carry_dtype({"mode": "fourier", "coeffs": big[:256]}, None) == jnp.bfloat16
     tvector.install_statics(bank_np, big[:256], 8, 80 * 60)

@@ -30,7 +30,9 @@ from miniworld_tpu_torch.ops import mazegen, place as tplace, rng as trng
 from miniworld_tpu_torch.render import raycast as trc
 from miniworld_tpu_torch.scene.compile import Layout
 
-from _torch_parity import H, W, assert_images_match, assert_states_match, to_port_state
+from _torch_parity import (
+    H, W, assert_images_match, assert_states_match, drop_paired, to_port_state,
+)
 from test_torch_render import _port_camera, _winner_stats
 from test_torch_vector import adopt_reset_ulps
 from _torch_parity import one_torch_thread  # noqa: F401 (autouse: torch on one thread)
@@ -127,9 +129,16 @@ def test_installed_super_bank():
     j_rep = jvector._repad_for_chunks(bank_np, 48)
     _assert_layouts_equal(tvector._repad_for_chunks(bank_np, 48), j_rep)
 
-    with pytest.raises(NotImplementedError, match="tri_active"):
-        tvector.install_statics(dataclasses.replace(bank_np, pg_verts9=None), tex_np, 2,
-                                16 * 12)
+    # without its paired rows the super bank installs as the JAX package's
+    # does: its dense rows in the JAX plan, each env's killed by its maze
+    dense_np, _ = drop_paired(bank_np, tex_np)
+    got_d, statics_d = tvector.install_statics(dense_np, tex_np, 2, 16 * 12)
+    jbank, jtex, _ = jvector.build_super_bank(jax_make_spec("MiniWorld-MazeS3-v0"))
+    jenv.tri_chunk, jenv._chunk_vis, jenv._sched_len = jenv._chunk_cap, None, None
+    jenv._install_bank(drop_paired(jbank, jtex)[0], jtex, fresh=True)
+    _assert_layouts_equal(got_d, jenv._bank_np)
+    assert statics_d["tri_chunk"] == jenv.tri_chunk and statics_d["plan"]["kind"] == "dense"
+    assert jenv._chunk_vis is None and not jenv._pvs_packed and statics_d["pg_wall"] is None
     two = bank_np.pg_sel_onehot.copy()
     two[0, 0, int(np.argmax(pg_wall[0] == 1))] = 1.0  # a row of wall 1 also names wall 0
     with pytest.raises(ValueError, match="one-wall-per-row"):

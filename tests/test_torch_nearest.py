@@ -162,10 +162,13 @@ def test_rollout_matches_jax():
 
 
 def test_unbuilt_instances_raise(monkeypatch):
-    """On the card the wrappers launch only the instances that are built:
-    the float32 carry with mesh rows or with the override (no ported id
-    reaches either), and the float32 carry in fourier mode, raise and
-    name themselves (the wrappers' checks run before any launch)."""
+    """The float32 carry with mesh rows, with the override and in fourier
+    mode raised here while the kernels lacked those instances; now each
+    wrapper runs them (on the card the F32 MESH, F32 OVERRIDE and Fourier
+    F32 instances launch), and with is_cuda patched off it takes its
+    plain route and equals the plain function. What the kernels still do
+    not take raises before any launch: the dense super-bank kill with
+    mesh rows or a schedule."""
     env = MiniWorldVec("MiniWorld-PickupObjects-v0", 2, obs_width=16, obs_height=12,
                        device="cpu")
     state, _ = env.reset(0)
@@ -173,14 +176,32 @@ def test_unbuilt_instances_raise(monkeypatch):
     cam = trc.camera_grid(state, 16, 12)
     mesh = trc.entity_mesh_rows(bank, state)[:2]
     tri = (bank.tri_verts9, bank.tri_attr, state.layout_id, cam, False)
-    monkeypatch.setattr(trc, "is_cuda", lambda *tensors: True)
-    with pytest.raises(NotImplementedError, match="F32 MESH"):
-        trc.tri_pass(*tri, mesh, attr_dtype=torch.float32)
-    tex = torch.zeros(bank.tri_attr.shape[:2] + (4,))
-    with pytest.raises(NotImplementedError, match="F32 OVERRIDE"):
-        trc.tri_pass(*tri, override=(state.tri_slots, tex, None), attr_dtype=torch.float32)
-    t = torch.full((2, 16 * 12), float("inf"))
-    a = torch.zeros((2, 16 * 12, 16))
+    f32 = torch.float32
+    monkeypatch.setattr(trc, "is_cuda", lambda *tensors: False)
+    got = trc.tri_pass(*tri, mesh, attr_dtype=f32)
+    want = trc.tri_pass_plain(*tri, seed=trc.entity_mesh_pass_plain(*mesh, cam, f32),
+                              attr_dtype=f32)
+    assert got[1].dtype == f32 and all(torch.equal(g, w) for g, w in zip(got, want))
+    gen = torch.Generator().manual_seed(3)
+    shape = bank.tri_attr.shape[:2]
+    tex = torch.stack([torch.randint(0, 1 << 20, shape, generator=gen).float(),
+                       torch.randint(250, 300, shape, generator=gen).float(),
+                       torch.randint(1, 5, shape, generator=gen).float(),
+                       torch.zeros(shape)], dim=-1)
+    override = (state.tri_slots, tex, None)
+    got = trc.tri_pass(*tri, override=override, attr_dtype=f32)
+    want = trc.tri_pass_plain(*tri, override=override, attr_dtype=f32)
+    assert bool((got[1][..., 14] > 256).any())
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
     lights = (state.light_pos, state.light_color, state.light_ambient, state.sky_color)
-    with pytest.raises(NotImplementedError, match="fourier F32"):
-        trc.pixel_epilogue(t, a, None, None, None, env._atlas, cam, *lights, 16)
+    t_tri, attr = trc.tri_pass(*tri, mesh, attr_dtype=f32)
+    got = trc.pixel_epilogue(t_tri, attr, None, None, None, env._atlas, cam, *lights, 16)
+    want = trc.pixel_epilogue_plain(t_tri, attr, None, None, None, env._atlas, cam, *lights,
+                                    16)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    active = (trc.wall_codes(bank), torch.ones((2, 1)))
+    monkeypatch.setattr(trc, "is_cuda", lambda *tensors: True)
+    with pytest.raises(ValueError, match="tri_active"):
+        trc.tri_pass(*tri, mesh, active=active)
+    with pytest.raises(ValueError, match="tri_active"):
+        trc.tri_pass(*tri[:2], state.layout_id[:, None].contiguous(), *tri[3:], active=active)
