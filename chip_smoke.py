@@ -147,7 +147,12 @@ bank every 2 iterations ([refresh-train]). Then the float32 carry above
 atlas is tiled past 256 rows (vector.widen_atlas), whose layout-local
 slot ids are moved above 256 (vector.raise_slot_ids) and procgen super
 banks without their paired rows, each render held stage by stage against
-the plain versions, exactly: the 8x8 procgen Maze at B=8192 with domain
+the plain versions, exactly, after the staged winner store and the
+compacted ACTIVE staging on synthetic banks ([store-case]: ties inside and
+across chunks, 4,096 rows in view over several windows, mesh-seeded
+winners with misses, the SCHED tie banks, in the float32 carry with and
+without the override; ACTIVE in one chunk and several, bf16 and F32): the
+8x8 procgen Maze at B=8192 with domain
 randomisation widened (paired F32 x OVERRIDE, the Fourier F32 epilogue),
 dense and dense with domain randomisation (ACTIVE, beside the paired
 launch on the same states), timed; Sidewalk widened (MULTI F32 x
@@ -155,8 +160,10 @@ OVERRIDE), the Maze bank widened at 160x120 supersample=2 (SCHED x
 OVERRIDE x F32, the SS=2 F32 epilogue), Sign widened (GAIN and MESH F32),
 PickupObjects and ThreeRooms tri_chunk=16 nearest with raised ids (MESH
 F32, SCHED x MESH F32) and the dense Maze at 160x120 supersample=2 (ACTIVE
-over 2 chunks of 496) at B=1024, timed; the other new instances at B=128
-(with mesh rows and the override in F32, ACTIVE in F32, Sign SS=2 F32, a
+over 2 chunks of 496) at B=1024, timed, each [store] line beside the same
+launch in the bf16 carry and its bound; the other new instances at B=128
+(with mesh rows and the override in F32, the Maze nearest (paired F32),
+ACTIVE in F32, Sign SS=2 F32, a
 K=6 table in both carries and its top view); every path's rollout, and
 the three Maze paths at B=128 against their plain paths exactly. Last,
 the manual-control command line headless on the card ([cli]).
@@ -380,14 +387,19 @@ def kernel_ms(fn, iters: int, name: str):
     return None
 
 
+def card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — "
                          "this smoke run needs a CUDA card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     say("device", torch=torch.__version__, cuda=torch.version.cuda,
         name=repr(torch.cuda.get_device_name(0)), count=torch.cuda.device_count(),
         nvidia_smi=repr(smi))
@@ -4612,6 +4624,77 @@ def active_hit_pairs(tri, active, block=32):
     return n
 
 
+def synthetic_codes(S, n_walls, gen):
+    """(1, S) i32 maze kill codes (raycast.wall_codes) of a synthetic bank:
+    two fifths of the rows no wall kills (-1), a tenth never drawn (-2),
+    the rest live where one of ``n_walls`` walls is open (2w) or closed
+    (2w + 1)."""
+    u = torch.rand(S, generator=gen)
+    walled = 2 * torch.randint(0, n_walls, (S,), generator=gen) + torch.randint(
+        0, 2, (S,), generator=gen)
+    return torch.where(u < 0.4, -1, torch.where(u < 0.5, -2, walled)).to(torch.int32)[None]
+
+
+def store_cases(dev, n_walls=12):
+    """[store-case]: the staged winner store and the compacted ACTIVE
+    staging on synthetic banks, each launch against its plain version on
+    every pixel (check_tri_pass, check_override): ties inside and across
+    chunks (tie_case's 1,024 rows in one chunk and in 4 chunks of 256),
+    4,096 rows all in view scanned in several windows with the carry
+    between them (overflow_case in chunks of 1,024), 1,000 mesh rows an
+    env seeding 64 static rows with misses of both (wide_inputs), the
+    SCHED tie banks (sched_ties: repeated chunks, the mesh seed at a static
+    row's key), all in the float32 carry, with and without the override;
+    then tie_case's and overflow_case's banks with a maze kill (random
+    codes over ``n_walls`` walls, each env's walls drawn): ACTIVE in one
+    chunk and over several, bf16 and F32, with and without the override,
+    staged by the bank's live_row_bound. Returns (max abs t error, the
+    cases checked)."""
+    from miniworld_tpu_torch.render import raycast as rc
+
+    gen = torch.Generator().manual_seed(2121)
+    f32 = torch.float32
+
+    def override(tri):
+        key = torch.randint(0, 1 << 32, (tri[2].shape[0],), generator=gen).to(dev)
+        return key, spread_tex(torch.zeros(*tri[1].shape[:2], 4, device=dev), gen), None
+
+    def kill(tri):
+        codes = synthetic_codes(tri[0].shape[2], n_walls, gen)
+        walls = (torch.rand((tri[2].shape[0], n_walls), generator=gen) < 0.5).float()
+        return codes.to(dev), walls.to(dev)
+
+    ties, ovf = tie_case(dev), overflow_case(dev, n=64)
+    wide = wide_inputs(dev, gen)
+    wide_tri = (*wide[:4], False)
+    (rep, _), (seeded, smesh) = sched_ties(dev)
+    cases = [("ties S=1024 one chunk", ties, {}), ("ties 4 chunks of 256", ties, {"tri_chunk": 256}),
+             ("4096 rows in view, windows of 1024", ovf, {"tri_chunk": 1024}),
+             ("wide mesh-seeded, misses", wide_tri, {"mesh": wide_mesh_rows(wide[3], gen)}),
+             ("sched ties", rep, {}), ("sched ties mesh seed", seeded, {"mesh": smesh})]
+    errs, checked = [0.0], []
+    for label, tri, kw in cases:
+        _, _, err = check_tri_pass(tri, f"{label} f32", attr_dtype=f32, **kw)
+        err2, _ = check_override(tri, override(tri), f"{label} f32", attr_dtype=f32, **kw)
+        errs += [err, err2]
+        checked.append(label)
+    for label, tri, tcs in (("ties S=1024", ties, (None, 256)),
+                            ("4096 rows in view", ovf, (1024,))):
+        act = kill(tri)
+        for tc in tcs:
+            for dt in (torch.bfloat16, f32):
+                case = (f"{label} kill n_live={rc.live_row_bound(act[0])} tri_chunk={tc} "
+                        f"{str(dt)[6:]}")
+                _, _, err = check_tri_pass(tri, case, tri_chunk=tc, attr_dtype=dt, active=act)
+                err2, _ = check_override(tri, override(tri), case, tri_chunk=tc, attr_dtype=dt,
+                                         active=act)
+                errs += [err, err2]
+                checked.append(case)
+    say("store-case", cases=len(checked), exact=True, max_abs_err=max(errs),
+        checked=repr(checked))
+    return max(errs), checked
+
+
 def time_f32(name, route, epi_in, env, epi_name=None):
     """[kernel-time] of the route's tri_pass launch (``name``) and, with
     ``epi_name``, of its epilogue: CUDA events over 50 launches, the kernel
@@ -4666,7 +4749,8 @@ def phase_f32_dense(maze, maze_bank_w, make_env, rates):
     """[f32-dense]: the float32 carry above 256 ids (a Fourier atlas of more
     than 256 rows, ``widened``; nearest mode with its slot ids above 256,
     ``raised``) and the dense super-bank kill (the 8x8 procgen Maze without
-    its paired rows, ``dense``). Each case's render against its plain
+    its paired rows, ``dense``). First the synthetic banks of store_cases;
+    then each case's render against its plain
     versions, exactly (check_f32_dense), the new instances timed at their
     paths' shapes (time_f32): the Maze 8x8 procgen paths at B_MAZE, 80x60
     (domain_rand widened: paired F32 x OVERRIDE and the Fourier F32
@@ -4677,8 +4761,9 @@ def phase_f32_dense(maze, maze_bank_w, make_env, rates):
     F32 epilogue at K=16), Sign widened (GAIN and MESH F32 at K=64),
     PickupObjects and ThreeRooms tri_chunk=16 nearest raised (MESH F32,
     SCHED x MESH F32) at B, and the dense Maze at 160x120 supersample=2
-    B (ACTIVE over 2 chunks of 496); at B_PLAIN the remaining instances
-    (MESH and SCHED x MESH with OVERRIDE F32, ACTIVE F32, Sign SS=2 F32,
+    B (ACTIVE over 2 chunks of 496), with the [store] lines (say_store); at
+    B_PLAIN the remaining instances (the Maze nearest: paired F32; MESH
+    and SCHED x MESH with OVERRIDE F32, ACTIVE F32, Sign SS=2 F32,
     K=6 with and without F32, SS=1 and SS=2, and its top view). Then the
     Maze paths' rollouts at B_MAZE and the others' at their B (launches a
     step), and the three Maze paths at B_PLAIN kernels against plain,
@@ -4710,6 +4795,8 @@ def _f32_dense(maze, maze_bank_w, make_env, rates):
                    ("sign widened ss=2", make_env(SIGN_ID, B_PLAIN, supersample=2),
                     f32 | {"pixel_epilogue_gain", "pixel_epilogue_ss2"}),
                    ("hallway K=6 widened", make_env(ENV_ID, B_PLAIN, fourier_k=6), f32),
+                   ("maze8x8-procgen nearest", make_env(MAZE_ID, B_PLAIN, tex_mode="nearest"),
+                    f32 | {"pixel_epilogue_nearest"}),
                    ("hallway K=6 widened ss=2", make_env(ENV_ID, B_PLAIN, fourier_k=6,
                                                          supersample=2),
                     f32 | {"pixel_epilogue_ss2"})]
@@ -4758,7 +4845,9 @@ def _f32_dense(maze, maze_bank_w, make_env, rates):
         raise AssertionError(f"f32-dense plans {plans}")
     lap("f32-dense envs")
 
-    errs, timings, checked = [], {}, []
+    store_err, checked = store_cases(DEVICE)
+    errs, timings = [store_err], {}
+    lap("f32-dense store cases")
     timed = [("maze8x8-procgen widened dr", maze_w, f32 | ov, "tri_pass_f32_override",
               "pixel_epilogue_fourier_f32"),
              ("maze8x8-procgen dense", maze_d, act, "tri_pass_active", None),
@@ -4790,6 +4879,7 @@ def _f32_dense(maze, maze_bank_w, make_env, rates):
             say("kernel-time", kernel="tri_pass (paired, the same states)",
                 ms=f"{timings['tri_pass_paired_same_states'][0]:.4f}",
                 shapes=f"{MAZE_ID} procgen B={B_MAZE} HW={W * H} Sp=608")
+    say_store(timings)
     for label, env, want in ss_d[1:] + small_w + small_d:
         _, _, err = check_f32_dense(label, env, view_states(env, gen), want,
                                     whole=env.num_envs < B)
@@ -4833,6 +4923,24 @@ def _f32_dense(maze, maze_bank_w, make_env, rates):
     say("f32-dense", cases_checked=len(checked), exact=True, max_abs_err=max(errs),
         paths=",".join(launches), instances_timed=",".join(k for k in timings))
     return max(errs), timings, launches, checked
+
+
+def say_store(timings):
+    """[store]: each timed tri_pass launch of [f32-dense] beside the same
+    launch in the bf16 carry on the same inputs (ACTIVE: beside the paired
+    launch on the same states) and its bound, with the card."""
+    smi = card()
+    paired = timings.get("tri_pass_paired_same_states", (None,))[0]
+    for name, row in timings.items():
+        if not name.startswith("tri_pass") or len(row) != 7:
+            continue
+        ms, _, dev, b_ms, b_by, ms16, shapes = row
+        twin = {"bf16_same_inputs_ms": fmt_ms(ms16)} if ms16 is not None else {}
+        if name == "tri_pass_active":
+            twin["paired_same_states_ms"] = fmt_ms(paired)
+        say("store", kernel=name, ms=f"{ms:.4f}", device_ms=fmt_ms(dev), **twin,
+            bound_ms=f"{b_ms:.4f}", bound_by=b_by, of_bound=f"{b_ms / ms:.3f}", shapes=shapes,
+            card=repr(smi))
 
 
 # the [f32-dense] rows of the kernels line: (name, timing key, path of

@@ -1,6 +1,6 @@
 """Kernel times of other libraries beside this tree's, on one card.
 
-    python3 kernel_ab.py [--unequal] [--visible-ents] OTHER_CSRC [OTHER_CSRC ...]
+    python3 kernel_ab.py [--unequal] [--visible-ents | --tri-pass] OTHER_CSRC [OTHER_CSRC ...]
 
 Builds the kernel library from each other directory of sources
 (another commit's miniworld_tpu_torch/csrc, or a copy of this one with a
@@ -29,7 +29,12 @@ env-steps/s) and profile (device busy a step), the same Python driving
 each library's kernels.
 With --unequal it times the other builds whatever they return and prints
 equal=False where they differ: an ablation (a copy with one stage taken
-out) says what that stage costs.
+out) says what that stage costs. With --tri-pass it times tri_pass alone
+(tri_pass_cases): every float32-carry and ACTIVE instance at chip_smoke.py's
+[f32-dense] shapes, each beside the same launch in the bf16 carry on the
+same inputs, and the bf16 one-chunk, paired and multi-chunk launches
+(~3 min on an H100 with three other builds, most of it their builds and the
+envs' banks).
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
-def main(other_dirs, unequal=False, vis_only=False):
+def main(other_dirs, unequal=False, vis_only=False, tri_only=False):
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     from miniworld_tpu_torch import MiniWorldVec
@@ -122,6 +127,11 @@ def main(other_dirs, unequal=False, vis_only=False):
 
     def env(env_id, n, **kw):
         return MiniWorldVec(env_id, n, obs_width=w, obs_height=h, device="cuda", **kw)
+
+    if tri_only:
+        tri_pass_cases(ab, env)
+        print(smi)
+        return
 
     # visible_ents at [visible-ents]' main-path states, and its worst case:
     # each box just behind a closed wall, close enough to fill much of the
@@ -267,6 +277,75 @@ def main(other_dirs, unequal=False, vis_only=False):
     print(smi)
 
 
+def tri_pass_cases(ab, env):
+    """[ab] lines of tri_pass alone: the bf16 multi-chunk (Sidewalk), paired
+    multi-chunk (the Maze's at supersample=2) and paired one-chunk (the
+    Maze) launches; then each float32-carry and ACTIVE route of
+    chip_smoke.py's [f32-dense] at its path's shapes and states
+    (view_states; f32_route), beside the same launch in the bf16 carry on
+    the same inputs (ids above 256 rounded: a time, not a render); ACTIVE
+    also beside the paired launch on the same states."""
+    import chip_smoke as cs
+    from miniworld_tpu_torch import MiniWorldVec
+    from miniworld_tpu_torch.render import raycast as rc
+
+    gen = torch.Generator().manual_seed(2468)
+    side = env(cs.SIDE_ID, cs.B)
+    st = cs.spread_states(side, gen, (-2.5, 0.5), (5.5, 11.5))
+    tri = (side._bank.tri_verts9, side._bank.tri_attr, st.layout_id,
+           rc.camera_grid(st, cs.W, cs.H), side._all_quads)
+    ab(f"tri_pass multi {cs.SIDE_ID} B={cs.B}", lambda: rc.tri_pass(*tri, None, None, 1024))
+    maze_ss = env(cs.MAZE_ID, cs.B_MAZE, supersample=2)
+    for label, e in ((f"tri_pass multi paired {cs.MAZE_ID} ss=2 B={cs.B_MAZE}", maze_ss),
+                     (f"tri_pass single paired {cs.MAZE_ID} B={cs.B_MAZE}",
+                      env(cs.MAZE_ID, cs.B_MAZE))):
+        tri_e, mesh, paired, tc, override, carry, active = cs.f32_route(
+            e, cs.random_maze_states(e, gen))
+        ab(label, lambda a=(tri_e, paired, tc): rc.tri_pass(*a[0], None, a[1], a[2]))
+    del maze_ss
+    maze = env(cs.MAZE_ID, cs.B_MAZE)
+    with cs.shared_banks():
+        with cs.transformed_banks(cs.widened):
+            routes = [("maze8x8-procgen widened dr", env(cs.MAZE_ID, cs.B_MAZE, domain_rand=True)),
+                      ("sidewalk widened dr", env(cs.SIDE_ID, cs.B, domain_rand=True)),
+                      ("maze8x8-bank widened dr ss=2",
+                       MiniWorldVec(cs.MAZE_ID, cs.B, obs_width=2 * cs.W, obs_height=2 * cs.H,
+                                    supersample=2, procgen=False, device="cuda",
+                                    domain_rand=True)),
+                      ("sign widened", env(cs.SIGN_ID, cs.B))]
+        with cs.transformed_banks(cs.raised):
+            routes += [("pickupobjects nearest raised", env(cs.PICK_ID, cs.B, tex_mode="nearest")),
+                       ("threerooms tri_chunk=16 nearest raised",
+                        env(cs.THREE_ID, cs.B, tex_mode="nearest", tri_chunk=16))]
+        routes.append(("maze8x8-procgen nearest", env(cs.MAZE_ID, cs.B_MAZE, tex_mode="nearest")))
+        with cs.transformed_banks(cs.dense):
+            routes += [("maze8x8-procgen dense", env(cs.MAZE_ID, cs.B_MAZE)),
+                       ("maze8x8-procgen dense dr", env(cs.MAZE_ID, cs.B_MAZE, domain_rand=True)),
+                       ("maze8x8-procgen dense nearest",
+                        env(cs.MAZE_ID, cs.B_MAZE, tex_mode="nearest")),
+                       ("maze8x8-procgen dense ss=2", env(cs.MAZE_ID, cs.B, supersample=2))]
+        with cs.transformed_banks(cs.dense_widened):
+            routes.append(("maze8x8-procgen dense widened dr ss=2",
+                           env(cs.MAZE_ID, cs.B, supersample=2, domain_rand=True)))
+    for label, e in routes:
+        state = cs.view_states(e, gen)
+        tri_e, mesh, paired, tc, override, carry, active = cs.f32_route(e, state)
+        cam = tri_e[3]
+        case = (f"tri_pass {label} B={e.num_envs} samples={cam.width}x{cam.height} "
+                f"S={tri_e[0].shape[2]}"
+                + ("" if active is None else f" n_live={rc.live_row_bound(active[0])}"))
+        dts = (carry,) if carry == torch.bfloat16 else (carry, torch.bfloat16)
+        for dt in dts:
+            ab(f"{case} carry={str(dt)[6:]}",
+               lambda dt=dt, a=(tri_e, mesh, paired, tc, override, active):
+               rc.tri_pass(*a[0], a[1], a[2], a[3], a[4], dt, a[5]))
+        if active is not None and e.supersample == 1:  # the paired launch on the same states
+            rows, paired_m = rc.static_rows(maze._bank, state, cam, maze._pg_wall, maze.plan)
+            ab(f"tri_pass paired, the states of {label} B={e.num_envs}",
+               lambda a=(rows, cam, paired_m): rc.tri_pass(*a[0], a[1], maze._all_quads, None,
+                                                          a[2], maze.tri_chunk))
+
+
 def ortho_tile(csrc):
     """(TILE_W, TILE_H) of tri_pass_ortho.cu in the sources at ``csrc``."""
     with open(os.path.join(csrc, "tri_pass_ortho.cu")) as f:
@@ -295,8 +374,8 @@ def say_ptxas(build, log):
 
 if __name__ == "__main__":
     args = sys.argv[1:]
-    flags = ("--unequal", "--visible-ents")
+    flags = ("--unequal", "--visible-ents", "--tri-pass")
     dirs = [a for a in args if a not in flags]
     if not dirs:
         raise SystemExit(__doc__)
-    main(dirs, "--unequal" in args, "--visible-ents" in args)
+    main(dirs, "--unequal" in args, "--visible-ents" in args, "--tri-pass" in args)

@@ -205,11 +205,32 @@
 // slot column can hold ids above 256, which bf16 would round: in nearest
 // mode more than 256 layout-local slot ids (the 8x8 procgen maze's 528),
 // in fourier mode an atlas of more than 256 rows. The F32 instances store
-// the row's 16 floats as they are, 64 bytes in four 16-byte stores, in
-// place of the 32 bytes of bf16, at every store site (the mesh winner's
-// and the override's included); the competition is the same code. Every
-// launch has them: with and without MESH, SCHED and OVERRIDE, and the
-// multi-chunk kernel with and without OVERRIDE.
+// the row's 16 floats as they are, 64 bytes in place of the 32 bytes of
+// bf16, at every store site (the mesh winner's and the override's
+// included); the competition is the same code. Every launch has them:
+// with and without MESH, SCHED and OVERRIDE, and the multi-chunk kernel
+// with and without OVERRIDE.
+//
+// Winner store. Written straight from each thread, a pixel's row leaves
+// as four 16-byte stores (two in bf16) at the row's stride: one warp store
+// instruction then scatters 32 pieces over 2 KB of attr_out (64-byte rows),
+// and the F32 launches that the store dominates ran at 2-2.5x their bf16
+// twins (a schedule at 320x240 samples, mesh rows at B = 1024; PERF.md).
+// The staged store (F32 instances, block_staged()) goes through shared
+// memory instead. A warp's 32 lanes hold one pixel each of 32 / TILE_W whole tile
+// rows, and each tile row's TILE_W pixels are contiguous in attr_out
+// (TILE_W * 64 bytes in F32). So each warp writes its pixels' rows into a
+// buffer of its own laid out as the output (2 KB in F32), lane l's row at
+// row slot l, its 16-byte chunks in an order rotated by (l * chunks) / 8
+// so that the 8 lanes of a quarter-warp write 8 distinct bank quads (no
+// conflict); then, after a warp barrier, the buffer leaves in stores of
+// 512 contiguous bytes an instruction. A miss stages a zero row; the
+// override's slot column is hashed once a pixel and written into the
+// buffer with the rest. The multi-chunk kernel's (key, row) carry between
+// windows stays in the pixel's first 8 bytes of attr_out; only the last
+// window's store is staged. Bulk copies by the TMA engine
+// (cp.async.bulk, a tile row each) in place of the warp's stores were
+// exact and never faster (PERF.md).
 //
 // Dense super-bank kill (row_code != nullptr, the ACTIVE instances; a
 // procgen maze rendered from its dense rows, without the paired ones,
@@ -217,22 +238,33 @@
 // row's 1/t_num by the env's tri_active = tri_active_base + wall_open @
 // tri_wall_onehot, exact 0/1, so that a killed row's r is 0 and fails the
 // r > 1/FAR gate on every pixel: its key is 0 everywhere. The kernels read
-// the row's code (render/raycast.wall_codes) and the env's wall_open and
-// drop a killed row at staging, before the cull (maze_row.cuh row_live,
-// the test the top view's and visible_ents' scans make): a row that never
-// hits changes no pixel's max, in one chunk or over several. Built
-// without MESH and SCHED (JAX asserts a dense scan; no procgen id has mesh
+// the row's code (render/raycast.wall_codes) and the env's wall_open
+// (maze_row.cuh row_live, the test the top view's and visible_ents' scans
+// make) and drop a killed row at staging. A row that never hits changes
+// no pixel's max, in one chunk or over several. The one-block kernel
+// reads the codes first and compacts the live rows in two passes: every
+// code of the thread's rows and the env's walls they name read at once,
+// the live rows listed; then only those staged (no vertex is read for a
+// killed row), their image survivors compacted into at most n_live slots,
+// the bank's largest live count (render/raycast.live_row_bound, which the
+// wrapper takes from these codes, so no env exceeds it), each with its
+// row index s in the pad of its third float4
+// (as SCHED keeps its rank there): the z-key's low bits and the winner's
+// store use s, so every tie resolves as in the dense scan. Built without
+// MESH and SCHED (JAX asserts a dense scan; no procgen id has mesh
 // entities): the single-chunk and the multi-chunk kernel, each with and
 // without OVERRIDE and F32.
 //
 // Shared memory of the one-block-per-env kernel (single chunk, MESH,
-// SCHED): 48 bytes per row, two 2-byte row lists and (paired) the
+// SCHED): 48 bytes per staged row, two 2-byte row lists and (paired) the
 // variant byte (SCHED: 4 bytes per schedule slot), and 52 bytes per mesh
-// row: 53,248 B at S = 1024, 106,496 B with N = 1024 mesh rows besides,
-// above the 48 KB default, so the launch raises the kernel's dynamic
-// limit when it needs more (up to 212,992 B at n_sched * S = 4,096). The
-// multi-chunk kernel takes WINDOW_ROWS * 50 bytes and a bit per window
-// row a tile: 51,712 B at 1,024 rows and 2 x 2 tiles, whatever S is.
+// row, and the warps' store buffers (where staged: 3 x 2 KB): 53,248 B
+// at S = 1024, 106,496 B with N = 1024 mesh
+// rows besides, above the 48 KB default, so the launch raises the
+// kernel's dynamic limit when it needs more (up to 212,992 B at n_sched *
+// S = 4,096, and the buffers). The multi-chunk kernel takes WINDOW_ROWS *
+// 50 bytes and a bit per window row a tile, 51,712 B at 1,024 rows and 2 x
+// 2 tiles whatever S is, and its 12 warps' store buffers.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -258,6 +290,7 @@
 static_assert(TILE_H % PIX_PER_THREAD == 0, "a thread's pixels share one tile column");
 static_assert(THREADS % 32 == 0 && THREADS >= 64, "whole warps, two for the box");
 static_assert(TILE_W <= 32 && TILE_H <= 32, "one warp reduces a tile's columns / rows");
+static_assert(32 % TILE_W == 0, "a warp holds whole tile rows (the staged store)");
 
 #define ATTR_DIM 16
 #define IDX_MASK 0x3FF
@@ -311,16 +344,22 @@ __device__ __forceinline__ bool row_culled(const float4 r0, const float4 r1, con
     return cull;
 }
 
-// Appends s to list where keep holds: one ballot and one shared atomic
-// per warp. Every lane of the warp calls it.
-__device__ __forceinline__ void append(const bool keep, const int s, unsigned short* list,
-                                       int* count) {
+// A slot among the lanes with keep (valid where keep holds): one ballot
+// and one shared atomic on count per warp. Every lane of the warp calls it.
+__device__ __forceinline__ int claim(const bool keep, int* count) {
     const int lane = threadIdx.x & 31;
     const unsigned m = __ballot_sync(0xffffffffu, keep);
     int base = 0;
     if (lane == 0 && m) base = atomicAdd(count, __popc(m));
     base = __shfl_sync(0xffffffffu, base, 0);
-    if (keep) list[base + __popc(m & ((1u << lane) - 1u))] = (unsigned short)s;
+    return base + __popc(m & ((1u << lane) - 1u));
+}
+
+// Appends s to list where keep holds. Every lane of the warp calls it.
+__device__ __forceinline__ void append(const bool keep, const int s, unsigned short* list,
+                                       int* count) {
+    const int at = claim(keep, count);
+    if (keep) list[at] = (unsigned short)s;
 }
 
 struct CamBasis {
@@ -420,22 +459,108 @@ __device__ __forceinline__ void store_attr_f32(const float* src_row, float* dst,
     d4[3] = a3;
 }
 
-// The winner's row to pixel q of attr_out, in the instance's carry dtype
+// 16-byte chunks of an attribute row in the carry dtype: 4 of floats, or
+// 2 of floats rounded to bf16
 template <bool F32>
-__device__ __forceinline__ void store_attr(const float* src_row, void* attr_out, const size_t q,
-                                           const float4* tex = nullptr,
-                                           const unsigned key = 0u) {
-    if (F32) store_attr_f32(src_row, static_cast<float*>(attr_out) + q * ATTR_DIM, tex, key);
+struct Carry {
+    static constexpr int CHUNKS = F32 ? 4 : 2;
+};
+
+// The staged store (header: "Winner store"): the lane's row (src_row;
+// nullptr: a zero row) into slot ``lane`` of the warp's buffer of 32 rows,
+// laid out as the output, in 16-byte chunks rotated by the lane, so that
+// the 8 lanes of a quarter-warp write 8 distinct bank quads. The slot
+// column's variant is hashed once, ahead of the rotated loop (inside it,
+// the lanes would each take the hash at another iteration).
+template <bool F32>
+__device__ __forceinline__ void stage_attr(uint4* wbuf, const int lane, const float* src_row,
+                                           const float4* tex, const unsigned key) {
+    constexpr int CH = Carry<F32>::CHUNKS;
+    const float4* src = reinterpret_cast<const float4*>(src_row);
+    const float slot = src != nullptr && tex != nullptr ? variant_slot(*tex, key) : 0.0f;
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+        const int c = (i + ((lane * CH) >> 3)) & (CH - 1);  // the chunk this lane writes now
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (src != nullptr) {
+            if (F32) {
+                float4 a = src[c];
+                if (tex != nullptr && c == CH - 1) a.z = slot;
+                v = make_uint4(__float_as_uint(a.x), __float_as_uint(a.y), __float_as_uint(a.z),
+                               __float_as_uint(a.w));
+            } else {
+                const float4 a0 = src[2 * c], a1 = src[2 * c + 1];
+                const float s14 = tex != nullptr && c == CH - 1 ? slot : a1.z;
+                v = make_uint4(bf16x2(a0.x, a0.y), bf16x2(a0.z, a0.w), bf16x2(a1.x, a1.y),
+                               bf16x2(s14, a1.w));
+            }
+        }
+        wbuf[lane * CH + c] = v;
+    }
+}
+
+// The winner's row of pixel q (src_row): staged (STAGED, the lane's slot
+// of the warp's buffer wbuf) or straight to attr_out, in the instance's
+// carry dtype
+template <bool F32, bool STAGED>
+__device__ __forceinline__ void put_attr(const float* src_row, void* attr_out, const size_t q,
+                                         uint4* wbuf, const int lane,
+                                         const float4* tex = nullptr, const unsigned key = 0u) {
+    if (STAGED) stage_attr<F32>(wbuf, lane, src_row, tex, key);
+    else if (F32) store_attr_f32(src_row, static_cast<float*>(attr_out) + q * ATTR_DIM, tex, key);
     else store_attr_bf16(src_row, static_cast<__nv_bfloat16*>(attr_out) + q * ATTR_DIM, tex, key);
 }
 
-// All-zero attributes at pixel q (a miss of a seeded or multi-chunk scan)
-template <bool F32>
-__device__ __forceinline__ void store_zero(void* attr_out, const size_t q) {
-    uint4* d4 = reinterpret_cast<uint4*>(static_cast<char*>(attr_out) +
-                                         q * ATTR_DIM * (F32 ? 4 : 2));
+// All-zero attributes for pixel q, a miss of a seeded, scheduled or
+// multi-chunk scan, as put_attr puts a row
+template <bool F32, bool STAGED>
+__device__ __forceinline__ void put_zero(void* attr_out, const size_t q, uint4* wbuf,
+                                         const int lane) {
+    if (STAGED) {
+        stage_attr<F32>(wbuf, lane, nullptr, nullptr, 0u);
+    } else {
+        uint4* d4 = reinterpret_cast<uint4*>(attr_out) + q * Carry<F32>::CHUNKS;
 #pragma unroll
-    for (int i = 0; i < (F32 ? 4 : 2); ++i) d4[i] = make_uint4(0u, 0u, 0u, 0u);
+        for (int i = 0; i < Carry<F32>::CHUNKS; ++i) d4[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+}
+
+// The warp's staged rows to attr_out: nrows tile rows of ncols pixels, the
+// first at pixel q0 of attr_out, the next ones W pixels on; each tile row
+// is contiguous there, so each store instruction writes 512 contiguous
+// bytes. Every lane of the warp calls it, after its stage_attr (or none,
+// for a pixel outside the image).
+template <bool F32>
+__device__ __forceinline__ void rows_out(const uint4* wbuf, void* attr_out, const size_t q0,
+                                         const int W, const int ncols, const int nrows,
+                                         const int lane) {
+    constexpr int CH = Carry<F32>::CHUNKS;
+    constexpr int PER_ROW = TILE_W * CH;  // 16-byte units a tile row
+    uint4* out = reinterpret_cast<uint4*>(attr_out);
+    __syncwarp();
+#pragma unroll
+    for (int u = lane; u < 32 * CH; u += 32) {
+        const int r = u / PER_ROW, v = u - r * PER_ROW;
+        if (r < nrows && v < ncols * CH) out[(q0 + (size_t)r * W) * CH + v] = wbuf[u];
+    }
+    __syncwarp();  // the buffer may be rewritten
+}
+
+// The one-block kernel's instances that stage their winners (header:
+// "Winner store"): the float32 carry's with mesh rows, a schedule or the
+// kill. Its plain and paired F32 scans keep the direct store: staged, the
+// paired launch ran 3-5% slower at the Maze B = 8192, as did every bf16
+// instance, by 1-13% (PERF.md). The multi-chunk kernel stages every F32
+// instance.
+template <bool MESH, bool SCHED, bool F32, bool ACTIVE>
+__host__ __device__ constexpr bool block_staged() {
+    return F32 && (MESH || SCHED || ACTIVE);
+}
+
+// Bytes of a warp's store buffer: 32 rows of the carry, where it stages
+template <bool F32, bool STAGED>
+__host__ __device__ constexpr size_t warp_buf_bytes() {
+    return STAGED ? (size_t)32 * 16 * Carry<F32>::CHUNKS : 0;
 }
 
 template <bool MESH, bool SCHED, bool OVERRIDE, bool F32, bool ACTIVE>
@@ -462,12 +587,19 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
     const int* __restrict__ row_code,     // (L, S), ACTIVE only (wall_codes)
     int S, int N, int W, int H, int Wn, int all_quads,
     int n_sched,                        // SCHED only: chunks a schedule
+    int n_live,                         // ACTIVE only: slots for staged rows
     float* __restrict__ t_out,          // (B, HW)
     void* __restrict__ attr_out)        // (B, HW, 16) bf16, or f32 (F32)
 {
     constexpr bool RANKED = SCHED;  // hits ranked by (key, -position)
-    const int n_rows = SCHED ? n_sched * S : S;  // rows staged
-    extern __shared__ float4 rows[];  // 3 x n_rows float4, then (MESH) 3 x N
+    constexpr bool STAGED = block_staged<MESH, SCHED, F32, ACTIVE>();
+    const int n_scan = SCHED ? n_sched * S : S;  // rows read
+    const int n_rows = ACTIVE ? n_live : n_scan;  // rows staged
+    // the warps' store buffers (STAGED), then 3 x n_rows float4 and (MESH)
+    // 3 x N, then the lists
+    extern __shared__ float4 smem[];
+    uint4* wbufs = reinterpret_cast<uint4*>(smem);
+    float4* rows = smem + (THREADS / 32) * warp_buf_bytes<F32, STAGED>() / sizeof(float4);
     float4* mrows = rows + 3 * n_rows;
     unsigned short* env_list = reinterpret_cast<unsigned short*>(mrows + (MESH ? 3 * N : 0));
     unsigned short* tile_list = env_list + n_rows;
@@ -525,13 +657,58 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
                           fwd[3 * b], fwd[3 * b + 1], fwd[3 * b + 2],
                           right[3 * b], right[3 * b + 1], right[3 * b + 2],
                           up[3 * b], up[3 * b + 1], up[3 * b + 2]};
-        for (int s0 = 0; s0 < n_rows; s0 += THREADS) {
+        if (ACTIVE) {
+            // the rows live in the env, from their codes alone: every code and
+            // wall of the thread's rows read at once, the live ones listed
+            // (the tile list is free until the tiles)
+            constexpr int PER_THREAD = (IDX_MASK + THREADS) / THREADS;  // S <= 1024
+            int code[PER_THREAD];
+#pragma unroll
+            for (int j = 0; j < PER_THREAD; ++j) {
+                const int s = j * THREADS + tid;
+                code[j] = s < S ? row_code[(size_t)lid * S + s] : -2;
+            }
+            bool live[PER_THREAD];
+#pragma unroll
+            for (int j = 0; j < PER_THREAD; ++j) live[j] = row_live(code[j], wall_open, b, Wn);
+#pragma unroll
+            for (int j = 0; j < PER_THREAD; ++j) {
+                const int at = claim(live[j], &m_env);  // m_env: ACTIVE has no mesh rows
+                if (live[j]) {
+                    // never true: n_live is the codes' own bound (the wrapper's)
+                    if (at >= n_rows) __trap();
+                    tile_list[at] = (unsigned short)(j * THREADS + tid);
+                }
+            }
+            __syncthreads();
+            // only the live rows staged: their image survivors compacted, each
+            // with its row in the pad
+            const int n_alive = m_env;
+            for (int i0 = 0; i0 < n_alive; i0 += THREADS) {
+                const int i = i0 + tid;
+                float4 q0, q1, q2;
+                bool keep = false;
+                if (i < n_alive) {
+                    const int s = tile_list[i];
+                    stage_row(v9p, S, s, cb, atp[s * ATTR_DIM + 15], q0, q1, q2);
+                    q2.w = __int_as_float(s);
+                    keep = !row_culled(q0, q1, q2, image, quads);
+                }
+                const int at = claim(keep, &n_env);
+                if (keep) {
+                    rows[3 * at] = q0;
+                    rows[3 * at + 1] = q1;
+                    rows[3 * at + 2] = q2;
+                    env_list[at] = (unsigned short)at;
+                }
+            }
+        }
+        for (int s0 = 0; !ACTIVE && s0 < n_scan; s0 += THREADS) {  // every row read
             const int s = s0 + tid;
             bool keep = false;
-            if (s < n_rows) {
+            if (s < n_scan) {
                 float4 q0, q1, q2;
-                bool first = true;  // SCHED: the row's chunk not read at an earlier position;
-                                    // ACTIVE: the row live in the env
+                bool first = true;  // SCHED: the row's chunk not read at an earlier position
                 if (SCHED) {  // row `local` of the chunk at position j, ranked by both
                     const int j = s / S, local = s - j * S, cid = sched_s[j];
                     stage_row(verts9 + (size_t)cid * 9 * S, S, local, cb,
@@ -545,7 +722,6 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
                         alt = w >= 0 && !(wall_open[(size_t)b * Wn + w] > 0.5f);
                         use_alt[s] = alt;
                     }
-                    if (ACTIVE) first = row_live(row_code[(size_t)lid * S + s], wall_open, b, Wn);
                     stage_row(alt ? v9a : v9p, S, s, cb, (alt ? ata : atp)[s * ATTR_DIM + 15],
                               q0, q1, q2);
                 }
@@ -665,7 +841,9 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
         for (int i = 0; i < nt; ++i) {
             const int s = tile_list[i];
             const float4 q0 = rows[3 * s], q1 = rows[3 * s + 1], q2 = rows[3 * s + 2];
-            const int rank = __float_as_int(q2.w);  // RANKED: position rank << 10 | local
+            // RANKED: position rank << 10 | local; ACTIVE: the row (s is its slot)
+            const int rank = __float_as_int(q2.w);
+            const int idx = ACTIVE ? rank : s;
             const float dx = q0.x + q0.y * xv;
             const float ux = q0.w + q1.x * xv;
             const float vx = q1.z + q1.w * xv;
@@ -685,58 +863,68 @@ __global__ void __launch_bounds__(THREADS) tri_pass_kernel(
                         hit ? (((unsigned long long)key << 8) | (unsigned)(rank >> 10)) : 0ull;
                     cbest[k] = cbest[k] > v ? cbest[k] : v;
                 } else {
-                    const int key = hit ? ((__float_as_int(r) & ~IDX_MASK) | s) : 0;
+                    const int key = hit ? ((__float_as_int(r) & ~IDX_MASK) | idx) : 0;
                     best[k] = max(best[k], key);
                 }
             }
         }
 
+        // 4. t and the winner's row of each pixel (staged: then the warp's
+        // 32 / TILE_W tile rows of it, whole)
+        uint4* wbuf = wbufs + (size_t)warp * warp_buf_bytes<F32, STAGED>() / sizeof(uint4);
 #pragma unroll
         for (int k = 0; k < PIX_PER_THREAD; ++k) {
-            const int y = y0 + row0 + k * ROWS_PER_THREAD_Y;
-            if (x >= W || y >= H) continue;
-            const size_t q = (size_t)b * hw + (size_t)y * W + x;
-            if (MESH) {
-                // the mesh winner as the seed, through t-space as the JAX
-                // carry takes it: 1/inf = 0, no seed
-                const float seed_r = 1.0f / t_of_key(mbest[k]);
-                const int seed_key =
-                    seed_r > 0.0f ? ((__float_as_int(seed_r) & ~IDX_MASK) | IDX_MASK) : 0;
-                // ranked: the seed above every chunk position at an equal key
-                const bool seed_wins =
-                    RANKED ? !(cbest[k] > (seed_key > 0 ? ((unsigned long long)seed_key << 8) | 255ull
-                                                         : 0ull))
-                           : !(best[k] > seed_key);
-                if (seed_wins) {
-                    t_out[q] = t_of_key(seed_key);
-                    if (mbest[k] > 0) {
-                        store_attr<F32>(mesh_attr + ((size_t)b * N + (mbest[k] & IDX_MASK)) *
-                                        ATTR_DIM, attr_out, q);
-                    } else {
-                        store_zero<F32>(attr_out, q);
+            [&] {
+                const int y = y0 + row0 + k * ROWS_PER_THREAD_Y;
+                if (x >= W || y >= H) return;
+                const size_t q = (size_t)b * hw + (size_t)y * W + x;
+                if (MESH) {
+                    // the mesh winner as the seed, through t-space as the JAX
+                    // carry takes it: 1/inf = 0, no seed
+                    const float seed_r = 1.0f / t_of_key(mbest[k]);
+                    const int seed_key =
+                        seed_r > 0.0f ? ((__float_as_int(seed_r) & ~IDX_MASK) | IDX_MASK) : 0;
+                    // ranked: the seed above every chunk position at an equal key
+                    const bool seed_wins =
+                        RANKED ? !(cbest[k] > (seed_key > 0 ? ((unsigned long long)seed_key << 8) | 255ull
+                                                             : 0ull))
+                               : !(best[k] > seed_key);
+                    if (seed_wins) {
+                        t_out[q] = t_of_key(seed_key);
+                        if (mbest[k] > 0)
+                            put_attr<F32, STAGED>(
+                                mesh_attr + ((size_t)b * N + (mbest[k] & IDX_MASK)) * ATTR_DIM,
+                                attr_out, q, wbuf, lane);
+                        else
+                            put_zero<F32, STAGED>(attr_out, q, wbuf, lane);
+                        return;
                     }
-                    continue;
                 }
-            }
-            if (RANKED) {
-                const int key = (int)(cbest[k] >> 8);
-                t_out[q] = t_of_key(key);
-                if (key > 0) {
-                    const int r8 = (int)(cbest[k] & 0xFFu);
-                    const int row = sched_s[254 - r8] * S + (key & IDX_MASK);
-                    store_attr<F32>(atp + (size_t)row * ATTR_DIM, attr_out, q,
-                                    OVERRIDE ? txp + row : nullptr, env_key);
-                } else {
-                    store_zero<F32>(attr_out, q);
+                if (RANKED) {
+                    const int key = (int)(cbest[k] >> 8);
+                    t_out[q] = t_of_key(key);
+                    if (key > 0) {
+                        const int r8 = (int)(cbest[k] & 0xFFu);
+                        const int row = sched_s[254 - r8] * S + (key & IDX_MASK);
+                        put_attr<F32, STAGED>(atp + (size_t)row * ATTR_DIM, attr_out, q, wbuf, lane,
+                                              OVERRIDE ? txp + row : nullptr, env_key);
+                    } else {
+                        put_zero<F32, STAGED>(attr_out, q, wbuf, lane);
+                    }
+                    return;
                 }
-                continue;
+                t_out[q] = t_of_key(best[k]);
+                // winner's row (row 0 for an unmeshed miss: nothing downstream reads it)
+                const int row = best[k] & IDX_MASK;
+                const bool alt = paired && use_alt[row];
+                put_attr<F32, STAGED>((alt ? ata : atp) + row * ATTR_DIM, attr_out, q, wbuf, lane,
+                                      OVERRIDE ? (alt ? txa : txp) + row : nullptr, env_key);
+            }();
+            if (STAGED) {
+                const int wy = y0 + warp * (32 / TILE_W) + k * ROWS_PER_THREAD_Y;
+                rows_out<F32>(wbuf, attr_out, (size_t)b * hw + (size_t)wy * W + x0, W,
+                              min(TILE_W, W - x0), min(32 / TILE_W, H - wy), lane);
             }
-            t_out[q] = t_of_key(best[k]);
-            // winner's row (row 0 for an unmeshed miss: nothing downstream reads it)
-            const int row = best[k] & IDX_MASK;
-            const bool alt = paired && use_alt[row];
-            store_attr<F32>((alt ? ata : atp) + row * ATTR_DIM, attr_out, q,
-                            OVERRIDE ? (alt ? txa : txp) + row : nullptr, env_key);
         }
         __syncthreads();  // the next tile rewrites box, n_tile and tile_list
     }
@@ -811,7 +999,11 @@ __global__ void __launch_bounds__(M_THREADS) tri_pass_multi_kernel(
     void* __restrict__ attr_out)        // (B, HW, 16) bf16, or f32 (F32)
 {
     constexpr size_t ROW_BYTES = ATTR_DIM * (F32 ? 4 : 2);
-    extern __shared__ float4 wrows[];  // 3 x WINDOW_ROWS float4, then the lists
+    constexpr bool STAGED = F32;
+    // the warps' store buffers (STAGED), then 3 x WINDOW_ROWS float4, then the lists
+    extern __shared__ float4 smem[];
+    uint4* wbufs = reinterpret_cast<uint4*>(smem);
+    float4* wrows = smem + M_WARPS * warp_buf_bytes<F32, STAGED>() / sizeof(float4);
     unsigned short* glist = reinterpret_cast<unsigned short*>(wrows + 3 * WINDOW_ROWS);
     unsigned* tmask = reinterpret_cast<unsigned*>(glist + WINDOW_ROWS);  // [tile][word]
     __shared__ int cnt[2][M_WARPS];
@@ -992,26 +1184,37 @@ __global__ void __launch_bounds__(M_THREADS) tri_pass_multi_kernel(
                     }
                 }
             }
+            uint4* wbuf = wbufs + (size_t)warp * warp_buf_bytes<F32, STAGED>() / sizeof(uint4);
 #pragma unroll
             for (int p = 0; p < PIX_PER_THREAD; ++p) {
-                const int y = ty * TILE_H + row0 + p * ROWS_PER_THREAD_Y;
-                if (!tile_in || x >= W || y >= H) continue;
-                const size_t q = (size_t)b * hw + (size_t)y * W + x;
-                if (!last) {  // the carry, in the pixel's own attribute row
-                    *reinterpret_cast<int2*>(static_cast<char*>(attr_out) + q * ROW_BYTES) =
-                        make_int2(best[p], bpad[p]);
-                    continue;
-                }
-                t_out[q] = t_of_key(best[p]);
-                if (best[p] > 0) {
-                    const int row = bpad[p] >> 10;
-                    const bool alt = use_alt(row);
-                    store_attr<F32>((alt ? ata : atp) + (size_t)row * ATTR_DIM, attr_out, q,
-                                    OVERRIDE ? (alt ? slot_tex_alt : slot_tex) + (size_t)lid * S + row
-                                             : nullptr,
-                                    OVERRIDE ? slot_key[b] : 0u);
-                } else {
-                    store_zero<F32>(attr_out, q);
+                [&] {
+                    const int y = ty * TILE_H + row0 + p * ROWS_PER_THREAD_Y;
+                    if (!tile_in || x >= W || y >= H) return;
+                    const size_t q = (size_t)b * hw + (size_t)y * W + x;
+                    if (!last) {  // the carry, in the pixel's own attribute row
+                        *reinterpret_cast<int2*>(static_cast<char*>(attr_out) + q * ROW_BYTES) =
+                            make_int2(best[p], bpad[p]);
+                        return;
+                    }
+                    t_out[q] = t_of_key(best[p]);
+                    if (best[p] > 0) {
+                        const int row = bpad[p] >> 10;
+                        const bool alt = use_alt(row);
+                        put_attr<F32, STAGED>(
+                            (alt ? ata : atp) + (size_t)row * ATTR_DIM, attr_out, q, wbuf, lane,
+                            OVERRIDE ? (alt ? slot_tex_alt : slot_tex) + (size_t)lid * S + row
+                                     : nullptr,
+                            OVERRIDE ? slot_key[b] : 0u);
+                    } else {
+                        put_zero<F32, STAGED>(attr_out, q, wbuf, lane);
+                    }
+                }();
+                if (STAGED && last) {  // the warp's 32 / TILE_W tile rows of this pixel, whole
+                    const int x0 = tx * TILE_W;
+                    const int wy = ty * TILE_H + kwarp * (32 / TILE_W) + p * ROWS_PER_THREAD_Y;
+                    rows_out<F32>(wbuf, attr_out, (size_t)b * hw + (size_t)wy * W + x0, W,
+                                  tile_in ? min(TILE_W, W - x0) : 0, min(32 / TILE_W, H - wy),
+                                  lane);
                 }
             }
         }
@@ -1025,9 +1228,11 @@ __global__ void __launch_bounds__(M_THREADS) tri_pass_multi_kernel(
         const int s = s0 + tid;
         float4 q0, q1, q2;
         bool keep = false;
+        // ACTIVE: the row's loads are issued before its liveness is known,
+        // so that they overlap the row_code -> wall_open chain (testing it
+        // first was slower on an H100, PERF.md)
         if (s < S) {
             stage(s, q0, q1, q2);
-            // ACTIVE: a row the env's maze kills is never staged
             keep = (!ACTIVE || row_live(row_code[(size_t)lid * S + s], wall_open, b, Wn)) &&
                    !row_culled(q0, q1, q2, box, quads);  // the image's box
         }
@@ -1075,15 +1280,21 @@ extern "C" int mw_tri_pass_config(int* out) {
         const float *mesh_attr, const float *verts9_alt, const float *attr_alt,             \
         const int *pg_wall, const float *wall_open, const unsigned *slot_key,               \
         const float4 *slot_tex, const float4 *slot_tex_alt, const int *row_code, int S,     \
-        int N, int W, int H, int Wn, int all_quads, int n_sched, float *t_out, void *attr_out
+        int N, int W, int H, int Wn, int all_quads, int n_sched, int n_live, float *t_out,      \
+        void *attr_out
 #define TRI_ARGS                                                                             \
     verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase, ybase, mesh_v9,         \
         mesh_attr, verts9_alt, attr_alt, pg_wall, wall_open, slot_key, slot_tex,            \
-        slot_tex_alt, row_code, S, N, W, H, Wn, all_quads, n_sched, t_out, attr_out
+        slot_tex_alt, row_code, S, N, W, H, Wn, all_quads, n_sched, n_live, t_out, attr_out
 
+// ``rows_smem``: the bytes of the staged rows and lists; the warps' store
+// buffers come on top
 template <bool MESH, bool SCHED, bool OVERRIDE, bool F32, bool ACTIVE>
-static int launch_instance(const dim3 grid, const size_t smem, cudaStream_t stream, TRI_PARAMS) {
+static int launch_instance(const dim3 grid, const size_t rows_smem, cudaStream_t stream,
+                           TRI_PARAMS) {
     static size_t smem_opted = 48 * 1024;  // the dynamic limit set so far
+    constexpr size_t bufs = warp_buf_bytes<F32, block_staged<MESH, SCHED, F32, ACTIVE>()>();
+    const size_t smem = rows_smem + (THREADS / 32) * bufs;
     if (smem > smem_opted) {
         const cudaError_t err = cudaFuncSetAttribute(
             tri_pass_kernel<MESH, SCHED, OVERRIDE, F32, ACTIVE>,
@@ -1111,22 +1322,24 @@ static int launch_tri_pass(const bool f32, const dim3 grid, const size_t smem,
 }
 
 // The multi-chunk kernel's instance for the override, the carry dtype and
-// the kill: its dynamic shared memory (MULTI_SMEM, above the 48 KB
-// default) is opted into once per process and instance.
+// the kill: its dynamic shared memory (MULTI_SMEM and the warps' store
+// buffers, above the 48 KB default) is opted into once per process and
+// instance.
 template <bool OVERRIDE, bool F32, bool ACTIVE>
 static int launch_multi(const int B, cudaStream_t stream, TRI_PARAMS, int tri_chunk) {
+    constexpr size_t smem = MULTI_SMEM + M_WARPS * warp_buf_bytes<F32, F32>();
     static bool opted = false;
     if (!opted) {
         const cudaError_t err = cudaFuncSetAttribute(
             tri_pass_multi_kernel<OVERRIDE, F32, ACTIVE>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MULTI_SMEM);
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
         opted = true;
     }
     const int n_tx = (W + TILE_W - 1) / TILE_W, n_ty = (H + TILE_H - 1) / TILE_H;
     const int n_groups = ((n_tx + GROUP_X - 1) / GROUP_X) * ((n_ty + GROUP_Y - 1) / GROUP_Y);
     const dim3 grid(min(n_groups, max(1, (BLOCK_TARGET + B - 1) / B)), B);
-    tri_pass_multi_kernel<OVERRIDE, F32, ACTIVE><<<grid, M_THREADS, MULTI_SMEM, stream>>>(
+    tri_pass_multi_kernel<OVERRIDE, F32, ACTIVE><<<grid, M_THREADS, smem, stream>>>(
         verts9, attr, layout_id, origin, fwd, right, up, tan_xy, xbase, ybase, verts9_alt,
         attr_alt, pg_wall, wall_open, slot_key, slot_tex, slot_tex_alt, row_code, S, W, H, Wn,
         all_quads, tri_chunk, t_out, attr_out);
@@ -1143,6 +1356,9 @@ static int launch_multi_any(const bool f32, const int B, cudaStream_t stream, TR
                : launch_multi<false, false, ACTIVE>(B, stream, TRI_ARGS, tri_chunk);
 }
 
+// ``n_live`` (last, after the stream): the most rows live in an env of
+// the bank (raycast.live_row_bound of row_code), which sizes the ACTIVE
+// one-block launch's staging, 1 to S; ignored elsewhere.
 extern "C" int mw_tri_pass(
     const float* verts9, const float* attr, const int* layout_id,
     const float* origin, const float* fwd, const float* right, const float* up,
@@ -1152,7 +1368,7 @@ extern "C" int mw_tri_pass(
     const float* wall_open, const unsigned* slot_key, const float* slot_tex_f,
     const float* slot_tex_alt_f, const int* row_code,
     int B, int S, int N, int W, int H, int Wn, int all_quads, int tri_chunk, int n_sched,
-    int f32, float* t_out, void* attr_out, cudaStream_t stream)
+    int f32, float* t_out, void* attr_out, cudaStream_t stream, int n_live)
 {
     const bool paired = pg_wall != nullptr;
     const bool mesh = mesh_v9 != nullptr;
@@ -1172,6 +1388,7 @@ extern "C" int mw_tri_pass(
         return (int)cudaErrorInvalidValue;
     if (sched && (paired || n_sched > 255 || n_sched * S > 4096)) return (int)cudaErrorInvalidValue;
     if (B == 0 || W == 0 || H == 0) return 0;
+    if (active && !multi && (n_live < 1 || n_live > S)) return (int)cudaErrorInvalidValue;
     const float4* slot_tex = reinterpret_cast<const float4*>(slot_tex_f);
     const float4* slot_tex_alt = reinterpret_cast<const float4*>(slot_tex_alt_f);
     if (multi)
@@ -1181,7 +1398,7 @@ extern "C" int mw_tri_pass(
     const int per_env = min(n_tiles, max(1, (BLOCK_TARGET + B - 1) / B));
     const dim3 grid(per_env, B);
     const size_t per_row = 3 * sizeof(float4) + 2 * sizeof(unsigned short);
-    const size_t n_rows = (size_t)S * (sched ? n_sched : 1);
+    const size_t n_rows = active ? (size_t)n_live : (size_t)S * (sched ? n_sched : 1);
     const size_t smem = n_rows * per_row + (paired ? n_rows : 0) +
                         (sched ? (size_t)n_sched * sizeof(int) : 0) +
                         (mesh ? (size_t)N * per_row : 0);

@@ -171,9 +171,12 @@ class SingleEnv:
 
     ``skip_obs``: zero observations instead of renders (renders consume
     no rng, so trajectories are unchanged). ``view="top"``: observations
-    are the orthographic top view with the agent marker
-    (miniworld.py:470, 524-526). ``use_kernels=False`` renders with the
-    plain PyTorch versions of the kernels on any device."""
+    are the orthographic top view with the agent marker, an extension of
+    the reference, whose reset and step observations are always
+    first-person (``view`` routes only its human render window,
+    miniworld.py:1692-1695); the top view itself renders as the
+    reference's (miniworld.py:1147-1166). ``use_kernels=False`` renders
+    with the plain PyTorch versions of the kernels on any device."""
 
     metadata = {"render_modes": ["human", "rgb_array"], "render_fps": 30}
 
@@ -546,7 +549,9 @@ class SingleEnv:
         """First-person RGB (miniworld.py:1260-1303); exact textures.
 
         With ``view="top"`` the observation is the orthographic top
-        view including the agent marker (miniworld.py:1147-1166);
+        view including the agent marker, rendered as the reference's top
+        view (miniworld.py:1147-1166): an extension, as the reference's
+        observations are always first-person (miniworld.py:1692-1695);
         ``depth=True`` then returns the vertical hit distance from the
         top camera plane.
         """

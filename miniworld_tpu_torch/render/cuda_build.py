@@ -53,8 +53,9 @@ ENTRY_POINTS = {
     # verts9, attr, layout_id, camera, mesh_v9, mesh_attr, verts9_alt,
     # attr_alt, pg_wall, wall_open, slot_key, slot_tex, slot_tex_alt,
     # row_code, B, S, N, W, H, n_walls, all_quads, tri_chunk, n_sched, f32,
-    # t, attr_out, stream
-    "mw_tri_pass": [_P, _P, _P, *_CAM, _P] + [_P] * 9 + [_I] * 10 + [_P, _P, _P],
+    # t, attr_out, stream, n_live (last: a library built without it takes
+    # the same list and ignores it)
+    "mw_tri_pass": [_P, _P, _P, *_CAM, _P] + [_P] * 9 + [_I] * 10 + [_P, _P, _P, _I],
     # out: TILE_W, TILE_H, PIX_PER_THREAD
     "mw_tri_pass_config": [_P],
     # ent_pos, ent_size, ent_dir, ent_height, ent_color, flags, camera,

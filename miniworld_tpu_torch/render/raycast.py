@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -343,6 +344,40 @@ def row_live(code: torch.Tensor, wall_open) -> torch.Tensor:
     sign = 1.0 - 2.0 * base
     live = (base + sign * torch.gather(wall_open, 1, w)) > 0.5
     return torch.where(code >= 0, live, code == -1)
+
+
+def live_row_bound(code: torch.Tensor) -> int:
+    """The most rows one wall configuration leaves live in an env of the
+    bank, ``code`` (L, S) from ``wall_codes``: per layout its rows no wall
+    kills (code -1) and, for each wall, the larger of its rows live where
+    it is open (2w) and where it is closed (2w + 1); the largest over
+    layouts. The tri_pass kernel stages that many rows of a dense super
+    bank at most (``tri_pass``'s ``active``)."""
+    code = code.cpu().long()
+    free = (code == -1).sum(1)
+    walled = code >= 0
+    if not bool(walled.any()):
+        return int(free.max())
+    n_w = int(code.max()) // 2 + 1
+    counts = torch.zeros((code.shape[0], 2 * n_w), dtype=torch.long)
+    counts.scatter_add_(1, torch.where(walled, code, 0), walled.long())
+    return int((free + counts.view(-1, n_w, 2).amax(2).sum(1)).max())
+
+
+_LIVE_BOUNDS: dict = {}  # id(row_code) -> (weak ref to it, its version, its bound)
+
+
+def _live_bound(code: torch.Tensor) -> int:
+    """``live_row_bound(code)``, taken once per codes tensor (and again
+    after an in-place change): the one host copy of a bank's codes that the
+    ACTIVE launches need."""
+    hit = _LIVE_BOUNDS.get(id(code))
+    if hit is not None and hit[0]() is code and hit[1] == code._version:
+        return hit[2]
+    key = id(code)
+    ref = weakref.ref(code, lambda _, k=key: _LIVE_BOUNDS.pop(k, None))
+    _LIVE_BOUNDS[key] = (ref, code._version, live_row_bound(code))
+    return _LIVE_BOUNDS[key][2]
 
 
 def _active_rows(active, lid):
@@ -728,7 +763,9 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
     NW) f32): a procgen super bank without paired rows, each env's rows
     killed by its maze (``tri_pass_plain``), in one chunk or over several,
     without mesh rows or a schedule (the ACTIVE instances, also counted in
-    ``LAUNCHES["tri_pass_active"]``)."""
+    ``LAUNCHES["tri_pass_active"]``); the one-chunk kernel stages at most
+    the codes' ``live_row_bound`` rows, taken on the host at the first
+    launch with these codes."""
     S = verts9.shape[2]
     if attr_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"attr_dtype {attr_dtype}: the carry is bf16 or float32")
@@ -788,6 +825,7 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
     n_walls = 0
     paired_ptrs = (ctypes.c_void_p(0),) * 4
     code_ptr = ctypes.c_void_p(0)
+    n_live = S
     if paired is not None:
         v9_alt, attr_alt, pg_wall, wall_open = paired
         n_walls = wall_open.shape[1]
@@ -799,6 +837,8 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
         row_code, wall_open = active
         n_walls = wall_open.shape[1]
         code_ptr = check(row_code, "row_code", torch.int32, (L, S))
+        if not multi:  # the multi-chunk kernel stages by window
+            n_live = _live_bound(row_code)
         paired_ptrs = paired_ptrs[:3] + (check(wall_open, "wall_open", torch.float32,
                                                (b, n_walls)),)
     if override is None:
@@ -833,6 +873,7 @@ def tri_pass(verts9, attr, layout_id, cam: Camera, all_quads: bool = False, mesh
         check(t, "t", torch.float32, (b, hw)),
         check(out, "attr_out", attr_dtype, (b, hw, ATTR_DIM)),
         stream(),
+        ctypes.c_int(n_live),
     )
     return t, out
 

@@ -27,6 +27,12 @@ apart from the stack. ``vis_tile_keep`` and ``vis_occluded`` copy the
 visible_ents kernel's cull (csrc/visible_ents.cu: the query box's sphere
 taken from its slab numerators, against the same planes) and its
 occlusion scan with early exit; ``vis_visible`` puts them together.
+``active_compact_select`` copies the one-chunk tri_pass kernel's ACTIVE
+staging (csrc/tri_pass.cu): each env's live rows only (their codes read
+first), staged, culled against the image's box and compacted into slots
+in any order, each slot carrying its row index; per tile the slots
+culled against the tile's box; each pixel's z-key the max over its
+tile's slots with the row index in its low bits.
 """
 
 import math
@@ -462,3 +468,49 @@ def mazegen_walk(us, rows, cols):
                 cur = stack[sp - 1] if sp else cur
         walls[b] = [(opened >> w) & 1 for w in range(n_walls)]
     return torch.from_numpy(walls)
+
+
+def active_compact_select(verts9, attr, layout_id, cam, row_code, wall_open, all_quads=False,
+                          override=None, tile=(16, 12), seed=0):
+    """The one-chunk ACTIVE tri_pass kernel's result, (t (B, HW), attr (B,
+    HW, 16) bf16), computed as the kernel computes it (module docstring):
+    no killed row is staged, the live rows' slots come in a random order
+    (``seed``; the atomic compaction's order is not fixed), and the
+    winner's attributes are its row's (with ``override``, its texture
+    variant), row 0's where nothing hits."""
+    S = verts9.shape[2]
+    b_n, w, h = layout_id.shape[0], cam.width, cam.height
+    lid = layout_id.long()
+    live = trc.row_live(row_code[lid], wall_open)  # (B, S), from the codes alone
+    _, attrs = trc._env_rows(verts9, attr, lid, None, override)
+    xv = cam.xv().view(b_n, h, w)[:, 0]  # (B, W)
+    yv = cam.yv().view(b_n, h, w)[:, :, 0]  # (B, H)
+    (cxlo, cxhi), (cylo, cyhi) = _spans(xv, tile[0]), _spans(yv, tile[1])
+    gen = torch.Generator().manual_seed(seed)
+    key_best = torch.zeros((b_n, h, w), dtype=torch.int32)
+    for b in range(b_n):
+        s_live = torch.nonzero(live[b]).flatten()
+        s_live = s_live[torch.randperm(s_live.numel(), generator=gen)]
+        c = trc._cam_rows(cam, slice(b, b + 1))
+        rows = trc._stage(verts9[lid[b:b + 1]][:, :, s_live],
+                          attr[lid[b], s_live, trc._KIND][None], c)
+        image = torch.stack([xv[b].amin(), xv[b].amax(), yv[b].amin(), yv[b].amax()])
+        keep = trc._may_hit(rows, image.view(1, 1, 4), all_quads)[0, 0]
+        rows, slots = rows[:, keep], s_live[keep].int()
+        for ty in range(cylo.shape[1]):
+            for tx in range(cxlo.shape[1]):
+                tbox = torch.stack([cxlo[b, tx], cxhi[b, tx], cylo[b, ty], cyhi[b, ty]])
+                tk = trc._may_hit(rows, tbox.view(1, 1, 4), all_quads)[0, 0]
+                xs = slice(tx * tile[0], min(tx * tile[0] + tile[0], w))
+                ys = slice(ty * tile[1], min(ty * tile[1] + tile[1], h))
+                pxv = xv[b, xs][None, :].expand(ys.stop - ys.start, -1).reshape(1, -1)
+                pyv = yv[b, ys][:, None].expand(-1, xs.stop - xs.start).reshape(1, -1)
+                k = trc._row_keys(rows[:, tk], pxv, pyv, all_quads)[0]  # (n, P)
+                key = torch.where(k > 0, (k & ~trc._IDX_MASK) | slots[tk][:, None],
+                                  torch.zeros_like(k))
+                best = key.amax(0) if key.shape[0] else torch.zeros(pxv.shape[1],
+                                                                    dtype=torch.int32)
+                key_best[b, ys, xs] = best.view(ys.stop - ys.start, -1)
+    key = key_best.reshape(b_n, -1)
+    sel = trc._gather_rows(attrs, (key & trc._IDX_MASK).long())
+    return trc._t_from_key(key), sel.to(torch.bfloat16)
